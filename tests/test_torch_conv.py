@@ -1,0 +1,214 @@
+"""The port's convolutions (distributed_tensorflow_models_tpu_torch/ops/conv.py,
+conv_mxu.py) against the JAX package's.
+
+Every input is made with numpy from a seed and handed to both frameworks.
+On the CPU the port's ``mxu`` route runs K1's plain version
+(``_core_reference``); the JAX side runs ``conv2d_mxu`` in interpret mode
+or ``lax.conv_general_dilated``.  Tolerances are the JAX suite's own for
+the same comparisons (tests/test_conv_mxu.py): forward 2e-4, grads 5e-4.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax import lax
+
+from distributed_tensorflow_models_tpu.ops import conv_mxu as jconv_mxu
+from distributed_tensorflow_models_tpu_torch.ops import conv as tconv
+from distributed_tensorflow_models_tpu_torch.ops import conv_mxu as tconv_mxu
+
+jax.config.update("jax_platforms", "cpu")
+
+FWD_TOL = dict(atol=2e-4, rtol=2e-4)
+GRAD_TOL = dict(atol=5e-4, rtol=5e-4)
+
+# The stride-1, stride-2, odd, even-kernel, explicit-pad and fallback
+# classes of tests/test_conv_mxu.py::CASES.
+CASES = [
+    ((2, 16, 16, 64), (3, 3, 64, 48), (1, 1), "SAME", "3x3_s1_same"),
+    ((2, 17, 15, 64), (3, 3, 64, 48), (2, 2), "SAME", "3x3_s2_odd"),
+    ((2, 16, 16, 64), (5, 5, 64, 16), (1, 1), "VALID", "5x5_valid"),
+    ((2, 16, 16, 64), (1, 1, 64, 64), (2, 2), "SAME", "1x1_s2"),
+    ((2, 24, 24, 3), (7, 7, 3, 32), (2, 2), "SAME", "rgb_stem_fallback"),
+    ((2, 16, 16, 32), (3, 3, 32, 48), (1, 1), "SAME", "low_cin_fallback"),
+    ((2, 9, 9, 64), (3, 3, 64, 32), (3, 3), "SAME", "stride3"),
+    ((2, 12, 12, 64), (2, 2, 64, 32), (2, 2), "VALID", "2x2_s2_valid"),
+    ((2, 11, 11, 64), (4, 4, 64, 32), (1, 1), "SAME", "even_kernel_same"),
+    ((2, 16, 16, 64), (3, 3, 64, 48), (1, 2), "SAME", "aniso_stride"),
+    ((2, 16, 16, 64), (3, 3, 64, 48), (1, 1), ((2, 2), (0, 1)),
+     "explicit_pad"),
+]
+IMPLS = ["patches", "xla", "mxu"]
+
+
+@pytest.fixture(autouse=True)
+def _full_f32():
+    # f32 comparisons: no TF32 anywhere (the defaults matter on a GPU).
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = prev
+
+
+def _inputs(seed, xshape, kshape):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(*xshape).astype(np.float32)
+    k = (rng.randn(*kshape) * 0.1).astype(np.float32)
+    return x, k
+
+
+def _lax(x, k, strides, padding):
+    return lax.conv_general_dilated(
+        x, k, window_strides=strides, padding=padding,
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+    )
+
+
+def _t(a, grad=False):
+    return torch.tensor(np.asarray(a), requires_grad=grad)
+
+
+@functools.lru_cache(maxsize=None)
+def _lax_forward(xshape, kshape, strides, padding):
+    """The reference output of a case, computed once for all impls."""
+    x, k = _inputs(0, xshape, kshape)
+    return x, k, np.asarray(_lax(jnp.asarray(x), jnp.asarray(k), strides,
+                                 padding))
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize(
+    "xshape,kshape,strides,padding", [c[:4] for c in CASES],
+    ids=[c[4] for c in CASES],
+)
+def test_forward_matches_lax_conv(impl, xshape, kshape, strides, padding):
+    x, k, want = _lax_forward(xshape, kshape, strides, padding)
+    got = tconv.conv2d(_t(x), _t(k), strides, padding, impl=impl)
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, **FWD_TOL)
+
+
+@functools.lru_cache(maxsize=None)
+def _lax_grads(strides):
+    x, k = _inputs(1, (2, 10, 10, 64), (3, 3, 64, 48))
+
+    def jloss(x, k):
+        return jnp.sum(jnp.sin(_lax(x, k, strides, "SAME")))
+
+    return x, k, jax.grad(jloss, (0, 1))(jnp.asarray(x), jnp.asarray(k))
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("strides", [(1, 1), (2, 2)], ids=["s1", "s2"])
+def test_grads_match_lax_conv(impl, strides):
+    x, k, want = _lax_grads(strides)
+    tx, tk = _t(x, True), _t(k, True)
+    torch.sum(torch.sin(tconv.conv2d(tx, tk, strides, "SAME", impl=impl))
+              ).backward()
+    for got, w in zip((tx.grad, tk.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), **GRAD_TOL)
+
+
+# Interpret mode runs at host speed: these hold the mxu route against the
+# JAX kernel itself on small shapes of the kernel-routed classes.
+MXU_CASES = [
+    ((1, 8, 8, 64), (3, 3, 64, 24), (1, 1), "SAME", "3x3_s1"),
+    ((1, 9, 7, 64), (3, 3, 64, 24), (2, 2), "SAME", "3x3_s2_odd"),
+    ((1, 7, 7, 64), (4, 4, 64, 16), (1, 1), "SAME", "even_kernel"),
+    ((1, 8, 8, 64), (3, 3, 64, 24), (1, 1), ((2, 2), (0, 1)), "explicit_pad"),
+]
+
+
+@pytest.mark.parametrize(
+    "xshape,kshape,strides,padding", [c[:4] for c in MXU_CASES],
+    ids=[c[4] for c in MXU_CASES],
+)
+def test_mxu_forward_matches_jax_kernel(xshape, kshape, strides, padding):
+    x, k = _inputs(2, xshape, kshape)
+    want = jax.jit(lambda x, k: jconv_mxu.conv2d_mxu(
+        x, k, strides, padding, interpret=True))(jnp.asarray(x), jnp.asarray(k))
+    got = tconv_mxu.conv2d_mxu(_t(x), _t(k), strides, padding)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
+
+
+@pytest.mark.parametrize("strides", [(1, 1), (2, 2)], ids=["s1", "s2"])
+def test_mxu_grads_match_jax_kernel(strides):
+    x, k = _inputs(3, (1, 6, 6, 64), (3, 3, 64, 16))
+
+    def jloss(x, k):
+        return jnp.sum(jnp.sin(
+            jconv_mxu.conv2d_mxu(x, k, strides, "SAME", interpret=True)))
+
+    want = jax.jit(jax.grad(jloss, (0, 1)))(jnp.asarray(x), jnp.asarray(k))
+    tx, tk = _t(x, True), _t(k, True)
+    torch.sum(torch.sin(tconv_mxu.conv2d_mxu(tx, tk, strides, "SAME"))
+              ).backward()
+    for got, w in zip((tx.grad, tk.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), **GRAD_TOL)
+
+
+# The tap kernels K1 sees on ResNet-50's path: 3x3, the four phases of a
+# stride-2 3x3 conv, and the rotated kernels of their dx.
+CORE_CASES = [
+    ((1, 6, 6, 64), (3, 3, 64, 16)),
+    ((1, 5, 5, 64), (2, 2, 64, 16)),
+    ((1, 5, 4, 64), (2, 1, 64, 16)),
+    ((1, 4, 5, 64), (1, 2, 64, 16)),
+    ((1, 4, 4, 64), (1, 1, 64, 16)),
+]
+
+
+@pytest.mark.parametrize("xshape,kshape", CORE_CASES,
+                         ids=["3x3", "2x2", "2x1", "1x2", "1x1"])
+def test_core_reference_matches_jax_core(xshape, kshape):
+    x, k = _inputs(4, xshape, kshape)
+    want = jax.jit(jconv_mxu._core, static_argnums=2)(
+        jnp.asarray(x), jnp.asarray(k), True)
+    got = tconv_mxu._core_reference(_t(x), _t(k))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
+
+
+def test_routing_matches_jax():
+    for kh, kw in [(1, 1), (3, 3), (2, 2), (1, 7), (7, 1), (5, 5), (7, 7)]:
+        for cin in [1, 3, 16, 32, 63, 64, 65, 96, 128, 160, 192, 256, 320,
+                    448, 512, 2048]:
+            assert (tconv_mxu._use_mxu_kernel(kh, kw, cin)
+                    == jconv_mxu._use_mxu_kernel(kh, kw, cin)), (kh, kw, cin)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_impl_selector_and_env_default(impl, monkeypatch):
+    assert tconv.resolve_conv_impl(impl) == impl
+    monkeypatch.setattr(tconv, "_default_impl", impl)
+    assert tconv.resolve_conv_impl("auto") == impl
+    monkeypatch.setattr(tconv, "_default_impl", "cudnn")
+    with pytest.raises(ValueError, match="DTM_CONV_IMPL"):
+        tconv.resolve_conv_impl("auto")
+
+
+def test_bf16_plain_core_keeps_dtype():
+    x, k = _inputs(5, (1, 6, 6, 64), (3, 3, 64, 8))
+    y = tconv_mxu.conv2d_mxu(_t(x).bfloat16(), _t(k).bfloat16(), (1, 1),
+                             "SAME")
+    assert y.dtype == torch.bfloat16
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    x = torch.zeros(1, 4, 4, 64, dtype=torch.bfloat16)
+    k = torch.zeros(3, 3, 64, 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tconv_mxu.conv_implicit_gemm(x, k)
+
+
+def test_channel_mismatch_raises():
+    with pytest.raises(ValueError, match="input channels"):
+        tconv_mxu.conv2d_mxu(torch.zeros(1, 8, 8, 16),
+                             torch.zeros(3, 3, 32, 8))
+
