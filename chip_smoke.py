@@ -6,7 +6,7 @@
 Every phase fails loudly (exit code 1); none is caught and skipped.
 
 1. Device: the card's name and power limit, and the build of the port's
-   CUDA kernels from ``csrc/`` (nvcc, at first use).
+   CUDA kernels from ``csrc/`` (one nvcc per source, all started at once).
 2. K1 (``csrc/conv_implicit_gemm.cu``) against its plain version
    (``conv_mxu._core_reference``, f32) at every launch shape of one
    ResNet-50 training step: the 3x3 convs at 56/28/14/7, the four phase
@@ -24,6 +24,22 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    in turns with a second K1 run.
 5. Where the step's device time goes: ``torch.profiler`` over two steps
    of each arm, device time by kernel class and the device's idle share.
+6. K2, K3 and K4 (``csrc/flash_attention.cu``) against their plain
+   versions (``ops/attention.py``) in bf16 at (a) the LM slice's launch
+   shape B16 T256 H8 D32 causal, (b) the flash sweep shape B4 T2048 H8 D64
+   causal, (c) B4 T2048 H8 Hkv2 D32 causal window 256, and (d) a chunk
+   call with nonzero q/kv offsets and an LSE cotangent.  At (a) and (b)
+   each kernel is timed against its bound and its plain version, K2
+   against ``F.scaled_dot_product_attention``'s forward and K3+K4 against
+   its backward (a yardstick only: the port never calls it).
+7. The LM slice: the port's CLI trains ``transformer_lm`` (4 layers, 8
+   heads, d_model 256, d_ff 1024, vocab 10000, sequence 256, batch 16,
+   Adam with clipping, fused bf16 head) on the card with ``--attn-impl
+   flash``.  The three flash counters are zeroed just before and read
+   just after: each must equal 4 layers x steps.  The same run with
+   ``--attn-impl auto`` (blockwise attention in plain PyTorch, the
+   config's default) follows as a yardstick, in turns with the flash arm.
+8. ``torch.profiler`` over two steps of each LM arm.
 
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -33,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -58,6 +75,32 @@ K1_ATOL_OF_SCALE = 1e-3
 GRAD_TOL_OF_SCALE = 2.0 ** -6
 K1_SOURCE = "distributed_tensorflow_models_tpu_torch/csrc/conv_implicit_gemm.cu"
 K1_REPLACES = "distributed_tensorflow_models_tpu/ops/conv_mxu.py:174"
+FLASH_SOURCE = "distributed_tensorflow_models_tpu_torch/csrc/flash_attention.cu"
+FLASH_KERNELS = (
+    # id, its wrapper in ops/attention.py, the TPU kernel it replaces
+    ("K2", "flash_forward", "distributed_tensorflow_models_tpu/ops/attention.py:578"),
+    ("K3", "flash_dkv", "distributed_tensorflow_models_tpu/ops/attention.py:799"),
+    ("K4", "flash_dq", "distributed_tensorflow_models_tpu/ops/attention.py:916"),
+)
+# K2-K4 against their plain versions in bf16: both round P and dS to bf16
+# at the same points; they differ by the f32 summation order (the kernel
+# rescales by a running max where the plain version sums at once), rare
+# one-ulp flips of a rounded P or dS and each output's bf16 rounding (half
+# an ulp).  Two ulps (2^-6) relative plus 1e-2 of the output's largest
+# magnitude; the f32 LSE to 1e-4 absolute.
+FLASH_RTOL = 2.0 ** -6
+FLASH_ATOL_OF_SCALE = 1e-2
+LSE_ATOL = 1e-4
+# name, B, Tq, Tkv, H, Hkv, D, causal, window, q_offset, kv_offset,
+# LSE cotangent, timed
+FLASH_SHAPES = (
+    ("a: LM main path", 16, 256, 256, 8, 8, 32, True, None, 0, 0, False, True),
+    ("b: flash sweep", 4, 2048, 2048, 8, 8, 64, True, None, 0, 0, False, True),
+    ("c: GQA + window", 4, 2048, 2048, 8, 2, 32, True, 256, 0, 0, False,
+     False),
+    ("d: chunk, offsets", 2, 256, 384, 8, 2, 64, True, None, 384, 256, True,
+     False),
+)
 
 
 def log(*args) -> None:
@@ -266,7 +309,8 @@ def phase_grads(seed: int) -> None:
                      f"patches lowering")
 
 
-def run_cli(config: str, steps: int, batch: int, workdir: Path) -> dict:
+def run_cli(config: str, steps: int, batch: int, workdir: Path,
+            *extra: str) -> dict:
     """The port's CLI ``train`` in this process; returns its JSON line."""
     from distributed_tensorflow_models_tpu_torch.harness import cli
 
@@ -274,7 +318,8 @@ def run_cli(config: str, steps: int, batch: int, workdir: Path) -> dict:
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["train", "--config", config, "--workdir",
                        str(workdir), "--train-steps", str(steps),
-                       "--batch-size", str(batch), "--device", "cuda"])
+                       "--batch-size", str(batch), "--device", "cuda",
+                       *extra])
     out = buf.getvalue()
     log(out.rstrip())
     if rc != 0:
@@ -301,6 +346,10 @@ def _kernel_class(name: str) -> str:
     low = name.lower()
     if "conv_implicit_gemm" in low:
         return "K1"
+    for kid, marker in (("K2", "dtm_flash_fwd"), ("K3", "dtm_flash_dkv"),
+                        ("K4", "dtm_flash_dq")):
+        if marker in low:
+            return kid
     # cuDNN's conv kernels are implicit GEMMs too: match them first.
     if any(s in low for s in ("fprop", "dgrad", "wgrad", "conv", "cudnn")):
         return "cuDNN conv"
@@ -314,7 +363,7 @@ def _kernel_class(name: str) -> str:
     return "elementwise and other"
 
 
-def phase_profile(batch: int, arm: str, steps: int = 2) -> None:
+def phase_profile(cfg, arm: str, steps: int = 2) -> None:
     """Device time of the training step by kernel class, and the device's
     idle share, over ``steps`` steps after one warm-up step (the batches
     are on the card beforehand), with the conv lowering set as it is."""
@@ -322,9 +371,8 @@ def phase_profile(batch: int, arm: str, steps: int = 2) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
-    from distributed_tensorflow_models_tpu_torch.harness.config import get_config
 
-    cfg = get_config("resnet50_synthetic", global_batch_size=batch)
+    batch = cfg.global_batch_size
     dev = torch.device("cuda")
     state = trainlib.build_state(cfg, dev)
     step_fn = trainlib.build_step(cfg, state)
@@ -364,6 +412,164 @@ def phase_profile(batch: int, arm: str, steps: int = 2) -> None:
         log(f"  {ms:8.3f} ms x{count:<4d} {name[:110]}")
 
 
+def _flash_inputs(shape, seed: int):
+    import numpy as np
+    import torch
+
+    _, B, Tq, Tkv, H, Hkv, D, causal, window, qo, ko, with_glse, _ = shape
+    rng = np.random.default_rng(seed)
+
+    def bf16(*dims):
+        return torch.from_numpy(rng.standard_normal(
+            dims, dtype=np.float32)).cuda().bfloat16()
+
+    q, do = bf16(B, Tq, H, D), bf16(B, Tq, H, D)
+    k, v = bf16(B, Tkv, Hkv, D), bf16(B, Tkv, Hkv, D)
+    g_lse = bf16(B, Tq, H).float() if with_glse else None
+    kw = dict(scale=D ** -0.5, causal=causal, window=window, q_offset=qo,
+              kv_offset=ko)
+    return q, k, v, do, g_lse, kw
+
+
+def _flash_work(shape):
+    """Valid (query, key) pairs per (batch, head) row, from the mask."""
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.ops import attention as attnlib
+
+    _, B, Tq, Tkv, H, Hkv, D, causal, window, qo, ko, _, _ = shape
+    valid = attnlib._valid(Tq, Tkv, causal, window, qo, ko, "cuda")
+    pairs = Tq * Tkv if valid is None else int(valid.sum())
+    rows = (torch.ones(Tq, dtype=torch.bool, device="cuda") if valid is None
+            else valid.any(-1))
+    return pairs, rows
+
+
+def flash_bound_ms(kid: str, shape, pairs: int) -> tuple[float, str]:
+    """Least time for one launch: the bytes it must move (each input read
+    once, each output written once) over the memory rate, or its
+    tensor-core FLOPs on the valid pairs over the bf16 peak.  K2 reads Q,
+    K, V and writes O and the f32 LSE, 4*D FLOPs a pair; K3 reads Q, K, V,
+    dO, LSE and delta and writes per-query-head dK and dV, 8*D; K4 reads
+    the same and writes dQ, 6*D."""
+    _, B, Tq, Tkv, H, Hkv, D, *_ = shape
+    q_b, kv_b = 2.0 * B * Tq * H * D, 2.0 * B * Tkv * Hkv * D
+    rows_b = 4.0 * B * H * Tq
+    if kid == "K2":
+        nbytes, per_pair = 2 * q_b + 2 * kv_b + rows_b, 4
+    elif kid == "K3":
+        nbytes = 2 * q_b + 2 * kv_b + 2 * rows_b + 2 * (2.0 * B * Tkv * H * D)
+        per_pair = 8
+    else:
+        nbytes, per_pair = 3 * q_b + 2 * kv_b + 2 * rows_b, 6
+    flops = float(per_pair) * D * pairs * B * H
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _flash_err(what: str, got, want) -> float:
+    got, want = got.float(), want.float()
+    scale = float(want.abs().max())
+    err = (got - want).abs()
+    bad = err > FLASH_ATOL_OF_SCALE * scale + FLASH_RTOL * want.abs()
+    max_abs = float(err.max())
+    if bool(bad.any()) or not math.isfinite(max_abs):
+        fail(f"{what} disagrees with its plain version: {int(bad.sum())} of "
+             f"{bad.numel()} elements over atol {FLASH_ATOL_OF_SCALE * scale:.3g}"
+             f" + rtol {FLASH_RTOL:.3g}; max abs err {max_abs:.4g}")
+    return max_abs
+
+
+def phase_flash(seed: int) -> dict:
+    """K2, K3 and K4 against their plain versions at FLASH_SHAPES; at the
+    timed shapes also their times, bounds and the SDPA yardstick.
+    Returns, per kernel id, the worst error and the timings by shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from distributed_tensorflow_models_tpu_torch.ops import attention as attnlib
+
+    out = {kid: {"max_abs_err": 0.0, "timed": {}} for kid, _, _ in FLASH_KERNELS}
+    for n, shape in enumerate(FLASH_SHAPES):
+        name, B, Tq, Tkv, H, Hkv, D, causal, window, qo, ko, _, timed = shape
+        q, k, v, do, g_lse, kw = _flash_inputs(shape, seed + n)
+        pairs, rows = _flash_work(shape)
+        o, lse = attnlib.flash_forward(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ref_o, ref_lse = attnlib._flash_forward_reference(q, k, v, **kw)
+        errs = {"K2": _flash_err(f"K2 out at {name}", o[:, rows],
+                                 ref_o[:, rows])}
+        lse_err = float((lse - ref_lse)[:, :, rows].abs().max())
+        if not lse_err <= LSE_ATOL:
+            fail(f"K2 lse at {name}: max abs err {lse_err:.4g} > {LSE_ATOL}")
+        if not bool(rows.all()):
+            fail(f"{name}: every query row needs a valid key here")
+        delta = (do.float() * o.float()).sum(-1)
+        if g_lse is not None:
+            delta = delta - g_lse
+        delta = delta.transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, delta)
+        dk, dv = attnlib.flash_dkv(*args, **kw)
+        dq = attnlib.flash_dq(*args, **kw)
+        torch.cuda.synchronize()
+        ref_dk, ref_dv = attnlib._flash_dkv_reference(*args, **kw)
+        ref_dq = attnlib._flash_dq_reference(*args, **kw)
+        errs["K3"] = max(_flash_err(f"K3 dk at {name}", dk, ref_dk),
+                         _flash_err(f"K3 dv at {name}", dv, ref_dv))
+        errs["K4"] = _flash_err(f"K4 dq at {name}", dq, ref_dq)
+        del ref_o, ref_lse, ref_dk, ref_dv, ref_dq
+        log(f"flash {name}: B{B} Tq{Tq} Tkv{Tkv} H{H} Hkv{Hkv} D{D} causal "
+            f"{causal} window {window} offsets {qo}/{ko} lse cotangent "
+            f"{g_lse is not None}; max abs err K2 {errs['K2']:.4g} (lse "
+            f"{lse_err:.3g}), K3 {errs['K3']:.4g}, K4 {errs['K4']:.4g}; "
+            f"valid pairs per row {pairs}")
+        for kid, err in errs.items():
+            out[kid]["max_abs_err"] = max(out[kid]["max_abs_err"], err)
+        if not timed:
+            continue
+        fns = {
+            "K2": (lambda: attnlib.flash_forward(q, k, v, **kw),
+                   lambda: attnlib._flash_forward_reference(q, k, v, **kw)),
+            "K3": (lambda: attnlib.flash_dkv(*args, **kw),
+                   lambda: attnlib._flash_dkv_reference(*args, **kw)),
+            "K4": (lambda: attnlib.flash_dq(*args, **kw),
+                   lambda: attnlib._flash_dq_reference(*args, **kw)),
+        }
+        # SDPA (the yardstick) on the same values, heads-second views.
+        qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+        gs = do.transpose(1, 2)
+        lib = {"K2": time_ms(lambda: F.scaled_dot_product_attention(
+                   qs, ks, vs, is_causal=causal), 20),
+               "K3+K4": time_ms(lambda: torch.autograd.grad(
+                   so, (qs, ks, vs), gs, retain_graph=True), 20)}
+        for kid, (kern, plain) in fns.items():
+            ms = time_ms(kern, 20)
+            plain_ms = time_ms(plain, 3, 1)
+            bms, bound_by = flash_bound_ms(kid, shape, pairs)
+            out[kid]["timed"][name] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by,
+                library_ms=lib["K2"] if kid == "K2" else lib["K3+K4"])
+            log(f"  {kid} at {name}: {ms:.4f} ms per launch; plain "
+                f"{plain_ms:.4f} ms; bound {bms:.4f} ms ({bound_by}, "
+                f"{bms / ms:.1%} of it); SDPA "
+                + ("forward" if kid == "K2" else "backward (dQ, dK and dV)")
+                + f" {out[kid]['timed'][name]['library_ms']:.4f} ms")
+        del qs, ks, vs, so, q, k, v, do, o, lse, dk, dv, dq, args, fns
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_lm_arm(impl: str, steps: int, workdir: Path) -> dict:
+    from distributed_tensorflow_models_tpu_torch.harness.config import get_config
+
+    batch = get_config("transformer_lm").global_batch_size
+    return run_cli("transformer_lm", steps, batch, workdir / impl,
+                   "--attn-impl", impl)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch-size", type=int, default=256,
@@ -380,7 +586,9 @@ def main(argv=None) -> int:
     # conv.py reads the default conv lowering when it is first imported.
     os.environ["DTM_CONV_IMPL"] = "mxu"
     sys.path.insert(0, str(ROOT))
+    from distributed_tensorflow_models_tpu_torch.harness.config import get_config
     from distributed_tensorflow_models_tpu_torch.ops import _kernels
+    from distributed_tensorflow_models_tpu_torch.ops import attention as attnlib
     from distributed_tensorflow_models_tpu_torch.ops import conv as convlib
     from distributed_tensorflow_models_tpu_torch.ops import conv_mxu
 
@@ -394,11 +602,16 @@ def main(argv=None) -> int:
     log(f"card: {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {kind}")
     t0 = time.perf_counter()
-    conv_mxu._load()
-    nvcc_s = _kernels.build_seconds.get("conv_implicit_gemm.cu")
-    log(f"K1 build+load: {time.perf_counter() - t0:.2f} s ("
-        + ("cached build loaded" if nvcc_s is None
-           else f"nvcc {nvcc_s:.2f} s") + ")")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for fut in [pool.submit(conv_mxu._load), pool.submit(attnlib._load)]:
+            fut.result()
+    for kids, src in (("K1", "conv_implicit_gemm.cu"),
+                      ("K2-K4", "flash_attention.cu")):
+        nvcc_s = _kernels.build_seconds.get(src)
+        log(f"{kids} ({src}) build+load: " + (
+            "cached build loaded" if nvcc_s is None
+            else f"nvcc {nvcc_s:.2f} s"))
+    log(f"both builds, in parallel: {time.perf_counter() - t0:.2f} s wall")
 
     # 2. K1 at the main path's launch shapes.
     calls = k1_launch_shapes(args.batch_size)
@@ -456,12 +669,56 @@ def main(argv=None) -> int:
             f"{r['data_s'] * 1e3:.2f} ms per step, in series | {card}")
 
     # 5. Where the device time goes, on the main path and the yardstick.
+    r50 = get_config("resnet50_synthetic", global_batch_size=args.batch_size)
     for impl, arm in (("mxu", "K1 convs"), ("xla", "F.conv2d convs")):
         convlib.set_default_conv_impl(impl)
-        phase_profile(args.batch_size, arm)
+        phase_profile(r50, arm)
+    convlib.set_default_conv_impl("mxu")
+
+    # 6. K2-K4 against their plain versions, timed against their bounds.
+    flash = phase_flash(args.seed + 2)
+
+    # 7. The LM slice's main path, the three flash counters zeroed just
+    # before it and read just after.
+    lm_cfg = get_config("transformer_lm")
+    layers = lm_cfg.model_kwargs["num_layers"]
+    torch.cuda.reset_peak_memory_stats()
+    for _, name, _ in FLASH_KERNELS:
+        getattr(attnlib, name).launches = 0
+    lm_run = run_lm_arm("flash", args.train_steps, workdir / "lm")
+    flash_launches = {kid: getattr(attnlib, name).launches
+                      for kid, name, _ in FLASH_KERNELS}
+    lm_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    want = layers * args.train_steps
+    log(f"flash launches in the LM training run: {flash_launches} "
+        f"(expected {layers} layers x {args.train_steps} steps = {want} each)")
+    if any(n != want for n in flash_launches.values()):
+        fail(f"flash kernels launched {flash_launches}, expected {want} each")
+    tokens = lm_cfg.global_batch_size * lm_cfg.num_steps
+    log(f"LM slice (flash attention, K2-K4): batch {lm_cfg.global_batch_size}"
+        f" x {lm_cfg.num_steps} tokens, steps {args.train_steps}, losses "
+        f"{lm_run['losses']}; peak memory {lm_peak_gib:.3f} GiB | {card}")
+
+    # 8. Yardstick: blockwise attention in plain PyTorch (the config's
+    # default), in turns with the flash arm (flash, auto, flash, auto).
+    lm_arms = [("flash", lm_run)]
+    for impl in ("auto", "flash", "auto"):
+        lm_arms.append((impl, run_lm_arm(impl, args.train_steps,
+                                         workdir / f"lm{len(lm_arms)}")))
+    for name, r in lm_arms:
+        log(f"LM arm {name:>6}: {r['tokens_per_sec']:.0f} tokens/s end to end"
+            f" (steady wall, host batch assembly included); step median "
+            f"{r['median_step_s'] * 1e3:.3f} ms, mean "
+            f"{r['steady_step_time_s'] * 1e3:.3f} ms, max "
+            f"{r['max_step_s'] * 1e3:.3f} ms ({tokens / r['steady_step_time_s']:.0f}"
+            f" tokens/s for the step alone); host batch assembly "
+            f"{r['data_s'] * 1e3:.3f} ms per step, in series | {card}")
+    for impl, arm in (("flash", "LM, flash (K2-K4)"),
+                      ("auto", "LM, blockwise attention")):
+        phase_profile(lm_cfg.replace(attn_impl=impl), arm)
 
     log(card)
-    log(json.dumps({"kernels": [{
+    kernels = [{
         "name": "K1 conv_implicit_gemm",
         "status": "ported",
         "route": "cuda",
@@ -476,7 +733,27 @@ def main(argv=None) -> int:
         "library_ms": k1["library_ms"],
         "scope": f"sum over the {len(calls)} K1 launches of one ResNet-50 "
                  f"training step at batch {args.batch_size}",
-    }]}))
+    }]
+    main_shape, sweep_shape = FLASH_SHAPES[0][0], FLASH_SHAPES[1][0]
+    for kid, name, replaces in FLASH_KERNELS:
+        at_a = flash[kid]["timed"][main_shape]
+        kernels.append({
+            "name": f"{kid} {name}",
+            "status": "ported",
+            "route": "cuda",
+            "source": FLASH_SOURCE,
+            "replaces": replaces,
+            "launches": flash_launches[kid],
+            "max_abs_err": flash[kid]["max_abs_err"],
+            **at_a,
+            "scope": "one launch at the LM slice's shape B16 T256 H8 D32 "
+                     "causal bf16; max_abs_err over shapes a-d; library: "
+                     + ("SDPA forward" if kid == "K2" else
+                        "SDPA backward, which computes dQ, dK and dV: "
+                        "compare with K3 ms + K4 ms"),
+            "at_flash_sweep_shape": flash[kid]["timed"][sweep_shape],
+        })
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

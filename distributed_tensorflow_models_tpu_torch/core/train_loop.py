@@ -20,7 +20,8 @@ from distributed_tensorflow_models_tpu_torch.ops import optim
 
 Batch = Mapping[str, torch.Tensor]
 # loss_fn(params, state, batch, rngs) -> (loss, aux); aux may carry
-# 'metrics' (dict of scalars) and 'batch_stats' (updated BN state).
+# 'metrics' (dict of scalars), 'batch_stats' (updated BN state) and
+# 'carry' (updated recurrent state).
 LossFn = Callable[
     [Mapping[str, torch.Tensor], TrainState, Batch,
      Mapping[str, torch.Generator]],
@@ -51,6 +52,38 @@ def classification_loss_fn(model: torch.nn.Module, *,
     return loss_fn
 
 
+def lm_loss_fn(model: torch.nn.Module, fused_unembed: bool = False) -> LossFn:
+    """Forward + loss for language models: mean per-token NLL of
+    ``targets`` (``inputs`` shifted by one) given ``inputs``, both
+    ``[B, T]`` int.
+
+    ``fused_unembed=True`` stops the model at the post-``ln_f`` hidden
+    states (``return_hidden=True``) and runs the head projection and the
+    cross entropy chunked in bf16 (:func:`...ops.losses.chunked_unembed_xent`)
+    on the model's own ``head`` parameters; otherwise the model's f32 head
+    gives full logits.  The carry is read from ``state.carry`` and the
+    updated value returned through aux.  Metrics: ``loss`` and ``nll``
+    (perplexity = exp(nll))."""
+
+    def loss_fn(params, state, batch, rngs):
+        if fused_unembed:
+            hidden, new_carry = model(batch["inputs"], carry=state.carry,
+                                      train=True, return_hidden=True,
+                                      rngs=rngs)
+            nll = torch.mean(losslib.chunked_unembed_xent(
+                hidden, params["head.kernel"], params.get("head.bias"),
+                batch["targets"]))
+        else:
+            logits, new_carry = model(batch["inputs"], carry=state.carry,
+                                      train=True, rngs=rngs)
+            nll = torch.mean(losslib.softmax_cross_entropy(
+                logits, batch["targets"]))
+        metrics = {"loss": nll.detach(), "nll": nll.detach()}
+        return nll, {"metrics": metrics, "carry": new_carry}
+
+    return loss_fn
+
+
 def per_step_rngs(seed: int, salt: int, rng_names: Sequence[str],
                   device: torch.device | str = "cpu"
                   ) -> dict[str, torch.Generator]:
@@ -75,6 +108,7 @@ def apply_gradients(state: TrainState, grads: Mapping[str, torch.Tensor],
         step=state.step + 1,
         batch_stats=aux.get("batch_stats", state.batch_stats),
         opt_state=new_opt_state,
+        carry=aux.get("carry", state.carry),
     )
 
 

@@ -7,8 +7,9 @@
 Flags are spelled as in the JAX package's CLI.  ``--device`` defaults to
 ``cuda``; the run raises when no GPU is found unless ``--device cpu`` is
 given.  ``train`` prints one JSON object with the final metrics, the
-steady-state step time and the end-to-end images/s (host batch assembly
-included).
+steady-state step time and the end-to-end images/s and, for an LM, tokens/s
+(host batch assembly included).  ``--attn-impl`` picks the attention of
+attention models: ``flash`` runs kernels K2-K4 on the card.
 """
 
 from __future__ import annotations
@@ -32,6 +33,10 @@ def main(argv: list[str] | None = None) -> int:
     p_train.add_argument("--train-steps", type=int, default=None)
     p_train.add_argument("--batch-size", type=int, default=None)
     p_train.add_argument("--seed", type=int, default=None)
+    p_train.add_argument("--attn-impl",
+                         choices=("auto", "reference", "blockwise", "flash"),
+                         default=None,
+                         help="attention implementation (auto = blockwise)")
     p_train.add_argument("--device", default="cuda",
                          help="torch device (default cuda; cpu must be "
                          "asked for)")
@@ -55,6 +60,8 @@ def main(argv: list[str] | None = None) -> int:
         overrides["global_batch_size"] = args.batch_size
     if args.seed is not None:
         overrides["seed"] = args.seed
+    if args.attn_impl is not None:
+        overrides["attn_impl"] = args.attn_impl
     cfg = get_config(args.config, **overrides)
 
     from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
@@ -66,6 +73,7 @@ def main(argv: list[str] | None = None) -> int:
         "device": result.device,
         "steady_step_time_s": result.steady_step_time_s,
         "images_per_sec": result.images_per_sec,
+        "tokens_per_sec": result.tokens_per_sec,
     }))
     return 0
 

@@ -1,10 +1,12 @@
 """Experiment configs for the port.
 
 The port's own copy of the fields and named configs of
-``distributed_tensorflow_models_tpu/harness/config.py`` that the ResNet-50
-training slice reads, with the same names and values.
-``resnet50_synthetic_tiny`` is the port's: ResNet-50's depth at width 8 on
-32x32 synthetic images, small enough to train on a CPU in tests.
+``distributed_tensorflow_models_tpu/harness/config.py`` that the ported
+training slices read (ResNet-50 and the transformer LM), with the same
+names and values.  ``resnet50_synthetic_tiny`` and ``transformer_lm_tiny``
+are the port's, small enough to train on a CPU in tests: ResNet-50's depth
+at width 8 on 32x32 images; 2 layers, 4 heads, d_model 64, d_ff 128,
+vocab 256 at sequence 64 and batch 4.
 """
 
 from __future__ import annotations
@@ -17,13 +19,15 @@ from distributed_tensorflow_models_tpu_torch.ops import optim
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
-    name: str = "sgd"  # sgd | momentum
+    name: str = "sgd"  # sgd | momentum | adam
     learning_rate: float = 0.1
     # Exponential decay (staircase) as in the reference; None = constant.
     decay_steps: Optional[int] = None
     decay_rate: float = 0.94
     staircase: bool = True
     momentum: float = 0.9
+    # Global-norm gradient clipping before the optimizer; None = off.
+    clip_global_norm: Optional[float] = None
 
     def schedule(self) -> optim.ScalarOrSchedule:
         if self.decay_steps is None:
@@ -35,26 +39,43 @@ class OptimizerConfig:
     def make(self) -> optim.GradientTransformation:
         lr = self.schedule()
         if self.name == "sgd":
-            return optim.sgd(lr)
-        if self.name == "momentum":
-            return optim.tf_momentum(lr, self.momentum)
-        raise ValueError(f"optimizer {self.name!r} is not ported yet")
+            tx = optim.sgd(lr)
+        elif self.name == "momentum":
+            tx = optim.tf_momentum(lr, self.momentum)
+        elif self.name == "adam":
+            tx = optim.adam(lr)
+        else:
+            raise ValueError(f"optimizer {self.name!r} is not ported yet")
+        if self.clip_global_norm is not None:
+            tx = optim.chain(optim.clip_by_global_norm(self.clip_global_norm),
+                             tx)
+        return tx
 
 
 @dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     name: str
     model: str
+    task: str = "classification"  # classification | lm
     model_kwargs: dict[str, Any] = dataclasses.field(default_factory=dict)
-    dataset: str = "imagenet_synthetic"
+    dataset: str = "imagenet_synthetic"  # imagenet_synthetic | imagenet | ptb
     image_size: int = 224
     global_batch_size: int = 256
     optimizer: OptimizerConfig = dataclasses.field(
         default_factory=OptimizerConfig)
     weight_decay: float = 0.0
+    # LM settings: sequence length per segment and the token vocabulary.
+    num_steps: int = 35
+    vocab_size: int = 10000
     train_steps: int = 1000
     log_every_steps: int = 100
     seed: int = 0
+    # Attention for attention models: auto (= blockwise) | reference |
+    # blockwise | flash (kernels K2-K4 on the card).
+    attn_impl: str = "auto"
+    # LM head: project and take the cross entropy chunked in bf16
+    # (ops/losses.py::chunked_unembed_xent) instead of full f32 logits.
+    fused_unembed: bool = False
 
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)
@@ -108,6 +129,52 @@ _add(
         model_kwargs={"width": 8},
         image_size=32,
         global_batch_size=4,
+        train_steps=2,
+    )
+)
+
+
+# --- Transformer LM — the attention stack's flagship. ---------------------
+_add(
+    ExperimentConfig(
+        name="transformer_lm",
+        model="transformer_lm",
+        task="lm",
+        model_kwargs={
+            "num_layers": 4,
+            "num_heads": 8,
+            "d_model": 256,
+            "d_ff": 1024,
+            "max_len": 512,
+            "dropout_rate": 0.1,
+        },
+        dataset="ptb",
+        global_batch_size=16,
+        num_steps=256,  # sequence length per segment
+        vocab_size=10000,
+        optimizer=OptimizerConfig(
+            name="adam", learning_rate=3e-4, clip_global_norm=1.0
+        ),
+        fused_unembed=True,
+        train_steps=10_000,
+    )
+)
+
+_add(
+    _CONFIGS["transformer_lm"].replace(
+        name="transformer_lm_tiny",
+        model_kwargs={
+            "num_layers": 2,
+            "num_heads": 4,
+            "d_model": 64,
+            "d_ff": 128,
+            "max_len": 64,
+            "vocab_size": 256,
+            "dropout_rate": 0.1,
+        },
+        global_batch_size=4,
+        num_steps=64,
+        vocab_size=256,
         train_steps=2,
     )
 )

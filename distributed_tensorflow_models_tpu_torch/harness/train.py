@@ -2,10 +2,11 @@
 N steps.
 
 PyTorch counterpart of the training path of
-``distributed_tensorflow_models_tpu/harness/train.py`` on one device.
-Checkpointing, resilience and telemetry are not ported yet; ``fit`` runs
-``cfg.train_steps`` steps and reports per-step loss, accuracy, grad norm,
-step time and images/s.
+``distributed_tensorflow_models_tpu/harness/train.py`` on one device, for
+classification (``task="classification"``) and language models
+(``task="lm"``).  Checkpointing, resilience and telemetry are not ported
+yet; ``fit`` runs ``cfg.train_steps`` steps and reports per-step metrics,
+step time and images/s or tokens/s.
 """
 
 from __future__ import annotations
@@ -51,14 +52,27 @@ def build_dataset(cfg: ExperimentConfig) -> datalib.ArrayDataset:
                     "synthetic data")
         return datalib.synthetic_imagenet_dataset(
             cfg.global_batch_size, cfg.image_size, cfg.seed)
+    if cfg.dataset == "ptb":
+        return datalib.ptb_dataset(cfg.global_batch_size, cfg.num_steps,
+                                   "train", cfg.vocab_size)
     raise ValueError(f"dataset {cfg.dataset!r} is not ported yet")
+
+
+def _model_kwargs(cfg: ExperimentConfig) -> dict:
+    """The config's model kwargs plus, for the transformer, its attention
+    implementation (the JAX harness's ``_mesh_model_kwargs``); an explicit
+    ``model_kwargs`` entry wins."""
+    kwargs = {}
+    if cfg.model == "transformer_lm":
+        kwargs["attn_impl"] = cfg.attn_impl
+    return {**kwargs, **cfg.model_kwargs}
 
 
 def build_model(cfg: ExperimentConfig, device: torch.device) -> torch.nn.Module:
     """The config's model, initialised from ``cfg.seed`` on the CPU (so the
     weights do not depend on the device) and moved to ``device``."""
     gen = torch.Generator().manual_seed(cfg.seed)
-    model = get_model(cfg.model, generator=gen, **cfg.model_kwargs)
+    model = get_model(cfg.model, generator=gen, **_model_kwargs(cfg))
     return model.to(device)
 
 
@@ -67,6 +81,12 @@ def build_state(cfg: ExperimentConfig, device: torch.device) -> TrainState:
 
 
 def build_loss(cfg: ExperimentConfig, state: TrainState):
+    if cfg.task == "lm":
+        if cfg.fused_unembed and cfg.model != "transformer_lm":
+            raise ValueError("fused_unembed needs a model with a "
+                             "return_hidden path (transformer_lm)")
+        return train_loop.lm_loss_fn(state.model,
+                                     fused_unembed=cfg.fused_unembed)
     return train_loop.classification_loss_fn(
         state.model, weight_decay=cfg.weight_decay)
 
@@ -92,15 +112,26 @@ class FitResult:
         times = [row["step_time_s"] for row in self.history[1:]]
         return sum(times) / len(times) if times else None
 
-    @property
-    def images_per_sec(self) -> Optional[float]:
-        """End-to-end throughput: the steady window's images over its wall
-        time, from the end of the first step to the end of the last, host
-        batch assembly included."""
+    def _steady_rate(self, key: str) -> Optional[float]:
         if len(self.history) < 2:
             return None
-        images = sum(row["batch_size"] for row in self.history[1:])
-        return images / (self.history[-1]["end_s"] - self.history[0]["end_s"])
+        total = sum(row[key] for row in self.history[1:])
+        return total / (self.history[-1]["end_s"] - self.history[0]["end_s"])
+
+    @property
+    def images_per_sec(self) -> Optional[float]:
+        """End-to-end throughput: the steady window's examples (images, or
+        sequences of an LM) over its wall time, from the end of the first
+        step to the end of the last, host batch assembly included."""
+        return self._steady_rate("batch_size")
+
+    @property
+    def tokens_per_sec(self) -> Optional[float]:
+        """An LM's end-to-end throughput: the steady window's tokens over
+        its wall time, as ``images_per_sec``; None for image models."""
+        if not self.history or "tokens" not in self.history[0]:
+            return None
+        return self._steady_rate("tokens")
 
 
 def _to_device(batch: dict, device: torch.device) -> dict:
@@ -137,9 +168,14 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
             state, metrics = step_fn(state, batch, cfg.seed)
             row = {k: float(v) for k, v in metrics.items()}
             t2 = time.perf_counter()
-            row.update(step=state.step,
-                       batch_size=int(host_batch["label"].shape[0]),
-                       data_s=t1 - t0, step_time_s=t2 - t1, end_s=t2 - start)
+            if cfg.task == "lm":
+                shape = host_batch["inputs"].shape
+                row.update(batch_size=int(shape[0]),
+                           tokens=int(shape[0] * shape[1]))
+            else:
+                row.update(batch_size=int(host_batch["label"].shape[0]))
+            row.update(step=state.step, data_s=t1 - t0, step_time_s=t2 - t1,
+                       end_s=t2 - start)
             history.append(row)
             if out is not None:
                 out.write(json.dumps(row) + "\n")

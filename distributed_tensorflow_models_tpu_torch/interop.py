@@ -72,9 +72,11 @@ def load_flax_variables(model: nn.Module, variables: Mapping[str, Any]) -> None:
 
 def to_flax_variables(model: nn.Module) -> dict[str, dict]:
     """``model``'s parameters and buffers as a flax-shaped tree of numpy
-    arrays."""
+    arrays; a collection the model has nothing in (the transformer's
+    ``batch_stats``) is left out, as flax leaves it out."""
     return {
         coll: _unflatten({name: t.detach().cpu().numpy().copy()
                           for name, t in tensors.items()})
         for coll, tensors in _targets(model).items()
+        if tensors
     }

@@ -1,7 +1,7 @@
 """Model zoo registry: ``register`` a builder under a config name and
 ``get_model`` it back.  Counterpart of
-``distributed_tensorflow_models_tpu/models/__init__.py``; this slice ports
-the ImageNet ResNets."""
+``distributed_tensorflow_models_tpu/models/__init__.py``; the port has the
+ImageNet ResNets and the dense transformer LM."""
 
 from __future__ import annotations
 
@@ -32,3 +32,5 @@ def available_models() -> list[str]:
 # Import for registration side effects.
 from distributed_tensorflow_models_tpu_torch.models import resnet  # noqa: E402,F401
 from distributed_tensorflow_models_tpu_torch.models.resnet import ResNet  # noqa: E402,F401
+from distributed_tensorflow_models_tpu_torch.models import transformer_lm  # noqa: E402,F401
+from distributed_tensorflow_models_tpu_torch.models.transformer_lm import TransformerLM  # noqa: E402,F401

@@ -27,7 +27,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-_lock = threading.Lock()
+# One lock per source, so that two sources build at once (each in its own
+# nvcc) while two callers of the same source never build it twice.
+_locks_guard = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 # Seconds nvcc took for each library this process built; a library that
 # was already on disk has no entry.  chip_smoke.py reports it.
@@ -49,8 +52,11 @@ def _nvcc() -> str:
 
 def load(source: str) -> ctypes.CDLL:
     """The shared library built from ``csrc/<source>``, compiling it first
-    if no build of this exact source exists yet."""
-    with _lock:
+    if no build of this exact source exists yet.  Thread-safe; different
+    sources build concurrently."""
+    with _locks_guard:
+        lock = _locks.setdefault(source, threading.Lock())
+    with lock:
         lib = _libs.get(source)
         if lib is not None:
             return lib

@@ -69,6 +69,70 @@ def sgd(learning_rate: ScalarOrSchedule) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
+def adam(learning_rate: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> GradientTransformation:
+    """optax ``scale_by_adam`` then ``-lr`` (``tf.train.AdamOptimizer``)::
+
+        mu <- (1 - b1) g + b1 mu;   nu <- (1 - b2) g^2 + b2 nu
+        u  = (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)
+        var <- var - lr u
+
+    with ``t`` the step count after the increment; eps is added after the
+    square root and the bias correction."""
+
+    def init(params):
+        return {"count": 0,
+                "mu": {k: torch.zeros_like(v) for k, v in params.items()},
+                "nu": {k: torch.zeros_like(v) for k, v in params.items()}}
+
+    def update(grads, state):
+        lr = _lr_at(learning_rate, state["count"])
+        count = state["count"] + 1
+        c1, c2 = 1.0 - b1 ** count, 1.0 - b2 ** count
+        mu, nu, updates = {}, {}, {}
+        for k, g in grads.items():
+            mu[k] = (1.0 - b1) * g + b1 * state["mu"][k]
+            nu[k] = (1.0 - b2) * torch.square(g) + b2 * state["nu"][k]
+            updates[k] = -lr * ((mu[k] / c1) / (torch.sqrt(nu[k] / c2) + eps))
+        return updates, {"count": count, "mu": mu, "nu": nu}
+
+    return GradientTransformation(init, update)
+
+
+def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+    """optax's rule (``tf.clip_by_global_norm``): leave the gradients alone
+    when their global norm is under ``max_norm``, else scale every one by
+    ``max_norm / norm``.  Decided on the device, with no host sync."""
+
+    def init(params):
+        return {}
+
+    def update(grads, state):
+        norm = global_norm(grads)
+        keep = norm < max_norm
+        return ({k: torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm)
+                 for k, g in grads.items()}, state)
+
+    return GradientTransformation(init, update)
+
+
+def chain(*transforms: GradientTransformation) -> GradientTransformation:
+    """optax ``chain``: the updates pass through each transformation in
+    turn; the state is the tuple of their states."""
+
+    def init(params):
+        return tuple(t.init(params) for t in transforms)
+
+    def update(grads, state):
+        new_state = []
+        for t, s in zip(transforms, state):
+            grads, s = t.update(grads, s)
+            new_state.append(s)
+        return grads, tuple(new_state)
+
+    return GradientTransformation(init, update)
+
+
 def exponential_decay(initial_lr: float, decay_steps: int, decay_rate: float,
                       staircase: bool = True) -> Schedule:
     """``tf.train.exponential_decay``: ``lr * decay_rate ** (step /

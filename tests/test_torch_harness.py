@@ -62,6 +62,22 @@ def test_port_imports_nothing_of_jax(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_guard_walks_every_module_of_the_port():
+    """The walk covers each module of the port, those of the LM slice
+    included; what else the package holds is CUDA source under csrc/,
+    which imports nothing of Python."""
+    walked = {p.relative_to(PORT).as_posix() for p in _port_files()
+              if PORT in p.parents}
+    assert {"ops/attention.py", "ops/embed.py", "ops/losses.py",
+            "ops/optim.py", "models/transformer_lm.py", "interop.py",
+            "core/train_loop.py", "data/datasets.py",
+            "harness/cli.py"} <= walked
+    others = [p.relative_to(PORT).as_posix() for p in PORT.rglob("*")
+              if p.is_file() and p.suffix not in (".py", ".pyc")]
+    assert sorted(others) == ["csrc/conv_implicit_gemm.cu",
+                              "csrc/flash_attention.cu"]
+
+
 def test_ast_walk_catches_a_jax_import(tmp_path):
     f = tmp_path / "bad.py"
     f.write_text("import os\ndef f():\n    from jax import numpy\n"

@@ -125,3 +125,31 @@ def test_metrics_match():
         np.testing.assert_array_equal(
             tmetrics.top_k_correct(tl, ty, k).numpy(),
             np.asarray(jmetrics.top_k_correct(jl, jy, k)))
+
+
+@pytest.mark.parametrize("schedule", [False, True])
+def test_adam_matches_optax(schedule):
+    jlr = joptim.exponential_decay(0.01, 2, 0.5) if schedule else 0.01
+    tlr = toptim.exponential_decay(0.01, 2, 0.5) if schedule else 0.01
+    jstate, tstate = _run_both(joptim.adam(jlr), toptim.adam(tlr))
+    assert tstate["count"] == int(jstate[0].count) == 4
+    for slot in ("mu", "nu"):
+        for k, v in tstate[slot].items():
+            np.testing.assert_allclose(
+                v.numpy(), np.asarray(getattr(jstate[0], slot)[k]), **TOL)
+
+
+@pytest.mark.parametrize("max_norm", [0.5, 100.0], ids=["clips", "passes"])
+def test_clip_by_global_norm_matches_optax(max_norm):
+    _run_both(joptim.clip_by_global_norm(max_norm),
+              toptim.clip_by_global_norm(max_norm))
+
+
+def test_chain_of_clip_and_adam_matches_optax():
+    """The transformer LM's optimizer: clip(1.0) then Adam."""
+    import optax
+
+    _, tstate = _run_both(
+        optax.chain(joptim.clip_by_global_norm(1.0), joptim.adam(0.01)),
+        toptim.chain(toptim.clip_by_global_norm(1.0), toptim.adam(0.01)))
+    assert tstate[0] == {} and tstate[1]["count"] == 4
