@@ -6,43 +6,62 @@
 Every phase fails loudly (exit code 1); none is caught and skipped.
 
 1. Device: the card's name and power limit, and the build of the port's
-   CUDA kernels from ``csrc/`` (one nvcc per source, all started at once).
-2. K1 (``csrc/conv_implicit_gemm.cu``) against its plain version
-   (``conv_mxu._core_reference``, f32) at every launch shape of one
-   ResNet-50 training step: the 3x3 convs at 56/28/14/7, the four phase
-   kernels of each stride-2 conv, and the dx of all of them.  The shapes
-   come from running the port's ResNet-50 on the meta device, so they are
-   the main path's own.  Times K1, the plain version and ``F.conv2d``
-   (cuDNN, a yardstick only) with CUDA events and works out the bound.
+   CUDA kernels from ``csrc/`` (one nvcc per source, both started at
+   once): K1 and K6 in ``conv_implicit_gemm.cu``, K2-K5 in
+   ``flash_attention.cu``.
+2. K1 against its plain version (``conv_mxu._core_reference``, f32) at
+   every launch shape of one ResNet-50 training step at batch 256 (traced
+   on the meta device, so they are the main path's own).  Times K1, the
+   plain version and ``F.conv2d`` (cuDNN, a yardstick only) with CUDA
+   events and works out the bound.
 3. ``conv2d_mxu`` forward and gradients (dx, dw), stride 1 and 2, against
    the ``patches`` lowering in f32 on the card.
-4. The slice: the port's CLI trains ``resnet50_synthetic`` (224x224,
-   widths 64..2048, 1000 classes) on the card with ``DTM_CONV_IMPL=mxu``.
-   K1's launch counter is zeroed just before and read just after, and must
-   equal its launches per step (from phase 2's trace) times the steps.
-   The same run with ``F.conv2d`` convs (cuDNN) follows as a yardstick,
-   in turns with a second K1 run.
-5. Where the step's device time goes: ``torch.profiler`` over two steps
-   of each arm, device time by kernel class and the device's idle share.
-6. K2, K3 and K4 (``csrc/flash_attention.cu``) against their plain
-   versions (``ops/attention.py``) in bf16 at (a) the LM slice's launch
-   shape B16 T256 H8 D32 causal, (b) the flash sweep shape B4 T2048 H8 D64
-   causal, (c) B4 T2048 H8 Hkv2 D32 causal window 256, and (d) a chunk
-   call with nonzero q/kv offsets and an LSE cotangent.  At (a) and (b)
-   each kernel is timed against its bound and its plain version, K2
-   against ``F.scaled_dot_product_attention``'s forward and K3+K4 against
-   its backward (a yardstick only: the port never calls it).
-7. The LM slice: the port's CLI trains ``transformer_lm`` (4 layers, 8
-   heads, d_model 256, d_ff 1024, vocab 10000, sequence 256, batch 16,
-   Adam with clipping, fused bf16 head) on the card with ``--attn-impl
-   flash``.  The three flash counters are zeroed just before and read
-   just after: each must equal 4 layers x steps.  The same run with
-   ``--attn-impl auto`` (blockwise attention in plain PyTorch, the
-   config's default) follows as a yardstick, in turns with the flash arm.
-8. ``torch.profiler`` over two steps of each LM arm.
+4. The ResNet-50 path: the port's CLI trains ``resnet50_synthetic``
+   (224x224, batch 256) with ``DTM_CONV_IMPL=mxu``; K1's counter must equal
+   its launches per step times the steps (K6's stays 0).  The ``F.conv2d``
+   arm (cuDNN) follows as a yardstick, in turns with a second K1 arm.
+5. ``torch.profiler`` over two steps of each ResNet arm: device time by
+   kernel class and the device's idle share.
+6. K1 and K6 against the plain version at every launch shape of one
+   ``inception_v3_imagenet`` step at batch 256 (the 1x7, 7x1, 1x3, 3x1
+   taps, the aux head's 5x5, the phase kernels of its stride-2 convs and
+   the dx of all of them, traced on the meta device).  K6 must equal K1
+   bit for bit at every shape; both are timed beside the plain version,
+   ``F.conv2d`` and the bound.
+7. The Inception-v3 path: the CLI trains ``inception_v3_imagenet``
+   (299x299, batch 256, RMSProp, label smoothing, the 0.4-weighted aux
+   head, L2, the weight EMA) with ``DTM_CONV_MXU_PIPELINE=1``: K6's
+   counter must equal its launches per step times the steps and K1's must
+   stay 0.  The K1 arm (knob 0) follows in turns, then one ``F.conv2d``
+   arm; images/s, step times, peak memory and losses of each, and a
+   profile of the K6 arm.
+8. K2-K5 (``csrc/flash_attention.cu``) against their plain versions in
+   bf16 at (a) the LM path's launch shape B16 T256 H8 D32 causal, (b) the
+   flash sweep shape B4 T2048 H8 D64 causal, (c) B4 T2048 H8 Hkv2 D32
+   causal window 256, and (d) a chunk call with nonzero q/kv offsets and
+   an LSE cotangent.  K5's dS stage is filled with NaN first; its dK and
+   dV must equal K3's bit for bit, and its dQ is compared with K4's
+   element by element (the count that differ and the largest
+   difference).  At (a) and (b) each launch is timed against its bound
+   and its plain version, K2 against ``F.scaled_dot_product_attention``'s
+   forward and the backward launches against its backward (a yardstick
+   only: the port never calls it).
+9. The transformer_lm path: the CLI trains ``transformer_lm`` (4 layers, 8
+   heads, d_model 256, sequence 256, batch 16) with ``--attn-impl
+   flash``; K2, K3 and K4 must each launch 4 layers x steps times.  The
+   blockwise arm (``auto``) follows as a yardstick, in turns with a second
+   flash arm; a profile of each.
+10. The transformer_lm_modern path: the same width with rotary positions,
+   GQA (2 KV heads for 8) and a 256-token window, ``DTM_FLASH_BWD=staged``:
+   K2 and both K5 launches must each equal layers x steps, K3 and K4 0.
+   The pair backward follows in turns; tokens/s and peak memory of each,
+   and a profile of the staged arm.
 
-The last lines are the card's name and power limit, a ``{"kernels": ...}``
-JSON line, and ``{"ok": true, "device": {...}}``.
+Every comparison of arms runs them in turns (K1, F.conv2d, K1, F.conv2d
+for ResNet-50; flash, blockwise, flash, blockwise for transformer_lm):
+host noise on a shared machine moves step times between runs.  The last
+lines are the card's name and power limit, a ``{"kernels": ...}`` JSON line (K1
+to K6, K5 as its two launches) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -75,12 +94,21 @@ K1_ATOL_OF_SCALE = 1e-3
 GRAD_TOL_OF_SCALE = 2.0 ** -6
 K1_SOURCE = "distributed_tensorflow_models_tpu_torch/csrc/conv_implicit_gemm.cu"
 K1_REPLACES = "distributed_tensorflow_models_tpu/ops/conv_mxu.py:174"
+K6_REPLACES = "distributed_tensorflow_models_tpu/ops/conv_mxu.py:204"
 FLASH_SOURCE = "distributed_tensorflow_models_tpu_torch/csrc/flash_attention.cu"
 FLASH_KERNELS = (
     # id, its wrapper in ops/attention.py, the TPU kernel it replaces
     ("K2", "flash_forward", "distributed_tensorflow_models_tpu/ops/attention.py:578"),
     ("K3", "flash_dkv", "distributed_tensorflow_models_tpu/ops/attention.py:799"),
     ("K4", "flash_dq", "distributed_tensorflow_models_tpu/ops/attention.py:916"),
+)
+# K5's two launches: _flash_dkv_kernel(stage_ds=True) and
+# _flash_dq_staged_kernel.
+STAGED_KERNELS = (
+    ("K5 dKV", "flash_dkv_staged",
+     "distributed_tensorflow_models_tpu/ops/attention.py:799"),
+    ("K5 dQ", "flash_dq_staged",
+     "distributed_tensorflow_models_tpu/ops/attention.py:877"),
 )
 # K2-K4 against their plain versions in bf16: both round P and dS to bf16
 # at the same points; they differ by the f32 summation order (the kernel
@@ -137,11 +165,13 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def k1_launch_shapes(batch: int) -> list[tuple[str, tuple, tuple]]:
-    """``(role, xpad shape, kernel shape)`` of every K1 launch of one
-    ResNet-50 training step at ``batch``, in order: the port's model run
-    forward and backward on the meta device, with the core's forward
-    recorded (it takes the plain version there: nothing is launched)."""
+def core_launch_shapes(model_name: str, image_size: int, batch: int,
+                       **model_kw) -> list[tuple[str, tuple, tuple]]:
+    """``(role, xpad shape, kernel shape)`` of every launch of the conv
+    core (K1, or K6 with ``DTM_CONV_MXU_PIPELINE=1``) in one training step
+    of ``model_name`` at ``batch``, in order: the port's model run forward
+    and backward on the meta device, with the core's forward recorded (it
+    takes the plain version there: nothing is launched)."""
     import torch
 
     from distributed_tensorflow_models_tpu_torch.models import get_model
@@ -158,10 +188,12 @@ def k1_launch_shapes(batch: int) -> list[tuple[str, tuple, tuple]]:
     conv_mxu._core_forward = record
     try:
         with torch.device("meta"):
-            model = get_model("resnet50", conv_impl="mxu")
-            logits = model(torch.empty(batch, 224, 224, 3), train=True)
+            model = get_model(model_name, conv_impl="mxu", **model_kw)
+            out = model(torch.empty(batch, image_size, image_size, 3),
+                        train=True)
         role[0] = "dx"
-        logits.sum().backward()
+        outs = out if isinstance(out, tuple) else (out,)
+        sum(o.sum() for o in outs).backward()
     finally:
         conv_mxu._core_forward = core_forward
     return calls
@@ -181,8 +213,10 @@ def bound_ms(xshape, kshape) -> tuple[float, str]:
                                        else "bytes")
 
 
-def phase_k1(calls, seed: int) -> dict:
-    """K1 against its plain version at each distinct launch shape."""
+def phase_k1(calls, seed: int, with_k6: bool = False) -> dict:
+    """K1 against its plain version at each distinct launch shape; with
+    ``with_k6`` also K6, which must equal K1 bit for bit, timed beside it.
+    Per-step totals weight each shape by its launches per step."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -196,7 +230,8 @@ def phase_k1(calls, seed: int) -> dict:
     rows, worst_abs, worst_rel = [], 0.0, 0.0
     totals = collections.Counter()
     log(f"{'xpad':>22} {'kernel':>18} {'per step':>12} {'k1_ms':>9} "
-        f"{'plain_ms':>9} {'cudnn_ms':>9} {'bound_ms':>9} {'bound_by':>10} "
+        + (f"{'k6_ms':>9} " if with_k6 else "")
+        + f"{'plain_ms':>9} {'cudnn_ms':>9} {'bound_ms':>9} {'bound_by':>10} "
         f"{'TFLOP/s':>8} {'max_abs':>9} {'max_rel':>9}")
     for (xs, ks), roles in per_shape.items():
         fan_in = ks[0] * ks[1] * ks[2]
@@ -217,12 +252,21 @@ def phase_k1(calls, seed: int) -> dict:
             fail(f"K1 disagrees with its plain version at x{xs} k{ks}: "
                  f"{int(bad.sum())} elements over atol {atol:.3g} + rtol "
                  f"{K1_RTOL:.3g}; max abs err {max_abs:.4g}")
+        if with_k6:
+            got6 = conv_mxu.conv_implicit_gemm_pipelined(x, k)
+            torch.cuda.synchronize()
+            if not torch.equal(got6, got):
+                fail(f"K6 differs from K1 at x{xs} k{ks}: "
+                     f"{int((got6 != got).sum())} elements")
+            del got6
         del got, want, err, bad
         # cuDNN's own layout: NHWC activations seen as NCHW, the weight
         # stored OHWI (channels_last OIHW), arranged outside the timing.
         x_nchw = x.permute(0, 3, 1, 2)
         w_cl = k.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
         ms = time_ms(lambda: conv_mxu.conv_implicit_gemm(x, k), 20)
+        k6_ms = (time_ms(lambda: conv_mxu.conv_implicit_gemm_pipelined(x, k),
+                         20) if with_k6 else None)
         plain_ms = time_ms(lambda: conv_mxu._core_reference(x, k), 5, 1)
         lib_ms = time_ms(lambda: F.conv2d(x_nchw, w_cl), 20)
         bms, bound_by = bound_ms(xs, ks)
@@ -231,15 +275,17 @@ def phase_k1(calls, seed: int) -> dict:
         tflops = 2.0 * m * ks[0] * ks[1] * ks[2] * ks[3] / (ms * 1e9)
         log(f"{str(xs):>22} {str(ks):>18} "
             f"{' '.join(f'{r}x{c}' for r, c in roles.items()):>12} "
-            f"{ms:9.4f} {plain_ms:9.4f} {lib_ms:9.4f} {bms:9.4f} "
+            f"{ms:9.4f} " + (f"{k6_ms:9.4f} " if with_k6 else "")
+            + f"{plain_ms:9.4f} {lib_ms:9.4f} {bms:9.4f} "
             f"{bound_by:>10} {tflops:8.1f} {max_abs:9.3g} {max_rel:9.3g}")
         rows.append(dict(xpad=xs, kernel=ks, roles=dict(roles), ms=ms,
-                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                         bound_by=bound_by, max_abs_err=max_abs,
+                         k6_ms=k6_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bms, bound_by=bound_by, max_abs_err=max_abs,
                          max_rel_err=max_rel))
-        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+        for key, val in (("ms", ms), ("k6_ms", k6_ms), ("plain_ms", plain_ms),
                          ("library_ms", lib_ms), ("bound_ms", bms)):
-            totals[key] += n * val
+            if val is not None:
+                totals[key] += n * val
         worst_abs, worst_rel = max(worst_abs, max_abs), max(worst_rel, max_rel)
         del x, k, x_nchw, w_cl
         torch.cuda.empty_cache()
@@ -251,12 +297,16 @@ def phase_k1(calls, seed: int) -> dict:
                  for _, xs, ks in calls)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
     log(f"K1 per training step ({len(calls)} launches): "
-        f"{totals['ms']:.3f} ms; plain {totals['plain_ms']:.3f} ms; "
+        f"{totals['ms']:.3f} ms; "
+        + (f"K6 {totals['k6_ms']:.3f} ms (K6 = K1 bit for bit at every "
+           f"shape); " if with_k6 else "")
+        + f"plain {totals['plain_ms']:.3f} ms; "
         f"cuDNN {totals['library_ms']:.3f} ms; bound {1e3 * max(t_ops, t_bytes):.3f} ms "
         f"({flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB); "
         f"K1 at {flops / (totals['ms'] * 1e9):.1f} TFLOP/s; "
         f"worst max abs err {worst_abs:.4g} (rel to scale {worst_rel:.4g})")
-    return dict(rows=rows, ms=totals["ms"], plain_ms=totals["plain_ms"],
+    return dict(rows=rows, ms=totals["ms"], k6_ms=totals.get("k6_ms"),
+                plain_ms=totals["plain_ms"],
                 library_ms=totals["library_ms"],
                 bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -344,9 +394,14 @@ def run_cli(config: str, steps: int, batch: int, workdir: Path,
 
 def _kernel_class(name: str) -> str:
     low = name.lower()
+    if "conv_implicit_gemm_pipelined" in low:
+        return "K6"
     if "conv_implicit_gemm" in low:
         return "K1"
-    for kid, marker in (("K2", "dtm_flash_fwd"), ("K3", "dtm_flash_dkv"),
+    if "dtm_flash_dkv" in low and "true" in low:
+        return "K5 dKV"
+    for kid, marker in (("K5 dQ", "dtm_flash_dq_staged"),
+                        ("K2", "dtm_flash_fwd"), ("K3", "dtm_flash_dkv"),
                         ("K4", "dtm_flash_dq")):
         if marker in low:
             return kid
@@ -451,15 +506,22 @@ def flash_bound_ms(kid: str, shape, pairs: int) -> tuple[float, str]:
     tensor-core FLOPs on the valid pairs over the bf16 peak.  K2 reads Q,
     K, V and writes O and the f32 LSE, 4*D FLOPs a pair; K3 reads Q, K, V,
     dO, LSE and delta and writes per-query-head dK and dV, 8*D; K4 reads
-    the same and writes dQ, 6*D."""
+    the same and writes dQ, 6*D.  K5's dKV launch is K3 plus the bf16 dS
+    of every valid pair written; its dQ launch reads those dS and K and
+    writes dQ, 2*D a pair."""
     _, B, Tq, Tkv, H, Hkv, D, *_ = shape
     q_b, kv_b = 2.0 * B * Tq * H * D, 2.0 * B * Tkv * Hkv * D
     rows_b = 4.0 * B * H * Tq
+    ds_b = 2.0 * B * H * pairs
     if kid == "K2":
         nbytes, per_pair = 2 * q_b + 2 * kv_b + rows_b, 4
-    elif kid == "K3":
+    elif kid in ("K3", "K5 dKV"):
         nbytes = 2 * q_b + 2 * kv_b + 2 * rows_b + 2 * (2.0 * B * Tkv * H * D)
         per_pair = 8
+        if kid == "K5 dKV":
+            nbytes += ds_b
+    elif kid == "K5 dQ":
+        nbytes, per_pair = ds_b + kv_b + q_b, 2
     else:
         nbytes, per_pair = 3 * q_b + 2 * kv_b + 2 * rows_b, 6
     flops = float(per_pair) * D * pairs * B * H
@@ -482,15 +544,21 @@ def _flash_err(what: str, got, want) -> float:
 
 
 def phase_flash(seed: int) -> dict:
-    """K2, K3 and K4 against their plain versions at FLASH_SHAPES; at the
-    timed shapes also their times, bounds and the SDPA yardstick.
-    Returns, per kernel id, the worst error and the timings by shape."""
+    """K2 to K5 against their plain versions at FLASH_SHAPES; at the timed
+    shapes also their times, bounds and the SDPA yardstick.  K5's dKV
+    launch writes into a dS stage filled with NaN first, so a tile its dQ
+    launch reads but the dKV launch never wrote shows as NaN in dQ; its dK
+    and dV must equal K3's bit for bit, and its dQ is compared with K4's
+    element by element.  Returns, per kernel id, the worst error and the
+    timings by shape, and K5's dQ differences from K4 by shape."""
     import torch
     import torch.nn.functional as F
 
     from distributed_tensorflow_models_tpu_torch.ops import attention as attnlib
 
-    out = {kid: {"max_abs_err": 0.0, "timed": {}} for kid, _, _ in FLASH_KERNELS}
+    out = {kid: {"max_abs_err": 0.0, "timed": {}}
+           for kid, _, _ in FLASH_KERNELS + STAGED_KERNELS}
+    out["dq_vs_k4"] = {}
     for n, shape in enumerate(FLASH_SHAPES):
         name, B, Tq, Tkv, H, Hkv, D, causal, window, qo, ko, _, timed = shape
         q, k, v, do, g_lse, kw = _flash_inputs(shape, seed + n)
@@ -519,11 +587,37 @@ def phase_flash(seed: int) -> dict:
                          _flash_err(f"K3 dv at {name}", dv, ref_dv))
         errs["K4"] = _flash_err(f"K4 dq at {name}", dq, ref_dq)
         del ref_o, ref_lse, ref_dk, ref_dv, ref_dq
+        # K5 on a NaN-filled stage.
+        stage = torch.full((B * H, Tq, Tkv), float("nan"),
+                           dtype=torch.bfloat16, device="cuda")
+        sdk, sdv, stage = attnlib.flash_dkv_staged(*args, **kw, ds=stage)
+        sdq = attnlib.flash_dq_staged(stage, k, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(sdk, dk) and torch.equal(sdv, dv)):
+            fail(f"K5 dK/dV at {name} differ from K3's")
+        if bool(torch.isnan(sdq).any()):
+            fail(f"K5 dq at {name} holds NaN: its dQ launch read a dS tile "
+                 f"the dKV launch did not write")
+        ref_sdk, ref_sdv, ref_ds = attnlib._flash_dkv_staged_reference(
+            *args, **kw)
+        ref_sdq = attnlib._flash_dq_staged_reference(ref_ds, k, **kw)
+        errs["K5 dKV"] = max(_flash_err(f"K5 dk at {name}", sdk, ref_sdk),
+                             _flash_err(f"K5 dv at {name}", sdv, ref_sdv))
+        errs["K5 dQ"] = _flash_err(f"K5 dq at {name}", sdq, ref_sdq)
+        n_diff = int((sdq != dq).sum())
+        max_diff = float((sdq.float() - dq.float()).abs().max())
+        out["dq_vs_k4"][name] = dict(differing=n_diff, of=sdq.numel(),
+                                     max_abs_diff=max_diff)
+        del ref_sdk, ref_sdv, ref_sdq, sdk, sdv
+        log(f"K5 at {name}: dK and dV equal K3's bit for bit; dq differs "
+            f"from K4's in {n_diff} of {sdq.numel()} elements, max abs diff "
+            f"{max_diff:.4g}; no NaN from the NaN-filled stage")
         log(f"flash {name}: B{B} Tq{Tq} Tkv{Tkv} H{H} Hkv{Hkv} D{D} causal "
             f"{causal} window {window} offsets {qo}/{ko} lse cotangent "
             f"{g_lse is not None}; max abs err K2 {errs['K2']:.4g} (lse "
-            f"{lse_err:.3g}), K3 {errs['K3']:.4g}, K4 {errs['K4']:.4g}; "
-            f"valid pairs per row {pairs}")
+            f"{lse_err:.3g}), K3 {errs['K3']:.4g}, K4 {errs['K4']:.4g}, K5 "
+            f"dKV {errs['K5 dKV']:.4g}, K5 dQ {errs['K5 dQ']:.4g}; valid "
+            f"pairs per (batch, head) {pairs}")
         for kid, err in errs.items():
             out[kid]["max_abs_err"] = max(out[kid]["max_abs_err"], err)
         if not timed:
@@ -535,6 +629,13 @@ def phase_flash(seed: int) -> dict:
                    lambda: attnlib._flash_dkv_reference(*args, **kw)),
             "K4": (lambda: attnlib.flash_dq(*args, **kw),
                    lambda: attnlib._flash_dq_reference(*args, **kw)),
+            "K5 dKV": (lambda: attnlib.flash_dkv_staged(*args, **kw,
+                                                        ds=stage),
+                       lambda: attnlib._flash_dkv_staged_reference(*args,
+                                                                   **kw)),
+            "K5 dQ": (lambda: attnlib.flash_dq_staged(stage, k, **kw),
+                      lambda: attnlib._flash_dq_staged_reference(ref_ds, k,
+                                                                 **kw)),
         }
         # SDPA (the yardstick) on the same values, heads-second views.
         qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
@@ -558,23 +659,43 @@ def phase_flash(seed: int) -> dict:
                 + ("forward" if kid == "K2" else "backward (dQ, dK and dV)")
                 + f" {out[kid]['timed'][name]['library_ms']:.4f} ms")
         del qs, ks, vs, so, q, k, v, do, o, lse, dk, dv, dq, args, fns
+        del stage, ref_ds, sdq
         torch.cuda.empty_cache()
     return out
 
 
-def run_lm_arm(impl: str, steps: int, workdir: Path) -> dict:
+def run_lm_arm(config: str, impl: str, steps: int, workdir: Path) -> dict:
     from distributed_tensorflow_models_tpu_torch.harness.config import get_config
 
-    batch = get_config("transformer_lm").global_batch_size
-    return run_cli("transformer_lm", steps, batch, workdir / impl,
-                   "--attn-impl", impl)
+    batch = get_config(config).global_batch_size
+    return run_cli(config, steps, batch, workdir, "--attn-impl", impl)
+
+
+def log_arm(label: str, r: dict, per_step: int, card: str) -> None:
+    """One arm's end-to-end rate and step times; ``per_step`` is the
+    images (or tokens, for an LM) of one step."""
+    unit = "tokens" if r.get("tokens_per_sec") else "images"
+    rate = r["tokens_per_sec"] if unit == "tokens" else r["images_per_sec"]
+    log(f"arm {label:>18}: {rate:.1f} {unit}/s end to end (steady wall, "
+        f"host batch assembly included); step median "
+        f"{r['median_step_s'] * 1e3:.3f} ms, mean "
+        f"{r['steady_step_time_s'] * 1e3:.3f} ms, max "
+        f"{r['max_step_s'] * 1e3:.3f} ms "
+        f"({per_step / r['steady_step_time_s']:.1f} {unit}/s for the step "
+        f"alone); host batch assembly {r['data_s'] * 1e3:.3f} ms per step, "
+        f"in series | {card}")
+
+
+def zero_counts(fns) -> None:
+    for fn in fns:
+        fn.launches = 0
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch-size", type=int, default=256,
-                        help="global batch of the training phase "
-                        "(resnet50_synthetic's own: 256)")
+                        help="global batch of the ResNet-50 and Inception-v3 "
+                        "phases (their configs' own: 256)")
     parser.add_argument("--train-steps", type=int, default=11)
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
@@ -585,6 +706,8 @@ def main(argv=None) -> int:
         fail("no CUDA device: this smoke test runs on the card only")
     # conv.py reads the default conv lowering when it is first imported.
     os.environ["DTM_CONV_IMPL"] = "mxu"
+    os.environ["DTM_CONV_MXU_PIPELINE"] = "0"
+    os.environ["DTM_FLASH_BWD"] = "pair"
     sys.path.insert(0, str(ROOT))
     from distributed_tensorflow_models_tpu_torch.harness.config import get_config
     from distributed_tensorflow_models_tpu_torch.ops import _kernels
@@ -595,6 +718,10 @@ def main(argv=None) -> int:
     # f32 comparisons in full f32: no TF32 in cuDNN or cuBLAS.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    steps = args.train_steps
+    k1, k6 = conv_mxu.conv_implicit_gemm, conv_mxu.conv_implicit_gemm_pipelined
+    flash_fns = {kid: getattr(attnlib, name)
+                 for kid, name, _ in FLASH_KERNELS + STAGED_KERNELS}
 
     # 1. Device and build.
     card = nvidia_smi_line()
@@ -605,154 +732,237 @@ def main(argv=None) -> int:
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         for fut in [pool.submit(conv_mxu._load), pool.submit(attnlib._load)]:
             fut.result()
-    for kids, src in (("K1", "conv_implicit_gemm.cu"),
-                      ("K2-K4", "flash_attention.cu")):
+    for kids, src in (("K1, K6", "conv_implicit_gemm.cu"),
+                      ("K2-K5", "flash_attention.cu")):
         nvcc_s = _kernels.build_seconds.get(src)
         log(f"{kids} ({src}) build+load: " + (
             "cached build loaded" if nvcc_s is None
             else f"nvcc {nvcc_s:.2f} s"))
     log(f"both builds, in parallel: {time.perf_counter() - t0:.2f} s wall")
 
-    # 2. K1 at the main path's launch shapes.
-    calls = k1_launch_shapes(args.batch_size)
+    # 2. K1 at the ResNet-50 path's launch shapes.
+    calls = core_launch_shapes("resnet50", 224, args.batch_size)
     roles = collections.Counter(r for r, _, _ in calls)
     log(f"K1 launches per ResNet-50 step at batch {args.batch_size}: "
         f"{len(calls)} ({dict(roles)})")
     if roles != {"fwd": 25, "dx": 25}:
         fail(f"expected 25 forward and 25 dx launches per step, got {roles}")
-    k1 = phase_k1(calls, args.seed)
+    k1_res = phase_k1(calls, args.seed)
 
     # 3. Gradients through conv2d_mxu.
     phase_grads(args.seed + 1)
 
-    # 4. The slice's main path, K1's counter zeroed just before it.
+    # 4. The ResNet-50 path, K1's counter zeroed just before it.
     if convlib.get_default_conv_impl() != "mxu":
         fail("DTM_CONV_IMPL=mxu did not reach the port's conv selector")
     workdir = ROOT / "build" / "chip_smoke"
     torch.cuda.reset_peak_memory_stats()
-    conv_mxu.conv_implicit_gemm.launches = 0
-    run = run_cli("resnet50_synthetic", args.train_steps, args.batch_size,
+    zero_counts((k1, k6))
+    run = run_cli("resnet50_synthetic", steps, args.batch_size,
                   workdir / "mxu")
-    launches = conv_mxu.conv_implicit_gemm.launches
+    k1_launches, k6_stray = k1.launches, k6.launches
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    want = len(calls) * args.train_steps
-    log(f"K1 launches in the training run: {launches} (expected "
-        f"{len(calls)} per step x {args.train_steps} steps = {want})")
-    if launches != want:
-        fail(f"K1 launched {launches} times, expected {want}")
-    log(f"slice (K1 convs): batch {args.batch_size}, steps "
-        f"{args.train_steps}, losses {run['losses']}, "
-        f"{run['images_per_sec']:.1f} images/s end to end over "
-        f"{args.train_steps - 1} steady steps; step (batch copy in to "
-        f"metrics back) mean {run['steady_step_time_s'] * 1e3:.2f} ms, "
-        f"median {run['median_step_s'] * 1e3:.2f} ms, max "
-        f"{run['max_step_s'] * 1e3:.2f} ms; peak memory "
-        f"{peak_gib:.2f} GiB, K1 {k1['ms']:.2f} ms of the step | {card}")
-
-    # Yardstick: the same run with every conv through F.conv2d (cuDNN),
-    # in turns with the K1 arm (K1, cuDNN, K1, cuDNN): host noise on a
-    # shared machine moves step times between runs.
+    want = len(calls) * steps
+    log(f"K1 launches in the ResNet-50 run: {k1_launches} (expected "
+        f"{len(calls)} per step x {steps} steps = {want}); K6 {k6_stray}")
+    if k1_launches != want or k6_stray:
+        fail(f"K1 launched {k1_launches} times (expected {want}), K6 "
+             f"{k6_stray} (expected 0)")
+    log(f"ResNet-50 path (K1 convs): batch {args.batch_size}, steps {steps}, "
+        f"losses {run['losses']}, {run['images_per_sec']:.1f} images/s end "
+        f"to end over {steps - 1} steady steps; peak memory {peak_gib:.2f} "
+        f"GiB, K1 {k1_res['ms']:.2f} ms of the step | {card}")
+    # Yardstick: the same run with every conv through F.conv2d (cuDNN), in
+    # turns with the K1 arm: host noise on a shared machine moves step times
+    # between runs.
     arms = [("K1", run)]
     for impl in ("xla", "mxu", "xla"):
         convlib.set_default_conv_impl(impl)
         arms.append(("K1" if impl == "mxu" else "F.conv2d",
-                     run_cli("resnet50_synthetic", args.train_steps,
-                             args.batch_size, workdir / impl)))
-    for name, r in arms:
-        log(f"arm {name:>8}: {r['images_per_sec']:.1f} images/s end to "
-            f"end (steady wall, host batch assembly included); step "
-            f"median {r['median_step_s'] * 1e3:.2f} ms, mean "
-            f"{r['steady_step_time_s'] * 1e3:.2f} ms, max "
-            f"{r['max_step_s'] * 1e3:.2f} ms "
-            f"({args.batch_size / r['steady_step_time_s']:.1f} images/s "
-            f"for the step alone); host batch assembly "
-            f"{r['data_s'] * 1e3:.2f} ms per step, in series | {card}")
+                     run_cli("resnet50_synthetic", steps, args.batch_size,
+                             workdir / f"{impl}{len(arms)}")))
+    for label, r in arms:
+        log_arm(f"ResNet {label}", r, args.batch_size, card)
 
-    # 5. Where the device time goes, on the main path and the yardstick.
+    # 5. Where the ResNet step's device time goes, on both arms.
     r50 = get_config("resnet50_synthetic", global_batch_size=args.batch_size)
-    for impl, arm in (("mxu", "K1 convs"), ("xla", "F.conv2d convs")):
+    for impl, arm in (("mxu", "ResNet-50, K1 convs"),
+                      ("xla", "ResNet-50, F.conv2d convs")):
         convlib.set_default_conv_impl(impl)
         phase_profile(r50, arm)
     convlib.set_default_conv_impl("mxu")
 
-    # 6. K2-K4 against their plain versions, timed against their bounds.
+    # 6. K1 and K6 at every launch shape of the Inception-v3 path.
+    inc_calls = core_launch_shapes("inception_v3", 299, args.batch_size,
+                                   dropout_rate=0.0)
+    inc_roles = collections.Counter(r for r, _, _ in inc_calls)
+    log(f"conv core launches per Inception-v3 step at batch "
+        f"{args.batch_size}: {len(inc_calls)} ({dict(inc_roles)}), "
+        f"{len({(x, w) for _, x, w in inc_calls})} distinct shapes")
+    k6_res = phase_k1(inc_calls, args.seed + 3, with_k6=True)
+
+    # 7. The Inception-v3 path with every routed conv on K6, the two
+    # counters zeroed just before it and read just after; then the K1 arm
+    # in turns and the F.conv2d arm as a yardstick.
+    inc_cfg = get_config("inception_v3_imagenet",
+                         global_batch_size=args.batch_size)
+    inc_arms = []
+    for impl, knob, label in (("mxu", "1", "K6"), ("mxu", "0", "K1"),
+                              ("mxu", "1", "K6"), ("mxu", "0", "K1"),
+                              ("xla", "0", "F.conv2d")):
+        convlib.set_default_conv_impl(impl)
+        os.environ["DTM_CONV_MXU_PIPELINE"] = knob
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts((k1, k6))
+        r = run_cli("inception_v3_imagenet", steps, args.batch_size,
+                    workdir / f"inception{len(inc_arms)}")
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        want = (len(inc_calls) * steps if impl == "mxu" else 0)
+        got = (k6.launches, k1.launches) if knob == "1" else (k1.launches,
+                                                              k6.launches)
+        log(f"Inception-v3 arm {label}: {label if impl == 'mxu' else 'K1/K6'}"
+            f" launches {got[0]} (expected {len(inc_calls)} per step x "
+            f"{steps} steps = {want}), the other kernel {got[1]} (expected "
+            f"0); peak memory {r['peak_gib']:.2f} GiB; losses {r['losses']}")
+        if got != (want, 0):
+            fail(f"Inception-v3 {label} arm launched {got}, expected "
+                 f"({want}, 0)")
+        if not inc_arms:
+            k6_launches = k6.launches
+        inc_arms.append((label, r))
+    for label, r in inc_arms:
+        log_arm(f"Inception {label}", r, args.batch_size, card)
+    # Device time of the K6 arm.
+    convlib.set_default_conv_impl("mxu")
+    os.environ["DTM_CONV_MXU_PIPELINE"] = "1"
+    phase_profile(inc_cfg, "Inception-v3, K6 convs")
+    os.environ["DTM_CONV_MXU_PIPELINE"] = "0"
+
+    # 8. K2-K5 against their plain versions, timed against their bounds.
     flash = phase_flash(args.seed + 2)
 
-    # 7. The LM slice's main path, the three flash counters zeroed just
-    # before it and read just after.
+    # 9. The transformer_lm path (pair backward), the flash counters zeroed
+    # just before it and read just after; the blockwise yardstick after it.
     lm_cfg = get_config("transformer_lm")
     layers = lm_cfg.model_kwargs["num_layers"]
-    torch.cuda.reset_peak_memory_stats()
-    for _, name, _ in FLASH_KERNELS:
-        getattr(attnlib, name).launches = 0
-    lm_run = run_lm_arm("flash", args.train_steps, workdir / "lm")
-    flash_launches = {kid: getattr(attnlib, name).launches
-                      for kid, name, _ in FLASH_KERNELS}
-    lm_peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    want = layers * args.train_steps
-    log(f"flash launches in the LM training run: {flash_launches} "
-        f"(expected {layers} layers x {args.train_steps} steps = {want} each)")
-    if any(n != want for n in flash_launches.values()):
-        fail(f"flash kernels launched {flash_launches}, expected {want} each")
     tokens = lm_cfg.global_batch_size * lm_cfg.num_steps
-    log(f"LM slice (flash attention, K2-K4): batch {lm_cfg.global_batch_size}"
-        f" x {lm_cfg.num_steps} tokens, steps {args.train_steps}, losses "
-        f"{lm_run['losses']}; peak memory {lm_peak_gib:.3f} GiB | {card}")
-
-    # 8. Yardstick: blockwise attention in plain PyTorch (the config's
-    # default), in turns with the flash arm (flash, auto, flash, auto).
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(flash_fns.values())
+    lm_run = run_lm_arm("transformer_lm", "flash", steps, workdir / "lm")
+    lm_launches = {kid: fn.launches for kid, fn in flash_fns.items()}
+    lm_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    want = {kid: layers * steps if kid in ("K2", "K3", "K4") else 0
+            for kid in flash_fns}
+    log(f"flash launches in the transformer_lm run: {lm_launches} (expected "
+        f"{want})")
+    if lm_launches != want:
+        fail(f"flash kernels launched {lm_launches}, expected {want}")
+    log(f"transformer_lm (flash, K2-K4): {tokens} tokens a step, steps "
+        f"{steps}, losses {lm_run['losses']}; peak memory {lm_peak_gib:.3f} "
+        f"GiB | {card}")
     lm_arms = [("flash", lm_run)]
     for impl in ("auto", "flash", "auto"):
-        lm_arms.append((impl, run_lm_arm(impl, args.train_steps,
+        lm_arms.append((impl, run_lm_arm("transformer_lm", impl, steps,
                                          workdir / f"lm{len(lm_arms)}")))
-    for name, r in lm_arms:
-        log(f"LM arm {name:>6}: {r['tokens_per_sec']:.0f} tokens/s end to end"
-            f" (steady wall, host batch assembly included); step median "
-            f"{r['median_step_s'] * 1e3:.3f} ms, mean "
-            f"{r['steady_step_time_s'] * 1e3:.3f} ms, max "
-            f"{r['max_step_s'] * 1e3:.3f} ms ({tokens / r['steady_step_time_s']:.0f}"
-            f" tokens/s for the step alone); host batch assembly "
-            f"{r['data_s'] * 1e3:.3f} ms per step, in series | {card}")
-    for impl, arm in (("flash", "LM, flash (K2-K4)"),
-                      ("auto", "LM, blockwise attention")):
+    for label, r in lm_arms:
+        log_arm(f"LM {label}", r, tokens, card)
+    for impl, arm in (("flash", "transformer_lm, flash (K2-K4)"),
+                      ("auto", "transformer_lm, blockwise attention")):
         phase_profile(lm_cfg.replace(attn_impl=impl), arm)
+
+    # 10. The transformer_lm_modern path (rope, GQA 2/8, window 256) with
+    # the staged backward: K2 and both K5 launches once per layer per step,
+    # K3 and K4 never; then the pair backward in turns.
+    mod_cfg = get_config("transformer_lm_modern")
+    mod_layers = mod_cfg.model_kwargs["num_layers"]
+    mod_tokens = mod_cfg.global_batch_size * mod_cfg.num_steps
+    mod_arms = []
+    for bwd in ("staged", "pair", "staged", "pair"):
+        os.environ["DTM_FLASH_BWD"] = bwd
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(flash_fns.values())
+        r = run_lm_arm("transformer_lm_modern", "flash", steps,
+                       workdir / f"modern{len(mod_arms)}")
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        got = {kid: fn.launches for kid, fn in flash_fns.items()}
+        on = ("K2", "K5 dKV", "K5 dQ") if bwd == "staged" else ("K2", "K3",
+                                                                "K4")
+        want = {kid: mod_layers * steps if kid in on else 0
+                for kid in flash_fns}
+        log(f"transformer_lm_modern, {bwd} backward: flash launches {got} "
+            f"(expected {want}); peak memory {r['peak_gib']:.3f} GiB; losses "
+            f"{r['losses']}")
+        if got != want:
+            fail(f"transformer_lm_modern ({bwd}) launched {got}, expected "
+                 f"{want}")
+        if not mod_arms:
+            mod_launches = got
+        mod_arms.append((bwd, r))
+    for label, r in mod_arms:
+        log_arm(f"modern {label}", r, mod_tokens, card)
+    os.environ["DTM_FLASH_BWD"] = "staged"
+    phase_profile(mod_cfg.replace(attn_impl="flash"),
+                  "transformer_lm_modern, flash with the staged backward (K5)")
+    os.environ["DTM_FLASH_BWD"] = "pair"
 
     log(card)
     kernels = [{
         "name": "K1 conv_implicit_gemm",
-        "status": "ported",
         "route": "cuda",
         "source": K1_SOURCE,
         "replaces": K1_REPLACES,
-        "launches": launches,
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"],
+        "launches": k1_launches,
+        "max_abs_err": k1_res["max_abs_err"],
+        "ms": k1_res["ms"],
+        "plain_ms": k1_res["plain_ms"],
+        "bound_ms": k1_res["bound_ms"],
+        "bound_by": k1_res["bound_by"],
+        "library_ms": k1_res["library_ms"],
         "scope": f"sum over the {len(calls)} K1 launches of one ResNet-50 "
-                 f"training step at batch {args.batch_size}",
+                 f"training step at batch {args.batch_size}; library: "
+                 f"F.conv2d (cuDNN)",
+        "at_inception_shapes_ms": k6_res["ms"],
     }]
     main_shape, sweep_shape = FLASH_SHAPES[0][0], FLASH_SHAPES[1][0]
-    for kid, name, replaces in FLASH_KERNELS:
+    for kid, name, replaces in FLASH_KERNELS + STAGED_KERNELS:
         at_a = flash[kid]["timed"][main_shape]
         kernels.append({
             "name": f"{kid} {name}",
-            "status": "ported",
             "route": "cuda",
             "source": FLASH_SOURCE,
             "replaces": replaces,
-            "launches": flash_launches[kid],
+            "launches": (mod_launches if kid.startswith("K5")
+                         else lm_launches)[kid],
             "max_abs_err": flash[kid]["max_abs_err"],
             **at_a,
-            "scope": "one launch at the LM slice's shape B16 T256 H8 D32 "
-                     "causal bf16; max_abs_err over shapes a-d; library: "
+            "scope": "one launch at the LM path's shape B16 T256 H8 D32 "
+                     "causal bf16; launches from the "
+                     + ("transformer_lm_modern" if kid.startswith("K5")
+                        else "transformer_lm") + " run; max_abs_err over "
+                     "shapes a-d; library: "
                      + ("SDPA forward" if kid == "K2" else
                         "SDPA backward, which computes dQ, dK and dV: "
-                        "compare with K3 ms + K4 ms"),
+                        "compare with the sum of the backward launches"),
             "at_flash_sweep_shape": flash[kid]["timed"][sweep_shape],
         })
+    kernels[-1]["dq_vs_k4"] = flash["dq_vs_k4"]
+    kernels.append({
+        "name": "K6 conv_implicit_gemm_pipelined",
+        "route": "cuda",
+        "source": K1_SOURCE,
+        "replaces": K6_REPLACES,
+        "launches": k6_launches,
+        "max_abs_err": k6_res["max_abs_err"],
+        "ms": k6_res["k6_ms"],
+        "plain_ms": k6_res["plain_ms"],
+        "bound_ms": k6_res["bound_ms"],
+        "bound_by": k6_res["bound_by"],
+        "library_ms": k6_res["library_ms"],
+        "scope": f"sum over the {len(inc_calls)} conv core launches of one "
+                 f"Inception-v3 training step at batch {args.batch_size}; "
+                 f"equal to K1 bit for bit at every shape (K1 there: "
+                 f"{k6_res['ms']:.3f} ms); library: F.conv2d (cuDNN)",
+    })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

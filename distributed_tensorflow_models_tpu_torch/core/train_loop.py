@@ -2,8 +2,9 @@
 
 PyTorch counterpart of ``distributed_tensorflow_models_tpu/core/train_loop.py``
 for one device.  The step runs eagerly: forward, loss, ``autograd.grad``
-over the parameter dict, one optimizer update applied in place, and the
-metrics as 0-d tensors (the caller decides when to read them back).
+over the parameter dict, one optimizer update applied in place (then the
+EMA shadows, when kept), and the metrics as 0-d tensors (the caller
+decides when to read them back).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from distributed_tensorflow_models_tpu_torch.core.train_state import TrainState
+from distributed_tensorflow_models_tpu_torch.ops import ema as emalib
 from distributed_tensorflow_models_tpu_torch.ops import losses as losslib
 from distributed_tensorflow_models_tpu_torch.ops import metrics as metriclib
 from distributed_tensorflow_models_tpu_torch.ops import optim
@@ -30,16 +32,28 @@ LossFn = Callable[
 
 
 def classification_loss_fn(model: torch.nn.Module, *,
-                           weight_decay: float = 0.0) -> LossFn:
-    """Forward + loss for image classification: softmax cross entropy and
-    slim-style L2 on kernels.  The model's BN layers update its running
-    statistics in place."""
+                           label_smoothing: float = 0.0,
+                           weight_decay: float = 0.0,
+                           aux_loss_weight: float = 0.0) -> LossFn:
+    """Forward + loss for image classification: softmax cross entropy with
+    optional label smoothing, slim-style L2 on kernels, and Inception-v3's
+    weighted auxiliary-logits loss.  The model returns ``logits`` or, in
+    training with an auxiliary head, ``(logits, aux_logits)``.  Its BN
+    layers update their running statistics in place."""
 
     def loss_fn(params, state, batch, rngs):
-        logits = model(batch["image"], train=True)
+        outputs = model(batch["image"], train=True, rngs=rngs)
+        if isinstance(outputs, (tuple, list)):
+            logits, aux_logits = outputs
+        else:
+            logits, aux_logits = outputs, None
         labels = batch["label"]
-        xent = losslib.mean_softmax_cross_entropy(logits, labels)
+        xent = losslib.mean_softmax_cross_entropy(logits, labels,
+                                                  label_smoothing)
         loss = xent
+        if aux_logits is not None and aux_loss_weight:
+            loss = loss + aux_loss_weight * losslib.mean_softmax_cross_entropy(
+                aux_logits, labels, label_smoothing)
         if weight_decay:
             loss = loss + losslib.l2_weight_decay(params, weight_decay)
         metrics = {
@@ -101,9 +115,15 @@ def per_step_rngs(seed: int, salt: int, rng_names: Sequence[str],
 
 def apply_gradients(state: TrainState, grads: Mapping[str, torch.Tensor],
                     aux: dict) -> TrainState:
-    """Optimizer update + state advance from one gradient computation."""
+    """Optimizer update, EMA update and state advance from one gradient
+    computation."""
     updates, new_opt_state = state.tx.update(grads, state.opt_state)
     optim.apply_updates(state.params, updates)
+    if state.ema_params is not None:
+        # The shadows follow the updated parameters, the decay damped by
+        # the step count before this step (TF's num_updates).
+        emalib.update_ema(state.ema_params, state.params, state.ema_decay,
+                          num_updates=state.step)
     return state.replace(
         step=state.step + 1,
         batch_stats=aux.get("batch_stats", state.batch_stats),
@@ -138,13 +158,46 @@ def make_train_step(loss_fn: LossFn, rng_names: Sequence[str] = ("dropout",)):
     return make_train_step_fn(loss_fn, rng_names)
 
 
-def make_eval_step(model: torch.nn.Module) -> Callable[[TrainState, Batch], dict]:
+def _float_leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        if tree.is_floating_point():
+            yield tree
+    elif isinstance(tree, Mapping):
+        for v in tree.values():
+            yield from _float_leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _float_leaves(v)
+
+
+def state_is_finite(state: TrainState) -> bool:
+    """True when every float tensor of the trajectory-carrying state —
+    parameters, BN statistics, carry, optimizer slots, EMA shadows — is
+    finite; one reduction per tensor and one read back in all."""
+    leaves = [leaf for tree in (state.params, state.batch_stats, state.carry,
+                                state.opt_state, state.ema_params)
+              for leaf in _float_leaves(tree)]
+    if not leaves:
+        return True
+    return bool(torch.stack([torch.isfinite(leaf).all().to(leaves[0].device)
+                             for leaf in leaves]).all())
+
+
+def make_eval_step(model: torch.nn.Module, use_ema: bool = True
+                   ) -> Callable[[TrainState, Batch], dict]:
     """Eval step returning top-1/top-5 counts summed over the batch; rows
-    with a negative label are padding and are not counted."""
+    with a negative label are padding and are not counted.  With
+    ``use_ema`` the model runs on ``state.eval_params`` (the EMA shadows
+    when kept), else on ``state.params``."""
 
     @torch.no_grad()
     def eval_fn(state: TrainState, batch: Batch):
-        logits = model(batch["image"], train=False)
+        params = state.eval_params if use_ema else state.params
+        outputs = torch.func.functional_call(
+            model, {**params, **state.batch_stats}, (batch["image"],),
+            {"train": False})
+        logits = (outputs[0] if isinstance(outputs, (tuple, list))
+                  else outputs)
         labels = batch["label"]
         valid = (labels >= 0).to(torch.float32)
         return {

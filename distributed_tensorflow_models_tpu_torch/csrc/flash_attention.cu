@@ -1,9 +1,14 @@
-// FlashAttention-2 for Hopper in bf16: forward (K2), dK/dV (K3) and dQ (K4).
+// FlashAttention-2 for Hopper in bf16: forward (K2), dK/dV (K3), dQ (K4) and
+// the staged backward (K5).
 //
 // Replaces the TPU kernels of the JAX package's ops/attention.py:
 //   K2  _flash_kernel       (forward: online softmax, writes O and the LSE)
 //   K3  _flash_dkv_kernel   (stage_ds=False: dK and dV per query head)
 //   K4  _flash_dq_kernel    (dQ)
+//   K5  _flash_dkv_kernel(stage_ds=True) + _flash_dq_staged_kernel: K3 that
+//       also stores each dS tile it computes, in bf16, to a [B*H, Tq, Tkv]
+//       buffer, then dQ += scale * dS K from that buffer, with no second
+//       rebuild of S and P
 // and computes what they compute, with the same rounding points:
 //   S  = (Q K^T with bf16 inputs and f32 accumulation) * scale, in f32;
 //   masked scores are the finite NEG_INF = -1e30 (never -inf), so that a
@@ -23,6 +28,18 @@
 // Positions past the end of the sequence (a length that is not a multiple of
 // the tile) are excluded exactly: their scores are -inf and never reach a
 // row's max, which stays >= NEG_INF, so no NaN can arise.
+//
+// K5.  The staged dKV launch is K3 instantiated with STAGE_DS: K3 forms dS^T
+// (keys by queries) in shared memory, so each warp stores its 16 key rows
+// transposed into the buffer's [query, key] layout, its lanes running along
+// the keys.  Tiles that K3 skips stay unwritten.  The staged dQ launch has
+// K4's grid and tile skips (the same should_run on the same 64x64 tiles, so
+// it reads only tiles the dKV launch wrote), loads each dS tile and K tile
+// and accumulates acc += scale * (dS K) through K4's own SCALED product: dQ
+// equals K4's wherever the dS that K3 forms transposed equals, bit for bit,
+// the dS that K4 forms by rows.  The buffer costs 2 bytes per (query, key)
+// pair of the tiles that run, written once and read once: at B4 T2048 H8
+// causal about 138 MB each way.
 //
 // The grid.  The TPU carries the softmax state (K2) and the dK/dV or dQ sums
 // (K3, K4) across a sequential grid axis.  Here that axis is a loop inside
@@ -76,6 +93,7 @@ struct Params {
   const float* delta;  // [B*H, Tq] (backward)
   bf16* out;   // O (K2), dQ (K4), dK per query head (K3)
   bf16* out2;  // dV per query head (K3)
+  bf16* ds;    // [B*H, Tq, Tkv] dS stage (K5: written by dKV, read by dQ)
   float* lse_out;  // [B*H, Tq] (K2)
   int Tq, Tkv, H, Hkv, group;
   float scale;
@@ -209,6 +227,13 @@ constexpr size_t fwd_smem_bytes() {
          + (size_t)64 * PLD * 2         // P
          + (size_t)64 * (D + 4) * 4     // output accumulator
          + (size_t)2 * 64 * 4;          // m, l
+}
+
+template <int D>
+constexpr size_t dq_staged_smem_bytes() {
+  return (size_t)64 * (D + 8) * 2       // K
+         + (size_t)64 * PLD * 2         // dS
+         + (size_t)64 * SLD * 4;        // epilogue staging
 }
 
 template <int D>
@@ -346,8 +371,8 @@ __global__ void __launch_bounds__(THREADS) dtm_flash_fwd_kernel(const Params p) 
   }
 }
 
-// ------------------------------------------------------------- K3 dK and dV
-template <int D>
+// ------------------------------------------------- K3 dK and dV (K5: + dS)
+template <int D, bool STAGE_DS>
 __global__ void __launch_bounds__(THREADS) dtm_flash_dkv_kernel(const Params p) {
   constexpr int LD = D + 8;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -423,6 +448,18 @@ __global__ void __launch_bounds__(THREADS) dtm_flash_dkv_kernel(const Params p) 
       sdS[krow * PLD + col] = __float2bfloat16(ds);
     }
     __syncwarp();
+
+    if (STAGE_DS) {
+      // The warp's 16 keys of dS^T as ds[bh, q0 + query, kv0 + key]: each
+      // half-warp stores 16 consecutive keys of one query.
+      bf16* dst = p.ds + ((long long)bh * p.Tq + q0) * p.Tkv + kv0;
+      for (int e = lane; e < 16 * 64; e += 32) {
+        const int qc = e >> 4;
+        const int kr = warp * 16 + (e & 15);
+        if (qc < q_rows && kr < kv_rows)
+          dst[(long long)qc * p.Tkv + kr] = sdS[kr * PLD + qc];
+      }
+    }
 
     accumulate_pm<D, false>(dv, sP + (warp * 16) * PLD, sdO, LD, 1.0f);
     accumulate_pm<D, true>(dk, sdS + (warp * 16) * PLD, sQ, LD, p.scale);
@@ -520,6 +557,75 @@ __global__ void __launch_bounds__(THREADS) dtm_flash_dq_kernel(const Params p) {
                      p.out + q_at + (long long)(warp * 16) * q_rs, q_rs, rows);
 }
 
+// ------------------------------------------------------------- K5 staged dQ
+// 64 query rows x 64 keys of the dS stage into shared memory (pitch PLD);
+// rows past ``rows`` and keys past ``cols`` are zero.
+__device__ __forceinline__ void load_ds_tile(bf16* sdS, const bf16* src,
+                                             long long row_stride, int rows,
+                                             int cols, bool vec) {
+  for (int c = threadIdx.x; c < 64 * 8; c += THREADS) {
+    const int r = c >> 3;
+    const int cc = (c & 7) * 8;
+    bf16* dst = sdS + r * PLD + cc;
+    if (vec) {
+      // Tkv % 8 == 0: each 8-key chunk lies wholly inside or outside.
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (r < rows && cc < cols)
+        val = *reinterpret_cast<const uint4*>(src + r * row_stride + cc);
+      *reinterpret_cast<uint4*>(dst) = val;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        dst[e] = (r < rows && cc + e < cols) ? src[r * row_stride + cc + e]
+                                             : __float2bfloat16(0.0f);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+    dtm_flash_dq_staged_kernel(const Params p) {
+  constexpr int LD = D + 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sdS = sK + 64 * LD;
+  float* sStage = reinterpret_cast<float*>(sdS + 64 * PLD);
+
+  const int warp = threadIdx.x >> 5;
+  const int i = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh - b * p.H, hk = h / p.group;
+  const int q0 = i * BQ;
+  const int q_rows = min(BQ, p.Tq - q0);
+  const long long q_rs = (long long)p.H * D;
+  const long long kv_rs = (long long)p.Hkv * D;
+  const bf16* ds_rows = p.ds + ((long long)bh * p.Tq + q0) * p.Tkv;
+  const bool vec = (p.Tkv & 7) == 0;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dq[D / 16];
+#pragma unroll
+  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(dq[n], 0.0f);
+
+  const int n_kv = (p.Tkv + BKV - 1) / BKV;
+  for (int j = 0; j < n_kv; ++j) {
+    if (!should_run(p, i, j)) continue;  // the tiles the dKV launch wrote
+    const int kv0 = j * BKV;
+    const int kv_rows = min(BKV, p.Tkv - kv0);
+    __syncthreads();  // the last tile's reads are done
+    const long long kv_at = ((long long)b * p.Tkv + kv0) * kv_rs + (long long)hk * D;
+    load_rows<D>(sK, LD, p.k + kv_at, kv_rs, kv_rows);
+    load_ds_tile(sdS, ds_rows + kv0, p.Tkv, q_rows, kv_rows, vec);
+    __syncthreads();
+    accumulate_pm<D, true>(dq, sdS + (warp * 16) * PLD, sK, LD, p.scale);
+  }
+  __syncwarp();
+
+  const long long q_at = ((long long)b * p.Tq + q0) * q_rs + (long long)h * D;
+  const int rows = max(0, min(16, q_rows - warp * 16));
+  store_rows_bf16<D>(dq, sStage + (warp * 16) * SLD,
+                     p.out + q_at + (long long)(warp * 16) * q_rs, q_rs, rows);
+}
+
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, const Params& p,
                    cudaStream_t stream) {
@@ -531,7 +637,7 @@ cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, const Params& p,
   return cudaGetLastError();
 }
 
-enum Which { FWD = 0, DKV = 1, DQ = 2 };
+enum Which { FWD = 0, DKV = 1, DQ = 2, DKV_STAGED = 3, DQ_STAGED = 4 };
 
 template <int D>
 cudaError_t dispatch(Which which, const Params& p, int B, cudaStream_t s) {
@@ -543,8 +649,14 @@ cudaError_t dispatch(Which which, const Params& p, int B, cudaStream_t s) {
       return launch(dtm_flash_fwd_kernel<D>, fwd_smem_bytes<D>(),
                     dim3(n_q, bh), p, s);
     case DKV:
-      return launch(dtm_flash_dkv_kernel<D>, bwd_smem_bytes<D>(),
+      return launch(dtm_flash_dkv_kernel<D, false>, bwd_smem_bytes<D>(),
                     dim3(n_kv, bh), p, s);
+    case DKV_STAGED:
+      return launch(dtm_flash_dkv_kernel<D, true>, bwd_smem_bytes<D>(),
+                    dim3(n_kv, bh), p, s);
+    case DQ_STAGED:
+      return launch(dtm_flash_dq_staged_kernel<D>, dq_staged_smem_bytes<D>(),
+                    dim3(n_q, bh), p, s);
     default:
       return launch(dtm_flash_dq_kernel<D>, bwd_smem_bytes<D>(),
                     dim3(n_q, bh), p, s);
@@ -637,6 +749,43 @@ int dtm_flash_dq_bf16(const void* q, const void* k, const void* v,
   p.out = static_cast<bf16*>(dq);
   return run(DQ, p, B, Tq, Tkv, H, Hkv, D, scale, causal, window, q_offset,
              kv_offset, stream);
+}
+
+// K5: K3's outputs plus the dS stage ds [B*H, Tq, Tkv] bf16 (tiles that no
+// pair of the mask reaches are left unwritten).
+int dtm_flash_dkv_staged_bf16(const void* q, const void* k, const void* v,
+                              const void* dout, const void* lse,
+                              const void* delta, void* dk, void* dv, void* ds,
+                              int B, int Tq, int Tkv, int H, int Hkv, int D,
+                              float scale, int causal, long long window,
+                              long long q_offset, long long kv_offset,
+                              void* stream) {
+  Params p = {};
+  p.q = static_cast<const bf16*>(q);
+  p.k = static_cast<const bf16*>(k);
+  p.v = static_cast<const bf16*>(v);
+  p.dout = static_cast<const bf16*>(dout);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.out = static_cast<bf16*>(dk);
+  p.out2 = static_cast<bf16*>(dv);
+  p.ds = static_cast<bf16*>(ds);
+  return run(DKV_STAGED, p, B, Tq, Tkv, H, Hkv, D, scale, causal, window,
+             q_offset, kv_offset, stream);
+}
+
+// K5: dq [B, Tq, H, D] from the dS stage and K.
+int dtm_flash_dq_staged_bf16(const void* ds, const void* k, void* dq, int B,
+                             int Tq, int Tkv, int H, int Hkv, int D,
+                             float scale, int causal, long long window,
+                             long long q_offset, long long kv_offset,
+                             void* stream) {
+  Params p = {};
+  p.ds = static_cast<bf16*>(const_cast<void*>(ds));
+  p.k = static_cast<const bf16*>(k);
+  p.out = static_cast<bf16*>(dq);
+  return run(DQ_STAGED, p, B, Tq, Tkv, H, Hkv, D, scale, causal, window,
+             q_offset, kv_offset, stream);
 }
 
 const char* dtm_cuda_error_string(int err) {

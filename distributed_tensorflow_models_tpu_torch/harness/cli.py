@@ -9,7 +9,8 @@ Flags are spelled as in the JAX package's CLI.  ``--device`` defaults to
 given.  ``train`` prints one JSON object with the final metrics, the
 steady-state step time and the end-to-end images/s and, for an LM, tokens/s
 (host batch assembly included).  ``--attn-impl`` picks the attention of
-attention models: ``flash`` runs kernels K2-K4 on the card.
+attention models: ``flash`` runs kernels K2-K4 on the card (K2 and K5
+with ``DTM_FLASH_BWD=staged``).
 """
 
 from __future__ import annotations

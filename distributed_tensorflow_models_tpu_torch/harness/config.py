@@ -2,8 +2,8 @@
 
 The port's own copy of the fields and named configs of
 ``distributed_tensorflow_models_tpu/harness/config.py`` that the ported
-training slices read (ResNet-50 and the transformer LM), with the same
-names and values.  ``resnet50_synthetic_tiny`` and ``transformer_lm_tiny``
+training slices read (ResNet-50, Inception-v3 and the transformer LMs),
+with the same names and values.  ``resnet50_synthetic_tiny`` and ``transformer_lm_tiny``
 are the port's, small enough to train on a CPU in tests: ResNet-50's depth
 at width 8 on 32x32 images; 2 layers, 4 heads, d_model 64, d_ff 128,
 vocab 256 at sequence 64 and batch 4.
@@ -19,13 +19,15 @@ from distributed_tensorflow_models_tpu_torch.ops import optim
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
-    name: str = "sgd"  # sgd | momentum | adam
+    name: str = "sgd"  # sgd | momentum | rmsprop | adam
     learning_rate: float = 0.1
     # Exponential decay (staircase) as in the reference; None = constant.
     decay_steps: Optional[int] = None
     decay_rate: float = 0.94
     staircase: bool = True
     momentum: float = 0.9
+    rmsprop_decay: float = 0.9
+    rmsprop_epsilon: float = 1.0
     # Global-norm gradient clipping before the optimizer; None = off.
     clip_global_norm: Optional[float] = None
 
@@ -42,6 +44,10 @@ class OptimizerConfig:
             tx = optim.sgd(lr)
         elif self.name == "momentum":
             tx = optim.tf_momentum(lr, self.momentum)
+        elif self.name == "rmsprop":
+            tx = optim.tf_rmsprop(lr, decay=self.rmsprop_decay,
+                                  momentum=self.momentum,
+                                  epsilon=self.rmsprop_epsilon)
         elif self.name == "adam":
             tx = optim.adam(lr)
         else:
@@ -63,7 +69,13 @@ class ExperimentConfig:
     global_batch_size: int = 256
     optimizer: OptimizerConfig = dataclasses.field(
         default_factory=OptimizerConfig)
+    # Classification loss: smoothed targets and the weight of the auxiliary
+    # head's loss (Inception-v3).
+    label_smoothing: float = 0.0
     weight_decay: float = 0.0
+    aux_loss_weight: float = 0.0
+    # Decay of the EMA of the weights kept in the train state; None = none.
+    ema_decay: Optional[float] = None
     # LM settings: sequence length per segment and the token vocabulary.
     num_steps: int = 35
     vocab_size: int = 10000
@@ -71,7 +83,8 @@ class ExperimentConfig:
     log_every_steps: int = 100
     seed: int = 0
     # Attention for attention models: auto (= blockwise) | reference |
-    # blockwise | flash (kernels K2-K4 on the card).
+    # blockwise | flash (kernels K2-K4 on the card; K2 and K5 with
+    # DTM_FLASH_BWD=staged).
     attn_impl: str = "auto"
     # LM head: project and take the cross entropy chunked in bf16
     # (ops/losses.py::chunked_unembed_xent) instead of full f32 logits.
@@ -88,6 +101,32 @@ def _add(cfg: ExperimentConfig) -> ExperimentConfig:
     _CONFIGS[cfg.name] = cfg
     return cfg
 
+
+# --- ImageNet Inception-v3 (slim). -----------------------------------------
+_add(
+    ExperimentConfig(
+        name="inception_v3_imagenet",
+        model="inception_v3",
+        dataset="imagenet",
+        image_size=299,
+        global_batch_size=256,
+        optimizer=OptimizerConfig(
+            name="rmsprop",
+            learning_rate=0.045,
+            rmsprop_decay=0.9,
+            momentum=0.9,
+            rmsprop_epsilon=1.0,
+            # 0.94 decay every 2 epochs (epoch ~= 1.28M/256 = 5005 steps).
+            decay_steps=10010,
+            decay_rate=0.94,
+        ),
+        label_smoothing=0.1,
+        aux_loss_weight=0.4,
+        weight_decay=4e-5,
+        ema_decay=0.9999,
+        train_steps=500_000,
+    )
+)
 
 # --- ImageNet ResNet-50 — the async-PS vs sync A/B model. ----------------
 _add(
@@ -176,6 +215,21 @@ _add(
         num_steps=64,
         vocab_size=256,
         train_steps=2,
+    )
+)
+
+
+# Modern decoder recipe: rotary positions, grouped-query KV (2 of 8 heads),
+# sliding-window attention.
+_add(
+    _CONFIGS["transformer_lm"].replace(
+        name="transformer_lm_modern",
+        model_kwargs={
+            **_CONFIGS["transformer_lm"].model_kwargs,
+            "pos_encoding": "rope",
+            "num_kv_heads": 2,
+            "attn_window": 256,
+        },
     )
 )
 

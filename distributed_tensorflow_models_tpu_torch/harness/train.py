@@ -77,7 +77,8 @@ def build_model(cfg: ExperimentConfig, device: torch.device) -> torch.nn.Module:
 
 
 def build_state(cfg: ExperimentConfig, device: torch.device) -> TrainState:
-    return TrainState.create(build_model(cfg, device), cfg.optimizer.make())
+    return TrainState.create(build_model(cfg, device), cfg.optimizer.make(),
+                             ema_decay=cfg.ema_decay)
 
 
 def build_loss(cfg: ExperimentConfig, state: TrainState):
@@ -88,7 +89,8 @@ def build_loss(cfg: ExperimentConfig, state: TrainState):
         return train_loop.lm_loss_fn(state.model,
                                      fused_unembed=cfg.fused_unembed)
     return train_loop.classification_loss_fn(
-        state.model, weight_decay=cfg.weight_decay)
+        state.model, label_smoothing=cfg.label_smoothing,
+        weight_decay=cfg.weight_decay, aux_loss_weight=cfg.aux_loss_weight)
 
 
 def build_step(cfg: ExperimentConfig, state: TrainState):

@@ -94,7 +94,9 @@ class ResNet(nn.Module):
         self.head = Dense(features, num_classes, dtype=torch.float32,
                           generator=generator)
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, rngs=None):
+        """``rngs`` is taken for the classification step's uniform call
+        and unused: the ResNet has no dropout."""
         x = x.to(self.dtype)
         x = self.conv_init(x)
         x = torch.relu(self.bn_init(x, not train))

@@ -1,4 +1,4 @@
-"""Attention: reference, blockwise, and flash (kernels K2, K3 and K4).
+"""Attention: reference, blockwise, and flash (kernels K2 to K5).
 
 PyTorch counterpart of ``distributed_tensorflow_models_tpu/ops/attention.py``,
 with the same API and the layout ``[batch, seq, heads, head_dim]`` (BTHD)
@@ -10,11 +10,14 @@ everywhere:
   autograd through the loop; the ``auto`` default.
 - :func:`flash_attention` / :func:`flash_attention_chunk` —
   ``torch.autograd.Function``s whose forward is K2 and whose backward is
-  K3 (dK, dV) then K4 (dQ), all in ``csrc/flash_attention.cu``.  On CPU
-  tensors each runs its plain version beside it here
-  (:func:`_flash_forward_reference`, :func:`_flash_dkv_reference`,
-  :func:`_flash_dq_reference`); on CUDA tensors it launches the kernel or
-  raises.
+  K3 (dK, dV) then K4 (dQ), or with ``bwd_staged`` (``DTM_FLASH_BWD=staged``)
+  K5: the dKV launch that also stages each dS tile in an O(T^2) bf16
+  buffer, then the dQ launch that reads it back instead of rebuilding S
+  and P; all in ``csrc/flash_attention.cu``.  On CPU tensors each runs its
+  plain version beside it here (:func:`_flash_forward_reference`,
+  :func:`_flash_dkv_reference`, :func:`_flash_dq_reference`,
+  :func:`_flash_dkv_staged_reference`, :func:`_flash_dq_staged_reference`);
+  on CUDA tensors it launches the kernel or raises.
 
 The public ``block_q``/``block_kv``, ``_check_blocks``' divisibility rule
 and ``DTM_FLASH_TILE`` keep their JAX meaning and validation here.  The
@@ -279,6 +282,13 @@ def _flash_dkv_reference(q, k, v, do, lse, delta, *, scale, causal, window,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _dq_from_ds(ds, ke, scale, dtype):
+    """``scale * dS K`` accumulated in f32, for dS ``[B, H, Tq, Tkv]`` in
+    K's dtype and K expanded to the query heads."""
+    dq = scale * torch.einsum("bhqk,bkhd->bqhd", ds.float(), ke.float())
+    return dq.to(dtype)
+
+
 def _flash_dq_reference(q, k, v, do, lse, delta, *, scale, causal, window,
                         q_offset, kv_offset):
     """Plain K4: ``dq [B, Tq, H, D]`` in q's dtype, scale * dS(k's dtype)
@@ -286,9 +296,36 @@ def _flash_dq_reference(q, k, v, do, lse, delta, *, scale, causal, window,
     ke, ve = _expand_kv(q, k, v)
     _, ds = _p_and_ds(q, ke, ve, do, lse, delta, scale=scale, causal=causal,
                       window=window, q_offset=q_offset, kv_offset=kv_offset)
-    dq = scale * torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(),
-                              ke.float())
-    return dq.to(q.dtype)
+    return _dq_from_ds(ds.to(k.dtype), ke, scale, q.dtype)
+
+
+def _flash_dkv_staged_reference(q, k, v, do, lse, delta, *, scale, causal,
+                                window, q_offset, kv_offset):
+    """Plain K5 dKV launch: plain K3's ``(dk, dv)`` and the dS stage
+    ``[B*H, Tq, Tkv]`` in k's dtype, every pair written (a masked pair's
+    dS is 0)."""
+    kw = dict(scale=scale, causal=causal, window=window, q_offset=q_offset,
+              kv_offset=kv_offset)
+    dk, dv = _flash_dkv_reference(q, k, v, do, lse, delta, **kw)
+    ke, ve = _expand_kv(q, k, v)
+    _, ds = _p_and_ds(q, ke, ve, do, lse, delta, **kw)
+    B, H, Tq, Tkv = ds.shape
+    return dk, dv, ds.to(k.dtype).reshape(B * H, Tq, Tkv)
+
+
+def _flash_dq_staged_reference(ds, k, *, scale, causal, window, q_offset,
+                               kv_offset):
+    """Plain K5 dQ launch: ``dq [B, Tq, H, D]`` (bf16 for bf16 K) from the
+    dS stage ``[B*H, Tq, Tkv]`` and K, scale * dS K accumulated in f32.  It
+    reads every pair of the stage, where the kernel reads only the tiles
+    that run; the mask arguments are the kernel's and unused here."""
+    del causal, window, q_offset, kv_offset
+    B = k.shape[0]
+    H = ds.shape[0] // B
+    Tq = ds.shape[1]
+    # _expand_kv reads only the query's shape.
+    ke, _ = _expand_kv(torch.empty(B, Tq, H, k.shape[3], device="meta"), k, k)
+    return _dq_from_ds(ds.reshape(B, H, Tq, -1), ke, scale, k.dtype)
 
 
 # ------------------------------------------------------- kernel wrappers
@@ -302,8 +339,11 @@ def _load() -> ctypes.CDLL:
     # Pointers first: q, k, v, o, lse (K2); q, k, v, dout, lse, delta, dk,
     # dv (K3); q, k, v, dout, lse, delta, dq (K4).  Then B, Tq, Tkv, H,
     # Hkv, D, scale, causal, window, q_offset, kv_offset, the stream.
+    # K5: q, k, v, dout, lse, delta, dk, dv, ds (dKV); ds, k, dq (dQ).
     for name, n_ptr in (("dtm_flash_fwd_bf16", 5), ("dtm_flash_dkv_bf16", 8),
-                        ("dtm_flash_dq_bf16", 7)):
+                        ("dtm_flash_dq_bf16", 7),
+                        ("dtm_flash_dkv_staged_bf16", 9),
+                        ("dtm_flash_dq_staged_bf16", 3)):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * n_ptr + tail
         fn.restype = ctypes.c_int
@@ -402,9 +442,70 @@ def flash_dq(q, k, v, do, lse, delta, *, scale, causal, window, q_offset,
     return dq
 
 
+def flash_dkv_staged(q, k, v, do, lse, delta, *, scale, causal, window,
+                     q_offset, kv_offset, ds=None):
+    """Launch K5's dKV kernel: K3's per-query-head ``(dk, dv)`` and the dS
+    stage ``ds [B*H, Tq, Tkv]`` bf16.  Tiles that no pair of the mask
+    reaches stay as ``ds`` held them: pass a buffer to see which (the
+    default is ``torch.empty``).  Each launch adds one to
+    ``flash_dkv_staged.launches``."""
+    _check_kernel_inputs("flash_dkv_staged", q, k, v, do, lse, delta)
+    B, Tq, H, D = q.shape
+    Tkv = k.shape[1]
+    if ds is None:
+        ds = torch.empty(B * H, Tq, Tkv, dtype=k.dtype, device=q.device)
+    elif (ds.shape != (B * H, Tq, Tkv) or ds.dtype != k.dtype
+          or ds.device != q.device or not ds.is_contiguous()):
+        raise ValueError(f"flash_dkv_staged: ds must be a contiguous "
+                         f"{(B * H, Tq, Tkv)} {k.dtype} tensor on {q.device}")
+    dk = torch.empty(B, Tkv, H, D, dtype=k.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    lib = _load()
+    rc = lib.dtm_flash_dkv_staged_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        ds.data_ptr(),
+        *_tail(q, k, scale, causal, window, q_offset, kv_offset))
+    _kernels.check(lib, rc, "flash_dkv_staged (K5)")
+    flash_dkv_staged.launches += 1
+    return dk, dv, ds
+
+
+def flash_dq_staged(ds, k, *, scale, causal, window, q_offset, kv_offset):
+    """Launch K5's dQ kernel: ``dq [B, Tq, H, D]`` bf16 from the dS stage
+    ``ds [B*H, Tq, Tkv]`` and K, reading only the tiles that run.  Each
+    launch adds one to ``flash_dq_staged.launches``."""
+    if ds.dim() != 3 or k.dim() != 4 or ds.shape[0] % k.shape[0]:
+        raise ValueError(f"flash_dq_staged: ds {tuple(ds.shape)} is not "
+                         f"[B*H, Tq, Tkv] for k {tuple(k.shape)}")
+    B, Tkv, Hkv, D = k.shape
+    H, Tq = ds.shape[0] // B, ds.shape[1]
+    if ds.shape[2] != Tkv:
+        raise ValueError(f"flash_dq_staged: ds has {ds.shape[2]} keys, k "
+                         f"{Tkv}")
+    if ds.dtype != torch.bfloat16:
+        raise TypeError(f"flash_dq_staged takes a bfloat16 ds, got {ds.dtype}")
+    if not (ds.is_cuda and ds.device == k.device and ds.is_contiguous()
+            and ds.data_ptr() % 16 == 0):
+        raise ValueError("flash_dq_staged takes a contiguous, 16-byte "
+                         "aligned ds on k's CUDA device")
+    dq = torch.empty(B, Tq, H, D, dtype=k.dtype, device=k.device)
+    # dq stands in for q: the checks K2-K4 make of q, k and v.
+    _check_kernel_inputs("flash_dq_staged", dq, k, k)
+    lib = _load()
+    rc = lib.dtm_flash_dq_staged_bf16(
+        ds.data_ptr(), k.data_ptr(), dq.data_ptr(),
+        *_tail(dq, k, scale, causal, window, q_offset, kv_offset))
+    _kernels.check(lib, rc, "flash_dq_staged (K5)")
+    flash_dq_staged.launches += 1
+    return dq
+
+
 flash_forward.launches = 0
 flash_dkv.launches = 0
 flash_dq.launches = 0
+flash_dkv_staged.launches = 0
+flash_dq_staged.launches = 0
 
 
 def _on_cpu(*tensors) -> bool:
@@ -417,11 +518,12 @@ def _on_cpu(*tensors) -> bool:
 
 class _Flash(torch.autograd.Function):
     """``(out, lse [B, Tq, H])`` with the FlashAttention-2 backward: K2
-    forward; K3 then K4 backward, rebuilding P from the saved LSE.  The LSE
-    cotangent folds into delta."""
+    forward; K3 then K4 backward, rebuilding P from the saved LSE, or with
+    ``staged`` K5's two launches.  The LSE cotangent folds into delta."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, window, q_offset, kv_offset):
+    def forward(ctx, q, k, v, causal, scale, window, q_offset, kv_offset,
+                staged):
         kw = dict(scale=scale, causal=causal, window=window,
                   q_offset=q_offset, kv_offset=kv_offset)
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -430,6 +532,7 @@ class _Flash(torch.autograd.Function):
         out, lse = fwd(q, k, v, **kw)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = kw
+        ctx.staged = staged
         ctx.set_materialize_grads(False)
         return out, lse.transpose(1, 2)
 
@@ -445,7 +548,14 @@ class _Flash(torch.autograd.Function):
             delta = delta - g_lse.float().transpose(1, 2)
         delta = delta.contiguous()
         args = (q, k, v, g_out, lse, delta)
-        if _on_cpu(*args):
+        cpu = _on_cpu(*args)
+        if ctx.staged:
+            dkv, dq_of = ((_flash_dkv_staged_reference,
+                           _flash_dq_staged_reference) if cpu
+                          else (flash_dkv_staged, flash_dq_staged))
+            dk, dv, ds = dkv(*args, **ctx.kw)
+            dq = dq_of(ds, k, **ctx.kw)
+        elif cpu:
             dk, dv = _flash_dkv_reference(*args, **ctx.kw)
             dq = _flash_dq_reference(*args, **ctx.kw)
         else:
@@ -458,11 +568,11 @@ class _Flash(torch.autograd.Function):
             B, Tkv, Hkv, D = k.shape
             dk = dk.float().view(B, Tkv, Hkv, grp, D).sum(3).to(k.dtype)
             dv = dv.float().view(B, Tkv, Hkv, grp, D).sum(3).to(v.dtype)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def _flash(q, k, v, causal, scale, block_q, block_kv, window, q_offset,
-           kv_offset):
+           kv_offset, staged=False):
     window = _check_window(window)
     _group_size(q, k)
     Tq, Tkv = q.shape[1], k.shape[1]
@@ -474,7 +584,7 @@ def _flash(q, k, v, causal, scale, block_q, block_kv, window, q_offset,
                   block_q if block_q is not None else _auto_block_bwd(Tq),
                   block_kv if block_kv is not None else _auto_block_bwd(Tkv))
     return _Flash.apply(q, k, v, causal, _scale(q, scale), window,
-                        q_offset, kv_offset)
+                        q_offset, kv_offset, staged)
 
 
 def flash_attention(q, k, v, causal: bool = False,
@@ -483,13 +593,12 @@ def flash_attention(q, k, v, causal: bool = False,
                     block_kv: Optional[int] = None,
                     window: Optional[int] = None,
                     bwd_staged: bool = False) -> torch.Tensor:
-    """Flash attention, BTHD in and out: K2 forward, K3 + K4 backward.
-    (The JAX function's ``interpret`` argument has no counterpart.)"""
-    if bwd_staged:
-        raise NotImplementedError(
-            "the staged flash backward (K5, DTM_FLASH_BWD=staged) is not "
-            "ported yet")
-    out, _ = _flash(q, k, v, causal, scale, block_q, block_kv, window, 0, 0)
+    """Flash attention, BTHD in and out: K2 forward, K3 + K4 backward, or
+    with ``bwd_staged`` the K5 backward (the same gradients, through an
+    O(T^2) dS buffer).  (The JAX function's ``interpret`` argument has no
+    counterpart.)"""
+    out, _ = _flash(q, k, v, causal, scale, block_q, block_kv, window, 0, 0,
+                    bwd_staged)
     return out
 
 

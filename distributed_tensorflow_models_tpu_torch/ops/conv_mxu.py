@@ -1,12 +1,14 @@
-"""Implicit-GEMM 2-D convolution: the conv path that runs kernel K1.
+"""Implicit-GEMM 2-D convolution: the conv path that runs kernels K1 and K6.
 
 PyTorch counterpart of ``distributed_tensorflow_models_tpu/ops/conv_mxu.py``
 with the same routing and structure:
 
 - ``_Core`` — stride-1 VALID conv ``[B,Hp,Wp,Cin] x [kh,kw,Cin,Cout]`` as a
   ``torch.autograd.Function``.  Forward runs K1
-  (``csrc/conv_implicit_gemm.cu``) on CUDA tensors and
-  :func:`_core_reference` on CPU tensors.  Backward: dx re-enters the same
+  (``csrc/conv_implicit_gemm.cu``) on CUDA tensors, or K6, its persistent
+  ring-pipelined form in the same file, when ``DTM_CONV_MXU_PIPELINE=1``
+  (read on every call); on CPU tensors it runs :func:`_core_reference`,
+  the plain version of both.  Backward: dx re-enters the same
   function on the (kh-1, kw-1)-padded cotangent with the spatially
   rotated, IO-swapped kernel; dw is kh*kw window dots.
 - strides are decomposed outside the kernel into a sum of s_h*s_w
@@ -26,6 +28,7 @@ not carried over: K1's blocks run in no order and each loads its own halo.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 import torch.nn.functional as F
@@ -54,19 +57,17 @@ def _core_reference(xpad: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return acc.reshape(b, oh, ow, cout).to(xpad.dtype)
 
 
-def conv_implicit_gemm(xpad: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """Launch K1 on CUDA tensors: bf16, contiguous NHWC ``xpad`` and HWIO
-    ``kernel`` on one device.  Raises on anything else; never falls back.
-    Each launch adds one to ``conv_implicit_gemm.launches``."""
+def _check_kernel_inputs(what: str, xpad: torch.Tensor,
+                         kernel: torch.Tensor) -> None:
+    """What K1 and K6 take: bf16, contiguous NHWC ``xpad`` and HWIO
+    ``kernel`` on one CUDA device, the kernel no larger than the input."""
     if not (xpad.is_cuda and kernel.is_cuda):
-        raise ValueError("conv_implicit_gemm takes CUDA tensors only")
+        raise ValueError(f"{what} takes CUDA tensors only")
     if xpad.device != kernel.device:
         raise ValueError(f"devices differ: {xpad.device} vs {kernel.device}")
     if xpad.dtype != torch.bfloat16 or kernel.dtype != torch.bfloat16:
         raise TypeError(
-            f"conv_implicit_gemm takes bfloat16, got {xpad.dtype} x "
-            f"{kernel.dtype}"
-        )
+            f"{what} takes bfloat16, got {xpad.dtype} x {kernel.dtype}")
     if xpad.dim() != 4 or kernel.dim() != 4:
         raise ValueError("expected NHWC input and HWIO kernel")
     b, hp, wp, cin = xpad.shape
@@ -76,39 +77,84 @@ def conv_implicit_gemm(xpad: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor
     if kh > hp or kw > wp:
         raise ValueError(f"kernel {kh}x{kw} larger than input {hp}x{wp}")
     if not (xpad.is_contiguous() and kernel.is_contiguous()):
-        raise ValueError("conv_implicit_gemm takes contiguous tensors")
+        raise ValueError(f"{what} takes contiguous tensors")
+
+
+def _launch(what: str, entry: str, xpad: torch.Tensor,
+            kernel: torch.Tensor) -> torch.Tensor:
+    _check_kernel_inputs(what, xpad, kernel)
+    b, hp, wp, cin = xpad.shape
+    kh, kw, _, cout = kernel.shape
     y = torch.empty(b, hp - kh + 1, wp - kw + 1, cout, dtype=xpad.dtype,
                     device=xpad.device)
     if y.numel() == 0:
         return y
     lib = _load()
     stream = torch.cuda.current_stream(xpad.device).cuda_stream
-    rc = lib.dtm_conv_implicit_gemm_bf16(
-        xpad.data_ptr(), kernel.data_ptr(), y.data_ptr(),
-        b, hp, wp, cin, kh, kw, cout, stream,
-    )
-    _kernels.check(lib, rc, "conv_implicit_gemm")
-    conv_implicit_gemm.launches += 1
+    rc = getattr(lib, entry)(xpad.data_ptr(), kernel.data_ptr(), y.data_ptr(),
+                             b, hp, wp, cin, kh, kw, cout, stream)
+    _kernels.check(lib, rc, what)
+    return y
+
+
+def conv_implicit_gemm(xpad: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Launch K1 on CUDA tensors: bf16, contiguous NHWC ``xpad`` and HWIO
+    ``kernel`` on one device.  Raises on anything else; never falls back.
+    Each launch adds one to ``conv_implicit_gemm.launches``."""
+    y = _launch("conv_implicit_gemm", "dtm_conv_implicit_gemm_bf16", xpad,
+                kernel)
+    if y.numel():
+        conv_implicit_gemm.launches += 1
+    return y
+
+
+def conv_implicit_gemm_pipelined(xpad: torch.Tensor,
+                                 kernel: torch.Tensor) -> torch.Tensor:
+    """Launch K6, the persistent, ring-pipelined K1 (the same function, bit
+    for bit), on the tensors K1 takes.  Raises on anything else; never
+    falls back.  Each launch adds one to
+    ``conv_implicit_gemm_pipelined.launches``."""
+    y = _launch("conv_implicit_gemm_pipelined",
+                "dtm_conv_implicit_gemm_pipelined_bf16", xpad, kernel)
+    if y.numel():
+        conv_implicit_gemm_pipelined.launches += 1
     return y
 
 
 conv_implicit_gemm.launches = 0
+conv_implicit_gemm_pipelined.launches = 0
 
 
 def _load() -> ctypes.CDLL:
     lib = _kernels.load(_SOURCE)
-    fn = lib.dtm_conv_implicit_gemm_bf16
-    # x, k, y pointers; B, Hp, Wp, Cin, kh, kw, Cout; the stream.
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    for name in ("dtm_conv_implicit_gemm_bf16",
+                 "dtm_conv_implicit_gemm_pipelined_bf16"):
+        fn = getattr(lib, name)
+        # x, k, y pointers; B, Hp, Wp, Cin, kh, kw, Cout; the stream.
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return lib
 
 
+def _pipeline_enabled() -> bool:
+    """``DTM_CONV_MXU_PIPELINE``, read on every call of the core (the JAX
+    package reads it once per trace): ``1`` runs K6, ``0`` (the default)
+    K1; any other value raises naming the knob."""
+    env = os.environ.get("DTM_CONV_MXU_PIPELINE", "0")
+    if env not in ("0", "1"):
+        raise ValueError(
+            f"DTM_CONV_MXU_PIPELINE must be '0' or '1', got {env!r}")
+    return env == "1"
+
+
 def _core_forward(xpad: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """K1 for CUDA tensors, the plain version for CPU tensors."""
+    """K6 or K1 (by the knob) for CUDA tensors, the plain version for CPU
+    tensors; the knob is validated either way."""
+    pipelined = _pipeline_enabled()
     if xpad.is_cuda:
-        return conv_implicit_gemm(xpad.contiguous(), kernel.contiguous())
+        launch = conv_implicit_gemm_pipelined if pipelined else conv_implicit_gemm
+        return launch(xpad.contiguous(), kernel.contiguous())
     return _core_reference(xpad, kernel)
 
 

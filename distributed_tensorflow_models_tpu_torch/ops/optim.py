@@ -55,6 +55,38 @@ def tf_momentum(learning_rate: ScalarOrSchedule, momentum: float = 0.9,
     return GradientTransformation(init, update)
 
 
+def tf_rmsprop(learning_rate: ScalarOrSchedule, decay: float = 0.9,
+               momentum: float = 0.9,
+               epsilon: float = 1.0) -> GradientTransformation:
+    """``tf.train.RMSPropOptimizer`` with TF 1.x kernel semantics (epsilon
+    inside the square root, unlike optax's default)::
+
+        ms  <- decay * ms + (1 - decay) * g^2
+        mom <- momentum * mom + lr * g / sqrt(ms + epsilon)
+        var <- var - mom
+
+    ``ms`` starts at ones, as in TF (with epsilon 1.0 this changes the
+    first steps materially).  The defaults are slim Inception-v3's.  The
+    JAX function's ``centered`` variant is not ported."""
+
+    def init(params):
+        return {"count": 0,
+                "ms": {k: torch.ones_like(v) for k, v in params.items()},
+                "mom": {k: torch.zeros_like(v) for k, v in params.items()}}
+
+    def update(grads, state):
+        lr = _lr_at(learning_rate, state["count"])
+        ms, mom, updates = {}, {}, {}
+        for k, g in grads.items():
+            ms[k] = decay * state["ms"][k] + (1.0 - decay) * torch.square(g)
+            mom[k] = (momentum * state["mom"][k]
+                      + lr * g * torch.rsqrt(ms[k] + epsilon))
+            updates[k] = -mom[k]
+        return updates, {"count": state["count"] + 1, "ms": ms, "mom": mom}
+
+    return GradientTransformation(init, update)
+
+
 def sgd(learning_rate: ScalarOrSchedule) -> GradientTransformation:
     """``tf.train.GradientDescentOptimizer``: ``var <- var - lr * g``."""
 

@@ -1,7 +1,7 @@
 """The port's attention against the JAX package's, on numpy-seeded inputs.
 
 On CPU tensors the port's flash path runs the plain versions of K2, K3
-and K4 (``ops/attention.py``); the JAX side runs its Pallas kernels in
+and K4, or of K5 for the staged backward (``ops/attention.py``); the JAX side runs its Pallas kernels in
 interpret mode with 64-row blocks, or its reference.  Tolerances are the
 JAX suite's own (tests/test_attention.py): forward 2e-5, gradients 1e-4 in
 f32, and rtol 0.1 / atol 0.15 for bf16 inputs against the f32 reference.
@@ -272,9 +272,16 @@ def test_dispatcher_routes_and_validates_knobs(monkeypatch):
         with pytest.raises(ValueError, match=match):
             tattn.attention(q, k, v, causal=True, impl="flash")
     monkeypatch.delenv("DTM_FLASH_TILE")
-    monkeypatch.setenv("DTM_FLASH_BWD", "staged")
-    with pytest.raises(NotImplementedError, match="K5"):
-        tattn.attention(q, k, v, causal=True, impl="flash")
+    # DTM_FLASH_BWD=staged routes the backward through K5's plain versions:
+    # the pair's gradients, bit for bit.
+    grads = {}
+    for bwd in ("pair", "staged"):
+        monkeypatch.setenv("DTM_FLASH_BWD", bwd)
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        (tattn.attention(*ts, causal=True, impl="flash") ** 2).sum().backward()
+        grads[bwd] = [t.grad for t in ts]
+    for a, b in zip(grads["staged"], grads["pair"]):
+        assert torch.equal(a, b)
     monkeypatch.setenv("DTM_FLASH_BWD", "other")
     with pytest.raises(ValueError, match="DTM_FLASH_BWD"):
         tattn.attention(q, k, v, causal=True, impl="flash")
@@ -296,3 +303,60 @@ def test_kernel_wrappers_take_cuda_tensors_only():
         tattn.flash_dkv(q, q, q, q, lse, lse, **kw)
     with pytest.raises(ValueError, match="CUDA"):
         tattn.flash_dq(q, q, q, q, lse, lse, **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        tattn.flash_dkv_staged(q, q, q, q, lse, lse, **kw)
+    ds = torch.zeros(2, 64, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tattn.flash_dq_staged(ds, q, **kw)
+
+
+def _grads(fn, q, k, v, dtype=torch.float32):
+    ts = [torch.tensor(x, dtype=dtype, requires_grad=True) for x in (q, k, v)]
+    (fn(*ts).float() ** 2).sum().backward()
+    return [t.grad for t in ts]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window,hkv",
+                         [(True, None, None), (True, 64, None),
+                          (True, None, 2)], ids=["causal", "window", "gqa"])
+def test_flash_bwd_staged_matches_pair_and_jax(causal, window, hkv, dtype):
+    """The cases of the JAX suite's test_flash_bwd_staged_matches_pair: the
+    staged plain backward gives the pair plain backward's gradients bit
+    for bit (in f32 and bf16), and JAX's interpret-mode staged gradients
+    within its flash tolerance (in f32)."""
+    q, k, v = _qkv(Tq=256, H=4, Hkv=hkv, seed=11)
+    tdt = getattr(torch, dtype)
+    got = {staged: _grads(lambda q, k, v: tattn.flash_attention(
+        q, k, v, causal, None, 128, 128, window, staged), q, k, v, tdt)
+           for staged in (False, True)}
+    for name, a, b in zip("qkv", got[True], got[False]):
+        assert torch.equal(a, b), name
+    if dtype == "bfloat16":
+        return
+    want = _jax_run(lambda q, k, v: jattn.flash_attention(
+        q, k, v, causal, None, 128, 128, True, window, True), q, k, v)
+    for name, g, w in zip("qkv", got[True], want[1]):
+        np.testing.assert_allclose(g.numpy(), w, err_msg=f"d{name}",
+                                   **GRAD_TOL)
+
+
+def test_staged_plain_versions_shapes_and_stage():
+    """The dS stage is [B*H, Tq, Tkv] in K's dtype and holds the pair
+    backward's dS; the staged dQ from it is the pair's dQ."""
+    q, k, v = (torch.tensor(x).bfloat16() for x in _qkv(B=2, Tq=64, H=4,
+                                                         Hkv=2, seed=12))
+    do = torch.tensor(np.random.RandomState(13).randn(2, 64, 4, 32)
+                      ).bfloat16()
+    kw = dict(scale=32 ** -0.5, causal=True, window=None, q_offset=0,
+              kv_offset=0)
+    out, lse = tattn._flash_forward_reference(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+    args = (q, k, v, do, lse, delta)
+    dk, dv, ds = tattn._flash_dkv_staged_reference(*args, **kw)
+    assert ds.shape == (8, 64, 64) and ds.dtype == torch.bfloat16
+    pdk, pdv = tattn._flash_dkv_reference(*args, **kw)
+    assert torch.equal(dk, pdk) and torch.equal(dv, pdv)
+    dq = tattn._flash_dq_staged_reference(ds, k, **kw)
+    assert dq.shape == q.shape and dq.dtype == torch.bfloat16
+    assert torch.equal(dq, tattn._flash_dq_reference(*args, **kw))

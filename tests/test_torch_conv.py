@@ -212,3 +212,85 @@ def test_channel_mismatch_raises():
         tconv_mxu.conv2d_mxu(torch.zeros(1, 8, 8, 16),
                              torch.zeros(3, 3, 32, 8))
 
+
+
+# Inception-v3's taps on small grids, Cin >= 64 so that the mxu route is
+# taken: the factorized 1x7, 7x1, 1x3 and 3x1, the aux head's 5x5, and a
+# 3x3 stride-2 reduction (its 2x2, 2x1, 1x2 and 1x1 phase kernels).
+PIPELINE_CASES = [
+    ((1, 9, 9, 64), (1, 7, 64, 24), (1, 1), "SAME", "1x7"),
+    ((1, 9, 9, 64), (7, 1, 64, 24), (1, 1), "SAME", "7x1"),
+    ((1, 6, 6, 96), (1, 3, 96, 24), (1, 1), "SAME", "1x3"),
+    ((1, 6, 6, 96), (3, 1, 96, 24), (1, 1), "SAME", "3x1"),
+    ((1, 7, 7, 64), (5, 5, 64, 16), (1, 1), "VALID", "5x5"),
+    ((1, 9, 9, 64), (3, 3, 64, 24), (2, 2), "VALID", "3x3_s2"),
+]
+
+
+@pytest.mark.parametrize(
+    "xshape,kshape,strides,padding", [c[:4] for c in PIPELINE_CASES],
+    ids=[c[4] for c in PIPELINE_CASES],
+)
+def test_pipeline_knob_matches_jax_pipelined_kernel(monkeypatch, xshape,
+                                                    kshape, strides, padding):
+    """DTM_CONV_MXU_PIPELINE=1: the port's conv2d_mxu on the CPU (K6's plain
+    version, which is K1's) against JAX's interpret-mode pipelined kernel,
+    forward and the gradients dx and dw of sum(sin(y))."""
+    monkeypatch.setenv("DTM_CONV_MXU_PIPELINE", "1")
+    x, k = _inputs(6, xshape, kshape)
+
+    def jloss(x, k):
+        y = jconv_mxu.conv2d_mxu(x, k, strides, padding, interpret=True)
+        return jnp.sum(jnp.sin(y)), y
+
+    (_, want_y), want_g = jax.jit(jax.value_and_grad(
+        jloss, (0, 1), has_aux=True))(jnp.asarray(x), jnp.asarray(k))
+    tx, tk = _t(x, True), _t(k, True)
+    y = tconv_mxu.conv2d_mxu(tx, tk, strides, padding)
+    torch.sum(torch.sin(y)).backward()
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want_y),
+                               **FWD_TOL)
+    for got, w in zip((tx.grad, tk.grad), want_g):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), **GRAD_TOL)
+
+
+def test_pipeline_knob_runs_the_same_plain_function_on_cpu(monkeypatch):
+    """On CPU tensors both arms of the knob run the one plain version: the
+    outputs and gradients are the same bits, and no kernel is launched."""
+    x, k = _inputs(7, (1, 9, 9, 64), (3, 3, 64, 24))
+    out = {}
+    before = (tconv_mxu.conv_implicit_gemm.launches,
+              tconv_mxu.conv_implicit_gemm_pipelined.launches)
+    for knob in ("0", "1"):
+        monkeypatch.setenv("DTM_CONV_MXU_PIPELINE", knob)
+        tx, tk = _t(x, True), _t(k, True)
+        y = tconv_mxu.conv2d_mxu(tx, tk, (2, 2), "SAME")
+        torch.sum(torch.sin(y)).backward()
+        out[knob] = (y.detach(), tx.grad, tk.grad)
+    for a, b in zip(out["0"], out["1"]):
+        assert torch.equal(a, b)
+    assert (tconv_mxu.conv_implicit_gemm.launches,
+            tconv_mxu.conv_implicit_gemm_pipelined.launches) == before
+
+
+@pytest.mark.parametrize("bad", ["yes", "2", "true", ""])
+def test_pipeline_knob_rejects_bad_values_like_jax(monkeypatch, bad):
+    monkeypatch.setenv("DTM_CONV_MXU_PIPELINE", bad)
+    with pytest.raises(ValueError, match="DTM_CONV_MXU_PIPELINE"):
+        jconv_mxu._pipeline_enabled()
+    with pytest.raises(ValueError, match="DTM_CONV_MXU_PIPELINE"):
+        tconv_mxu._pipeline_enabled()
+    x, k = _inputs(8, (1, 6, 6, 64), (3, 3, 64, 8))
+    with pytest.raises(ValueError, match="DTM_CONV_MXU_PIPELINE"):
+        tconv_mxu.conv2d_mxu(_t(x), _t(k), (1, 1), "SAME")
+    for ok, want in (("0", False), ("1", True)):
+        monkeypatch.setenv("DTM_CONV_MXU_PIPELINE", ok)
+        assert tconv_mxu._pipeline_enabled() is want
+        assert jconv_mxu._pipeline_enabled() is want
+
+
+def test_pipelined_wrapper_refuses_cpu_tensors():
+    x = torch.zeros(1, 4, 4, 64, dtype=torch.bfloat16)
+    k = torch.zeros(3, 3, 64, 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tconv_mxu.conv_implicit_gemm_pipelined(x, k)

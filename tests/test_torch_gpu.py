@@ -1,4 +1,4 @@
-"""Tests of the port that need the card: K1-K4 have no CPU mode.
+"""Tests of the port that need the card: K1-K6 have no CPU mode.
 
 Every test here carries the ``gpu`` marker and skips where
 ``torch.cuda.is_available()`` is false.  This file imports no jax, so it
@@ -23,6 +23,11 @@ and the bf16 rounding of each output (half an ulp, 2^-9): 2^-6 relative
 plus 1e-2 of the output's largest magnitude; the f32 LSE to 1e-4.  Rows
 with no valid key are left out: their values depend on the tiles visited,
 in the JAX package too.
+
+K6 (the persistent, ring-pipelined K1) must equal K1 bit for bit.  K5's
+dK and dV come from K3's own code and must equal K3's bit for bit; its dQ
+is held to its plain version at the K2-K4 tolerance, on a dS stage filled
+with NaN first so that a tile read but never written shows.
 """
 
 import math
@@ -33,6 +38,7 @@ import torch
 
 from distributed_tensorflow_models_tpu_torch.core import train_loop
 from distributed_tensorflow_models_tpu_torch.core.train_state import TrainState
+from distributed_tensorflow_models_tpu_torch.models.inception_v3 import InceptionV3
 from distributed_tensorflow_models_tpu_torch.models.resnet import ResNet
 from distributed_tensorflow_models_tpu_torch.models.transformer_lm import TransformerLM
 from distributed_tensorflow_models_tpu_torch.ops import attention as attnlib
@@ -271,3 +277,178 @@ def test_lm_train_step_on_card_runs_flash(cuda):
         assert math.isfinite(float(metrics["loss"]))
     assert (attnlib.flash_forward.launches, attnlib.flash_dkv.launches,
             attnlib.flash_dq.launches) == tuple(n + 4 for n in before)
+
+
+# K6 against K1: K1's cases, Inception-v3's taps (1x7, 7x1, the aux head's
+# 5x5, Cin 448), and shapes with more output tiles than K6 has blocks, on
+# the vector and the scalar load paths, so that the ring crosses tiles.
+K6_CASES = CORE_CASES + [
+    ((2, 17, 23, 160), (1, 7, 160, 192)),
+    ((2, 23, 17, 192), (7, 1, 192, 160)),
+    ((2, 5, 5, 128), (5, 5, 128, 768)),
+    ((2, 10, 10, 448), (3, 3, 448, 384)),
+    ((32, 35, 35, 288), (3, 3, 288, 384)),
+    ((16, 40, 40, 20), (3, 3, 20, 200)),
+]
+
+
+@pytest.mark.parametrize("xshape,kshape", K6_CASES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_pipelined_kernel_equals_k1(cuda, xshape, kshape):
+    rng = np.random.default_rng(14)
+    x = _bf16(rng, xshape)
+    k = _bf16(rng, kshape, 1.0 / math.sqrt(math.prod(kshape[:3])))
+    before = (conv_mxu.conv_implicit_gemm.launches,
+              conv_mxu.conv_implicit_gemm_pipelined.launches)
+    want = conv_mxu.conv_implicit_gemm(x, k)
+    got = conv_mxu.conv_implicit_gemm_pipelined(x, k)
+    torch.cuda.synchronize()
+    assert (conv_mxu.conv_implicit_gemm.launches,
+            conv_mxu.conv_implicit_gemm_pipelined.launches) == (
+                before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+def test_pipelined_wrapper_refuses_what_k1_refuses(cuda):
+    x = torch.zeros(1, 6, 6, 64, device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros(3, 3, 64, 8, device=cuda, dtype=torch.bfloat16)
+    f = conv_mxu.conv_implicit_gemm_pipelined
+    with pytest.raises(TypeError, match="bfloat16"):
+        f(x.float(), k.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        f(x[:, ::2], k)
+    with pytest.raises(ValueError, match="input channels"):
+        f(x, k[:, :, :32])
+    with pytest.raises(ValueError, match="CUDA"):
+        f(x.cpu(), k)
+
+
+def test_pipeline_knob_picks_the_kernel_per_call(cuda, monkeypatch):
+    """DTM_CONV_MXU_PIPELINE is read on every call of the core: =1 launches
+    only K6, =0 only K1, and the two give the same bits."""
+    rng = np.random.default_rng(15)
+    x = _bf16(rng, (2, 12, 12, 64))
+    k = _bf16(rng, (3, 3, 64, 32), 1.0 / math.sqrt(9 * 64))
+    out = {}
+    for knob in ("1", "0"):
+        monkeypatch.setenv("DTM_CONV_MXU_PIPELINE", knob)
+        before = (conv_mxu.conv_implicit_gemm.launches,
+                  conv_mxu.conv_implicit_gemm_pipelined.launches)
+        out[knob] = conv_mxu.conv2d_mxu(x, k, (2, 2), "SAME")
+        k1 = conv_mxu.conv_implicit_gemm.launches - before[0]
+        k6 = conv_mxu.conv_implicit_gemm_pipelined.launches - before[1]
+        assert (k1, k6) == ((0, 4) if knob == "1" else (4, 0))
+    assert torch.equal(out["1"], out["0"])
+    monkeypatch.setenv("DTM_CONV_MXU_PIPELINE", "on")
+    with pytest.raises(ValueError, match="DTM_CONV_MXU_PIPELINE"):
+        conv_mxu.conv2d_mxu(x, k, (1, 1), "SAME")
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_staged_matches_pair_and_plain(cuda, case):
+    q, k, v, do, kw, rows = _flash_inputs(case, 16)
+    out, lse = attnlib.flash_forward(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta)
+    B, Tq, H, _ = q.shape
+    ds = torch.full((B * H, Tq, k.shape[1]), float("nan"),
+                    dtype=torch.bfloat16, device=cuda)
+    before = (attnlib.flash_dkv_staged.launches,
+              attnlib.flash_dq_staged.launches)
+    dk, dv, ds = attnlib.flash_dkv_staged(*args, **kw, ds=ds)
+    dq = attnlib.flash_dq_staged(ds, k, **kw)
+    pair_dk, pair_dv = attnlib.flash_dkv(*args, **kw)
+    pair_dq = attnlib.flash_dq(*args, **kw)
+    torch.cuda.synchronize()
+    assert (attnlib.flash_dkv_staged.launches,
+            attnlib.flash_dq_staged.launches) == tuple(n + 1 for n in before)
+    assert torch.equal(dk, pair_dk) and torch.equal(dv, pair_dv)
+    assert not bool(torch.isnan(dq).any())
+    want_dk, want_dv, want_ds = attnlib._flash_dkv_staged_reference(*args, **kw)
+    want_dq = attnlib._flash_dq_staged_reference(want_ds, k, **kw)
+    _assert_flash_close(dq, want_dq, "K5 dq")
+    _assert_flash_close(dq, pair_dq, "K5 dq vs K4")
+    # Every valid pair lies in a tile that runs: its staged dS is written.
+    valid = attnlib._valid(Tq, k.shape[1], kw["causal"], kw["window"],
+                           kw["q_offset"], kw["kv_offset"], "cuda")
+    sel = (torch.ones(Tq, k.shape[1], dtype=torch.bool, device=cuda)
+           if valid is None else valid)
+    got_ds = ds.view(B, H, Tq, -1)[:, :, sel]
+    _assert_flash_close(got_ds, want_ds.view(B, H, Tq, -1)[:, :, sel],
+                        "K5 ds")
+
+
+def test_flash_attention_staged_autograd_on_card(cuda, monkeypatch):
+    """DTM_FLASH_BWD=staged on CUDA tensors: K2 and both K5 launches once
+    each, K3 and K4 not at all, and the gradients the pair gives."""
+    rng = np.random.default_rng(17)
+    shape = (2, 128, 4, 32)
+    base = [torch.tensor(rng.standard_normal(shape) * 0.5,
+                         dtype=torch.bfloat16, device=cuda) for _ in range(3)]
+    names = ("flash_forward", "flash_dkv", "flash_dq", "flash_dkv_staged",
+             "flash_dq_staged")
+    grads = {}
+    for bwd, want in (("staged", (1, 0, 0, 1, 1)), ("pair", (1, 1, 1, 0, 0))):
+        monkeypatch.setenv("DTM_FLASH_BWD", bwd)
+        ts = [t.clone().requires_grad_() for t in base]
+        before = [getattr(attnlib, n).launches for n in names]
+        out = attnlib.attention(*ts, causal=True, impl="flash")
+        (out.float() ** 2).sum().backward()
+        assert tuple(getattr(attnlib, n).launches - b
+                     for n, b in zip(names, before)) == want
+        grads[bwd] = [t.grad for t in ts]
+    for got, want in zip(grads["staged"][1:], grads["pair"][1:]):
+        assert torch.equal(got, want)
+    _assert_flash_close(grads["staged"][0], grads["pair"][0], "dq")
+
+
+def test_modern_lm_train_step_on_card_runs_k5(cuda, monkeypatch):
+    """Two bf16 steps of a small rope + GQA + window transformer with the
+    staged backward: K2 and both K5 launches once per layer per step."""
+    monkeypatch.setenv("DTM_FLASH_BWD", "staged")
+    gen = torch.Generator().manual_seed(0)
+    model = TransformerLM(vocab_size=128, num_layers=2, num_heads=4,
+                          d_model=128, d_ff=256, max_len=128,
+                          dropout_rate=0.1, attn_impl="flash",
+                          pos_encoding="rope", num_kv_heads=2, attn_window=48,
+                          generator=gen).to(cuda)
+    state = TrainState.create(model, optim.chain(
+        optim.clip_by_global_norm(1.0), optim.adam(3e-4)))
+    step = train_loop.make_train_step(
+        train_loop.lm_loss_fn(model, fused_unembed=True))
+    rng = np.random.default_rng(18)
+    names = ("flash_forward", "flash_dkv_staged", "flash_dq_staged",
+             "flash_dkv", "flash_dq")
+    before = [getattr(attnlib, n).launches for n in names]
+    for _ in range(2):
+        toks = torch.tensor(rng.integers(0, 128, (4, 129)), device=cuda)
+        state, metrics = step(state, {"inputs": toks[:, :-1],
+                                      "targets": toks[:, 1:]}, 0)
+        assert math.isfinite(float(metrics["loss"]))
+    assert [getattr(attnlib, n).launches - b
+            for n, b in zip(names, before)] == [4, 4, 4, 0, 0]
+
+
+def test_inception_train_step_on_card_runs_k6(cuda, monkeypatch):
+    """One bf16 step of Inception-v3 (10 classes, batch 2 at 299x299) with
+    the mxu convs and DTM_CONV_MXU_PIPELINE=1: every routed conv runs K6,
+    none K1, and the loss (aux head, smoothing, EMA) stays finite."""
+    monkeypatch.setenv("DTM_CONV_MXU_PIPELINE", "1")
+    gen = torch.Generator().manual_seed(0)
+    model = InceptionV3(num_classes=10, conv_impl="mxu",
+                        generator=gen).to(cuda)
+    state = TrainState.create(model, optim.tf_rmsprop(0.045), ema_decay=0.9999)
+    step = train_loop.make_train_step(train_loop.classification_loss_fn(
+        model, label_smoothing=0.1, weight_decay=4e-5, aux_loss_weight=0.4))
+    rng = np.random.default_rng(19)
+    batch = {"image": torch.tensor(rng.standard_normal((2, 299, 299, 3)),
+                                   dtype=torch.float32, device=cuda),
+             "label": torch.tensor(rng.integers(0, 10, 2), device=cuda)}
+    before = (conv_mxu.conv_implicit_gemm.launches,
+              conv_mxu.conv_implicit_gemm_pipelined.launches)
+    state, metrics = step(state, batch, 0)
+    assert math.isfinite(float(metrics["loss"]))
+    assert conv_mxu.conv_implicit_gemm.launches == before[0]
+    assert conv_mxu.conv_implicit_gemm_pipelined.launches > before[1]
+    assert train_loop.state_is_finite(state)

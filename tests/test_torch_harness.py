@@ -71,7 +71,9 @@ def test_guard_walks_every_module_of_the_port():
     assert {"ops/attention.py", "ops/embed.py", "ops/losses.py",
             "ops/optim.py", "models/transformer_lm.py", "interop.py",
             "core/train_loop.py", "data/datasets.py",
-            "harness/cli.py"} <= walked
+            "harness/cli.py", "ops/ema.py", "ops/rotary.py",
+            "ops/dropout.py", "models/inception_v3.py",
+            "core/train_state.py"} <= walked
     others = [p.relative_to(PORT).as_posix() for p in PORT.rglob("*")
               if p.is_file() and p.suffix not in (".py", ".pyc")]
     assert sorted(others) == ["csrc/conv_implicit_gemm.cu",
@@ -125,18 +127,18 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch, tmp_path):
     assert trainlib.resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("name", ["resnet50_synthetic", "resnet50_imagenet"])
+@pytest.mark.parametrize("name", ["resnet50_synthetic", "resnet50_imagenet",
+                                  "inception_v3_imagenet"])
 def test_configs_match_jax(name):
     j, t = jconfig.get_config(name), tconfig.get_config(name)
-    for field in ("model", "image_size", "global_batch_size",
-                  "weight_decay", "train_steps", "seed"):
+    for field in ("model", "dataset", "image_size", "global_batch_size",
+                  "weight_decay", "label_smoothing", "aux_loss_weight",
+                  "ema_decay", "train_steps", "seed"):
         assert getattr(t, field) == getattr(j, field), field
-    # The port trains classification only, with no label smoothing, no
-    # auxiliary head and no EMA.
-    assert j.task == "classification" and j.ema_decay is None
-    assert j.label_smoothing == 0 and j.aux_loss_weight == 0
+    assert j.task == t.task == "classification"
     for field in ("name", "learning_rate", "momentum", "decay_steps",
-                  "decay_rate", "staircase"):
+                  "decay_rate", "staircase", "rmsprop_decay",
+                  "rmsprop_epsilon"):
         assert (getattr(t.optimizer, field)
                 == getattr(j.optimizer, field)), field
 
@@ -152,3 +154,51 @@ def test_synthetic_imagenet_matches_jax():
         for k in ("image", "label"):
             np.testing.assert_array_equal(tb[k], jb[k])
     assert jds.get_state() == {"epoch": 2, "batch_idx": 1}
+
+
+@pytest.mark.parametrize("size", [75, 299])
+def test_fit_trains_inception_on_cpu(size):
+    """One step of inception_v3_imagenet (RMSProp, smoothing, the aux head
+    and its 0.4 loss, L2, the EMA) through fit on the CPU, batch 2, via
+    get_config overrides.  The aux head needs a 299x299 input (at 75x75 it
+    raises: tests/test_torch_inception.py), so 75x75 trains with the head
+    off."""
+    cfg = tconfig.get_config("inception_v3_imagenet", image_size=size,
+                             global_batch_size=2, train_steps=1)
+    if size == 75:
+        cfg = cfg.replace(model_kwargs={"aux_head": False})
+    result = trainlib.fit(cfg, device="cpu")
+    assert result.state.step == 1
+    assert math.isfinite(result.final_metrics["loss"])
+    state = result.state
+    assert state.ema_decay == 0.9999 and state.ema_params is not None
+    assert state.opt_state["count"] == 1
+    # The shadows moved 0.9 of the way from the seeded init to the updated
+    # parameters (TF's damped decay, min(0.9999, 1/10) at update 0).
+    init = dict(trainlib.build_model(cfg, torch.device("cpu"))
+                .named_parameters())
+    for name in ("head.kernel", "ConvBN_0.Conv2D_0.kernel"):
+        p0 = init[name].detach()
+        step = state.params[name].detach() - p0
+        assert float(step.abs().max()) > 0, name
+        torch.testing.assert_close(state.ema_params[name] - p0, 0.9 * step,
+                                   rtol=1e-5, atol=1e-7, msg=name)
+    assert trainlib.train_loop.state_is_finite(state)
+
+
+def test_fit_trains_tiny_modern_lm_staged_on_cpu(monkeypatch):
+    """transformer_lm_modern at a tiny width (rope, GQA 2 of 4, window)
+    with flash attention and the staged backward, two steps on the CPU."""
+    monkeypatch.setenv("DTM_FLASH_BWD", "staged")
+    cfg = tconfig.get_config(
+        "transformer_lm_modern", global_batch_size=2, num_steps=64,
+        vocab_size=256, train_steps=2, attn_impl="flash",
+        model_kwargs={"num_layers": 2, "num_heads": 4, "d_model": 64,
+                      "d_ff": 128, "max_len": 64, "vocab_size": 256,
+                      "dropout_rate": 0.1, "pos_encoding": "rope",
+                      "num_kv_heads": 2, "attn_window": 32})
+    result = trainlib.fit(cfg, device="cpu")
+    assert result.state.step == 2
+    assert all(math.isfinite(r["loss"]) for r in result.history)
+    assert "pos_embedding" not in result.state.params
+    assert result.tokens_per_sec > 0

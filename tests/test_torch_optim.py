@@ -1,4 +1,4 @@
-"""The port's optimizers, schedule, losses and metrics against the JAX
+"""The port's optimizers, schedule, EMA, losses and metrics against the JAX
 package's (optax underneath), step by step on numpy-seeded values."""
 
 import jax
@@ -7,9 +7,11 @@ import numpy as np
 import pytest
 import torch
 
+from distributed_tensorflow_models_tpu.ops import ema as jema
 from distributed_tensorflow_models_tpu.ops import losses as jlosses
 from distributed_tensorflow_models_tpu.ops import metrics as jmetrics
 from distributed_tensorflow_models_tpu.ops import optim as joptim
+from distributed_tensorflow_models_tpu_torch.ops import ema as tema
 from distributed_tensorflow_models_tpu_torch.ops import losses as tlosses
 from distributed_tensorflow_models_tpu_torch.ops import metrics as tmetrics
 from distributed_tensorflow_models_tpu_torch.ops import optim as toptim
@@ -153,3 +155,61 @@ def test_chain_of_clip_and_adam_matches_optax():
         optax.chain(joptim.clip_by_global_norm(1.0), joptim.adam(0.01)),
         toptim.chain(toptim.clip_by_global_norm(1.0), toptim.adam(0.01)))
     assert tstate[0] == {} and tstate[1]["count"] == 4
+
+
+@pytest.mark.parametrize("schedule", [False, True])
+def test_tf_rmsprop_matches_jax(schedule):
+    """TF-1.x RMSProp, five steps: ms from ones, epsilon inside the square
+    root, momentum, and the count driving the (Inception) schedule."""
+    jlr = joptim.exponential_decay(0.045, 2, 0.94) if schedule else 0.045
+    tlr = toptim.exponential_decay(0.045, 2, 0.94) if schedule else 0.045
+    jstate, tstate = _run_both(joptim.tf_rmsprop(jlr, 0.9, 0.9, 1.0),
+                               toptim.tf_rmsprop(tlr, 0.9, 0.9, 1.0), steps=5)
+    assert tstate["count"] == int(jstate.count) == 5
+    for slot in ("ms", "mom"):
+        for k, v in tstate[slot].items():
+            np.testing.assert_allclose(
+                v.numpy(), np.asarray(getattr(jstate, slot)[k]), **TOL)
+
+
+def test_tf_rmsprop_starts_ms_at_ones():
+    p = {k: torch.tensor(v) for k, v in _params(3).items()}
+    state = toptim.tf_rmsprop(0.1).init(p)
+    jstate = joptim.tf_rmsprop(0.1).init(
+        {k: jnp.asarray(v) for k, v in _params(3).items()})
+    for k in p:
+        np.testing.assert_array_equal(state["ms"][k].numpy(),
+                                      np.asarray(jstate.ms[k]))
+        assert float(state["ms"][k].min()) == 1.0
+        assert float(state["mom"][k].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("num_updates", [None, 0, 1, 9, 100, 10**6])
+def test_ema_effective_decay_matches_jax(num_updates):
+    want = jema.effective_decay(
+        0.9999, None if num_updates is None else jnp.asarray(num_updates))
+    got = tema.effective_decay(0.9999, num_updates)
+    assert got.dtype == torch.float32
+    assert float(got) == float(want)
+
+
+def test_update_ema_matches_jax_step_by_step():
+    """Five EMA updates of f32 shadows toward changing parameters, with
+    the step count as num_updates, in place on the port's side."""
+    rng = np.random.RandomState(6)
+    params = {k: v for k, v in _params(7).items()}
+    jema_p = {k: jnp.asarray(v) for k, v in params.items()}
+    tema_p = {k: torch.tensor(v) for k, v in params.items()}
+    for step in range(5):
+        params = {k: v + rng.randn(*v.shape).astype(np.float32)
+                  for k, v in params.items()}
+        jema_p = jema.update_ema(jema_p, {k: jnp.asarray(v)
+                                          for k, v in params.items()},
+                                 0.9999, num_updates=jnp.asarray(step))
+        out = tema.update_ema(tema_p, {k: torch.tensor(v)
+                                       for k, v in params.items()},
+                              0.9999, num_updates=step)
+        assert out is tema_p
+        for k in params:
+            np.testing.assert_allclose(tema_p[k].numpy(),
+                                       np.asarray(jema_p[k]), **TOL)

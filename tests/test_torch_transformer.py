@@ -3,7 +3,9 @@ weights and numpy-seeded inputs.
 
 The model is ``transformer_lm_tiny``'s shape (2 layers, 4 heads, d_model
 64, d_ff 128, vocab 256, sequence 64, batch 4) in f32 with dropout 0 on
-both sides.  The JAX model attends with ``attn_impl="reference"``: its
+both sides; its ``transformer_lm_modern`` form adds rotary positions,
+2 KV heads and a 24-token window (the port's backward staged, K5's plain
+versions).  The JAX model attends with ``attn_impl="reference"``: its
 ``attention(impl="flash")`` fixes ``interpret=False`` and cannot lower on
 the CPU.  The port's runs ``"flash"``, i.e. the plain versions of K2-K4
 under the flash autograd Function (test_torch_attention.py holds those
@@ -41,6 +43,7 @@ from distributed_tensorflow_models_tpu.harness import config as jconfig
 from distributed_tensorflow_models_tpu.models import get_model as jget_model
 from distributed_tensorflow_models_tpu.ops import embed as jembed
 from distributed_tensorflow_models_tpu.ops import losses as jlosses
+from distributed_tensorflow_models_tpu.ops import rotary as jrotary
 from distributed_tensorflow_models_tpu_torch import interop
 from distributed_tensorflow_models_tpu_torch.core import train_loop as ttrain
 from distributed_tensorflow_models_tpu_torch.core.train_state import TrainState
@@ -52,11 +55,13 @@ from distributed_tensorflow_models_tpu_torch.models.transformer_lm import Transf
 from distributed_tensorflow_models_tpu_torch.ops import embed as tembed
 from distributed_tensorflow_models_tpu_torch.ops import losses as tlosses
 from distributed_tensorflow_models_tpu_torch.ops import optim as toptim
+from distributed_tensorflow_models_tpu_torch.ops import rotary as trotary
 
 jax.config.update("jax_platforms", "cpu")
 
 TINY = dict(vocab_size=256, num_layers=2, num_heads=4, d_model=64, d_ff=128,
             max_len=64, dropout_rate=0.0)
+MODERN = dict(pos_encoding="rope", num_kv_heads=2, attn_window=24)
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 FUSED_TOL = dict(rtol=1e-4, atol=1e-5)
 LR, CLIP = 3e-4, 1.0
@@ -102,12 +107,13 @@ def tiny_params():
     return _jax_params(_jax_model())
 
 
-@pytest.mark.parametrize("name", ["transformer_lm", "tiny"])
+@pytest.mark.parametrize("name", ["transformer_lm", "tiny",
+                                  "transformer_lm_modern"])
 def test_interop_round_trip_exact(name):
-    if name == "transformer_lm":
+    if name.startswith("transformer_lm"):
         # The full-width tree's structure without running the model; values
         # from a numpy seed.
-        cfg = jconfig.get_config("transformer_lm")
+        cfg = jconfig.get_config(name)
         kw = dict(cfg.model_kwargs)
         shapes = jax.eval_shape(lambda: jget_model(
             "transformer_lm", **kw).init(jax.random.key(0),
@@ -116,6 +122,7 @@ def test_interop_round_trip_exact(name):
         params = jax.tree.map(lambda s: rng.standard_normal(
             s.shape, dtype=np.float32), dict(shapes["params"]))
         tm = get_model("transformer_lm", **kw)
+        assert ("pos_embedding" in params) == (name == "transformer_lm")
     else:
         params, tm = _jax_params(_jax_model(), 3), TransformerLM(**TINY)
     assert "blocks_0.attn.query.kernel" in dict(tm.named_parameters())
@@ -128,8 +135,9 @@ def test_interop_round_trip_exact(name):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-@pytest.mark.parametrize("kw", [{}, dict(num_kv_heads=2, attn_window=24)],
-                         ids=["mha", "gqa-window"])
+@pytest.mark.parametrize("kw", [{}, dict(num_kv_heads=2, attn_window=24),
+                                MODERN],
+                         ids=["mha", "gqa-window", "rope-gqa-window"])
 def test_forward_matches_jax(kw):
     params = _jax_params(_jax_model(**kw), 2)
     toks = _tokens()["inputs"]
@@ -212,15 +220,14 @@ def _assert_tree_close(got, want, rtol, what="", one_ulp_rare=False):
 STEPS = 3
 
 
-@pytest.fixture(scope="module")
-def jax_trajectory(tiny_params):
+def _jax_steps(params, **kw):
     """The JAX package's fused LM loss + clip(1.0) + Adam(3e-4), three
     jitted steps on consecutive PTB batches: per step the metrics, the
     parameters and the Adam moments (flat numpy dicts)."""
-    jm = _jax_model()
+    jm = _jax_model(**kw)
     tx = jconfig.OptimizerConfig(name="adam", learning_rate=LR,
                                  clip_global_norm=CLIP).make()
-    params = jax.tree.map(jnp.asarray, tiny_params)
+    params = jax.tree.map(jnp.asarray, params)
     jstate = JTrainState.create(jm, tx, jax.random.key(0),
                                 jnp.zeros((2, 64), jnp.int32))
     jstate = jstate.replace(params=params, opt_state=tx.init(params))
@@ -243,9 +250,18 @@ def jax_trajectory(tiny_params):
     return out
 
 
+@pytest.fixture(scope="module")
+def jax_trajectory(tiny_params):
+    return _jax_steps(tiny_params)
+
+
 @pytest.mark.parametrize("steps", [1, 3])
 def test_training_steps_match_jax(tiny_params, jax_trajectory, steps):
-    tm = _port_model(tiny_params)
+    _check_steps(tiny_params, jax_trajectory, steps)
+
+
+def _check_steps(tiny_params, jax_trajectory, steps, **kw):
+    tm = _port_model(tiny_params, **kw)
     opt = tconfig.get_config("transformer_lm_tiny").optimizer
     assert (opt.name, opt.learning_rate, opt.clip_global_norm) == (
         "adam", LR, CLIP)
@@ -281,6 +297,81 @@ def test_training_steps_match_jax(tiny_params, jax_trajectory, steps):
             continue
         _assert_mostly_close(got[k], w, 1e-5, 2e-3 * LR, 2 * steps * LR,
                              what=f"params/{k}")
+
+
+@pytest.fixture(scope="module")
+def modern_params():
+    return _jax_params(_jax_model(**MODERN), 4)
+
+
+@pytest.fixture(scope="module")
+def modern_trajectory(modern_params):
+    return _jax_steps(modern_params, **MODERN)
+
+
+def test_modern_loss_and_grads_match_jax(modern_params, monkeypatch):
+    """transformer_lm_modern's form (rope, GQA, window) through the fused
+    loss, the port's backward staged: loss and every gradient."""
+    monkeypatch.setenv("DTM_FLASH_BWD", "staged")
+    batch = _tokens()
+    jm = _jax_model(**MODERN)
+    jloss = jtrain.lm_loss_fn(jm.apply, fused_unembed=True)
+    jstate = JTrainState.create(jm, optax.identity(), jax.random.key(0),
+                                jnp.zeros((2, 64), jnp.int32))
+    (jl, _), jgrads = jax.jit(lambda p, b: jax.value_and_grad(
+        jloss, has_aux=True)(p, jstate, b, {}))(
+            jax.tree.map(jnp.asarray, modern_params),
+            {k: jnp.asarray(v) for k, v in batch.items()})
+    tm = _port_model(modern_params, **MODERN)
+    tstate = TrainState.create(tm, toptim.sgd(0.0))
+    tl, _ = ttrain.lm_loss_fn(tm, fused_unembed=True)(
+        tstate.params, tstate, {k: torch.from_numpy(v)
+                                for k, v in batch.items()}, {})
+    names = list(tstate.params)
+    grads = dict(zip(names, torch.autograd.grad(
+        tl, [tstate.params[n] for n in names])))
+    np.testing.assert_allclose(float(tl.detach()), float(jl), **FUSED_TOL)
+    _assert_tree_close({k.replace(".", "/"): v.numpy()
+                        for k, v in grads.items()},
+                       _leaves(jax.tree.map(np.asarray, dict(jgrads))),
+                       FUSED_TOL["rtol"], one_ulp_rare=True)
+
+
+@pytest.mark.parametrize("steps", [1, 3])
+def test_modern_training_steps_match_jax(modern_params, modern_trajectory,
+                                         steps, monkeypatch):
+    monkeypatch.setenv("DTM_FLASH_BWD", "staged")
+    _check_steps(modern_params, modern_trajectory, steps, **MODERN)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pos_shape", ["T", "BT"])
+def test_apply_rope_matches_jax(dtype, pos_shape):
+    rng = np.random.RandomState(14)
+    x = rng.randn(2, 40, 3, 16).astype(np.float32)
+    pos = (np.arange(40) + 7 if pos_shape == "T"
+           else rng.randint(0, 500, (2, 40))).astype(np.int32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jrotary.apply_rope(jnp.asarray(x).astype(jdt), jnp.asarray(pos),
+                              500.0)
+    got = trotary.apply_rope(torch.tensor(x).to(tdt), torch.from_numpy(pos),
+                             500.0)
+    assert got.dtype == tdt and got.shape == x.shape
+    # The angles in f32 on both sides (a position times a frequency, then
+    # cos/sin): a few f32 ulps of the rotated values; in bf16 one ulp of
+    # the output where the f32 results straddle a rounding boundary.
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == "float32" else dict(
+        rtol=2.0 ** -7, atol=2.0 ** -7)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **tol)
+    jc, js = jrotary.rope_angles(jnp.asarray(pos), 16, 500.0)
+    tc, ts = trotary.rope_angles(torch.from_numpy(pos), 16, 500.0)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-5,
+                               atol=1e-5)
+    with pytest.raises(ValueError, match="even"):
+        trotary.rope_angles(torch.arange(3), 15)
 
 
 @pytest.mark.parametrize("compute", ["float32", "bfloat16"])
@@ -374,9 +465,10 @@ def test_embed_grad_knob(monkeypatch):
 
 @pytest.mark.parametrize("kw", [dict(decode=True), dict(num_experts=4),
                                 dict(pipelined=True), dict(remat=True),
-                                dict(pos_encoding="rope")],
+                                dict(pos_encoding="rope", decode=True)],
                          ids=["decode", "moe", "pipelined", "remat", "rope"])
 def test_unported_paths_raise(kw):
+    """Rotary positions train; the rotary KV-cache decode is not ported."""
     with pytest.raises(NotImplementedError, match="not ported yet"):
         TransformerLM(**TINY, **kw)
 
@@ -399,14 +491,14 @@ def test_ptb_batches_and_cursor_equal_jax():
 
 
 def test_lm_configs_match_jax():
-    j, t = jconfig.get_config("transformer_lm"), tconfig.get_config(
-        "transformer_lm")
-    for field in ("model", "task", "model_kwargs", "dataset",
-                  "global_batch_size", "num_steps", "vocab_size",
-                  "attn_impl", "fused_unembed", "train_steps", "seed"):
-        assert getattr(t, field) == getattr(j, field), field
-    for field in ("name", "learning_rate", "clip_global_norm"):
-        assert getattr(t.optimizer, field) == getattr(j.optimizer, field)
+    for name in ("transformer_lm", "transformer_lm_modern"):
+        j, t = jconfig.get_config(name), tconfig.get_config(name)
+        for field in ("model", "task", "model_kwargs", "dataset",
+                      "global_batch_size", "num_steps", "vocab_size",
+                      "attn_impl", "fused_unembed", "train_steps", "seed"):
+            assert getattr(t, field) == getattr(j, field), (name, field)
+        for field in ("name", "learning_rate", "clip_global_norm"):
+            assert getattr(t.optimizer, field) == getattr(j.optimizer, field)
     tiny = tconfig.get_config("transformer_lm_tiny")
     assert (tiny.num_steps, tiny.global_batch_size, tiny.vocab_size,
             tiny.train_steps) == (64, 4, 256, 2)
