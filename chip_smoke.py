@@ -8,12 +8,15 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
 1. Device: the card's name and power limit, and the build of the port's
    CUDA kernels from ``csrc/`` (one nvcc per source, both started at
    once): K1 and K6 in ``conv_implicit_gemm.cu``, K2-K5 in
-   ``flash_attention.cu``.
-2. K1 against its plain version (``conv_mxu._core_reference``, f32) at
-   every launch shape of one ResNet-50 training step at batch 256 (traced
-   on the meta device, so they are the main path's own).  Times K1, the
-   plain version and ``F.conv2d`` (cuDNN, a yardstick only) with CUDA
-   events and works out the bound.
+   ``flash_attention.cu``; the build seconds and what ``-Xptxas -v`` says
+   of every kernel instance (registers, shared memory, spills).
+2. K1 and K6 against K1's plain version (``conv_mxu._core_reference``, f32)
+   at every launch shape of one ResNet-50 training step at batch 256
+   (traced on the meta device, so they are the main path's own, each
+   given as the padded input it reads as a window); K6 must equal K1 bit
+   for bit.  Prints each shape's N tile and times K1, K6, the plain
+   version and ``F.conv2d`` (cuDNN, a yardstick only) with CUDA events
+   beside the bound.
 3. ``conv2d_mxu`` forward and gradients (dx, dw), stride 1 and 2, against
    the ``patches`` lowering in f32 on the card.
 4. The ResNet-50 path: the port's CLI trains ``resnet50_synthetic``
@@ -21,20 +24,19 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    its launches per step times the steps (K6's stays 0).  The ``F.conv2d``
    arm (cuDNN) follows as a yardstick, in turns with a second K1 arm.
 5. ``torch.profiler`` over two steps of each ResNet arm: device time by
-   kernel class and the device's idle share.
-6. K1 and K6 against the plain version at every launch shape of one
-   ``inception_v3_imagenet`` step at batch 256 (the 1x7, 7x1, 1x3, 3x1
-   taps, the aux head's 5x5, the phase kernels of its stride-2 convs and
-   the dx of all of them, traced on the meta device).  K6 must equal K1
-   bit for bit at every shape; both are timed beside the plain version,
-   ``F.conv2d`` and the bound.
+   kernel class, the copy class split by source (the mxu route's forward
+   and dx, its dw windows, the patches lowering's im2col, the branch
+   concatenations, dtype casts, other), and the device's idle share.
+6. Phase 2 at every launch shape of one ``inception_v3_imagenet`` step at
+   batch 256 (the 1x7, 7x1, 1x3, 3x1 taps, the aux head's 5x5, the phase
+   kernels of its stride-2 convs and the dx of all of them).
 7. The Inception-v3 path: the CLI trains ``inception_v3_imagenet``
    (299x299, batch 256, RMSProp, label smoothing, the 0.4-weighted aux
    head, L2, the weight EMA) with ``DTM_CONV_MXU_PIPELINE=1``: K6's
    counter must equal its launches per step times the steps and K1's must
    stay 0.  The K1 arm (knob 0) follows in turns, then one ``F.conv2d``
-   arm; images/s, step times, peak memory and losses of each, and a
-   profile of the K6 arm.
+   arm; images/s, step times, peak memory and losses of each, and
+   profiles of the K6 and K1 arms as in phase 5.
 8. K2-K5 (``csrc/flash_attention.cu``) against their plain versions in
    bf16 at (a) the LM path's launch shape B16 T256 H8 D32 causal, (b) the
    flash sweep shape B4 T2048 H8 D64 causal, (c) B4 T2048 H8 Hkv2 D32
@@ -74,6 +76,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -179,13 +182,18 @@ def core_launch_shapes(model_name: str, image_size: int, batch: int,
 
     calls = []
     role = ["fwd"]
-    core_forward = conv_mxu._core_forward
+    core_window = conv_mxu._core_window
 
-    def record(xpad, kernel):
-        calls.append((role[0], tuple(xpad.shape), tuple(kernel.shape)))
-        return core_forward(xpad, kernel)
+    def record(x, kernel, win, out=None):
+        # The window's padded extent: the core's input as the padded route
+        # materialised it.
+        kh, kw, cin, _ = kernel.shape
+        oh, ow = win[4], win[5]
+        calls.append((role[0], (x.shape[0], oh + kh - 1, ow + kw - 1, cin),
+                      tuple(kernel.shape)))
+        return core_window(x, kernel, win, out)
 
-    conv_mxu._core_forward = record
+    conv_mxu._core_window = record
     try:
         with torch.device("meta"):
             model = get_model(model_name, conv_impl="mxu", **model_kw)
@@ -195,8 +203,30 @@ def core_launch_shapes(model_name: str, image_size: int, batch: int,
         outs = out if isinstance(out, tuple) else (out,)
         sum(o.sum() for o in outs).backward()
     finally:
-        conv_mxu._core_forward = core_forward
+        conv_mxu._core_window = core_window
     return calls
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per kernel instance of an ``nvcc -Xptxas -v`` log (its
+    mangled name, registers, shared memory, stack and spills), and every
+    warning line as it is."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "warning" in line.lower():
+            out.append(line.strip())
+        elif "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+            # Drop the anonymous namespace's mangled prefix.
+            name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+\d+", "",
+                          name)[:72]
+            props = []
+        elif name and ("spill" in line or "Used" in line):
+            props.append(line.split(":", 1)[-1].strip())
+            if "Used" in line:
+                out.append(f"{name}: " + "; ".join(props))
+                name = None
+    return out
 
 
 def bound_ms(xshape, kshape) -> tuple[float, str]:
@@ -213,10 +243,10 @@ def bound_ms(xshape, kshape) -> tuple[float, str]:
                                        else "bytes")
 
 
-def phase_k1(calls, seed: int, with_k6: bool = False) -> dict:
-    """K1 against its plain version at each distinct launch shape; with
-    ``with_k6`` also K6, which must equal K1 bit for bit, timed beside it.
-    Per-step totals weight each shape by its launches per step."""
+def phase_k1(calls, seed: int) -> dict:
+    """K1 against its plain version at each distinct launch shape, and K6,
+    which must equal K1 bit for bit, timed beside it.  Per-step totals
+    weight each shape by its launches per step."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -229,9 +259,9 @@ def phase_k1(calls, seed: int, with_k6: bool = False) -> dict:
     rng = np.random.default_rng(seed)
     rows, worst_abs, worst_rel = [], 0.0, 0.0
     totals = collections.Counter()
-    log(f"{'xpad':>22} {'kernel':>18} {'per step':>12} {'k1_ms':>9} "
-        + (f"{'k6_ms':>9} " if with_k6 else "")
-        + f"{'plain_ms':>9} {'cudnn_ms':>9} {'bound_ms':>9} {'bound_by':>10} "
+    log(f"{'xpad':>22} {'kernel':>18} {'per step':>12} {'tile':>8} "
+        f"{'k1_ms':>9} {'k6_ms':>9} "
+        f"{'plain_ms':>9} {'cudnn_ms':>9} {'bound_ms':>9} {'bound_by':>10} "
         f"{'TFLOP/s':>8} {'max_abs':>9} {'max_rel':>9}")
     for (xs, ks), roles in per_shape.items():
         fan_in = ks[0] * ks[1] * ks[2]
@@ -252,40 +282,40 @@ def phase_k1(calls, seed: int, with_k6: bool = False) -> dict:
             fail(f"K1 disagrees with its plain version at x{xs} k{ks}: "
                  f"{int(bad.sum())} elements over atol {atol:.3g} + rtol "
                  f"{K1_RTOL:.3g}; max abs err {max_abs:.4g}")
-        if with_k6:
-            got6 = conv_mxu.conv_implicit_gemm_pipelined(x, k)
-            torch.cuda.synchronize()
-            if not torch.equal(got6, got):
-                fail(f"K6 differs from K1 at x{xs} k{ks}: "
-                     f"{int((got6 != got).sum())} elements")
-            del got6
+        got6 = conv_mxu.conv_implicit_gemm_pipelined(x, k)
+        torch.cuda.synchronize()
+        if not torch.equal(got6, got):
+            fail(f"K6 differs from K1 at x{xs} k{ks}: "
+                 f"{int((got6 != got).sum())} elements")
+        del got6
         del got, want, err, bad
         # cuDNN's own layout: NHWC activations seen as NCHW, the weight
         # stored OHWI (channels_last OIHW), arranged outside the timing.
         x_nchw = x.permute(0, 3, 1, 2)
         w_cl = k.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
         ms = time_ms(lambda: conv_mxu.conv_implicit_gemm(x, k), 20)
-        k6_ms = (time_ms(lambda: conv_mxu.conv_implicit_gemm_pipelined(x, k),
-                         20) if with_k6 else None)
+        k6_ms = time_ms(lambda: conv_mxu.conv_implicit_gemm_pipelined(x, k),
+                        20)
         plain_ms = time_ms(lambda: conv_mxu._core_reference(x, k), 5, 1)
         lib_ms = time_ms(lambda: F.conv2d(x_nchw, w_cl), 20)
         bms, bound_by = bound_ms(xs, ks)
         n = sum(roles.values())
         m = xs[0] * (xs[1] - ks[0] + 1) * (xs[2] - ks[1] + 1)
+        tile = conv_mxu.tile_n(ks[3], m)
         tflops = 2.0 * m * ks[0] * ks[1] * ks[2] * ks[3] / (ms * 1e9)
         log(f"{str(xs):>22} {str(ks):>18} "
             f"{' '.join(f'{r}x{c}' for r, c in roles.items()):>12} "
-            f"{ms:9.4f} " + (f"{k6_ms:9.4f} " if with_k6 else "")
+            f"{f'128x{tile}':>8} {ms:9.4f} {k6_ms:9.4f} "
             + f"{plain_ms:9.4f} {lib_ms:9.4f} {bms:9.4f} "
             f"{bound_by:>10} {tflops:8.1f} {max_abs:9.3g} {max_rel:9.3g}")
-        rows.append(dict(xpad=xs, kernel=ks, roles=dict(roles), ms=ms,
+        rows.append(dict(xpad=xs, kernel=ks, roles=dict(roles), tile_n=tile,
+                         ms=ms,
                          k6_ms=k6_ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=bms, bound_by=bound_by, max_abs_err=max_abs,
                          max_rel_err=max_rel))
         for key, val in (("ms", ms), ("k6_ms", k6_ms), ("plain_ms", plain_ms),
                          ("library_ms", lib_ms), ("bound_ms", bms)):
-            if val is not None:
-                totals[key] += n * val
+            totals[key] += n * val
         worst_abs, worst_rel = max(worst_abs, max_abs), max(worst_rel, max_rel)
         del x, k, x_nchw, w_cl
         torch.cuda.empty_cache()
@@ -298,14 +328,14 @@ def phase_k1(calls, seed: int, with_k6: bool = False) -> dict:
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
     log(f"K1 per training step ({len(calls)} launches): "
         f"{totals['ms']:.3f} ms; "
-        + (f"K6 {totals['k6_ms']:.3f} ms (K6 = K1 bit for bit at every "
-           f"shape); " if with_k6 else "")
+        + f"K6 {totals['k6_ms']:.3f} ms (K6 = K1 bit for bit at every "
+        f"shape); "
         + f"plain {totals['plain_ms']:.3f} ms; "
         f"cuDNN {totals['library_ms']:.3f} ms; bound {1e3 * max(t_ops, t_bytes):.3f} ms "
         f"({flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB); "
         f"K1 at {flops / (totals['ms'] * 1e9):.1f} TFLOP/s; "
         f"worst max abs err {worst_abs:.4g} (rel to scale {worst_rel:.4g})")
-    return dict(rows=rows, ms=totals["ms"], k6_ms=totals.get("k6_ms"),
+    return dict(rows=rows, ms=totals["ms"], k6_ms=totals["k6_ms"],
                 plain_ms=totals["plain_ms"],
                 library_ms=totals["library_ms"],
                 bound_ms=1e3 * max(t_ops, t_bytes),
@@ -414,8 +444,72 @@ def _kernel_class(name: str) -> str:
         return "reductions"
     if any(s in low for s in ("copy", "cat", "pad", "fill", "memset",
                               "memcpy", "index", "slice")):
-        return "copies, pads, fills"
+        return COPY_CLASS
     return "elementwise and other"
+
+
+COPY_CLASS = "copies, pads, fills"
+
+
+@contextlib.contextmanager
+def copy_sources():
+    """Marks the port's functions whose copies the profile tells apart with
+    ``record_function`` ranges ``src:<source>``: the mxu route's forward
+    and dx (which copy weight slices only: the core's inputs are windows
+    the kernels read), its dw window dots and the patches lowering's
+    im2col (the 1x1 and low-Cin convs)."""
+    from torch.profiler import record_function
+
+    from distributed_tensorflow_models_tpu_torch.ops import conv as convlib
+    from distributed_tensorflow_models_tpu_torch.ops import conv_mxu
+
+    saved = []
+
+    def wrap(mod, name, label):
+        fn = getattr(mod, name)
+
+        def marked(*a, **kw):
+            with record_function(f"src:{label}"):
+                return fn(*a, **kw)
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, marked)
+
+    wrap(conv_mxu, "_forward", "mxu forward: core inputs, phase sums")
+    wrap(conv_mxu, "_dx", "mxu dx: core inputs, dx buffer")
+    wrap(conv_mxu, "_dw", "mxu dw windows")
+    wrap(convlib, "conv2d_patches", "patches im2col")
+    wrap(conv_mxu, "conv2d_patches", "patches im2col")
+    try:
+        yield
+    finally:
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
+
+
+def copy_split(prof, steps: int) -> collections.Counter:
+    """Device ms per step of the copy class by source: the innermost
+    ``src:`` range around the op that launched the kernel, else
+    ``torch.cat`` outside them (the branch concatenations), else a dtype
+    cast (``aten::_to_copy``), else other (pools' pads, zero fills,
+    autograd's accumulations)."""
+    split = collections.Counter()
+    for e in prof.events():
+        for k in getattr(e, "kernels", None) or ():
+            if _kernel_class(k.name) != COPY_CLASS:
+                continue
+            src, seen, cur = None, set(), e
+            while cur is not None:
+                if cur.name.startswith("src:"):
+                    src = cur.name[4:]
+                    break
+                seen.add(cur.name)
+                cur = cur.cpu_parent
+            key = src or ("branch concatenations" if "aten::cat" in seen
+                          else "dtype casts" if "aten::_to_copy" in seen
+                          else "other")
+            split[key] += k.duration / 1e3 / steps
+    return split
 
 
 def phase_profile(cfg, arm: str, steps: int = 2) -> None:
@@ -436,8 +530,8 @@ def phase_profile(cfg, arm: str, steps: int = 2) -> None:
                 next(batches).items()} for _ in range(steps + 1)]
     state, metrics = step_fn(state, on_card[0], cfg.seed)
     float(metrics["loss"])
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with copy_sources(), profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for b in on_card[1:]:
             state, metrics = step_fn(state, b, cfg.seed)
@@ -445,10 +539,12 @@ def phase_profile(cfg, arm: str, steps: int = 2) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     # Device-side events only: a CPU op's self device time repeats the
     # time of the kernels it launched.
+    # (The src: ranges show on the device timeline as annotations, not
+    # kernels.)
     kernels = [(e.device_time_total / 1e3 / steps, e.count // steps, e.key)
                for e in prof.key_averages()
                if e.device_type != torch.autograd.DeviceType.CPU
-               and e.device_time_total > 0]
+               and e.device_time_total > 0 and not e.key.startswith("src:")]
     busy_ms = sum(ms for ms, _, _ in kernels)
     if busy_ms == 0:
         fail(f"profile ({arm}): the profiler saw no device time")
@@ -463,6 +559,11 @@ def phase_profile(cfg, arm: str, steps: int = 2) -> None:
         f"{1 - busy_ms / wall_ms:.3f}")
     for cls, ms in classes.most_common():
         log(f"  {cls:>22}: {ms:8.2f} ms  {ms / busy_ms:6.1%} of busy")
+    split = copy_split(prof, steps)
+    log(f"  {COPY_CLASS} by source ({sum(split.values()):.2f} ms of "
+        f"{classes[COPY_CLASS]:.2f} attributed):")
+    for src, ms in split.most_common():
+        log(f"    {src:>40}: {ms:8.2f} ms")
     for ms, count, name in sorted(kernels, reverse=True)[:12]:
         log(f"  {ms:8.3f} ms x{count:<4d} {name[:110]}")
 
@@ -738,6 +839,8 @@ def main(argv=None) -> int:
         log(f"{kids} ({src}) build+load: " + (
             "cached build loaded" if nvcc_s is None
             else f"nvcc {nvcc_s:.2f} s"))
+        for line in ptxas_summary(_kernels.build_logs.get(src, "")):
+            log(f"  ptxas {line}")
     log(f"both builds, in parallel: {time.perf_counter() - t0:.2f} s wall")
 
     # 2. K1 at the ResNet-50 path's launch shapes.
@@ -799,7 +902,7 @@ def main(argv=None) -> int:
     log(f"conv core launches per Inception-v3 step at batch "
         f"{args.batch_size}: {len(inc_calls)} ({dict(inc_roles)}), "
         f"{len({(x, w) for _, x, w in inc_calls})} distinct shapes")
-    k6_res = phase_k1(inc_calls, args.seed + 3, with_k6=True)
+    k6_res = phase_k1(inc_calls, args.seed + 3)
 
     # 7. The Inception-v3 path with every routed conv on K6, the two
     # counters zeroed just before it and read just after; then the K1 arm
@@ -832,11 +935,11 @@ def main(argv=None) -> int:
         inc_arms.append((label, r))
     for label, r in inc_arms:
         log_arm(f"Inception {label}", r, args.batch_size, card)
-    # Device time of the K6 arm.
+    # Device time of the K6 and K1 arms.
     convlib.set_default_conv_impl("mxu")
-    os.environ["DTM_CONV_MXU_PIPELINE"] = "1"
-    phase_profile(inc_cfg, "Inception-v3, K6 convs")
-    os.environ["DTM_CONV_MXU_PIPELINE"] = "0"
+    for knob, kid in (("1", "K6"), ("0", "K1")):
+        os.environ["DTM_CONV_MXU_PIPELINE"] = knob
+        phase_profile(inc_cfg, f"Inception-v3, {kid} convs")
 
     # 8. K2-K5 against their plain versions, timed against their bounds.
     flash = phase_flash(args.seed + 2)

@@ -1,497 +1,781 @@
-// Implicit-GEMM stride-1 VALID 2-D convolution, NHWC x HWIO -> NHWC, bf16.
+// Implicit-GEMM 2-D convolution on a window of an NHWC input, HWIO kernel,
+// bf16 in, f32 accumulate, bf16 out: kernels K1 and K6, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel ops/conv_mxu.py::_core_kernel of the JAX package
-// (the Pallas implicit GEMM that carries every routed conv forward and, via
-// the custom VJP, every dx).  It computes the same function as that
-// package's ``_core``: for an input ``x[B, Hp, Wp, Cin]`` and a kernel
-// ``k[kh, kw, Cin, Cout]``,
+// K1 replaces the TPU kernel ops/conv_mxu.py::_core_kernel of the JAX
+// package (the Pallas implicit GEMM that carries every routed conv forward
+// and, via the custom VJP, every dx); K6 replaces its pipelined form
+// ops/conv_mxu.py::_core_kernel_pipelined.  Both compute
 //
-//     y[b, oh, ow, n] = sum_{dy, dx, c} x[b, oh+dy, ow+dx, c] * k[dy, dx, c, n]
+//     y[b, oh, ow, n] = sum_{dy, dx, c} xw[b, oh+dy, ow+dx, c] * k[dy, dx, c, n]
 //
-// with OH = Hp-kh+1 and OW = Wp-kw+1, accumulated in f32 and written in bf16.
-// Any kh, kw >= 1 is taken (the stride-phase kernels 2x2, 2x1, 1x2, 1x1
-// included), and ragged M, Cin and Cout are masked.
+// for oh < OH, ow < OW, where the window xw of the input x[B, H, W, Cin] is
 //
-// What bounds it on an H100: a ResNet-50 3x3 conv does 2*9*Cin FLOPs per
-// output element against ~2*(Cin+Cout) bytes of activation traffic.  At
-// Cin=64 on 56x56 that is about 280 FLOP/byte, right at the bf16 ridge of
-// the card (989 TFLOP/s over 3.35 TB/s, about 295 FLOP/byte); at Cin >= 256
-// it is several times the ridge, so the tensor cores bound it.
+//     xw[b, i, j, c] = x[b, h0 + i*sh, w0 + j*sw, c]   inside [0, H) x [0, W),
+//                      0                                outside,
 //
-// The design is the simple correct one, with no Hopper-only features:
-// - the GEMM view is M = B*OH*OW flattened output rows by N = Cout, reduced
-//   over K = kh*kw*Cin in (tap, Cin-chunk) order; the im2col matrix is never
-//   built, each block gathers its own shifted input rows (and thereby its
-//   own halo) straight from the NHWC tensor;
-// - one 256-thread block owns a 128 x BN output tile (BN = 64 or 128); its
-//   8 warps each own a 32 x BN/2 sub-tile of 16x16x16 bf16 WMMA fragments
-//   accumulating in f32 registers;
-// - the A (gathered rows) and B (weight slice) tiles of one K step are
-//   staged in shared memory, double-buffered with cp.async so the next
-//   step's loads are in flight while the tensor cores work on this one;
-//   masked rows/channels are zero-filled by the copy itself;
-// - channel counts that are not multiples of 8 (or misaligned pointers)
-//   take a scalar load path into the same buffers.
-// wgmma and TMA are left for later.
+// so one launch reads a stride phase of a padded input straight from the
+// unpadded tensor: the origin (h0, w0) may be negative where padding lies,
+// (sh, sw) is the phase step.  x and y are taken through element strides
+// (batch, row, column; channels contiguous), so y may be a strided window
+// of a larger buffer (a phase of dx).  Any kh, kw >= 1; ragged M, Cin and
+// Cout are masked.
 //
-// K6, the pipelined variant (dtm_conv_implicit_gemm_pipelined_bf16), replaces
-// the JAX package's ops/conv_mxu.py::_core_kernel_pipelined, which overlaps
-// the next grid block's halo copy with this block's compute on the TPU's
-// sequential grid.  Its Hopper form is a persistent K1: about one block per
-// SM times the occupancy the card reports, each walking its output tiles with
-// a stride of the grid size, and a ring of STAGES cp.async buffers that runs
-// through the K loop and across tile boundaries, so the first loads of tile
-// t+1 are in flight during tile t's last steps and its epilogue.  The tile,
-// the (tap, Cin-chunk) K order and the WMMA fragments are K1's, through the
-// same load, multiply and store functions, so every output element sees the
-// same sums in the same order: K6 equals K1 bit for bit.  The scalar path
-// joins the same ring (its loads just complete before the step's compute).
+// What bounds it on an H100: a ResNet-50 or Inception-v3 conv does
+// 2*kh*kw*Cin FLOPs per output element against ~2*(Cin+Cout) bytes of
+// activation traffic, tens to hundreds of FLOPs a byte above the bf16 ridge
+// (989 TFLOP/s over 3.35 TB/s, ~295 FLOP/byte) at Cin >= 64 and 3x3: the
+// tensor cores bound it.  The design feeds them the Hopper way:
+// - GEMM view: M = B*OH*OW output pixels, N = Cout, K = (tap, 64-channel
+//   chunk) steps; the im2col matrix is never built.
+// - A 384-thread block owns a 128 x BN output tile.  Warpgroup 0 produces,
+//   warpgroups 1 and 2 consume (64 rows each), with setmaxnreg moving
+//   registers from the producer (72) to the consumers (216) inside one
+//   if/else over the roles; at BN 64 two blocks share an SM (64 and 88).
+// - Math: wgmma.mma_async m64nBNk16, bf16 x bf16 -> f32 in registers, both
+//   operands from shared memory.  A K step is 64 channels of one tap (one
+//   128-byte swizzle row); a shorter Cin tail issues only the k16 slices
+//   that carry channels (80 = 64+16, 96 = 64+32, 160 = 2*64+32, ...).
+// - BN is fitted to Cout from 64, 96, 128, 144, 160, 192, 224, 256, so that
+//   Cout splits into equal tiles with little waste (288 = 2x144, 320 =
+//   2x160, 384 = 2x192, 448 = 2x224, 768 = 3x256); the pick depends on the
+//   shape only, so K1 and K6 always run the same tiles.
+// - B (the weight slice) arrives by TMA: a 2-D tensor map over the HWIO
+//   kernel seen as [kh*kw*Cin, Cout], 64x64 boxes with the 128-byte
+//   swizzle, N-contiguous, so the wgmma B descriptor is MN-major (the
+//   transpose bit, which bf16 allows).  The map's encoder is taken from
+//   the driver with cudaGetDriverEntryPointByVersion: no -lcuda.
+// - A (the gathered input rows) is copied by the producer warpgroup with
+//   16-byte cp.async straight into the 128-byte-swizzled K-major layout the
+//   wgmma A descriptor names; each row's NHWC base is decoded once per
+//   tile; rows past M, channels past Cin and positions outside the input
+//   (padding) are zero-filled by a source size of 0.  Completion reaches the
+//   stage's full mbarrier through cp.async.mbarrier.arrive.noinc, beside
+//   the TMA transaction count.
+// - A ring of 3-5 stages (fitted to shared memory by BN) guarded by full and
+//   empty mbarriers; the consumers keep one wgmma group in flight and
+//   release a stage when the group that read it is done.
+// - Epilogue: accumulators -> bf16 in registers -> a padded staging tile in
+//   shared memory, 64 columns at a time -> 16-byte coalesced global stores,
+//   masked for ragged M and N, at y's strides.
+// - Channel counts that are not multiples of 8, Cout under 64, strides that
+//   are not multiples of 8 elements or unaligned pointers take a plain
+//   load/store path into the same swizzled ring (TMA needs 16-byte
+//   strides), with a proxy fence before the barrier arrive.
+//
+// K1 launches one block per output tile.  K6 is its persistent form: grid =
+// resident blocks per SM x SM count, each block walking tiles with a stride
+// of the grid; the producer runs ahead across tile boundaries, so tile t's
+// epilogue overlaps tile t+1's loads.  Both run the same device code on the
+// same tiles in the same K order with the same wgmma sequence: K6 equals K1
+// bit for bit.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+#include <string.h>
 #include <atomic>
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int BM = 128;
-constexpr int BK = 32;
-constexpr int THREADS = 256;
-constexpr int A_LD = BK + 8;  // padded row (80 B): keeps 16 B alignment
+constexpr int BM = 128;             // output rows of a tile
+constexpr int BK = 64;              // channels of a K step
+constexpr int THREADS = 384;        // producer warpgroup + 2 consumers
+constexpr int SMEM_LIMIT = 232448;  // bytes a block may use on sm_90
+constexpr int SMEM_PER_SM = 233472; // of which 1 KB a block is reserved
+constexpr int A_BYTES = BM * BK * 2;
+constexpr int ATOM_BYTES = 64 * 64 * 2;  // one 64 (k) x 64 (n) B box
+constexpr int EPI_LD = 72;               // staging row, elements (144 B)
+constexpr int EPI_BYTES = 2 * 64 * EPI_LD * 2;
+constexpr int FULL_ARRIVALS = 128 + 1;   // producer threads + TMA issuer
+constexpr int EMPTY_ARRIVALS = 8;        // one per consumer warp
+// SMs of an H100 SXM: the small-grid tile rule below is fixed by the shape
+// and this constant, never by the launch form.
+constexpr long long FILL_TILES = 132;
+
+template <int BN>
+struct Cfg {
+  // Blocks an SM holds: two for the narrowest tile, whose short K loops
+  // (Cin 64 is one K step a tap) would leave a lone block's ring fill and
+  // epilogue exposed; one for the rest.
+  static constexpr int BLOCKS = BN == 64 ? 2 : 1;
+  // Registers a thread gets at launch, and the warpgroups' shares after
+  // setmaxnreg: what the producer gives up, the consumers take.
+  static constexpr int LAUNCH_REGS = 65536 / (THREADS * BLOCKS) / 8 * 8;
+  static constexpr int PRODUCER_REGS = BLOCKS == 2 ? 64 : 72;
+  static constexpr int CONSUMER_REGS =
+      (LAUNCH_REGS + (LAUNCH_REGS - PRODUCER_REGS) / 2) / 8 * 8;
+  static constexpr int NA = (BN + 63) / 64;  // 64-column B boxes
+  static constexpr int B_BYTES = NA * ATOM_BYTES;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int BUDGET =
+      BLOCKS == 1 ? SMEM_LIMIT : SMEM_PER_SM / BLOCKS - 1024;
+  static constexpr int FIT = (BUDGET - EPI_BYTES - 1024 - 128) / STAGE_BYTES;
+  static constexpr int STAGES = FIT < 5 ? FIT : 5;
+  static constexpr int SMEM =
+      1024 + STAGES * STAGE_BYTES + EPI_BYTES + 2 * STAGES * 8;
+  static_assert(STAGES >= 3, "ring too shallow");
+  static_assert(SMEM <= BUDGET, "shared memory");
+};
 
 struct Params {
   const __nv_bfloat16* x;
   const __nv_bfloat16* k;
   __nv_bfloat16* y;
-  int Hp, Wp, Cin, kw, Cout, OH, OW;
-  long long M;
-  int n_cin_chunks;
-  int n_k_tiles;
+  long long xs_b, xs_h, xs_w;  // input element strides
+  long long ys_b, ys_h, ys_w;  // output element strides
+  long long M;                 // B * OH * OW
+  long long n_tiles;
+  int H, W, Cin;
+  int h0, w0, sh, sw;          // window origin and step
+  int kw, Cout, OH, OW;
+  int n_cin_chunks, n_k_steps, tail_k16, n_tiles_n;
+  int vec;                     // cp.async A + TMA B, else the plain path
 };
 
-template <int BN>
-struct Smem {
-  __nv_bfloat16 a[2][BM][A_LD];
-  __nv_bfloat16 b[2][BK][BN + 8];
-  float epi[THREADS / 32][16 * 16];
-};
+// ------------------------------------------------------------ PTX helpers
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// The stage's arrival of this thread, once all its cp.async have landed.
+__device__ __forceinline__ void cp_async_arrive_noinc(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
                                             bool valid) {
-  unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int src_size = valid ? 16 : 0;  // 0 -> the 16 bytes are zero-filled
+  // A source size of 0 zero-fills the 16 bytes and reads nothing.
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(src_size));
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
 }
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_bar_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// A shared-memory matrix descriptor with the 128-byte swizzle; offsets in
+// bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// wgmma.mma_async m64nNk16, f32 += bf16 x bf16, A K-major, B MN-major (the
+// transpose bit), both from shared memory.  The accumulator operand lists
+// are spelled out per N from 8-register fragments.
+#define DTM_R0 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define DTM_R1 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define DTM_R2 ", %16, %17, %18, %19, %20, %21, %22, %23"
+#define DTM_R3 ", %24, %25, %26, %27, %28, %29, %30, %31"
+#define DTM_R4 ", %32, %33, %34, %35, %36, %37, %38, %39"
+#define DTM_R5 ", %40, %41, %42, %43, %44, %45, %46, %47"
+#define DTM_R6 ", %48, %49, %50, %51, %52, %53, %54, %55"
+#define DTM_R7 ", %56, %57, %58, %59, %60, %61, %62, %63"
+#define DTM_R8 ", %64, %65, %66, %67, %68, %69, %70, %71"
+#define DTM_R9 ", %72, %73, %74, %75, %76, %77, %78, %79"
+#define DTM_R10 ", %80, %81, %82, %83, %84, %85, %86, %87"
+#define DTM_R11 ", %88, %89, %90, %91, %92, %93, %94, %95"
+#define DTM_R12 ", %96, %97, %98, %99, %100, %101, %102, %103"
+#define DTM_R13 ", %104, %105, %106, %107, %108, %109, %110, %111"
+#define DTM_R14 ", %112, %113, %114, %115, %116, %117, %118, %119"
+#define DTM_R15 ", %120, %121, %122, %123, %124, %125, %126, %127"
+#define DTM_REGS32 DTM_R0 DTM_R1 DTM_R2 DTM_R3
+#define DTM_REGS48 DTM_REGS32 DTM_R4 DTM_R5
+#define DTM_REGS64 DTM_REGS48 DTM_R6 DTM_R7
+#define DTM_REGS72 DTM_REGS64 DTM_R8
+#define DTM_REGS80 DTM_REGS72 DTM_R9
+#define DTM_REGS96 DTM_REGS80 DTM_R10 DTM_R11
+#define DTM_REGS112 DTM_REGS96 DTM_R12 DTM_R13
+#define DTM_REGS128 DTM_REGS112 DTM_R14 DTM_R15
+
+#define DTM_C8(i)                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define DTM_C32(i) DTM_C8(i), DTM_C8(i + 8), DTM_C8(i + 16), DTM_C8(i + 24)
+#define DTM_CON32 DTM_C32(0)
+#define DTM_CON48 DTM_CON32, DTM_C8(32), DTM_C8(40)
+#define DTM_CON64 DTM_CON32, DTM_C32(32)
+#define DTM_CON72 DTM_CON64, DTM_C8(64)
+#define DTM_CON80 DTM_CON72, DTM_C8(72)
+#define DTM_CON96 DTM_CON64, DTM_C32(64)
+#define DTM_CON112 DTM_CON96, DTM_C8(96), DTM_C8(104)
+#define DTM_CON128 DTM_CON96, DTM_C32(96)
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+struct Wgmma;
+
+#define DTM_WGMMA(N, REGS, CONS, DA, DB, SC)                                \
+  template <>                                                              \
+  struct Wgmma<N> {                                                        \
+    static __device__ __forceinline__ void mma(float (&d)[N / 2],         \
+                                               uint64_t da, uint64_t db) { \
+      asm volatile(                                                        \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %" SC ", 0;\n"                 \
+          "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS \
+          "}, %" DA ", %" DB ", p, 1, 1, 0, 1;\n}\n"                       \
+          : CONS                                                           \
+          : "l"(da), "l"(db), "r"(1));                                     \
+    }                                                                      \
+  };
+
+DTM_WGMMA(64, DTM_REGS32, DTM_CON32, "32", "33", "34")
+DTM_WGMMA(96, DTM_REGS48, DTM_CON48, "48", "49", "50")
+DTM_WGMMA(128, DTM_REGS64, DTM_CON64, "64", "65", "66")
+DTM_WGMMA(144, DTM_REGS72, DTM_CON72, "72", "73", "74")
+DTM_WGMMA(160, DTM_REGS80, DTM_CON80, "80", "81", "82")
+DTM_WGMMA(192, DTM_REGS96, DTM_CON96, "96", "97", "98")
+DTM_WGMMA(224, DTM_REGS112, DTM_CON112, "112", "113", "114")
+DTM_WGMMA(256, DTM_REGS128, DTM_CON128, "128", "129", "130")
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma boundaries.
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&acc)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(acc[i])::"memory");
 }
 
-// Each thread gathers two rows of the A tile (rows tid/4 and tid/4 + 64, the
-// same 8-channel column); their NHWC base offsets are fixed for the whole K
-// loop, so they are decoded from m once.
-struct RowCursor {
-  long long base[2];
-  bool valid[2];
-};
-
-__device__ __forceinline__ void make_cursor(const Params& p, long long m0,
-                                            RowCursor& rc) {
-  const int tid = threadIdx.x;
+// ------------------------------------------------------------ producer
+// Warpgroup 0.  Thread t gathers rows t/4 + 32i (i < 4) of the A tile, its
+// 16-byte chunks 2(t%4) and 2(t%4)+1; thread 0 also issues the B boxes.
+template <int BN>
+__device__ __forceinline__ void produce(const CUtensorMap* kmap,
+                                        const Params& p, unsigned char* smem,
+                                        uint32_t base,
+                                        uint32_t full0, uint32_t empty0,
+                                        long long first, long long stride) {
+  using C = Cfg<BN>;
+  const int t = threadIdx.x;
+  const int rq = t & 3;
+  const int rb = t >> 2;
   const long long ohw = (long long)p.OH * p.OW;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (long long tile = first; tile < p.n_tiles; tile += stride) {
+    const long long m0 = (tile / p.n_tiles_n) * BM;
+    const int n0 = (int)(tile % p.n_tiles_n) * BN;
+    long long roff[4];  // element offset of the row's window origin
+    int rih[4], riw[4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const long long m = m0 + (tid >> 2) + i * 64;
-    rc.valid[i] = m < p.M;
-    const long long mm = rc.valid[i] ? m : 0;
-    const long long b = mm / ohw;
-    const long long rem = mm - b * ohw;
-    const long long oh = rem / p.OW;
-    const long long ow = rem - oh * p.OW;
-    rc.base[i] = ((b * p.Hp + oh) * p.Wp + ow) * p.Cin;
-  }
-}
-
-// The A and B tiles of K step ``kt`` into one stage of the shared buffers.
-template <int BN, bool VEC>
-__device__ __forceinline__ void load_stage(const Params& p,
-                                           __nv_bfloat16 (*a)[A_LD],
-                                           __nv_bfloat16 (*bt)[BN + 8], int kt,
-                                           const RowCursor& rc, long long n0) {
-  const int tid = threadIdx.x;
-  const int tap = kt / p.n_cin_chunks;
-  const int c0 = (kt - tap * p.n_cin_chunks) * BK;
-  const int dy = tap / p.kw;
-  const int dx = tap - dy * p.kw;
-  const long long tap_off = ((long long)dy * p.Wp + dx) * p.Cin;
-
-  // A: BM x BK gathered input rows, 8 bf16 per chunk, 4 chunks per row.
-  const int col = (tid & 3) * 8;
+    for (int i = 0; i < 4; ++i) {
+      const long long m = m0 + rb + 32 * i;
+      if (m < p.M) {
+        const long long b = m / ohw;
+        const long long rem = m - b * ohw;
+        const int oh = (int)(rem / p.OW);
+        const int ow = (int)(rem - (long long)oh * p.OW);
+        rih[i] = p.h0 + oh * p.sh;
+        riw[i] = p.w0 + ow * p.sw;
+        roff[i] = b * p.xs_b + (long long)rih[i] * p.xs_h +
+                  (long long)riw[i] * p.xs_w;
+      } else {
+        rih[i] = -(1 << 30);  // never inside the input
+        riw[i] = 0;
+        roff[i] = 0;
+      }
+    }
+    int chunk = 0, dy = 0, dx = 0;
+    for (int ks = 0; ks < p.n_k_steps; ++ks) {
+      const uint32_t full = full0 + 8 * stage, empty = empty0 + 8 * stage;
+      mbar_wait(empty, phase ^ 1);
+      const uint32_t a_s = base + stage * C::STAGE_BYTES;
+      const uint32_t b_s = a_s + A_BYTES;
+      const int c0 = chunk * BK;
+      const int ty = dy * p.sh, tx = dx * p.sw;
+      const long long toff =
+          (long long)ty * p.xs_h + (long long)tx * p.xs_w + c0;
+      const int krow = (dy * p.kw + dx) * p.Cin + c0;
+      if (p.vec) {
+        if (t == 0) {
+          mbar_arrive_expect_tx(full, C::B_BYTES);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = (tid >> 2) + i * 64;
-    __nv_bfloat16* dst = &a[row][col];
-    if (VEC) {
-      const bool ok = rc.valid[i] && (c0 + col < p.Cin);
-      const __nv_bfloat16* src =
-          ok ? p.x + rc.base[i] + tap_off + c0 + col : p.x;
-      cp_async_16(dst, src, ok);
-    } else {
+          for (int a = 0; a < C::NA; ++a)
+            tma_load_2d(b_s + a * ATOM_BYTES, kmap, full, n0 + 64 * a, krow);
+        }
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = c0 + col + j;
-        dst[j] = (rc.valid[i] && c < p.Cin)
-                     ? p.x[rc.base[i] + tap_off + c]
-                     : __float2bfloat16(0.0f);
+        for (int i = 0; i < 4; ++i) {
+          const int r = rb + 32 * i;
+          const int ih = rih[i] + ty, iw = riw[i] + tx;
+          const bool in = (unsigned)ih < (unsigned)p.H &&
+                          (unsigned)iw < (unsigned)p.W;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int q = 2 * rq + j;
+            const bool ok = in && (c0 + q * 8 < p.Cin);
+            const __nv_bfloat16* src = ok ? p.x + roff[i] + toff + q * 8 : p.x;
+            cp_async_16(a_s + r * 128 + ((q ^ (r & 7)) << 4), src, ok);
+          }
+        }
+        cp_async_arrive_noinc(full);
+      } else {
+        unsigned char* sm = smem + stage * C::STAGE_BYTES;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = rb + 32 * i;
+          const int ih = rih[i] + ty, iw = riw[i] + tx;
+          const bool in = (unsigned)ih < (unsigned)p.H &&
+                          (unsigned)iw < (unsigned)p.W;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int q = 2 * rq + j;
+            __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              const int c = c0 + q * 8 + e;
+              v[e] = (in && c < p.Cin) ? p.x[roff[i] + toff + q * 8 + e]
+                                       : __float2bfloat16(0.0f);
+            }
+            *reinterpret_cast<uint4*>(sm + r * 128 + ((q ^ (r & 7)) << 4)) =
+                *reinterpret_cast<const uint4*>(v);
+          }
+        }
+        // B: 64 k-rows x NA boxes x 8 chunks of 8 columns.
+        for (int idx = t; idx < 64 * C::NA * 8; idx += 128) {
+          const int kr = idx / (C::NA * 8);
+          const int rest = idx - kr * (C::NA * 8);
+          const int a = rest >> 3, qq = rest & 7;
+          const int c = c0 + kr;
+          const int n = n0 + a * 64 + qq * 8;
+          __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            v[e] = (c < p.Cin && n + e < p.Cout)
+                       ? p.k[(long long)(krow + kr) * p.Cout + n + e]
+                       : __float2bfloat16(0.0f);
+          *reinterpret_cast<uint4*>(sm + A_BYTES + a * ATOM_BYTES + kr * 128 +
+                                    ((qq ^ (kr & 7)) << 4)) =
+              *reinterpret_cast<const uint4*>(v);
+        }
+        fence_proxy_async();
+        mbar_arrive(full);
+        if (t == 0) mbar_arrive(full);
+      }
+      if (++stage == C::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+      if (++chunk == p.n_cin_chunks) {
+        chunk = 0;
+        if (++dx == p.kw) {
+          dx = 0;
+          ++dy;
+        }
       }
     }
   }
+}
 
-  // B: BK x BN slice of k[dy, dx, c0:c0+BK, n0:n0+BN].
-  constexpr int CPR = BN / 8;  // chunks per row
-  for (int ch = tid; ch < BK * CPR; ch += THREADS) {
-    const int r = ch / CPR;
-    const int cc = (ch - r * CPR) * 8;
-    const int c = c0 + r;
-    const long long n = n0 + cc;
-    __nv_bfloat16* dst = &bt[r][cc];
-    const long long krow = ((long long)tap * p.Cin + c) * p.Cout;
-    if (VEC) {
-      const bool ok = (c < p.Cin) && (n < p.Cout);
-      const __nv_bfloat16* src = ok ? p.k + krow + n : p.k;
-      cp_async_16(dst, src, ok);
-    } else {
+// ------------------------------------------------------------ consumers
+// Warpgroups 1 and 2: rows 64g..64g+63 of each tile.
+template <int BN>
+__device__ __forceinline__ void consume(const Params& p, unsigned char* smem,
+                                        uint32_t base, uint32_t full0,
+                                        uint32_t empty0, long long first,
+                                        long long stride) {
+  using C = Cfg<BN>;
+  const int g = (threadIdx.x >> 7) - 1;
+  const int t = threadIdx.x & 127;
+  const int warp = t >> 5, lane = t & 31;
+  __nv_bfloat16* epi = reinterpret_cast<__nv_bfloat16*>(
+                           smem + C::STAGES * C::STAGE_BYTES) +
+                       g * 64 * EPI_LD;
+  const long long ohw = (long long)p.OH * p.OW;
+  float acc[BN / 2];
+  int stage = 0;
+  uint32_t phase = 0;
+  for (long long tile = first; tile < p.n_tiles; tile += stride) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        dst[j] = (c < p.Cin && n + j < p.Cout) ? p.k[krow + n + j]
-                                               : __float2bfloat16(0.0f);
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+    int prev = -1, chunk = 0;
+    for (int ks = 0; ks < p.n_k_steps; ++ks) {
+      mbar_wait(full0 + 8 * stage, phase);
+      fence_proxy_async();
+      const uint32_t a_s = base + stage * C::STAGE_BYTES + g * 64 * 128;
+      const uint32_t b_s = base + stage * C::STAGE_BYTES + A_BYTES;
+      const int nk = chunk == p.n_cin_chunks - 1 ? p.tail_k16 : 4;
+      fence_acc(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk < nk)
+          Wgmma<BN>::mma(acc, sw128_desc(a_s + 32 * kk, 16, 1024),
+                         sw128_desc(b_s + 2048 * kk, ATOM_BYTES, 1024));
       }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      // The group before this one is done: its stage goes back.
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      fence_acc(acc);
+      if (prev >= 0 && lane == 0) mbar_arrive(empty0 + 8 * prev);
+      prev = stage;
+      if (++stage == C::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+      if (++chunk == p.n_cin_chunks) chunk = 0;
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+    if (lane == 0) mbar_arrive(empty0 + 8 * prev);
+
+    // Epilogue.  Thread t writes rows t/8 + 16i (i < 4), 16-byte chunk t%8
+    // of each 64-column slab.
+    const long long m0 = (tile / p.n_tiles_n) * BM + g * 64;
+    const int n0 = (int)(tile % p.n_tiles_n) * BN;
+    long long yoff[4];
+    bool rok[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const long long m = m0 + (t >> 3) + 16 * i;
+      rok[i] = m < p.M;
+      const long long mm = rok[i] ? m : 0;
+      const long long b = mm / ohw;
+      const long long rem = mm - b * ohw;
+      const long long oh = rem / p.OW;
+      const long long ow = rem - oh * p.OW;
+      yoff[i] = b * p.ys_b + oh * p.ys_h + ow * p.ys_w;
+    }
+    const int frow = warp * 16 + (lane >> 2);
+    const int fcol = 2 * (lane & 3);
+#pragma unroll
+    for (int cc = 0; cc < C::NA; ++cc) {
+#pragma unroll
+      for (int j8 = 0; j8 < 8; ++j8) {
+        const int j = cc * 8 + j8;
+        if (j < BN / 8) {
+          *reinterpret_cast<__nv_bfloat162*>(&epi[frow * EPI_LD + j8 * 8 + fcol]) =
+              __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(
+              &epi[(frow + 8) * EPI_LD + j8 * 8 + fcol]) =
+              __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+        }
+      }
+      named_bar_sync(1 + g);
+      const int q = t & 7;
+      const int n = n0 + cc * 64 + q * 8;
+      if (cc * 64 + q * 8 < BN) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (!rok[i]) continue;
+          const __nv_bfloat16* src = &epi[((t >> 3) + 16 * i) * EPI_LD + q * 8];
+          if (p.vec) {
+            if (n < p.Cout)
+              *reinterpret_cast<uint4*>(p.y + yoff[i] + n) =
+                  *reinterpret_cast<const uint4*>(src);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              if (n + e < p.Cout) p.y[yoff[i] + n + e] = src[e];
+          }
+        }
+      }
+      named_bar_sync(1 + g);
     }
   }
 }
 
 template <int BN>
-using AccTile = wmma::fragment<wmma::accumulator, 16, 16, 16, float>[2][BN / 32];
-
-template <int BN>
-__device__ __forceinline__ void zero_acc(AccTile<BN>& acc) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < BN / 32; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-}
-
-// One BK-deep step of the tile product: the warp's 32 x BN/2 sub-tile of
-// acc += A[:, kk:kk+16] B[kk:kk+16, :] for kk = 0, 16.
-template <int BN>
-__device__ __forceinline__ void mma_stage(AccTile<BN>& acc,
-                                          const __nv_bfloat16 (*a)[A_LD],
-                                          const __nv_bfloat16 (*bt)[BN + 8],
-                                          int wm, int wn) {
-  constexpr int FM = 2;        // 16-row fragments per warp (32 rows)
-  constexpr int FN = BN / 32;  // 16-col fragments per warp (BN/2 cols)
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                   wmma::row_major>
-        af[FM];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                   wmma::row_major>
-        bf[FN];
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-      wmma::load_matrix_sync(af[i], &a[wm * 32 + i * 16][kk], A_LD);
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::load_matrix_sync(bf[j], &bt[kk][wn * (BN / 2) + j * 16], BN + 8);
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
-  }
-}
-
-// Epilogue: each warp spills one fragment at a time to its own 16x16 f32
-// scratch, then writes the in-range elements as bf16.
-template <int BN>
-__device__ __forceinline__ void store_tile(const Params& p, AccTile<BN>& acc,
-                                           float* epi, long long m0,
-                                           long long n0, int wm, int wn,
-                                           int lane) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < BN / 32; ++j) {
-      wmma::store_matrix_sync(epi, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const long long m = m0 + wm * 32 + i * 16 + (e >> 4);
-        const long long n = n0 + wn * (BN / 2) + j * 16 + (e & 15);
-        if (m < p.M && n < p.Cout)
-          p.y[m * p.Cout + n] = __float2bfloat16(epi[e]);
-      }
-      __syncwarp();
+__device__ __forceinline__ void conv_body(const CUtensorMap* kmap,
+                                          const Params& p, long long first,
+                                          long long stride) {
+  using C = Cfg<BN>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the swizzle needs 1 KB
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t full0 = base + C::STAGES * C::STAGE_BYTES + EPI_BYTES;
+  const uint32_t empty0 = full0 + 8 * C::STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, FULL_ARRIVALS);
+      mbar_init(empty0 + 8 * s, EMPTY_ARRIVALS);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        C::PRODUCER_REGS));
+    produce<BN>(kmap, p, smem, base, full0, empty0, first, stride);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        C::CONSUMER_REGS));
+    consume<BN>(p, smem, base, full0, empty0, first, stride);
   }
 }
 
 // ---------------------------------------------------------------------- K1
-template <int BN, bool VEC>
-__global__ void __launch_bounds__(THREADS)
-    conv_implicit_gemm_kernel(const Params p) {
-  __shared__ __align__(128) Smem<BN> sm;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wm = warp >> 1;  // 0..3
-  const int wn = warp & 1;   // 0..1
-  const long long m0 = (long long)blockIdx.x * BM;
-  const long long n0 = (long long)blockIdx.y * BN;
-
-  RowCursor rc;
-  make_cursor(p, m0, rc);
-  AccTile<BN> acc;
-  zero_acc<BN>(acc);
-
-  load_stage<BN, VEC>(p, sm.a[0], sm.b[0], 0, rc, n0);
-  cp_async_commit();
-  for (int kt = 0; kt < p.n_k_tiles; ++kt) {
-    const int s = kt & 1;
-    if (kt + 1 < p.n_k_tiles) {
-      load_stage<BN, VEC>(p, sm.a[s ^ 1], sm.b[s ^ 1], kt + 1, rc, n0);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    mma_stage<BN>(acc, sm.a[s], sm.b[s], wm, wn);
-    // The buffer just read is the one the next iteration's loads overwrite.
-    __syncthreads();
-  }
-  store_tile<BN>(p, acc, sm.epi[warp], m0, n0, wm, wn, lane);
-}
-
 template <int BN>
-void launch(const Params& p, bool vec, cudaStream_t stream) {
-  dim3 grid((unsigned)((p.M + BM - 1) / BM), (unsigned)((p.Cout + BN - 1) / BN));
-  if (vec)
-    conv_implicit_gemm_kernel<BN, true><<<grid, THREADS, 0, stream>>>(p);
-  else
-    conv_implicit_gemm_kernel<BN, false><<<grid, THREADS, 0, stream>>>(p);
+__global__ void __launch_bounds__(THREADS, Cfg<BN>::BLOCKS)
+    conv_implicit_gemm_kernel(const __grid_constant__ CUtensorMap kmap,
+                              const Params p) {
+  conv_body<BN>(&kmap, p, blockIdx.x, p.n_tiles);  // one tile a block
 }
 
 // ---------------------------------------------------------------------- K6
-constexpr int STAGES = 3;
-
 template <int BN>
-struct RingSmem {
-  __nv_bfloat16 a[STAGES][BM][A_LD];
-  __nv_bfloat16 b[STAGES][BK][BN + 8];
-  float epi[THREADS / 32][16 * 16];
-};
+__global__ void __launch_bounds__(THREADS, Cfg<BN>::BLOCKS)
+    conv_implicit_gemm_pipelined_kernel(const __grid_constant__ CUtensorMap kmap,
+                                        const Params p) {
+  conv_body<BN>(&kmap, p, blockIdx.x, gridDim.x);
+}
 
-// Persistent K1: block c computes output tiles c, c + gridDim.x, ... of the
-// (M tile, N tile) grid, N tiles fastest (neighbouring tiles share their A
-// rows in L2).  A step is one (tile, K step); the load side runs STAGES-1
-// steps ahead of the compute side, across tile boundaries.
-template <int BN, bool VEC>
-__global__ void __launch_bounds__(THREADS)
-    conv_implicit_gemm_pipelined_kernel(const Params p, long long n_tiles,
-                                        int n_tiles_n) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  RingSmem<BN>& sm = *reinterpret_cast<RingSmem<BN>*>(smem_raw);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wm = warp >> 1;
-  const int wn = warp & 1;
-  // The grid never exceeds n_tiles, so every block has a tile.
-  const long long my_tiles = (n_tiles - 1 - blockIdx.x) / gridDim.x + 1;
-  const long long steps = my_tiles * p.n_k_tiles;
-
-  long long ld_tile = blockIdx.x, ld_step = 0;
-  int ld_kt = 0, ld_stage = 0;
-  long long ld_n0 = (ld_tile % n_tiles_n) * BN;
-  RowCursor ld_rc;
-  make_cursor(p, (ld_tile / n_tiles_n) * BM, ld_rc);
-  // Starts the copies of the next step not yet loaded into its stage and
-  // commits them as one group; past the last step the group is empty, which
-  // keeps the count of groups in flight uniform.
-  auto load_next = [&]() {
-    if (ld_step < steps) {
-      load_stage<BN, VEC>(p, sm.a[ld_stage], sm.b[ld_stage], ld_kt, ld_rc,
-                          ld_n0);
-      ++ld_step;
-      ld_stage = ld_stage + 1 == STAGES ? 0 : ld_stage + 1;
-      if (++ld_kt == p.n_k_tiles) {
-        ld_kt = 0;
-        ld_tile += gridDim.x;
-        if (ld_tile < n_tiles) {
-          ld_n0 = (ld_tile % n_tiles_n) * BN;
-          make_cursor(p, (ld_tile / n_tiles_n) * BM, ld_rc);
-        }
-      }
-    }
-    cp_async_commit();
-  };
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) load_next();
-
-  AccTile<BN> acc;
-  zero_acc<BN>(acc);
-  long long tile = blockIdx.x;
-  int kt = 0, stage = 0;
-  for (long long g = 0; g < steps; ++g) {
-    // Step g's group has landed (at most STAGES-2 newer ones pending); after
-    // the barrier every thread has also finished step g-1, whose stage the
-    // copies started next overwrite.
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    load_next();
-    mma_stage<BN>(acc, sm.a[stage], sm.b[stage], wm, wn);
-    stage = stage + 1 == STAGES ? 0 : stage + 1;
-    if (++kt == p.n_k_tiles) {
-      // The next tile's first copies are already in flight.
-      store_tile<BN>(p, acc, sm.epi[warp], (tile / n_tiles_n) * BM,
-                     (tile % n_tiles_n) * BN, wm, wn, lane);
-      zero_acc<BN>(acc);
-      kt = 0;
-      tile += gridDim.x;
+// ------------------------------------------------------------ host side
+// The N tile: the fewest padded columns over Cout, ties to the wider tile;
+// halved (256->128, 192->96, 128->64) while the grid would not reach one
+// tile per SM.  A function of the shape only.
+int pick_bn(int cout, long long m_tiles) {
+  static const int kSet[] = {64, 96, 128, 144, 160, 192, 224, 256};
+  int best = 64;
+  long long best_cols = -1;
+  for (int n : kSet) {
+    const long long cols = (long long)((cout + n - 1) / n) * n;
+    if (best_cols < 0 || cols < best_cols || (cols == best_cols && n > best)) {
+      best = n;
+      best_cols = cols;
     }
   }
-  cp_async_wait<0>();
+  while (best >= 128 && best != 144 && best != 160 && best != 224 &&
+         m_tiles * ((cout + best - 1) / best) < FILL_TILES)
+    best /= 2;
+  return best;
 }
 
-// Blocks of K6 that fit on one SM for this N tile and load path; 0 with the
-// error in *err when the card refuses the configuration.
-template <int BN, bool VEC>
-int pipelined_occupancy(cudaError_t* err) {
-  auto kernel = conv_implicit_gemm_pipelined_kernel<BN, VEC>;
-  const int smem = (int)sizeof(RingSmem<BN>);
-  // Above 48 KB a block's shared memory must be asked for explicitly.
-  *err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (*err != cudaSuccess) return 0;
-  int blocks = 0;
-  *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                       THREADS, smem);
-  if (*err == cudaSuccess && blocks < 1) *err = cudaErrorInvalidConfiguration;
-  return *err == cudaSuccess ? blocks : 0;
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+cudaError_t encode_fn(EncodeTiledFn* out) {
+  static std::atomic<void*> cached{nullptr};
+  void* fn = cached.load(std::memory_order_acquire);
+  if (fn == nullptr) {
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess) return err;
+    if (q != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorNotSupported;
+    cached.store(fn, std::memory_order_release);
+  }
+  *out = reinterpret_cast<EncodeTiledFn>(fn);
+  return cudaSuccess;
 }
 
-// Devices the grid cache below has room for.
+// The weight [kh*kw*Cin, Cout] as 64 (n) x 64 (k) boxes, 128-byte swizzle;
+// rows and columns past the end read as zeros.
+cudaError_t make_weight_map(CUtensorMap* map, const void* k, long long rows,
+                            int cout) {
+  EncodeTiledFn encode;
+  cudaError_t err = encode_fn(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {(cuuint64_t)cout, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cout * 2};
+  const cuuint32_t box[2] = {64, 64};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                            const_cast<void*>(k), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Devices the per-device caches below have room for.
 constexpr int kMaxDevices = 64;
 
-template <int BN, bool VEC>
-cudaError_t launch_pipelined(const Params& p, cudaStream_t stream) {
-  // The grid size (resident blocks per SM times the SM count) of each
-  // device, 0 until its first launch, so that a launch costs one
-  // cudaGetDevice on the host.  Threads that race store the same value.
-  static std::atomic<int> cached_grid[kMaxDevices];
+// Raises the kernel's dynamic shared memory limit once per device and
+// returns the K6 grid size (resident blocks per SM x SMs) there.
+template <int BN, bool PIPELINED>
+cudaError_t prepare(int* grid_size) {
+  // 0 until the device's first launch; threads that race store the same.
+  static std::atomic<int> cached[kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  int grid_size = cached_grid[dev].load(std::memory_order_relaxed);
-  if (grid_size == 0) {
-    const int blocks = pipelined_occupancy<BN, VEC>(&err);
+  int g = cached[dev].load(std::memory_order_relaxed);
+  if (g == 0) {
+    auto kernel = PIPELINED ? conv_implicit_gemm_pipelined_kernel<BN>
+                            : conv_implicit_gemm_kernel<BN>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<BN>::SMEM);
     if (err != cudaSuccess) return err;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        THREADS, Cfg<BN>::SMEM);
+    if (err != cudaSuccess) return err;
+    if (blocks < 1) return cudaErrorInvalidConfiguration;
     int sms = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
-    grid_size = blocks * sms;
-    cached_grid[dev].store(grid_size, std::memory_order_relaxed);
+    g = blocks * sms;
+    cached[dev].store(g, std::memory_order_relaxed);
   }
-  const int n_tiles_n = (p.Cout + BN - 1) / BN;
-  const long long n_tiles = ((p.M + BM - 1) / BM) * n_tiles_n;
-  long long grid = grid_size;
-  if (grid > n_tiles) grid = n_tiles;
-  conv_implicit_gemm_pipelined_kernel<BN, VEC>
-      <<<(unsigned)grid, THREADS, sizeof(RingSmem<BN>), stream>>>(p, n_tiles,
-                                                                 n_tiles_n);
+  *grid_size = g;
+  return cudaSuccess;
+}
+
+template <int BN, bool PIPELINED>
+cudaError_t launch(const CUtensorMap& map, Params p, cudaStream_t stream) {
+  int grid_size = 0;
+  cudaError_t err = prepare<BN, PIPELINED>(&grid_size);
+  if (err != cudaSuccess) return err;
+  p.n_tiles_n = (p.Cout + BN - 1) / BN;
+  p.n_tiles = ((p.M + BM - 1) / BM) * p.n_tiles_n;
+  long long grid = p.n_tiles;
+  if (PIPELINED) {
+    if (grid > grid_size) grid = grid_size;
+    conv_implicit_gemm_pipelined_kernel<BN>
+        <<<(unsigned)grid, THREADS, Cfg<BN>::SMEM, stream>>>(map, p);
+  } else {
+    if (grid > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+    conv_implicit_gemm_kernel<BN>
+        <<<(unsigned)grid, THREADS, Cfg<BN>::SMEM, stream>>>(map, p);
+  }
   return cudaGetLastError();
 }
 
-// The shape checks and the parameters both kernels share; false on a shape
-// neither takes.
-bool make_params(const void* x, const void* k, void* y, int B, int Hp, int Wp,
-                 int Cin, int kh, int kw, int Cout, Params& p, bool& vec) {
-  if (B <= 0 || Cin <= 0 || Cout <= 0 || kh <= 0 || kw <= 0 || Hp < kh ||
-      Wp < kw)
-    return false;
-  p.x = static_cast<const __nv_bfloat16*>(x);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.y = static_cast<__nv_bfloat16*>(y);
-  p.Hp = Hp;
-  p.Wp = Wp;
-  p.Cin = Cin;
-  p.kw = kw;
-  p.Cout = Cout;
-  p.OH = Hp - kh + 1;
-  p.OW = Wp - kw + 1;
-  p.M = (long long)B * p.OH * p.OW;
-  p.n_cin_chunks = (Cin + BK - 1) / BK;
-  p.n_k_tiles = kh * kw * p.n_cin_chunks;
-  vec = (Cin % 8 == 0) && (Cout % 8 == 0) &&
-        (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
-        (reinterpret_cast<uintptr_t>(k) % 16 == 0);
-  return true;
+template <bool PIPELINED>
+cudaError_t dispatch(int bn, const CUtensorMap& map, const Params& p,
+                     cudaStream_t s) {
+  switch (bn) {
+    case 64: return launch<64, PIPELINED>(map, p, s);
+    case 96: return launch<96, PIPELINED>(map, p, s);
+    case 128: return launch<128, PIPELINED>(map, p, s);
+    case 144: return launch<144, PIPELINED>(map, p, s);
+    case 160: return launch<160, PIPELINED>(map, p, s);
+    case 192: return launch<192, PIPELINED>(map, p, s);
+    case 224: return launch<224, PIPELINED>(map, p, s);
+    case 256: return launch<256, PIPELINED>(map, p, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+bool aligned16(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Each returns a cudaError_t (0 on success), launches on ``stream`` and does
-// not synchronise; ``y`` must hold B*(Hp-kh+1)*(Wp-kw+1)*Cout bf16.
-
-// K1.
-int dtm_conv_implicit_gemm_bf16(const void* x, const void* k, void* y, int B,
-                                int Hp, int Wp, int Cin, int kh, int kw,
-                                int Cout, void* stream) {
-  Params p;
-  bool vec;
-  if (!make_params(x, k, y, B, Hp, Wp, Cin, kh, kw, Cout, p, vec))
+// K1 (pipelined = 0) or K6 (pipelined = 1) on the window (h0, w0, sh, sw)
+// of x[B, H, W, Cin] (element strides xs_*, channels contiguous) with the
+// contiguous HWIO kernel k[kh, kw, Cin, Cout], writing y[B, OH, OW, Cout]
+// at element strides ys_* (channels contiguous).  Returns a cudaError_t (0
+// on success), launches on ``stream`` and does not synchronise.
+int dtm_conv_window_bf16(const void* x, int B, int H, int W, int Cin,
+                         long long xs_b, long long xs_h, long long xs_w,
+                         int h0, int w0, int sh, int sw, const void* k, int kh,
+                         int kw, int Cout, void* y, int OH, int OW,
+                         long long ys_b, long long ys_h, long long ys_w,
+                         int pipelined, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || kh <= 0 ||
+      kw <= 0 || OH <= 0 || OW <= 0 || sh <= 0 || sw <= 0)
     return (int)cudaErrorInvalidValue;
+  Params p;
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.y = static_cast<__nv_bfloat16*>(y);
+  p.xs_b = xs_b;
+  p.xs_h = xs_h;
+  p.xs_w = xs_w;
+  p.ys_b = ys_b;
+  p.ys_h = ys_h;
+  p.ys_w = ys_w;
+  p.M = (long long)B * OH * OW;
+  p.H = H;
+  p.W = W;
+  p.Cin = Cin;
+  p.h0 = h0;
+  p.w0 = w0;
+  p.sh = sh;
+  p.sw = sw;
+  p.kw = kw;
+  p.Cout = Cout;
+  p.OH = OH;
+  p.OW = OW;
+  p.n_cin_chunks = (Cin + BK - 1) / BK;
+  p.n_k_steps = kh * kw * p.n_cin_chunks;
+  p.tail_k16 = (Cin - (p.n_cin_chunks - 1) * BK + 15) / 16;
+  const long long k_rows = (long long)kh * kw * Cin;
+  p.vec = Cin % 8 == 0 && Cout % 8 == 0 && Cout >= 64 && k_rows >= 64 &&
+          xs_b % 8 == 0 && xs_h % 8 == 0 && xs_w % 8 == 0 && ys_b % 8 == 0 &&
+          ys_h % 8 == 0 && ys_w % 8 == 0 && aligned16(x) && aligned16(k) &&
+          aligned16(y);
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));
+  if (p.vec) {
+    const cudaError_t err = make_weight_map(&map, k, k_rows, Cout);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int bn = pick_bn(Cout, (p.M + BM - 1) / BM);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Cout <= 64)
-    launch<64>(p, vec, s);
-  else
-    launch<128>(p, vec, s);
-  return (int)cudaGetLastError();
+  return (int)(pipelined ? dispatch<true>(bn, map, p, s)
+                         : dispatch<false>(bn, map, p, s));
 }
 
-// K6: the same function as K1, bit for bit.
-int dtm_conv_implicit_gemm_pipelined_bf16(const void* x, const void* k,
-                                          void* y, int B, int Hp, int Wp,
-                                          int Cin, int kh, int kw, int Cout,
-                                          void* stream) {
-  Params p;
-  bool vec;
-  if (!make_params(x, k, y, B, Hp, Wp, Cin, kh, kw, Cout, p, vec))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (Cout <= 64)
-    err = vec ? launch_pipelined<64, true>(p, s) : launch_pipelined<64, false>(p, s);
-  else
-    err = vec ? launch_pipelined<128, true>(p, s)
-              : launch_pipelined<128, false>(p, s);
-  return (int)err;
+// The N tile both kernels use for this shape (M = B*OH*OW).
+int dtm_conv_tile_n(int Cout, long long M) {
+  return pick_bn(Cout, (M + BM - 1) / BM);
 }
 
 const char* dtm_cuda_error_string(int err) {

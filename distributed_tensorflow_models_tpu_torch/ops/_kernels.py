@@ -24,7 +24,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # One lock per source, so that two sources build at once (each in its own
@@ -32,9 +32,11 @@ NVCC_FLAGS = (
 _locks_guard = threading.Lock()
 _locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
-# Seconds nvcc took for each library this process built; a library that
-# was already on disk has no entry.  chip_smoke.py reports it.
+# Seconds nvcc took for each library this process built, and what ptxas
+# said of each kernel (registers, shared memory, spills); a library that
+# was already on disk has no entry.  chip_smoke.py reports both.
 build_seconds: dict[str, float] = {}
+build_logs: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -79,6 +81,7 @@ def load(source: str) -> ctypes.CDLL:
                 )
             os.replace(tmp, out)
             build_seconds[source] = time.perf_counter() - t0
+            build_logs[source] = proc.stderr
         lib = ctypes.CDLL(str(out))
         lib.dtm_cuda_error_string.argtypes = [ctypes.c_int]
         lib.dtm_cuda_error_string.restype = ctypes.c_char_p

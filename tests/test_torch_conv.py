@@ -294,3 +294,164 @@ def test_pipelined_wrapper_refuses_cpu_tensors():
     k = torch.zeros(3, 3, 64, 8, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         tconv_mxu.conv_implicit_gemm_pipelined(x, k)
+
+
+# The routed conv reads each stride phase as a window of the unpadded input
+# (``_core_window``) inside one autograd Function (``_MxuConv``).  The
+# route it replaced padded, sliced and summed with autograd's own pad and
+# slice nodes; it is kept here as the oracle, and the two must agree bit
+# for bit in f32 and bf16: y, dx and dw.
+class _PaddedCore(torch.autograd.Function):
+    """The stride-1 VALID core on a materialised padded input, with the
+    JAX package's VJP: the route before the window entry."""
+
+    @staticmethod
+    def forward(ctx, xpad, kernel):
+        ctx.save_for_backward(xpad, kernel)
+        return tconv_mxu._core_reference(xpad, kernel)
+
+    @staticmethod
+    def backward(ctx, g):
+        xpad, kernel = ctx.saved_tensors
+        kh, kw, cin, cout = kernel.shape
+        _, oh, ow, _ = g.shape
+        g2 = g.reshape(-1, cout)
+        dw = torch.stack([
+            torch.matmul(xpad[:, dy:dy + oh, dx:dx + ow, :].reshape(-1, cin).t(),
+                         g2)
+            for dy in range(kh) for dx in range(kw)
+        ]).reshape(kh, kw, cin, cout).to(kernel.dtype)
+        gp = torch.nn.functional.pad(g, (0, 0, kw - 1, kw - 1, kh - 1, kh - 1))
+        krot = kernel.flip(0, 1).permute(0, 1, 3, 2).contiguous()
+        return _PaddedCore.apply(gp, krot), dw
+
+
+def _padded_route(x, kernel, strides, padding):
+    kh, kw = kernel.shape[:2]
+    sh, sw = strides
+    ph, pw = tconv._explicit_padding(padding, kh, kw, sh, sw, x.shape[1],
+                                     x.shape[2])
+    x = tconv._pad_nhwc(x, ph, pw)
+    _, hp, wp, _ = x.shape
+    oh, ow = (hp - kh) // sh + 1, (wp - kw) // sw + 1
+    y = None
+    for p in range(min(sh, kh)):
+        khp = len(range(p, kh, sh))
+        for q in range(min(sw, kw)):
+            kwq = len(range(q, kw, sw))
+            xs = x[:, p:p + (oh + khp - 2) * sh + 1:sh,
+                   q:q + (ow + kwq - 2) * sw + 1:sw, :]
+            yp = _PaddedCore.apply(xs, kernel[p::sh, q::sw])
+            y = yp if y is None else y + yp
+    return y
+
+
+WINDOW_CASES = [
+    ((2, 9, 8, 64), (3, 3, 64, 8), (1, 1), "SAME", "3x3_s1_same"),
+    ((2, 9, 8, 64), (3, 3, 64, 8), (2, 2), "SAME", "3x3_s2_same"),
+    ((2, 9, 8, 64), (3, 3, 64, 8), (2, 2), "VALID", "3x3_s2_valid"),
+    ((2, 8, 9, 64), (3, 3, 64, 8), (1, 1), ((2, 1), (0, 2)), "3x3_explicit"),
+    ((2, 8, 9, 64), (3, 3, 64, 8), (2, 2), ((0, 3), (2, 0)), "3x3_s2_explicit"),
+    ((2, 7, 9, 64), (1, 7, 64, 8), (1, 1), "SAME", "1x7"),
+    ((2, 9, 7, 64), (7, 1, 64, 8), (1, 1), "SAME", "7x1"),
+    ((2, 7, 9, 64), (1, 3, 64, 8), (2, 2), "SAME", "1x3_s2_kh_lt_sh"),
+    ((2, 7, 9, 64), (1, 3, 64, 8), (2, 2), "VALID", "1x3_s2_valid"),
+    ((2, 9, 9, 64), (5, 5, 64, 8), (1, 1), "VALID", "5x5_valid"),
+    ((2, 9, 9, 64), (5, 5, 64, 8), (2, 2), "SAME", "5x5_s2_same"),
+    ((2, 6, 5, 64), (2, 2, 64, 8), (1, 1), "VALID", "2x2"),
+    ((2, 6, 5, 64), (2, 1, 64, 8), (1, 1), "VALID", "2x1"),
+    ((2, 6, 5, 64), (1, 2, 64, 8), (1, 1), "SAME", "1x2"),
+    ((2, 6, 5, 64), (1, 1, 64, 8), (1, 1), "VALID", "1x1"),
+    ((2, 6, 5, 64), (1, 1, 64, 8), (2, 2), "SAME", "1x1_s2"),
+    ((2, 10, 10, 64), (3, 3, 64, 8), (3, 3), "SAME", "3x3_s3"),
+    ((2, 9, 8, 64), (3, 3, 64, 8), (1, 2), "SAME", "aniso"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "xshape,kshape,strides,padding", [c[:4] for c in WINDOW_CASES],
+    ids=[c[4] for c in WINDOW_CASES],
+)
+def test_window_route_equals_padded_route(xshape, kshape, strides, padding,
+                                          dtype):
+    """The Function's plain path (every kernel shape it may see, so called
+    without the routing rule) against the padded route: the same bits for
+    y, dx and dw, and no launch."""
+    x, k = _inputs(9, xshape, kshape)
+    g = np.random.RandomState(10)
+    out = {}
+    before = (tconv_mxu.conv_implicit_gemm.launches,
+              tconv_mxu.conv_implicit_gemm_pipelined.launches)
+    for name in ("window", "padded"):
+        tx = _t(x).to(dtype).requires_grad_()
+        tk = _t(k).to(dtype).requires_grad_()
+        if name == "window":
+            kh, kw = kshape[:2]
+            ph, pw = tconv._explicit_padding(padding, kh, kw, *strides,
+                                             xshape[1], xshape[2])
+            y = tconv_mxu._MxuConv.apply(tx, tk, strides, ph, pw)
+        else:
+            y = _padded_route(tx, tk, strides, padding)
+        if name == "window":
+            cot = torch.tensor(g.randn(*y.shape).astype(np.float32)).to(dtype)
+        y.backward(cot)
+        out[name] = (y.detach(), tx.grad, tk.grad)
+    for what, a, b in zip(("y", "dx", "dw"), out["window"], out["padded"]):
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape, what
+        assert torch.equal(a, b), what
+    assert (tconv_mxu.conv_implicit_gemm.launches,
+            tconv_mxu.conv_implicit_gemm_pipelined.launches) == before
+
+
+@pytest.mark.parametrize("win", [
+    (0, 0, 1, 1, 5, 4), (-1, -2, 1, 1, 7, 8), (-1, 0, 2, 2, 4, 3),
+    (1, -1, 2, 3, 3, 3), (2, 3, 1, 1, 6, 6), (-3, -3, 1, 1, 2, 2),
+], ids=["plain", "pad", "phase", "aniso_step", "crop", "outside"])
+def test_materialized_window_indexes_the_input(win):
+    """The window ``out[:, i, j] = x[:, h0 + i*sh, w0 + j*sw]``, zero
+    outside x, element by element."""
+    h0, w0, sh, sw, hs, ws = win
+    x = torch.arange(2 * 6 * 7 * 3, dtype=torch.float32).reshape(2, 6, 7, 3)
+    got = tconv_mxu._materialize_window(x, win)
+    assert tuple(got.shape) == (2, hs, ws, 3)
+    for i in range(hs):
+        for j in range(ws):
+            r, c = h0 + i * sh, w0 + j * sw
+            want = (x[:, r, c] if 0 <= r < 6 and 0 <= c < 7
+                    else torch.zeros(2, 3))
+            assert torch.equal(got[:, i, j], want), (i, j)
+
+
+@pytest.mark.parametrize(
+    "xshape,kshape,strides,padding", [c[:4] for c in MXU_CASES],
+    ids=[c[4] for c in MXU_CASES],
+)
+def test_mxu_grads_match_jax_kernel_at_mxu_cases(xshape, kshape, strides,
+                                                 padding):
+    """y, dx and dw of the routed conv against JAX's interpret-mode
+    conv2d_mxu, for sum(sin(y))."""
+    x, k = _inputs(11, xshape, kshape)
+
+    def jloss(x, k):
+        y = jconv_mxu.conv2d_mxu(x, k, strides, padding, interpret=True)
+        return jnp.sum(jnp.sin(y)), y
+
+    (_, want_y), want_g = jax.jit(jax.value_and_grad(
+        jloss, (0, 1), has_aux=True))(jnp.asarray(x), jnp.asarray(k))
+    tx, tk = _t(x, True), _t(k, True)
+    y = tconv_mxu.conv2d_mxu(tx, tk, strides, padding)
+    torch.sum(torch.sin(y)).backward()
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want_y),
+                               **FWD_TOL)
+    for got, w in zip((tx.grad, tk.grad), want_g):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), **GRAD_TOL)
+
+
+def test_mxu_conv_refuses_double_backward():
+    x, k = _inputs(12, (1, 6, 6, 64), (3, 3, 64, 8))
+    tx, tk = _t(x, True), _t(k, True)
+    y = tconv_mxu.conv2d_mxu(tx, tk, (1, 1), "SAME")
+    with pytest.raises(RuntimeError, match="does not differentiate twice"):
+        torch.autograd.grad(y.sum(), tx, create_graph=True)

@@ -81,7 +81,20 @@ CORE_CASES = [
 ]
 
 
-@pytest.mark.parametrize("xshape,kshape", CORE_CASES,
+# Inception-v3's widths, which pick the N tiles 96, 160, 192, 144 (288),
+# 160 (320), 224 (448), and its Cin 80 (a 16-channel tail step).
+INCEPTION_CORE_CASES = [
+    ((2, 9, 9, 64), (3, 3, 64, 96)),
+    ((2, 9, 11, 160), (1, 7, 160, 160)),
+    ((2, 11, 9, 192), (7, 1, 192, 192)),
+    ((2, 8, 8, 96), (3, 3, 96, 288)),
+    ((2, 8, 8, 192), (3, 3, 192, 320)),
+    ((2, 8, 8, 384), (3, 1, 384, 448)),
+    ((2, 12, 12, 80), (3, 3, 80, 192)),
+]
+
+
+@pytest.mark.parametrize("xshape,kshape", CORE_CASES + INCEPTION_CORE_CASES,
                          ids=lambda s: "x".join(map(str, s)))
 def test_kernel_matches_plain(cuda, xshape, kshape):
     rng = np.random.default_rng(6)
@@ -452,3 +465,128 @@ def test_inception_train_step_on_card_runs_k6(cuda, monkeypatch):
     assert conv_mxu.conv_implicit_gemm.launches == before[0]
     assert conv_mxu.conv_implicit_gemm_pipelined.launches > before[1]
     assert train_loop.state_is_finite(state)
+
+
+# Windows of the unpadded input: negative origins (padding), steps of 2
+# (stride phases), origins inside (crops), and outputs written at strides.
+WINDOW_CASES = [
+    ((2, 9, 8, 64), (3, 3, 64, 64), (-1, -1, 1, 1, 9, 8)),
+    ((2, 9, 8, 64), (2, 2, 64, 96), (-1, 0, 2, 2, 4, 4)),
+    ((2, 9, 8, 128), (2, 1, 128, 64), (1, -1, 2, 2, 4, 4)),
+    ((3, 7, 9, 64), (1, 3, 64, 192), (0, -1, 2, 2, 4, 4)),
+    ((2, 17, 17, 160), (1, 7, 160, 192), (0, -3, 1, 1, 17, 17)),
+    ((2, 10, 10, 64), (3, 3, 64, 72), (2, 3, 1, 1, 4, 3)),
+    ((2, 9, 8, 20), (3, 3, 20, 13), (-1, -1, 2, 1, 5, 8)),
+]
+
+
+@pytest.mark.parametrize("pipelined", [False, True], ids=["k1", "k6"])
+@pytest.mark.parametrize("xshape,kshape,win", WINDOW_CASES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_window_entry_matches_materialised_route(cuda, xshape, kshape, win,
+                                                 pipelined):
+    """The kernels on a window of the unpadded input, written into a
+    strided window of a larger buffer, against the same kernel on the
+    materialised window (the same bits: the same tiles in the same order)
+    and against the plain version; the buffer outside the window is left
+    as it was."""
+    rng = np.random.default_rng(20)
+    x = _bf16(rng, xshape)
+    k = _bf16(rng, kshape, 1.0 / math.sqrt(math.prod(kshape[:3])))
+    h0, w0, sh, sw, oh, ow = win
+    kh, kw = kshape[:2]
+    xw = conv_mxu._materialize_window(
+        x, (h0, w0, sh, sw, oh + kh - 1, ow + kw - 1)).contiguous()
+    f = (conv_mxu.conv_implicit_gemm_pipelined if pipelined
+         else conv_mxu.conv_implicit_gemm)
+    want = f(xw, k)
+    buf = torch.full((xshape[0], 2 * oh + 1, 2 * ow + 1, kshape[3]), 7.0,
+                     dtype=torch.bfloat16, device=cuda)
+    view = buf[:, 1::2, 1::2]
+    before = f.launches
+    got = conv_mxu._launch_window(x, k, win, pipelined, out=view)
+    torch.cuda.synchronize()
+    assert f.launches == before + 1 and got.data_ptr() == view.data_ptr()
+    assert torch.equal(view, want)
+    mask = torch.ones_like(buf, dtype=torch.bool)
+    mask[:, 1::2, 1::2] = False
+    assert bool((buf[mask] == 7.0).all())
+    ref = conv_mxu._core_reference(xw.float(), k.float())
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(view.float(), ref, rtol=2.0 ** -7,
+                               atol=1e-3 * scale)
+
+
+@pytest.mark.parametrize("strides,padding", [
+    ((1, 1), "SAME"), ((2, 2), "SAME"), ((2, 2), "VALID"),
+    ((1, 1), ((2, 0), (1, 3))),
+], ids=["s1_same", "s2_same", "s2_valid", "explicit"])
+def test_conv2d_mxu_forward_and_dx_copy_no_activation(cuda, strides,
+                                                      padding):
+    """conv2d_mxu's forward and dx on the card: no pad and no copy of an
+    activation-sized tensor (batch 5: no weight copy has a dimension of
+    5), only the kernels and the phase sums; y and dx equal the padded
+    route's (pad, phase slice, K1, sum) bit for bit."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    copies = {"constant_pad_nd", "copy_", "clone", "_to_copy", "cat",
+              "stack", "slice_scatter", "as_strided_scatter", "index_put_",
+              "reflection_pad2d", "replication_pad2d"}
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.__name__.split(".")[0]
+            res = out if isinstance(out, torch.Tensor) else None
+            if name in copies and res is not None and res.dim() == 4 \
+                    and res.shape[0] == 5:
+                self.ops.append((name, tuple(res.shape)))
+            return out
+
+    rng = np.random.default_rng(21)
+    x = _bf16(rng, (5, 13, 12, 64))
+    k = _bf16(rng, (3, 3, 64, 32), 1.0 / math.sqrt(9 * 64))
+    xb = x.clone().requires_grad_()
+    before = conv_mxu.conv_implicit_gemm.launches
+    with Record() as rec:
+        y = conv_mxu.conv2d_mxu(xb, k, strides, padding)
+        g = torch.empty_like(y)
+    g.copy_(_bf16(rng, tuple(y.shape)))
+    with Record() as rec_bwd:
+        y.backward(g)
+    torch.cuda.synchronize()
+    assert rec.ops == [] and rec_bwd.ops == [], (rec.ops, rec_bwd.ops)
+    assert conv_mxu.conv_implicit_gemm.launches > before
+
+    # The padded route on the same values: materialised pad and phase
+    # slices, K1 on each, the phase outputs summed in the same order; dx
+    # through the padded cotangent, scattered back and cropped.
+    kh, kw = 3, 3
+    sh, sw = strides
+    ph, pw = convlib._explicit_padding(padding, kh, kw, sh, sw, 13, 12)
+    xp = convlib._pad_nhwc(x, ph, pw)
+    _, hp, wp, _ = xp.shape
+    oh, ow = (hp - kh) // sh + 1, (wp - kw) // sw + 1
+    want_y, dxp = None, torch.zeros_like(xp)
+    for p in range(min(sh, kh)):
+        khp = len(range(p, kh, sh))
+        for q in range(min(sw, kw)):
+            kwq = len(range(q, kw, sw))
+            xs = xp[:, p:p + (oh + khp - 2) * sh + 1:sh,
+                    q:q + (ow + kwq - 2) * sw + 1:sw, :].contiguous()
+            kp = k[p::sh, q::sw].contiguous()
+            yp = conv_mxu.conv_implicit_gemm(xs, kp)
+            want_y = yp if want_y is None else want_y + yp
+            gp = torch.nn.functional.pad(
+                g, (0, 0, kwq - 1, kwq - 1, khp - 1, khp - 1)).contiguous()
+            krot = kp.flip(0, 1).permute(0, 1, 3, 2).contiguous()
+            dxp[:, p:p + (oh + khp - 2) * sh + 1:sh,
+                q:q + (ow + kwq - 2) * sw + 1:sw, :] += \
+                conv_mxu.conv_implicit_gemm(gp, krot)
+    want_dx = dxp[:, ph[0]:ph[0] + 13, pw[0]:pw[0] + 12]
+    assert torch.equal(y.detach(), want_y)
+    assert torch.equal(xb.grad, want_dx)
