@@ -8,8 +8,10 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
 1. Device: the card's name and power limit, and the build of the port's
    CUDA kernels from ``csrc/`` (one nvcc per source, both started at
    once): K1 and K6 in ``conv_implicit_gemm.cu``, K2-K5 in
-   ``flash_attention.cu``; the build seconds and what ``-Xptxas -v`` says
-   of every kernel instance (registers, shared memory, spills).
+   ``flash_attention.cu``, both on the shared Hopper helpers of
+   ``hopper.cuh``; the build seconds and what ``-Xptxas -v`` says of every
+   kernel instance (registers, shared memory, spills), K2's instances
+   summarised on a line of their own.
 2. K1 and K6 against K1's plain version (``conv_mxu._core_reference``, f32)
    at every launch shape of one ResNet-50 training step at batch 256
    (traced on the meta device, so they are the main path's own, each
@@ -40,19 +42,24 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
 8. K2-K5 (``csrc/flash_attention.cu``) against their plain versions in
    bf16 at (a) the LM path's launch shape B16 T256 H8 D32 causal, (b) the
    flash sweep shape B4 T2048 H8 D64 causal, (c) B4 T2048 H8 Hkv2 D32
-   causal window 256, and (d) a chunk call with nonzero q/kv offsets and
-   an LSE cotangent.  K5's dS stage is filled with NaN first; its dK and
-   dV must equal K3's bit for bit, and its dQ is compared with K4's
-   element by element (the count that differ and the largest
-   difference).  At (a) and (b) each launch is timed against its bound
-   and its plain version, K2 against ``F.scaled_dot_product_attention``'s
-   forward and the backward launches against its backward (a yardstick
-   only: the port never calls it).
+   causal window 256, (d) a chunk call with nonzero q/kv offsets and an
+   LSE cotangent, and (e) B4 T2048 H8 D128 causal.  K5's dS stage is
+   filled with NaN first; its dK and dV must equal K3's bit for bit, and
+   its dQ is compared with K4's element by element (the count that differ
+   and the largest difference).  At (a), (b), (c) and (e) each launch is
+   timed against its bound and its plain version, K2 against
+   ``F.scaled_dot_product_attention``'s forward and the backward launches
+   against its backward (a yardstick only: the port never calls it; with
+   ``enable_gqa`` and an explicit window mask at (c)); at each, the host
+   time to encode K2's three TMA tensor maps, and K2's and SDPA's forward
+   time with the host's launch cost taken out (launches replayed in a CUDA
+   graph).
 9. The transformer_lm path: the CLI trains ``transformer_lm`` (4 layers, 8
    heads, d_model 256, sequence 256, batch 16) with ``--attn-impl
    flash``; K2, K3 and K4 must each launch 4 layers x steps times.  The
    blockwise arm (``auto``) follows as a yardstick, in turns with a second
-   flash arm; a profile of each.
+   flash arm (the same counts; the blockwise arms launch none); a profile
+   of each.
 10. The transformer_lm_modern path: the same width with rotary positions,
    GQA (2 KV heads for 8) and a 256-token window, ``DTM_FLASH_BWD=staged``:
    K2 and both K5 launches must each equal layers x steps, K3 and K4 0.
@@ -128,9 +135,11 @@ FLASH_SHAPES = (
     ("a: LM main path", 16, 256, 256, 8, 8, 32, True, None, 0, 0, False, True),
     ("b: flash sweep", 4, 2048, 2048, 8, 8, 64, True, None, 0, 0, False, True),
     ("c: GQA + window", 4, 2048, 2048, 8, 2, 32, True, 256, 0, 0, False,
-     False),
+     True),
     ("d: chunk, offsets", 2, 256, 384, 8, 2, 64, True, None, 384, 256, True,
      False),
+    ("e: D128 sweep", 4, 2048, 2048, 8, 8, 128, True, None, 0, 0, False,
+     True),
 )
 
 
@@ -420,6 +429,37 @@ def run_cli(config: str, steps: int, batch: int, workdir: Path,
     result["median_step_s"] = times[len(times) // 2]
     result["max_step_s"] = times[-1]
     return result
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Mean device time of ``fn`` with the host's launch cost taken out:
+    ``iters`` calls captured in a CUDA graph, the graph replayed
+    ``replays`` times between CUDA events.  (Events over back-to-back
+    eager calls time the host once it is slower than the card; at the LM
+    shape it is.)"""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def _kernel_class(name: str) -> str:
@@ -738,15 +778,28 @@ def phase_flash(seed: int) -> dict:
                       lambda: attnlib._flash_dq_staged_reference(ref_ds, k,
                                                                  **kw)),
         }
-        # SDPA (the yardstick) on the same values, heads-second views.
+        # SDPA (the yardstick) on the same values, heads-second views; with
+        # GQA or a window, enable_gqa and the explicit mask.
         qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
                       for t in (q, k, v))
-        so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+        if window is None and Hkv == H and qo == ko:
+            sdpa_kw = dict(is_causal=causal)
+        else:
+            sdpa_kw = dict(attn_mask=attnlib._valid(Tq, Tkv, causal, window,
+                                                    qo, ko, "cuda"),
+                           enable_gqa=Hkv != H)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qs, ks, vs, **sdpa_kw)
+
+        so = sdpa()
         gs = do.transpose(1, 2)
-        lib = {"K2": time_ms(lambda: F.scaled_dot_product_attention(
-                   qs, ks, vs, is_causal=causal), 20),
+        lib = {"K2": time_ms(sdpa, 20),
                "K3+K4": time_ms(lambda: torch.autograd.grad(
                    so, (qs, ks, vs), gs, retain_graph=True), 20)}
+        encode_us = 1e6 * attnlib.flash_forward_encode_seconds(q, k, v)
+        log(f"  K2 at {name}: its three TMA tensor maps take {encode_us:.2f} "
+            f"us of host time to encode, each launch")
         for kid, (kern, plain) in fns.items():
             ms = time_ms(kern, 20)
             plain_ms = time_ms(plain, 3, 1)
@@ -754,12 +807,22 @@ def phase_flash(seed: int) -> dict:
             out[kid]["timed"][name] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by,
                 library_ms=lib["K2"] if kid == "K2" else lib["K3+K4"])
+            if kid == "K2":
+                out[kid]["timed"][name]["map_encode_us"] = encode_us
+                dev_ms = graph_ms(kern)
+                lib_dev_ms = graph_ms(sdpa)
+                out[kid]["timed"][name].update(device_ms=dev_ms,
+                                               library_device_ms=lib_dev_ms)
+                log(f"  K2 at {name}: {dev_ms:.4f} ms a launch replayed in a "
+                    f"CUDA graph ({bms / dev_ms:.1%} of the bound); SDPA "
+                    f"forward the same way {lib_dev_ms:.4f} ms")
             log(f"  {kid} at {name}: {ms:.4f} ms per launch; plain "
                 f"{plain_ms:.4f} ms; bound {bms:.4f} ms ({bound_by}, "
                 f"{bms / ms:.1%} of it); SDPA "
                 + ("forward" if kid == "K2" else "backward (dQ, dK and dV)")
                 + f" {out[kid]['timed'][name]['library_ms']:.4f} ms")
-        del qs, ks, vs, so, q, k, v, do, o, lse, dk, dv, dq, args, fns
+        del qs, ks, vs, so, sdpa_kw, q, k, v, do, o, lse, dk, dv, dq, args
+        del fns
         del stage, ref_ds, sdq
         torch.cuda.empty_cache()
     return out
@@ -841,6 +904,13 @@ def main(argv=None) -> int:
             else f"nvcc {nvcc_s:.2f} s"))
         for line in ptxas_summary(_kernels.build_logs.get(src, "")):
             log(f"  ptxas {line}")
+    k2_lines = [line for line in ptxas_summary(
+        _kernels.build_logs.get("flash_attention.cu", ""))
+        if "dtm_flash_fwd_kernel" in line]
+    log(f"K2 instances (D 32, 64, 128): {len(k2_lines)} in this build" + (
+        "" if k2_lines else " (a cached build: no ptxas output)"))
+    for line in k2_lines:
+        log(f"  K2 ptxas {line}")
     log(f"both builds, in parallel: {time.perf_counter() - t0:.2f} s wall")
 
     # 2. K1 at the ResNet-50 path's launch shapes.
@@ -965,8 +1035,14 @@ def main(argv=None) -> int:
         f"GiB | {card}")
     lm_arms = [("flash", lm_run)]
     for impl in ("auto", "flash", "auto"):
+        zero_counts(flash_fns.values())
         lm_arms.append((impl, run_lm_arm("transformer_lm", impl, steps,
                                          workdir / f"lm{len(lm_arms)}")))
+        got = {kid: fn.launches for kid, fn in flash_fns.items()}
+        arm_want = want if impl == "flash" else dict.fromkeys(want, 0)
+        if got != arm_want:
+            fail(f"transformer_lm {impl} arm launched {got}, expected "
+                 f"{arm_want}")
     for label, r in lm_arms:
         log_arm(f"LM {label}", r, tokens, card)
     for impl, arm in (("flash", "transformer_lm, flash (K2-K4)"),
@@ -1026,7 +1102,8 @@ def main(argv=None) -> int:
                  f"F.conv2d (cuDNN)",
         "at_inception_shapes_ms": k6_res["ms"],
     }]
-    main_shape, sweep_shape = FLASH_SHAPES[0][0], FLASH_SHAPES[1][0]
+    main_shape, sweep_shape, gqa_shape, d128_shape = (
+        FLASH_SHAPES[n][0] for n in (0, 1, 2, 4))
     for kid, name, replaces in FLASH_KERNELS + STAGED_KERNELS:
         at_a = flash[kid]["timed"][main_shape]
         kernels.append({
@@ -1042,11 +1119,13 @@ def main(argv=None) -> int:
                      "causal bf16; launches from the "
                      + ("transformer_lm_modern" if kid.startswith("K5")
                         else "transformer_lm") + " run; max_abs_err over "
-                     "shapes a-d; library: "
+                     "shapes a-e; library: "
                      + ("SDPA forward" if kid == "K2" else
                         "SDPA backward, which computes dQ, dK and dV: "
                         "compare with the sum of the backward launches"),
             "at_flash_sweep_shape": flash[kid]["timed"][sweep_shape],
+            "at_gqa_window_shape": flash[kid]["timed"][gqa_shape],
+            "at_d128_sweep_shape": flash[kid]["timed"][d128_shape],
         })
     kernels[-1]["dq_vs_k4"] = flash["dq_vs_k4"]
     kernels.append({

@@ -23,7 +23,7 @@
 // package.  Causal and sliding-window masks are taken in global positions
 // (q_offset, kv_offset), tiles that no pair of the mask reaches are skipped
 // (the JAX package's _block_should_run) and tiles that every pair passes skip
-// the per-element mask (_block_fully_valid), with this kernel's own tile
+// the per-element mask (_block_fully_valid), with each kernel's own tile
 // sizes in both predicates.  GQA maps query head h to KV head h / group.
 // Positions past the end of the sequence (a length that is not a multiple of
 // the tile) are excluded exactly: their scores are -inf and never reach a
@@ -43,32 +43,57 @@
 //
 // The grid.  The TPU carries the softmax state (K2) and the dK/dV or dQ sums
 // (K3, K4) across a sequential grid axis.  Here that axis is a loop inside
-// one block: K2 and K4 run one block per (batch*head, 64-row query tile) and
-// loop over 64-row KV tiles; K3 runs one block per (batch*head, KV tile) and
-// loops over query tiles.  Blocks never share an output, so no atomics.
-// Layout: Q, K, V, dO, O and dQ are read and written as BTHD rows through
-// their strides, with no heads-first transposes; LSE and delta are
-// [B*H, Tq] f32; K3 writes per-query-head dK/dV [B, Tkv, H, D].
+// one block: K2 runs one block per (batch*head, 128-row query tile) and
+// loops over 128-row KV tiles; K4 one block per (batch*head, 64-row query
+// tile) over 64-row KV tiles; K3 one block per (batch*head, 64-row KV tile)
+// over query tiles.  Blocks never share an output, so no atomics.  Layout:
+// Q, K, V, dO, O and dQ are read and written as BTHD rows, with no
+// heads-first transposes; LSE and delta are [B*H, Tq] f32; K3 writes
+// per-query-head dK/dV [B, Tkv, H, D].
 //
 // What bounds it on an H100.  Per (query, key) pair K2 does 4*D FLOPs on the
-// tensor cores and ~10 scalar operations of softmax; at D=32..128 the
-// scalar work and the shared-memory round trips of this design, not HBM
-// (each block reads its Q tile once and streams K/V tiles that L2 serves to
-// the other query tiles) and not the tensor cores, set the pace.  The
-// design is the simple correct one: 4 warps, each owning 16 rows; WMMA
-// 16x16x16 bf16 fragments with f32 accumulators; scores go through shared
-// memory, where two lanes share a row for the softmax and the masks, so the
-// fragment layout never has to be known.  The forward keeps its output
-// accumulator in shared memory (each tile rescales it per row by alpha); the
-// backward kernels keep dK/dV and dQ in registers, since they are never
-// rescaled.  wgmma, TMA, register-resident softmax (mma.sync layouts) and
-// pipelined tile loads are left for later work.
+// tensor cores and one exp plus ~10 scalar operations of softmax: at D 64
+// the exp rate (16 a clock per SM) and the tensor cores' bf16 rate are about
+// equal, so the design keeps both fed and everything else off their path.
+// K2 is the Hopper design of FlashAttention-3, without its intra-warpgroup
+// overlap:
+// - A 384-thread block: warpgroup 0 produces (setmaxnreg down to 40),
+//   warpgroups 1 and 2 consume 64 query rows each (up to 232 registers).
+// - Q, K and V are read by TMA through 4-D tensor maps {D, H, T, B}: a
+//   ragged last tile reads zeros, never the next batch's rows.  D 64 rows
+//   are one 128-byte swizzle row, D 128 rows two 64-column panels, D 32
+//   rows 64 bytes with the 64-byte swizzle.  Q is loaded once; K and V
+//   stream through a ring of 2 (D 128) or 4 stages guarded by full and
+//   empty mbarriers, the producer running ahead over the block's KV range.
+// - S = Q K^T by wgmma m64n128k16, both operands K-major from shared memory,
+//   f32 accumulators in registers; the softmax runs on the accumulator
+//   fragments (row max and sum over the lane quad) in base 2, the scale
+//   folded into log2(e): p = exp2(s*c - m*c), one MUFU a score, each product
+//   rounded before the difference so that s == m gives exactly 1 (the
+//   NEG_INF contract above holds in this form), LSE = m*scale + log(l) in
+//   natural-log units; P, packed to bf16, is
+//   the register A operand of O += P V (wgmma m64nDk16, V MN-major through
+//   the transpose bit); O is rescaled by alpha and kept in registers.  A
+//   stage goes back to the producer once the P V group that read it is done.
+// - Each query tile loops only over the KV tiles that its mask reaches, in
+//   closed form (kv_tile_range), and applies the per-element mask only on
+//   tiles that are not fully valid or run past Tkv; the heaviest causal
+//   tiles launch first.
+// - Epilogue: O / max(l, 1e-30) in bf16 through a padded staging tile,
+//   16-byte stores clipped at Tq; the f32 LSE to [B*H, Tq].
+// K3, K4 and K5 are the simple correct design of the first port: 4 warps,
+// each owning 16 rows; WMMA 16x16x16 bf16 fragments with f32 accumulators;
+// scores go through shared memory, where two lanes share a row for the
+// masks, so the fragment layout never has to be known; dK/dV and dQ live in
+// registers.  Their 64 x 64 tiles are part of K5's bit-equality contracts.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 using namespace nvcuda;
 
@@ -102,23 +127,26 @@ struct Params {
   long long q_offset, kv_offset;
 };
 
-// _block_should_run: some (q, k) pair of tile (i, j) passes the mask.
+// _block_should_run: some (q, k) pair of tile (i, j) passes the mask, for
+// TQ x TKV tiles (K3-K5: the shared 64 x 64; K2 its own 128 x 128).
+template <int TQ = BQ, int TKV = BKV>
 __device__ __forceinline__ bool should_run(const Params& p, int i, int j) {
-  const long long q_lo = p.q_offset + (long long)i * BQ;
-  const long long k_lo = p.kv_offset + (long long)j * BKV;
+  const long long q_lo = p.q_offset + (long long)i * TQ;
+  const long long k_lo = p.kv_offset + (long long)j * TKV;
   bool run = true;
-  if (p.causal) run = q_lo + BQ - 1 >= k_lo;
-  if (p.window > 0) run = run && (q_lo - (k_lo + BKV - 1) < p.window);
+  if (p.causal) run = q_lo + TQ - 1 >= k_lo;
+  if (p.window > 0) run = run && (q_lo - (k_lo + TKV - 1) < p.window);
   return run;
 }
 
 // _block_fully_valid: every (q, k) pair of tile (i, j) passes the mask.
+template <int TQ = BQ, int TKV = BKV>
 __device__ __forceinline__ bool fully_valid(const Params& p, int i, int j) {
-  const long long q_lo = p.q_offset + (long long)i * BQ;
-  const long long k_lo = p.kv_offset + (long long)j * BKV;
+  const long long q_lo = p.q_offset + (long long)i * TQ;
+  const long long k_lo = p.kv_offset + (long long)j * TKV;
   bool full = true;
-  if (p.causal) full = q_lo >= k_lo + BKV - 1;
-  if (p.window > 0) full = full && (q_lo + BQ - 1 - k_lo < p.window);
+  if (p.causal) full = q_lo >= k_lo + TKV - 1;
+  if (p.window > 0) full = full && (q_lo + TQ - 1 - k_lo < p.window);
   return full;
 }
 
@@ -221,15 +249,6 @@ __device__ __forceinline__ void store_rows_bf16(
 }
 
 template <int D>
-constexpr size_t fwd_smem_bytes() {
-  return (size_t)3 * 64 * (D + 8) * 2   // Q, K, V
-         + (size_t)64 * SLD * 4         // S
-         + (size_t)64 * PLD * 2         // P
-         + (size_t)64 * (D + 4) * 4     // output accumulator
-         + (size_t)2 * 64 * 4;          // m, l
-}
-
-template <int D>
 constexpr size_t dq_staged_smem_bytes() {
   return (size_t)64 * (D + 8) * 2       // K
          + (size_t)64 * PLD * 2         // dS
@@ -245,129 +264,392 @@ constexpr size_t bwd_smem_bytes() {
 }
 
 // ---------------------------------------------------------------- K2 forward
+// A 384-thread block owns one 128-row query tile of one (batch, head).
+// Warpgroup 0 produces: it gives its registers up, and one thread loads Q
+// once and streams K and V tiles by TMA into a ring of full/empty
+// mbarriers, ahead over the block's KV range.  Warpgroups 1 and 2 consume,
+// 64 query rows each: S = Q K^T by wgmma into registers, the online
+// softmax on the accumulator fragments, O += P V by wgmma with P as the
+// register A operand, O kept in registers to the end.
+constexpr int FWD_THREADS = 384;
+constexpr int FWD_PRODUCER_REGS = 40;
+constexpr int FWD_CONSUMER_REGS = 232;  // 40*128 + 232*256 = 168*384
+constexpr int FWD_EMPTY_ARRIVALS = 8;   // one per consumer warp
+
 template <int D>
-__global__ void __launch_bounds__(THREADS) dtm_flash_fwd_kernel(const Params p) {
-  constexpr int LD = D + 8, OLD = D + 4;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + 64 * LD;
-  bf16* sV = sK + 64 * LD;
-  float* sS = reinterpret_cast<float*>(sV + 64 * LD);
-  bf16* sP = reinterpret_cast<bf16*>(sS + 64 * SLD);
-  float* sO = reinterpret_cast<float*>(sP + 64 * PLD);
-  float* sM = sO + 64 * OLD;
-  float* sL = sM + 64;
+struct FwdCfg {
+  static constexpr int BQ = 128;   // query rows of a block
+  static constexpr int BKV = 128;  // key rows of a ring stage
+  // Bytes of a row of one panel: D 32 rows are 64 bytes (the 64-byte
+  // swizzle); D 64 rows are one 128-byte swizzle row; D 128 rows span two
+  // 64-column panels of 128-byte rows.
+  static constexpr int ROW_BYTES = D == 32 ? 64 : 128;
+  static constexpr int PANELS = D == 128 ? 2 : 1;
+  static constexpr int BOX_D = D / PANELS;
+  static constexpr int K16_PER_PANEL = ROW_BYTES / 32;
+  static constexpr uint64_t SWIZZLE = D == 32 ? DESC_SW64 : DESC_SW128;
+  static constexpr int STAGES = D == 128 ? 2 : 4;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BKV * D * 2;  // one K or one V tile
+  static constexpr int Q_PANEL = BQ * ROW_BYTES;
+  static constexpr int KV_PANEL = BKV * ROW_BYTES;
+  static constexpr int EPI_LD = D + 8;  // staging row, elements
+  static constexpr int RING = Q_BYTES;  // offset of stage 0: K, then V
+  static constexpr int EPI = RING + STAGES * 2 * KV_BYTES;
+  static constexpr int BARS = EPI + 2 * 64 * EPI_LD * 2;
+  // Barriers: Q full, then K full, V full and empty per stage.
+  static constexpr int SMEM = 1024 + BARS + 8 * (1 + 3 * STAGES);
+  static_assert(SMEM <= 232448, "shared memory");
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int i = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh - b * p.H, hk = h / p.group;
-  const int q0 = i * BQ;
-  const int q_rows = min(BQ, p.Tq - q0);
-  const long long q_rs = (long long)p.H * D;
-  const long long kv_rs = (long long)p.Hkv * D;
+// The KV tiles [jb, je) that query tile i visits: the j where
+// should_run<TQ, TKV> holds, in closed form (a causal bound above, a window
+// bound below).  Its host twin is ops/attention.py::_kv_tile_range.
+__device__ __forceinline__ long long floor_div(long long a, long long b) {
+  return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
 
-  load_rows<D>(sQ, LD, p.q + ((long long)b * p.Tq + q0) * q_rs + (long long)h * D,
-               q_rs, q_rows);
-  for (int r = tid; r < 64; r += THREADS) {
-    sM[r] = NEG_INF;
-    sL[r] = 0.0f;
-  }
-  for (int e = tid; e < 64 * OLD; e += THREADS) sO[e] = 0.0f;
-  __syncthreads();  // the epilogue reads these even if no tile runs
+template <int TQ, int TKV>
+__device__ __forceinline__ void kv_tile_range(const Params& p, int i, int& jb,
+                                              int& je) {
+  const long long q_lo = p.q_offset + (long long)i * TQ;
+  long long lo = 0, hi = (p.Tkv + TKV - 1) / TKV;
+  if (p.causal)
+    hi = min(hi, floor_div(q_lo + TQ - 1 - p.kv_offset, TKV) + 1);
+  if (p.window > 0)
+    lo = max(lo, floor_div(q_lo - p.kv_offset - TKV + 1 - p.window, TKV) + 1);
+  jb = (int)lo;
+  je = (int)max(lo, hi);
+}
 
-  // Two lanes per row: lane pair (2r, 2r+1) owns row warp*16 + r, each one
-  // half of the tile's 64 columns.
-  const int row = warp * 16 + (lane >> 1);
-  const int half = lane & 1;
-  const long long qpos = p.q_offset + q0 + row;
-  const int n_kv = (p.Tkv + BKV - 1) / BKV;
+// K2's per-element mask on d = qpos - kpos.
+__device__ __forceinline__ bool diff_valid(const Params& p, long long d) {
+  bool ok = true;
+  if (p.causal) ok = d >= 0;
+  if (p.window > 0) ok = ok && d < p.window;
+  return ok;
+}
 
-  for (int j = 0; j < n_kv; ++j) {
-    if (!should_run(p, i, j)) continue;  // uniform over the block
-    const bool full = fully_valid(p, i, j);
-    const int kv0 = j * BKV;
-    const int kv_rows = min(BKV, p.Tkv - kv0);
-    __syncthreads();  // the last tile's K/V reads are done
-    const long long kv_at = ((long long)b * p.Tkv + kv0) * kv_rs + (long long)hk * D;
-    load_rows<D>(sK, LD, p.k + kv_at, kv_rs, kv_rows);
-    load_rows<D>(sV, LD, p.v + kv_at, kv_rs, kv_rows);
-    __syncthreads();
+// S (+)= Q K^T: m64n128k16, A (Q) and B (K) both K-major from shared
+// memory; scale_d 0 starts the sum.
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" DTM_REGS64
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : DTM_CON64
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 
-    rows_times_rows_t<D>(sS + (warp * 16) * SLD, sQ + (warp * 16) * LD, sK, LD);
-    __syncwarp();
+// O += P V: m64nDk16, A (a k16 slice of P, bf16 pairs) from registers, B
+// (V) MN-major from shared memory (the transpose bit).
+#define DTM_REGS16 DTM_R0 DTM_R1
+#define DTM_CON16 DTM_C8(0), DTM_C8(8)
 
-    {
-      const float* srow = sS + row * SLD + half * 32;
-      const float m_prev = sM[row];
-      const float l_prev = sL[row];
-      float s[32];
-      float mx = -INFINITY;
+template <int N>
+struct WgmmaPV;
+
+#define DTM_WGMMA_PV(N, REGS, CONS, A, DB, SC)                              \
+  template <>                                                              \
+  struct WgmmaPV<N> {                                                      \
+    static __device__ __forceinline__ void mma(float (&d)[N / 2],         \
+                                               uint32_t a0, uint32_t a1,   \
+                                               uint32_t a2, uint32_t a3,   \
+                                               uint64_t db) {              \
+      asm volatile(                                                        \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %" SC ", 0;\n"                 \
+          "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS \
+          "}, " A ", %" DB ", p, 1, 1, 1;\n}\n"                            \
+          : CONS                                                           \
+          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));          \
+    }                                                                      \
+  };
+
+DTM_WGMMA_PV(32, DTM_REGS16, DTM_CON16, "{%16, %17, %18, %19}", "20", "21")
+DTM_WGMMA_PV(64, DTM_REGS32, DTM_CON32, "{%32, %33, %34, %35}", "36", "37")
+DTM_WGMMA_PV(128, DTM_REGS64, DTM_CON64, "{%64, %65, %66, %67}", "68", "69")
+
+template <int R>
+__device__ __forceinline__ void fence_u32(uint32_t (&r)[R]) {
 #pragma unroll
-      for (int c = 0; c < 32; ++c) {
-        const int col = half * 32 + c;
-        float x = srow[c] * p.scale;
-        if (col >= kv_rows)
-          x = -INFINITY;
-        else if (!full && !pair_valid(p, qpos, p.kv_offset + kv0 + col))
-          x = NEG_INF;
-        s[c] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_new = fmaxf(m_prev, mx);
-      const float alpha = expf(m_prev - m_new);
-      float sum = 0.0f;
-      bf16* prow = sP + row * PLD + half * 32;
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Warpgroup 0, one thread: Q once, then K and V of tiles jb..je-1.
+template <int D>
+__device__ __forceinline__ void fwd_produce(
+    const CUtensorMap* qmap, const CUtensorMap* kmap, const CUtensorMap* vmap,
+    uint32_t base, uint32_t qfull, uint32_t kfull0, uint32_t vfull0,
+    uint32_t empty0, int b, int h, int hk, int q0, int jb, int je) {
+  using C = FwdCfg<D>;
+  mbar_arrive_expect_tx(qfull, C::Q_BYTES);
 #pragma unroll
-      for (int c = 0; c < 32; ++c) {
-        const float pe = expf(s[c] - m_new);
-        sum += pe;
-        prow[c] = __float2bfloat16(pe);
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      float* orow = sO + row * OLD + half * (D / 2);
+  for (int pn = 0; pn < C::PANELS; ++pn)
+    tma_load_4d(base + pn * C::Q_PANEL, qmap, qfull, pn * C::BOX_D, h, q0, b);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = jb; j < je; ++j) {
+    mbar_wait(empty0 + 8 * stage, phase ^ 1);
+    const uint32_t k_s = base + C::RING + stage * 2 * C::KV_BYTES;
+    const uint32_t v_s = k_s + C::KV_BYTES;
+    const uint32_t kfull = kfull0 + 8 * stage, vfull = vfull0 + 8 * stage;
+    const int kv0 = j * C::BKV;
+    mbar_arrive_expect_tx(kfull, C::KV_BYTES);
 #pragma unroll
-      for (int c = 0; c < D / 2; ++c) orow[c] *= alpha;
-      __syncwarp();  // both lanes of the pair have read m and l
-      if (half == 0) {
-        sM[row] = m_new;
-        sL[row] = alpha * l_prev + sum;
-      }
+    for (int pn = 0; pn < C::PANELS; ++pn)
+      tma_load_4d(k_s + pn * C::KV_PANEL, kmap, kfull, pn * C::BOX_D, hk, kv0,
+                  b);
+    mbar_arrive_expect_tx(vfull, C::KV_BYTES);
+#pragma unroll
+    for (int pn = 0; pn < C::PANELS; ++pn)
+      tma_load_4d(v_s + pn * C::KV_PANEL, vmap, vfull, pn * C::BOX_D, hk, kv0,
+                  b);
+    if (++stage == C::STAGES) {
+      stage = 0;
+      phase ^= 1;
     }
-    __syncwarp();
+  }
+}
 
-    {
-      // acc += P V, the accumulator round-tripping through shared memory.
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+// Warpgroups 1 and 2: query rows 64g..64g+63 of the tile.  Thread (warp w,
+// lane l) holds rows r = 64g + 16w + l/4 and r + 8, and of each 8-column
+// block n the columns 8n + 2(l%4) and the next: S and O accumulator
+// elements 4n, 4n+1 (row r) and 4n+2, 4n+3 (row r+8).  Packed to bf16
+// pairs, S elements 8k..8k+7 are P's A fragment of k16 step k.
+template <int D>
+__device__ __forceinline__ void fwd_consume(const Params& p,
+                                            unsigned char* smem,
+                                            uint32_t base, uint32_t qfull,
+                                            uint32_t kfull0, uint32_t vfull0,
+                                            uint32_t empty0, int b, int h,
+                                            int bh, int i, int jb, int je) {
+  using C = FwdCfg<D>;
+  const int g = (threadIdx.x >> 7) - 1;
+  const int t = threadIdx.x & 127;
+  const int warp = t >> 5, lane = t & 31;
+  const int er = 16 * warp + (lane >> 2);  // row within the warpgroup's 64
+  const int c2 = 2 * (lane & 3);
+  const int q0 = i * C::BQ;
+  const int r = 64 * g + er;
+  // qpos - kpos of row r against key 0 of the KV sequence.
+  const long long d_row = p.q_offset + q0 + r - p.kv_offset;
+  const uint32_t q_s = base + 64 * g * C::ROW_BYTES;
+  constexpr uint32_t SBO = 8 * C::ROW_BYTES;
+
+  float s[64];
+  float o[D / 2];
+  uint32_t pk[32];
 #pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        float* o = sO + (warp * 16) * OLD + n * 16;
-        wmma::load_matrix_sync(acc, o, OLD, wmma::mem_row_major);
+  for (int e = 0; e < 64; ++e) s[e] = 0.0f;
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          wmma::load_matrix_sync(pf, sP + (warp * 16) * PLD + kk * 16, PLD);
-          wmma::load_matrix_sync(vf, sV + (kk * 16) * LD + n * 16, LD);
-          wmma::mma_sync(acc, pf, vf, acc);
+  for (int e = 0; e < D / 2; ++e) o[e] = 0.0f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.0f, l1 = 0.0f;
+  const float c2f = p.scale * 1.4426950408889634f;  // scale * log2(e)
+
+  mbar_wait(qfull, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = jb; j < je; ++j) {
+    const int kv0 = j * C::BKV;
+    const uint32_t k_s = base + C::RING + stage * 2 * C::KV_BYTES;
+    const uint32_t v_s = k_s + C::KV_BYTES;
+
+    // S = Q K^T, f32 in registers.
+    mbar_wait(kfull0 + 8 * stage, phase);
+    fence_acc(s);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t pan = kk / C::K16_PER_PANEL;
+      const uint32_t col = 32 * (kk % C::K16_PER_PANEL);
+      wgmma_qk(s,
+               smem_desc(q_s + pan * C::Q_PANEL + col, 16, SBO, C::SWIZZLE),
+               smem_desc(k_s + pan * C::KV_PANEL + col, 16, SBO, C::SWIZZLE),
+               kk > 0);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(s);
+
+    // The online softmax on the raw scores (Q K^T): the scale folds into
+    // log2(e), p = exp2(s * c - m * c) with both products rounded before
+    // the difference (never an FMA: s == m must give exactly 1, also at
+    // NEG_INF), so the LSE is m * scale + log(l) in natural-log units.
+    // Masked pairs get the finite NEG_INF, keys past Tkv -inf.
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+    if (!fully_valid<C::BQ, C::BKV>(p, i, j) || kv0 + C::BKV > p.Tkv) {
+      const int kv_rows = p.Tkv - kv0;
+      const long long d0 = d_row - kv0;
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * n + c2 + e;
+          float x0 = s[4 * n + e], x1 = s[4 * n + 2 + e];
+          if (col >= kv_rows) {
+            x0 = -INFINITY;
+            x1 = -INFINITY;
+          } else {
+            if (!diff_valid(p, d0 - col)) x0 = NEG_INF;
+            if (!diff_valid(p, d0 + 8 - col)) x1 = NEG_INF;
+          }
+          s[4 * n + e] = x0;
+          s[4 * n + 2 + e] = x1;
+          mx0 = fmaxf(mx0, x0);
+          mx1 = fmaxf(mx1, x1);
         }
-        wmma::store_matrix_sync(o, acc, OLD, wmma::mem_row_major);
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          mx0 = fmaxf(mx0, s[4 * n + e]);
+          mx1 = fmaxf(mx1, s[4 * n + 2 + e]);
+        }
       }
     }
-    __syncwarp();
-  }
-  __syncwarp();
-
-  if (row < q_rows) {
-    const float lc = fmaxf(sL[row], 1e-30f);
-    bf16* og = p.out + ((long long)b * p.Tq + q0 + row) * q_rs + (long long)h * D;
-    const float* orow = sO + row * OLD;
+    const float mn0 = fmaxf(m0, quad_max(mx0));
+    const float mn1 = fmaxf(m1, quad_max(mx1));
+    const float mc0 = __fmul_rn(mn0, c2f), mc1 = __fmul_rn(mn1, c2f);
+    const float a0 = exp2f(__fmul_rn(m0, c2f) - mc0);
+    const float a1 = exp2f(__fmul_rn(m1, c2f) - mc1);
+    float sum0 = 0.0f, sum1 = 0.0f;
 #pragma unroll
-    for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c)
-      og[c] = __float2bfloat16(orow[c] / lc);
-    if (half == 0)
-      p.lse_out[(long long)bh * p.Tq + q0 + row] = sM[row] + logf(lc);
+    for (int n = 0; n < 16; ++n) {
+      const float p00 = exp2f(__fmul_rn(s[4 * n], c2f) - mc0);
+      const float p01 = exp2f(__fmul_rn(s[4 * n + 1], c2f) - mc0);
+      const float p10 = exp2f(__fmul_rn(s[4 * n + 2], c2f) - mc1);
+      const float p11 = exp2f(__fmul_rn(s[4 * n + 3], c2f) - mc1);
+      sum0 += p00 + p01;
+      sum1 += p10 + p11;
+      // P in bf16 for P V; l sums the f32 P.
+      pk[2 * n] = pack_bf16(p00, p01);
+      pk[2 * n + 1] = pack_bf16(p10, p11);
+    }
+    l0 = a0 * l0 + quad_sum(sum0);
+    l1 = a1 * l1 + quad_sum(sum1);
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[4 * n] *= a0;
+      o[4 * n + 1] *= a0;
+      o[4 * n + 2] *= a1;
+      o[4 * n + 3] *= a1;
+    }
+
+    // O += P V.
+    mbar_wait(vfull0 + 8 * stage, phase);
+    fence_acc(o);
+    fence_u32(pk);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < C::BKV / 16; ++kk)
+      WgmmaPV<D>::mma(o, pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2],
+                      pk[4 * kk + 3],
+                      smem_desc(v_s + kk * 16 * C::ROW_BYTES, C::KV_PANEL, SBO,
+                                C::SWIZZLE));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(o);
+    if (lane == 0) mbar_arrive(empty0 + 8 * stage);  // the stage goes back
+    if (++stage == C::STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  // Epilogue: O / max(l, 1e-30) in bf16 through a padded staging tile, then
+  // 16-byte stores clipped at Tq; LSE = m + log(max(l, 1e-30)).
+  const float lc0 = fmaxf(l0, 1e-30f), lc1 = fmaxf(l1, 1e-30f);
+  bf16* epi = reinterpret_cast<bf16*>(smem + C::EPI) + g * 64 * C::EPI_LD;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    bf16* e0 = epi + er * C::EPI_LD + 8 * n + c2;
+    *reinterpret_cast<__nv_bfloat162*>(e0) =
+        __floats2bfloat162_rn(o[4 * n] / lc0, o[4 * n + 1] / lc0);
+    *reinterpret_cast<__nv_bfloat162*>(e0 + 8 * C::EPI_LD) =
+        __floats2bfloat162_rn(o[4 * n + 2] / lc1, o[4 * n + 3] / lc1);
+  }
+  if ((lane & 3) == 0) {
+    float* lse = p.lse_out + (long long)bh * p.Tq;
+    if (q0 + r < p.Tq) lse[q0 + r] = m0 * p.scale + logf(lc0);
+    if (q0 + r + 8 < p.Tq) lse[q0 + r + 8] = m1 * p.scale + logf(lc1);
+  }
+  named_bar_sync(1 + g);
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+  const long long q_rs = (long long)p.H * D;
+  bf16* out = p.out + ((long long)b * p.Tq + q0 + 64 * g) * q_rs +
+              (long long)h * D;
+  const int rows = min(64, p.Tq - q0 - 64 * g);
+#pragma unroll
+  for (int it = 0; it < CPR / 2; ++it) {
+    const int c = t + 128 * it;
+    const int row = c / CPR, ch = c - row * CPR;
+    if (row < rows)
+      *reinterpret_cast<uint4*>(out + row * q_rs + ch * 8) =
+          *reinterpret_cast<const uint4*>(epi + row * C::EPI_LD + ch * 8);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+    dtm_flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap,
+                         const Params p) {
+  using C = FwdCfg<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the swizzles need 1 KB
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t qfull = base + C::BARS;
+  const uint32_t kfull0 = qfull + 8;
+  const uint32_t vfull0 = kfull0 + 8 * C::STAGES;
+  const uint32_t empty0 = vfull0 + 8 * C::STAGES;
+
+  const int bh = blockIdx.x;
+  const int i = gridDim.y - 1 - blockIdx.y;  // the heaviest causal tiles first
+  const int b = bh / p.H, h = bh - b * p.H, hk = h / p.group;
+  int jb, je;
+  kv_tile_range<C::BQ, C::BKV>(p, i, jb, je);
+
+  if (threadIdx.x == 0) {
+    mbar_init(qfull, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(kfull0 + 8 * s, 1);
+      mbar_init(vfull0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, FWD_EMPTY_ARRIVALS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<FWD_PRODUCER_REGS>();
+    if (threadIdx.x == 0)
+      fwd_produce<D>(&qmap, &kmap, &vmap, base, qfull, kfull0, vfull0, empty0,
+                     b, h, hk, i * C::BQ, jb, je);
+  } else {
+    setmaxnreg_inc<FWD_CONSUMER_REGS>();
+    fwd_consume<D>(p, smem, base, qfull, kfull0, vfull0, empty0, b, h, bh, i,
+                   jb, je);
   }
 }
 
@@ -637,6 +919,59 @@ cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, const Params& p,
   return cudaGetLastError();
 }
 
+// The BTHD tensor [B, T, heads, D] as a 4-D TMA map {D, heads, T, B} with
+// a {D / panels, 1, rows, 1} box: rows of a tile past T read as zeros (a
+// 3-D map over B*T would read the next batch's rows instead).
+cudaError_t make_rows_map(CUtensorMap* map, const void* ptr, int B, int T,
+                          int heads, int D, int rows) {
+  EncodeTiledFn encode;
+  cudaError_t err = encode_fn(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)T,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)T * heads * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)(D == 128 ? 64 : D), 1,
+                             (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// K2's maps: Q in 128-row boxes, K and V in BKV-row boxes.
+template <int D>
+cudaError_t make_fwd_maps(const Params& p, int B, CUtensorMap (&maps)[3]) {
+  using C = FwdCfg<D>;
+  cudaError_t err = make_rows_map(&maps[0], p.q, B, p.Tq, p.H, D, C::BQ);
+  if (err == cudaSuccess)
+    err = make_rows_map(&maps[1], p.k, B, p.Tkv, p.Hkv, D, C::BKV);
+  if (err == cudaSuccess)
+    err = make_rows_map(&maps[2], p.v, B, p.Tkv, p.Hkv, D, C::BKV);
+  return err;
+}
+
+template <int D>
+cudaError_t launch_fwd(const Params& p, int B, cudaStream_t stream) {
+  using C = FwdCfg<D>;
+  const long long n_q = (p.Tq + C::BQ - 1) / C::BQ;
+  if (n_q > 65535) return cudaErrorInvalidValue;
+  CUtensorMap maps[3];
+  cudaError_t err = make_fwd_maps<D>(p, B, maps);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(dtm_flash_fwd_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::SMEM);
+  if (err != cudaSuccess) return err;
+  dtm_flash_fwd_kernel<D>
+      <<<dim3((unsigned)(B * p.H), (unsigned)n_q), FWD_THREADS, C::SMEM,
+         stream>>>(maps[0], maps[1], maps[2], p);
+  return cudaGetLastError();
+}
+
 enum Which { FWD = 0, DKV = 1, DQ = 2, DKV_STAGED = 3, DQ_STAGED = 4 };
 
 template <int D>
@@ -646,8 +981,7 @@ cudaError_t dispatch(Which which, const Params& p, int B, cudaStream_t s) {
   const unsigned n_kv = (unsigned)((p.Tkv + BKV - 1) / BKV);
   switch (which) {
     case FWD:
-      return launch(dtm_flash_fwd_kernel<D>, fwd_smem_bytes<D>(),
-                    dim3(n_q, bh), p, s);
+      return launch_fwd<D>(p, B, s);
     case DKV:
       return launch(dtm_flash_dkv_kernel<D, false>, bwd_smem_bytes<D>(),
                     dim3(n_kv, bh), p, s);
@@ -786,6 +1120,32 @@ int dtm_flash_dq_staged_bf16(const void* ds, const void* k, void* dq, int B,
   p.out = static_cast<bf16*>(dq);
   return run(DQ_STAGED, p, B, Tq, Tkv, H, Hkv, D, scale, causal, window,
              q_offset, kv_offset, stream);
+}
+
+// Encodes K2's three tensor maps ``iters`` times and launches nothing: the
+// host cost of a K2 launch's maps, for timing.
+int dtm_flash_fwd_encode_bf16(const void* q, const void* k, const void* v,
+                              int B, int Tq, int Tkv, int H, int Hkv, int D,
+                              int iters) {
+  Params p = {};
+  p.q = static_cast<const bf16*>(q);
+  p.k = static_cast<const bf16*>(k);
+  p.v = static_cast<const bf16*>(v);
+  p.Tq = Tq;
+  p.Tkv = Tkv;
+  p.H = H;
+  p.Hkv = Hkv;
+  CUtensorMap maps[3];
+  for (int it = 0; it < iters; ++it) {
+    cudaError_t err = cudaErrorInvalidValue;
+    switch (D) {
+      case 32: err = make_fwd_maps<32>(p, B, maps); break;
+      case 64: err = make_fwd_maps<64>(p, B, maps); break;
+      case 128: err = make_fwd_maps<128>(p, B, maps); break;
+    }
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 const char* dtm_cuda_error_string(int err) {

@@ -1,11 +1,14 @@
 """Build and load the package's hand-written CUDA kernels.
 
 Each kernel lives under ``csrc/`` as a ``.cu`` file with a plain C
-interface.  At first use it is compiled with ``nvcc`` for ``sm_90a`` into
-``build/kernels/`` at the repository root, under a name keyed on a hash of
-its source and the compiler flags, and loaded with ``ctypes`` — seconds
-per kernel, where a build that includes PyTorch's headers takes minutes.  Nothing is compiled or
-loaded at import time: the CPU tests import every module here.
+interface; the Hopper helpers they share are in ``csrc/*.cuh``
+(``hopper.cuh``).  At first use a source is compiled with ``nvcc`` for
+``sm_90a`` into ``build/kernels/`` at the repository root, under a name
+keyed on a hash of its bytes, every header's bytes and the compiler
+flags (an edit to a header rebuilds every library), and loaded with
+``ctypes`` — seconds per kernel, where a build that includes PyTorch's
+headers takes minutes.  Nothing is compiled or loaded at import time: the
+CPU tests import every module here.
 """
 
 from __future__ import annotations
@@ -52,6 +55,16 @@ def _nvcc() -> str:
     )
 
 
+def _source_key(src: Path) -> bytes:
+    """What a build depends on: the source, every header beside it (by
+    name and bytes, in name order) and the flags."""
+    parts = [src.read_bytes()]
+    for hdr in sorted(CSRC_DIR.glob("*.cuh")):
+        parts += [hdr.name.encode(), hdr.read_bytes()]
+    parts.append(" ".join(NVCC_FLAGS).encode())
+    return b"\0".join(parts)
+
+
 def load(source: str) -> ctypes.CDLL:
     """The shared library built from ``csrc/<source>``, compiling it first
     if no build of this exact source exists yet.  Thread-safe; different
@@ -63,8 +76,7 @@ def load(source: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         src = CSRC_DIR / source
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        digest = hashlib.sha256(_source_key(src)).hexdigest()[:16]
         out = BUILD_DIR / f"{src.stem}_{digest}.so"
         if not out.exists():
             t0 = time.perf_counter()

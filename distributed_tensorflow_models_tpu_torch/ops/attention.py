@@ -21,9 +21,10 @@ everywhere:
 
 The public ``block_q``/``block_kv``, ``_check_blocks``' divisibility rule
 and ``DTM_FLASH_TILE`` keep their JAX meaning and validation here.  The
-kernels choose their own tiles (64 x 64) for the card: the tile changes
-which fully-masked tiles are visited, and so only the values of rows with
-no valid key at all, which are documented garbage in both packages
+kernels choose their own tiles for the card: K2 128 x 128 (its loop over
+KV tiles is :func:`_kv_tile_range`), K3-K5 64 x 64.  The tile changes which
+fully-masked tiles are visited, and so only the values of rows with no
+valid key at all, which are documented garbage in both packages
 (:func:`_check_window`).
 """
 
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import time
 from typing import Optional
 
 import torch
@@ -214,6 +216,24 @@ def _block_fully_valid(i, j, q_base, kv_base, *, causal, block_q, block_kv,
     return full
 
 
+def _kv_tile_range(i, Tq, Tkv, bq, bkv, causal, window, q_offset,
+                   kv_offset):
+    """``(begin, end)``: the KV tiles ``j`` of ``bkv`` rows, begin <= j <
+    end, for which :func:`_block_should_run` holds with query tile ``i`` of
+    ``bq`` rows, in closed form: causality bounds the range above, the
+    window below.  K2 loops over exactly this range; its device twin is
+    ``kv_tile_range`` in ``csrc/flash_attention.cu``."""
+    if not 0 <= i < -(-Tq // bq):
+        raise ValueError(f"query tile {i} outside {Tq} rows of {bq}")
+    q_lo = q_offset + i * bq
+    lo, hi = 0, -(-Tkv // bkv)
+    if causal:
+        hi = min(hi, (q_lo + bq - 1 - kv_offset) // bkv + 1)
+    if window is not None:
+        lo = max(lo, (q_lo - kv_offset - bkv + 1 - window) // bkv + 1)
+    return lo, max(lo, hi)
+
+
 def _auto_block(T: int) -> int:
     """The JAX package's forward default tile: 256 where it divides."""
     return 256 if T % 256 == 0 else 128
@@ -331,7 +351,14 @@ def _flash_dq_staged_reference(ds, k, *, scale, causal, window, q_offset,
 # ------------------------------------------------------- kernel wrappers
 
 
+_lib: Optional[ctypes.CDLL] = None
+
+
 def _load() -> ctypes.CDLL:
+    """The flash library with its entry points typed, once per process."""
+    global _lib
+    if _lib is not None:
+        return _lib
     lib = _kernels.load(_SOURCE)
     tail = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
                                  ctypes.c_longlong, ctypes.c_longlong,
@@ -347,6 +374,11 @@ def _load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * n_ptr + tail
         fn.restype = ctypes.c_int
+    # K2's tensor maps alone: q, k, v, B, Tq, Tkv, H, Hkv, D, iterations.
+    lib.dtm_flash_fwd_encode_bf16.argtypes = ([ctypes.c_void_p] * 3
+                                              + [ctypes.c_int] * 7)
+    lib.dtm_flash_fwd_encode_bf16.restype = ctypes.c_int
+    _lib = lib
     return lib
 
 
@@ -406,6 +438,22 @@ def flash_forward(q, k, v, *, scale, causal, window, q_offset, kv_offset):
     _kernels.check(lib, rc, "flash_forward (K2)")
     flash_forward.launches += 1
     return out, lse
+
+
+def flash_forward_encode_seconds(q, k, v, iters: int = 1000) -> float:
+    """Host seconds to encode K2's three TMA tensor maps for these tensors,
+    averaged over ``iters`` encodings (no launch): the part of each K2
+    launch's host cost that the maps add."""
+    _check_kernel_inputs("flash_forward_encode_seconds", q, k, v)
+    B, Tq, H, D = q.shape
+    lib = _load()
+    t0 = time.perf_counter()
+    rc = lib.dtm_flash_fwd_encode_bf16(q.data_ptr(), k.data_ptr(),
+                                       v.data_ptr(), B, Tq, k.shape[1], H,
+                                       k.shape[2], D, iters)
+    seconds = (time.perf_counter() - t0) / iters
+    _kernels.check(lib, rc, "flash_forward_encode_seconds")
+    return seconds
 
 
 def flash_dkv(q, k, v, do, lse, delta, *, scale, causal, window, q_offset,

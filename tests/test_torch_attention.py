@@ -360,3 +360,169 @@ def test_staged_plain_versions_shapes_and_stage():
     dq = tattn._flash_dq_staged_reference(ds, k, **kw)
     assert dq.shape == q.shape and dq.dtype == torch.bfloat16
     assert torch.equal(dq, tattn._flash_dq_reference(*args, **kw))
+
+
+# --------------------------------------------------- K2's loop and arithmetic
+# K2 (csrc/flash_attention.cu) visits, for each 128-row query tile, only the
+# KV tiles in _kv_tile_range; the scan below is the definition it must meet.
+_RANGE_LENGTHS = (1, 127, 128, 129, 200, 384, 2048)
+_RANGE_OFFSETS = ((0, 0), (384, 256), (200, 100))
+
+
+@pytest.mark.parametrize("bq,bkv", [(128, 128), (128, 64)],
+                         ids=["128x128", "128x64"])
+@pytest.mark.parametrize("window", [None, 1, 80, 128, 256],
+                         ids=["nowindow", "w1", "w80", "w128", "w256"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_kv_tile_range_is_the_should_run_scan(causal, window, bq, bkv):
+    """Every KV tile _block_should_run accepts for query tile i, and no
+    other, lies in _kv_tile_range, over ragged lengths and offsets."""
+    for Tq in _RANGE_LENGTHS:
+        for Tkv in _RANGE_LENGTHS:
+            n_kv = -(-Tkv // bkv)
+            for q_offset, kv_offset in _RANGE_OFFSETS:
+                for i in range(-(-Tq // bq)):
+                    lo, hi = tattn._kv_tile_range(i, Tq, Tkv, bq, bkv, causal,
+                                                  window, q_offset, kv_offset)
+                    want = [j for j in range(n_kv) if tattn._block_should_run(
+                        i, j, q_offset, kv_offset, causal=causal, block_q=bq,
+                        block_kv=bkv, window=window)]
+                    assert list(range(lo, hi)) == want, (Tq, Tkv, q_offset,
+                                                         kv_offset, i)
+
+
+def test_kv_tile_range_refuses_a_tile_past_the_queries():
+    with pytest.raises(ValueError, match="query tile"):
+        tattn._kv_tile_range(2, 256, 256, 128, 128, True, None, 0, 0)
+
+
+# chip_smoke.py's K2 tolerances: two bf16 ulps relative plus 1e-2 of the
+# output's largest magnitude, and the f32 LSE to 1e-4.
+K2_RTOL, K2_ATOL_OF_SCALE, K2_LSE_ATOL = 2.0 ** -6, 1e-2, 1e-4
+K2_TILE = 128
+
+
+def _k2_emulate(q, k, v, *, scale, causal, window, q_offset, kv_offset):
+    """K2's arithmetic in torch on BTHD bf16 inputs: 128 x 128 tiles over
+    _kv_tile_range, raw f32 scores (Q K^T), NEG_INF on masked pairs of
+    tiles that are not fully valid and -inf past Tkv, the running max/sum
+    rescale in base 2 with the scale folded into log2(e) (p = exp2(s*c -
+    m*c), each product rounded to f32 first), P rounded to bf16 per tile
+    before P V with f32 sums, O rescaled by alpha before the tile's P V is
+    added, out = acc / max(l, 1e-30) in bf16 and lse = m*scale +
+    log(max(l, 1e-30)).  Returns ``(out, lse [B, H, Tq])``."""
+    B, Tq, H, D = q.shape
+    Tkv, Hkv = k.shape[1], k.shape[2]
+    grp = H // Hkv
+    qf = q.float().transpose(1, 2)                     # [B, H, Tq, D]
+    kf = k.float().transpose(1, 2).repeat_interleave(grp, 1)
+    vf = v.float().transpose(1, 2).repeat_interleave(grp, 1)
+    out = torch.zeros(B, H, Tq, D)
+    lse = torch.zeros(B, H, Tq)
+    bt = K2_TILE
+    scale = torch.tensor(scale, dtype=torch.float32)
+    c = scale * torch.tensor(1.4426950408889634, dtype=torch.float32)
+    for i in range(-(-Tq // bt)):
+        rows = slice(i * bt, min(Tq, (i + 1) * bt))
+        qt = qf[:, :, rows]
+        m = torch.full((B, H, qt.shape[2], 1), tattn.NEG_INF)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(B, H, qt.shape[2], D)
+        lo, hi = tattn._kv_tile_range(i, Tq, Tkv, bt, bt, causal, window,
+                                      q_offset, kv_offset)
+        qpos = q_offset + i * bt + torch.arange(qt.shape[2])[:, None]
+        for j in range(lo, hi):
+            kv0 = j * bt
+            cols = torch.arange(bt)[None, :]
+            kt = torch.zeros(B, H, bt, D)
+            vt = torch.zeros(B, H, bt, D)
+            n = min(bt, Tkv - kv0)
+            kt[:, :, :n] = kf[:, :, kv0:kv0 + n]       # TMA's zero rows
+            vt[:, :, :n] = vf[:, :, kv0:kv0 + n]
+            s = qt @ kt.transpose(-1, -2)
+            full = tattn._block_fully_valid(
+                i, j, q_offset, kv_offset, causal=causal, block_q=bt,
+                block_kv=bt, window=window)
+            if not full or kv0 + bt > Tkv:
+                d = qpos - (kv_offset + kv0 + cols)
+                ok = torch.ones_like(d, dtype=torch.bool)
+                if causal:
+                    ok &= d >= 0
+                if window is not None:
+                    ok &= d < window
+                s = torch.where(ok, s, torch.full_like(s, tattn.NEG_INF))
+                s = torch.where(cols < Tkv - kv0, s,
+                                torch.full_like(s, -float("inf")))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            mc = m_new * c
+            alpha = torch.exp2(m * c - mc)
+            p = torch.exp2(s * c - mc)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            acc = alpha * acc + p.bfloat16().float() @ vt
+            m = m_new
+        lc = torch.clamp(l, min=1e-30)
+        out[:, :, rows] = acc / lc
+        lse[:, :, rows] = (m * scale + torch.log(lc)).squeeze(-1)
+    return out.transpose(1, 2).bfloat16(), lse
+
+
+def _k2_close(got, want, rows, what):
+    got, want = got[:, rows].float(), want[:, rows].float()
+    scale = float(want.abs().max())
+    err = (got - want).abs()
+    bad = err > K2_ATOL_OF_SCALE * scale + K2_RTOL * want.abs()
+    assert not bool(bad.any()), (
+        f"{what}: {int(bad.sum())} of {bad.numel()} over tolerance, max abs "
+        f"err {float(err.max()):.4g}, scale {scale:.4g}")
+
+
+# (B, Tq, Tkv, H, Hkv, D, causal, window, q_offset, kv_offset, jax blocks):
+# head dims 32/64/128, GQA, windows narrower and wider than a tile, offsets
+# that move the diagonal inside a tile, ragged lengths (no JAX run there:
+# its blocks must divide the lengths).
+K2_CASES = [
+    (2, 256, 256, 4, 4, 32, True, None, 0, 0, 128),
+    (1, 128, 256, 2, 2, 64, False, None, 0, 0, 128),
+    (1, 256, 256, 2, 2, 128, True, None, 0, 0, 128),
+    (1, 256, 256, 4, 2, 32, True, 80, 0, 0, 128),
+    (1, 256, 256, 2, 2, 64, True, 16, 0, 0, 64),
+    (1, 128, 384, 4, 2, 64, True, None, 384, 256, 128),
+    (1, 256, 384, 2, 1, 32, True, None, 64, 0, 128),
+    (2, 200, 328, 4, 2, 64, False, None, 0, 0, None),
+    (1, 200, 328, 4, 4, 32, True, 150, 128, 0, None),
+]
+
+
+@pytest.mark.parametrize("case", K2_CASES,
+                         ids=lambda c: "-".join(map(str, c[:10])))
+def test_k2_arithmetic_matches_plain_and_jax_interpret(case):
+    """The emulation of K2's tiles and rounding agrees with the plain K2
+    (_flash_forward_reference) and with the JAX package's
+    flash_attention_chunk in interpret mode, all in bf16, under
+    chip_smoke.py's K2 tolerances."""
+    B, Tq, Tkv, H, Hkv, D, causal, window, qo, ko, jblock = case
+    rng = np.random.RandomState(21)
+    q, k, v = (rng.randn(*shape).astype(np.float32) for shape in
+               ((B, Tq, H, D), (B, Tkv, Hkv, D), (B, Tkv, Hkv, D)))
+    tq, tk, tv = (torch.tensor(x).bfloat16() for x in (q, k, v))
+    kw = dict(scale=D ** -0.5, causal=causal, window=window, q_offset=qo,
+              kv_offset=ko)
+    out, lse = _k2_emulate(tq, tk, tv, **kw)
+    valid = tattn._valid(Tq, Tkv, causal, window, qo, ko, "cpu")
+    rows = (torch.ones(Tq, dtype=torch.bool) if valid is None
+            else valid.any(-1))
+    want_out, want_lse = tattn._flash_forward_reference(tq, tk, tv, **kw)
+    _k2_close(out, want_out, rows, "K2 emulation vs plain K2")
+    torch.testing.assert_close(lse[:, :, rows], want_lse[:, :, rows], rtol=0,
+                               atol=K2_LSE_ATOL)
+    if jblock is None:
+        return
+    jq, jk, jv = (jnp.asarray(x, dtype=jnp.bfloat16) for x in (q, k, v))
+    jout, jlse = jax.jit(lambda q, k, v: jattn.flash_attention_chunk(
+        q, k, v, qo, ko, causal, D ** -0.5, jblock, jblock, True,
+        window))(jq, jk, jv)
+    jout = torch.tensor(np.asarray(jout.astype(jnp.float32)))
+    jlse = torch.tensor(np.asarray(jlse)).transpose(1, 2)
+    _k2_close(out, jout, rows, "K2 emulation vs JAX interpret")
+    torch.testing.assert_close(lse[:, :, rows], jlse[:, :, rows], rtol=0,
+                               atol=K2_LSE_ATOL)

@@ -167,7 +167,11 @@ def test_train_step_on_card_runs_k1(cuda):
 
 # (B, Tq, Tkv, H, Hkv, D, causal, window, q_offset, kv_offset): the main
 # path's head dim 32 and the sweep's 64 and 128, GQA, a window, offsets,
-# and lengths that are no multiple of the kernels' 64-row tiles.
+# and lengths that are no multiple of the kernels' 64-row tiles.  Then the
+# edges of K2's 128-row tiles and TMA loads: B > 1 with Tq and Tkv no
+# multiple of 128 (a tensor map that read the next batch's rows would show
+# there), D 128 at T 384, a window narrower than a tile, offsets that put
+# a KV tile boundary inside the diagonal, and a GQA group of 4.
 FLASH_CASES = [
     (2, 256, 256, 4, 4, 32, True, None, 0, 0),
     (2, 256, 256, 4, 4, 64, False, None, 0, 0),
@@ -175,6 +179,12 @@ FLASH_CASES = [
     (2, 256, 256, 8, 2, 32, True, 80, 0, 0),
     (1, 128, 192, 2, 1, 128, True, None, 192, 64),
     (1, 96, 160, 4, 4, 32, True, 100, 200, 100),
+    (2, 200, 328, 4, 2, 64, False, None, 0, 0),
+    (2, 200, 328, 4, 4, 32, True, None, 128, 0),
+    (1, 384, 384, 4, 4, 128, True, None, 0, 0),
+    (2, 256, 256, 4, 4, 64, True, 16, 0, 0),
+    (1, 256, 384, 4, 4, 32, True, None, 64, 0),
+    (2, 320, 320, 8, 2, 64, True, None, 0, 0),
 ]
 FLASH_RTOL, FLASH_ATOL_OF_SCALE, LSE_ATOL = 2.0 ** -6, 1e-2, 1e-4
 

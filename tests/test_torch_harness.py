@@ -7,6 +7,8 @@
 - An entry point given no device raises where there is no CUDA device; it
   never runs on the CPU instead.
 - The synthetic ImageNet stream is the JAX package's, value for value.
+- A kernel build's key covers its source, every shared header and the
+  flags.
 """
 
 import ast
@@ -64,8 +66,8 @@ def test_port_imports_nothing_of_jax(path):
 
 def test_guard_walks_every_module_of_the_port():
     """The walk covers each module of the port, those of the LM slice
-    included; what else the package holds is CUDA source under csrc/,
-    which imports nothing of Python."""
+    included; what else the package holds is CUDA source and its shared
+    header under csrc/, which import nothing of Python."""
     walked = {p.relative_to(PORT).as_posix() for p in _port_files()
               if PORT in p.parents}
     assert {"ops/attention.py", "ops/embed.py", "ops/losses.py",
@@ -77,7 +79,7 @@ def test_guard_walks_every_module_of_the_port():
     others = [p.relative_to(PORT).as_posix() for p in PORT.rglob("*")
               if p.is_file() and p.suffix not in (".py", ".pyc")]
     assert sorted(others) == ["csrc/conv_implicit_gemm.cu",
-                              "csrc/flash_attention.cu"]
+                              "csrc/flash_attention.cu", "csrc/hopper.cuh"]
 
 
 def test_ast_walk_catches_a_jax_import(tmp_path):
@@ -202,3 +204,24 @@ def test_fit_trains_tiny_modern_lm_staged_on_cpu(monkeypatch):
     assert all(math.isfinite(r["loss"]) for r in result.history)
     assert "pos_embedding" not in result.state.params
     assert result.tokens_per_sec > 0
+
+
+@pytest.mark.parametrize("edit", ["source", "header", "new header"])
+def test_kernel_build_key_covers_every_header(tmp_path, monkeypatch, edit):
+    """A build is keyed on its .cu, every csrc/*.cuh and the flags: an edit
+    to a shared header changes the key of every source that includes it,
+    so no stale library is loaded (csrc/hopper.cuh serves K1, K6 and K2)."""
+    from distributed_tensorflow_models_tpu_torch.ops import _kernels
+
+    (tmp_path / "a.cu").write_text('#include "hopper.cuh"\n')
+    (tmp_path / "hopper.cuh").write_text("// helpers\n")
+    monkeypatch.setattr(_kernels, "CSRC_DIR", tmp_path)
+    before = _kernels._source_key(tmp_path / "a.cu")
+    assert _kernels._source_key(tmp_path / "a.cu") == before
+    if edit == "source":
+        (tmp_path / "a.cu").write_text('#include "hopper.cuh"\n// K\n')
+    elif edit == "header":
+        (tmp_path / "hopper.cuh").write_text("// helpers, edited\n")
+    else:
+        (tmp_path / "other.cuh").write_text("// more\n")
+    assert _kernels._source_key(tmp_path / "a.cu") != before
