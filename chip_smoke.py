@@ -11,7 +11,7 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    ``flash_attention.cu``, both on the shared Hopper helpers of
    ``hopper.cuh``; the build seconds and what ``-Xptxas -v`` says of every
    kernel instance (registers, shared memory, spills), K2's instances
-   summarised on a line of their own.
+   and K3's and K5's summarised on lines of their own.
 2. K1 and K6 against K1's plain version (``conv_mxu._core_reference``, f32)
    at every launch shape of one ResNet-50 training step at batch 256
    (traced on the meta device, so they are the main path's own, each
@@ -51,9 +51,14 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    ``F.scaled_dot_product_attention``'s forward and the backward launches
    against its backward (a yardstick only: the port never calls it; with
    ``enable_gqa`` and an explicit window mask at (c)); at each, the host
-   time to encode K2's three TMA tensor maps, and K2's and SDPA's forward
-   time with the host's launch cost taken out (launches replayed in a CUDA
-   graph).
+   time to encode K2's three TMA tensor maps, and every kernel's and both
+   SDPA directions' time with the host's launch cost taken out (launches
+   replayed in a CUDA graph; SDPA's backward as a fresh forward and
+   backward less the fresh forward).  With ``--parent-csrc DIR`` (another
+   tree's ``csrc/``, e.g. the parent commit's from ``git archive``) that
+   tree's K2-K5 are built too, its K5 dQ is counted against its K4, and
+   its kernels are replayed in turns with this tree's (parent, this,
+   this, parent).  ``--flash-only`` runs phases 1 and 8 alone.
 9. The transformer_lm path: the CLI trains ``transformer_lm`` (4 layers, 8
    heads, d_model 256, sequence 256, batch 16) with ``--attn-impl
    flash``; K2, K3 and K4 must each launch 4 layers x steps times.  The
@@ -684,14 +689,53 @@ def _flash_err(what: str, got, want) -> float:
     return max_abs
 
 
-def phase_flash(seed: int) -> dict:
+@contextlib.contextmanager
+def flash_lib(lib):
+    """The flash wrappers launch ``lib``'s kernels inside the block (none:
+    this tree's own)."""
+    from distributed_tensorflow_models_tpu_torch.ops import attention as attnlib
+
+    if lib is None:
+        yield
+        return
+    own = attnlib._load()
+    attnlib._lib = lib
+    try:
+        yield
+    finally:
+        attnlib._lib = own
+
+
+def _staged(args, kw):
+    """K5's two launches with the current flash library, the dKV launch
+    writing into a stage filled with NaN first: ``(dk, dv, stage, dq)``."""
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.ops import attention as attnlib
+
+    q, k = args[:2]
+    stage = torch.full((q.shape[0] * q.shape[2], q.shape[1], k.shape[1]),
+                       float("nan"), dtype=torch.bfloat16, device="cuda")
+    sdk, sdv, stage = attnlib.flash_dkv_staged(*args, **kw, ds=stage)
+    sdq = attnlib.flash_dq_staged(stage, k, **kw)
+    torch.cuda.synchronize()
+    return sdk, sdv, stage, sdq
+
+
+def phase_flash(seed: int, parent=None) -> dict:
     """K2 to K5 against their plain versions at FLASH_SHAPES; at the timed
-    shapes also their times, bounds and the SDPA yardstick.  K5's dKV
-    launch writes into a dS stage filled with NaN first, so a tile its dQ
-    launch reads but the dKV launch never wrote shows as NaN in dQ; its dK
-    and dV must equal K3's bit for bit, and its dQ is compared with K4's
-    element by element.  Returns, per kernel id, the worst error and the
-    timings by shape, and K5's dQ differences from K4 by shape."""
+    shapes also their times (CUDA events over back-to-back launches, and
+    the kernel alone by CUDA-graph replay), bounds and the SDPA yardstick
+    (its forward, and its backward by graph replay of a fresh forward and
+    backward less the forward's own graph time).  K5's dKV launch writes
+    into a dS stage filled with NaN first, so a tile its dQ launch reads
+    but the dKV launch never wrote shows as NaN in dQ; its dK and dV must
+    equal K3's bit for bit, and its dQ is compared with K4's element by
+    element.  With ``parent`` (another tree's flash library) the same
+    count is taken with that tree's K4 and K5, and its K2-K5 are replayed
+    in turns with this tree's (parent, this, this, parent).  Returns, per
+    kernel id, the worst error and the timings by shape, and K5's dQ
+    differences from K4 by shape (this tree's, and the parent's)."""
     import torch
     import torch.nn.functional as F
 
@@ -700,6 +744,7 @@ def phase_flash(seed: int) -> dict:
     out = {kid: {"max_abs_err": 0.0, "timed": {}}
            for kid, _, _ in FLASH_KERNELS + STAGED_KERNELS}
     out["dq_vs_k4"] = {}
+    out["dq_vs_k4_parent"] = {}
     for n, shape in enumerate(FLASH_SHAPES):
         name, B, Tq, Tkv, H, Hkv, D, causal, window, qo, ko, _, timed = shape
         q, k, v, do, g_lse, kw = _flash_inputs(shape, seed + n)
@@ -728,12 +773,7 @@ def phase_flash(seed: int) -> dict:
                          _flash_err(f"K3 dv at {name}", dv, ref_dv))
         errs["K4"] = _flash_err(f"K4 dq at {name}", dq, ref_dq)
         del ref_o, ref_lse, ref_dk, ref_dv, ref_dq
-        # K5 on a NaN-filled stage.
-        stage = torch.full((B * H, Tq, Tkv), float("nan"),
-                           dtype=torch.bfloat16, device="cuda")
-        sdk, sdv, stage = attnlib.flash_dkv_staged(*args, **kw, ds=stage)
-        sdq = attnlib.flash_dq_staged(stage, k, **kw)
-        torch.cuda.synchronize()
+        sdk, sdv, stage, sdq = _staged(args, kw)
         if not (torch.equal(sdk, dk) and torch.equal(sdv, dv)):
             fail(f"K5 dK/dV at {name} differ from K3's")
         if bool(torch.isnan(sdq).any()):
@@ -753,6 +793,17 @@ def phase_flash(seed: int) -> dict:
         log(f"K5 at {name}: dK and dV equal K3's bit for bit; dq differs "
             f"from K4's in {n_diff} of {sdq.numel()} elements, max abs diff "
             f"{max_diff:.4g}; no NaN from the NaN-filled stage")
+        if parent is not None:
+            with flash_lib(parent):
+                psdq = _staged(args, kw)[3]
+                pdq = attnlib.flash_dq(*args, **kw)
+            p_diff = int((psdq != pdq).sum())
+            out["dq_vs_k4_parent"][name] = dict(
+                differing=p_diff, of=psdq.numel(),
+                max_abs_diff=float((psdq.float() - pdq.float()).abs().max()))
+            log(f"  parent tree at {name}: its K5 dq differs from its K4's in "
+                f"{p_diff} of {psdq.numel()} elements (this tree: {n_diff})")
+            del psdq, pdq
         log(f"flash {name}: B{B} Tq{Tq} Tkv{Tkv} H{H} Hkv{Hkv} D{D} causal "
             f"{causal} window {window} offsets {qo}/{ko} lse cotangent "
             f"{g_lse is not None}; max abs err K2 {errs['K2']:.4g} (lse "
@@ -797,6 +848,25 @@ def phase_flash(seed: int) -> dict:
         lib = {"K2": time_ms(sdpa, 20),
                "K3+K4": time_ms(lambda: torch.autograd.grad(
                    so, (qs, ks, vs), gs, retain_graph=True), 20)}
+        # Device times by graph replay: SDPA's forward, and its backward as
+        # a fresh forward and backward captured together, less that fresh
+        # forward.  The fresh forward runs on copies of the inputs made in
+        # the graph (leaves whose autograd nodes live on the capture
+        # stream; the copies cost the same in both graphs).
+        lib_dev = {"K2": graph_ms(sdpa)}
+
+        def fresh_forward():
+            ins = [t.detach().clone().requires_grad_() for t in (qs, ks, vs)]
+            return ins, F.scaled_dot_product_attention(*ins, **sdpa_kw)
+
+        def fresh_backward():
+            ins, so_fresh = fresh_forward()
+            torch.autograd.grad(so_fresh, ins, gs)
+
+        lib_dev["K3+K4"] = graph_ms(fresh_backward) - graph_ms(fresh_forward)
+        log(f"  SDPA at {name} by graph replay: forward {lib_dev['K2']:.4f} "
+            f"ms, backward (dQ, dK and dV) {lib_dev['K3+K4']:.4f} ms "
+            f"(events from Python: {lib['K2']:.4f}, {lib['K3+K4']:.4f})")
         encode_us = 1e6 * attnlib.flash_forward_encode_seconds(q, k, v)
         log(f"  K2 at {name}: its three TMA tensor maps take {encode_us:.2f} "
             f"us of host time to encode, each launch")
@@ -804,23 +874,41 @@ def phase_flash(seed: int) -> dict:
             ms = time_ms(kern, 20)
             plain_ms = time_ms(plain, 3, 1)
             bms, bound_by = flash_bound_ms(kid, shape, pairs)
-            out[kid]["timed"][name] = dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by,
-                library_ms=lib["K2"] if kid == "K2" else lib["K3+K4"])
-            if kid == "K2":
-                out[kid]["timed"][name]["map_encode_us"] = encode_us
+            lk = "K2" if kid == "K2" else "K3+K4"
+            # This tree's kernel alone, and the parent's in turns with it.
+            if parent is None:
                 dev_ms = graph_ms(kern)
-                lib_dev_ms = graph_ms(sdpa)
-                out[kid]["timed"][name].update(device_ms=dev_ms,
-                                               library_device_ms=lib_dev_ms)
-                log(f"  K2 at {name}: {dev_ms:.4f} ms a launch replayed in a "
-                    f"CUDA graph ({bms / dev_ms:.1%} of the bound); SDPA "
-                    f"forward the same way {lib_dev_ms:.4f} ms")
-            log(f"  {kid} at {name}: {ms:.4f} ms per launch; plain "
-                f"{plain_ms:.4f} ms; bound {bms:.4f} ms ({bound_by}, "
-                f"{bms / ms:.1%} of it); SDPA "
+                parent_ms = None
+            else:
+                runs = []
+                for which in (parent, None, None, parent):
+                    with flash_lib(which):
+                        runs.append(graph_ms(kern))
+                dev_ms = (runs[1] + runs[2]) / 2
+                parent_ms = (runs[0] + runs[3]) / 2
+            rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                       bound_by=bound_by, device_ms=dev_ms,
+                       library_ms=lib[lk] if kid == "K2" else lib_dev[lk],
+                       library_device_ms=lib_dev[lk],
+                       library_events_ms=lib[lk])
+            if parent_ms is not None:
+                rec["parent_device_ms"] = parent_ms
+                rec["parent_device_runs_ms"] = [runs[0], runs[3]]
+                rec["device_runs_ms"] = [runs[1], runs[2]]
+            if kid == "K2":
+                rec["map_encode_us"] = encode_us
+            out[kid]["timed"][name] = rec
+            log(f"  {kid} at {name}: {ms:.4f} ms per launch (events), "
+                f"{dev_ms:.4f} ms alone (graph replay, {bms / dev_ms:.1%} of "
+                f"the bound)"
+                + ("" if parent_ms is None else
+                   f", the parent tree's {parent_ms:.4f} ms in turns "
+                   f"({runs[0]:.4f} {runs[1]:.4f} {runs[2]:.4f} "
+                   f"{runs[3]:.4f})")
+                + f"; plain {plain_ms:.4f} ms; bound {bms:.4f} ms "
+                f"({bound_by}); SDPA "
                 + ("forward" if kid == "K2" else "backward (dQ, dK and dV)")
-                + f" {out[kid]['timed'][name]['library_ms']:.4f} ms")
+                + f" {lib_dev[lk]:.4f} ms alone, {lib[lk]:.4f} ms events")
         del qs, ks, vs, so, sdpa_kw, q, k, v, do, o, lse, dk, dv, dq, args
         del fns
         del stage, ref_ds, sdq
@@ -862,6 +950,15 @@ def main(argv=None) -> int:
                         "phases (their configs' own: 256)")
     parser.add_argument("--train-steps", type=int, default=11)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--parent-csrc", type=Path, default=None,
+                        help="a csrc/ directory of another tree (say the "
+                        "parent commit's, unpacked by git archive): phase 8 "
+                        "also runs its flash kernels, K5 dQ's differences "
+                        "from its K4 and its K2-K5 replayed in turns with "
+                        "this tree's")
+    parser.add_argument("--flash-only", action="store_true",
+                        help="phases 1 and 8 alone, for work on K2-K5: no "
+                        "main path and no result line")
     args = parser.parse_args(argv)
 
     import torch
@@ -893,11 +990,22 @@ def main(argv=None) -> int:
     log(f"card: {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {kind}")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for fut in [pool.submit(conv_mxu._load), pool.submit(attnlib._load)]:
+    parent = None
+    builds = [("K1, K6", "conv_implicit_gemm.cu"),
+              ("K2-K5", "flash_attention.cu")]
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        futs = [pool.submit(conv_mxu._load), pool.submit(attnlib._load)]
+        if args.parent_csrc is not None:
+            csrc = args.parent_csrc.resolve()
+            futs.append(pool.submit(_kernels.load, "flash_attention.cu",
+                                    csrc))
+            builds.append(("the parent tree's K2-K5",
+                           str(csrc / "flash_attention.cu")))
+        for fut in futs:
             fut.result()
-    for kids, src in (("K1, K6", "conv_implicit_gemm.cu"),
-                      ("K2-K5", "flash_attention.cu")):
+        if args.parent_csrc is not None:
+            parent = attnlib.typed(futs[-1].result())
+    for kids, src in builds:
         nvcc_s = _kernels.build_seconds.get(src)
         log(f"{kids} ({src}) build+load: " + (
             "cached build loaded" if nvcc_s is None
@@ -911,7 +1019,21 @@ def main(argv=None) -> int:
         "" if k2_lines else " (a cached build: no ptxas output)"))
     for line in k2_lines:
         log(f"  K2 ptxas {line}")
+    bwd_lines = [line for line in ptxas_summary(
+        _kernels.build_logs.get("flash_attention.cu", ""))
+        if "dtm_flash_dkv_kernel" in line
+        or "dtm_flash_dq_staged_kernel" in line]
+    log(f"K3 and K5 instances (dKV without and with the dS stage, staged "
+        f"dQ; D 32, 64, 128): {len(bwd_lines)} in this build")
+    for line in bwd_lines:
+        log(f"  K3/K5 ptxas {line}")
     log(f"both builds, in parallel: {time.perf_counter() - t0:.2f} s wall")
+
+    if args.flash_only:
+        phase_flash(args.seed + 2, parent)
+        log(card)
+        log("flash-only run: phases 1 and 8 alone, no main path, no result")
+        return 0
 
     # 2. K1 at the ResNet-50 path's launch shapes.
     calls = core_launch_shapes("resnet50", 224, args.batch_size)
@@ -1012,7 +1134,7 @@ def main(argv=None) -> int:
         phase_profile(inc_cfg, f"Inception-v3, {kid} convs")
 
     # 8. K2-K5 against their plain versions, timed against their bounds.
-    flash = phase_flash(args.seed + 2)
+    flash = phase_flash(args.seed + 2, parent)
 
     # 9. The transformer_lm path (pair backward), the flash counters zeroed
     # just before it and read just after; the blockwise yardstick after it.
@@ -1120,14 +1242,17 @@ def main(argv=None) -> int:
                      + ("transformer_lm_modern" if kid.startswith("K5")
                         else "transformer_lm") + " run; max_abs_err over "
                      "shapes a-e; library: "
-                     + ("SDPA forward" if kid == "K2" else
-                        "SDPA backward, which computes dQ, dK and dV: "
-                        "compare with the sum of the backward launches"),
+                     + ("SDPA forward (events from Python)" if kid == "K2"
+                        else "SDPA backward by CUDA-graph replay, which "
+                        "computes dQ, dK and dV: compare with the sum of "
+                        "the backward launches' device_ms"),
             "at_flash_sweep_shape": flash[kid]["timed"][sweep_shape],
             "at_gqa_window_shape": flash[kid]["timed"][gqa_shape],
             "at_d128_sweep_shape": flash[kid]["timed"][d128_shape],
         })
     kernels[-1]["dq_vs_k4"] = flash["dq_vs_k4"]
+    if parent is not None:
+        kernels[-1]["dq_vs_k4_parent"] = flash["dq_vs_k4_parent"]
     kernels.append({
         "name": "K6 conv_implicit_gemm_pipelined",
         "route": "cuda",

@@ -29,27 +29,31 @@
 // the tile) are excluded exactly: their scores are -inf and never reach a
 // row's max, which stays >= NEG_INF, so no NaN can arise.
 //
-// K5.  The staged dKV launch is K3 instantiated with STAGE_DS: K3 forms dS^T
-// (keys by queries) in shared memory, so each warp stores its 16 key rows
-// transposed into the buffer's [query, key] layout, its lanes running along
-// the keys.  Tiles that K3 skips stay unwritten.  The staged dQ launch has
-// K4's grid and tile skips (the same should_run on the same 64x64 tiles, so
-// it reads only tiles the dKV launch wrote), loads each dS tile and K tile
-// and accumulates acc += scale * (dS K) through K4's own SCALED product: dQ
-// equals K4's wherever the dS that K3 forms transposed equals, bit for bit,
-// the dS that K4 forms by rows.  The buffer costs 2 bytes per (query, key)
-// pair of the tiles that run, written once and read once: at B4 T2048 H8
-// causal about 138 MB each way.
+// K5.  The staged dKV launch is K3 instantiated with STAGE_DS: each
+// consumer also stores the dS^T tile it formed, in bf16, transposed into
+// the buffer's [query, key] layout (stmatrix .trans into a staging tile,
+// then 16-byte stores along the keys), so its dK and dV equal K3's bit for
+// bit.  It writes every pair of each 64-query x 128-key tile it visits;
+// tiles it skips stay unwritten.  The staged dQ launch reads the buffer
+// back by TMA and accumulates dQ += dS K by wgmma, running each 64-row
+// half of its 128 x 128 tile only where the dKV launch's own predicate
+// (should_run<64, 128>) held, so it reads only pairs the dKV launch wrote
+// (tests/test_torch_attention.py holds read within written on the host
+// twins of both loops).  Its dQ differs from K4's, whose dS comes from
+// WMMA and expf, where a bf16 dS rounds the other way.  The buffer costs
+// 2 bytes per (query, key) pair of the tiles that run, written once and
+// read once: at B4 T2048 H8 causal about 138 MB each way.
 //
 // The grid.  The TPU carries the softmax state (K2) and the dK/dV or dQ sums
 // (K3, K4) across a sequential grid axis.  Here that axis is a loop inside
 // one block: K2 runs one block per (batch*head, 128-row query tile) and
-// loops over 128-row KV tiles; K4 one block per (batch*head, 64-row query
-// tile) over 64-row KV tiles; K3 one block per (batch*head, 64-row KV tile)
-// over query tiles.  Blocks never share an output, so no atomics.  Layout:
-// Q, K, V, dO, O and dQ are read and written as BTHD rows, with no
-// heads-first transposes; LSE and delta are [B*H, Tq] f32; K3 writes
-// per-query-head dK/dV [B, Tkv, H, D].
+// loops over 128-row KV tiles; K3 one block per (batch*head, 128-key tile)
+// over 64-row query tiles; K5's dQ one block per (batch*head, 128-row
+// query tile) over 128-key tiles; K4 one block per (batch*head, 64-row
+// query tile) over 64-row KV tiles.  Blocks never share an output, so no
+// atomics.  Layout: Q, K, V, dO, O and dQ are read and written as BTHD
+// rows, with no heads-first transposes; LSE and delta are [B*H, Tq] f32;
+// K3 writes per-query-head dK/dV [B, Tkv, H, D].
 //
 // What bounds it on an H100.  Per (query, key) pair K2 does 4*D FLOPs on the
 // tensor cores and one exp plus ~10 scalar operations of softmax: at D 64
@@ -81,11 +85,31 @@
 //   tiles launch first.
 // - Epilogue: O / max(l, 1e-30) in bf16 through a padded staging tile,
 //   16-byte stores clipped at Tq; the f32 LSE to [B*H, Tq].
-// K3, K4 and K5 are the simple correct design of the first port: 4 warps,
-// each owning 16 rows; WMMA 16x16x16 bf16 fragments with f32 accumulators;
+// K3 (and K5's dKV launch) is FlashAttention-3's backward shape without its
+// dQ atomics, on the same parts:
+// - A 384-thread block per 128 keys: warpgroup 0 produces (40 registers),
+//   warpgroups 1 and 2 own 64 keys each, with dK and dV in registers for
+//   the whole query sweep.  K and V are loaded once by TMA; Q and dO stream
+//   in 64-row tiles through a ring of 3 (D 128) or 4 stages, the producer
+//   running ahead over the block's query range, and warp 1 stages each
+//   tile's LSE * log2(e) and delta rows beside them.
+// - S^T = K Q^T and dP^T = V dO^T by wgmma m64n64k16, both operands K-major;
+//   P^T = exp2(S^T * c - LSE * log2(e)) (both products rounded, as K2's) and
+//   dS^T = P^T (dP^T - delta) on the accumulator fragments, whose columns
+//   are queries; packed to bf16 they are the register A operands of
+//   dV += P^T dO and dK += dS^T Q (dO, Q MN-major through the transpose
+//   bit); scale * dK in the epilogue.
+// - Each KV tile loops only over the query tiles its mask reaches
+//   (q_tile_range, the transpose of kv_tile_range) and masks per element
+//   only where its 64 x 64 part is not fully valid or runs past Tkv;
+//   queries past Tq get LSE +inf, so P = 0 there.  The heaviest causal KV
+//   tiles launch first.
+// K5's dQ launch is a masked streaming GEMM on the same ring (above).
+// K4 alone is still the simple design of the first port: 4 warps, each
+// owning 16 rows; WMMA 16x16x16 bf16 fragments with f32 accumulators;
 // scores go through shared memory, where two lanes share a row for the
-// masks, so the fragment layout never has to be known; dK/dV and dQ live in
-// registers.  Their 64 x 64 tiles are part of K5's bit-equality contracts.
+// masks, so the fragment layout never has to be known; dQ lives in
+// registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -125,6 +149,7 @@ struct Params {
   int causal;
   long long window;  // <= 0: no window
   long long q_offset, kv_offset;
+  int ds_tma;  // K5 dQ: the dS stage loads by TMA (Tkv % 8 == 0)
 };
 
 // _block_should_run: some (q, k) pair of tile (i, j) passes the mask, for
@@ -248,13 +273,7 @@ __device__ __forceinline__ void store_rows_bf16(
   }
 }
 
-template <int D>
-constexpr size_t dq_staged_smem_bytes() {
-  return (size_t)64 * (D + 8) * 2       // K
-         + (size_t)64 * PLD * 2         // dS
-         + (size_t)64 * SLD * 4;        // epilogue staging
-}
-
+// K4's shared memory.
 template <int D>
 constexpr size_t bwd_smem_bytes() {
   return (size_t)4 * 64 * (D + 8) * 2   // Q, dO, K, V
@@ -271,28 +290,37 @@ constexpr size_t bwd_smem_bytes() {
 // 64 query rows each: S = Q K^T by wgmma into registers, the online
 // softmax on the accumulator fragments, O += P V by wgmma with P as the
 // register A operand, O kept in registers to the end.
-constexpr int FWD_THREADS = 384;
-constexpr int FWD_PRODUCER_REGS = 40;
-constexpr int FWD_CONSUMER_REGS = 232;  // 40*128 + 232*256 = 168*384
-constexpr int FWD_EMPTY_ARRIVALS = 8;   // one per consumer warp
+// K2, K3 and K5's dQ launch share the warp-specialised block: 384 threads,
+// the producer warpgroup down to 40 registers, the two consumers up to 232.
+constexpr int WS_THREADS = 384;
+constexpr int WS_PRODUCER_REGS = 40;
+constexpr int WS_CONSUMER_REGS = 232;  // 40*128 + 232*256 = 168*384
+constexpr int WS_EMPTY_ARRIVALS = 8;   // one per consumer warp
+constexpr float LOG2E = 1.4426950408889634f;
 
+// Shared-memory rows of a BTHD tile as the 4-D TMA maps write them.  Bytes
+// of a row of one panel: D 32 rows are 64 bytes (the 64-byte swizzle); D
+// 64 rows are one 128-byte swizzle row; D 128 rows span two 64-column
+// panels of 128-byte rows.
 template <int D>
-struct FwdCfg {
-  static constexpr int BQ = 128;   // query rows of a block
-  static constexpr int BKV = 128;  // key rows of a ring stage
-  // Bytes of a row of one panel: D 32 rows are 64 bytes (the 64-byte
-  // swizzle); D 64 rows are one 128-byte swizzle row; D 128 rows span two
-  // 64-column panels of 128-byte rows.
+struct RowLayout {
   static constexpr int ROW_BYTES = D == 32 ? 64 : 128;
   static constexpr int PANELS = D == 128 ? 2 : 1;
   static constexpr int BOX_D = D / PANELS;
   static constexpr int K16_PER_PANEL = ROW_BYTES / 32;
   static constexpr uint64_t SWIZZLE = D == 32 ? DESC_SW64 : DESC_SW128;
+};
+
+template <int D>
+struct FwdCfg : RowLayout<D> {
+  using L = RowLayout<D>;
+  static constexpr int BQ = 128;   // query rows of a block
+  static constexpr int BKV = 128;  // key rows of a ring stage
   static constexpr int STAGES = D == 128 ? 2 : 4;
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BKV * D * 2;  // one K or one V tile
-  static constexpr int Q_PANEL = BQ * ROW_BYTES;
-  static constexpr int KV_PANEL = BKV * ROW_BYTES;
+  static constexpr int Q_PANEL = BQ * L::ROW_BYTES;
+  static constexpr int KV_PANEL = BKV * L::ROW_BYTES;
   static constexpr int EPI_LD = D + 8;  // staging row, elements
   static constexpr int RING = Q_BYTES;  // offset of stage 0: K, then V
   static constexpr int EPI = RING + STAGES * 2 * KV_BYTES;
@@ -460,7 +488,7 @@ __device__ __forceinline__ void fwd_consume(const Params& p,
 #pragma unroll
   for (int e = 0; e < D / 2; ++e) o[e] = 0.0f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.0f, l1 = 0.0f;
-  const float c2f = p.scale * 1.4426950408889634f;  // scale * log2(e)
+  const float c2f = p.scale * LOG2E;
 
   mbar_wait(qfull, 0);
   int stage = 0;
@@ -610,7 +638,7 @@ __device__ __forceinline__ void fwd_consume(const Params& p,
 }
 
 template <int D>
-__global__ void __launch_bounds__(FWD_THREADS, 1)
+__global__ void __launch_bounds__(WS_THREADS, 1)
     dtm_flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
                          const __grid_constant__ CUtensorMap kmap,
                          const __grid_constant__ CUtensorMap vmap,
@@ -636,125 +664,413 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
     for (int s = 0; s < C::STAGES; ++s) {
       mbar_init(kfull0 + 8 * s, 1);
       mbar_init(vfull0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, FWD_EMPTY_ARRIVALS);
+      mbar_init(empty0 + 8 * s, WS_EMPTY_ARRIVALS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   if (threadIdx.x < 128) {
-    setmaxnreg_dec<FWD_PRODUCER_REGS>();
+    setmaxnreg_dec<WS_PRODUCER_REGS>();
     if (threadIdx.x == 0)
       fwd_produce<D>(&qmap, &kmap, &vmap, base, qfull, kfull0, vfull0, empty0,
                      b, h, hk, i * C::BQ, jb, je);
   } else {
-    setmaxnreg_inc<FWD_CONSUMER_REGS>();
+    setmaxnreg_inc<WS_CONSUMER_REGS>();
     fwd_consume<D>(p, smem, base, qfull, kfull0, vfull0, empty0, b, h, bh, i,
                    jb, je);
   }
 }
 
 // ------------------------------------------------- K3 dK and dV (K5: + dS)
-template <int D, bool STAGE_DS>
-__global__ void __launch_bounds__(THREADS) dtm_flash_dkv_kernel(const Params p) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQ + 64 * LD;
-  bf16* sK = sdO + 64 * LD;
-  bf16* sV = sK + 64 * LD;
-  float* sS = reinterpret_cast<float*>(sV + 64 * LD);
-  float* sdP = sS + 64 * SLD;
-  bf16* sP = reinterpret_cast<bf16*>(sdP + 64 * SLD);
-  bf16* sdS = sP + 64 * PLD;
-  float* sLse = reinterpret_cast<float*>(sdS + 64 * PLD);
-  float* sDelta = sLse + 64;
+// A 384-thread block owns 128 keys of one (batch, head): warpgroup 0
+// produces, warpgroups 1 and 2 consume 64 keys each.  K and V are loaded
+// once by TMA; Q and dO stream in 64-row tiles through a ring of full/empty
+// mbarriers (one thread issues the TMA, warp 1 stages the tile's LSE and
+// delta rows beside them).  Per tile each consumer forms S^T = K Q^T and
+// dP^T = V dO^T by wgmma m64n64k16 (keys by queries, f32 in registers),
+// P^T and dS^T on the accumulator fragments, then dV += P^T dO and
+// dK += dS^T Q by wgmma with P^T and dS^T as the register A operand and dO
+// and Q as the MN-major B.  dK and dV stay in registers to the end.
+constexpr int ROWS_ARRIVALS = 32;  // warp 1's lanes, per stage
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int j = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh - b * p.H, hk = h / p.group;
-  const int kv0 = j * BKV;
-  const int kv_rows = min(BKV, p.Tkv - kv0);
-  const long long q_rs = (long long)p.H * D;
-  const long long kv_rs = (long long)p.Hkv * D;
+template <int D>
+struct DkvCfg : RowLayout<D> {
+  using L = RowLayout<D>;
+  static constexpr int BKV = 128;  // keys of a block, 64 a consumer
+  static constexpr int BQ = 64;    // query rows of a ring stage
+  static constexpr int STAGES = D == 128 ? 3 : 4;
+  static constexpr int KV_BYTES = BKV * D * 2;  // K or V
+  static constexpr int KV_PANEL = BKV * L::ROW_BYTES;
+  static constexpr int Q_BYTES = BQ * D * 2;    // Q or dO
+  static constexpr int Q_PANEL = BQ * L::ROW_BYTES;
+  static constexpr int RING = 2 * KV_BYTES;     // stage 0: Q, then dO
+  static constexpr int ROWS = RING + STAGES * 2 * Q_BYTES;
+  // A consumer's staging tile: the dS^T tile as [query][key] (64 x 64)
+  // for the stage's stores, then dK and dV as [key][D].  Rows of 72
+  // elements (144 bytes) put stmatrix's eight 16-byte rows on 32
+  // distinct banks.
+  static constexpr int EPI_LD = D + 8 > 72 ? D + 8 : 72;
+  static constexpr int EPI = ROWS + STAGES * 2 * BQ * 4;
+  static constexpr int BARS = EPI + 2 * 64 * EPI_LD * 2;
+  // Barriers: K/V full, then full and empty per stage.
+  static constexpr int SMEM = 1024 + BARS + 8 * (1 + 2 * STAGES);
+  static_assert(SMEM <= 232448, "shared memory");
+};
 
-  const long long kv_at = ((long long)b * p.Tkv + kv0) * kv_rs + (long long)hk * D;
-  load_rows<D>(sK, LD, p.k + kv_at, kv_rs, kv_rows);
-  load_rows<D>(sV, LD, p.v + kv_at, kv_rs, kv_rows);
+// The query tiles [ib, ie) that KV tile j visits: the i where
+// should_run<TQ, TKV> holds, in closed form (the transpose of
+// kv_tile_range: causality bounds the range below, the window above).  Its
+// host twin is ops/attention.py::_q_tile_range.
+template <int TQ, int TKV>
+__device__ __forceinline__ void q_tile_range(const Params& p, int j, int& ib,
+                                             int& ie) {
+  const long long k_lo = p.kv_offset + (long long)j * TKV;
+  long long lo = 0, hi = (p.Tq + TQ - 1) / TQ;
+  if (p.causal) lo = max(lo, floor_div(k_lo - p.q_offset, TQ));
+  if (p.window > 0)
+    hi = min(hi, floor_div(p.window + k_lo + TKV - 2 - p.q_offset, TQ) + 1);
+  ib = (int)lo;
+  ie = (int)max(lo, hi);
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk[D / 16], dv[D / 16];
+// S^T (+)= K Q^T: m64n64k16, A (K) and B (Q) both K-major from shared
+// memory; scale_d 0 starts the sum.
+__device__ __forceinline__ void wgmma_kq(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" DTM_REGS32
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : DTM_CON32
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Four 8x8 bf16 matrices from registers to shared memory, transposed: the
+// element a thread holds at (row R, column C) of matrix m lands at
+// position R of the 16-byte row whose address lane 8m + C gives.
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, uint32_t r0,
+                                                  uint32_t r1, uint32_t r2,
+                                                  uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.x4.trans.m8n8.shared.b16 [%0], {%1, %2, %3, "
+      "%4};\n" ::"r"(addr),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
+}
+
+// A consumer's 64 x D f32 accumulator (rows er, er + 8 of each warp, as
+// K2's O) times ``mul`` in bf16 to ``rows`` rows of a BTHD tensor (row
+// pitch ``rs``), through its padded staging tile; 16-byte stores.
+template <int D, int EPI_LD>
+__device__ __forceinline__ void store_acc_rows(const float (&acc)[D / 2],
+                                               float mul, bf16* epi,
+                                               uint32_t bar, bf16* dst,
+                                               long long rs, int rows) {
+  const int t = threadIdx.x & 127;
+  const int warp = t >> 5, lane = t & 31;
+  const int er = 16 * warp + (lane >> 2), c2 = 2 * (lane & 3);
+  named_bar_sync(bar);  // the tile's last readers are done
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fill_fragment(dk[n], 0.0f);
-    wmma::fill_fragment(dv[n], 0.0f);
+  for (int n = 0; n < D / 8; ++n) {
+    bf16* e0 = epi + er * EPI_LD + 8 * n + c2;
+    *reinterpret_cast<__nv_bfloat162*>(e0) =
+        __floats2bfloat162_rn(acc[4 * n] * mul, acc[4 * n + 1] * mul);
+    *reinterpret_cast<__nv_bfloat162*>(e0 + 8 * EPI_LD) =
+        __floats2bfloat162_rn(acc[4 * n + 2] * mul, acc[4 * n + 3] * mul);
   }
+  named_bar_sync(bar);
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+#pragma unroll
+  for (int it = 0; it < CPR / 2; ++it) {
+    const int c = t + 128 * it;
+    const int row = c / CPR, ch = c - row * CPR;
+    if (row < rows)
+      *reinterpret_cast<uint4*>(dst + row * rs + ch * 8) =
+          *reinterpret_cast<const uint4*>(epi + row * EPI_LD + ch * 8);
+  }
+}
 
-  // Lane pair owns key row krow of the tile and one half of the 64 queries.
-  const int krow = warp * 16 + (lane >> 1);
-  const int half = lane & 1;
-  const long long kpos = p.kv_offset + kv0 + krow;
-  const int n_q = (p.Tq + BQ - 1) / BQ;
-
-  for (int i = 0; i < n_q; ++i) {
-    if (!should_run(p, i, j)) continue;
-    const bool full = fully_valid(p, i, j);
-    const int q0 = i * BQ;
-    const int q_rows = min(BQ, p.Tq - q0);
-    __syncthreads();  // the last tile's reads are done
-    const long long q_at = ((long long)b * p.Tq + q0) * q_rs + (long long)h * D;
-    load_rows<D>(sQ, LD, p.q + q_at, q_rs, q_rows);
-    load_rows<D>(sdO, LD, p.dout + q_at, q_rs, q_rows);
-    for (int r = tid; r < 64; r += THREADS) {
-      const bool in = r < q_rows;
-      sLse[r] = in ? p.lse[(long long)bh * p.Tq + q0 + r] : 0.0f;
-      sDelta[r] = in ? p.delta[(long long)bh * p.Tq + q0 + r] : 0.0f;
+// Warpgroup 0: thread 0 loads K and V once, then Q and dO of query tiles
+// ib..ie-1; warp 1 writes each tile's LSE * log2(e) (+inf past Tq, so that
+// P is 0 there) and delta (0 past Tq) beside them.
+template <int D>
+__device__ __forceinline__ void dkv_produce(
+    const Params& p, const CUtensorMap* qmap, const CUtensorMap* domap,
+    const CUtensorMap* kmap, const CUtensorMap* vmap, unsigned char* smem,
+    uint32_t base, uint32_t kvfull, uint32_t full0, uint32_t empty0, int b,
+    int h, int hk, int bh, int kv0, int ib, int ie) {
+  using C = DkvCfg<D>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(kvfull, 2 * C::KV_BYTES);
+#pragma unroll
+    for (int pn = 0; pn < C::PANELS; ++pn) {
+      tma_load_4d(base + pn * C::KV_PANEL, kmap, kvfull, pn * C::BOX_D, hk,
+                  kv0, b);
+      tma_load_4d(base + C::KV_BYTES + pn * C::KV_PANEL, vmap, kvfull,
+                  pn * C::BOX_D, hk, kv0, b);
     }
-    __syncthreads();
-
-    // S^T and dP^T for the warp's 16 keys against the tile's 64 queries.
-    rows_times_rows_t<D>(sS + (warp * 16) * SLD, sK + (warp * 16) * LD, sQ, LD);
-    rows_times_rows_t<D>(sdP + (warp * 16) * SLD, sV + (warp * 16) * LD, sdO, LD);
-    __syncwarp();
-
-#pragma unroll 4
-    for (int c = 0; c < 32; ++c) {
-      const int col = half * 32 + c;  // query within the tile
-      float s = sS[krow * SLD + col] * p.scale;
-      if (col >= q_rows || krow >= kv_rows)
-        s = -INFINITY;
-      else if (!full && !pair_valid(p, p.q_offset + q0 + col, kpos))
-        s = NEG_INF;
-      const float pe = expf(s - sLse[col]);
-      const float ds = pe * (sdP[krow * SLD + col] - sDelta[col]);
-      sP[krow * PLD + col] = __float2bfloat16(pe);
-      sdS[krow * PLD + col] = __float2bfloat16(ds);
+  } else if (warp != 1) {
+    return;
+  }
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int i = ib; i < ie; ++i) {
+    mbar_wait(empty0 + 8 * stage, phase ^ 1);
+    const int q0 = i * C::BQ;
+    if (threadIdx.x == 0) {
+      const uint32_t q_s = base + C::RING + stage * 2 * C::Q_BYTES;
+      const uint32_t full = full0 + 8 * stage;
+      mbar_arrive_expect_tx(full, 2 * C::Q_BYTES);
+#pragma unroll
+      for (int pn = 0; pn < C::PANELS; ++pn) {
+        tma_load_4d(q_s + pn * C::Q_PANEL, qmap, full, pn * C::BOX_D, h, q0,
+                    b);
+        tma_load_4d(q_s + C::Q_BYTES + pn * C::Q_PANEL, domap, full,
+                    pn * C::BOX_D, h, q0, b);
+      }
+    } else {
+      float* rows =
+          reinterpret_cast<float*>(smem + C::ROWS) + stage * 2 * C::BQ;
+      const long long at = (long long)bh * p.Tq + q0;
+#pragma unroll
+      for (int r = lane; r < C::BQ; r += 32) {
+        const bool in = q0 + r < p.Tq;
+        rows[r] = in ? __fmul_rn(p.lse[at + r], LOG2E) : INFINITY;
+        rows[C::BQ + r] = in ? p.delta[at + r] : 0.0f;
+      }
+      mbar_arrive(full0 + 8 * stage);
     }
-    __syncwarp();
+    if (++stage == C::STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+// Warpgroups 1 and 2: keys 64g..64g+63 of the block.  Thread (warp w, lane
+// l) holds keys er = 16w + l/4 and er + 8 and, of each 8-query block n, the
+// queries 8n + 2(l%4) and the next: S^T and dP^T elements 4n, 4n+1 (key
+// er) and 4n+2, 4n+3 (key er+8), as K2's S with keys for queries.
+template <int D, bool STAGE_DS>
+__device__ __forceinline__ void dkv_consume(const Params& p,
+                                            unsigned char* smem,
+                                            uint32_t base, uint32_t kvfull,
+                                            uint32_t full0, uint32_t empty0,
+                                            int b, int h, int bh, int j,
+                                            int ib, int ie) {
+  using C = DkvCfg<D>;
+  const int g = (threadIdx.x >> 7) - 1;
+  const int t = threadIdx.x & 127;
+  const int warp = t >> 5, lane = t & 31;
+  const int er = 16 * warp + (lane >> 2);
+  const int c2 = 2 * (lane & 3);
+  const int kv0 = j * C::BKV + 64 * g;  // the consumer's first key
+  const int kv_rows = p.Tkv - kv0;      // keys of it inside Tkv (may be <= 0)
+  const uint32_t k_s = base + 64 * g * C::ROW_BYTES;
+  const uint32_t v_s = k_s + C::KV_BYTES;
+  constexpr uint32_t SBO = 8 * C::ROW_BYTES;
+  bf16* epi = reinterpret_cast<bf16*>(smem + C::EPI) + g * 64 * C::EPI_LD;
+  const uint32_t bar = 1 + g;
+  const float c = p.scale * LOG2E;
+  const float neg2 = __fmul_rn(NEG_INF, LOG2E);  // a masked score, scaled
+
+  float s[32], dp[32];
+  float dk[D / 2], dv[D / 2];
+  uint32_t pa[16], da[16];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.0f;
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.0f;
+
+  mbar_wait(kvfull, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int i = ib; i < ie; ++i) {
+    const int q0 = i * C::BQ;
+    const uint32_t q_s = base + C::RING + stage * 2 * C::Q_BYTES;
+    const uint32_t do_s = q_s + C::Q_BYTES;
+    const float* rows =
+        reinterpret_cast<const float*>(smem + C::ROWS) + stage * 2 * C::BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T, f32 in registers.
+    mbar_wait(full0 + 8 * stage, phase);
+    fence_acc(s);
+    fence_acc(dp);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t pan = kk / C::K16_PER_PANEL;
+      const uint32_t col = 32 * (kk % C::K16_PER_PANEL);
+      wgmma_kq(s, smem_desc(k_s + pan * C::KV_PANEL + col, 16, SBO, C::SWIZZLE),
+               smem_desc(q_s + pan * C::Q_PANEL + col, 16, SBO, C::SWIZZLE),
+               kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t pan = kk / C::K16_PER_PANEL;
+      const uint32_t col = 32 * (kk % C::K16_PER_PANEL);
+      wgmma_kq(dp,
+               smem_desc(v_s + pan * C::KV_PANEL + col, 16, SBO, C::SWIZZLE),
+               smem_desc(do_s + pan * C::Q_PANEL + col, 16, SBO, C::SWIZZLE),
+               kk > 0);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(s);
+    fence_acc(dp);
+
+    // P^T = exp(S - LSE) in base 2 with the scale folded: each product
+    // rounded before the difference (never an FMA), so that a masked pair
+    // of a row whose LSE is NEG_INF gives exactly 1, as the plain version's
+    // exp(NEG_INF - NEG_INF) does.  Masked pairs score the finite NEG_INF,
+    // keys past Tkv -inf; queries past Tq have LSE +inf (P = 0).  Then
+    // dS^T = P^T (dP^T - delta).  Both packed to bf16 pairs: elements
+    // 8k..8k+7 are the A fragment of k16 step k.
+    const bool masked = !fully_valid<C::BQ, 64>(p, i, 2 * j + g) ||
+                        kv_rows < 64;
+    const long long d0 = p.q_offset + q0 - (p.kv_offset + kv0 + er);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 l2 = *reinterpret_cast<const float2*>(rows + 8 * n + c2);
+      const float2 dl =
+          *reinterpret_cast<const float2*>(rows + C::BQ + 8 * n + c2);
+      float pr[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = 8 * n + c2 + (e & 1);  // query within the tile
+        const int kr = er + 8 * (e >> 1);     // key within the consumer's 64
+        float x = __fmul_rn(s[4 * n + e], c);
+        if (masked) {
+          if (kr >= kv_rows)
+            x = -INFINITY;
+          else if (!diff_valid(p, d0 + qc - 8 * (e >> 1)))
+            x = neg2;
+        }
+        pr[e] = exp2f(x - ((e & 1) ? l2.y : l2.x));
+        ds[e] = pr[e] * (dp[4 * n + e] - ((e & 1) ? dl.y : dl.x));
+      }
+      pa[2 * n] = pack_bf16(pr[0], pr[1]);
+      pa[2 * n + 1] = pack_bf16(pr[2], pr[3]);
+      da[2 * n] = pack_bf16(ds[0], ds[1]);
+      da[2 * n + 1] = pack_bf16(ds[2], ds[3]);
+    }
 
     if (STAGE_DS) {
-      // The warp's 16 keys of dS^T as ds[bh, q0 + query, kv0 + key]: each
-      // half-warp stores 16 consecutive keys of one query.
+      // dS^T in bf16 to ds[bh, q0 + query, kv0 + key]: transposed into the
+      // staging tile as [query][key] by stmatrix, then 16-byte stores
+      // along the keys (2-byte ones, still along the keys, when Tkv is no
+      // multiple of 8), clipped at Tq and Tkv.
+      const uint32_t epi_s = smem_u32(epi);
+      const int m = lane >> 3, rr = lane & 7;
+      named_bar_sync(bar);  // the last tile's stores have read it
+#pragma unroll
+      for (int n = 0; n < 8; n += 2)
+        stmatrix_x4_trans(
+            epi_s + ((8 * n + 8 * (m >> 1) + rr) * C::EPI_LD + 16 * warp +
+                     8 * (m & 1)) * 2,
+            da[2 * n], da[2 * n + 1], da[2 * n + 2], da[2 * n + 3]);
+      named_bar_sync(bar);
+      const int q_rows = min(C::BQ, p.Tq - q0);
       bf16* dst = p.ds + ((long long)bh * p.Tq + q0) * p.Tkv + kv0;
-      for (int e = lane; e < 16 * 64; e += 32) {
-        const int qc = e >> 4;
-        const int kr = warp * 16 + (e & 15);
-        if (qc < q_rows && kr < kv_rows)
-          dst[(long long)qc * p.Tkv + kr] = sdS[kr * PLD + qc];
+      if ((p.Tkv & 7) == 0) {
+#pragma unroll
+        for (int it = 0; it < 4; ++it) {
+          const int cidx = t + 128 * it;
+          const int row = cidx >> 3, ch = (cidx & 7) * 8;
+          if (row < q_rows && ch < kv_rows)
+            *reinterpret_cast<uint4*>(dst + (long long)row * p.Tkv + ch) =
+                *reinterpret_cast<const uint4*>(epi + row * C::EPI_LD + ch);
+        }
+      } else {
+        for (int e = t; e < 64 * 64; e += 128) {
+          const int row = e >> 6, col = e & 63;
+          if (row < q_rows && col < kv_rows)
+            dst[(long long)row * p.Tkv + col] = epi[row * C::EPI_LD + col];
+        }
       }
     }
 
-    accumulate_pm<D, false>(dv, sP + (warp * 16) * PLD, sdO, LD, 1.0f);
-    accumulate_pm<D, true>(dk, sdS + (warp * 16) * PLD, sQ, LD, p.scale);
+    // dV += P^T dO and dK += dS^T Q: A from registers, B (dO, Q) MN-major
+    // through the transpose bit, as K2's V.
+    fence_acc(dv);
+    fence_acc(dk);
+    fence_u32(pa);
+    fence_u32(da);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < C::BQ / 16; ++kk)
+      WgmmaPV<D>::mma(dv, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                      pa[4 * kk + 3],
+                      smem_desc(do_s + kk * 16 * C::ROW_BYTES, C::Q_PANEL, SBO,
+                                C::SWIZZLE));
+#pragma unroll
+    for (int kk = 0; kk < C::BQ / 16; ++kk)
+      WgmmaPV<D>::mma(dk, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
+                      da[4 * kk + 3],
+                      smem_desc(q_s + kk * 16 * C::ROW_BYTES, C::Q_PANEL, SBO,
+                                C::SWIZZLE));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(dv);
+    fence_acc(dk);
+    if (lane == 0) mbar_arrive(empty0 + 8 * stage);  // the stage goes back
+    if (++stage == C::STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
   }
-  __syncwarp();
 
-  // Per query head: [B, Tkv, H, D].
-  const long long out_at =
-      ((long long)b * p.Tkv + kv0 + warp * 16) * q_rs + (long long)h * D;
-  const int rows = max(0, min(16, kv_rows - warp * 16));
-  float* stage = sS + (warp * 16) * SLD;
-  store_rows_bf16<D>(dk, stage, p.out + out_at, q_rs, rows);
-  store_rows_bf16<D>(dv, stage, p.out2 + out_at, q_rs, rows);
+  // Epilogue: scale * dK and dV per query head, [B, Tkv, H, D] in bf16,
+  // clipped at Tkv.
+  const long long rs = (long long)p.H * D;
+  const long long at = ((long long)b * p.Tkv + kv0) * rs + (long long)h * D;
+  const int rows_out = max(0, min(64, kv_rows));
+  store_acc_rows<D, C::EPI_LD>(dk, p.scale, epi, bar, p.out + at, rs,
+                               rows_out);
+  store_acc_rows<D, C::EPI_LD>(dv, 1.0f, epi, bar, p.out2 + at, rs, rows_out);
+}
+
+template <int D, bool STAGE_DS>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    dtm_flash_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap domap,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap,
+                         const Params p) {
+  using C = DkvCfg<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the swizzles need 1 KB
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t kvfull = base + C::BARS;
+  const uint32_t full0 = kvfull + 8;
+  const uint32_t empty0 = full0 + 8 * C::STAGES;
+
+  const int bh = blockIdx.x;
+  const int j = blockIdx.y;  // causal: the first KV tiles are the heaviest
+  const int b = bh / p.H, h = bh - b * p.H, hk = h / p.group;
+  int ib, ie;
+  q_tile_range<C::BQ, C::BKV>(p, j, ib, ie);
+
+  if (threadIdx.x == 0) {
+    mbar_init(kvfull, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1 + ROWS_ARRIVALS);
+      mbar_init(empty0 + 8 * s, WS_EMPTY_ARRIVALS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<WS_PRODUCER_REGS>();
+    dkv_produce<D>(p, &qmap, &domap, &kmap, &vmap, smem, base, kvfull, full0,
+                   empty0, b, h, hk, bh, j * C::BKV, ib, ie);
+  } else {
+    setmaxnreg_inc<WS_CONSUMER_REGS>();
+    dkv_consume<D, STAGE_DS>(p, smem, base, kvfull, full0, empty0, b, h, bh,
+                             j, ib, ie);
+  }
 }
 
 // -------------------------------------------------------------------- K4 dQ
@@ -840,72 +1156,199 @@ __global__ void __launch_bounds__(THREADS) dtm_flash_dq_kernel(const Params p) {
 }
 
 // ------------------------------------------------------------- K5 staged dQ
-// 64 query rows x 64 keys of the dS stage into shared memory (pitch PLD);
-// rows past ``rows`` and keys past ``cols`` are zero.
-__device__ __forceinline__ void load_ds_tile(bf16* sdS, const bf16* src,
-                                             long long row_stride, int rows,
-                                             int cols, bool vec) {
-  for (int c = threadIdx.x; c < 64 * 8; c += THREADS) {
-    const int r = c >> 3;
-    const int cc = (c & 7) * 8;
-    bf16* dst = sdS + r * PLD + cc;
-    if (vec) {
-      // Tkv % 8 == 0: each 8-key chunk lies wholly inside or outside.
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < rows && cc < cols)
-        val = *reinterpret_cast<const uint4*>(src + r * row_stride + cc);
-      *reinterpret_cast<uint4*>(dst) = val;
-    } else {
+// A masked streaming GEMM, dQ = scale * dS K over the tiles the dKV launch
+// wrote.  A 384-thread block owns 128 query rows of one (batch, head):
+// warpgroup 0 streams, per KV tile of 128 keys, the dS tile (128 x 128,
+// keys innermost: A K-major, in two 64-key panels of 128-byte swizzled
+// rows) and the K tile (MN-major B) through a ring of full/empty
+// mbarriers; warpgroups 1 and 2 own 64 query rows each and run wgmma
+// m64nDk16 into f32 registers, the scale and the bf16 cast in the
+// epilogue.  A consumer whose 64 x 128 tile the dKV launch skipped
+// (should_run<64, 128>, the dKV launch's own predicate at its own tiles)
+// skips its wgmma, so no pair it reads was left unwritten.
+template <int D>
+struct DqsCfg : RowLayout<D> {  // K's rows
+  using L = RowLayout<D>;
+  static constexpr int BQ = 128;   // query rows of a block, 64 a consumer
+  static constexpr int BKV = 128;  // keys of a ring stage
+  static constexpr int STAGES = D == 128 ? 2 : 4;
+  static constexpr int K_BYTES = BKV * D * 2;
+  static constexpr int K_PANEL = BKV * L::ROW_BYTES;
+  static constexpr int DS_PANEL = BQ * 128;  // 64 keys of 128 rows
+  static constexpr int DS_BYTES = 2 * DS_PANEL;
+  static constexpr int STAGE_BYTES = K_BYTES + DS_BYTES;  // K, then dS
+  static constexpr int EPI_LD = D + 8;
+  static constexpr int EPI = STAGES * STAGE_BYTES;
+  static constexpr int BARS = EPI + 2 * 64 * EPI_LD * 2;
+  // Barriers: full and empty per stage.
+  static constexpr int SMEM = 1024 + BARS + 8 * 2 * STAGES;
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// dQ += dS K: m64nDk16 with A from shared memory; D 32 as well.
+DTM_WGMMA(32, DTM_REGS16, DTM_CON16, "16", "17", "18")
+
+// A 3-D TMA tile load (coordinates innermost first).
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// Warpgroup 0: per KV tile jb..je-1, thread 0 loads K by TMA and, where
+// the stage's rows are 16-byte aligned (Tkv % 8 == 0), dS by TMA too;
+// otherwise all 128 threads copy dS element by element into the same
+// swizzled layout (zeros past Tq and Tkv) and arrive after an async-proxy
+// fence.
+template <int D>
+__device__ __forceinline__ void dqs_produce(const Params& p,
+                                            const CUtensorMap* dsmap,
+                                            const CUtensorMap* kmap,
+                                            unsigned char* smem,
+                                            uint32_t base, uint32_t full0,
+                                            uint32_t empty0, int b, int hk,
+                                            int bh, int q0, int jb, int je) {
+  using C = DqsCfg<D>;
+  const int t = threadIdx.x;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = jb; j < je; ++j) {
+    mbar_wait(empty0 + 8 * stage, phase ^ 1);
+    const uint32_t k_s = base + stage * C::STAGE_BYTES;
+    const uint32_t ds_s = k_s + C::K_BYTES;
+    const uint32_t full = full0 + 8 * stage;
+    const int kv0 = j * C::BKV;
+    if (t == 0) {
+      mbar_arrive_expect_tx(full, C::K_BYTES + (p.ds_tma ? C::DS_BYTES : 0));
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        dst[e] = (r < rows && cc + e < cols) ? src[r * row_stride + cc + e]
-                                             : __float2bfloat16(0.0f);
+      for (int pn = 0; pn < C::PANELS; ++pn)
+        tma_load_4d(k_s + pn * C::K_PANEL, kmap, full, pn * C::BOX_D, hk, kv0,
+                    b);
+      if (p.ds_tma) {
+        tma_load_3d(ds_s, dsmap, full, kv0, q0, bh);
+        tma_load_3d(ds_s + C::DS_PANEL, dsmap, full, kv0 + 64, q0, bh);
+      }
+    }
+    if (!p.ds_tma) {
+      const bf16* src = p.ds + ((long long)bh * p.Tq + q0) * p.Tkv + kv0;
+      unsigned char* dst = smem + (ds_s - base);
+      for (int e = t; e < C::BQ * C::BKV; e += 128) {
+        const int row = e >> 7, col = e & 127;
+        const int kc = col & 63;
+        bf16 val = __float2bfloat16(0.0f);
+        if (q0 + row < p.Tq && kv0 + col < p.Tkv)
+          val = src[(long long)row * p.Tkv + col];
+        *reinterpret_cast<bf16*>(dst + (col >> 6) * C::DS_PANEL + row * 128 +
+                                 (((kc >> 3) ^ (row & 7)) << 4) +
+                                 (kc & 7) * 2) = val;
+      }
+      fence_proxy_async();  // the wgmma reads it through the async proxy
+      mbar_arrive(full);
+    }
+    if (++stage == C::STAGES) {
+      stage = 0;
+      phase ^= 1;
     }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-    dtm_flash_dq_staged_kernel(const Params p) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sdS = sK + 64 * LD;
-  float* sStage = reinterpret_cast<float*>(sdS + 64 * PLD);
+__device__ __forceinline__ void dqs_consume(const Params& p,
+                                            unsigned char* smem,
+                                            uint32_t base, uint32_t full0,
+                                            uint32_t empty0, int b, int h,
+                                            int I, int jb, int je) {
+  using C = DqsCfg<D>;
+  const int g = (threadIdx.x >> 7) - 1;
+  const int lane = threadIdx.x & 31;
+  const int i = 2 * I + g;  // the consumer's 64-row query tile
+  const bool rows_in = i * 64 < p.Tq;
+  constexpr uint32_t SBO = 8 * C::ROW_BYTES;
 
-  const int warp = threadIdx.x >> 5;
-  const int i = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh - b * p.H, hk = h / p.group;
-  const int q0 = i * BQ;
-  const int q_rows = min(BQ, p.Tq - q0);
-  const long long q_rs = (long long)p.H * D;
-  const long long kv_rs = (long long)p.Hkv * D;
-  const bf16* ds_rows = p.ds + ((long long)bh * p.Tq + q0) * p.Tkv;
-  const bool vec = (p.Tkv & 7) == 0;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dq[D / 16];
+  float acc[D / 2];
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(dq[n], 0.0f);
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.0f;
 
-  const int n_kv = (p.Tkv + BKV - 1) / BKV;
-  for (int j = 0; j < n_kv; ++j) {
-    if (!should_run(p, i, j)) continue;  // the tiles the dKV launch wrote
-    const int kv0 = j * BKV;
-    const int kv_rows = min(BKV, p.Tkv - kv0);
-    __syncthreads();  // the last tile's reads are done
-    const long long kv_at = ((long long)b * p.Tkv + kv0) * kv_rs + (long long)hk * D;
-    load_rows<D>(sK, LD, p.k + kv_at, kv_rs, kv_rows);
-    load_ds_tile(sdS, ds_rows + kv0, p.Tkv, q_rows, kv_rows, vec);
-    __syncthreads();
-    accumulate_pm<D, true>(dq, sdS + (warp * 16) * PLD, sK, LD, p.scale);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = jb; j < je; ++j) {
+    const uint32_t k_s = base + stage * C::STAGE_BYTES;
+    const uint32_t ds_s = k_s + C::K_BYTES + 64 * g * 128;
+    mbar_wait(full0 + 8 * stage, phase);
+    if (rows_in && should_run<64, C::BKV>(p, i, j)) {
+      fence_acc(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < C::BKV / 16; ++kk)
+        Wgmma<D>::mma(
+            acc,
+            smem_desc(ds_s + (kk >> 2) * C::DS_PANEL + 32 * (kk & 3), 16,
+                      1024, DESC_SW128),
+            smem_desc(k_s + kk * 16 * C::ROW_BYTES, C::K_PANEL, SBO,
+                      C::SWIZZLE));
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_acc(acc);
+    }
+    if (lane == 0) mbar_arrive(empty0 + 8 * stage);  // the stage goes back
+    if (++stage == C::STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
   }
-  __syncwarp();
 
-  const long long q_at = ((long long)b * p.Tq + q0) * q_rs + (long long)h * D;
-  const int rows = max(0, min(16, q_rows - warp * 16));
-  store_rows_bf16<D>(dq, sStage + (warp * 16) * SLD,
-                     p.out + q_at + (long long)(warp * 16) * q_rs, q_rs, rows);
+  // Epilogue: scale * dQ in bf16, [B, Tq, H, D], clipped at Tq.
+  const long long rs = (long long)p.H * D;
+  const int q0 = i * 64;
+  const long long at = ((long long)b * p.Tq + q0) * rs + (long long)h * D;
+  bf16* epi = reinterpret_cast<bf16*>(smem + C::EPI) + g * 64 * C::EPI_LD;
+  store_acc_rows<D, C::EPI_LD>(acc, p.scale, epi, 1 + g, p.out + at, rs,
+                               max(0, min(64, p.Tq - q0)));
+}
+
+template <int D>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    dtm_flash_dq_staged_kernel(const __grid_constant__ CUtensorMap dsmap,
+                               const __grid_constant__ CUtensorMap kmap,
+                               const Params p) {
+  using C = DqsCfg<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the swizzles need 1 KB
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t full0 = base + C::BARS;
+  const uint32_t empty0 = full0 + 8 * C::STAGES;
+
+  const int bh = blockIdx.x;
+  const int I = gridDim.y - 1 - blockIdx.y;  // the heaviest causal tiles first
+  const int b = bh / p.H, h = bh - b * p.H, hk = h / p.group;
+  int jb, je;
+  kv_tile_range<C::BQ, C::BKV>(p, I, jb, je);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      // TMA: thread 0's arrival; else also the 128 copying threads'.
+      mbar_init(full0 + 8 * s, p.ds_tma ? 1 : 129);
+      mbar_init(empty0 + 8 * s, WS_EMPTY_ARRIVALS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<WS_PRODUCER_REGS>();
+    if (!p.ds_tma || threadIdx.x == 0)
+      dqs_produce<D>(p, &dsmap, &kmap, smem, base, full0, empty0, b, hk, bh,
+                     I * C::BQ, jb, je);
+  } else {
+    setmaxnreg_inc<WS_CONSUMER_REGS>();
+    dqs_consume<D>(p, smem, base, full0, empty0, b, h, I, jb, je);
+  }
 }
 
 template <typename Kernel>
@@ -954,46 +1397,100 @@ cudaError_t make_fwd_maps(const Params& p, int B, CUtensorMap (&maps)[3]) {
   return err;
 }
 
+// A warp-specialised kernel (K2, K3, K5's dQ) with its dynamic shared
+// memory asked for and its launch error returned.
+template <typename Kernel, typename... Args>
+cudaError_t launch_ws(Kernel kernel, unsigned bh, long long tiles, int smem,
+                      cudaStream_t stream, const Args&... args) {
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(bh, (unsigned)tiles), WS_THREADS, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_fwd(const Params& p, int B, cudaStream_t stream) {
   using C = FwdCfg<D>;
-  const long long n_q = (p.Tq + C::BQ - 1) / C::BQ;
-  if (n_q > 65535) return cudaErrorInvalidValue;
   CUtensorMap maps[3];
   cudaError_t err = make_fwd_maps<D>(p, B, maps);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(dtm_flash_fwd_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             C::SMEM);
+  return launch_ws(dtm_flash_fwd_kernel<D>, (unsigned)(B * p.H),
+                   (p.Tq + C::BQ - 1) / C::BQ, C::SMEM, stream, maps[0],
+                   maps[1], maps[2], p);
+}
+
+// K3 and K5's dKV launch: Q and dO in 64-row boxes, K and V in 128-row
+// boxes; a block per (batch*head, 128 keys).
+template <int D, bool STAGE_DS>
+cudaError_t launch_dkv(const Params& p, int B, cudaStream_t stream) {
+  using C = DkvCfg<D>;
+  CUtensorMap maps[4];
+  cudaError_t err = make_rows_map(&maps[0], p.q, B, p.Tq, p.H, D, C::BQ);
+  if (err == cudaSuccess)
+    err = make_rows_map(&maps[1], p.dout, B, p.Tq, p.H, D, C::BQ);
+  if (err == cudaSuccess)
+    err = make_rows_map(&maps[2], p.k, B, p.Tkv, p.Hkv, D, C::BKV);
+  if (err == cudaSuccess)
+    err = make_rows_map(&maps[3], p.v, B, p.Tkv, p.Hkv, D, C::BKV);
   if (err != cudaSuccess) return err;
-  dtm_flash_fwd_kernel<D>
-      <<<dim3((unsigned)(B * p.H), (unsigned)n_q), FWD_THREADS, C::SMEM,
-         stream>>>(maps[0], maps[1], maps[2], p);
-  return cudaGetLastError();
+  return launch_ws(dtm_flash_dkv_kernel<D, STAGE_DS>, (unsigned)(B * p.H),
+                   (p.Tkv + C::BKV - 1) / C::BKV, C::SMEM, stream, maps[0],
+                   maps[1], maps[2], maps[3], p);
+}
+
+// K5's dQ launch: the dS stage [B*H, Tq, Tkv] as a 3-D map {Tkv, Tq, B*H}
+// in {64, 128, 1} boxes with the 128-byte swizzle (rows past Tq read as
+// zeros, never the next head's), where its rows are 16-byte aligned; K in
+// 128-row boxes.  A block per (batch*head, 128 query rows).
+template <int D>
+cudaError_t launch_dq_staged(Params p, int B, cudaStream_t stream) {
+  using C = DqsCfg<D>;
+  CUtensorMap maps[2] = {};
+  p.ds_tma = (p.Tkv & 7) == 0;
+  cudaError_t err = cudaSuccess;
+  if (p.ds_tma) {
+    EncodeTiledFn encode;
+    err = encode_fn(&encode);
+    if (err != cudaSuccess) return err;
+    const cuuint64_t dims[3] = {(cuuint64_t)p.Tkv, (cuuint64_t)p.Tq,
+                                (cuuint64_t)B * p.H};
+    const cuuint64_t strides[2] = {(cuuint64_t)p.Tkv * 2,
+                                   (cuuint64_t)p.Tq * p.Tkv * 2};
+    const cuuint32_t box[3] = {64, (cuuint32_t)C::BQ, 1};
+    const cuuint32_t elem[3] = {1, 1, 1};
+    const CUresult r = encode(
+        &maps[0], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, p.ds, dims, strides,
+        box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  }
+  err = make_rows_map(&maps[1], p.k, B, p.Tkv, p.Hkv, D, C::BKV);
+  if (err != cudaSuccess) return err;
+  return launch_ws(dtm_flash_dq_staged_kernel<D>, (unsigned)(B * p.H),
+                   (p.Tq + C::BQ - 1) / C::BQ, C::SMEM, stream, maps[0],
+                   maps[1], p);
 }
 
 enum Which { FWD = 0, DKV = 1, DQ = 2, DKV_STAGED = 3, DQ_STAGED = 4 };
 
 template <int D>
 cudaError_t dispatch(Which which, const Params& p, int B, cudaStream_t s) {
-  const unsigned bh = (unsigned)(B * p.H);
-  const unsigned n_q = (unsigned)((p.Tq + BQ - 1) / BQ);
-  const unsigned n_kv = (unsigned)((p.Tkv + BKV - 1) / BKV);
   switch (which) {
     case FWD:
       return launch_fwd<D>(p, B, s);
     case DKV:
-      return launch(dtm_flash_dkv_kernel<D, false>, bwd_smem_bytes<D>(),
-                    dim3(n_kv, bh), p, s);
+      return launch_dkv<D, false>(p, B, s);
     case DKV_STAGED:
-      return launch(dtm_flash_dkv_kernel<D, true>, bwd_smem_bytes<D>(),
-                    dim3(n_kv, bh), p, s);
+      return launch_dkv<D, true>(p, B, s);
     case DQ_STAGED:
-      return launch(dtm_flash_dq_staged_kernel<D>, dq_staged_smem_bytes<D>(),
-                    dim3(n_q, bh), p, s);
+      return launch_dq_staged<D>(p, B, s);
     default:
       return launch(dtm_flash_dq_kernel<D>, bwd_smem_bytes<D>(),
-                    dim3(n_q, bh), p, s);
+                    dim3((unsigned)((p.Tq + BQ - 1) / BQ),
+                         (unsigned)(B * p.H)),
+                    p, s);
   }
 }
 

@@ -7,9 +7,10 @@ value): the seeded per-epoch shuffle of :class:`ArrayDataset`, the
 synthetic class-conditional image generator,
 :func:`synthetic_imagenet_dataset`, and the PTB windows of
 :class:`PTBDataset`.  Batches are numpy dicts; ``harness/train.py`` moves
-them to the device.  Real PTB text is read only from ``$DTM_DATA_DIR`` when that
-is set; otherwise the synthetic Zipfian stream stands in, as in the JAX
-package when its files are absent.
+them to the device.  Real PTB text is read from :data:`DATA_DIR`
+(``$DTM_DATA_DIR``, else the reference's default directory) when its
+files are there; otherwise the synthetic Zipfian stream stands in, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -20,6 +21,9 @@ import os
 from typing import Iterator
 
 import numpy as np
+
+# Read once at import, as the reference reads it.
+DATA_DIR = os.environ.get("DTM_DATA_DIR", "/root/data")
 
 
 class ArrayDataset:
@@ -116,22 +120,20 @@ class PTBDataset:
 
 
 def load_ptb_tokens(split: str = "train", vocab_size: int = 10000) -> np.ndarray:
-    """Word ids of ``ptb.{split}.txt`` under ``$DTM_DATA_DIR`` (vocab built
+    """Word ids of ``ptb.{split}.txt`` under :data:`DATA_DIR` (vocab built
     from the train split) when both files are there, else a synthetic
     Zipfian stream: 200,000 train or 20,000 other tokens, seeded 5 or 6."""
-    data_dir = os.environ.get("DTM_DATA_DIR")
-    if data_dir:
-        path = os.path.join(data_dir, f"ptb.{split}.txt")
-        train_path = os.path.join(data_dir, "ptb.train.txt")
-        if os.path.exists(path) and os.path.exists(train_path):
-            with open(train_path) as f:
-                words = f.read().replace("\n", " <eos> ").split()
-            vocab = {w: i for i, (w, _) in enumerate(sorted(
-                collections.Counter(words).items(),
-                key=lambda kv: (-kv[1], kv[0])))}
-            with open(path) as f:
-                data = f.read().replace("\n", " <eos> ").split()
-            return np.array([vocab[w] for w in data if w in vocab], np.int32)
+    path = os.path.join(DATA_DIR, f"ptb.{split}.txt")
+    train_path = os.path.join(DATA_DIR, "ptb.train.txt")
+    if os.path.exists(path) and os.path.exists(train_path):
+        with open(train_path) as f:
+            words = f.read().replace("\n", " <eos> ").split()
+        vocab = {w: i for i, (w, _) in enumerate(sorted(
+            collections.Counter(words).items(),
+            key=lambda kv: (-kv[1], kv[0])))}
+        with open(path) as f:
+            data = f.read().replace("\n", " <eos> ").split()
+        return np.array([vocab[w] for w in data if w in vocab], np.int32)
     rng = np.random.RandomState(5 if split == "train" else 6)
     n = 200_000 if split == "train" else 20_000
     toks = rng.zipf(1.3, n).astype(np.int64) % vocab_size

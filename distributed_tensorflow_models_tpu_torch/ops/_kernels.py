@@ -59,23 +59,27 @@ def _source_key(src: Path) -> bytes:
     """What a build depends on: the source, every header beside it (by
     name and bytes, in name order) and the flags."""
     parts = [src.read_bytes()]
-    for hdr in sorted(CSRC_DIR.glob("*.cuh")):
+    for hdr in sorted(src.parent.glob("*.cuh")):
         parts += [hdr.name.encode(), hdr.read_bytes()]
     parts.append(" ".join(NVCC_FLAGS).encode())
     return b"\0".join(parts)
 
 
-def load(source: str) -> ctypes.CDLL:
-    """The shared library built from ``csrc/<source>``, compiling it first
-    if no build of this exact source exists yet.  Thread-safe; different
-    sources build concurrently."""
+def load(source: str, csrc: Path = CSRC_DIR) -> ctypes.CDLL:
+    """The shared library built from ``<csrc>/<source>`` (the package's
+    ``csrc/`` by default; another tree's, to compare two versions of a
+    kernel in one process), compiling it first if no build of this exact
+    source exists yet.  Thread-safe; different sources build concurrently.
+    ``build_seconds`` and ``build_logs`` key a source of another directory
+    by its path."""
+    src = Path(csrc) / source
+    name = source if Path(csrc) == CSRC_DIR else str(src)
     with _locks_guard:
-        lock = _locks.setdefault(source, threading.Lock())
+        lock = _locks.setdefault(name, threading.Lock())
     with lock:
-        lib = _libs.get(source)
+        lib = _libs.get(name)
         if lib is not None:
             return lib
-        src = CSRC_DIR / source
         digest = hashlib.sha256(_source_key(src)).hexdigest()[:16]
         out = BUILD_DIR / f"{src.stem}_{digest}.so"
         if not out.exists():
@@ -92,12 +96,12 @@ def load(source: str) -> ctypes.CDLL:
                     f"{proc.stdout}\n{proc.stderr}"
                 )
             os.replace(tmp, out)
-            build_seconds[source] = time.perf_counter() - t0
-            build_logs[source] = proc.stderr
+            build_seconds[name] = time.perf_counter() - t0
+            build_logs[name] = proc.stderr
         lib = ctypes.CDLL(str(out))
         lib.dtm_cuda_error_string.argtypes = [ctypes.c_int]
         lib.dtm_cuda_error_string.restype = ctypes.c_char_p
-        _libs[source] = lib
+        _libs[name] = lib
         return lib
 
 

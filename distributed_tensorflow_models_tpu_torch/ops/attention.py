@@ -21,10 +21,13 @@ everywhere:
 
 The public ``block_q``/``block_kv``, ``_check_blocks``' divisibility rule
 and ``DTM_FLASH_TILE`` keep their JAX meaning and validation here.  The
-kernels choose their own tiles for the card: K2 128 x 128 (its loop over
-KV tiles is :func:`_kv_tile_range`), K3-K5 64 x 64.  The tile changes which
-fully-masked tiles are visited, and so only the values of rows with no
-valid key at all, which are documented garbage in both packages
+kernels choose their own tiles for the card: K2 128 query rows x 128 keys
+(its loop over KV tiles is :func:`_kv_tile_range`); K3 and K5's dKV launch
+128 keys x 64 query rows (its loop over query tiles is
+:func:`_q_tile_range`); K5's dQ launch 128 x 128, skipping each 64-row half
+whose 64 x 128 tile the dKV launch skipped; K4 64 x 64.  The tile changes
+which fully-masked tiles are visited, and so only the values of rows with
+no valid key at all, which are documented garbage in both packages
 (:func:`_check_window`).
 """
 
@@ -234,6 +237,25 @@ def _kv_tile_range(i, Tq, Tkv, bq, bkv, causal, window, q_offset,
     return lo, max(lo, hi)
 
 
+def _q_tile_range(j, Tq, Tkv, bq, bkv, causal, window, q_offset,
+                  kv_offset):
+    """``(begin, end)``: the query tiles ``i`` of ``bq`` rows, begin <= i <
+    end, for which :func:`_block_should_run` holds with KV tile ``j`` of
+    ``bkv`` rows, in closed form (the transpose of :func:`_kv_tile_range`:
+    causality bounds the range below, the window above).  K3 and K5's dKV
+    launch loop over exactly this range; the device twin is
+    ``q_tile_range`` in ``csrc/flash_attention.cu``."""
+    if not 0 <= j < -(-Tkv // bkv):
+        raise ValueError(f"KV tile {j} outside {Tkv} rows of {bkv}")
+    k_lo = kv_offset + j * bkv
+    lo, hi = 0, -(-Tq // bq)
+    if causal:
+        lo = max(lo, (k_lo - q_offset) // bq)
+    if window is not None:
+        hi = min(hi, (window + k_lo + bkv - 2 - q_offset) // bq + 1)
+    return lo, max(lo, hi)
+
+
 def _auto_block(T: int) -> int:
     """The JAX package's forward default tile: 256 where it divides."""
     return 256 if T % 256 == 0 else 128
@@ -357,9 +379,14 @@ _lib: Optional[ctypes.CDLL] = None
 def _load() -> ctypes.CDLL:
     """The flash library with its entry points typed, once per process."""
     global _lib
-    if _lib is not None:
-        return _lib
-    lib = _kernels.load(_SOURCE)
+    if _lib is None:
+        _lib = typed(_kernels.load(_SOURCE))
+    return _lib
+
+
+def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``flash_attention.cu``) with its entry points'
+    argument and result types set."""
     tail = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
                                  ctypes.c_longlong, ctypes.c_longlong,
                                  ctypes.c_longlong, ctypes.c_void_p]
@@ -378,7 +405,6 @@ def _load() -> ctypes.CDLL:
     lib.dtm_flash_fwd_encode_bf16.argtypes = ([ctypes.c_void_p] * 3
                                               + [ctypes.c_int] * 7)
     lib.dtm_flash_fwd_encode_bf16.restype = ctypes.c_int
-    _lib = lib
     return lib
 
 
@@ -503,9 +529,11 @@ def flash_dkv_staged(q, k, v, do, lse, delta, *, scale, causal, window,
     if ds is None:
         ds = torch.empty(B * H, Tq, Tkv, dtype=k.dtype, device=q.device)
     elif (ds.shape != (B * H, Tq, Tkv) or ds.dtype != k.dtype
-          or ds.device != q.device or not ds.is_contiguous()):
-        raise ValueError(f"flash_dkv_staged: ds must be a contiguous "
-                         f"{(B * H, Tq, Tkv)} {k.dtype} tensor on {q.device}")
+          or ds.device != q.device or not ds.is_contiguous()
+          or ds.data_ptr() % 16):
+        raise ValueError(f"flash_dkv_staged: ds must be a contiguous, "
+                         f"16-byte aligned {(B * H, Tq, Tkv)} {k.dtype} "
+                         f"tensor on {q.device}")
     dk = torch.empty(B, Tkv, H, D, dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
     lib = _load()

@@ -396,6 +396,86 @@ def test_kv_tile_range_refuses_a_tile_past_the_queries():
         tattn._kv_tile_range(2, 256, 256, 128, 128, True, None, 0, 0)
 
 
+# ------------------------------------------- K3's and K5's loops and tiles
+# K3 and K5's dKV launch visit, for each KV tile of 128 keys, the 64-row
+# query tiles in _q_tile_range and write K5's dS stage on all of them; K5's
+# dQ launch walks 128-row query blocks over the 128-key tiles of
+# _kv_tile_range and runs each 64-row half only where the dKV launch's
+# predicate held for it.
+DKV_BQ, DKV_BKV, DQS_BQ = 64, 128, 128
+
+
+@pytest.mark.parametrize("bq,bkv", [(DKV_BQ, DKV_BKV), (64, 64), (128, 64)],
+                         ids=["64x128", "64x64", "128x64"])
+@pytest.mark.parametrize("window", [None, 1, 80, 128, 256],
+                         ids=["nowindow", "w1", "w80", "w128", "w256"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_q_tile_range_is_the_should_run_scan(causal, window, bq, bkv):
+    """Every query tile _block_should_run accepts for KV tile j, and no
+    other, lies in _q_tile_range, over ragged lengths and offsets."""
+    for Tq in _RANGE_LENGTHS:
+        for Tkv in _RANGE_LENGTHS:
+            n_q = -(-Tq // bq)
+            for q_offset, kv_offset in _RANGE_OFFSETS:
+                for j in range(-(-Tkv // bkv)):
+                    lo, hi = tattn._q_tile_range(j, Tq, Tkv, bq, bkv, causal,
+                                                 window, q_offset, kv_offset)
+                    want = [i for i in range(n_q) if tattn._block_should_run(
+                        i, j, q_offset, kv_offset, causal=causal, block_q=bq,
+                        block_kv=bkv, window=window)]
+                    assert list(range(lo, hi)) == want, (Tq, Tkv, q_offset,
+                                                         kv_offset, j)
+
+
+def test_q_tile_range_refuses_a_tile_past_the_keys():
+    with pytest.raises(ValueError, match="KV tile"):
+        tattn._q_tile_range(2, 256, 256, 64, 128, True, None, 0, 0)
+
+
+def _staged_tiles(Tq, Tkv, causal, window, q_offset, kv_offset):
+    """``(written, read)``: [Tq, Tkv] masks of the dS pairs K5's dKV launch
+    writes and its dQ launch multiplies, by the kernels' loops."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              kv_offset=kv_offset)
+    written = np.zeros((Tq, Tkv), bool)
+    for j in range(-(-Tkv // DKV_BKV)):
+        keys = slice(j * DKV_BKV, (j + 1) * DKV_BKV)
+        lo, hi = tattn._q_tile_range(j, Tq, Tkv, DKV_BQ, DKV_BKV, **kw)
+        written[lo * DKV_BQ:hi * DKV_BQ, keys] = True
+    read = np.zeros((Tq, Tkv), bool)
+    for blk in range(-(-Tq // DQS_BQ)):
+        lo, hi = tattn._kv_tile_range(blk, Tq, Tkv, DQS_BQ, DKV_BKV, **kw)
+        for j in range(lo, hi):
+            for i in (2 * blk, 2 * blk + 1):
+                if i * DKV_BQ < Tq and tattn._block_should_run(
+                        i, j, q_offset, kv_offset, causal=causal,
+                        block_q=DKV_BQ, block_kv=DKV_BKV, window=window):
+                    read[i * DKV_BQ:(i + 1) * DKV_BQ,
+                         j * DKV_BKV:(j + 1) * DKV_BKV] = True
+    return written, read
+
+
+@pytest.mark.parametrize("window", [None, 1, 80, 128, 256],
+                         ids=["nowindow", "w1", "w80", "w128", "w256"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_staged_dq_reads_only_what_the_dkv_launch_writes(causal, window):
+    """Every dS pair K5's dQ launch reads lies in a tile its dKV launch
+    wrote (the stage is never read where it was left unwritten), and both
+    cover every pair the mask lets through."""
+    for Tq in _RANGE_LENGTHS:
+        for Tkv in _RANGE_LENGTHS:
+            for q_offset, kv_offset in _RANGE_OFFSETS:
+                where = (Tq, Tkv, q_offset, kv_offset)
+                written, read = _staged_tiles(Tq, Tkv, causal, window,
+                                              q_offset, kv_offset)
+                assert not (read & ~written).any(), where
+                valid = tattn._valid(Tq, Tkv, causal, window, q_offset,
+                                     kv_offset, "cpu")
+                valid = (np.ones((Tq, Tkv), bool) if valid is None
+                         else valid.numpy())
+                assert not (valid & ~read).any(), where
+
+
 # chip_smoke.py's K2 tolerances: two bf16 ulps relative plus 1e-2 of the
 # output's largest magnitude, and the f32 LSE to 1e-4.
 K2_RTOL, K2_ATOL_OF_SCALE, K2_LSE_ATOL = 2.0 ** -6, 1e-2, 1e-4
@@ -526,3 +606,180 @@ def test_k2_arithmetic_matches_plain_and_jax_interpret(case):
     _k2_close(out, jout, rows, "K2 emulation vs JAX interpret")
     torch.testing.assert_close(lse[:, :, rows], jlse[:, :, rows], rtol=0,
                                atol=K2_LSE_ATOL)
+
+
+# ------------------------------------------------ K3's and K5's arithmetic
+LOG2E = 1.4426950408889634
+
+
+def _k3_emulate(q, k, v, do, lse, delta, *, scale, causal, window, q_offset,
+                kv_offset):
+    """K3's arithmetic (and K5's dKV launch's) in torch on BTHD bf16 inputs:
+    blocks of 128 keys, each 64-key half over the 64-row query tiles of
+    _q_tile_range; raw f32 scores S^T = K Q^T and dP^T = V dO^T; x =
+    S^T * c with c = scale * log2(e) and l2 = LSE * log2(e), each product
+    rounded to f32; NEG_INF * log2(e) on masked pairs of 64 x 64 parts that
+    are not fully valid, -inf on keys past Tkv, l2 = +inf on queries past
+    Tq; P = exp2(x - l2), dS = P (dP - delta); P and dS rounded to bf16 per
+    tile before dV += P^T dO and dK += dS^T Q in f32; dK * scale and dV in
+    bf16.  Returns per-query-head ``(dk, dv)`` ``[B, Tkv, H, D]`` and the dS
+    stage ``[B, H, Tq, Tkv]`` in bf16, NaN where no tile wrote it."""
+    B, Tq, H, D = q.shape
+    Tkv, Hkv = k.shape[1], k.shape[2]
+    grp = H // Hkv
+    qf, dof = (t.float().transpose(1, 2) for t in (q, do))  # [B, H, Tq, D]
+    kf, vf = (t.float().transpose(1, 2).repeat_interleave(grp, 1)
+              for t in (k, v))
+    f32 = torch.float32
+    c = torch.tensor(scale, dtype=f32) * torch.tensor(LOG2E, dtype=f32)
+    neg2 = torch.tensor(tattn.NEG_INF, dtype=f32) * torch.tensor(LOG2E,
+                                                                dtype=f32)
+    l2_all = lse.float() * torch.tensor(LOG2E, dtype=f32)
+    dk = torch.zeros(B, H, Tkv, D)
+    dv = torch.zeros(B, H, Tkv, D)
+    stage = torch.full((B, H, Tq, Tkv), float("nan"))
+    kw = dict(causal=causal, window=window)
+    for j in range(-(-Tkv // DKV_BKV)):
+        lo, hi = tattn._q_tile_range(j, Tq, Tkv, DKV_BQ, DKV_BKV, causal,
+                                     window, q_offset, kv_offset)
+        for g in (0, 1):
+            k0 = j * DKV_BKV + 64 * g
+            n = min(64, Tkv - k0)
+            if n <= 0:
+                continue  # every key past Tkv: nothing is stored
+            kt, vt = torch.zeros(B, H, 64, D), torch.zeros(B, H, 64, D)
+            kt[:, :, :n] = kf[:, :, k0:k0 + n]              # TMA's zero rows
+            vt[:, :, :n] = vf[:, :, k0:k0 + n]
+            acc_dk, acc_dv = torch.zeros(B, H, 64, D), torch.zeros(B, H, 64, D)
+            for i in range(lo, hi):
+                q0 = i * DKV_BQ
+                m = min(DKV_BQ, Tq - q0)
+                qt, dot = torch.zeros(B, H, 64, D), torch.zeros(B, H, 64, D)
+                qt[:, :, :m] = qf[:, :, q0:q0 + m]
+                dot[:, :, :m] = dof[:, :, q0:q0 + m]
+                l2 = torch.full((B, H, 64), float("inf"))
+                dl = torch.zeros(B, H, 64)
+                l2[:, :, :m] = l2_all[:, :, q0:q0 + m]
+                dl[:, :, :m] = delta[:, :, q0:q0 + m]
+                x = (kt @ qt.transpose(-1, -2)) * c        # [.., key, query]
+                dpt = vt @ dot.transpose(-1, -2)
+                full = tattn._block_fully_valid(
+                    i, 2 * j + g, q_offset, kv_offset, block_q=64,
+                    block_kv=64, **kw)
+                if not full or n < 64:
+                    keys = torch.arange(64)[:, None]
+                    d = (q_offset + q0 + torch.arange(64)[None, :]
+                         - (kv_offset + k0 + keys))
+                    ok = torch.ones_like(d, dtype=torch.bool)
+                    if causal:
+                        ok &= d >= 0
+                    if window is not None:
+                        ok &= d < window
+                    x = torch.where(ok, x, neg2)
+                    x = torch.where(keys < n, x, -float("inf"))
+                p = torch.exp2(x - l2[:, :, None, :])
+                ds = p * (dpt - dl[:, :, None, :])
+                pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+                acc_dv += pb @ dot
+                acc_dk += dsb @ qt
+                stage[:, :, q0:q0 + m, k0:k0 + n] = dsb.transpose(-1, -2)[
+                    :, :, :m, :n]
+            dk[:, :, k0:k0 + n] = (acc_dk * torch.tensor(scale, dtype=f32))[
+                :, :, :n]
+            dv[:, :, k0:k0 + n] = acc_dv[:, :, :n]
+    return (dk.transpose(1, 2).bfloat16(), dv.transpose(1, 2).bfloat16(),
+            stage.bfloat16())
+
+
+def _k5_dq_emulate(stage, k, *, scale, causal, window, q_offset, kv_offset):
+    """K5's dQ launch in torch: 128-row query blocks over the 128-key tiles
+    of _kv_tile_range, each 64-row half multiplying only the tiles where
+    the dKV launch's predicate held; dQ = (dS K in f32) * scale in bf16."""
+    B, H, Tq, Tkv = stage.shape
+    grp = H // k.shape[2]
+    kf = k.float().transpose(1, 2).repeat_interleave(grp, 1)
+    dq = torch.zeros(B, H, Tq, k.shape[3])
+    for blk in range(-(-Tq // DQS_BQ)):
+        lo, hi = tattn._kv_tile_range(blk, Tq, Tkv, DQS_BQ, DKV_BKV, causal,
+                                      window, q_offset, kv_offset)
+        for i in (2 * blk, 2 * blk + 1):
+            rows = slice(i * DKV_BQ, min(Tq, (i + 1) * DKV_BQ))
+            acc = torch.zeros(B, H, rows.stop - rows.start, k.shape[3])
+            for j in range(lo, hi):
+                if i * DKV_BQ >= Tq or not tattn._block_should_run(
+                        i, j, q_offset, kv_offset, causal=causal,
+                        block_q=DKV_BQ, block_kv=DKV_BKV, window=window):
+                    continue
+                keys = slice(j * DKV_BKV, min(Tkv, (j + 1) * DKV_BKV))
+                acc += stage[:, :, rows, keys].float() @ kf[:, :, keys]
+            dq[:, :, rows] = acc * torch.tensor(scale, dtype=torch.float32)
+    return dq.transpose(1, 2).bfloat16()
+
+
+# (B, Tq, Tkv, H, Hkv, D, causal, window, q_offset, kv_offset, jax blocks):
+# head dims 32/64/128, GQA, a window that ends inside a 128-key tile,
+# offsets, ragged lengths (no JAX run there).
+K3_CASES = [
+    (2, 256, 256, 4, 4, 32, True, None, 0, 0, 128),
+    (1, 256, 256, 2, 2, 128, True, None, 0, 0, 128),
+    (1, 256, 256, 4, 2, 32, True, 80, 0, 0, 128),
+    (1, 128, 384, 4, 2, 64, True, None, 384, 256, 128),
+    (2, 200, 328, 4, 2, 64, False, None, 0, 0, None),
+    (1, 200, 100, 2, 2, 32, True, 250, 128, 0, None),
+]
+
+
+@pytest.mark.parametrize("case", K3_CASES,
+                         ids=lambda c: "-".join(map(str, c[:10])))
+def test_k3_k5_arithmetic_matches_plain_and_jax_interpret(case):
+    """The emulations of K3's and K5's tiles and rounding agree with the
+    plain K3 and K5 (``_flash_dkv_reference``, the plain stage on every
+    valid pair, ``_flash_dq_staged_reference``), K5's dQ reads no pair the
+    dKV launch left unwritten (the stage starts as NaN), and the gradients
+    agree with the JAX package's flash_attention_chunk backward in
+    interpret mode, all in bf16, under chip_smoke.py's tolerances."""
+    B, Tq, Tkv, H, Hkv, D, causal, window, qo, ko, jblock = case
+    rng = np.random.RandomState(22)
+    q, do = (rng.randn(B, Tq, H, D).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(B, Tkv, Hkv, D).astype(np.float32) for _ in range(2))
+    tq, tk, tv, tdo = (torch.tensor(x).bfloat16() for x in (q, k, v, do))
+    kw = dict(scale=D ** -0.5, causal=causal, window=window, q_offset=qo,
+              kv_offset=ko)
+    out, lse = tattn._flash_forward_reference(tq, tk, tv, **kw)
+    delta = (tdo.float() * out.float()).sum(-1).transpose(1, 2)
+    args = (tq, tk, tv, tdo, lse, delta)
+    valid = tattn._valid(Tq, Tkv, causal, window, qo, ko, "cpu")
+    assert valid is None or bool(valid.any(-1).all())  # every row has a key
+    all_rows = torch.ones(Tq, dtype=torch.bool)
+    dk, dv, stage = _k3_emulate(*args, **kw)
+    want_dk, want_dv, want_ds = tattn._flash_dkv_staged_reference(*args, **kw)
+    _k2_close(dk, want_dk, slice(None), "K3 emulation dk vs plain K3")
+    _k2_close(dv, want_dv, slice(None), "K3 emulation dv vs plain K3")
+    sel = (torch.ones(Tq, Tkv, dtype=torch.bool) if valid is None else valid)
+    _k2_close(stage[:, :, sel], want_ds.view(B, H, Tq, Tkv)[:, :, sel],
+              slice(None), "K5 emulation stage vs plain K5")
+    dq = _k5_dq_emulate(stage, tk, **kw)
+    assert not bool(torch.isnan(dq).any()), "read an unwritten stage pair"
+    want_dq = tattn._flash_dq_staged_reference(
+        want_ds, tk, **kw)
+    _k2_close(dq, want_dq, all_rows, "K5 dq emulation vs plain K5")
+    if jblock is None:
+        return
+    grp = H // Hkv
+    dk_kv, dv_kv = (t.float().view(B, Tkv, Hkv, grp, D).sum(3)
+                    for t in (dk, dv))
+    jq, jk, jv, jdo = (jnp.asarray(x, dtype=jnp.bfloat16)
+                       for x in (q, k, v, do))
+
+    @jax.jit
+    def jgrads(q, k, v, do):
+        fn = lambda q, k, v: jattn.flash_attention_chunk(  # noqa: E731
+            q, k, v, qo, ko, causal, D ** -0.5, jblock, jblock, True,
+            window)
+        (_, jlse), vjp = jax.vjp(fn, q, k, v)
+        return vjp((do, jnp.zeros_like(jlse)))
+
+    got = (dq, dk_kv, dv_kv)
+    for name, g, w in zip(("dq", "dk", "dv"), got, jgrads(jq, jk, jv, jdo)):
+        w = torch.tensor(np.asarray(w.astype(jnp.float32)))
+        _k2_close(g, w, slice(None), f"K3/K5 emulation {name} vs JAX")

@@ -171,7 +171,12 @@ def test_train_step_on_card_runs_k1(cuda):
 # edges of K2's 128-row tiles and TMA loads: B > 1 with Tq and Tkv no
 # multiple of 128 (a tensor map that read the next batch's rows would show
 # there), D 128 at T 384, a window narrower than a tile, offsets that put
-# a KV tile boundary inside the diagonal, and a GQA group of 4.
+# a KV tile boundary inside the diagonal, and a GQA group of 4.  Then the
+# tiles of K3 and K5 (128 keys by 64 queries; K5's dQ 128 x 128): Tkv no
+# multiple of 128, and none of 8 (K5's dS rows then are not 16-byte
+# aligned: its stores and loads take the element path), a window that ends
+# inside a 128-key tile, GQA with offsets and a window, D 128 causal at T
+# 384 with a window and ragged at T 130 x 77.
 FLASH_CASES = [
     (2, 256, 256, 4, 4, 32, True, None, 0, 0),
     (2, 256, 256, 4, 4, 64, False, None, 0, 0),
@@ -185,6 +190,11 @@ FLASH_CASES = [
     (2, 256, 256, 4, 4, 64, True, 16, 0, 0),
     (1, 256, 384, 4, 4, 32, True, None, 64, 0),
     (2, 320, 320, 8, 2, 64, True, None, 0, 0),
+    (1, 100, 100, 2, 2, 64, False, None, 0, 0),
+    (1, 384, 384, 4, 4, 64, True, 200, 0, 0),
+    (2, 160, 296, 8, 2, 32, True, 96, 136, 0),
+    (1, 384, 384, 2, 2, 128, True, 100, 0, 0),
+    (1, 130, 77, 2, 1, 128, False, None, 0, 0),
 ]
 FLASH_RTOL, FLASH_ATOL_OF_SCALE, LSE_ATOL = 2.0 ** -6, 1e-2, 1e-4
 

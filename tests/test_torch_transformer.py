@@ -490,6 +490,39 @@ def test_ptb_batches_and_cursor_equal_jax():
                                   jdata.load_ptb_tokens("valid", 256))
 
 
+def _point_data_dirs(monkeypatch, path):
+    for mod in (jdata, tdata):
+        monkeypatch.setattr(mod, "DATA_DIR", str(path))
+
+
+def test_ptb_tokens_read_the_data_dir_like_jax(tmp_path, monkeypatch):
+    """Both packages read real PTB text from their DATA_DIR (the port's
+    takes the reference's default): the same word ids, vocab from the
+    train split, words missing from it dropped."""
+    (tmp_path / "ptb.train.txt").write_text(
+        "the cat sat on the mat\nthe dog sat\na cat ran\n")
+    (tmp_path / "ptb.valid.txt").write_text("the cat ran away\nthe end\n")
+    _point_data_dirs(monkeypatch, tmp_path)
+    for split in ("train", "valid"):
+        got = tdata.load_ptb_tokens(split, 10000)
+        want = jdata.load_ptb_tokens(split, 10000)
+        assert got.dtype == want.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
+    assert len(tdata.load_ptb_tokens("train")) == 15  # 12 words, 3 <eos>
+    assert len(tdata.load_ptb_tokens("valid")) == 6  # "away", "end" dropped
+
+
+def test_ptb_tokens_fall_back_to_synthetic_like_jax(tmp_path, monkeypatch):
+    """A DATA_DIR without the split's file or without the train file gives
+    both packages the same synthetic stream."""
+    (tmp_path / "ptb.valid.txt").write_text("the cat\n")
+    _point_data_dirs(monkeypatch, tmp_path)
+    for split in ("train", "valid", "test"):
+        got = tdata.load_ptb_tokens(split, 256)
+        np.testing.assert_array_equal(got, jdata.load_ptb_tokens(split, 256))
+        assert len(got) == (200_000 if split == "train" else 20_000)
+
+
 def test_lm_configs_match_jax():
     for name in ("transformer_lm", "transformer_lm_modern"):
         j, t = jconfig.get_config(name), tconfig.get_config(name)
