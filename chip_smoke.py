@@ -10,8 +10,8 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    once): K1 and K6 in ``conv_implicit_gemm.cu``, K2-K5 in
    ``flash_attention.cu``, both on the shared Hopper helpers of
    ``hopper.cuh``; the build seconds and what ``-Xptxas -v`` says of every
-   kernel instance (registers, shared memory, spills), K2's instances
-   and K3's and K5's summarised on lines of their own.
+   kernel instance (registers, shared memory, spills), K2's instances,
+   K3's and K5's, and K4's summarised on lines of their own.
 2. K1 and K6 against K1's plain version (``conv_mxu._core_reference``, f32)
    at every launch shape of one ResNet-50 training step at batch 256
    (traced on the meta device, so they are the main path's own, each
@@ -45,8 +45,8 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    causal window 256, (d) a chunk call with nonzero q/kv offsets and an
    LSE cotangent, and (e) B4 T2048 H8 D128 causal.  K5's dS stage is
    filled with NaN first; its dK and dV must equal K3's bit for bit, and
-   its dQ is compared with K4's element by element (the count that differ
-   and the largest difference).  At (a), (b), (c) and (e) each launch is
+   its dQ K4's (the count of elements that differ and the largest
+   difference are printed).  At (a), (b), (c) and (e) each launch is
    timed against its bound and its plain version, K2 against
    ``F.scaled_dot_product_attention``'s forward and the backward launches
    against its backward (a yardstick only: the port never calls it; with
@@ -730,12 +730,13 @@ def phase_flash(seed: int, parent=None) -> dict:
     backward less the forward's own graph time).  K5's dKV launch writes
     into a dS stage filled with NaN first, so a tile its dQ launch reads
     but the dKV launch never wrote shows as NaN in dQ; its dK and dV must
-    equal K3's bit for bit, and its dQ is compared with K4's element by
-    element.  With ``parent`` (another tree's flash library) the same
-    count is taken with that tree's K4 and K5, and its K2-K5 are replayed
-    in turns with this tree's (parent, this, this, parent).  Returns, per
-    kernel id, the worst error and the timings by shape, and K5's dQ
-    differences from K4 by shape (this tree's, and the parent's)."""
+    equal K3's bit for bit, and its dQ K4's (element by element, the count
+    that differ printed).  With ``parent`` (another tree's flash library)
+    the same count is taken, and only printed, with that tree's K4 and K5,
+    and its K2-K5 are replayed in turns with this tree's (parent, this,
+    this, parent).  Returns, per kernel id, the worst error and the
+    timings by shape, and K5's dQ differences from K4 by shape (this
+    tree's, and the parent's)."""
     import torch
     import torch.nn.functional as F
 
@@ -793,6 +794,9 @@ def phase_flash(seed: int, parent=None) -> dict:
         log(f"K5 at {name}: dK and dV equal K3's bit for bit; dq differs "
             f"from K4's in {n_diff} of {sdq.numel()} elements, max abs diff "
             f"{max_diff:.4g}; no NaN from the NaN-filled stage")
+        if n_diff:
+            fail(f"K5 dq at {name} differs from K4's: the pair and staged "
+                 f"backwards must give the same dQ")
         if parent is not None:
             with flash_lib(parent):
                 psdq = _staged(args, kw)[3]
@@ -1027,6 +1031,12 @@ def main(argv=None) -> int:
         f"dQ; D 32, 64, 128): {len(bwd_lines)} in this build")
     for line in bwd_lines:
         log(f"  K3/K5 ptxas {line}")
+    k4_lines = [line for line in ptxas_summary(
+        _kernels.build_logs.get("flash_attention.cu", ""))
+        if "dtm_flash_dq_kernel" in line]
+    log(f"K4 instances (D 32, 64, 128): {len(k4_lines)} in this build")
+    for line in k4_lines:
+        log(f"  K4 ptxas {line}")
     log(f"both builds, in parallel: {time.perf_counter() - t0:.2f} s wall")
 
     if args.flash_only:

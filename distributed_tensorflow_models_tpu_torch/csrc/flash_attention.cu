@@ -39,21 +39,23 @@
 // half of its 128 x 128 tile only where the dKV launch's own predicate
 // (should_run<64, 128>) held, so it reads only pairs the dKV launch wrote
 // (tests/test_torch_attention.py holds read within written on the host
-// twins of both loops).  Its dQ differs from K4's, whose dS comes from
-// WMMA and expf, where a bf16 dS rounds the other way.  The buffer costs
-// 2 bytes per (query, key) pair of the tiles that run, written once and
-// read once: at B4 T2048 H8 causal about 138 MB each way.
+// twins of both loops).  K4 forms dS by K3's arithmetic and sums dS K in
+// this launch's order (keys ascending, the same skips up to tiles that add
+// exact zeros, scale in the epilogue), so the pair's dQ and K5's agree
+// wherever K4's dS agrees with K3's.  The buffer costs 2 bytes per (query,
+// key) pair of the tiles that run, written once and read once: at B4 T2048
+// H8 causal about 138 MB each way.
 //
 // The grid.  The TPU carries the softmax state (K2) and the dK/dV or dQ sums
 // (K3, K4) across a sequential grid axis.  Here that axis is a loop inside
 // one block: K2 runs one block per (batch*head, 128-row query tile) and
 // loops over 128-row KV tiles; K3 one block per (batch*head, 128-key tile)
-// over 64-row query tiles; K5's dQ one block per (batch*head, 128-row
-// query tile) over 128-key tiles; K4 one block per (batch*head, 64-row
-// query tile) over 64-row KV tiles.  Blocks never share an output, so no
-// atomics.  Layout: Q, K, V, dO, O and dQ are read and written as BTHD
-// rows, with no heads-first transposes; LSE and delta are [B*H, Tq] f32;
-// K3 writes per-query-head dK/dV [B, Tkv, H, D].
+// over 64-row query tiles; K4 and K5's dQ one block per (batch*head,
+// 128-row query tile) over 128-key tiles (K4: 64-key tiles at D 128).
+// Blocks never share an output, so no atomics.  Layout: Q, K, V, dO, O and
+// dQ are read and written as BTHD rows, with no heads-first transposes;
+// LSE and delta are [B*H, Tq] f32; K3 writes per-query-head dK/dV
+// [B, Tkv, H, D].
 //
 // What bounds it on an H100.  Per (query, key) pair K2 does 4*D FLOPs on the
 // tensor cores and one exp plus ~10 scalar operations of softmax: at D 64
@@ -105,30 +107,28 @@
 //   queries past Tq get LSE +inf, so P = 0 there.  The heaviest causal KV
 //   tiles launch first.
 // K5's dQ launch is a masked streaming GEMM on the same ring (above).
-// K4 alone is still the simple design of the first port: 4 warps, each
-// owning 16 rows; WMMA 16x16x16 bf16 fragments with f32 accumulators;
-// scores go through shared memory, where two lanes share a row for the
-// masks, so the fragment layout never has to be known; dQ lives in
-// registers.
+// K4 is K2's block with a second product and no online softmax (the LSE is
+// known), 6*D FLOPs a pair:
+// - A 384-thread block per 128 query rows: warpgroup 0 produces (40
+//   registers), one thread loading Q and dO once by TMA and streaming K
+//   and V tiles through a ring of 4 stages of 128 keys (D 128: 3 of 64,
+//   see DqCfg) in ascending key order; warpgroups 1 and 2 own 64 query rows
+//   each, with their rows' LSE * log2(e) and delta in registers.
+// - S = Q K^T and dP = dO V^T by wgmma (both K-major) in one group; dS on
+//   the accumulator fragments by K3's arithmetic with rows and columns
+//   swapped; packed to bf16 it is the register A operand of dQ += dS K (K
+//   MN-major, as K2's V); scale * dQ in the epilogue.  Each consumer skips
+//   the tiles its 64 rows do not reach.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int BQ = 64;   // query rows per tile
-constexpr int BKV = 64;  // key rows per tile
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int SLD = BKV + 4;  // f32 score tile row (floats); also BQ + 4
-constexpr int PLD = BKV + 8;  // bf16 P / dS tile row (elements)
 constexpr float NEG_INF = -1e30f;
 
 typedef __nv_bfloat16 bf16;
@@ -140,7 +140,7 @@ struct Params {
   const bf16* dout;  // [B, Tq, H, D] (backward)
   const float* lse;    // [B*H, Tq] (backward)
   const float* delta;  // [B*H, Tq] (backward)
-  bf16* out;   // O (K2), dQ (K4), dK per query head (K3)
+  bf16* out;   // O (K2), dQ (K4, K5), dK per query head (K3)
   bf16* out2;  // dV per query head (K3)
   bf16* ds;    // [B*H, Tq, Tkv] dS stage (K5: written by dKV, read by dQ)
   float* lse_out;  // [B*H, Tq] (K2)
@@ -153,8 +153,8 @@ struct Params {
 };
 
 // _block_should_run: some (q, k) pair of tile (i, j) passes the mask, for
-// TQ x TKV tiles (K3-K5: the shared 64 x 64; K2 its own 128 x 128).
-template <int TQ = BQ, int TKV = BKV>
+// TQ x TKV tiles (each kernel's own tiles).
+template <int TQ, int TKV>
 __device__ __forceinline__ bool should_run(const Params& p, int i, int j) {
   const long long q_lo = p.q_offset + (long long)i * TQ;
   const long long k_lo = p.kv_offset + (long long)j * TKV;
@@ -165,7 +165,7 @@ __device__ __forceinline__ bool should_run(const Params& p, int i, int j) {
 }
 
 // _block_fully_valid: every (q, k) pair of tile (i, j) passes the mask.
-template <int TQ = BQ, int TKV = BKV>
+template <int TQ, int TKV>
 __device__ __forceinline__ bool fully_valid(const Params& p, int i, int j) {
   const long long q_lo = p.q_offset + (long long)i * TQ;
   const long long k_lo = p.kv_offset + (long long)j * TKV;
@@ -173,113 +173,6 @@ __device__ __forceinline__ bool fully_valid(const Params& p, int i, int j) {
   if (p.causal) full = q_lo >= k_lo + TKV - 1;
   if (p.window > 0) full = full && (q_lo + TQ - 1 - k_lo < p.window);
   return full;
-}
-
-// The per-element mask, in global positions.
-__device__ __forceinline__ bool pair_valid(const Params& p, long long qpos,
-                                           long long kpos) {
-  bool ok = true;
-  if (p.causal) ok = qpos >= kpos;
-  if (p.window > 0) ok = ok && (qpos - kpos < p.window);
-  return ok;
-}
-
-// 64 rows x D bf16 from a BTHD tensor into shared memory (row pitch ld),
-// 16 bytes per thread and step; rows at or past ``rows`` are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* smem, int ld, const bf16* src,
-                                          long long row_stride, int rows) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < 64 * CPR; c += THREADS) {
-    const int r = c / CPR;
-    const int cc = (c - r * CPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows)
-      val = *reinterpret_cast<const uint4*>(src + r * row_stride + cc);
-    *reinterpret_cast<uint4*>(smem + r * ld + cc) = val;
-  }
-}
-
-// One 16 x 64 product per warp, stored as f32 to ``dst`` (pitch SLD):
-// dst = A[16 rows of a, D] * B^T where B is 64 rows of b (both pitch ld).
-template <int D>
-__device__ __forceinline__ void rows_times_rows_t(float* dst, const bf16* a,
-                                                  const bf16* b, int ld) {
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-#pragma unroll
-  for (int n = 0; n < 4; ++n) {
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::load_matrix_sync(af, a + kk * 16, ld);
-      wmma::load_matrix_sync(bfr, b + (n * 16) * ld + kk * 16, ld);
-      wmma::mma_sync(acc, af, bfr, acc);
-    }
-    wmma::store_matrix_sync(dst + n * 16, acc, SLD, wmma::mem_row_major);
-  }
-}
-
-// acc[n] (+)= scale_or_1 * (P[16 x 64] * M[64 x D]) for the D/16 column
-// fragments; P has pitch PLD, M pitch ld.
-template <int D, bool SCALED>
-__device__ __forceinline__ void accumulate_pm(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[D / 16],
-    const bf16* pmat, const bf16* m, int ld, float scale) {
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> tmp;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    if (SCALED) wmma::fill_fragment(tmp, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      wmma::load_matrix_sync(af, pmat + kk * 16, PLD);
-      wmma::load_matrix_sync(bfr, m + (kk * 16) * ld + n * 16, ld);
-      if (SCALED)
-        wmma::mma_sync(tmp, af, bfr, tmp);
-      else
-        wmma::mma_sync(acc[n], af, bfr, acc[n]);
-    }
-    if (SCALED) {
-      // The tile's product times scale, then added: the JAX kernels'
-      // ``acc += scale * dot(...)``.  Accumulator fragments of one type
-      // share their element mapping, so this is elementwise.
-#pragma unroll
-      for (int e = 0; e < tmp.num_elements; ++e)
-        acc[n].x[e] += scale * tmp.x[e];
-    }
-  }
-}
-
-// Writes a warp's 16 x D f32 accumulator fragments as bf16 rows of a BTHD
-// tensor, through a 16 x 16 f32 staging tile (pitch SLD) of its own.
-template <int D>
-__device__ __forceinline__ void store_rows_bf16(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[D / 16],
-    float* stage, bf16* dst, long long row_stride, int rows) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::store_matrix_sync(stage, acc[n], SLD, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int r = e >> 4, c = e & 15;
-      if (r < rows)
-        dst[r * row_stride + n * 16 + c] = __float2bfloat16(stage[r * SLD + c]);
-    }
-    __syncwarp();
-  }
-}
-
-// K4's shared memory.
-template <int D>
-constexpr size_t bwd_smem_bytes() {
-  return (size_t)4 * 64 * (D + 8) * 2   // Q, dO, K, V
-         + (size_t)2 * 64 * SLD * 4     // S, dP
-         + (size_t)2 * 64 * PLD * 2     // P, dS
-         + (size_t)2 * 64 * 4;          // LSE, delta
 }
 
 // ---------------------------------------------------------------- K2 forward
@@ -290,8 +183,8 @@ constexpr size_t bwd_smem_bytes() {
 // 64 query rows each: S = Q K^T by wgmma into registers, the online
 // softmax on the accumulator fragments, O += P V by wgmma with P as the
 // register A operand, O kept in registers to the end.
-// K2, K3 and K5's dQ launch share the warp-specialised block: 384 threads,
-// the producer warpgroup down to 40 registers, the two consumers up to 232.
+// K2-K5 share the warp-specialised block: 384 threads, the producer
+// warpgroup down to 40 registers, the two consumers up to 232.
 constexpr int WS_THREADS = 384;
 constexpr int WS_PRODUCER_REGS = 40;
 constexpr int WS_CONSUMER_REGS = 232;  // 40*128 + 232*256 = 168*384
@@ -358,10 +251,11 @@ __device__ __forceinline__ bool diff_valid(const Params& p, long long d) {
   return ok;
 }
 
-// S (+)= Q K^T: m64n128k16, A (Q) and B (K) both K-major from shared
-// memory; scale_d 0 starts the sum.
-__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da,
-                                         uint64_t db, int scale_d) {
+// D (+)= A B^T for 64 rows by 128 columns (K2's and K4's S = Q K^T):
+// m64n128k16, A and B both K-major from shared memory; scale_d 0 starts
+// the sum.
+__device__ __forceinline__ void wgmma_abt(float (&d)[64], uint64_t da,
+                                          uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" DTM_REGS64
@@ -506,10 +400,10 @@ __device__ __forceinline__ void fwd_consume(const Params& p,
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t pan = kk / C::K16_PER_PANEL;
       const uint32_t col = 32 * (kk % C::K16_PER_PANEL);
-      wgmma_qk(s,
-               smem_desc(q_s + pan * C::Q_PANEL + col, 16, SBO, C::SWIZZLE),
-               smem_desc(k_s + pan * C::KV_PANEL + col, 16, SBO, C::SWIZZLE),
-               kk > 0);
+      wgmma_abt(s,
+                smem_desc(q_s + pan * C::Q_PANEL + col, 16, SBO, C::SWIZZLE),
+                smem_desc(k_s + pan * C::KV_PANEL + col, 16, SBO, C::SWIZZLE),
+                kk > 0);
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
@@ -733,10 +627,9 @@ __device__ __forceinline__ void q_tile_range(const Params& p, int j, int& ib,
   ie = (int)max(lo, hi);
 }
 
-// S^T (+)= K Q^T: m64n64k16, A (K) and B (Q) both K-major from shared
-// memory; scale_d 0 starts the sum.
-__device__ __forceinline__ void wgmma_kq(float (&d)[32], uint64_t da,
-                                         uint64_t db, int scale_d) {
+// The same for 64 columns (K3's S^T = K Q^T, K4's S at D 128): m64n64k16.
+__device__ __forceinline__ void wgmma_abt(float (&d)[32], uint64_t da,
+                                          uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" DTM_REGS32
@@ -902,18 +795,19 @@ __device__ __forceinline__ void dkv_consume(const Params& p,
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t pan = kk / C::K16_PER_PANEL;
       const uint32_t col = 32 * (kk % C::K16_PER_PANEL);
-      wgmma_kq(s, smem_desc(k_s + pan * C::KV_PANEL + col, 16, SBO, C::SWIZZLE),
-               smem_desc(q_s + pan * C::Q_PANEL + col, 16, SBO, C::SWIZZLE),
-               kk > 0);
+      wgmma_abt(s,
+                smem_desc(k_s + pan * C::KV_PANEL + col, 16, SBO, C::SWIZZLE),
+                smem_desc(q_s + pan * C::Q_PANEL + col, 16, SBO, C::SWIZZLE),
+                kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t pan = kk / C::K16_PER_PANEL;
       const uint32_t col = 32 * (kk % C::K16_PER_PANEL);
-      wgmma_kq(dp,
-               smem_desc(v_s + pan * C::KV_PANEL + col, 16, SBO, C::SWIZZLE),
-               smem_desc(do_s + pan * C::Q_PANEL + col, 16, SBO, C::SWIZZLE),
-               kk > 0);
+      wgmma_abt(dp,
+                smem_desc(v_s + pan * C::KV_PANEL + col, 16, SBO, C::SWIZZLE),
+                smem_desc(do_s + pan * C::Q_PANEL + col, 16, SBO, C::SWIZZLE),
+                kk > 0);
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
@@ -1074,85 +968,257 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
 }
 
 // -------------------------------------------------------------------- K4 dQ
+// A 384-thread block owns 128 query rows of one (batch, head): K2's block
+// with a second product and no online softmax, since the LSE is known.
+// Warpgroup 0 produces: one thread loads Q and dO once, then streams K and
+// V tiles by TMA through a ring of full/empty mbarriers over the block's KV
+// range, keys ascending.  Warpgroups 1 and 2 consume, 64 query rows each:
+// S = Q K^T and dP = dO V^T by wgmma, dS on the accumulator fragments as
+// K3 forms it, then dQ += dS K by wgmma with dS as the register A operand
+// and K as the MN-major B; dQ stays in registers to the end.
 template <int D>
-__global__ void __launch_bounds__(THREADS) dtm_flash_dq_kernel(const Params p) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQ + 64 * LD;
-  bf16* sK = sdO + 64 * LD;
-  bf16* sV = sK + 64 * LD;
-  float* sS = reinterpret_cast<float*>(sV + 64 * LD);
-  float* sdP = sS + 64 * SLD;
-  bf16* sdS = reinterpret_cast<bf16*>(sdP + 64 * SLD);
-  // (the P tile of the shared layout is unused here)
-  float* sLse = reinterpret_cast<float*>(sdS + 2 * 64 * PLD);
-  float* sDelta = sLse + 64;
+struct DqCfg : RowLayout<D> {
+  using L = RowLayout<D>;
+  static constexpr int BQ = 128;  // query rows of a block, 64 a consumer
+  // Keys of a ring stage.  At D 128 a 128-key stage would hold S, dP and
+  // dQ (64 floats each) in a thread's registers at once, and two such
+  // stages beside Q, dO and the epilogue tile need 232488 bytes.
+  static constexpr int BKV = D == 128 ? 64 : 128;
+  static constexpr int STAGES = D == 128 ? 3 : 4;
+  static constexpr int Q_BYTES = BQ * D * 2;    // Q or dO
+  static constexpr int Q_PANEL = BQ * L::ROW_BYTES;
+  static constexpr int KV_BYTES = BKV * D * 2;  // K or V
+  static constexpr int KV_PANEL = BKV * L::ROW_BYTES;
+  static constexpr int RING = 2 * Q_BYTES;      // stage 0: K, then V
+  static constexpr int EPI_LD = D + 8;
+  static constexpr int EPI = RING + STAGES * 2 * KV_BYTES;
+  static constexpr int BARS = EPI + 2 * 64 * EPI_LD * 2;
+  // Barriers: Q and dO full, then full and empty per stage.
+  static constexpr int SMEM = 1024 + BARS + 8 * (1 + 2 * STAGES);
+  static_assert(SMEM <= 232448, "shared memory");
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int i = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh - b * p.H, hk = h / p.group;
-  const int q0 = i * BQ;
-  const int q_rows = min(BQ, p.Tq - q0);
-  const long long q_rs = (long long)p.H * D;
-  const long long kv_rs = (long long)p.Hkv * D;
-
-  const long long q_at = ((long long)b * p.Tq + q0) * q_rs + (long long)h * D;
-  load_rows<D>(sQ, LD, p.q + q_at, q_rs, q_rows);
-  load_rows<D>(sdO, LD, p.dout + q_at, q_rs, q_rows);
-  for (int r = tid; r < 64; r += THREADS) {
-    const bool in = r < q_rows;
-    sLse[r] = in ? p.lse[(long long)bh * p.Tq + q0 + r] : 0.0f;
-    sDelta[r] = in ? p.delta[(long long)bh * p.Tq + q0 + r] : 0.0f;
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dq[D / 16];
+// Warpgroup 0, one thread: Q and dO once, then K and V of tiles jb..je-1.
+template <int D>
+__device__ __forceinline__ void dq_produce(
+    const CUtensorMap* qmap, const CUtensorMap* domap,
+    const CUtensorMap* kmap, const CUtensorMap* vmap, uint32_t base,
+    uint32_t qfull, uint32_t full0, uint32_t empty0, int b, int h, int hk,
+    int q0, int jb, int je) {
+  using C = DqCfg<D>;
+  mbar_arrive_expect_tx(qfull, 2 * C::Q_BYTES);
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(dq[n], 0.0f);
-
-  const int row = warp * 16 + (lane >> 1);
-  const int half = lane & 1;
-  const long long qpos = p.q_offset + q0 + row;
-  const int n_kv = (p.Tkv + BKV - 1) / BKV;
-
-  for (int j = 0; j < n_kv; ++j) {
-    if (!should_run(p, i, j)) continue;
-    const bool full = fully_valid(p, i, j);
-    const int kv0 = j * BKV;
-    const int kv_rows = min(BKV, p.Tkv - kv0);
-    __syncthreads();
-    const long long kv_at = ((long long)b * p.Tkv + kv0) * kv_rs + (long long)hk * D;
-    load_rows<D>(sK, LD, p.k + kv_at, kv_rs, kv_rows);
-    load_rows<D>(sV, LD, p.v + kv_at, kv_rs, kv_rows);
-    __syncthreads();
-
-    rows_times_rows_t<D>(sS + (warp * 16) * SLD, sQ + (warp * 16) * LD, sK, LD);
-    rows_times_rows_t<D>(sdP + (warp * 16) * SLD, sdO + (warp * 16) * LD, sV, LD);
-    __syncwarp();
-
-    const float lse = sLse[row], delta = sDelta[row];
-#pragma unroll 4
-    for (int c = 0; c < 32; ++c) {
-      const int col = half * 32 + c;  // key within the tile
-      float s = sS[row * SLD + col] * p.scale;
-      if (col >= kv_rows)
-        s = -INFINITY;
-      else if (!full && !pair_valid(p, qpos, p.kv_offset + kv0 + col))
-        s = NEG_INF;
-      const float pe = expf(s - lse);
-      sdS[row * PLD + col] =
-          __float2bfloat16(pe * (sdP[row * SLD + col] - delta));
-    }
-    __syncwarp();
-
-    accumulate_pm<D, true>(dq, sdS + (warp * 16) * PLD, sK, LD, p.scale);
+  for (int pn = 0; pn < C::PANELS; ++pn) {
+    tma_load_4d(base + pn * C::Q_PANEL, qmap, qfull, pn * C::BOX_D, h, q0, b);
+    tma_load_4d(base + C::Q_BYTES + pn * C::Q_PANEL, domap, qfull,
+                pn * C::BOX_D, h, q0, b);
   }
-  __syncwarp();
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = jb; j < je; ++j) {
+    mbar_wait(empty0 + 8 * stage, phase ^ 1);
+    const uint32_t k_s = base + C::RING + stage * 2 * C::KV_BYTES;
+    const uint32_t full = full0 + 8 * stage;
+    const int kv0 = j * C::BKV;
+    mbar_arrive_expect_tx(full, 2 * C::KV_BYTES);
+#pragma unroll
+    for (int pn = 0; pn < C::PANELS; ++pn) {
+      tma_load_4d(k_s + pn * C::KV_PANEL, kmap, full, pn * C::BOX_D, hk, kv0,
+                  b);
+      tma_load_4d(k_s + C::KV_BYTES + pn * C::KV_PANEL, vmap, full,
+                  pn * C::BOX_D, hk, kv0, b);
+    }
+    if (++stage == C::STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
 
-  const int rows = max(0, min(16, q_rows - warp * 16));
-  store_rows_bf16<D>(dq, sS + (warp * 16) * SLD,
-                     p.out + q_at + (long long)(warp * 16) * q_rs, q_rs, rows);
+// Warpgroups 1 and 2: query rows 64g..64g+63 of the block, in K2's fragment
+// layout (rows er and er + 8 of each warp; of each 8-key block n the keys
+// 8n + 2(l%4) and the next).  dS is K3's, with rows and columns swapped:
+// x = S * c (c = scale * log2(e)) and l2 = LSE * log2(e), each product
+// rounded; NEG_INF * log2(e) on masked pairs, -inf past Tkv, l2 = +inf and
+// delta = 0 past Tq; P = exp2(x - l2), dS = P (dP - delta).  A consumer
+// whose 64 x BKV tile no pair of the mask reaches skips it: that adds only
+// exact zeros to a row with a valid key.  The sum runs over the keys in
+// ascending k16 steps into one f32 accumulator, scaled once at the end, as
+// K5's dQ launch sums its staged dS.
+template <int D>
+__device__ __forceinline__ void dq_consume(const Params& p,
+                                           unsigned char* smem, uint32_t base,
+                                           uint32_t qfull, uint32_t full0,
+                                           uint32_t empty0, int b, int h,
+                                           int bh, int I, int jb, int je) {
+  using C = DqCfg<D>;
+  constexpr int N = C::BKV;
+  const int g = (threadIdx.x >> 7) - 1;
+  const int t = threadIdx.x & 127;
+  const int warp = t >> 5, lane = t & 31;
+  const int er = 16 * warp + (lane >> 2);
+  const int c2 = 2 * (lane & 3);
+  const int i = 2 * I + g;  // the consumer's 64-row query tile
+  const int q0 = 64 * i;
+  const bool rows_in = q0 < p.Tq;
+  const uint32_t q_s = base + 64 * g * C::ROW_BYTES;
+  const uint32_t do_s = q_s + C::Q_BYTES;
+  constexpr uint32_t SBO = 8 * C::ROW_BYTES;
+  const float c = p.scale * LOG2E;
+  const float neg2 = __fmul_rn(NEG_INF, LOG2E);  // a masked score, scaled
+  // qpos - kpos of row er against key 0 of the KV sequence.
+  const long long d_row = p.q_offset + q0 + er - p.kv_offset;
+  float l2[2], dl[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = q0 + er + 8 * e;
+    const long long at = (long long)bh * p.Tq + row;
+    l2[e] = row < p.Tq ? __fmul_rn(p.lse[at], LOG2E) : INFINITY;
+    dl[e] = row < p.Tq ? p.delta[at] : 0.0f;
+  }
+
+  float s[N / 2], dp[N / 2];
+  float dq[D / 2];
+  uint32_t da[N / 4];
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) s[e] = dp[e] = 0.0f;
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) dq[e] = 0.0f;
+
+  mbar_wait(qfull, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = jb; j < je; ++j) {
+    const int kv0 = j * N;
+    const uint32_t k_s = base + C::RING + stage * 2 * C::KV_BYTES;
+    const uint32_t v_s = k_s + C::KV_BYTES;
+    mbar_wait(full0 + 8 * stage, phase);
+    if (rows_in && should_run<64, N>(p, i, j)) {
+      // S = Q K^T and dP = dO V^T, f32 in registers.
+      fence_acc(s);
+      fence_acc(dp);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t pan = kk / C::K16_PER_PANEL;
+        const uint32_t col = 32 * (kk % C::K16_PER_PANEL);
+        wgmma_abt(s,
+                  smem_desc(q_s + pan * C::Q_PANEL + col, 16, SBO, C::SWIZZLE),
+                  smem_desc(k_s + pan * C::KV_PANEL + col, 16, SBO,
+                            C::SWIZZLE),
+                  kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t pan = kk / C::K16_PER_PANEL;
+        const uint32_t col = 32 * (kk % C::K16_PER_PANEL);
+        wgmma_abt(dp,
+                  smem_desc(do_s + pan * C::Q_PANEL + col, 16, SBO,
+                            C::SWIZZLE),
+                  smem_desc(v_s + pan * C::KV_PANEL + col, 16, SBO,
+                            C::SWIZZLE),
+                  kk > 0);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_acc(s);
+      fence_acc(dp);
+
+      // dS, packed to bf16 pairs: elements 8k..8k+7 are the A fragment of
+      // k16 step k.  The per-element mask only where the tile is not fully
+      // valid or runs past Tkv (elsewhere it would change nothing).
+      const bool masked = !fully_valid<64, N>(p, i, j) || kv0 + N > p.Tkv;
+      const int kv_rows = p.Tkv - kv0;
+#pragma unroll
+      for (int n = 0; n < N / 8; ++n) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kc = 8 * n + c2 + (e & 1);  // key within the tile
+          float x = __fmul_rn(s[4 * n + e], c);
+          if (masked) {
+            if (kc >= kv_rows)
+              x = -INFINITY;
+            else if (!diff_valid(p, d_row + 8 * (e >> 1) - kv0 - kc))
+              x = neg2;
+          }
+          const float pr = exp2f(x - l2[e >> 1]);
+          ds[e] = pr * (dp[4 * n + e] - dl[e >> 1]);
+        }
+        da[2 * n] = pack_bf16(ds[0], ds[1]);
+        da[2 * n + 1] = pack_bf16(ds[2], ds[3]);
+      }
+
+      // dQ += dS K: A from registers, B (K) MN-major through the transpose
+      // bit, as K2's V.
+      fence_acc(dq);
+      fence_u32(da);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk)
+        WgmmaPV<D>::mma(dq, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
+                        da[4 * kk + 3],
+                        smem_desc(k_s + kk * 16 * C::ROW_BYTES, C::KV_PANEL,
+                                  SBO, C::SWIZZLE));
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_acc(dq);
+    }
+    if (lane == 0) mbar_arrive(empty0 + 8 * stage);  // the stage goes back
+    if (++stage == C::STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  // Epilogue: scale * dQ in bf16, [B, Tq, H, D], clipped at Tq.
+  const long long rs = (long long)p.H * D;
+  const long long at = ((long long)b * p.Tq + q0) * rs + (long long)h * D;
+  bf16* epi = reinterpret_cast<bf16*>(smem + C::EPI) + g * 64 * C::EPI_LD;
+  store_acc_rows<D, C::EPI_LD>(dq, p.scale, epi, 1 + g, p.out + at, rs,
+                               max(0, min(64, p.Tq - q0)));
+}
+
+template <int D>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    dtm_flash_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap domap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const Params p) {
+  using C = DqCfg<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the swizzles need 1 KB
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t qfull = base + C::BARS;
+  const uint32_t full0 = qfull + 8;
+  const uint32_t empty0 = full0 + 8 * C::STAGES;
+
+  const int bh = blockIdx.x;
+  const int I = gridDim.y - 1 - blockIdx.y;  // the heaviest causal tiles first
+  const int b = bh / p.H, h = bh - b * p.H, hk = h / p.group;
+  int jb, je;
+  kv_tile_range<C::BQ, C::BKV>(p, I, jb, je);
+
+  if (threadIdx.x == 0) {
+    mbar_init(qfull, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, WS_EMPTY_ARRIVALS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<WS_PRODUCER_REGS>();
+    if (threadIdx.x == 0)
+      dq_produce<D>(&qmap, &domap, &kmap, &vmap, base, qfull, full0, empty0,
+                    b, h, hk, I * C::BQ, jb, je);
+  } else {
+    setmaxnreg_inc<WS_CONSUMER_REGS>();
+    dq_consume<D>(p, smem, base, qfull, full0, empty0, b, h, bh, I, jb, je);
+  }
 }
 
 // ------------------------------------------------------------- K5 staged dQ
@@ -1351,17 +1417,6 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   }
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, const Params& p,
-                   cudaStream_t stream) {
-  // Above 48 KB a block's shared memory must be asked for explicitly.
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
 // The BTHD tensor [B, T, heads, D] as a 4-D TMA map {D, heads, T, B} with
 // a {D / panels, 1, rows, 1} box: rows of a tile past T read as zeros (a
 // 3-D map over B*T would read the next batch's rows instead).
@@ -1397,7 +1452,7 @@ cudaError_t make_fwd_maps(const Params& p, int B, CUtensorMap (&maps)[3]) {
   return err;
 }
 
-// A warp-specialised kernel (K2, K3, K5's dQ) with its dynamic shared
+// A warp-specialised kernel (K2-K5) with its dynamic shared
 // memory asked for and its launch error returned.
 template <typename Kernel, typename... Args>
 cudaError_t launch_ws(Kernel kernel, unsigned bh, long long tiles, int smem,
@@ -1421,12 +1476,10 @@ cudaError_t launch_fwd(const Params& p, int B, cudaStream_t stream) {
                    maps[1], maps[2], p);
 }
 
-// K3 and K5's dKV launch: Q and dO in 64-row boxes, K and V in 128-row
-// boxes; a block per (batch*head, 128 keys).
-template <int D, bool STAGE_DS>
-cudaError_t launch_dkv(const Params& p, int B, cudaStream_t stream) {
-  using C = DkvCfg<D>;
-  CUtensorMap maps[4];
+// The backward kernels' four maps: Q and dO in boxes of C::BQ rows, K and
+// V in boxes of C::BKV rows.
+template <int D, typename C>
+cudaError_t make_bwd_maps(const Params& p, int B, CUtensorMap (&maps)[4]) {
   cudaError_t err = make_rows_map(&maps[0], p.q, B, p.Tq, p.H, D, C::BQ);
   if (err == cudaSuccess)
     err = make_rows_map(&maps[1], p.dout, B, p.Tq, p.H, D, C::BQ);
@@ -1434,9 +1487,32 @@ cudaError_t launch_dkv(const Params& p, int B, cudaStream_t stream) {
     err = make_rows_map(&maps[2], p.k, B, p.Tkv, p.Hkv, D, C::BKV);
   if (err == cudaSuccess)
     err = make_rows_map(&maps[3], p.v, B, p.Tkv, p.Hkv, D, C::BKV);
+  return err;
+}
+
+// K3 and K5's dKV launch: Q and dO in 64-row boxes, K and V in 128-row
+// boxes; a block per (batch*head, 128 keys).
+template <int D, bool STAGE_DS>
+cudaError_t launch_dkv(const Params& p, int B, cudaStream_t stream) {
+  using C = DkvCfg<D>;
+  CUtensorMap maps[4];
+  cudaError_t err = make_bwd_maps<D, C>(p, B, maps);
   if (err != cudaSuccess) return err;
   return launch_ws(dtm_flash_dkv_kernel<D, STAGE_DS>, (unsigned)(B * p.H),
                    (p.Tkv + C::BKV - 1) / C::BKV, C::SMEM, stream, maps[0],
+                   maps[1], maps[2], maps[3], p);
+}
+
+// K4: Q and dO in 128-row boxes, K and V in BKV-row boxes; a block per
+// (batch*head, 128 query rows).
+template <int D>
+cudaError_t launch_dq(const Params& p, int B, cudaStream_t stream) {
+  using C = DqCfg<D>;
+  CUtensorMap maps[4];
+  cudaError_t err = make_bwd_maps<D, C>(p, B, maps);
+  if (err != cudaSuccess) return err;
+  return launch_ws(dtm_flash_dq_kernel<D>, (unsigned)(B * p.H),
+                   (p.Tq + C::BQ - 1) / C::BQ, C::SMEM, stream, maps[0],
                    maps[1], maps[2], maps[3], p);
 }
 
@@ -1484,14 +1560,12 @@ cudaError_t dispatch(Which which, const Params& p, int B, cudaStream_t s) {
       return launch_dkv<D, false>(p, B, s);
     case DKV_STAGED:
       return launch_dkv<D, true>(p, B, s);
+    case DQ:
+      return launch_dq<D>(p, B, s);
     case DQ_STAGED:
       return launch_dq_staged<D>(p, B, s);
-    default:
-      return launch(dtm_flash_dq_kernel<D>, bwd_smem_bytes<D>(),
-                    dim3((unsigned)((p.Tq + BQ - 1) / BQ),
-                         (unsigned)(B * p.H)),
-                    p, s);
   }
+  return cudaErrorInvalidValue;
 }
 
 int run(Which which, Params& p, int B, int Tq, int Tkv, int H, int Hkv, int D,

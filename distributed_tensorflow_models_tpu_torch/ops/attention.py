@@ -25,10 +25,13 @@ kernels choose their own tiles for the card: K2 128 query rows x 128 keys
 (its loop over KV tiles is :func:`_kv_tile_range`); K3 and K5's dKV launch
 128 keys x 64 query rows (its loop over query tiles is
 :func:`_q_tile_range`); K5's dQ launch 128 x 128, skipping each 64-row half
-whose 64 x 128 tile the dKV launch skipped; K4 64 x 64.  The tile changes
-which fully-masked tiles are visited, and so only the values of rows with
-no valid key at all, which are documented garbage in both packages
-(:func:`_check_window`).
+whose 64 x 128 tile the dKV launch skipped; K4 128 query rows x 128 keys
+(64 keys at head dim 128), skipping each 64-row half's tiles that no pair
+of the mask reaches.  K4 forms dS as K3 does and sums dS K in the order of
+K5's dQ launch, so the pair and staged backwards give the same dQ.  The
+tile changes which fully-masked tiles are visited, and so only the values
+of rows with no valid key at all, which are documented garbage in both
+packages (:func:`_check_window`).
 """
 
 from __future__ import annotations

@@ -729,6 +729,42 @@ K3_CASES = [
 ]
 
 
+def _bwd_inputs(case, seed):
+    """numpy-seeded inputs of a backward case: the f32 arrays ``(q, k, v,
+    do)``, the plain K2's bf16 ``args`` (q, k, v, dO, lse, delta) and the
+    keyword arguments."""
+    B, Tq, Tkv, H, Hkv, D, causal, window, qo, ko, _ = case
+    rng = np.random.RandomState(seed)
+    q, do = (rng.randn(B, Tq, H, D).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(B, Tkv, Hkv, D).astype(np.float32) for _ in range(2))
+    tq, tk, tv, tdo = (torch.tensor(x).bfloat16() for x in (q, k, v, do))
+    kw = dict(scale=D ** -0.5, causal=causal, window=window, q_offset=qo,
+              kv_offset=ko)
+    out, lse = tattn._flash_forward_reference(tq, tk, tv, **kw)
+    delta = (tdo.float() * out.float()).sum(-1).transpose(1, 2)
+    return (q, k, v, do), (tq, tk, tv, tdo, lse, delta), kw
+
+
+def _jax_chunk_grads(case, q, k, v, do):
+    """``(dq, dk, dv)`` of the JAX package's flash_attention_chunk backward
+    in interpret mode (the LSE cotangent 0) on bf16 inputs, as f32 torch
+    tensors."""
+    _, _, _, _, _, D, causal, window, qo, ko, jblock = case
+    jq, jk, jv, jdo = (jnp.asarray(x, dtype=jnp.bfloat16)
+                       for x in (q, k, v, do))
+
+    @jax.jit
+    def jgrads(q, k, v, do):
+        fn = lambda q, k, v: jattn.flash_attention_chunk(  # noqa: E731
+            q, k, v, qo, ko, causal, D ** -0.5, jblock, jblock, True,
+            window)
+        (_, jlse), vjp = jax.vjp(fn, q, k, v)
+        return vjp((do, jnp.zeros_like(jlse)))
+
+    return tuple(torch.tensor(np.asarray(w.astype(jnp.float32)))
+                 for w in jgrads(jq, jk, jv, jdo))
+
+
 @pytest.mark.parametrize("case", K3_CASES,
                          ids=lambda c: "-".join(map(str, c[:10])))
 def test_k3_k5_arithmetic_matches_plain_and_jax_interpret(case):
@@ -739,15 +775,8 @@ def test_k3_k5_arithmetic_matches_plain_and_jax_interpret(case):
     agree with the JAX package's flash_attention_chunk backward in
     interpret mode, all in bf16, under chip_smoke.py's tolerances."""
     B, Tq, Tkv, H, Hkv, D, causal, window, qo, ko, jblock = case
-    rng = np.random.RandomState(22)
-    q, do = (rng.randn(B, Tq, H, D).astype(np.float32) for _ in range(2))
-    k, v = (rng.randn(B, Tkv, Hkv, D).astype(np.float32) for _ in range(2))
-    tq, tk, tv, tdo = (torch.tensor(x).bfloat16() for x in (q, k, v, do))
-    kw = dict(scale=D ** -0.5, causal=causal, window=window, q_offset=qo,
-              kv_offset=ko)
-    out, lse = tattn._flash_forward_reference(tq, tk, tv, **kw)
-    delta = (tdo.float() * out.float()).sum(-1).transpose(1, 2)
-    args = (tq, tk, tv, tdo, lse, delta)
+    arrays, args, kw = _bwd_inputs(case, 22)
+    tk = args[1]
     valid = tattn._valid(Tq, Tkv, causal, window, qo, ko, "cpu")
     assert valid is None or bool(valid.any(-1).all())  # every row has a key
     all_rows = torch.ones(Tq, dtype=torch.bool)
@@ -768,18 +797,116 @@ def test_k3_k5_arithmetic_matches_plain_and_jax_interpret(case):
     grp = H // Hkv
     dk_kv, dv_kv = (t.float().view(B, Tkv, Hkv, grp, D).sum(3)
                     for t in (dk, dv))
-    jq, jk, jv, jdo = (jnp.asarray(x, dtype=jnp.bfloat16)
-                       for x in (q, k, v, do))
-
-    @jax.jit
-    def jgrads(q, k, v, do):
-        fn = lambda q, k, v: jattn.flash_attention_chunk(  # noqa: E731
-            q, k, v, qo, ko, causal, D ** -0.5, jblock, jblock, True,
-            window)
-        (_, jlse), vjp = jax.vjp(fn, q, k, v)
-        return vjp((do, jnp.zeros_like(jlse)))
-
     got = (dq, dk_kv, dv_kv)
-    for name, g, w in zip(("dq", "dk", "dv"), got, jgrads(jq, jk, jv, jdo)):
-        w = torch.tensor(np.asarray(w.astype(jnp.float32)))
+    for name, g, w in zip(("dq", "dk", "dv"), got,
+                          _jax_chunk_grads(case, *arrays)):
         _k2_close(g, w, slice(None), f"K3/K5 emulation {name} vs JAX")
+
+
+# ---------------------------------------------------------- K4's arithmetic
+# K4 walks 128-row query blocks, 64 rows a consumer, over the KV tiles of
+# _kv_tile_range: 128 keys, or 64 at D 128.
+K4_BQ = 128
+
+
+def _k4_bkv(D):
+    return 64 if D == 128 else 128
+
+
+def _k4_emulate(q, k, v, do, lse, delta, *, scale, causal, window, q_offset,
+                kv_offset):
+    """K4's arithmetic in torch on BTHD bf16 inputs: 128-row query blocks
+    over the KV tiles of _kv_tile_range in ascending keys, each 64-row half
+    skipping the tiles _block_should_run rejects for it; raw f32 scores
+    S = Q K^T and dP = dO V^T; K3's rounding points with queries as rows:
+    x = S * c with c = scale * log2(e) and l2 = LSE * log2(e), each product
+    rounded to f32; NEG_INF * log2(e) on masked pairs of tiles that are not
+    fully valid, -inf on keys past Tkv, l2 = +inf and delta = 0 on rows
+    past Tq; P = exp2(x - l2), dS = P (dP - delta) rounded to bf16 per
+    tile; dQ += dS K in f32, times scale and in bf16 at the end.  Returns
+    ``dq [B, Tq, H, D]``."""
+    B, Tq, H, D = q.shape
+    Tkv, Hkv = k.shape[1], k.shape[2]
+    grp = H // Hkv
+    bkv = _k4_bkv(D)
+    qf, dof = (t.float().transpose(1, 2) for t in (q, do))  # [B, H, Tq, D]
+    kf, vf = (t.float().transpose(1, 2).repeat_interleave(grp, 1)
+              for t in (k, v))
+    f32 = torch.float32
+    c = torch.tensor(scale, dtype=f32) * torch.tensor(LOG2E, dtype=f32)
+    neg2 = torch.tensor(tattn.NEG_INF, dtype=f32) * torch.tensor(LOG2E,
+                                                                dtype=f32)
+    l2_all = lse.float() * torch.tensor(LOG2E, dtype=f32)
+    dq = torch.zeros(B, H, Tq, D)
+    kw = dict(causal=causal, window=window)
+    for blk in range(-(-Tq // K4_BQ)):
+        lo, hi = tattn._kv_tile_range(blk, Tq, Tkv, K4_BQ, bkv, causal,
+                                      window, q_offset, kv_offset)
+        for i in (2 * blk, 2 * blk + 1):
+            q0 = 64 * i
+            m = min(64, Tq - q0)
+            if m <= 0:
+                continue  # every row past Tq: nothing is stored
+            qt, dot = torch.zeros(B, H, 64, D), torch.zeros(B, H, 64, D)
+            qt[:, :, :m] = qf[:, :, q0:q0 + m]              # TMA's zero rows
+            dot[:, :, :m] = dof[:, :, q0:q0 + m]
+            l2 = torch.full((B, H, 64), float("inf"))
+            dl = torch.zeros(B, H, 64)
+            l2[:, :, :m] = l2_all[:, :, q0:q0 + m]
+            dl[:, :, :m] = delta[:, :, q0:q0 + m]
+            acc = torch.zeros(B, H, 64, D)
+            for j in range(lo, hi):
+                if not tattn._block_should_run(
+                        i, j, q_offset, kv_offset, block_q=64, block_kv=bkv,
+                        **kw):
+                    continue
+                k0 = j * bkv
+                n = min(bkv, Tkv - k0)
+                kt, vt = torch.zeros(B, H, bkv, D), torch.zeros(B, H, bkv, D)
+                kt[:, :, :n] = kf[:, :, k0:k0 + n]
+                vt[:, :, :n] = vf[:, :, k0:k0 + n]
+                x = (qt @ kt.transpose(-1, -2)) * c        # [.., query, key]
+                dpt = dot @ vt.transpose(-1, -2)
+                full = tattn._block_fully_valid(
+                    i, j, q_offset, kv_offset, block_q=64, block_kv=bkv,
+                    **kw)
+                if not full or n < bkv:
+                    keys = torch.arange(bkv)[None, :]
+                    d = (q_offset + q0 + torch.arange(64)[:, None]
+                         - (kv_offset + k0 + keys))
+                    ok = torch.ones_like(d, dtype=torch.bool)
+                    if causal:
+                        ok &= d >= 0
+                    if window is not None:
+                        ok &= d < window
+                    x = torch.where(ok, x, neg2)
+                    x = torch.where(keys < n, x, -float("inf"))
+                p = torch.exp2(x - l2[..., None])
+                ds = p * (dpt - dl[..., None])
+                acc += ds.bfloat16().float() @ kt
+            dq[:, :, q0:q0 + m] = (acc * torch.tensor(scale, dtype=f32))[
+                :, :, :m]
+    return dq.transpose(1, 2).bfloat16()
+
+
+@pytest.mark.parametrize("case", K3_CASES,
+                         ids=lambda c: "-".join(map(str, c[:10])))
+def test_k4_arithmetic_matches_plain_k5_and_jax_interpret(case):
+    """The emulation of K4's tiles and rounding agrees with the plain K4
+    (``_flash_dq_reference``), with the emulation of K5's dQ launch on the
+    emulated K3's dS stage (the pair and staged backwards give the same
+    dQ) and with the JAX package's flash_attention_chunk dq in interpret
+    mode, all in bf16, under chip_smoke.py's tolerances."""
+    B, Tq, Tkv, H, Hkv, D, causal, window, qo, ko, jblock = case
+    arrays, args, kw = _bwd_inputs(case, 23)
+    all_rows = torch.ones(Tq, dtype=torch.bool)
+    dq = _k4_emulate(*args, **kw)
+    _k2_close(dq, tattn._flash_dq_reference(*args, **kw), all_rows,
+              "K4 emulation vs plain K4")
+    stage = _k3_emulate(*args, **kw)[2]
+    _k2_close(dq, _k5_dq_emulate(stage, args[1], **kw), all_rows,
+              "K4 emulation vs K5's dq emulation")
+    if jblock is None:
+        return
+    _k2_close(dq, _jax_chunk_grads(case, *arrays)[0], slice(None),
+              "K4 emulation dq vs JAX")
