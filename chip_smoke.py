@@ -21,6 +21,20 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    beside the bound.
 3. ``conv2d_mxu`` forward and gradients (dx, dw), stride 1 and 2, against
    the ``patches`` lowering in f32 on the card.
+3b. The input pipeline alone (``data/pipeline.py``): ResNet-50 batches at
+   the full batch through ``HostPipeline`` (4 workers) and the CUDA
+   ``DevicePrefetcher`` (page-locked staging, a copy stream), each read
+   back on the card with the consumer's stream kept busy before the read
+   and the batch dropped after it, must equal the host stream byte for
+   byte; then both stages drained without a step for ResNet-50 and
+   Inception-v3 batches at 1 and 4 workers: batches/s, host-to-device
+   GB/s, pinned bytes and the waits.  The ImageNet records path is not
+   driven: it needs PIL and OpenCV, which the card's machine lacks.  With
+   ``--parent-tree DIR`` (another checkout, e.g. the parent commit's from
+   ``git archive``) that tree's ``fit`` and this one's train
+   ``resnet50_synthetic`` (K1) and ``inception_v3_imagenet`` (K6) in turns
+   (parent, this, this, parent), and ``transformer_lm`` (K2-K4) in five
+   such rounds, each run a process of its own.
 4. The ResNet-50 path: the port's CLI trains ``resnet50_synthetic``
    (224x224, batch 256) with ``DTM_CONV_IMPL=mxu``; K1's counter must equal
    its launches per step times the steps (K6's stays 0).  The ``F.conv2d``
@@ -71,8 +85,12 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    The pair backward follows in turns; tokens/s and peak memory of each,
    and a profile of the staged arm.
 
-Every comparison of arms runs them in turns (K1, F.conv2d, K1, F.conv2d
-for ResNet-50; flash, blockwise, flash, blockwise for transformer_lm):
+Every training arm reads its batches through ``fit``'s pipeline
+(``HostPipeline``, one worker, then the CUDA ``DevicePrefetcher``) and
+prints its median and mean wait for input (``data_s``) beside its images/s
+or tokens/s.  Every comparison of arms runs them in turns (K1, F.conv2d,
+K1, F.conv2d for ResNet-50; flash, blockwise, flash, blockwise for
+transformer_lm):
 host noise on a shared machine moves step times between runs.  The last
 lines are the card's name and power limit, a ``{"kernels": ...}`` JSON line (K1
 to K6, K5 as its two launches) and ``{"ok": true, "device": {...}}``.
@@ -134,6 +152,16 @@ STAGED_KERNELS = (
 FLASH_RTOL = 2.0 ** -6
 FLASH_ATOL_OF_SCALE = 1e-2
 LSE_ATOL = 1e-4
+# The input pipeline phase: batches read back and held to their host
+# batches; batches drained per arm after the warm-up ones (enough of those
+# to empty what both stages buffer and hold in flight at 4 workers, about
+# 12 batches, so the timed window is the steady rate); and the spin that
+# keeps the consumer's stream busy before each read (~20 ms at the H100's
+# ~1.7 GHz).
+PIPE_CHECK_BATCHES = 6
+PIPE_WARM_BATCHES = 15
+PIPE_DRAIN_BATCHES = 20
+PIPE_SLEEP_CYCLES = 34_000_000
 # name, B, Tq, Tkv, H, Hkv, D, causal, window, q_offset, kv_offset,
 # LSE cotangent, timed
 FLASH_SHAPES = (
@@ -403,6 +431,161 @@ def phase_grads(seed: int) -> None:
                      f"patches lowering")
 
 
+def phase_pipeline(card: str, batch: int, seed: int) -> dict:
+    """The input pipeline alone: the CUDA prefetcher's batches held to the
+    host stream byte for byte at the full ResNet-50 batch, then both
+    stages drained without a step for ResNet-50 and Inception-v3 batches
+    at 1 and 4 workers."""
+    import numpy as np
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch import telemetry
+    from distributed_tensorflow_models_tpu_torch.data import pipeline as pipelib
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+    from distributed_tensorflow_models_tpu_torch.harness.config import get_config
+
+    def stack(cfg, workers, registry):
+        host = pipelib.HostPipeline(trainlib.build_dataset(cfg), prefetch=4,
+                                    num_workers=workers, registry=registry)
+        return host, pipelib.DevicePrefetcher(host, "cuda", depth=2,
+                                              registry=registry)
+
+    # Byte equality with the consumer's stream kept busy before each read
+    # and each batch dropped right after it: a missing wait_event or
+    # record_stream shows as a batch that differs from the host's.
+    r50 = get_config("resnet50_synthetic", global_batch_size=batch,
+                     seed=seed)
+    host, pf = stack(r50, 4, telemetry.MetricsRegistry())
+    reads = []
+    try:
+        for _ in range(PIPE_CHECK_BATCHES):
+            torch.cuda._sleep(PIPE_SLEEP_CYCLES)
+            got = next(pf)
+            reads.append({k: v * 1 for k, v in got.items()})
+            del got
+    finally:
+        pf.stop()
+        host.stop()
+    torch.cuda.synchronize()
+    ref = iter(trainlib.build_dataset(r50))
+    for i, got in enumerate(reads):
+        want = next(ref)
+        for k, v in want.items():
+            if not np.array_equal(got[k].cpu().numpy(), v):
+                fail(f"prefetched ResNet-50 batch {i} ({k}) differs from "
+                     f"the host stream")
+    shapes = {k: tuple(v.shape) for k, v in reads[0].items()}
+    log(f"pipeline: {len(reads)} ResNet-50 batches {shapes} through "
+        f"HostPipeline(4 workers) and the CUDA DevicePrefetcher equal the "
+        f"host stream byte for byte, the consumer's stream busy before each "
+        f"read and each batch dropped after it")
+    del reads
+
+    arms = []
+    inc = get_config("inception_v3_imagenet", global_batch_size=batch,
+                     seed=seed)
+    for name, cfg in (("ResNet-50", r50), ("Inception-v3", inc)):
+        for workers in (1, 4):
+            reg = telemetry.MetricsRegistry()
+            host, pf = stack(cfg, workers, reg)
+            try:
+                for _ in range(PIPE_WARM_BATCHES):
+                    nbytes = sum(v.nbytes for v in next(pf).values())
+                torch.cuda.synchronize()
+                waits = []
+                t0 = time.perf_counter()
+                for _ in range(PIPE_DRAIN_BATCHES):
+                    t = time.perf_counter()
+                    next(pf)
+                    waits.append(time.perf_counter() - t)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                pinned = pf.pinned_bytes
+            finally:
+                pf.stop()
+                host.stop()
+            snap = reg.snapshot()
+            waits.sort()
+            arm = {
+                "batches": name, "workers": workers, "batch_bytes": nbytes,
+                "batches_per_s": PIPE_DRAIN_BATCHES / wall,
+                "h2d_gb_per_s": PIPE_DRAIN_BATCHES * nbytes / wall / 1e9,
+                "pinned_bytes": pinned,
+                "next_wait_median_ms": 1e3 * waits[len(waits) // 2],
+                "prefetch_fill_p50_ms":
+                    1e3 * snap[f"{telemetry.PREFETCH_FILL}/p50_s"],
+            }
+            arms.append(arm)
+            log(f"pipeline drained, {name} batches ({nbytes / 1e6:.1f} MB), "
+                f"{workers} worker(s): {arm['batches_per_s']:.2f} batches/s, "
+                f"{arm['h2d_gb_per_s']:.2f} GB/s host to device, pinned "
+                f"{pinned / 2**20:.1f} MiB, wait in next() median "
+                f"{arm['next_wait_median_ms']:.2f} ms, fill thread's wait "
+                f"on the host stage p50 {arm['prefetch_fill_p50_ms']:.2f} ms "
+                f"| {card}")
+    log(json.dumps({"pipeline": arms}))
+    return {"arms": arms}
+
+
+# --parent-tree: config, DTM_CONV_MXU_PIPELINE, extra CLI flags, rounds of
+# (parent, this, this, parent).  The LM's host-bound rate spreads by up to a
+# third between runs of one tree, so it takes five rounds (ten pairs).
+TREE_AB_ARMS = (
+    ("resnet50_synthetic", "0", ("--batch-size", "{batch}"), 1),
+    ("inception_v3_imagenet", "1", ("--batch-size", "{batch}"), 1),
+    ("transformer_lm", "0", ("--attn-impl", "flash"), 5),
+)
+
+
+def phase_tree_ab(parent: Path, steps: int, batch: int, card: str) -> None:
+    """``fit`` of another tree (``parent``) and of this one in turns
+    (parent, this, this, parent), each through its CLI in a process of its
+    own, for each arm of ``TREE_AB_ARMS``: the same steps, the CNNs at
+    ``batch``.  Prints each run's end-to-end rate and its median wait for
+    input and step time, and per arm each tree's median rate."""
+    for config, knob, extra, rounds in TREE_AB_ARMS:
+        extra = [a.format(batch=batch) for a in extra]
+        rates = {"parent": [], "this": []}
+        order = (("parent", parent), ("this", ROOT), ("this", ROOT),
+                 ("parent", parent)) * rounds
+        for n, (label, tree) in enumerate(order):
+            workdir = ROOT / "build" / "chip_smoke" / f"ab_{config}_{n}"
+            env = {**os.environ, "PYTHONPATH": str(tree),
+                   "DTM_CONV_IMPL": "mxu", "DTM_CONV_MXU_PIPELINE": knob,
+                   "DTM_FLASH_BWD": "pair"}
+            out = subprocess.run(
+                [sys.executable, "-m",
+                 "distributed_tensorflow_models_tpu_torch.harness.cli",
+                 "train", "--config", config, "--workdir", str(workdir),
+                 "--train-steps", str(steps), "--device", "cuda", *extra],
+                cwd=tree, env=env, capture_output=True, text=True,
+                timeout=900)
+            if out.returncode != 0:
+                fail(f"{label} tree's {config} run exited {out.returncode}: "
+                     f"{out.stderr[-2000:]}")
+            result = json.loads(out.stdout.strip().splitlines()[-1])
+            steady = [json.loads(line) for line in
+                      (workdir / "metrics.jsonl").read_text().splitlines()][1:]
+
+            def median(key):
+                return sorted(r[key] for r in steady)[len(steady) // 2]
+
+            unit = "tokens/s" if result.get("tokens_per_sec") else "images/s"
+            rate = result["tokens_per_sec" if unit == "tokens/s"
+                          else "images_per_sec"]
+            rates[label].append(rate)
+            log(f"trees in turns, {config} ({label}, {tree}): {rate:.1f} "
+                f"{unit} end to end; wait for input (data_s) median "
+                f"{median('data_s') * 1e3:.3f} ms; step_time_s median "
+                f"{median('step_time_s') * 1e3:.3f} ms | {card}")
+        med = {k: sorted(v)[len(v) // 2] for k, v in rates.items()}
+        log(f"trees in turns, {config}: {len(order)} runs, median {unit} "
+            f"parent {med['parent']:.1f}, this {med['this']:.1f}; every run "
+            f"of this above every parent run: "
+            f"{min(rates['this']) > max(rates['parent'])}, below: "
+            f"{max(rates['this']) < min(rates['parent'])} | {card}")
+
+
 def run_cli(config: str, steps: int, batch: int, workdir: Path,
             *extra: str) -> dict:
     """The port's CLI ``train`` in this process; returns its JSON line."""
@@ -429,7 +612,9 @@ def run_cli(config: str, steps: int, batch: int, workdir: Path,
         fail(f"non-finite loss: {losses}")
     result["losses"] = losses
     steady = rows[1:] or rows
-    result["data_s"] = sum(r["data_s"] for r in steady) / len(steady)
+    waits = sorted(r["data_s"] for r in steady)
+    result["data_s"] = sum(waits) / len(waits)
+    result["median_data_s"] = waits[len(waits) // 2]
     times = sorted(r["step_time_s"] for r in steady)
     result["median_step_s"] = times[len(times) // 2]
     result["max_step_s"] = times[-1]
@@ -928,18 +1113,18 @@ def run_lm_arm(config: str, impl: str, steps: int, workdir: Path) -> dict:
 
 
 def log_arm(label: str, r: dict, per_step: int, card: str) -> None:
-    """One arm's end-to-end rate and step times; ``per_step`` is the
-    images (or tokens, for an LM) of one step."""
+    """One arm's end-to-end rate, step times and wait for input; ``per_step``
+    is the images (or tokens, for an LM) of one step."""
     unit = "tokens" if r.get("tokens_per_sec") else "images"
     rate = r["tokens_per_sec"] if unit == "tokens" else r["images_per_sec"]
     log(f"arm {label:>18}: {rate:.1f} {unit}/s end to end (steady wall, "
-        f"host batch assembly included); step median "
-        f"{r['median_step_s'] * 1e3:.3f} ms, mean "
+        f"the wait for input included); wait for input (data_s) median "
+        f"{r['median_data_s'] * 1e3:.3f} ms, mean {r['data_s'] * 1e3:.3f} ms "
+        f"a step; step median {r['median_step_s'] * 1e3:.3f} ms, mean "
         f"{r['steady_step_time_s'] * 1e3:.3f} ms, max "
         f"{r['max_step_s'] * 1e3:.3f} ms "
         f"({per_step / r['steady_step_time_s']:.1f} {unit}/s for the step "
-        f"alone); host batch assembly {r['data_s'] * 1e3:.3f} ms per step, "
-        f"in series | {card}")
+        f"alone) | {card}")
 
 
 def zero_counts(fns) -> None:
@@ -960,6 +1145,13 @@ def main(argv=None) -> int:
                         "also runs its flash kernels, K5 dQ's differences "
                         "from its K4 and its K2-K5 replayed in turns with "
                         "this tree's")
+    parser.add_argument("--parent-tree", type=Path, default=None,
+                        help="another checkout of the repository (say the "
+                        "parent commit's, unpacked by git archive): phase 3b "
+                        "also trains resnet50_synthetic, "
+                        "inception_v3_imagenet and transformer_lm through "
+                        "its CLI and this tree's in turns, each in a "
+                        "process of its own")
     parser.add_argument("--flash-only", action="store_true",
                         help="phases 1 and 8 alone, for work on K2-K5: no "
                         "main path and no result line")
@@ -1056,6 +1248,13 @@ def main(argv=None) -> int:
 
     # 3. Gradients through conv2d_mxu.
     phase_grads(args.seed + 1)
+
+    # 3b. The input pipeline alone; with --parent-tree, fit of both trees
+    # in turns.
+    phase_pipeline(card, args.batch_size, args.seed)
+    if args.parent_tree is not None:
+        phase_tree_ab(args.parent_tree.resolve(), steps, args.batch_size,
+                      card)
 
     # 4. The ResNet-50 path, K1's counter zeroed just before it.
     if convlib.get_default_conv_impl() != "mxu":

@@ -8,7 +8,7 @@ Flags are spelled as in the JAX package's CLI.  ``--device`` defaults to
 ``cuda``; the run raises when no GPU is found unless ``--device cpu`` is
 given.  ``train`` prints one JSON object with the final metrics, the
 steady-state step time and the end-to-end images/s and, for an LM, tokens/s
-(host batch assembly included).  ``--attn-impl`` picks the attention of
+(the wait for input included).  ``--attn-impl`` picks the attention of
 attention models: ``flash`` runs kernels K2-K4 on the card (K2 and K5
 with ``DTM_FLASH_BWD=staged``).
 """
@@ -38,6 +38,11 @@ def main(argv: list[str] | None = None) -> int:
                          choices=("auto", "reference", "blockwise", "flash"),
                          default=None,
                          help="attention implementation (auto = blockwise)")
+    p_train.add_argument("--data-workers", type=int, default=None,
+                         help="host input pipeline: worker threads "
+                         "assembling batches behind ordered reassembly (1 = "
+                         "one producer thread); the batch stream is the "
+                         "same for any value")
     p_train.add_argument("--device", default="cuda",
                          help="torch device (default cuda; cpu must be "
                          "asked for)")
@@ -63,6 +68,8 @@ def main(argv: list[str] | None = None) -> int:
         overrides["seed"] = args.seed
     if args.attn_impl is not None:
         overrides["attn_impl"] = args.attn_impl
+    if args.data_workers is not None:
+        overrides["data_workers"] = args.data_workers
     cfg = get_config(args.config, **overrides)
 
     from distributed_tensorflow_models_tpu_torch.harness import train as trainlib

@@ -64,7 +64,8 @@ class ExperimentConfig:
     model: str
     task: str = "classification"  # classification | lm
     model_kwargs: dict[str, Any] = dataclasses.field(default_factory=dict)
-    dataset: str = "imagenet_synthetic"  # imagenet_synthetic | imagenet | ptb
+    # imagenet_synthetic | imagenet | ptb | mnist | cifar10
+    dataset: str = "imagenet_synthetic"
     image_size: int = 224
     global_batch_size: int = 256
     optimizer: OptimizerConfig = dataclasses.field(
@@ -82,6 +83,10 @@ class ExperimentConfig:
     train_steps: int = 1000
     log_every_steps: int = 100
     seed: int = 0
+    # Host input pipeline: worker threads assembling batches behind
+    # ordered reassembly (1 = one producer thread).  The batch stream is
+    # the same for any value.
+    data_workers: int = 1
     # Attention for attention models: auto (= blockwise) | reference |
     # blockwise | flash (kernels K2-K4 on the card; K2 and K5 with
     # DTM_FLASH_BWD=staged).

@@ -4,14 +4,16 @@ N steps.
 PyTorch counterpart of the training path of
 ``distributed_tensorflow_models_tpu/harness/train.py`` on one device, for
 classification (``task="classification"``) and language models
-(``task="lm"``).  Checkpointing, resilience and telemetry are not ported
-yet; ``fit`` runs ``cfg.train_steps`` steps and reports per-step metrics,
-step time and images/s or tokens/s.
+(``task="lm"``).  Batches reach the step through the input pipeline
+(``data/pipeline.py``).  Checkpointing, resilience and the telemetry
+reports are not ported yet; ``fit`` runs ``cfg.train_steps`` steps and
+reports per-step metrics, step time and images/s or tokens/s.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
 import logging
 import os
@@ -20,9 +22,11 @@ from typing import Optional
 
 import torch
 
+from distributed_tensorflow_models_tpu_torch import telemetry
 from distributed_tensorflow_models_tpu_torch.core import train_loop
 from distributed_tensorflow_models_tpu_torch.core.train_state import TrainState
 from distributed_tensorflow_models_tpu_torch.data import datasets as datalib
+from distributed_tensorflow_models_tpu_torch.data import pipeline as pipelib
 from distributed_tensorflow_models_tpu_torch.harness.config import ExperimentConfig
 from distributed_tensorflow_models_tpu_torch.models import get_model
 
@@ -41,21 +45,37 @@ def resolve_device(device: Optional[str | torch.device] = None) -> torch.device:
     return dev
 
 
-def build_dataset(cfg: ExperimentConfig) -> datalib.ArrayDataset:
+def build_dataset(cfg: ExperimentConfig, split: str = "train"):
+    """The config's dataset, as the JAX package's ``build_dataset`` builds
+    it for process 0 of 1: MNIST and CIFAR-10 (their loaders' synthetic
+    sets where ``DATA_DIR`` holds no files), synthetic ImageNet, ImageNet
+    from the TFRecord shards ``DATA_DIR/imagenet/train-*`` (``validation-*``
+    for another split; the synthetic set only where no shard matches), and
+    PTB."""
+    if cfg.dataset == "mnist":
+        return datalib.mnist_dataset(cfg.global_batch_size, split, cfg.seed)
+    if cfg.dataset == "cifar10":
+        return datalib.cifar10_dataset(cfg.global_batch_size, split, cfg.seed)
     if cfg.dataset == "imagenet_synthetic":
         return datalib.synthetic_imagenet_dataset(
             cfg.global_batch_size, cfg.image_size, cfg.seed)
     if cfg.dataset == "imagenet":
-        # ImageNet TFRecords are not ported yet: the JAX driver's own
-        # no-shards fallback is the synthetic set of the same shapes.
-        log.warning("ImageNet records are not read by the port; using "
-                    "synthetic data")
-        return datalib.synthetic_imagenet_dataset(
-            cfg.global_batch_size, cfg.image_size, cfg.seed)
+        pattern = os.path.join(
+            datalib.DATA_DIR, "imagenet",
+            "train-*" if split == "train" else "validation-*")
+        paths = sorted(glob.glob(pattern))
+        if not paths:
+            log.warning("no ImageNet shards under %s; using synthetic data",
+                        pattern)
+            return datalib.synthetic_imagenet_dataset(
+                cfg.global_batch_size, cfg.image_size, cfg.seed)
+        return datalib.ImageNetTFRecordDataset(
+            paths, cfg.global_batch_size, train=split == "train",
+            image_size=cfg.image_size, seed=cfg.seed, label_offset=1)
     if cfg.dataset == "ptb":
         return datalib.ptb_dataset(cfg.global_batch_size, cfg.num_steps,
-                                   "train", cfg.vocab_size)
-    raise ValueError(f"dataset {cfg.dataset!r} is not ported yet")
+                                   split, cfg.vocab_size)
+    raise ValueError(f"unknown dataset {cfg.dataset!r}")
 
 
 def _model_kwargs(cfg: ExperimentConfig) -> dict:
@@ -109,8 +129,8 @@ class FitResult:
 
     @property
     def steady_step_time_s(self) -> Optional[float]:
-        """Mean device step time (batch copy in, metrics back) over the
-        steady window; host batch assembly is not in it."""
+        """Mean step time (batch handed over to metrics back) over the
+        steady window; the wait for input is not in it."""
         times = [row["step_time_s"] for row in self.history[1:]]
         return sum(times) / len(times) if times else None
 
@@ -124,7 +144,7 @@ class FitResult:
     def images_per_sec(self) -> Optional[float]:
         """End-to-end throughput: the steady window's examples (images, or
         sequences of an LM) over its wall time, from the end of the first
-        step to the end of the last, host batch assembly included."""
+        step to the end of the last, the wait for input included."""
         return self._steady_rate("batch_size")
 
     @property
@@ -136,56 +156,82 @@ class FitResult:
         return self._steady_rate("tokens")
 
 
-def _to_device(batch: dict, device: torch.device) -> dict:
-    return {k: torch.from_numpy(v).to(device, non_blocking=True)
-            for k, v in batch.items()}
+def _close_quietly(prefetcher, host) -> None:
+    """Stop the prefetcher, then the host pipeline it pulls from, so no
+    thread is left blocked on a full buffer.  Either may be None (the
+    build failed before it); a stop that raises (a pending producer error)
+    is logged, not raised, as the JAX package's teardown does."""
+    try:
+        if prefetcher is not None:
+            prefetcher.stop()
+    except Exception:
+        log.exception("device prefetcher stop failed")
+    finally:
+        try:
+            if host is not None:
+                host.stop()
+        except Exception:
+            log.exception("host pipeline stop failed")
 
 
 def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
         device: Optional[str | torch.device] = None) -> FitResult:
     """Train ``cfg.train_steps`` steps from a fresh state.
 
-    Each row of the history holds the step's metrics, the host's batch
-    assembly time (``data_s``), the step time (``step_time_s``: from the
-    batch's host-to-device copy to the metrics read back, which waits for
-    the device) and the time since the loop started at the step's end
-    (``end_s``).  Batches are assembled in series with the steps.  With a
-    ``workdir`` the rows also go to ``<workdir>/metrics.jsonl``."""
+    Batches come through the stack the JAX package's ``fit`` builds:
+    :class:`HostPipeline` (``prefetch=4``, ``max(1, cfg.data_workers)``
+    workers) assembles them on host threads, then :class:`DevicePrefetcher`
+    (``depth=2``) stages them in page-locked memory and copies them to the
+    device on a stream of its own, while earlier steps run.
+
+    Each row of the history holds the step's metrics, ``data_s`` (the time
+    blocked in ``next`` on the prefetcher: the wait for input left on the
+    step's path), ``step_time_s`` (from the batch handed over to the
+    metrics read back, which waits for the device) and ``end_s`` (the time
+    since the loop started at the step's end).  With a ``workdir`` the rows
+    also go to ``<workdir>/metrics.jsonl``.  Both pipeline stages are
+    stopped on the way out, however the loop ends."""
     dev = resolve_device(device)
     state = build_state(cfg, dev)
     step_fn = build_step(cfg, state)
-    batches = iter(build_dataset(cfg))
+    dataset = build_dataset(cfg)
+    registry = telemetry.MetricsRegistry()
     history: list[dict] = []
-    out = None
-    if workdir:
-        os.makedirs(workdir, exist_ok=True)
-        out = open(os.path.join(workdir, "metrics.jsonl"), "w")
+    out = host = batches = None
     try:
+        if workdir:
+            os.makedirs(workdir, exist_ok=True)
+            out = open(os.path.join(workdir, "metrics.jsonl"), "w")
+        host = pipelib.HostPipeline(
+            dataset, prefetch=4, num_workers=max(1, int(cfg.data_workers)),
+            registry=registry)
+        batches = pipelib.DevicePrefetcher(host, dev, depth=2,
+                                           registry=registry)
         start = time.perf_counter()
         for _ in range(cfg.train_steps):
             t0 = time.perf_counter()
-            host_batch = next(batches)
+            batch = next(batches)
             t1 = time.perf_counter()
-            batch = _to_device(host_batch, dev)
             state, metrics = step_fn(state, batch, cfg.seed)
             row = {k: float(v) for k, v in metrics.items()}
             t2 = time.perf_counter()
             if cfg.task == "lm":
-                shape = host_batch["inputs"].shape
+                shape = batch["inputs"].shape
                 row.update(batch_size=int(shape[0]),
                            tokens=int(shape[0] * shape[1]))
             else:
-                row.update(batch_size=int(host_batch["label"].shape[0]))
+                row.update(batch_size=int(batch["label"].shape[0]))
             row.update(step=state.step, data_s=t1 - t0, step_time_s=t2 - t1,
                        end_s=t2 - start)
             history.append(row)
             if out is not None:
                 out.write(json.dumps(row) + "\n")
             if state.step % cfg.log_every_steps == 0 or state.step == 1:
-                log.info("step %d loss %.4f, batch %.1f ms + step %.1f ms",
-                         state.step, row["loss"], 1e3 * row["data_s"],
-                         1e3 * row["step_time_s"])
+                log.info("step %d loss %.4f, wait for input %.1f ms + step "
+                         "%.1f ms", state.step, row["loss"],
+                         1e3 * row["data_s"], 1e3 * row["step_time_s"])
     finally:
+        _close_quietly(batches, host)
         if out is not None:
             out.close()
     final = history[-1] if history else {}

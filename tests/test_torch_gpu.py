@@ -1,4 +1,6 @@
-"""Tests of the port that need the card: K1-K6 have no CPU mode.
+"""Tests of the port that need the card: K1-K6 have no CPU mode, and the
+input pipeline's CUDA copy path (page-locked staging, the copy stream, the
+consumer's ``wait_event`` and ``record_stream``) shows only there.
 
 Every test here carries the ``gpu`` marker and skips where
 ``torch.cuda.is_available()`` is false.  This file imports no jax, so it
@@ -33,6 +35,7 @@ same dQ).
 """
 
 import math
+import threading
 
 import numpy as np
 import pytest
@@ -40,6 +43,7 @@ import torch
 
 from distributed_tensorflow_models_tpu_torch.core import train_loop
 from distributed_tensorflow_models_tpu_torch.core.train_state import TrainState
+from distributed_tensorflow_models_tpu_torch.data import pipeline as pipelib
 from distributed_tensorflow_models_tpu_torch.models.inception_v3 import InceptionV3
 from distributed_tensorflow_models_tpu_torch.models.resnet import ResNet
 from distributed_tensorflow_models_tpu_torch.models.transformer_lm import TransformerLM
@@ -614,3 +618,106 @@ def test_conv2d_mxu_forward_and_dx_copy_no_activation(cuda, strides,
     want_dx = dxp[:, ph[0]:ph[0] + 13, pw[0]:pw[0] + 12]
     assert torch.equal(y.detach(), want_y)
     assert torch.equal(xb.grad, want_dx)
+
+
+# --- The input pipeline's CUDA path -----------------------------------------
+# DevicePrefetcher stages each host batch in page-locked memory and copies
+# it on a stream of its own; the consumer's stream waits on the copy's event
+# and records the batch's tensors.  These checks read every batch back and
+# hold it to its host batch exactly.
+
+# ~10 ms of spinning on an H100 (about 1.7e9 cycles a second).
+_SLEEP_CYCLES = 17_000_000
+
+
+class _HostBatches:
+    """``n`` distinct host batches (4 MiB of f32 and a label vector), each
+    released to the prefetcher's fill thread only when ``gate`` is given a
+    permit (with ``gated``), so a test can queue work on the copy stream
+    ahead of that batch's copy."""
+
+    def __init__(self, n, gated=False):
+        rng = np.random.default_rng(0)
+        self.batches = [{"x": rng.standard_normal((64, 128, 128),
+                                                  dtype=np.float32),
+                         "y": np.full((64,), i, np.int32)} for i in range(n)]
+        self.gate = threading.Semaphore(0) if gated else None
+        self.i = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self.i == len(self.batches):
+            raise StopIteration
+        if self.gate is not None:
+            self.gate.acquire()
+        self.i += 1
+        return self.batches[self.i - 1]
+
+    def get_state(self):
+        return {"i": self.i}
+
+
+@pytest.mark.parametrize("delay", ["compute_stream", "copy_stream"])
+def test_device_prefetcher_batches_equal_host_batches(cuda, delay):
+    """20 batches, each read back on the device right after it is handed
+    over and dropped at once, equal their host batches.  ``compute_stream``
+    keeps the consumer's stream busy before each read: without
+    ``record_stream`` the allocator would hand a dropped batch's memory to
+    a later copy before the delayed read ran.  ``copy_stream`` holds the
+    copy stream before each batch's copy is issued: without ``wait_event``
+    the read would run before the copy landed."""
+    src = _HostBatches(20, gated=delay == "copy_stream")
+    pf = pipelib.DevicePrefetcher(src, cuda, depth=2)
+    reads, states = [], []
+    try:
+        for _ in range(20):
+            if delay == "copy_stream":
+                with torch.cuda.stream(pf._copy_stream):
+                    torch.cuda._sleep(_SLEEP_CYCLES)
+                src.gate.release()
+            else:
+                torch.cuda._sleep(_SLEEP_CYCLES)
+            batch = next(pf)
+            reads.append({k: v * 1 for k, v in batch.items()})
+            states.append(pf.get_state())
+            del batch
+        with pytest.raises(StopIteration):
+            next(pf)
+    finally:
+        pf.stop()
+    torch.cuda.synchronize()
+    assert states == [{"i": i + 1} for i in range(20)]
+    assert pf.pinned_bytes == 3 * (64 * 128 * 128 * 4 + 64 * 4)
+    for i, (got, want) in enumerate(zip(reads, src.batches)):
+        for k in want:
+            assert got[k].device.type == "cuda"
+            np.testing.assert_array_equal(got[k].cpu().numpy(), want[k],
+                                          err_msg=f"batch {i} {k}")
+
+
+def test_fit_on_card_same_losses_at_1_and_3_workers(cuda):
+    """fit on the card through both pipeline stages: the same losses with
+    one producer thread and with three workers (cuDNN held to its
+    deterministic algorithms for the comparison)."""
+    from distributed_tensorflow_models_tpu_torch.harness import config
+    from distributed_tensorflow_models_tpu_torch.harness import train
+
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        losses = {}
+        for workers in (1, 3):
+            cfg = config.get_config("resnet50_synthetic_tiny", train_steps=4,
+                                    data_workers=workers)
+            result = train.fit(cfg, device="cuda")
+            assert result.device.startswith("cuda")
+            losses[workers] = [row["loss"] for row in result.history]
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+    assert all(math.isfinite(v) for v in losses[1])
+    assert losses[1] == losses[3]

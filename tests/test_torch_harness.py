@@ -1,7 +1,8 @@
 """The port's isolation from JAX, its entry points and its device rule.
 
 - No file of the port, and not ``chip_smoke.py``, imports jax, flax,
-  optax, orbax or the JAX package (an AST walk, so nothing is imported).
+  optax, orbax or the JAX package (an AST walk, so nothing is imported),
+  nor PIL or OpenCV when it loads.
 - Importing the port's CLI leaves ``jax`` out of ``sys.modules``.
 - The CLI trains a tiny config on the CPU when asked for it.
 - An entry point given no device raises where there is no CUDA device; it
@@ -65,8 +66,8 @@ def test_port_imports_nothing_of_jax(path):
 
 
 def test_guard_walks_every_module_of_the_port():
-    """The walk covers each module of the port, those of the LM slice
-    included; what else the package holds is CUDA source and its shared
+    """The walk covers each module of the port, those of the LM slice and
+    the input pipeline included; what else the package holds is CUDA source and its shared
     header under csrc/, which import nothing of Python."""
     walked = {p.relative_to(PORT).as_posix() for p in _port_files()
               if PORT in p.parents}
@@ -75,11 +76,30 @@ def test_guard_walks_every_module_of_the_port():
             "core/train_loop.py", "data/datasets.py",
             "harness/cli.py", "ops/ema.py", "ops/rotary.py",
             "ops/dropout.py", "models/inception_v3.py",
-            "core/train_state.py"} <= walked
+            "core/train_state.py", "data/__init__.py", "data/augment.py",
+            "data/example_proto.py", "data/native_loader.py",
+            "data/pipeline.py", "data/resplit.py", "data/tfrecord.py",
+            "telemetry/__init__.py", "telemetry/registry.py",
+            "telemetry/trace.py"} <= walked
     others = [p.relative_to(PORT).as_posix() for p in PORT.rglob("*")
               if p.is_file() and p.suffix not in (".py", ".pyc")]
     assert sorted(others) == ["csrc/conv_implicit_gemm.cu",
                               "csrc/flash_attention.cu", "csrc/hopper.cuh"]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_image_library_at_module_level(path):
+    """PIL and OpenCV are imported inside the functions that decode and
+    resize (the card's machine has neither), never when a module loads."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    top = set()
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            top.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            top.add(node.module.split(".")[0])
+    assert not top & {"PIL", "cv2"}, sorted(top & {"PIL", "cv2"})
 
 
 def test_ast_walk_catches_a_jax_import(tmp_path):
