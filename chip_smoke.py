@@ -72,7 +72,10 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    tree's ``csrc/``, e.g. the parent commit's from ``git archive``) that
    tree's K2-K5 are built too, its K5 dQ is counted against its K4, and
    its kernels are replayed in turns with this tree's (parent, this,
-   this, parent).  ``--flash-only`` runs phases 1 and 8 alone.
+   this, parent).  ``--flash-only`` runs phases 1 and 8 alone.  With
+   ``--parent-csrc`` that tree's bf16 K1 also runs after phase 1, in turns
+   with this tree's at every ResNet-50 launch shape, and must give the
+   same bits.
 9. The transformer_lm path: the CLI trains ``transformer_lm`` (4 layers, 8
    heads, d_model 256, sequence 256, batch 16) with ``--attn-impl
    flash``; K2, K3 and K4 must each launch 4 layers x steps times.  The
@@ -84,6 +87,32 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    K2 and both K5 launches must each equal layers x steps, K3 and K4 0.
    The pair backward follows in turns; tokens/s and peak memory of each,
    and a profile of the staged arm.
+11. K1 and K6 at every launch shape of the new conv paths, traced on the
+   meta device as for phases 2 and 6: ``resnet32_cifar10`` at batch 128 in
+   f32 (the kernels' f32 form: TF32 products, held elementwise to
+   ``conv_mxu.tf32_error_bound`` and, against the plain version on
+   tf32-cut operands, to ``conv_mxu.tf32_order_bound``, which a cast to
+   bf16 would break; ``F.conv2d`` timed with cuDNN's TF32 on,
+   and off beside it), VGG-16 at 224x224 and batch 64 and AlexNet at
+   224x224 and batch 128 in bf16 (its 5x5 ``conv2`` and dx included); K6
+   equal to K1 bit for bit in both dtypes; each shape's N tile, time,
+   bound (the dense TF32 or bf16 peak, or the bytes) and cuDNN time.
+12. The new conv paths through ``fit``, each K1 arm (``DTM_CONV_IMPL=mxu``)
+   in turns with an ``F.conv2d`` arm: ``resnet32_cifar10`` (batch 128,
+   f32; also a K6 arm) and ``lenet_mnist`` (batch 64; its convs route to
+   patches, so no kernel launches) through the CLI, VGG-16 and AlexNet in
+   process on ``resnet50_synthetic`` with the JAX bench's settings (batch
+   64 and 128, L2 5e-4, TF momentum at 0.1 x batch / 256; four input
+   workers, since the bench feeds stacked device batches).  K1's counter
+   must equal its traced launches a step times the steps (all f32 for
+   ResNet-32), K6's stays 0 unless the knob picks it; images/s, the wait
+   for input, step times, peak memory and losses of each arm; a profile of
+   each K1 arm.
+13. ``ptb_medium`` at full width (hidden 650, batch 20, 35 steps of
+   unroll, vocab 10000, dropout 0.5) through the CLI: tokens/s, the wait
+   for input, step times, peak memory, losses finite and falling; then
+   two steps of ``fit``, whose carry must reach step 2 as the model's
+   zero carry threaded on, ``[20, 650]`` per layer, f32, detached.
 
 Every training arm reads its batches through ``fit``'s pipeline
 (``HostPipeline``, one worker, then the CUDA ``DevicePrefetcher``) and
@@ -93,7 +122,9 @@ K1, F.conv2d for ResNet-50; flash, blockwise, flash, blockwise for
 transformer_lm):
 host noise on a shared machine moves step times between runs.  The last
 lines are the card's name and power limit, a ``{"kernels": ...}`` JSON line (K1
-to K6, K5 as its two launches) and ``{"ok": true, "device": {...}}``.
+to K6, K5 as its two launches, K1's and K6's f32 forms as entries of their
+own) and ``{"ok": true, "device": {...}}``.  ``--zoo-only`` runs phases 1
+and 11-13 alone.
 """
 
 from __future__ import annotations
@@ -114,8 +145,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM published peaks (dense bf16 tensor cores, HBM3).
+# H100 SXM published peaks (dense bf16 and TF32 tensor cores, HBM3).
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 # K1 writes bf16: its output rounding is at most half an ulp, 2^-8 of the
 # value; the f32 sums run in another order than the plain version's.
@@ -211,6 +243,7 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def core_launch_shapes(model_name: str, image_size: int, batch: int,
+                       channels: int = 3,
                        **model_kw) -> list[tuple[str, tuple, tuple]]:
     """``(role, xpad shape, kernel shape)`` of every launch of the conv
     core (K1, or K6 with ``DTM_CONV_MXU_PIPELINE=1``) in one training step
@@ -239,7 +272,7 @@ def core_launch_shapes(model_name: str, image_size: int, batch: int,
     try:
         with torch.device("meta"):
             model = get_model(model_name, conv_impl="mxu", **model_kw)
-            out = model(torch.empty(batch, image_size, image_size, 3),
+            out = model(torch.empty(batch, image_size, image_size, channels),
                         train=True)
         role[0] = "dx"
         outs = out if isinstance(out, tuple) else (out,)
@@ -271,30 +304,54 @@ def ptxas_summary(log: str) -> list[str]:
     return out
 
 
-def bound_ms(xshape, kshape) -> tuple[float, str]:
-    """Least time the card needs for one K1 call: FLOPs over the bf16
-    peak or bytes (inputs read once, output written once) over the memory
-    rate, whichever is larger."""
+def k1_work(xshape, kshape, f32: bool = False) -> tuple[float, float]:
+    """FLOPs and bytes (inputs read once, output written once) of one K1
+    call, at 2 bytes an element (bf16) or 4 (f32)."""
     b, hp, wp, cin = xshape
     kh, kw, _, cout = kshape
     m = b * (hp - kh + 1) * (wp - kw + 1)
     flops = 2.0 * m * kh * kw * cin * cout
-    nbytes = 2.0 * (b * hp * wp * cin + kh * kw * cin * cout + m * cout)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    nbytes = (4.0 if f32 else 2.0) * (b * hp * wp * cin + kh * kw * cin * cout
+                                      + m * cout)
+    return flops, nbytes
+
+
+def bound_of(flops: float, nbytes: float, f32: bool = False
+             ) -> tuple[float, str]:
+    """Least time the card needs for that work, in ms: FLOPs over the
+    dense bf16 (or, for f32 operands, TF32) peak or bytes over the memory
+    rate, whichever is larger, and which of the two it is."""
+    t_ops = flops / (PEAK_TF32_FLOPS if f32 else PEAK_BF16_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
-def phase_k1(calls, seed: int) -> dict:
+def bound_ms(xshape, kshape, f32: bool = False) -> tuple[float, str]:
+    """The bound of one K1 call (``bound_of`` its ``k1_work``)."""
+    return bound_of(*k1_work(xshape, kshape, f32), f32)
+
+
+def phase_k1(calls, seed: int, f32: bool = False,
+             replay: bool = False) -> dict:
     """K1 against its plain version at each distinct launch shape, and K6,
-    which must equal K1 bit for bit, timed beside it.  Per-step totals
-    weight each shape by its launches per step."""
+    which must equal K1 bit for bit, timed beside it, in bf16 or (``f32``)
+    in the kernels' f32 form.  Per-step totals weight each shape by its
+    launches per step.  In f32 the checks are ``conv_mxu.tf32_error_bound``
+    elementwise and, against the plain version on tf32-cut operands,
+    ``conv_mxu.tf32_order_bound`` (printed as ``order_err``, the largest
+    error in units of K 2^-24 sum|x~||w~|; the bound is 2), and ``F.conv2d``'s f32 time is taken with cuDNN's TF32 on
+    (the kernel's precision) and, printed beside it, off.  K1, K6 and
+    ``F.conv2d`` are timed with CUDA events over back-to-back calls or,
+    with ``replay`` (shapes small enough that a call from Python costs
+    more than the kernel), by CUDA-graph replay (``graph_ms``)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from distributed_tensorflow_models_tpu_torch.ops import conv_mxu
 
+    dtype = torch.float32 if f32 else torch.bfloat16
     per_shape = collections.OrderedDict()
     for role, xs, ks in calls:
         per_shape.setdefault((xs, ks), collections.Counter())[role] += 1
@@ -304,26 +361,55 @@ def phase_k1(calls, seed: int) -> dict:
     log(f"{'xpad':>22} {'kernel':>18} {'per step':>12} {'tile':>8} "
         f"{'k1_ms':>9} {'k6_ms':>9} "
         f"{'plain_ms':>9} {'cudnn_ms':>9} {'bound_ms':>9} {'bound_by':>10} "
-        f"{'TFLOP/s':>8} {'max_abs':>9} {'max_rel':>9}")
+        f"{'TFLOP/s':>8} {'max_abs':>9} {'max_rel':>9}"
+        + (f" {'cudnn_fp32':>10} {'order_err':>9}" if f32 else "")
+        + f"   ({'f32, TF32 products' if f32 else 'bf16'}; cudnn_ms with "
+        f"cudnn.allow_tf32={f32}; "
+        f"{'CUDA-graph replay' if replay else 'events over calls'})")
     for (xs, ks), roles in per_shape.items():
         fan_in = ks[0] * ks[1] * ks[2]
         x = torch.from_numpy(rng.standard_normal(xs, dtype=np.float32)).cuda()
         k = torch.from_numpy(rng.standard_normal(ks, dtype=np.float32)
                              / math.sqrt(fan_in)).cuda()
-        x, k = x.to(torch.bfloat16), k.to(torch.bfloat16)
+        x, k = x.to(dtype), k.to(dtype)
         got = conv_mxu.conv_implicit_gemm(x, k)
         torch.cuda.synchronize()
+        if got.dtype != dtype:
+            fail(f"K1 wrote {got.dtype} for {dtype} inputs at x{xs} k{ks}")
         want = conv_mxu._core_reference(x.float(), k.float())
         err = (got.float() - want).abs()
         scale = float(want.abs().max())
-        atol = K1_ATOL_OF_SCALE * scale
-        bad = err > atol + K1_RTOL * want.abs()
+        if f32:
+            limit = conv_mxu.tf32_error_bound(x, k)
+            what = "the TF32 bound (2^-9 + 2^-20 + 2K 2^-24) sum|x||w|"
+        else:
+            limit = K1_ATOL_OF_SCALE * scale + K1_RTOL * want.abs()
+            what = (f"atol {K1_ATOL_OF_SCALE * scale:.3g} + rtol "
+                    f"{K1_RTOL:.3g}")
+        bad = err > limit
+        del limit
         max_abs = float(err.max())
         max_rel = max_abs / scale
         if bool(bad.any()):
             fail(f"K1 disagrees with its plain version at x{xs} k{ks}: "
-                 f"{int(bad.sum())} elements over atol {atol:.3g} + rtol "
-                 f"{K1_RTOL:.3g}; max abs err {max_abs:.4g}")
+                 f"{int(bad.sum())} elements over {what}; max abs err "
+                 f"{max_abs:.4g}")
+        order_units = None
+        if f32:
+            # The same products as the kernel's (operands cut to tf32), so
+            # only the f32 summation order may differ: bf16 operands, or
+            # tf32 rounded to nearest, break this bound.
+            err_t = (got - conv_mxu._core_reference(
+                conv_mxu.tf32_cut(x), conv_mxu.tf32_cut(k))).abs()
+            limit = conv_mxu.tf32_order_bound(x, k)
+            order_units = 2 * float((err_t / limit).nan_to_num(0.0).max())
+            n_bad = int((err_t > limit).sum())
+            del err_t, limit
+            if n_bad:
+                fail(f"K1 disagrees with the plain version on tf32-cut "
+                     f"operands at x{xs} k{ks}: {n_bad} elements over the "
+                     f"order bound 2K 2^-24 sum|x~||w~| (max "
+                     f"{order_units:.3g} K 2^-24 sum|x~||w~|)")
         got6 = conv_mxu.conv_implicit_gemm_pipelined(x, k)
         torch.cuda.synchronize()
         if not torch.equal(got6, got):
@@ -335,12 +421,17 @@ def phase_k1(calls, seed: int) -> dict:
         # stored OHWI (channels_last OIHW), arranged outside the timing.
         x_nchw = x.permute(0, 3, 1, 2)
         w_cl = k.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
-        ms = time_ms(lambda: conv_mxu.conv_implicit_gemm(x, k), 20)
-        k6_ms = time_ms(lambda: conv_mxu.conv_implicit_gemm_pipelined(x, k),
-                        20)
+        timer = graph_ms if replay else (lambda fn: time_ms(fn, 20))
+        ms = timer(lambda: conv_mxu.conv_implicit_gemm(x, k))
+        k6_ms = timer(lambda: conv_mxu.conv_implicit_gemm_pipelined(x, k))
         plain_ms = time_ms(lambda: conv_mxu._core_reference(x, k), 5, 1)
-        lib_ms = time_ms(lambda: F.conv2d(x_nchw, w_cl), 20)
-        bms, bound_by = bound_ms(xs, ks)
+        tf32_was = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = f32
+        lib_ms = timer(lambda: F.conv2d(x_nchw, w_cl))
+        torch.backends.cudnn.allow_tf32 = False
+        lib_full_ms = timer(lambda: F.conv2d(x_nchw, w_cl)) if f32 else None
+        torch.backends.cudnn.allow_tf32 = tf32_was
+        bms, bound_by = bound_ms(xs, ks, f32)
         n = sum(roles.values())
         m = xs[0] * (xs[1] - ks[0] + 1) * (xs[2] - ks[1] + 1)
         tile = conv_mxu.tile_n(ks[3], m)
@@ -349,12 +440,13 @@ def phase_k1(calls, seed: int) -> dict:
             f"{' '.join(f'{r}x{c}' for r, c in roles.items()):>12} "
             f"{f'128x{tile}':>8} {ms:9.4f} {k6_ms:9.4f} "
             + f"{plain_ms:9.4f} {lib_ms:9.4f} {bms:9.4f} "
-            f"{bound_by:>10} {tflops:8.1f} {max_abs:9.3g} {max_rel:9.3g}")
+            f"{bound_by:>10} {tflops:8.1f} {max_abs:9.3g} {max_rel:9.3g}"
+            + (f" {lib_full_ms:10.4f} {order_units:9.3g}" if f32 else ""))
         rows.append(dict(xpad=xs, kernel=ks, roles=dict(roles), tile_n=tile,
                          ms=ms,
                          k6_ms=k6_ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=bms, bound_by=bound_by, max_abs_err=max_abs,
-                         max_rel_err=max_rel))
+                         max_rel_err=max_rel, order_err=order_units))
         for key, val in (("ms", ms), ("k6_ms", k6_ms), ("plain_ms", plain_ms),
                          ("library_ms", lib_ms), ("bound_ms", bms)):
             totals[key] += n * val
@@ -362,27 +454,80 @@ def phase_k1(calls, seed: int) -> dict:
         del x, k, x_nchw, w_cl
         torch.cuda.empty_cache()
     # The bound of a step's K1 work is the larger total of the two sides.
-    flops = sum(2.0 * xs[0] * (xs[1] - ks[0] + 1) * (xs[2] - ks[1] + 1)
-                * ks[0] * ks[1] * ks[2] * ks[3] for _, xs, ks in calls)
-    nbytes = sum(2.0 * (math.prod(xs) + math.prod(ks) + xs[0]
-                        * (xs[1] - ks[0] + 1) * (xs[2] - ks[1] + 1) * ks[3])
-                 for _, xs, ks in calls)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
-    log(f"K1 per training step ({len(calls)} launches): "
+    flops = sum(k1_work(xs, ks, f32)[0] for _, xs, ks in calls)
+    nbytes = sum(k1_work(xs, ks, f32)[1] for _, xs, ks in calls)
+    step_bound, step_bound_by = bound_of(flops, nbytes, f32)
+    log(f"K1 per training step ({len(calls)} launches, "
+        f"{'f32' if f32 else 'bf16'}): "
         f"{totals['ms']:.3f} ms; "
         + f"K6 {totals['k6_ms']:.3f} ms (K6 = K1 bit for bit at every "
         f"shape); "
         + f"plain {totals['plain_ms']:.3f} ms; "
-        f"cuDNN {totals['library_ms']:.3f} ms; bound {1e3 * max(t_ops, t_bytes):.3f} ms "
+        f"cuDNN {totals['library_ms']:.3f} ms; bound {step_bound:.3f} ms "
         f"({flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB); "
         f"K1 at {flops / (totals['ms'] * 1e9):.1f} TFLOP/s; "
         f"worst max abs err {worst_abs:.4g} (rel to scale {worst_rel:.4g})")
     return dict(rows=rows, ms=totals["ms"], k6_ms=totals["k6_ms"],
                 plain_ms=totals["plain_ms"],
                 library_ms=totals["library_ms"],
-                bound_ms=1e3 * max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_ms=step_bound, bound_by=step_bound_by,
                 max_abs_err=worst_abs, max_rel_err=worst_rel)
+
+
+def conv_call(lib, x, k):
+    """bf16 K1 through ``lib``'s C entry (another build of
+    ``conv_implicit_gemm.cu``) on a contiguous input, outside the port's
+    wrappers and their counts."""
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.ops import _kernels, conv_mxu
+
+    fn = lib.dtm_conv_window_bf16
+    conv_mxu.bind_window(fn)
+    b, h, w, cin = x.shape
+    kh, kw, _, cout = k.shape
+    oh, ow = h - kh + 1, w - kw + 1
+    out = torch.empty(b, oh, ow, cout, dtype=x.dtype, device=x.device)
+    rc = fn(x.data_ptr(), b, h, w, cin, *x.stride()[:3], 0, 0, 1, 1,
+            k.data_ptr(), kh, kw, cout, out.data_ptr(), oh, ow,
+            *out.stride()[:3], 0, torch.cuda.current_stream().cuda_stream)
+    _kernels.check(lib, rc, "the other tree's K1")
+    return out
+
+
+def phase_conv_ab(calls, parent_lib, seed: int, card: str) -> None:
+    """This tree's bf16 K1 and another tree's (``--parent-csrc``) at each
+    distinct launch shape: outputs equal bit for bit, device times in
+    turns (parent, this, this, parent; CUDA-graph replay, so that neither
+    side's host cost per call, its wrapper's or this function's, enters),
+    and the per-step totals."""
+    import numpy as np
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.ops import conv_mxu
+
+    per_shape = collections.Counter((xs, ks) for _, xs, ks in calls)
+    rng = np.random.default_rng(seed)
+    totals = collections.Counter()
+    for (xs, ks), n in per_shape.items():
+        x = torch.from_numpy(rng.standard_normal(xs, dtype=np.float32)).cuda()
+        k = torch.from_numpy(rng.standard_normal(ks, dtype=np.float32)
+                             / math.sqrt(ks[0] * ks[1] * ks[2])).cuda()
+        x, k = x.bfloat16(), k.bfloat16()
+        this = lambda: conv_mxu.conv_implicit_gemm(x, k)  # noqa: E731
+        other = lambda: conv_call(parent_lib, x, k)  # noqa: E731
+        if not torch.equal(this(), other()):
+            fail(f"bf16 K1 differs from the parent tree's at x{xs} k{ks}")
+        times = [graph_ms(fn) for fn in (other, this, this, other)]
+        totals["parent"] += n * (times[0] + times[3]) / 2
+        totals["this"] += n * (times[1] + times[2]) / 2
+        log(f"bf16 K1 x{xs} k{ks} x{n}: parent {times[0]:.4f} / "
+            f"{times[3]:.4f} ms, this {times[1]:.4f} / {times[2]:.4f} ms, "
+            f"equal bit for bit")
+        del x, k
+    log(f"bf16 K1 per ResNet-50 step ({len(calls)} launches), in turns: "
+        f"parent {totals['parent']:.3f} ms, this {totals['this']:.3f} ms; "
+        f"outputs equal bit for bit at every shape | {card}")
 
 
 def phase_grads(seed: int) -> None:
@@ -604,6 +749,26 @@ def run_cli(config: str, steps: int, batch: int, workdir: Path,
     result = json.loads(out.strip().splitlines()[-1])
     rows = [json.loads(line) for line in
             (workdir / "metrics.jsonl").read_text().splitlines()]
+    return summarize_run(result, rows, steps)
+
+
+def run_fit(cfg, workdir: Path) -> dict:
+    """``fit`` in this process on the card: the CLI's JSON fields from its
+    result, summarised as ``run_cli`` does."""
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+
+    r = trainlib.fit(cfg, str(workdir), device="cuda")
+    result = {"final_metrics": r.final_metrics, "steps": r.state.step,
+              "device": r.device,
+              "steady_step_time_s": r.steady_step_time_s,
+              "images_per_sec": r.images_per_sec,
+              "tokens_per_sec": r.tokens_per_sec}
+    return summarize_run(result, r.history, cfg.train_steps)
+
+
+def summarize_run(result: dict, rows: list, steps: int) -> dict:
+    """Check a run's length and losses and add its losses, mean and median
+    wait for input and median and largest step time to ``result``."""
     if result["steps"] != steps or len(rows) != steps:
         fail(f"trained {result['steps']} steps ({len(rows)} rows), "
              f"asked for {steps}")
@@ -1130,6 +1295,182 @@ def log_arm(label: str, r: dict, per_step: int, card: str) -> None:
 def zero_counts(fns) -> None:
     for fn in fns:
         fn.launches = 0
+        if hasattr(fn, "f32_launches"):
+            fn.f32_launches = 0
+
+
+# Phase 12's configs: the CLI's named configs, and VGG-16 and AlexNet on
+# resnet50_synthetic with the JAX bench's settings (bench.py
+# build_vgg16/build_alexnet: 224x224, batch 64 and 128, L2 5e-4, TF
+# momentum at 0.1 x batch / 256 decayed 0.9 every 2000 steps).  The bench
+# feeds stacked device batches; here four input workers keep the host
+# pipeline ahead of these short steps (one worker assembles a 128-image
+# batch in ~30 ms, more than AlexNet's step).
+def bench_config(model: str, batch: int, steps: int):
+    from distributed_tensorflow_models_tpu_torch.harness.config import (
+        OptimizerConfig,
+        get_config,
+    )
+
+    return get_config(
+        "resnet50_synthetic", model=model, global_batch_size=batch,
+        weight_decay=5e-4, train_steps=steps, data_workers=4,
+        optimizer=OptimizerConfig(name="momentum",
+                                  learning_rate=0.1 * batch / 256,
+                                  decay_steps=2000, decay_rate=0.9),
+    ).replace(name=f"{model}_synthetic")
+
+
+def phase_zoo_path(label: str, runner, per_step: int, k1_per_step: int,
+                   f32: bool, arms, card: str, workdir: Path) -> dict:
+    """One new conv path through ``fit``: each arm ``(impl, knob, name)``
+    with K1's and K6's counters zeroed just before it and read just after.
+    A K1 arm (mxu, knob 0) must launch K1 ``k1_per_step`` times a step
+    (all in f32 for an f32 model) and K6 never; a K6 arm the reverse; an
+    ``F.conv2d`` arm neither.  Returns the first K1 arm's and the K6 arm's
+    counts and every arm's summary."""
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.ops import conv as convlib
+    from distributed_tensorflow_models_tpu_torch.ops import conv_mxu
+
+    k1, k6 = conv_mxu.conv_implicit_gemm, conv_mxu.conv_implicit_gemm_pipelined
+    out = {"arms": [], "k1": None, "k6": None}
+    for impl, knob, name in arms:
+        convlib.set_default_conv_impl(impl)
+        os.environ["DTM_CONV_MXU_PIPELINE"] = knob
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts((k1, k6))
+        r = runner(workdir / f"{label}{len(out['arms'])}")
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        steps = r["steps"]
+        got = {"K1": (k1.launches, k1.f32_launches),
+               "K6": (k6.launches, k6.f32_launches)}
+        on = None if impl != "mxu" else ("K6" if knob == "1" else "K1")
+        want = {kid: ((k1_per_step * steps, k1_per_step * steps if f32 else 0)
+                      if kid == on else (0, 0)) for kid in got}
+        log(f"{label} arm {name}: launches (all, f32) {got}, expected "
+            f"{want} ({k1_per_step} a step x {steps} steps); peak memory "
+            f"{r['peak_gib']:.2f} GiB; losses {r['losses']}")
+        if got != want:
+            fail(f"{label} {name} arm launched {got}, expected {want}")
+        if on is not None and out[on.lower()] is None:
+            out[on.lower()] = got[on]
+        out["arms"].append((name, r))
+    convlib.set_default_conv_impl("mxu")
+    os.environ["DTM_CONV_MXU_PIPELINE"] = "0"
+    for name, r in out["arms"]:
+        log_arm(f"{label} {name}", r, per_step, card)
+    return out
+
+
+def phase_ptb(steps: int, card: str, workdir: Path) -> dict:
+    """``ptb_medium`` at full width through the CLI: tokens/s, the wait for
+    input, step times, peak memory and the losses, which must be finite
+    and fall (the later half's mean under the first step's).  Then two
+    steps of ``fit`` in this process: the carry reaching step 2 is the
+    model's, per layer ``[20, 650]`` f32 on the card with no graph.  Then
+    a profile of the step."""
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+    from distributed_tensorflow_models_tpu_torch.harness.config import get_config
+
+    cfg = get_config("ptb_medium")
+    torch.cuda.reset_peak_memory_stats()
+    r = run_cli("ptb_medium", steps, cfg.global_batch_size, workdir / "ptb")
+    r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    losses = r["losses"]
+    late = losses[len(losses) // 2:]
+    log(f"ptb_medium (hidden 650, 2 layers, vocab 10000, dropout 0.5, batch "
+        f"{cfg.global_batch_size} x {cfg.num_steps} steps of unroll): losses "
+        f"{losses}; peak memory {r['peak_gib']:.3f} GiB | {card}")
+    if not sum(late) / len(late) < losses[0]:
+        fail(f"ptb_medium's losses do not fall: {losses}")
+    log_arm("ptb_medium", r, cfg.global_batch_size * cfg.num_steps, card)
+    two = trainlib.fit(cfg.replace(train_steps=2), device="cuda")
+    hidden = two.state.model.hidden_size
+    if hidden != 650 or len(two.state.carry) != 2:
+        fail(f"ptb_medium built hidden {hidden}, "
+             f"{len(two.state.carry)} layers")
+    for layer, pair in enumerate(two.state.carry):
+        for what, t in zip(("c", "h"), pair):
+            if (tuple(t.shape) != (cfg.global_batch_size, hidden)
+                    or t.dtype != torch.float32 or not t.is_cuda
+                    or t.grad_fn is not None or t.requires_grad):
+                fail(f"ptb_medium carry {what}{layer} at step 2: "
+                     f"{tuple(t.shape)} {t.dtype} {t.device} grad_fn "
+                     f"{t.grad_fn}")
+    log(f"ptb_medium carry at step 2: {len(two.state.carry)} layers of (c, "
+        f"h), each [{cfg.global_batch_size}, {hidden}] float32 on the card, "
+        f"detached (no grad_fn)")
+    phase_profile(cfg, "ptb_medium")
+    return r
+
+
+def phases_zoo(steps: int, seed: int, card: str, workdir: Path) -> dict:
+    """Phases 11-13: K1 and K6 at every launch shape of the new conv paths
+    (ResNet-32 in f32 at batch 128, VGG-16 at batch 64 and AlexNet at 128
+    in bf16, 224x224), those paths and LeNet through ``fit`` in turns with
+    ``F.conv2d``, with profiles of their K1 arms, and ``ptb_medium``."""
+    from distributed_tensorflow_models_tpu_torch.harness.config import get_config
+
+    # 11. K1 and K6 at every launch shape of the new paths.
+    shapes, res = {}, {}
+    for label, model, size, batch, kw, f32 in (
+            ("ResNet-32", "resnet32_cifar", 32, 128, {}, True),
+            ("VGG-16", "vgg16", 224, 64, {"dropout_rate": 0.0}, False),
+            ("AlexNet", "alexnet", 224, 128, {"dropout_rate": 0.0}, False)):
+        calls = core_launch_shapes(model, size, batch, **kw)
+        roles = collections.Counter(r for r, _, _ in calls)
+        log(f"conv core launches per {label} step at batch {batch} "
+            f"({'f32' if f32 else 'bf16'}): {len(calls)} ({dict(roles)}), "
+            f"{len({(x, w) for _, x, w in calls})} distinct shapes")
+        if not calls or roles["fwd"] != roles["dx"]:
+            fail(f"{label}: expected a dx launch for every forward one, got "
+                 f"{dict(roles)}")
+        shapes[label] = len(calls)
+        # ResNet-32's 8x8 maps make a launch from Python slower than the
+        # kernel: its shapes are timed by graph replay.
+        res[label] = phase_k1(calls, seed, f32=f32, replay=f32)
+    if shapes["ResNet-32"] != 18:
+        fail(f"ResNet-32 should launch the core 18 times a step (9 "
+             f"forward, 9 dx), got {shapes['ResNet-32']}")
+    # LeNet's convs (Cin 1 and 32) route to patches: no launch to check.
+    shapes["LeNet"] = len(core_launch_shapes("lenet", 28, 64, channels=1,
+                                             dropout_rate=0.0))
+    log(f"conv core launches per LeNet step: {shapes['LeNet']}")
+
+    # 12. The new conv paths through fit, K1 (and, for ResNet-32, K6) arms
+    # in turns with F.conv2d arms; a profile of each K1 arm.
+    k1_arms = (("mxu", "0", "K1"), ("xla", "0", "F.conv2d"),
+               ("mxu", "0", "K1"), ("xla", "0", "F.conv2d"))
+    r32 = get_config("resnet32_cifar10")
+    lenet = get_config("lenet_mnist")
+    vgg = bench_config("vgg16", 64, steps)
+    alex = bench_config("alexnet", 128, steps)
+    paths = {}
+    for label, cfg, runner, k1_step, f32, arms in (
+            ("ResNet-32", r32, lambda wd: run_cli(
+                "resnet32_cifar10", steps, r32.global_batch_size, wd),
+             shapes["ResNet-32"], True,
+             k1_arms + (("mxu", "1", "K6"),)),
+            ("LeNet", lenet, lambda wd: run_cli(
+                "lenet_mnist", steps, lenet.global_batch_size, wd),
+             shapes["LeNet"], True, k1_arms),
+            ("VGG-16", vgg, lambda wd: run_fit(vgg, wd), shapes["VGG-16"],
+             False, k1_arms),
+            ("AlexNet", alex, lambda wd: run_fit(alex, wd),
+             shapes["AlexNet"], False, k1_arms)):
+        paths[label] = phase_zoo_path(
+            label, runner, cfg.global_batch_size, k1_step, f32, arms, card,
+            workdir)
+        phase_profile(cfg, f"{label}, K1 convs" if k1_step
+                      else f"{label}, mxu route (patches: no K1 conv)")
+
+    # 13. The PTB LSTM at full width.
+    ptb = phase_ptb(steps, card, workdir)
+    return {"k1": res, "paths": paths, "ptb": ptb, "shapes": shapes}
 
 
 def main(argv=None) -> int:
@@ -1141,10 +1482,12 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--parent-csrc", type=Path, default=None,
                         help="a csrc/ directory of another tree (say the "
-                        "parent commit's, unpacked by git archive): phase 8 "
-                        "also runs its flash kernels, K5 dQ's differences "
-                        "from its K4 and its K2-K5 replayed in turns with "
-                        "this tree's")
+                        "parent commit's, unpacked by git archive): after "
+                        "phase 1 its bf16 K1 runs in turns with this "
+                        "tree's at ResNet-50's launch shapes (outputs equal "
+                        "bit for bit), and phase 8 also runs its flash "
+                        "kernels, K5 dQ's differences from its K4 and its "
+                        "K2-K5 replayed in turns with this tree's")
     parser.add_argument("--parent-tree", type=Path, default=None,
                         help="another checkout of the repository (say the "
                         "parent commit's, unpacked by git archive): phase 3b "
@@ -1155,6 +1498,10 @@ def main(argv=None) -> int:
     parser.add_argument("--flash-only", action="store_true",
                         help="phases 1 and 8 alone, for work on K2-K5: no "
                         "main path and no result line")
+    parser.add_argument("--zoo-only", action="store_true",
+                        help="phases 1 and 11-13 alone, for work on the "
+                        "LeNet, ResNet-32, VGG-16, AlexNet and PTB LSTM "
+                        "paths: no result line")
     args = parser.parse_args(argv)
 
     import torch
@@ -1186,21 +1533,24 @@ def main(argv=None) -> int:
     log(f"card: {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {kind}")
     t0 = time.perf_counter()
-    parent = None
+    parent = parent_conv = None
     builds = [("K1, K6", "conv_implicit_gemm.cu"),
               ("K2-K5", "flash_attention.cu")]
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         futs = [pool.submit(conv_mxu._load), pool.submit(attnlib._load)]
         if args.parent_csrc is not None:
             csrc = args.parent_csrc.resolve()
-            futs.append(pool.submit(_kernels.load, "flash_attention.cu",
-                                    csrc))
-            builds.append(("the parent tree's K2-K5",
-                           str(csrc / "flash_attention.cu")))
+            futs += [pool.submit(_kernels.load, name, csrc) for name in
+                     ("conv_implicit_gemm.cu", "flash_attention.cu")]
+            builds += [("the parent tree's K1, K6",
+                        str(csrc / "conv_implicit_gemm.cu")),
+                       ("the parent tree's K2-K5",
+                        str(csrc / "flash_attention.cu"))]
         for fut in futs:
             fut.result()
         if args.parent_csrc is not None:
             parent = attnlib.typed(futs[-1].result())
+            parent_conv = futs[-2].result()
     for kids, src in builds:
         nvcc_s = _kernels.build_seconds.get(src)
         log(f"{kids} ({src}) build+load: " + (
@@ -1231,10 +1581,20 @@ def main(argv=None) -> int:
         log(f"  K4 ptxas {line}")
     log(f"both builds, in parallel: {time.perf_counter() - t0:.2f} s wall")
 
+    if parent_conv is not None:
+        # Another tree's bf16 K1 at ResNet-50's launch shapes, in turns.
+        phase_conv_ab(core_launch_shapes("resnet50", 224, args.batch_size),
+                      parent_conv, args.seed, card)
     if args.flash_only:
         phase_flash(args.seed + 2, parent)
         log(card)
         log("flash-only run: phases 1 and 8 alone, no main path, no result")
+        return 0
+    workdir = ROOT / "build" / "chip_smoke"
+    if args.zoo_only:
+        phases_zoo(args.train_steps, args.seed + 4, card, workdir)
+        log(card)
+        log("zoo-only run: phases 1 and 11-13 alone, no result")
         return 0
 
     # 2. K1 at the ResNet-50 path's launch shapes.
@@ -1259,7 +1619,6 @@ def main(argv=None) -> int:
     # 4. The ResNet-50 path, K1's counter zeroed just before it.
     if convlib.get_default_conv_impl() != "mxu":
         fail("DTM_CONV_IMPL=mxu did not reach the port's conv selector")
-    workdir = ROOT / "build" / "chip_smoke"
     torch.cuda.reset_peak_memory_stats()
     zero_counts((k1, k6))
     run = run_cli("resnet50_synthetic", steps, args.batch_size,
@@ -1415,6 +1774,11 @@ def main(argv=None) -> int:
                   "transformer_lm_modern, flash with the staged backward (K5)")
     os.environ["DTM_FLASH_BWD"] = "pair"
 
+    # 11-13. The rest of the zoo: LeNet, ResNet-32 (f32 K1/K6), VGG-16,
+    # AlexNet (bf16 K1) and the PTB LSTM.
+    zoo = phases_zoo(steps, args.seed + 4, card, workdir)
+    zk1, zpaths = zoo["k1"], zoo["paths"]
+
     log(card)
     kernels = [{
         "name": "K1 conv_implicit_gemm",
@@ -1432,6 +1796,27 @@ def main(argv=None) -> int:
                  f"training step at batch {args.batch_size}; library: "
                  f"F.conv2d (cuDNN)",
         "at_inception_shapes_ms": k6_res["ms"],
+        "at_vgg16_shapes_ms": zk1["VGG-16"]["ms"],
+        "at_alexnet_shapes_ms": zk1["AlexNet"]["ms"],
+        "launches_vgg16": zpaths["VGG-16"]["k1"][0],
+        "launches_alexnet": zpaths["AlexNet"]["k1"][0],
+    }, {
+        "name": "K1 conv_implicit_gemm, f32 form (TF32 wgmma)",
+        "route": "cuda",
+        "source": K1_SOURCE,
+        "replaces": K1_REPLACES,
+        "launches": zpaths["ResNet-32"]["k1"][1],
+        "max_abs_err": zk1["ResNet-32"]["max_abs_err"],
+        "ms": zk1["ResNet-32"]["ms"],
+        "plain_ms": zk1["ResNet-32"]["plain_ms"],
+        "bound_ms": zk1["ResNet-32"]["bound_ms"],
+        "bound_by": zk1["ResNet-32"]["bound_by"],
+        "library_ms": zk1["ResNet-32"]["library_ms"],
+        "scope": f"sum over the {zoo['shapes']['ResNet-32']} K1 launches "
+                 f"of one resnet32_cifar10 training step at batch 128, f32; "
+                 f"launches from the ResNet-32 K1 run (all f32); bound by "
+                 f"the dense TF32 peak; library: F.conv2d in f32 with "
+                 f"cudnn.allow_tf32=True",
     }]
     main_shape, sweep_shape, gqa_shape, d128_shape = (
         FLASH_SHAPES[n][0] for n in (0, 1, 2, 4))
@@ -1478,6 +1863,24 @@ def main(argv=None) -> int:
                  f"Inception-v3 training step at batch {args.batch_size}; "
                  f"equal to K1 bit for bit at every shape (K1 there: "
                  f"{k6_res['ms']:.3f} ms); library: F.conv2d (cuDNN)",
+        "at_vgg16_shapes_ms": zk1["VGG-16"]["k6_ms"],
+        "at_alexnet_shapes_ms": zk1["AlexNet"]["k6_ms"],
+    })
+    kernels.append({
+        "name": "K6 conv_implicit_gemm_pipelined, f32 form (TF32 wgmma)",
+        "route": "cuda",
+        "source": K1_SOURCE,
+        "replaces": K6_REPLACES,
+        "launches": zpaths["ResNet-32"]["k6"][1],
+        "max_abs_err": zk1["ResNet-32"]["max_abs_err"],
+        "ms": zk1["ResNet-32"]["k6_ms"],
+        "plain_ms": zk1["ResNet-32"]["plain_ms"],
+        "bound_ms": zk1["ResNet-32"]["bound_ms"],
+        "bound_by": zk1["ResNet-32"]["bound_by"],
+        "library_ms": zk1["ResNet-32"]["library_ms"],
+        "scope": "as the f32 K1 entry, launches from the ResNet-32 K6 arm "
+                 "(DTM_CONV_MXU_PIPELINE=1); equal to the f32 K1 bit for "
+                 "bit at every shape",
     })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

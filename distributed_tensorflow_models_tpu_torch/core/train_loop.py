@@ -113,10 +113,25 @@ def per_step_rngs(seed: int, salt: int, rng_names: Sequence[str],
     return out
 
 
+def _detached(tree):
+    """``tree`` (tensors in nested tuples, lists and dicts) with every
+    tensor cut from its autograd graph."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach()
+    if isinstance(tree, Mapping):
+        return {k: _detached(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_detached(v) for v in tree)
+    return tree
+
+
 def apply_gradients(state: TrainState, grads: Mapping[str, torch.Tensor],
                     aux: dict) -> TrainState:
     """Optimizer update, EMA update and state advance from one gradient
-    computation."""
+    computation.  The new carry is stored detached: the JAX package never
+    differentiates through ``state.carry``, and a carry that kept its
+    graph would tie each step's backward to the last one's (freed) graph
+    and hold its memory."""
     updates, new_opt_state = state.tx.update(grads, state.opt_state)
     optim.apply_updates(state.params, updates)
     if state.ema_params is not None:
@@ -128,7 +143,7 @@ def apply_gradients(state: TrainState, grads: Mapping[str, torch.Tensor],
         step=state.step + 1,
         batch_stats=aux.get("batch_stats", state.batch_stats),
         opt_state=new_opt_state,
-        carry=aux.get("carry", state.carry),
+        carry=_detached(aux.get("carry", state.carry)),
     )
 
 

@@ -1,5 +1,6 @@
 // Implicit-GEMM 2-D convolution on a window of an NHWC input, HWIO kernel,
-// bf16 in, f32 accumulate, bf16 out: kernels K1 and K6, for Hopper (sm_90a).
+// f32 accumulate, output in the input's dtype (bf16 or f32): kernels K1 and
+// K6, for Hopper (sm_90a).
 //
 // K1 replaces the TPU kernel ops/conv_mxu.py::_core_kernel of the JAX
 // package (the Pallas implicit GEMM that carries every routed conv forward
@@ -62,6 +63,22 @@
 //   load/store path into the same swizzled ring (TMA needs 16-byte
 //   strides), with a proxy fence before the barrier arrive.
 //
+// The f32 form (the JAX kernel computes in its input's dtype; CIFAR
+// ResNet-32 trains in f32) runs the same mainloop on f32 operands:
+// - wgmma m64nBNk8 .f32.tf32.tf32: the tensor cores read each f32 as tf32
+//   (its 10 high mantissa bits, the rest dropped), accumulate in f32 and the
+//   output is written in f32.  At 495 TFLOP/s dense, half the bf16 rate.
+// - A 128-byte swizzle row holds 32 f32, so a K step is 32 channels of one
+//   tap, and the gather's 16-byte cp.async moves 4 f32.  The stage keeps its
+//   bytes (A 16 KB, B the same 64-row boxes), so the ring depth is the bf16
+//   one.
+// - tf32 wgmma takes both operands K-major (no transpose bit).  So B comes
+//   from the weight transposed to [Cout, kh*kw*Cin] (the wrapper makes it,
+//   one small copy a call), by TMA in 32 (k) x 64 (n) boxes.
+// - The epilogue stages 32 f32 columns (144-byte rows, the bf16 staging
+//   tile's bytes) at a time.
+// - The plain path takes Cin, Cout or strides that are not multiples of 4.
+//
 // K1 launches one block per output tile.  K6 is its persistent form: grid =
 // resident blocks per SM x SM count, each block walking tiles with a stride
 // of the grid; the producer runs ahead across tile boundaries, so tile t's
@@ -81,19 +98,56 @@
 namespace {
 
 constexpr int BM = 128;             // output rows of a tile
-constexpr int BK = 64;              // channels of a K step
 constexpr int THREADS = 384;        // producer warpgroup + 2 consumers
 constexpr int SMEM_LIMIT = 232448;  // bytes a block may use on sm_90
 constexpr int SMEM_PER_SM = 233472; // of which 1 KB a block is reserved
-constexpr int A_BYTES = BM * BK * 2;
-constexpr int ATOM_BYTES = 64 * 64 * 2;  // one 64 (k) x 64 (n) B box
-constexpr int EPI_LD = 72;               // staging row, elements (144 B)
-constexpr int EPI_BYTES = 2 * 64 * EPI_LD * 2;
+constexpr int A_BYTES = BM * 128;        // 128 rows of one swizzle row
+constexpr int ATOM_BYTES = 64 * 128;     // one B box: 64 swizzle rows
+constexpr int EPI_ROW_BYTES = 144;       // staging row, padded
+constexpr int EPI_BYTES = 2 * 64 * EPI_ROW_BYTES;
 constexpr int FULL_ARRIVALS = 128 + 1;   // producer threads + TMA issuer
 constexpr int EMPTY_ARRIVALS = 8;        // one per consumer warp
 // SMs of an H100 SXM: the small-grid tile rule below is fixed by the shape
 // and this constant, never by the launch form.
 constexpr long long FILL_TILES = 132;
+
+// What differs between the bf16 and the f32 form.  Either way a K step
+// fills one 128-byte swizzle row per A row and takes 4 wgmma k-slices.
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr int BK = 64;     // channels of a K step
+  static constexpr int VEC = 8;     // elements of a 16-byte chunk
+  static constexpr int K_MMA = 16;  // channels of one wgmma
+  static constexpr int SLAB = 64;   // output columns an epilogue pass stages
+  static constexpr CUtensorMapDataType TMA_TYPE =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+
+template <>
+struct Elem<float> {
+  static constexpr int BK = 32;
+  static constexpr int VEC = 4;
+  static constexpr int K_MMA = 8;
+  static constexpr int SLAB = 32;
+  static constexpr CUtensorMapDataType TMA_TYPE =
+      CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+
+__device__ __forceinline__ __nv_bfloat16 zero_of(__nv_bfloat16) {
+  return __float2bfloat16(0.0f);
+}
+__device__ __forceinline__ float zero_of(float) { return 0.0f; }
+
+__device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float a,
+                                           float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
 
 template <int BN>
 struct Cfg {
@@ -120,18 +174,21 @@ struct Cfg {
   static_assert(SMEM <= BUDGET, "shared memory");
 };
 
+template <typename T>
 struct Params {
-  const __nv_bfloat16* x;
-  const __nv_bfloat16* k;
-  __nv_bfloat16* y;
+  const T* x;
+  const T* k;  // bf16: HWIO [kh*kw*Cin, Cout]; f32: [Cout, kh*kw*Cin]
+  T* y;
   long long xs_b, xs_h, xs_w;  // input element strides
   long long ys_b, ys_h, ys_w;  // output element strides
   long long M;                 // B * OH * OW
+  long long k_rows;            // kh * kw * Cin
   long long n_tiles;
   int H, W, Cin;
   int h0, w0, sh, sw;          // window origin and step
   int kw, Cout, OH, OW;
-  int n_cin_chunks, n_k_steps, tail_k16, n_tiles_n;
+  int n_cin_chunks, n_k_steps, tail_k, n_tiles_n;  // tail_k: wgmmas of
+                                                    // the last chunk
   int vec;                     // cp.async A + TMA B, else the plain path
 };
 
@@ -154,13 +211,15 @@ __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
 // ------------------------------------------------------------ producer
 // Warpgroup 0.  Thread t gathers rows t/4 + 32i (i < 4) of the A tile, its
 // 16-byte chunks 2(t%4) and 2(t%4)+1; thread 0 also issues the B boxes.
-template <int BN>
+template <int BN, typename T>
 __device__ __forceinline__ void produce(const CUtensorMap* kmap,
-                                        const Params& p, unsigned char* smem,
+                                        const Params<T>& p, unsigned char* smem,
                                         uint32_t base,
                                         uint32_t full0, uint32_t empty0,
                                         long long first, long long stride) {
   using C = Cfg<BN>;
+  using E = Elem<T>;
+  constexpr bool F32 = sizeof(T) == 4;
   const int t = threadIdx.x;
   const int rq = t & 3;
   const int rb = t >> 2;
@@ -196,7 +255,7 @@ __device__ __forceinline__ void produce(const CUtensorMap* kmap,
       mbar_wait(empty, phase ^ 1);
       const uint32_t a_s = base + stage * C::STAGE_BYTES;
       const uint32_t b_s = a_s + A_BYTES;
-      const int c0 = chunk * BK;
+      const int c0 = chunk * E::BK;
       const int ty = dy * p.sh, tx = dx * p.sw;
       const long long toff =
           (long long)ty * p.xs_h + (long long)tx * p.xs_w + c0;
@@ -205,8 +264,16 @@ __device__ __forceinline__ void produce(const CUtensorMap* kmap,
         if (t == 0) {
           mbar_arrive_expect_tx(full, C::B_BYTES);
 #pragma unroll
-          for (int a = 0; a < C::NA; ++a)
-            tma_load_2d(b_s + a * ATOM_BYTES, kmap, full, n0 + 64 * a, krow);
+          for (int a = 0; a < C::NA; ++a) {
+            // bf16: a 64 (k) x 64 (n) box of [K, Cout], n contiguous;
+            // f32: a 64 (n) x 32 (k) box of [Cout, K], k contiguous.
+            if constexpr (F32)
+              tma_load_2d(b_s + a * ATOM_BYTES, kmap, full, krow,
+                          n0 + 64 * a);
+            else
+              tma_load_2d(b_s + a * ATOM_BYTES, kmap, full, n0 + 64 * a,
+                          krow);
+          }
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -217,8 +284,8 @@ __device__ __forceinline__ void produce(const CUtensorMap* kmap,
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const int q = 2 * rq + j;
-            const bool ok = in && (c0 + q * 8 < p.Cin);
-            const __nv_bfloat16* src = ok ? p.x + roff[i] + toff + q * 8 : p.x;
+            const bool ok = in && (c0 + q * E::VEC < p.Cin);
+            const T* src = ok ? p.x + roff[i] + toff + q * E::VEC : p.x;
             cp_async_16(a_s + r * 128 + ((q ^ (r & 7)) << 4), src, ok);
           }
         }
@@ -234,33 +301,53 @@ __device__ __forceinline__ void produce(const CUtensorMap* kmap,
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const int q = 2 * rq + j;
-            __align__(16) __nv_bfloat16 v[8];
+            __align__(16) T v[E::VEC];
 #pragma unroll
-            for (int e = 0; e < 8; ++e) {
-              const int c = c0 + q * 8 + e;
-              v[e] = (in && c < p.Cin) ? p.x[roff[i] + toff + q * 8 + e]
-                                       : __float2bfloat16(0.0f);
+            for (int e = 0; e < E::VEC; ++e) {
+              const int c = c0 + q * E::VEC + e;
+              v[e] = (in && c < p.Cin) ? p.x[roff[i] + toff + q * E::VEC + e]
+                                       : zero_of(T());
             }
             *reinterpret_cast<uint4*>(sm + r * 128 + ((q ^ (r & 7)) << 4)) =
                 *reinterpret_cast<const uint4*>(v);
           }
         }
-        // B: 64 k-rows x NA boxes x 8 chunks of 8 columns.
-        for (int idx = t; idx < 64 * C::NA * 8; idx += 128) {
-          const int kr = idx / (C::NA * 8);
-          const int rest = idx - kr * (C::NA * 8);
-          const int a = rest >> 3, qq = rest & 7;
-          const int c = c0 + kr;
-          const int n = n0 + a * 64 + qq * 8;
-          __align__(16) __nv_bfloat16 v[8];
+        if constexpr (F32) {
+          // B: 64*NA n-rows x 8 chunks of 4 k, from [Cout, K].
+          for (int idx = t; idx < 64 * C::NA * 8; idx += 128) {
+            const int nr = idx >> 3, qq = idx & 7;
+            const int n = n0 + nr;
+            __align__(16) T v[E::VEC];
 #pragma unroll
-          for (int e = 0; e < 8; ++e)
-            v[e] = (c < p.Cin && n + e < p.Cout)
-                       ? p.k[(long long)(krow + kr) * p.Cout + n + e]
-                       : __float2bfloat16(0.0f);
-          *reinterpret_cast<uint4*>(sm + A_BYTES + a * ATOM_BYTES + kr * 128 +
-                                    ((qq ^ (kr & 7)) << 4)) =
-              *reinterpret_cast<const uint4*>(v);
+            for (int e = 0; e < E::VEC; ++e) {
+              const int c = c0 + qq * E::VEC + e;
+              v[e] = (c < p.Cin && n < p.Cout)
+                         ? p.k[(long long)n * p.k_rows + krow + qq * E::VEC +
+                               e]
+                         : zero_of(T());
+            }
+            *reinterpret_cast<uint4*>(sm + A_BYTES + nr * 128 +
+                                      ((qq ^ (nr & 7)) << 4)) =
+                *reinterpret_cast<const uint4*>(v);
+          }
+        } else {
+          // B: 64 k-rows x NA boxes x 8 chunks of 8 columns, from [K, Cout].
+          for (int idx = t; idx < 64 * C::NA * 8; idx += 128) {
+            const int kr = idx / (C::NA * 8);
+            const int rest = idx - kr * (C::NA * 8);
+            const int a = rest >> 3, qq = rest & 7;
+            const int c = c0 + kr;
+            const int n = n0 + a * 64 + qq * 8;
+            __align__(16) T v[E::VEC];
+#pragma unroll
+            for (int e = 0; e < E::VEC; ++e)
+              v[e] = (c < p.Cin && n + e < p.Cout)
+                         ? p.k[(long long)(krow + kr) * p.Cout + n + e]
+                         : zero_of(T());
+            *reinterpret_cast<uint4*>(sm + A_BYTES + a * ATOM_BYTES +
+                                      kr * 128 + ((qq ^ (kr & 7)) << 4)) =
+                *reinterpret_cast<const uint4*>(v);
+          }
         }
         fence_proxy_async();
         mbar_arrive(full);
@@ -283,18 +370,21 @@ __device__ __forceinline__ void produce(const CUtensorMap* kmap,
 
 // ------------------------------------------------------------ consumers
 // Warpgroups 1 and 2: rows 64g..64g+63 of each tile.
-template <int BN>
-__device__ __forceinline__ void consume(const Params& p, unsigned char* smem,
+template <int BN, typename T>
+__device__ __forceinline__ void consume(const Params<T>& p, unsigned char* smem,
                                         uint32_t base, uint32_t full0,
                                         uint32_t empty0, long long first,
                                         long long stride) {
   using C = Cfg<BN>;
+  using E = Elem<T>;
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int EPI_LD = EPI_ROW_BYTES / (int)sizeof(T);  // 72 bf16, 36 f32
+  constexpr int N_SLABS = (BN + E::SLAB - 1) / E::SLAB;
   const int g = (threadIdx.x >> 7) - 1;
   const int t = threadIdx.x & 127;
   const int warp = t >> 5, lane = t & 31;
-  __nv_bfloat16* epi = reinterpret_cast<__nv_bfloat16*>(
-                           smem + C::STAGES * C::STAGE_BYTES) +
-                       g * 64 * EPI_LD;
+  T* epi = reinterpret_cast<T*>(smem + C::STAGES * C::STAGE_BYTES) +
+           g * 64 * EPI_LD;
   const long long ohw = (long long)p.OH * p.OW;
   float acc[BN / 2];
   int stage = 0;
@@ -308,15 +398,24 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem,
       fence_proxy_async();
       const uint32_t a_s = base + stage * C::STAGE_BYTES + g * 64 * 128;
       const uint32_t b_s = base + stage * C::STAGE_BYTES + A_BYTES;
-      const int nk = chunk == p.n_cin_chunks - 1 ? p.tail_k16 : 4;
+      const int nk = chunk == p.n_cin_chunks - 1 ? p.tail_k : 4;
       fence_acc(acc);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        if (kk < nk)
-          Wgmma<BN>::mma(
-              acc, smem_desc(a_s + 32 * kk, 16, 1024, DESC_SW128),
-              smem_desc(b_s + 2048 * kk, ATOM_BYTES, 1024, DESC_SW128));
+        if (kk < nk) {
+          // Each k-slice is 32 bytes of a swizzle row: A (and the f32 B)
+          // K-major, advanced along the row; the bf16 B MN-major, 16
+          // k-rows (2048 bytes) a slice.
+          if constexpr (F32)
+            WgmmaTf32<BN>::mma(
+                acc, smem_desc(a_s + 32 * kk, 16, 1024, DESC_SW128),
+                smem_desc(b_s + 32 * kk, 16, 1024, DESC_SW128));
+          else
+            Wgmma<BN>::mma(
+                acc, smem_desc(a_s + 32 * kk, 16, 1024, DESC_SW128),
+                smem_desc(b_s + 2048 * kk, ATOM_BYTES, 1024, DESC_SW128));
+        }
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       // The group before this one is done: its stage goes back.
@@ -335,7 +434,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem,
     if (lane == 0) mbar_arrive(empty0 + 8 * prev);
 
     // Epilogue.  Thread t writes rows t/8 + 16i (i < 4), 16-byte chunk t%8
-    // of each 64-column slab.
+    // of each slab (64 bf16 or 32 f32 columns).
     const long long m0 = (tile / p.n_tiles_n) * BM + g * 64;
     const int n0 = (int)(tile % p.n_tiles_n) * BN;
     long long yoff[4];
@@ -354,33 +453,32 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem,
     const int frow = warp * 16 + (lane >> 2);
     const int fcol = 2 * (lane & 3);
 #pragma unroll
-    for (int cc = 0; cc < C::NA; ++cc) {
+    for (int cc = 0; cc < N_SLABS; ++cc) {
 #pragma unroll
-      for (int j8 = 0; j8 < 8; ++j8) {
-        const int j = cc * 8 + j8;
+      for (int j8 = 0; j8 < E::SLAB / 8; ++j8) {
+        const int j = cc * (E::SLAB / 8) + j8;
         if (j < BN / 8) {
-          *reinterpret_cast<__nv_bfloat162*>(&epi[frow * EPI_LD + j8 * 8 + fcol]) =
-              __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
-          *reinterpret_cast<__nv_bfloat162*>(
-              &epi[(frow + 8) * EPI_LD + j8 * 8 + fcol]) =
-              __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+          store_pair(&epi[frow * EPI_LD + j8 * 8 + fcol], acc[4 * j],
+                     acc[4 * j + 1]);
+          store_pair(&epi[(frow + 8) * EPI_LD + j8 * 8 + fcol],
+                     acc[4 * j + 2], acc[4 * j + 3]);
         }
       }
       named_bar_sync(1 + g);
       const int q = t & 7;
-      const int n = n0 + cc * 64 + q * 8;
-      if (cc * 64 + q * 8 < BN) {
+      const int n = n0 + cc * E::SLAB + q * E::VEC;
+      if (cc * E::SLAB + q * E::VEC < BN) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           if (!rok[i]) continue;
-          const __nv_bfloat16* src = &epi[((t >> 3) + 16 * i) * EPI_LD + q * 8];
+          const T* src = &epi[((t >> 3) + 16 * i) * EPI_LD + q * E::VEC];
           if (p.vec) {
             if (n < p.Cout)
               *reinterpret_cast<uint4*>(p.y + yoff[i] + n) =
                   *reinterpret_cast<const uint4*>(src);
           } else {
 #pragma unroll
-            for (int e = 0; e < 8; ++e)
+            for (int e = 0; e < E::VEC; ++e)
               if (n + e < p.Cout) p.y[yoff[i] + n + e] = src[e];
           }
         }
@@ -390,9 +488,9 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem,
   }
 }
 
-template <int BN>
+template <int BN, typename T>
 __device__ __forceinline__ void conv_body(const CUtensorMap* kmap,
-                                          const Params& p, long long first,
+                                          const Params<T>& p, long long first,
                                           long long stride) {
   using C = Cfg<BN>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -411,27 +509,27 @@ __device__ __forceinline__ void conv_body(const CUtensorMap* kmap,
   __syncthreads();
   if (threadIdx.x < 128) {
     setmaxnreg_dec<C::PRODUCER_REGS>();
-    produce<BN>(kmap, p, smem, base, full0, empty0, first, stride);
+    produce<BN, T>(kmap, p, smem, base, full0, empty0, first, stride);
   } else {
     setmaxnreg_inc<C::CONSUMER_REGS>();
-    consume<BN>(p, smem, base, full0, empty0, first, stride);
+    consume<BN, T>(p, smem, base, full0, empty0, first, stride);
   }
 }
 
 // ---------------------------------------------------------------------- K1
-template <int BN>
+template <int BN, typename T>
 __global__ void __launch_bounds__(THREADS, Cfg<BN>::BLOCKS)
     conv_implicit_gemm_kernel(const __grid_constant__ CUtensorMap kmap,
-                              const Params p) {
-  conv_body<BN>(&kmap, p, blockIdx.x, p.n_tiles);  // one tile a block
+                              const Params<T> p) {
+  conv_body<BN, T>(&kmap, p, blockIdx.x, p.n_tiles);  // one tile a block
 }
 
 // ---------------------------------------------------------------------- K6
-template <int BN>
+template <int BN, typename T>
 __global__ void __launch_bounds__(THREADS, Cfg<BN>::BLOCKS)
     conv_implicit_gemm_pipelined_kernel(const __grid_constant__ CUtensorMap kmap,
-                                        const Params p) {
-  conv_body<BN>(&kmap, p, blockIdx.x, gridDim.x);
+                                        const Params<T> p) {
+  conv_body<BN, T>(&kmap, p, blockIdx.x, gridDim.x);
 }
 
 // ------------------------------------------------------------ host side
@@ -455,18 +553,22 @@ int pick_bn(int cout, long long m_tiles) {
   return best;
 }
 
-// The weight [kh*kw*Cin, Cout] as 64 (n) x 64 (k) boxes, 128-byte swizzle;
-// rows and columns past the end read as zeros.
+// The weight as boxes of one 128-byte swizzle row by 64 rows; rows and
+// columns past the end read as zeros.  bf16: [kh*kw*Cin, Cout], 64 (n) x
+// 64 (k) boxes; f32: [Cout, kh*kw*Cin], 32 (k) x 64 (n) boxes.
+template <typename T>
 cudaError_t make_weight_map(CUtensorMap* map, const void* k, long long rows,
                             int cout) {
+  constexpr bool F32 = sizeof(T) == 4;
   EncodeTiledFn encode;
   cudaError_t err = encode_fn(&encode);
   if (err != cudaSuccess) return err;
-  const cuuint64_t dims[2] = {(cuuint64_t)cout, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cout * 2};
-  const cuuint32_t box[2] = {64, 64};
+  const cuuint64_t dims[2] = {F32 ? (cuuint64_t)rows : (cuuint64_t)cout,
+                              F32 ? (cuuint64_t)cout : (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {dims[0] * sizeof(T)};
+  const cuuint32_t box[2] = {128 / (cuuint32_t)sizeof(T), 64};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  const CUresult r = encode(map, Elem<T>::TMA_TYPE, 2,
                             const_cast<void*>(k), dims, strides, box, elem,
                             CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B,
@@ -480,7 +582,7 @@ constexpr int kMaxDevices = 64;
 
 // Raises the kernel's dynamic shared memory limit once per device and
 // returns the K6 grid size (resident blocks per SM x SMs) there.
-template <int BN, bool PIPELINED>
+template <int BN, bool PIPELINED, typename T>
 cudaError_t prepare(int* grid_size) {
   // 0 until the device's first launch; threads that race store the same.
   static std::atomic<int> cached[kMaxDevices];
@@ -490,8 +592,8 @@ cudaError_t prepare(int* grid_size) {
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   int g = cached[dev].load(std::memory_order_relaxed);
   if (g == 0) {
-    auto kernel = PIPELINED ? conv_implicit_gemm_pipelined_kernel<BN>
-                            : conv_implicit_gemm_kernel<BN>;
+    auto kernel = PIPELINED ? conv_implicit_gemm_pipelined_kernel<BN, T>
+                            : conv_implicit_gemm_kernel<BN, T>;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<BN>::SMEM);
     if (err != cudaSuccess) return err;
@@ -510,38 +612,38 @@ cudaError_t prepare(int* grid_size) {
   return cudaSuccess;
 }
 
-template <int BN, bool PIPELINED>
-cudaError_t launch(const CUtensorMap& map, Params p, cudaStream_t stream) {
+template <int BN, bool PIPELINED, typename T>
+cudaError_t launch(const CUtensorMap& map, Params<T> p, cudaStream_t stream) {
   int grid_size = 0;
-  cudaError_t err = prepare<BN, PIPELINED>(&grid_size);
+  cudaError_t err = prepare<BN, PIPELINED, T>(&grid_size);
   if (err != cudaSuccess) return err;
   p.n_tiles_n = (p.Cout + BN - 1) / BN;
   p.n_tiles = ((p.M + BM - 1) / BM) * p.n_tiles_n;
   long long grid = p.n_tiles;
   if (PIPELINED) {
     if (grid > grid_size) grid = grid_size;
-    conv_implicit_gemm_pipelined_kernel<BN>
+    conv_implicit_gemm_pipelined_kernel<BN, T>
         <<<(unsigned)grid, THREADS, Cfg<BN>::SMEM, stream>>>(map, p);
   } else {
     if (grid > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-    conv_implicit_gemm_kernel<BN>
+    conv_implicit_gemm_kernel<BN, T>
         <<<(unsigned)grid, THREADS, Cfg<BN>::SMEM, stream>>>(map, p);
   }
   return cudaGetLastError();
 }
 
-template <bool PIPELINED>
-cudaError_t dispatch(int bn, const CUtensorMap& map, const Params& p,
+template <bool PIPELINED, typename T>
+cudaError_t dispatch(int bn, const CUtensorMap& map, const Params<T>& p,
                      cudaStream_t s) {
   switch (bn) {
-    case 64: return launch<64, PIPELINED>(map, p, s);
-    case 96: return launch<96, PIPELINED>(map, p, s);
-    case 128: return launch<128, PIPELINED>(map, p, s);
-    case 144: return launch<144, PIPELINED>(map, p, s);
-    case 160: return launch<160, PIPELINED>(map, p, s);
-    case 192: return launch<192, PIPELINED>(map, p, s);
-    case 224: return launch<224, PIPELINED>(map, p, s);
-    case 256: return launch<256, PIPELINED>(map, p, s);
+    case 64: return launch<64, PIPELINED, T>(map, p, s);
+    case 96: return launch<96, PIPELINED, T>(map, p, s);
+    case 128: return launch<128, PIPELINED, T>(map, p, s);
+    case 144: return launch<144, PIPELINED, T>(map, p, s);
+    case 160: return launch<160, PIPELINED, T>(map, p, s);
+    case 192: return launch<192, PIPELINED, T>(map, p, s);
+    case 224: return launch<224, PIPELINED, T>(map, p, s);
+    case 256: return launch<256, PIPELINED, T>(map, p, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -550,28 +652,22 @@ bool aligned16(const void* ptr) {
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
-}  // namespace
-
-extern "C" {
-
-// K1 (pipelined = 0) or K6 (pipelined = 1) on the window (h0, w0, sh, sw)
-// of x[B, H, W, Cin] (element strides xs_*, channels contiguous) with the
-// contiguous HWIO kernel k[kh, kw, Cin, Cout], writing y[B, OH, OW, Cout]
-// at element strides ys_* (channels contiguous).  Returns a cudaError_t (0
-// on success), launches on ``stream`` and does not synchronise.
-int dtm_conv_window_bf16(const void* x, int B, int H, int W, int Cin,
-                         long long xs_b, long long xs_h, long long xs_w,
-                         int h0, int w0, int sh, int sw, const void* k, int kh,
-                         int kw, int Cout, void* y, int OH, int OW,
-                         long long ys_b, long long ys_h, long long ys_w,
-                         int pipelined, void* stream) {
+// K1 (pipelined = 0) or K6 (pipelined = 1) in T on the window (h0, w0, sh,
+// sw) of x[B, H, W, Cin]; see dtm_conv_window_bf16 below.
+template <typename T>
+int run_window(const void* x, int B, int H, int W, int Cin, long long xs_b,
+               long long xs_h, long long xs_w, int h0, int w0, int sh, int sw,
+               const void* k, int kh, int kw, int Cout, void* y, int OH,
+               int OW, long long ys_b, long long ys_h, long long ys_w,
+               int pipelined, void* stream) {
+  using E = Elem<T>;
   if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || kh <= 0 ||
       kw <= 0 || OH <= 0 || OW <= 0 || sh <= 0 || sw <= 0)
     return (int)cudaErrorInvalidValue;
-  Params p;
-  p.x = static_cast<const __nv_bfloat16*>(x);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.y = static_cast<__nv_bfloat16*>(y);
+  Params<T> p;
+  p.x = static_cast<const T*>(x);
+  p.k = static_cast<const T*>(k);
+  p.y = static_cast<T*>(y);
   p.xs_b = xs_b;
   p.xs_h = xs_h;
   p.xs_w = xs_w;
@@ -590,24 +686,60 @@ int dtm_conv_window_bf16(const void* x, int B, int H, int W, int Cin,
   p.Cout = Cout;
   p.OH = OH;
   p.OW = OW;
-  p.n_cin_chunks = (Cin + BK - 1) / BK;
+  p.n_cin_chunks = (Cin + E::BK - 1) / E::BK;
   p.n_k_steps = kh * kw * p.n_cin_chunks;
-  p.tail_k16 = (Cin - (p.n_cin_chunks - 1) * BK + 15) / 16;
-  const long long k_rows = (long long)kh * kw * Cin;
-  p.vec = Cin % 8 == 0 && Cout % 8 == 0 && Cout >= 64 && k_rows >= 64 &&
-          xs_b % 8 == 0 && xs_h % 8 == 0 && xs_w % 8 == 0 && ys_b % 8 == 0 &&
-          ys_h % 8 == 0 && ys_w % 8 == 0 && aligned16(x) && aligned16(k) &&
-          aligned16(y);
+  p.tail_k = (Cin - (p.n_cin_chunks - 1) * E::BK + E::K_MMA - 1) / E::K_MMA;
+  p.k_rows = (long long)kh * kw * Cin;
+  const int v = E::VEC;  // 16 bytes
+  p.vec = Cin % v == 0 && Cout % v == 0 && Cout >= 64 &&
+          p.k_rows >= 128 / (int)sizeof(T) && xs_b % v == 0 &&
+          xs_h % v == 0 && xs_w % v == 0 && ys_b % v == 0 && ys_h % v == 0 &&
+          ys_w % v == 0 && aligned16(x) && aligned16(k) && aligned16(y);
   CUtensorMap map;
   memset(&map, 0, sizeof(map));
   if (p.vec) {
-    const cudaError_t err = make_weight_map(&map, k, k_rows, Cout);
+    const cudaError_t err = make_weight_map<T>(&map, k, p.k_rows, Cout);
     if (err != cudaSuccess) return (int)err;
   }
   const int bn = pick_bn(Cout, (p.M + BM - 1) / BM);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(pipelined ? dispatch<true>(bn, map, p, s)
-                         : dispatch<false>(bn, map, p, s));
+  return (int)(pipelined ? dispatch<true, T>(bn, map, p, s)
+                         : dispatch<false, T>(bn, map, p, s));
+}
+
+}  // namespace
+
+extern "C" {
+
+// K1 (pipelined = 0) or K6 (pipelined = 1) on the window (h0, w0, sh, sw)
+// of x[B, H, W, Cin] (element strides xs_*, channels contiguous) with the
+// contiguous HWIO kernel k[kh, kw, Cin, Cout], writing y[B, OH, OW, Cout]
+// at element strides ys_* (channels contiguous); bf16 throughout.  Returns
+// a cudaError_t (0 on success), launches on ``stream`` and does not
+// synchronise.
+int dtm_conv_window_bf16(const void* x, int B, int H, int W, int Cin,
+                         long long xs_b, long long xs_h, long long xs_w,
+                         int h0, int w0, int sh, int sw, const void* k, int kh,
+                         int kw, int Cout, void* y, int OH, int OW,
+                         long long ys_b, long long ys_h, long long ys_w,
+                         int pipelined, void* stream) {
+  return run_window<__nv_bfloat16>(x, B, H, W, Cin, xs_b, xs_h, xs_w, h0, w0,
+                                   sh, sw, k, kh, kw, Cout, y, OH, OW, ys_b,
+                                   ys_h, ys_w, pipelined, stream);
+}
+
+// The same in f32 (TF32 products, f32 sums and output), except that k is
+// the weight transposed: contiguous [Cout, kh*kw*Cin], row n holding
+// k[dy, dx, c, n] at column (dy*kw + dx)*Cin + c.
+int dtm_conv_window_f32(const void* x, int B, int H, int W, int Cin,
+                        long long xs_b, long long xs_h, long long xs_w,
+                        int h0, int w0, int sh, int sw, const void* k, int kh,
+                        int kw, int Cout, void* y, int OH, int OW,
+                        long long ys_b, long long ys_h, long long ys_w,
+                        int pipelined, void* stream) {
+  return run_window<float>(x, B, H, W, Cin, xs_b, xs_h, xs_w, h0, w0, sh, sw,
+                           k, kh, kw, Cout, y, OH, OW, ys_b, ys_h, ys_w,
+                           pipelined, stream);
 }
 
 // The N tile both kernels use for this shape (M = B*OH*OW).

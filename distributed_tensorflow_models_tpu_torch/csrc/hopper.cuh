@@ -5,7 +5,8 @@
 // loads, the async-proxy fence, named barriers, setmaxnreg, the swizzled
 // shared-memory matrix descriptor, wgmma.mma_async m64nNk16 (bf16 -> f32,
 // A K-major and B MN-major from shared memory; DTM_WGMMA and its operand
-// lists), the accumulator fence, and the cuTensorMapEncodeTiled lookup
+// lists; WgmmaTf32, f32 += tf32 x tf32 m64nNk8 with both operands K-major),
+// the accumulator fence, and the cuTensorMapEncodeTiled lookup
 // through the runtime's driver entry point (no -lcuda).  Each source that
 // includes this file gets its own copy (an anonymous namespace).
 // ops/_kernels.py keys every build on the bytes of csrc/*.cuh as well as
@@ -163,6 +164,35 @@ DTM_WGMMA(160, DTM_REGS80, DTM_CON80, "80", "81", "82")
 DTM_WGMMA(192, DTM_REGS96, DTM_CON96, "96", "97", "98")
 DTM_WGMMA(224, DTM_REGS112, DTM_CON112, "112", "113", "114")
 DTM_WGMMA(256, DTM_REGS128, DTM_CON128, "128", "129", "130")
+
+// wgmma.mma_async m64nNk8, f32 += tf32 x tf32 from f32 operands in shared
+// memory (the tensor cores read each f32 as tf32: its 10 high mantissa
+// bits).  tf32 takes no transpose bits: A and B are both K-major.
+template <int N>
+struct WgmmaTf32;
+
+#define DTM_WGMMA_TF32(N, REGS, CONS, DA, DB, SC)                          \
+  template <>                                                              \
+  struct WgmmaTf32<N> {                                                    \
+    static __device__ __forceinline__ void mma(float (&d)[N / 2],         \
+                                               uint64_t da, uint64_t db) { \
+      asm volatile(                                                        \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %" SC ", 0;\n"                 \
+          "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {" REGS \
+          "}, %" DA ", %" DB ", p, 1, 1;\n}\n"                             \
+          : CONS                                                           \
+          : "l"(da), "l"(db), "r"(1));                                     \
+    }                                                                      \
+  };
+
+DTM_WGMMA_TF32(64, DTM_REGS32, DTM_CON32, "32", "33", "34")
+DTM_WGMMA_TF32(96, DTM_REGS48, DTM_CON48, "48", "49", "50")
+DTM_WGMMA_TF32(128, DTM_REGS64, DTM_CON64, "64", "65", "66")
+DTM_WGMMA_TF32(144, DTM_REGS72, DTM_CON72, "72", "73", "74")
+DTM_WGMMA_TF32(160, DTM_REGS80, DTM_CON80, "80", "81", "82")
+DTM_WGMMA_TF32(192, DTM_REGS96, DTM_CON96, "96", "97", "98")
+DTM_WGMMA_TF32(224, DTM_REGS112, DTM_CON112, "112", "113", "114")
+DTM_WGMMA_TF32(256, DTM_REGS128, DTM_CON128, "128", "129", "130")
 
 // Keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma boundaries.

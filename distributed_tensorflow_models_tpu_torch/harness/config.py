@@ -2,8 +2,9 @@
 
 The port's own copy of the fields and named configs of
 ``distributed_tensorflow_models_tpu/harness/config.py`` that the ported
-training slices read (ResNet-50, Inception-v3 and the transformer LMs),
-with the same names and values.  ``resnet50_synthetic_tiny`` and ``transformer_lm_tiny``
+training slices read (MNIST LeNet, CIFAR-10 ResNet-32, ResNet-50,
+Inception-v3, the PTB LSTMs and the transformer LMs), with the same names
+and values.  ``resnet50_synthetic_tiny`` and ``transformer_lm_tiny``
 are the port's, small enough to train on a CPU in tests: ResNet-50's depth
 at width 8 on 32x32 images; 2 layers, 4 heads, d_model 64, d_ff 128,
 vocab 256 at sequence 64 and batch 4.
@@ -30,8 +31,17 @@ class OptimizerConfig:
     rmsprop_epsilon: float = 1.0
     # Global-norm gradient clipping before the optimizer; None = off.
     clip_global_norm: Optional[float] = None
+    # Zaremba staged schedule (PTB): constant for ``hold_epochs`` epochs of
+    # ``steps_per_epoch`` steps, then x ``decay_rate`` per epoch.  When set,
+    # takes precedence over the exponential fields.
+    steps_per_epoch: Optional[int] = None
+    hold_epochs: Optional[int] = None
 
     def schedule(self) -> optim.ScalarOrSchedule:
+        if self.steps_per_epoch is not None and self.hold_epochs is not None:
+            return optim.zaremba_decay(self.learning_rate,
+                                       self.steps_per_epoch,
+                                       self.hold_epochs, self.decay_rate)
         if self.decay_steps is None:
             return self.learning_rate
         return optim.exponential_decay(self.learning_rate, self.decay_steps,
@@ -51,7 +61,7 @@ class OptimizerConfig:
         elif self.name == "adam":
             tx = optim.adam(lr)
         else:
-            raise ValueError(f"optimizer {self.name!r} is not ported yet")
+            raise ValueError(f"unknown optimizer {self.name!r}")
         if self.clip_global_norm is not None:
             tx = optim.chain(optim.clip_by_global_norm(self.clip_global_norm),
                              tx)
@@ -106,6 +116,39 @@ def _add(cfg: ExperimentConfig) -> ExperimentConfig:
     _CONFIGS[cfg.name] = cfg
     return cfg
 
+
+# --- MNIST LeNet, the single-worker reference config. --------------------
+_add(
+    ExperimentConfig(
+        name="lenet_mnist",
+        model="lenet",
+        dataset="mnist",
+        image_size=28,
+        global_batch_size=64,
+        optimizer=OptimizerConfig(name="sgd", learning_rate=0.1),
+        train_steps=2000,
+    )
+)
+
+# --- CIFAR-10 ResNet-32 sync-replica DP. -----------------------------------
+_add(
+    ExperimentConfig(
+        name="resnet32_cifar10",
+        model="resnet32_cifar",
+        dataset="cifar10",
+        image_size=32,
+        global_batch_size=128,
+        optimizer=OptimizerConfig(
+            name="momentum",
+            learning_rate=0.1,
+            momentum=0.9,
+            decay_steps=20000,
+            decay_rate=0.1,
+        ),
+        weight_decay=2e-4,
+        train_steps=64000,
+    )
+)
 
 # --- ImageNet Inception-v3 (slim). -----------------------------------------
 _add(
@@ -176,6 +219,38 @@ _add(
         train_steps=2,
     )
 )
+
+
+# --- PTB LSTM family: Zaremba staged-LR SGD with gradient clipping. ------
+# Per size (lr decay, clip, hold epochs "max_epoch", total epochs
+# "max_max_epoch", unroll) as the reference's small/medium/large configs;
+# an epoch is the PTB train split's 929,589 tokens over batch x unroll.
+for _size, _lr_decay, _clip, _hold, _total, _nsteps in (
+    ("small", 0.5, 5.0, 4, 13, 20),
+    ("medium", 0.8, 5.0, 6, 39, 35),
+    ("large", 1 / 1.15, 10.0, 14, 55, 35),
+):
+    _spe = 929_589 // (20 * _nsteps)
+    _add(
+        ExperimentConfig(
+            name=f"ptb_{_size}",
+            model="ptb_lstm",
+            task="lm",
+            model_kwargs={"config": _size},
+            dataset="ptb",
+            global_batch_size=20,
+            num_steps=_nsteps,
+            optimizer=OptimizerConfig(
+                name="sgd",
+                learning_rate=1.0,
+                decay_rate=_lr_decay,
+                steps_per_epoch=_spe,
+                hold_epochs=_hold,
+                clip_global_norm=_clip,
+            ),
+            train_steps=_spe * _total,
+        )
+    )
 
 
 # --- Transformer LM — the attention stack's flagship. ---------------------

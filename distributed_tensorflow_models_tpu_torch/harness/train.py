@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import glob
+import inspect
 import json
 import logging
 import os
@@ -28,7 +29,7 @@ from distributed_tensorflow_models_tpu_torch.core.train_state import TrainState
 from distributed_tensorflow_models_tpu_torch.data import datasets as datalib
 from distributed_tensorflow_models_tpu_torch.data import pipeline as pipelib
 from distributed_tensorflow_models_tpu_torch.harness.config import ExperimentConfig
-from distributed_tensorflow_models_tpu_torch.models import get_model
+from distributed_tensorflow_models_tpu_torch.models import builder_takes, get_model
 
 log = logging.getLogger("dtm")
 
@@ -80,11 +81,16 @@ def build_dataset(cfg: ExperimentConfig, split: str = "train"):
 
 def _model_kwargs(cfg: ExperimentConfig) -> dict:
     """The config's model kwargs plus, for the transformer, its attention
-    implementation (the JAX harness's ``_mesh_model_kwargs``); an explicit
+    implementation (the JAX harness's ``_mesh_model_kwargs``) and, for a
+    model whose builder takes ``image_size`` (one whose first dense width
+    follows from the input's size: flax infers it from the sample at init,
+    the port fixes it at construction), ``cfg.image_size``; an explicit
     ``model_kwargs`` entry wins."""
     kwargs = {}
     if cfg.model == "transformer_lm":
         kwargs["attn_impl"] = cfg.attn_impl
+    if builder_takes(cfg.model, "image_size"):
+        kwargs["image_size"] = cfg.image_size
     return {**kwargs, **cfg.model_kwargs}
 
 
@@ -97,15 +103,23 @@ def build_model(cfg: ExperimentConfig, device: torch.device) -> torch.nn.Module:
 
 
 def build_state(cfg: ExperimentConfig, device: torch.device) -> TrainState:
-    return TrainState.create(build_model(cfg, device), cfg.optimizer.make(),
-                             ema_decay=cfg.ema_decay)
+    """The model, optimizer and EMA of ``cfg`` on ``device``; an LM whose
+    model has ``initial_carry`` (the PTB LSTM) starts from its zero f32
+    carry at ``global_batch_size``, on the device."""
+    model = build_model(cfg, device)
+    carry = None
+    if cfg.task == "lm" and hasattr(model, "initial_carry"):
+        carry = model.initial_carry(cfg.global_batch_size, device)
+    return TrainState.create(model, cfg.optimizer.make(),
+                             ema_decay=cfg.ema_decay, carry=carry)
 
 
 def build_loss(cfg: ExperimentConfig, state: TrainState):
     if cfg.task == "lm":
-        if cfg.fused_unembed and cfg.model != "transformer_lm":
-            raise ValueError("fused_unembed needs a model with a "
-                             "return_hidden path (transformer_lm)")
+        forward = inspect.signature(state.model.forward).parameters
+        if cfg.fused_unembed and "return_hidden" not in forward:
+            raise ValueError("fused_unembed requires a model with a "
+                             f"return_hidden path ({cfg.model!r} has none)")
         return train_loop.lm_loss_fn(state.model,
                                      fused_unembed=cfg.fused_unembed)
     return train_loop.classification_loss_fn(

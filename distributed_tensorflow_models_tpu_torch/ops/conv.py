@@ -238,19 +238,26 @@ class Conv2D(nn.Module):
 
 class Dense(nn.Module):
     """``flax.linen.Dense``-shaped layer: ``kernel [in, out]`` (not
-    ``nn.Linear``'s ``[out, in]``) and ``bias [out]``, so flax trees map
-    onto it unchanged."""
+    ``nn.Linear``'s ``[out, in]``) and ``bias [out]`` (none with
+    ``use_bias=False``), so flax trees map onto it unchanged.  The kernel
+    is lecun-normal unless ``kernel_init(shape, generator)`` gives it."""
 
     def __init__(self, in_features: int, features: int,
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 use_bias: bool = True, kernel_init=None):
         super().__init__()
         self.dtype = dtype
         self.kernel = nn.Parameter(
             torch.empty(in_features, features, dtype=torch.float32))
-        lecun_normal_(self.kernel, in_features, generator)
-        self.bias = nn.Parameter(torch.zeros(features))
+        if kernel_init is None:
+            lecun_normal_(self.kernel, in_features, generator)
+        else:
+            with torch.no_grad():
+                self.kernel.copy_(kernel_init((in_features, features),
+                                              generator))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x):
-        return (torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
-                + self.bias.to(self.dtype))
+        y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
+        return y if self.bias is None else y + self.bias.to(self.dtype)

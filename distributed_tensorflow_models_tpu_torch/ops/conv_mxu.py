@@ -7,7 +7,10 @@ with the same routing and the same function:
   run by K1 (``csrc/conv_implicit_gemm.cu``) on CUDA tensors, or by K6, its
   persistent form in the same file, when ``DTM_CONV_MXU_PIPELINE=1`` (read
   on every call); on CPU tensors it runs :func:`_core_reference`, the plain
-  version of both.
+  version of both.  Like the JAX kernel it computes in its input's dtype:
+  bf16 (bf16 products) or f32 (TF32 products: the tensor cores keep 10 of
+  each operand's 23 mantissa bits), f32 sums, output in the input's dtype;
+  any other dtype raises.
 - The kernels read the core's input as a *window* of the unpadded input
   (:func:`_core_window`): an origin that may be negative where padding
   lies, a row and column step (the stride phase), zeros outside the
@@ -65,6 +68,40 @@ def _core_reference(xpad: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return acc.reshape(b, oh, ow, cout).to(xpad.dtype)
 
 
+def tf32_error_bound(xpad: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Elementwise bound on ``|K1(xpad, kernel) - _core_reference(...)|``
+    for f32 operands.  The tensor cores read each f32 as tf32, keeping 10
+    of its 23 mantissa bits (relative error under 2^-10 an operand, under
+    2^-9 + 2^-20 a product), and both sides sum the K = kh*kw*Cin products
+    in f32 in their own orders (under K*2^-24 of the sum of magnitudes
+    each).  So the bound is (2^-9 + 2^-20 + 2*K*2^-24) * sum|x||w|, the
+    last factor the plain version on the magnitudes."""
+    kh, kw, cin, _ = kernel.shape
+    rel = 2.0 ** -9 + 2.0 ** -20 + 2 * kh * kw * cin * 2.0 ** -24
+    return rel * _core_reference(xpad.abs().float(), kernel.abs().float())
+
+
+def tf32_cut(t: torch.Tensor) -> torch.Tensor:
+    """An f32 tensor as the tensor cores read it for a tf32 product: the
+    13 low mantissa bits dropped (truncated, not rounded)."""
+    return (t.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_order_bound(xpad: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Elementwise bound on ``|K1(xpad, kernel) - _core_reference(
+    tf32_cut(xpad), tf32_cut(kernel))|`` for f32 operands: both sides form
+    the same products (exact in f32: two 11-bit significands), and differ
+    only in the order of the K = kh*kw*Cin f32 additions, each under
+    2^-23 of the partial sum even when it truncates.  So the bound is
+    2*K*2^-24 * sum|x~||w~| over the cut operands.  Operands rounded to
+    bf16, or to tf32 by round-to-nearest, or kept in f32 (3xTF32), break
+    it at ResNet-32's K = 576."""
+    kh, kw, cin, _ = kernel.shape
+    rel = 2 * kh * kw * cin * 2.0 ** -24
+    return rel * _core_reference(tf32_cut(xpad).abs(),
+                                 tf32_cut(kernel).abs())
+
+
 def _materialize_window(x: torch.Tensor, win) -> torch.Tensor:
     """The window ``win = (h0, w0, sh, sw, hs, ws)`` of ``x`` as a tensor:
     ``out[:, i, j] = x[:, h0 + i*sh, w0 + j*sw]``, zero outside ``x``."""
@@ -85,19 +122,22 @@ def _launch_window(x: torch.Tensor, kernel: torch.Tensor, win,
     """K1 (or K6) on the window ``win = (h0, w0, sh, sw, oh, ow)`` of ``x``:
     the stride-1 VALID conv of the window's ``(oh+kh-1) x (ow+kw-1)``
     positions, ``x[:, h0 + i*sh, w0 + j*sw]`` read as zero outside ``x``.
-    Takes bf16 NHWC ``x`` (channels contiguous, any other strides) and a
-    contiguous HWIO ``kernel`` on one CUDA device (``win=None``: the public
-    wrappers' form, all of a contiguous input no smaller than the kernel);
-    writes into ``out`` (``[B, oh, ow, Cout]``, channels contiguous) or a
-    new tensor.  Each launch adds one to the launched kernel's count."""
+    Takes bf16 or f32 NHWC ``x`` (channels contiguous, any other strides)
+    and a contiguous HWIO ``kernel`` of the same dtype on one CUDA device
+    (``win=None``: the public wrappers' form, all of a contiguous input no
+    smaller than the kernel); writes into ``out`` (``[B, oh, ow, Cout]``,
+    channels contiguous) or a new tensor.  Each launch adds one to the
+    launched kernel's ``launches``, and an f32 launch to its
+    ``f32_launches`` too."""
     fn = conv_implicit_gemm_pipelined if pipelined else conv_implicit_gemm
     what = fn.__name__
     if not (x.is_cuda and kernel.is_cuda):
         raise ValueError(f"{what} takes CUDA tensors only")
     if x.device != kernel.device:
         raise ValueError(f"devices differ: {x.device} vs {kernel.device}")
-    if x.dtype != torch.bfloat16 or kernel.dtype != torch.bfloat16:
-        raise TypeError(f"{what} takes bfloat16, got {x.dtype} x {kernel.dtype}")
+    if x.dtype not in _ENTRIES or kernel.dtype != x.dtype:
+        raise TypeError(f"{what} takes bfloat16 or float32 (one dtype for "
+                        f"both), got {x.dtype} x {kernel.dtype}")
     if x.dim() != 4 or kernel.dim() != 4:
         raise ValueError("expected NHWC input and HWIO kernel")
     b, h, w, cin = x.shape
@@ -123,20 +163,27 @@ def _launch_window(x: torch.Tensor, kernel: torch.Tensor, win,
     if out.numel() == 0:
         return out
     lib = _load()
+    f32 = x.dtype == torch.float32
+    if f32:
+        # tf32 wgmma reads B K-major: the weight as [Cout, kh*kw*Cin].
+        kernel = kernel.reshape(-1, cout).t().contiguous()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.dtm_conv_window_bf16(
+    rc = getattr(lib, _ENTRIES[x.dtype])(
         x.data_ptr(), b, h, w, cin, *x.stride()[:3], h0, w0, sh, sw,
         kernel.data_ptr(), kh, kw, cout, out.data_ptr(), oh, ow,
         *out.stride()[:3], int(pipelined), stream)
     _kernels.check(lib, rc, what)
     fn.launches += 1
+    if f32:
+        fn.f32_launches += 1
     return out
 
 
 def conv_implicit_gemm(xpad: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """Launch K1 on CUDA tensors: bf16, contiguous NHWC ``xpad`` and HWIO
-    ``kernel`` on one device.  Raises on anything else; never falls back.
-    Each launch adds one to ``conv_implicit_gemm.launches``."""
+    """Launch K1 on CUDA tensors: bf16 or f32, contiguous NHWC ``xpad`` and
+    HWIO ``kernel`` on one device.  Raises on anything else; never falls
+    back.  Each launch adds one to ``conv_implicit_gemm.launches`` (and an
+    f32 one to ``conv_implicit_gemm.f32_launches``)."""
     return _launch_window(xpad, kernel, None, pipelined=False)
 
 
@@ -149,21 +196,32 @@ def conv_implicit_gemm_pipelined(xpad: torch.Tensor,
     return _launch_window(xpad, kernel, None, pipelined=True)
 
 
-conv_implicit_gemm.launches = 0
+conv_implicit_gemm.launches = conv_implicit_gemm.f32_launches = 0
 conv_implicit_gemm_pipelined.launches = 0
+conv_implicit_gemm_pipelined.f32_launches = 0
+
+# The C entry of each dtype the kernels take.
+_ENTRIES = {torch.bfloat16: "dtm_conv_window_bf16",
+            torch.float32: "dtm_conv_window_f32"}
 
 
-def _load() -> ctypes.CDLL:
-    lib = _kernels.load(_SOURCE)
-    fn = lib.dtm_conv_window_bf16
+def bind_window(fn) -> None:
+    """Declare the C signature of a window entry (``dtm_conv_window_*``)
+    of a built ``conv_implicit_gemm.cu``."""
     ll, i, p = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
     # x, B, H, W, Cin, xs_b/h/w, h0, w0, sh, sw; k, kh, kw, Cout;
     # y, OH, OW, ys_b/h/w; pipelined, stream.
     fn.argtypes = ([p, i, i, i, i, ll, ll, ll, i, i, i, i, p, i, i, i,
                     p, i, i, ll, ll, ll, i, p])
-    fn.restype = ctypes.c_int
-    lib.dtm_conv_tile_n.argtypes = [i, ll]
-    lib.dtm_conv_tile_n.restype = i
+    fn.restype = i
+
+
+def _load() -> ctypes.CDLL:
+    lib = _kernels.load(_SOURCE)
+    for name in _ENTRIES.values():
+        bind_window(getattr(lib, name))
+    lib.dtm_conv_tile_n.argtypes = [ctypes.c_int, ctypes.c_longlong]
+    lib.dtm_conv_tile_n.restype = ctypes.c_int
     return lib
 
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Mapping, NamedTuple, Union
 
+import numpy as np
 import torch
 
 Tensors = Mapping[str, torch.Tensor]
@@ -56,33 +57,44 @@ def tf_momentum(learning_rate: ScalarOrSchedule, momentum: float = 0.9,
 
 
 def tf_rmsprop(learning_rate: ScalarOrSchedule, decay: float = 0.9,
-               momentum: float = 0.9,
-               epsilon: float = 1.0) -> GradientTransformation:
+               momentum: float = 0.9, epsilon: float = 1.0,
+               centered: bool = False) -> GradientTransformation:
     """``tf.train.RMSPropOptimizer`` with TF 1.x kernel semantics (epsilon
     inside the square root, unlike optax's default)::
 
         ms  <- decay * ms + (1 - decay) * g^2
-        mom <- momentum * mom + lr * g / sqrt(ms + epsilon)
+        mg  <- decay * mg + (1 - decay) * g            (centered only)
+        mom <- momentum * mom + lr * g / sqrt(ms [- mg^2] + epsilon)
         var <- var - mom
 
     ``ms`` starts at ones, as in TF (with epsilon 1.0 this changes the
-    first steps materially).  The defaults are slim Inception-v3's.  The
-    JAX function's ``centered`` variant is not ported."""
+    first steps materially), ``mg`` at zeros.  The defaults are slim
+    Inception-v3's."""
 
     def init(params):
-        return {"count": 0,
-                "ms": {k: torch.ones_like(v) for k, v in params.items()},
-                "mom": {k: torch.zeros_like(v) for k, v in params.items()}}
+        state = {"count": 0,
+                 "ms": {k: torch.ones_like(v) for k, v in params.items()},
+                 "mom": {k: torch.zeros_like(v) for k, v in params.items()}}
+        if centered:
+            state["mg"] = {k: torch.zeros_like(v) for k, v in params.items()}
+        return state
 
     def update(grads, state):
         lr = _lr_at(learning_rate, state["count"])
-        ms, mom, updates = {}, {}, {}
+        ms, mg, mom, updates = {}, {}, {}, {}
         for k, g in grads.items():
             ms[k] = decay * state["ms"][k] + (1.0 - decay) * torch.square(g)
-            mom[k] = (momentum * state["mom"][k]
-                      + lr * g * torch.rsqrt(ms[k] + epsilon))
+            if centered:
+                mg[k] = decay * state["mg"][k] + (1.0 - decay) * g
+                denom = ms[k] - torch.square(mg[k]) + epsilon
+            else:
+                denom = ms[k] + epsilon
+            mom[k] = momentum * state["mom"][k] + lr * g * torch.rsqrt(denom)
             updates[k] = -mom[k]
-        return updates, {"count": state["count"] + 1, "ms": ms, "mom": mom}
+        new_state = {"count": state["count"] + 1, "ms": ms, "mom": mom}
+        if centered:
+            new_state["mg"] = mg
+        return updates, new_state
 
     return GradientTransformation(init, update)
 
@@ -175,6 +187,56 @@ def exponential_decay(initial_lr: float, decay_steps: int, decay_rate: float,
         if staircase:
             p = math.floor(p)
         return initial_lr * decay_rate ** p
+
+    return schedule
+
+
+def _f32_power(base: float, exponent: int) -> np.float32:
+    """``base ** exponent`` as XLA computes it in f32 on these values: the
+    f32 base raised exactly and rounded once to f32, with results below
+    f32's smallest normal flushed to zero (XLA flushes denormals)."""
+    p = np.float32(float(np.float32(base)) ** exponent)
+    return p if abs(p) >= np.finfo(np.float32).tiny else np.float32(0.0)
+
+
+def zaremba_decay(initial_lr: float, steps_per_epoch: int, hold_epochs: int,
+                  decay_rate: float) -> Schedule:
+    """The PTB staged schedule (Zaremba et al.): constant for the first
+    ``hold_epochs`` epochs, then multiplied by ``decay_rate`` once per
+    epoch, ``lr * decay_rate ** max(0, epoch + 1 - hold_epochs)`` with
+    ``epoch = step // steps_per_epoch``.  Computed in f32 as the JAX
+    package computes it, so the value equals JAX's bit for bit at every
+    step (a double-precision power can sit one f32 ulp away)."""
+
+    def schedule(count: int) -> float:
+        exponent = max(0, count // steps_per_epoch + 1 - hold_epochs)
+        return float(np.float32(initial_lr)
+                     * _f32_power(decay_rate, exponent))
+
+    return schedule
+
+
+def piecewise_constant(boundaries: list[int],
+                       values: list[float]) -> Schedule:
+    """``tf.train.piecewise_constant``: ``values[i]`` while ``step <=
+    boundaries[i]``, so the old value still applies at the boundary step
+    and the drop lands at ``boundary + 1``.  The arithmetic is optax's
+    ``piecewise_constant_schedule`` on the shifted boundaries, in f32: the
+    value starts at ``values[0]`` and, past each boundary in order, is
+    multiplied by the ratio ``values[i + 1] / values[i]``, so it equals
+    JAX's bit for bit (and may differ from ``values[i]`` by the
+    cumulative rounding, as there)."""
+    if len(values) != len(boundaries) + 1:
+        raise ValueError("need len(values) == len(boundaries) + 1")
+    scales = sorted({b + 1: values[i + 1] / values[i]
+                     for i, b in enumerate(boundaries)}.items())
+
+    def schedule(count: int) -> float:
+        v = np.float32(values[0])
+        for threshold, scale in scales:
+            if count >= threshold:
+                v = np.float32(np.float32(scale) * v)
+        return float(v)
 
     return schedule
 

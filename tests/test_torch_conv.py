@@ -455,3 +455,61 @@ def test_mxu_conv_refuses_double_backward():
     y = tconv_mxu.conv2d_mxu(tx, tk, (1, 1), "SAME")
     with pytest.raises(RuntimeError, match="does not differentiate twice"):
         torch.autograd.grad(y.sum(), tx, create_graph=True)
+
+
+@pytest.mark.parametrize("kshape", [(3, 3, 64, 64), (5, 5, 20, 24),
+                                    (3, 3, 512, 8)],
+                         ids=["resnet32", "ragged", "deep_k"])
+def test_tf32_error_bound_covers_tf32_products(kshape):
+    """K1's f32 tolerance (``conv_mxu.tf32_error_bound``) holds the plain
+    f32 core to the same core on operands truncated to tf32 and summed in
+    f64, the arithmetic K1's f32 form does in another order; and a core
+    that drops one tap (the center) breaks it."""
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy(rng.randn(2, 10, 10, kshape[2]).astype(np.float32))
+    k = torch.from_numpy((rng.randn(*kshape) / np.sqrt(np.prod(kshape[:3])))
+                         .astype(np.float32))
+    want = tconv_mxu._core_reference(x, k).double()
+    bound = tconv_mxu.tf32_error_bound(x, k).double()
+    tf32 = tconv_mxu._core_reference(tconv_mxu.tf32_cut(x).double(),
+                                     tconv_mxu.tf32_cut(k).double())
+    assert bool(((tf32 - want).abs() <= bound).all())
+    dropped = k.clone()
+    dropped[kshape[0] // 2, kshape[1] // 2] = 0
+    broken = tconv_mxu._core_reference(x, dropped).double()
+    assert bool(((broken - want).abs() > bound).any())
+
+
+def _rn(t: torch.Tensor, drop: int) -> torch.Tensor:
+    """``t`` rounded to nearest with its ``drop`` low mantissa bits
+    cleared (ties away from zero)."""
+    i = t.view(torch.int32).long()
+    return (((i + (1 << (drop - 1))) >> drop) << drop).int().view(
+        torch.float32)
+
+
+@pytest.mark.parametrize("kshape", [(3, 3, 64, 64), (5, 5, 20, 24),
+                                    (3, 3, 512, 8)],
+                         ids=["resnet32", "ragged", "deep_k"])
+def test_tf32_order_bound_separates_summation_order_from_rounding(kshape):
+    """``conv_mxu.tf32_order_bound`` holds an f32 core on tf32-cut
+    operands summed in another order (the taps reversed) to the same core
+    summed in f64; at ResNet-32's K = 576, operands rounded to bf16,
+    rounded to nearest tf32, or left in f32 each break it."""
+    rng = np.random.RandomState(12)
+    x = torch.from_numpy(rng.randn(2, 10, 10, kshape[2]).astype(np.float32))
+    k = torch.from_numpy((rng.randn(*kshape) / np.sqrt(np.prod(kshape[:3])))
+                         .astype(np.float32))
+    cut_x, cut_k = tconv_mxu.tf32_cut(x), tconv_mxu.tf32_cut(k)
+    want = tconv_mxu._core_reference(cut_x.double(), cut_k.double())
+    bound = tconv_mxu.tf32_order_bound(x, k).double()
+    # Flipping input and kernel in space runs the taps in reverse order.
+    reordered = tconv_mxu._core_reference(
+        cut_x.flip(1, 2), cut_k.flip(0, 1)).flip(1, 2).double()
+    assert bool(((reordered - want).abs() <= bound).all())
+    if kshape != (3, 3, 64, 64):
+        return
+    for xs, ks in ((x.bfloat16().float(), k.bfloat16().float()),
+                   (_rn(x, 13), _rn(k, 13)), (x, k)):
+        other = tconv_mxu._core_reference(xs, ks).double()
+        assert bool(((other - want).abs() > bound).any())

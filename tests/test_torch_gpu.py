@@ -26,7 +26,13 @@ plus 1e-2 of the output's largest magnitude; the f32 LSE to 1e-4.  Rows
 with no valid key are left out: their values depend on the tiles visited,
 in the JAX package too.
 
-K6 (the persistent, ring-pipelined K1) must equal K1 bit for bit.  K5's
+K1's f32 form (TF32 wgmma, f32 sums and output) is held elementwise to
+``conv_mxu.tf32_error_bound``: (2^-9 + 2^-20 + 2K 2^-24) times the plain
+version on the operands' magnitudes, K = kh*kw*Cin (each operand keeps 10
+mantissa bits as tf32; both sides sum K products in f32).
+
+K6 (the persistent, ring-pipelined K1) must equal K1 bit for bit, in both
+dtypes.  K5's
 dK and dV come from K3's own code and must equal K3's bit for bit; its dQ
 is held to its plain version at the K2-K4 tolerance, on a dS stage filled
 with NaN first so that a tile read but never written shows, and must equal
@@ -120,8 +126,10 @@ def test_kernel_matches_plain(cuda, xshape, kshape):
 def test_kernel_wrapper_refuses_what_it_does_not_take(cuda):
     x = torch.zeros(1, 6, 6, 64, device=cuda, dtype=torch.bfloat16)
     k = torch.zeros(3, 3, 64, 8, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(TypeError, match="bfloat16"):
-        conv_mxu.conv_implicit_gemm(x.float(), k.float())
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        conv_mxu.conv_implicit_gemm(x.half(), k.half())
+    with pytest.raises(TypeError, match="one dtype"):
+        conv_mxu.conv_implicit_gemm(x, k.float())
     with pytest.raises(ValueError, match="contiguous"):
         conv_mxu.conv_implicit_gemm(x[:, ::2], k)
     with pytest.raises(ValueError, match="input channels"):
@@ -353,8 +361,10 @@ def test_pipelined_wrapper_refuses_what_k1_refuses(cuda):
     x = torch.zeros(1, 6, 6, 64, device=cuda, dtype=torch.bfloat16)
     k = torch.zeros(3, 3, 64, 8, device=cuda, dtype=torch.bfloat16)
     f = conv_mxu.conv_implicit_gemm_pipelined
-    with pytest.raises(TypeError, match="bfloat16"):
-        f(x.float(), k.float())
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        f(x.double(), k.double())
+    with pytest.raises(TypeError, match="one dtype"):
+        f(x.float(), k)
     with pytest.raises(ValueError, match="contiguous"):
         f(x[:, ::2], k)
     with pytest.raises(ValueError, match="input channels"):
@@ -721,3 +731,282 @@ def test_fit_on_card_same_losses_at_1_and_3_workers(cuda):
          torch.backends.cudnn.benchmark) = prev
     assert all(math.isfinite(v) for v in losses[1])
     assert losses[1] == losses[3]
+
+
+# K1's and K6's f32 form (TF32 wgmma).  ResNet-32's routed convs (stage
+# 2's 3x3, Cin = Cout = 64 on 8x8 maps, padded to 10x10; the same shape
+# serves their dx), at batch 128 and at a ragged M; a Cin of 36 (a 4-channel
+# tail of a 32-channel K step) and of 20 (three k8 slices, no full step);
+# Cin and Cout not multiples of 4 and Cout under 64 (the plain load path);
+# N tiles 96, 144 and 2x144 (Cout 288), and a 5x5 tap.
+F32_CORE_CASES = [
+    ((128, 10, 10, 64), (3, 3, 64, 64)),
+    ((3, 10, 10, 64), (3, 3, 64, 64)),
+    ((2, 9, 7, 36), (3, 3, 36, 96)),
+    ((2, 9, 9, 20), (3, 3, 20, 144)),
+    ((2, 9, 7, 18), (2, 3, 18, 70)),
+    ((2, 6, 6, 64), (3, 3, 64, 16)),
+    ((2, 12, 12, 160), (5, 5, 160, 288)),
+]
+
+
+def _f32(rng, shape, scale=1.0):
+    return torch.tensor(rng.standard_normal(shape) * scale,
+                        dtype=torch.float32, device="cuda")
+
+
+@pytest.mark.parametrize("pipelined", [False, True], ids=["k1", "k6"])
+@pytest.mark.parametrize("xshape,kshape", F32_CORE_CASES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_f32_kernel_matches_plain(cuda, xshape, kshape, pipelined):
+    rng = np.random.default_rng(21)
+    x = _f32(rng, xshape)
+    k = _f32(rng, kshape, 1.0 / math.sqrt(math.prod(kshape[:3])))
+    f = (conv_mxu.conv_implicit_gemm_pipelined if pipelined
+         else conv_mxu.conv_implicit_gemm)
+    before = (f.launches, f.f32_launches)
+    got = f(x, k)
+    torch.cuda.synchronize()
+    assert (f.launches, f.f32_launches) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.float32
+    want = conv_mxu._core_reference(x, k)
+    bound = conv_mxu.tf32_error_bound(x, k)
+    err = (got - want).abs()
+    assert bool((err <= bound).all()), float((err - bound).max())
+    # And on the output's scale: under 2^-8 of the largest magnitude.
+    assert float(err.max()) < 2.0 ** -8 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("xshape,kshape", F32_CORE_CASES + [
+    ((32, 18, 18, 64), (3, 3, 64, 64)), ((16, 40, 40, 20), (3, 3, 20, 200))],
+    ids=lambda s: "x".join(map(str, s)))
+def test_f32_pipelined_kernel_equals_k1(cuda, xshape, kshape):
+    rng = np.random.default_rng(22)
+    x = _f32(rng, xshape)
+    k = _f32(rng, kshape, 1.0 / math.sqrt(math.prod(kshape[:3])))
+    want = conv_mxu.conv_implicit_gemm(x, k)
+    got = conv_mxu.conv_implicit_gemm_pipelined(x, k)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("pipelined", [False, True], ids=["k1", "k6"])
+@pytest.mark.parametrize("xshape,kshape,win", WINDOW_CASES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_f32_window_entry_matches_materialised_route(cuda, xshape, kshape,
+                                                     win, pipelined):
+    """The f32 form on windows of the unpadded input written at strides:
+    the same bits as on the materialised window, within the TF32 bound of
+    the plain version, the buffer outside the window untouched."""
+    rng = np.random.default_rng(23)
+    x = _f32(rng, xshape)
+    k = _f32(rng, kshape, 1.0 / math.sqrt(math.prod(kshape[:3])))
+    h0, w0, sh, sw, oh, ow = win
+    kh, kw = kshape[:2]
+    xw = conv_mxu._materialize_window(
+        x, (h0, w0, sh, sw, oh + kh - 1, ow + kw - 1)).contiguous()
+    f = (conv_mxu.conv_implicit_gemm_pipelined if pipelined
+         else conv_mxu.conv_implicit_gemm)
+    want = f(xw, k)
+    buf = torch.full((xshape[0], 2 * oh + 1, 2 * ow + 1, kshape[3]), 7.0,
+                     device=cuda)
+    view = buf[:, 1::2, 1::2]
+    got = conv_mxu._launch_window(x, k, win, pipelined, out=view)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == view.data_ptr() and torch.equal(view, want)
+    mask = torch.ones_like(buf, dtype=torch.bool)
+    mask[:, 1::2, 1::2] = False
+    assert bool((buf[mask] == 7.0).all())
+    err = (view - conv_mxu._core_reference(xw, k)).abs()
+    assert bool((err <= conv_mxu.tf32_error_bound(xw, k)).all())
+
+
+@pytest.mark.parametrize("strides", [(1, 1), (2, 2)], ids=["s1", "s2"])
+def test_f32_conv2d_mxu_grads_match_patches(cuda, strides):
+    """conv2d_mxu in f32 (K1's f32 form in the forward and in dx) against
+    the patches lowering (f32 matmuls, TF32 off): y and dx within the TF32
+    bound on the magnitudes (the patches lowering on |x|, |k| and |g|, a
+    stride-2 forward's four phase sums adding their bounds), dw (window
+    dots in f32 on both sides) to 1e-5 of its scale."""
+    rng = np.random.default_rng(24)
+    x = _f32(rng, (4, 12, 12, 64))
+    k = _f32(rng, (3, 3, 64, 64), 1.0 / math.sqrt(9 * 64))
+    xm, km = x.clone().requires_grad_(), k.clone().requires_grad_()
+    xp, kp = x.clone().requires_grad_(), k.clone().requires_grad_()
+    before = conv_mxu.conv_implicit_gemm.f32_launches
+    y = conv_mxu.conv2d_mxu(xm, km, strides, "SAME")
+    g = _f32(rng, tuple(y.shape))
+    y.backward(g)
+    yp = convlib.conv2d_patches(xp, kp, strides, "SAME")
+    yp.backward(g)
+    xa = x.abs().requires_grad_()
+    ya = convlib.conv2d_patches(xa, k.abs(), strides, "SAME")
+    ya.backward(g.abs())
+    torch.cuda.synchronize()
+    assert conv_mxu.conv_implicit_gemm.f32_launches > before
+    rel = 2.0 ** -9 + 2.0 ** -20 + 2 * 9 * 64 * 2.0 ** -24
+    for name, got, want, mag in (("y", y, yp, ya), ("dx", xm.grad, xp.grad,
+                                                     xa.grad)):
+        assert got.dtype == torch.float32, name
+        err = (got.detach() - want.detach()).abs()
+        assert bool((err <= rel * mag.detach() + 1e-6).all()), name
+    torch.testing.assert_close(km.grad, kp.grad, rtol=1e-5,
+                               atol=1e-5 * float(kp.grad.abs().max()))
+
+
+def test_f32_wrappers_raise_on_other_dtypes(cuda):
+    """A routed conv in a dtype neither form takes raises on the card; it
+    is never cast to reach a kernel."""
+    x = torch.zeros(1, 6, 6, 64, device=cuda, dtype=torch.float16)
+    k = torch.zeros(3, 3, 64, 64, device=cuda, dtype=torch.float16)
+    for f in (conv_mxu.conv_implicit_gemm,
+              conv_mxu.conv_implicit_gemm_pipelined):
+        with pytest.raises(TypeError, match="bfloat16 or float32"):
+            f(x, k)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        conv_mxu.conv2d_mxu(x, k, (1, 1), "SAME")
+
+
+def _rel_l2(got, want):
+    return float(torch.linalg.vector_norm((got - want).double())
+                 / torch.linalg.vector_norm(want.double()))
+
+
+def _tf32_plain_core(x, kernel, win, out=None, reverse=False):
+    """The core as K1's f32 form computes it, in plain PyTorch: the window
+    materialised, both operands cut to tf32 (13 low mantissa bits
+    dropped), the f32 plain version (TF32 off) on them.  ``reverse`` sums
+    the taps in the reverse order (input and kernel flipped in space, the
+    output flipped back): the same products in another f32 order."""
+    kh, kw = kernel.shape[:2]
+    h0, w0, sh, sw, oh, ow = win
+    xw = conv_mxu.tf32_cut(conv_mxu._materialize_window(
+        x, (h0, w0, sh, sw, oh + kh - 1, ow + kw - 1)))
+    kc = conv_mxu.tf32_cut(kernel)
+    if reverse:
+        y = conv_mxu._core_reference(xw.flip(1, 2), kc.flip(0, 1)).flip(1, 2)
+    else:
+        y = conv_mxu._core_reference(xw, kc)
+    return y if out is None else out.copy_(y)
+
+
+def _tf32_plain_core_reversed(x, kernel, win, out=None):
+    return _tf32_plain_core(x, kernel, win, out, reverse=True)
+
+
+def test_f32_dx_matches_tf32_plain_at_resnet32_shape(cuda, monkeypatch):
+    """A ResNet-32 stage-2 3x3 conv (batch 128, 8x8x64 to 8x8x64, SAME) and
+    its dx through K1's f32 form, against the same route with the core
+    replaced by the plain version on tf32-cut operands: the same products,
+    so each element of y and dx to the f32 summation-order bound
+    2K 2^-24 sum|a||b| (K = 576, ``conv_mxu.tf32_order_bound``)."""
+    rng = np.random.default_rng(31)
+    x, g = (torch.tensor(rng.standard_normal((128, 8, 8, 64)),
+                         dtype=torch.float32, device=cuda) for _ in range(2))
+    k = torch.tensor(rng.standard_normal((3, 3, 64, 64)) / 24,
+                     dtype=torch.float32, device=cuda)
+
+    def run():
+        xm = x.clone().requires_grad_()
+        y = conv_mxu.conv2d_mxu(xm, k, (1, 1), "SAME")
+        y.backward(g)
+        torch.cuda.synchronize()
+        return y.detach(), xm.grad
+
+    n0 = conv_mxu.conv_implicit_gemm.f32_launches
+    got = run()
+    assert conv_mxu.conv_implicit_gemm.f32_launches - n0 == 2
+    monkeypatch.setattr(conv_mxu, "_core_window", _tf32_plain_core)
+    want = run()
+    xa = conv_mxu.tf32_cut(x).abs().requires_grad_()
+    ya = convlib.conv2d_patches(xa, conv_mxu.tf32_cut(k).abs(), (1, 1),
+                                "SAME")
+    ya.backward(conv_mxu.tf32_cut(g).abs())
+    unit = 9 * 64 * 2.0 ** -24
+    for name, a, b, mag in (("y", got[0], want[0], ya.detach()),
+                            ("dx", got[1], want[1], xa.grad)):
+        err = (a - b).abs()
+        units = float((err / (unit * mag)).nan_to_num(0.0).max())
+        print(f"f32 K1 vs tf32-cut plain at ResNet-32's shape, {name}: max "
+              f"abs {float(err.max()):.3g}, max {units:.3g} K 2^-24 "
+              f"sum|a||b|, rel L2 {_rel_l2(a, b):.3g}")
+        assert bool((err <= 2 * unit * mag).all()), name
+
+
+def test_resnet32_step_mxu_matches_patches(cuda, monkeypatch):
+    """One ``resnet32_cifar10`` step (its loss, L2 2e-4 and TF momentum
+    0.1; f32; the config's batch of 128) through the mxu route, whose 9
+    routed convs (stage 2's 3x3 at Cin 64) run K1's f32 form forward and
+    in dx (18 launches, TF32 products), against the same step from the
+    same seeded weights and batch through (a) the patches lowering (f32
+    matmuls, TF32 off), (b) the mxu route with its core replaced by the
+    plain version on tf32-cut operands (``_tf32_plain_core``) and (c) (b)
+    with the taps summed in reverse order, the control.
+
+    The forward is the same arithmetic as (b) up to the order of the f32
+    sums: the loss to 1e-5 relative and the updated BN statistics to 1e-4
+    in relative L2.  Against (a) TF32's own effect shows: the loss to 1e-3
+    relative, the BN statistics to 1e-2.  The updates of this
+    initialization are ill-conditioned (a BN scale's or bias's gradient
+    is a sum that cancels): the control (c) alone moves them ~1.4 % in
+    relative L2 from (b) (~3 % for the worst tensor) on an H100, so they
+    are held, over all parameters and for the worst tensor, at most twice
+    (c)'s distance from (b), and at most twice (b)'s from (a).  dx itself
+    is held elementwise in
+    ``test_f32_dx_matches_tf32_plain_at_resnet32_shape``."""
+    from distributed_tensorflow_models_tpu_torch.harness import config as tconfig
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+
+    cfg = tconfig.get_config("resnet32_cifar10")
+    rng = np.random.default_rng(25)
+    batch = {"image": torch.tensor(rng.standard_normal((128, 32, 32, 3)),
+                                   dtype=torch.float32, device=cuda),
+             "label": torch.tensor(rng.integers(0, 10, 128), device=cuda)}
+    k1 = conv_mxu.conv_implicit_gemm
+    out = {}
+    cores = {"tf32_plain": _tf32_plain_core,
+             "tf32_reversed": _tf32_plain_core_reversed}
+    for arm, impl in (("patches", "patches"), ("mxu", "mxu"),
+                      ("tf32_plain", "mxu"), ("tf32_reversed", "mxu")):
+        if arm in cores:
+            monkeypatch.setattr(conv_mxu, "_core_window", cores[arm])
+        state = trainlib.build_state(
+            cfg.replace(model_kwargs={"conv_impl": impl}), cuda)
+        before = {k: v.detach().clone() for k, v in state.params.items()}
+        step = trainlib.build_step(cfg, state)
+        n0 = (k1.launches, k1.f32_launches)
+        state, metrics = step(state, batch, 0)
+        torch.cuda.synchronize()
+        out[arm] = (float(metrics["loss"]),
+                    {k: state.params[k].detach() - before[k] for k in before},
+                    {k: v.detach().clone()
+                     for k, v in state.batch_stats.items()},
+                    (k1.launches - n0[0], k1.f32_launches - n0[1]))
+    assert out["mxu"][3] == (18, 18)
+    assert (out["patches"][3] == out["tf32_plain"][3]
+            == out["tf32_reversed"][3] == (0, 0))
+
+    def distance(a, b):
+        (la, ua, sa, _), (lb, ub, sb, _) = out[a], out[b]
+        total = _rel_l2(torch.cat([ua[k].flatten() for k in ua]),
+                        torch.cat([ub[k].flatten() for k in ua]))
+        return (abs(la - lb) / abs(lb), total,
+                max(_rel_l2(ua[k], ub[k]) for k in ua),
+                max(_rel_l2(sa[k], sb[k]) for k in sa))
+
+    pairs = (("mxu", "tf32_plain"), ("mxu", "patches"),
+             ("tf32_plain", "patches"), ("tf32_reversed", "tf32_plain"))
+    got = {pair: distance(*pair) for pair in pairs}
+    for (arm, ref), (loss, total, worst, stats) in got.items():
+        print(f"resnet32_cifar10 step, {arm} vs {ref}: loss rel {loss:.3g}, "
+              f"updates rel L2 {total:.3g} (worst tensor {worst:.3g}), worst "
+              f"BN statistic rel L2 {stats:.3g}")
+    loss, _, _, stats = got[pairs[0]]
+    assert loss <= 1e-5 and stats <= 1e-4
+    loss, total, worst, stats = got[pairs[1]]
+    _, own_total, own_worst, _ = got[pairs[2]]
+    assert loss <= 1e-3 and stats <= 1e-2
+    assert total <= 2 * own_total and worst <= 2 * own_worst
+    _, total, worst, _ = got[pairs[0]]
+    _, order_total, order_worst, _ = got[pairs[3]]
+    assert total <= 2 * order_total and worst <= 2 * order_worst

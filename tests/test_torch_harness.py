@@ -66,9 +66,10 @@ def test_port_imports_nothing_of_jax(path):
 
 
 def test_guard_walks_every_module_of_the_port():
-    """The walk covers each module of the port, those of the LM slice and
-    the input pipeline included; what else the package holds is CUDA source and its shared
-    header under csrc/, which import nothing of Python."""
+    """The walk covers each module of the port, those of the LM slice, the
+    input pipeline and the rest of the model zoo included; what else the
+    package holds is CUDA source and its shared header under csrc/, which
+    import nothing of Python."""
     walked = {p.relative_to(PORT).as_posix() for p in _port_files()
               if PORT in p.parents}
     assert {"ops/attention.py", "ops/embed.py", "ops/losses.py",
@@ -80,7 +81,9 @@ def test_guard_walks_every_module_of_the_port():
             "data/example_proto.py", "data/native_loader.py",
             "data/pipeline.py", "data/resplit.py", "data/tfrecord.py",
             "telemetry/__init__.py", "telemetry/registry.py",
-            "telemetry/trace.py"} <= walked
+            "telemetry/trace.py", "models/lenet.py",
+            "models/resnet_cifar.py", "models/vgg.py", "models/alexnet.py",
+            "models/ptb_lstm.py"} <= walked
     others = [p.relative_to(PORT).as_posix() for p in PORT.rglob("*")
               if p.is_file() and p.suffix not in (".py", ".pyc")]
     assert sorted(others) == ["csrc/conv_implicit_gemm.cu",
@@ -150,7 +153,8 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("name", ["resnet50_synthetic", "resnet50_imagenet",
-                                  "inception_v3_imagenet"])
+                                  "inception_v3_imagenet", "lenet_mnist",
+                                  "resnet32_cifar10"])
 def test_configs_match_jax(name):
     j, t = jconfig.get_config(name), tconfig.get_config(name)
     for field in ("model", "dataset", "image_size", "global_batch_size",

@@ -213,3 +213,94 @@ def test_update_ema_matches_jax_step_by_step():
         for k in params:
             np.testing.assert_allclose(tema_p[k].numpy(),
                                        np.asarray(jema_p[k]), **TOL)
+
+
+def _f32_schedule_values(jsched, tsched, steps):
+    """Each schedule's value per step: JAX's (jitted, over int32 counts as
+    optax passes them) and the port's, both as f32."""
+    counts = jnp.asarray(steps, jnp.int32)
+    want = np.asarray(jax.jit(jax.vmap(jsched))(counts), np.float32)
+    got = np.asarray([tsched(int(s)) for s in steps], np.float32)
+    return got, want
+
+
+# The three PTB configs' (lr decay, hold epochs) and an epoch of 7 steps.
+ZAREMBA = [(0.5, 4), (0.8, 6), (1 / 1.15, 14)]
+
+
+@pytest.mark.parametrize("lr", [1.0, 0.7])
+@pytest.mark.parametrize("decay,hold", ZAREMBA,
+                         ids=["small", "medium", "large"])
+def test_zaremba_decay_equals_jax_in_f32(decay, hold, lr):
+    """The staged schedule as f32 values, equal to JAX's bit for bit on
+    both sides of every epoch boundary out to 60 decays (the large config
+    decays 41 times over its 55 epochs).  The decay rate raised in double
+    and rounded once sits an f32 ulp away at most of them (the rate is
+    rounded to f32 first in JAX), numpy's f32 power at about a sixth."""
+    spe = 7
+    steps = sorted({e * spe + d for e in range(hold + 61)
+                    for d in (-1, 0, 1) if e * spe + d >= 0})
+    got, want = _f32_schedule_values(
+        joptim.zaremba_decay(lr, spe, hold, decay),
+        toptim.zaremba_decay(lr, spe, hold, decay), steps)
+    np.testing.assert_array_equal(got, want)
+    assert got[0] == np.float32(lr) and got[-1] < got[0]
+
+
+@pytest.mark.parametrize("boundaries,values", [
+    ([3], [1.0, 0.5]),
+    ([2, 5, 9], [1.0, 0.8, 0.64, 0.512]),
+    ([4, 8], [0.1, 0.01 / 3, 0.0007]),
+], ids=["one", "zaremba_like", "uneven"])
+def test_piecewise_constant_equals_jax_in_f32(boundaries, values):
+    """TF semantics (the old value at the boundary step, the new one from
+    boundary + 1) with optax's cumulative ratios in f32: equal to JAX's
+    values bit for bit at, before and after every boundary."""
+    steps = sorted({max(0, b + d) for b in boundaries for d in (-1, 0, 1, 2)}
+                   | {0, boundaries[-1] + 10})
+    got, want = _f32_schedule_values(
+        joptim.piecewise_constant(boundaries, values),
+        toptim.piecewise_constant(boundaries, values), steps)
+    np.testing.assert_array_equal(got, want)
+    for s, v in zip(steps, got):
+        i = sum(s > b for b in boundaries)
+        np.testing.assert_allclose(v, values[i], rtol=1e-6)
+
+
+def test_piecewise_constant_rejects_mismatched_lists():
+    with pytest.raises(ValueError, match="len"):
+        toptim.piecewise_constant([1, 2], [1.0, 0.5])
+
+
+@pytest.mark.parametrize("schedule", ["constant", "zaremba"])
+def test_sgd_with_clip_matches_jax_under_schedules(schedule):
+    """The PTB optimizer, clip then SGD, with the staged schedule crossing
+    an epoch boundary every step: updates and parameters step by step."""
+    import optax
+
+    lr = {"constant": (1.0, 1.0),
+          "zaremba": (joptim.zaremba_decay(1.0, 1, 1, 0.5),
+                      toptim.zaremba_decay(1.0, 1, 1, 0.5))}[schedule]
+    _run_both(optax.chain(joptim.clip_by_global_norm(0.5), joptim.sgd(lr[0])),
+              toptim.chain(toptim.clip_by_global_norm(0.5), toptim.sgd(lr[1])),
+              steps=5)
+
+
+@pytest.mark.parametrize("schedule", [False, True])
+def test_centered_tf_rmsprop_matches_jax(schedule):
+    """TF-1.x centered RMSProp: the mean gradient's square taken out of
+    the denominator, mg from zeros; five steps, every slot compared."""
+    jlr = joptim.piecewise_constant([1, 3], [0.045, 0.02, 0.01]) if (
+        schedule) else 0.045
+    tlr = toptim.piecewise_constant([1, 3], [0.045, 0.02, 0.01]) if (
+        schedule) else 0.045
+    jstate, tstate = _run_both(
+        joptim.tf_rmsprop(jlr, 0.9, 0.9, 1.0, centered=True),
+        toptim.tf_rmsprop(tlr, 0.9, 0.9, 1.0, centered=True), steps=5)
+    assert tstate["count"] == int(jstate.count) == 5
+    for slot in ("ms", "mg", "mom"):
+        for k, v in tstate[slot].items():
+            np.testing.assert_allclose(
+                v.numpy(), np.asarray(getattr(jstate, slot)[k]), **TOL)
+    assert "mg" not in toptim.tf_rmsprop(0.1).init(
+        {k: torch.tensor(v) for k, v in _params(3).items()})
