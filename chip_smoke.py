@@ -31,22 +31,37 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    GB/s, pinned bytes and the waits.  The ImageNet records path is not
    driven: it needs PIL and OpenCV, which the card's machine lacks.  With
    ``--parent-tree DIR`` (another checkout, e.g. the parent commit's from
-   ``git archive``) that tree's ``fit`` and this one's train
-   ``resnet50_synthetic`` (K1) and ``inception_v3_imagenet`` (K6) in turns
-   (parent, this, this, parent), and ``transformer_lm`` (K2-K4) in five
-   such rounds, each run a process of its own.
-4. The ResNet-50 path: the port's CLI trains ``resnet50_synthetic``
-   (224x224, batch 256) with ``DTM_CONV_IMPL=mxu``; K1's counter must equal
-   its launches per step times the steps (K6's stays 0).  The ``F.conv2d``
-   arm (cuDNN) follows as a yardstick, in turns with a second K1 arm.
-5. ``torch.profiler`` over two steps of each ResNet arm: device time by
-   kernel class, the copy class split by source (the mxu route's forward
-   and dx, its dw windows, the patches lowering's im2col, the branch
-   concatenations, dtype casts, other), and the device's idle share.
+   ``git archive``) that tree's ``fit`` and this one's (in chunks of
+   ``STEPS_PER_LOOP``, the step captured and replayed) train every zoo
+   path in turns (parent, this, this, parent), each run a process of its
+   own, every run timed over the same steps (those after the first chunk,
+   a few seconds of the captured step): rates, each window's steps and
+   milliseconds, and peak memory.
+   ``--ab-only`` runs phase 1 and these alone.
+3c. Replay against eager on every zoo path at full width (ResNet-50 K1,
+   Inception-v3 K6, ResNet-32 f32 K1, VGG-16 and AlexNet K1, LeNet,
+   ``transformer_lm`` K2-K4, ``transformer_lm_modern`` K2 + K5,
+   ``ptb_medium``): ``REPLAY_STEPS`` steps of ``fit`` in chunks of
+   ``STEPS_PER_LOOP`` (the first step eager, the rest replays of the
+   captured step, a shorter tail on the same graph; ``REPLAY_STEPS_AHEAD``
+   on the paths with short steps, where the host runs chunks ahead of the
+   device, the most chunks in flight printed), its batches through the
+   pipeline and the ``BatchStacker``, against the eager step on the
+   dataset's own stream read serially:
+   losses and every state tensor bit for bit where the step has no
+   atomics, else (the LMs' embedding gradient) the losses to 1e-5
+   relative and the state to 1e-4 in relative L2.
+4. The ResNet-50 path: ``fit`` trains ``resnet50_synthetic`` (224x224,
+   batch 256) with ``DTM_CONV_IMPL=mxu``; K1's counter must equal its
+   launches per step times the steps (K6's stays 0).  The ``F.conv2d``
+   arm (cuDNN) follows as a yardstick, in turns with a second K1 arm; then
+   three steps through the CLI (K1 50 a step).
+5. ``torch.profiler`` over two replays of each ResNet arm's captured
+   step: device time by kernel class and the device's idle share.
 6. Phase 2 at every launch shape of one ``inception_v3_imagenet`` step at
    batch 256 (the 1x7, 7x1, 1x3, 3x1 taps, the aux head's 5x5, the phase
    kernels of its stride-2 convs and the dx of all of them).
-7. The Inception-v3 path: the CLI trains ``inception_v3_imagenet``
+7. The Inception-v3 path: ``fit`` trains ``inception_v3_imagenet``
    (299x299, batch 256, RMSProp, label smoothing, the 0.4-weighted aux
    head, L2, the weight EMA) with ``DTM_CONV_MXU_PIPELINE=1``: K6's
    counter must equal its launches per step times the steps and K1's must
@@ -76,7 +91,7 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    ``--parent-csrc`` that tree's bf16 K1 also runs after phase 1, in turns
    with this tree's at every ResNet-50 launch shape, and must give the
    same bits.
-9. The transformer_lm path: the CLI trains ``transformer_lm`` (4 layers, 8
+9. The transformer_lm path: ``fit`` trains ``transformer_lm`` (4 layers, 8
    heads, d_model 256, sequence 256, batch 16) with ``--attn-impl
    flash``; K2, K3 and K4 must each launch 4 layers x steps times.  The
    blockwise arm (``auto``) follows as a yardstick, in turns with a second
@@ -100,8 +115,8 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
 12. The new conv paths through ``fit``, each K1 arm (``DTM_CONV_IMPL=mxu``)
    in turns with an ``F.conv2d`` arm: ``resnet32_cifar10`` (batch 128,
    f32; also a K6 arm) and ``lenet_mnist`` (batch 64; its convs route to
-   patches, so no kernel launches) through the CLI, VGG-16 and AlexNet in
-   process on ``resnet50_synthetic`` with the JAX bench's settings (batch
+   patches, so no kernel launches) as named configs, VGG-16 and AlexNet
+   on ``resnet50_synthetic`` with the JAX bench's settings (batch
    64 and 128, L2 5e-4, TF momentum at 0.1 x batch / 256; four input
    workers, since the bench feeds stacked device batches).  K1's counter
    must equal its traced launches a step times the steps (all f32 for
@@ -109,15 +124,21 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    for input, step times, peak memory and losses of each arm; a profile of
    each K1 arm.
 13. ``ptb_medium`` at full width (hidden 650, batch 20, 35 steps of
-   unroll, vocab 10000, dropout 0.5) through the CLI: tokens/s, the wait
+   unroll, vocab 10000, dropout 0.5) through ``fit``: tokens/s, the wait
    for input, step times, peak memory, losses finite and falling; then
    two steps of ``fit``, whose carry must reach step 2 as the model's
    zero carry threaded on, ``[20, 650]`` per layer, f32, detached.
 
-Every training arm reads its batches through ``fit``'s pipeline
-(``HostPipeline``, one worker, then the CUDA ``DevicePrefetcher``) and
-prints its median and mean wait for input (``data_s``) beside its images/s
-or tokens/s.  Every comparison of arms runs them in turns (K1, F.conv2d,
+Every training arm runs ``fit`` in chunks of ``STEPS_PER_LOOP`` steps
+(``steps_per_loop``): the first step eager, the step then captured as a
+CUDA graph once and every later step a replay (the arm fails otherwise);
+each kernel's counter counts what each replay launches.  Every arm reads
+its batches through ``fit``'s pipeline (``HostPipeline``, one worker,
+then the CUDA ``DevicePrefetcher`` and the ``BatchStacker``) and prints
+its images/s or tokens/s over the timed window (from a device sync at the
+end of the first chunk to one at the run's end), its median and mean wait
+for input (``data_s``), its capture's count and seconds, and its peak
+memory, allocated and reserved (the graph's private pool).  Every comparison of arms runs them in turns (K1, F.conv2d,
 K1, F.conv2d for ResNet-50; flash, blockwise, flash, blockwise for
 transformer_lm):
 host noise on a shared machine moves step times between runs.  The last
@@ -194,6 +215,16 @@ PIPE_CHECK_BATCHES = 6
 PIPE_WARM_BATCHES = 15
 PIPE_DRAIN_BATCHES = 20
 PIPE_SLEEP_CYCLES = 34_000_000
+# Every training arm runs fit's K-step call: chunks of STEPS_PER_LOOP
+# steps, the first step eager and every later one a replay of the step
+# captured as a CUDA graph.  Phase 3c holds the steps of each path to
+# eager ones: REPLAY_STEPS (a chunk, then a shorter tail on the same
+# graph) on the device-bound paths, REPLAY_STEPS_AHEAD (four chunks and a
+# tail, so the host can dispatch chunks past fit's first sync) on the
+# paths where a replayed step is short.
+STEPS_PER_LOOP = 4
+REPLAY_STEPS = 6
+REPLAY_STEPS_AHEAD = 18
 # name, B, Tq, Tkv, H, Hkv, D, causal, window, q_offset, kv_offset,
 # LSE cotangent, timed
 FLASH_SHAPES = (
@@ -672,103 +703,335 @@ def phase_pipeline(card: str, batch: int, seed: int) -> dict:
     return {"arms": arms}
 
 
-# --parent-tree: config, DTM_CONV_MXU_PIPELINE, extra CLI flags, rounds of
-# (parent, this, this, parent).  The LM's host-bound rate spreads by up to a
-# third between runs of one tree, so it takes five rounds (ten pairs).
-TREE_AB_ARMS = (
-    ("resnet50_synthetic", "0", ("--batch-size", "{batch}"), 1),
-    ("inception_v3_imagenet", "1", ("--batch-size", "{batch}"), 1),
-    ("transformer_lm", "0", ("--attn-impl", "flash"), 5),
-)
+# --parent-tree: ``fit`` of each tree in a process of its own, from the
+# tree's own checkout: the config, its field overrides as JSON (the
+# optimizer as a dict), the workdir; prints the run's timed window (its
+# steps, seconds and examples or tokens), its last loss, the first step
+# whose loss was not finite (an older fit has no NaN guard) and peak
+# memory.  A tree whose
+# FitResult has no ``window_s`` (an eager fit, which reads every step's
+# metrics back) is timed from the end of its step AB_WINDOW_FROM to the
+# end of its last step: the steps this tree's window holds, the first
+# chunk of STEPS_PER_LOOP left out.
+AB_WINDOW_FROM = 4
+AB_RUNNER = """
+import json, math, sys
+import torch
+from distributed_tensorflow_models_tpu_torch.harness import config, train
+spec = json.loads(sys.argv[1])
+over = dict(spec["over"])
+if "optimizer" in over:
+    over["optimizer"] = config.OptimizerConfig(**over["optimizer"])
+r = train.fit(config.get_config(spec["config"], **over), spec["workdir"],
+              device="cuda")
+h = r.history
+if getattr(r, "window_s", None) is not None:
+    window_s, window_steps = r.window_s, r.window_steps
+else:
+    start = spec["window_from"]
+    window_s, window_steps = h[-1]["end_s"] - h[start - 1]["end_s"], len(h) - start
+key = "tokens" if "tokens" in h[0] else "batch_size"
+bad = [row["step"] for row in h if not math.isfinite(row["loss"])]
+print(json.dumps({"steps": r.state.step, "window_s": window_s,
+                  "window_steps": window_steps, "unit": key,
+                  "window_count": sum(row[key] for row in h[-window_steps:]),
+                  "last_loss": h[-1]["loss"],
+                  "first_nonfinite": bad[0] if bad else None,
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30}))
+"""
 
 
-def phase_tree_ab(parent: Path, steps: int, batch: int, card: str) -> None:
-    """``fit`` of another tree (``parent``) and of this one in turns
-    (parent, this, this, parent), each through its CLI in a process of its
-    own, for each arm of ``TREE_AB_ARMS``: the same steps, the CNNs at
-    ``batch``.  Prints each run's end-to-end rate and its median wait for
-    input and step time, and per arm each tree's median rate."""
-    for config, knob, extra, rounds in TREE_AB_ARMS:
-        extra = [a.format(batch=batch) for a in extra]
+def tree_ab_arms(batch: int) -> tuple:
+    """``--parent-tree``'s arms, every zoo path: label, config, field
+    overrides, DTM_CONV_IMPL, DTM_CONV_MXU_PIPELINE, DTM_FLASH_BWD and the
+    steps, enough that the captured step's window lasts a few seconds and
+    many times the batches the input pipeline buffers.  VGG-16 and AlexNet
+    read their input at one worker here (the bench's four elsewhere): at
+    four, an older tree's worker pool queues batches without bound while
+    its step is slower (F4), and over these steps it meets the host's
+    memory limit.  AlexNet's loss is not finite from step 85 on at these
+    settings, in an eager tree and a captured one alike: its arm stops
+    before."""
+    return (
+        ("ResNet-50, K1", "resnet50_synthetic",
+         {"global_batch_size": batch}, "mxu", "0", "pair", 24),
+        ("Inception-v3, K6", "inception_v3_imagenet",
+         {"global_batch_size": batch}, "mxu", "1", "pair", 16),
+        ("ResNet-32, f32 K1", "resnet32_cifar10", {}, "mxu", "0", "pair",
+         220),
+        ("LeNet", "lenet_mnist", {}, "mxu", "0", "pair", 2500),
+        ("VGG-16, K1", "resnet50_synthetic",
+         {**bench_overrides("vgg16", 64), "data_workers": 1}, "mxu", "0",
+         "pair", 60),
+        ("AlexNet, K1", "resnet50_synthetic",
+         {**bench_overrides("alexnet", 128), "data_workers": 1}, "mxu",
+         "0", "pair", 84),
+        ("transformer_lm, K2-K4", "transformer_lm", {"attn_impl": "flash"},
+         "mxu", "0", "pair", 400),
+        ("transformer_lm_modern, K2 + K5", "transformer_lm_modern",
+         {"attn_impl": "flash"}, "mxu", "0", "staged", 400),
+        ("ptb_medium", "ptb_medium", {}, "mxu", "0", "pair", 400),
+    )
+
+
+def phase_tree_ab(parent: Path, batch: int, card: str) -> None:
+    """``fit`` of another tree (``parent``: the eager step, metrics read
+    back every step) and of this one (chunks of ``STEPS_PER_LOOP``, the
+    step captured and replayed) in turns (parent, this, this, parent),
+    each in a process of its own, for every arm of ``tree_ab_arms``: the
+    same steps, each run timed over the same steps (``AB_RUNNER``).
+    Prints each run's end-to-end rate, its window's steps and
+    milliseconds, and peak memory, and per arm each tree's median rate."""
+    for label, config, over, impl, knob, bwd, steps in tree_ab_arms(batch):
         rates = {"parent": [], "this": []}
+        windows = {"parent": [], "this": []}
         order = (("parent", parent), ("this", ROOT), ("this", ROOT),
-                 ("parent", parent)) * rounds
-        for n, (label, tree) in enumerate(order):
+                 ("parent", parent))
+        for n, (who, tree) in enumerate(order):
             workdir = ROOT / "build" / "chip_smoke" / f"ab_{config}_{n}"
+            run_over = {**over, "train_steps": steps}
+            if who == "this":
+                run_over["steps_per_loop"] = STEPS_PER_LOOP
             env = {**os.environ, "PYTHONPATH": str(tree),
-                   "DTM_CONV_IMPL": "mxu", "DTM_CONV_MXU_PIPELINE": knob,
-                   "DTM_FLASH_BWD": "pair"}
-            out = subprocess.run(
-                [sys.executable, "-m",
-                 "distributed_tensorflow_models_tpu_torch.harness.cli",
-                 "train", "--config", config, "--workdir", str(workdir),
-                 "--train-steps", str(steps), "--device", "cuda", *extra],
-                cwd=tree, env=env, capture_output=True, text=True,
-                timeout=900)
+                   "DTM_CONV_IMPL": impl, "DTM_CONV_MXU_PIPELINE": knob,
+                   "DTM_FLASH_BWD": bwd}
+            spec = json.dumps({"config": config, "over": run_over,
+                               "workdir": str(workdir),
+                               "window_from": AB_WINDOW_FROM})
+            out = subprocess.run([sys.executable, "-c", AB_RUNNER, spec],
+                                 cwd=tree, env=env, capture_output=True,
+                                 text=True, timeout=900)
             if out.returncode != 0:
-                fail(f"{label} tree's {config} run exited {out.returncode}: "
+                fail(f"{who} tree's {label} run exited {out.returncode}: "
                      f"{out.stderr[-2000:]}")
             result = json.loads(out.stdout.strip().splitlines()[-1])
-            steady = [json.loads(line) for line in
-                      (workdir / "metrics.jsonl").read_text().splitlines()][1:]
-
-            def median(key):
-                return sorted(r[key] for r in steady)[len(steady) // 2]
-
-            unit = "tokens/s" if result.get("tokens_per_sec") else "images/s"
-            rate = result["tokens_per_sec" if unit == "tokens/s"
-                          else "images_per_sec"]
-            rates[label].append(rate)
-            log(f"trees in turns, {config} ({label}, {tree}): {rate:.1f} "
-                f"{unit} end to end; wait for input (data_s) median "
-                f"{median('data_s') * 1e3:.3f} ms; step_time_s median "
-                f"{median('step_time_s') * 1e3:.3f} ms | {card}")
+            if result["steps"] != steps:
+                fail(f"{who} tree's {label} run took {result['steps']} steps")
+            if result["window_steps"] != steps - AB_WINDOW_FROM:
+                fail(f"{who} tree's {label} run timed "
+                     f"{result['window_steps']} steps, not the "
+                     f"{steps - AB_WINDOW_FROM} after its first chunk")
+            unit = ("tokens/s" if result["unit"] == "tokens"
+                    else "images/s")
+            rate = result["window_count"] / result["window_s"]
+            window = (f"{result['window_steps']} steps in "
+                      f"{result['window_s'] * 1e3:.1f} ms")
+            rates[who].append(rate)
+            windows[who].append(window)
+            log(f"trees in turns, {label} ({who}): {rate:.1f} {unit} end "
+                f"to end over {window}; last loss {result['last_loss']!r}, "
+                f"first non-finite loss at step {result['first_nonfinite']}; "
+                f"peak memory {result['peak_gib']:.3f} GiB | {card}")
         med = {k: sorted(v)[len(v) // 2] for k, v in rates.items()}
-        log(f"trees in turns, {config}: {len(order)} runs, median {unit} "
-            f"parent {med['parent']:.1f}, this {med['this']:.1f}; every run "
-            f"of this above every parent run: "
-            f"{min(rates['this']) > max(rates['parent'])}, below: "
-            f"{max(rates['this']) < min(rates['parent'])} | {card}")
+        log(f"trees in turns, {label}: {len(order)} runs, median {unit} "
+            f"parent {med['parent']:.1f} ({'; '.join(windows['parent'])}), "
+            f"this {med['this']:.1f} ({'; '.join(windows['this'])}) "
+            f"({med['this'] / med['parent']:.3f}x); every run of this above "
+            f"every parent run: {min(rates['this']) > max(rates['parent'])}, "
+            f"below: {max(rates['this']) < min(rates['parent'])} | {card}")
 
 
-def run_cli(config: str, steps: int, batch: int, workdir: Path,
-            *extra: str) -> dict:
-    """The port's CLI ``train`` in this process; returns its JSON line."""
+def replay_paths(batch: int) -> tuple:
+    """Phase 3c's paths, every zoo path at full width: label, config,
+    DTM_CONV_IMPL, DTM_CONV_MXU_PIPELINE, DTM_FLASH_BWD, whether the step
+    is free of atomics (then the replays must equal the eager steps bit
+    for bit), and the steps."""
+    short, ahead = REPLAY_STEPS, REPLAY_STEPS_AHEAD
+    return (
+        ("ResNet-50 (K1)", named_config(
+            "resnet50_synthetic", {"global_batch_size": batch}),
+         "mxu", "0", "pair", True, short),
+        ("Inception-v3 (K6)", named_config(
+            "inception_v3_imagenet", {"global_batch_size": batch}),
+         "mxu", "1", "pair", True, short),
+        ("ResNet-32 (f32 K1)", named_config("resnet32_cifar10", {}),
+         "mxu", "0", "pair", True, ahead),
+        ("VGG-16 (K1)", bench_config("vgg16", 64, short),
+         "mxu", "0", "pair", True, short),
+        ("AlexNet (K1)", bench_config("alexnet", 128, short),
+         "mxu", "0", "pair", True, short),
+        ("LeNet", named_config("lenet_mnist", {}), "mxu", "0", "pair", True,
+         ahead),
+        ("transformer_lm (K2-K4)", named_config(
+            "transformer_lm", {"attn_impl": "flash"}),
+         "mxu", "0", "pair", False, ahead),
+        ("transformer_lm_modern (K2, K5)", named_config(
+            "transformer_lm_modern", {"attn_impl": "flash"}),
+         "mxu", "0", "staged", False, ahead),
+        ("ptb_medium", named_config("ptb_medium", {}), "mxu", "0", "pair",
+         False, ahead),
+    )
+
+
+def state_tensors(state) -> list:
+    """Every tensor of a train state: parameters, BN statistics, optimizer
+    slots and counts, EMA shadows, the carry and the device step."""
+    from distributed_tensorflow_models_tpu_torch.core import train_loop
+
+    return [t.detach() for t in train_loop._leaves((
+        state.params, state.batch_stats, state.opt_state, state.ema_params,
+        state.carry, state.device_step))]
+
+
+def rel_l2(a, b) -> float:
+    import torch
+
+    a, b = a.double().flatten(), b.double().flatten()
+    den = float(torch.linalg.vector_norm(b))
+    num = float(torch.linalg.vector_norm(a - b))
+    return num / den if den else num
+
+
+def phase_replay(batch: int, card: str) -> None:
+    """Replay against eager on every zoo path at full width, the run-ahead
+    included: the path's steps (:func:`replay_paths`) of ``fit`` in chunks
+    of ``STEPS_PER_LOOP`` (the first step eager, the rest replays of the
+    captured step, a shorter tail chunk on the same graph), its batches
+    through ``HostPipeline``, the ``DevicePrefetcher`` and the
+    ``BatchStacker``, on the short-step paths with chunks dispatched while
+    earlier ones still run (``FitResult.chunks_in_flight``, printed; the
+    phase fails if that happened on no path), against the eager step on
+    the dataset's own stream read serially, from the same seeded state.  Where the step has no atomics every loss and every
+    state tensor must be equal bit for bit: the replays then consumed the
+    host stream's batches, in order, and read each step's rate, decay and
+    dropout bits.  The LM paths' embedding gradient adds rows with atomics
+    (``index_add_``), which reorder f32 sums in every run, eager or not:
+    their losses are held to 1e-5 relative and their state, over all
+    tensors, to 1e-4 in relative L2 (a stale rate, stale dropout bits or a
+    stale batch moves them by 1e-3 or more)."""
+    import itertools
+
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+    from distributed_tensorflow_models_tpu_torch.ops import conv as convlib
+
+    dev = torch.device("cuda")
+    ahead = []
+    for label, cfg, impl, knob, bwd, exact, steps in replay_paths(batch):
+        convlib.set_default_conv_impl(impl)
+        os.environ["DTM_CONV_MXU_PIPELINE"] = knob
+        os.environ["DTM_FLASH_BWD"] = bwd
+        cfg = cfg.replace(train_steps=steps, steps_per_loop=STEPS_PER_LOOP)
+        state = trainlib.build_state(cfg, dev)
+        step = trainlib.build_step(cfg, state)
+        want = []
+        for b in itertools.islice(iter(trainlib.build_dataset(cfg)), steps):
+            state, metrics = step(state, {k: torch.from_numpy(v).to(dev)
+                                          for k, v in b.items()}, cfg.seed)
+            want.append(float(metrics["loss"]))
+        eager = [t.clone() for t in state_tensors(state)]
+        del state, step
+        r = trainlib.fit(cfg, device="cuda")
+        got = [row["loss"] for row in r.history]
+        replayed = state_tensors(r.state)
+        if r.chunks_in_flight > 1:
+            ahead.append(label)
+        if (r.captures, r.replayed_steps) != (1, steps - 1):
+            fail(f"replay vs eager, {label}: {r.captures} captures, "
+                 f"{r.replayed_steps} replayed steps")
+        if len(replayed) != len(eager):
+            fail(f"replay vs eager, {label}: the states differ in layout")
+        same = sum(bool(torch.equal(a, b)) for a, b in zip(replayed, eager))
+        floats = [(a.float(), b.float()) for a, b in zip(replayed, eager)
+                  if a.is_floating_point()]
+        total = rel_l2(torch.cat([a.flatten() for a, _ in floats]),
+                       torch.cat([b.flatten() for _, b in floats]))
+        loss_rel = max(abs(x - y) / abs(y) for x, y in zip(got, want))
+        log(f"replay vs eager, {label}: {steps} steps (chunks of "
+            f"{STEPS_PER_LOOP}, then the tail; at most {r.chunks_in_flight} "
+            f"chunks in flight); losses {got}; largest loss "
+            f"difference {loss_rel:.3g} relative; {same} of {len(eager)} "
+            f"state tensors equal bit for bit, state rel L2 {total:.3g} "
+            f"({'bit for bit required' if exact else 'bounded: atomics'}) "
+            f"| {card}")
+        if exact and (got != want or same != len(eager)):
+            fail(f"replay vs eager, {label}: the replayed steps differ from "
+                 f"the eager ones")
+        if not exact and (loss_rel > 1e-5 or total > 1e-4):
+            fail(f"replay vs eager, {label}: loss {loss_rel:.3g} relative, "
+                 f"state {total:.3g} in relative L2, over 1e-5 and 1e-4")
+        del r, replayed, eager
+    if not ahead:
+        fail("replay vs eager: on no path did the host dispatch a chunk "
+             "while the device still ran an earlier one")
+    log(f"replay vs eager: the host ran chunks ahead of the device on "
+        f"{', '.join(ahead)}")
+    convlib.set_default_conv_impl("mxu")
+    os.environ["DTM_CONV_MXU_PIPELINE"] = "0"
+    os.environ["DTM_FLASH_BWD"] = "pair"
+
+
+def run_cli_train(config: str, steps: int, batch: int,
+                  workdir: Path) -> dict:
+    """The CLI's ``train`` in this process at ``STEPS_PER_LOOP``; returns
+    its JSON line, which must show one capture and every step after the
+    first replayed."""
     from distributed_tensorflow_models_tpu_torch.harness import cli
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["train", "--config", config, "--workdir",
                        str(workdir), "--train-steps", str(steps),
-                       "--batch-size", str(batch), "--device", "cuda",
-                       *extra])
-    out = buf.getvalue()
-    log(out.rstrip())
+                       "--batch-size", str(batch), "--steps-per-loop",
+                       str(STEPS_PER_LOOP), "--device", "cuda"])
     if rc != 0:
         fail(f"cli train exited {rc}")
-    result = json.loads(out.strip().splitlines()[-1])
-    rows = [json.loads(line) for line in
-            (workdir / "metrics.jsonl").read_text().splitlines()]
-    return summarize_run(result, rows, steps)
+    result = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if (result["steps"], result["captures"], result["replayed_steps"]) != (
+            steps, 1, steps - 1):
+        fail(f"cli train: {result}")
+    return result
+
+
+def run_named(config: str, steps: int, batch: int, workdir: Path,
+              **over) -> dict:
+    """``fit`` of the named config (the CLI's ``train --config``, in this
+    process) at ``batch`` for ``steps`` steps, with ``over`` replacing
+    config fields; summarised as ``run_fit`` does."""
+    from distributed_tensorflow_models_tpu_torch.harness.config import get_config
+
+    return run_fit(get_config(config, train_steps=steps,
+                              global_batch_size=batch, **over), workdir)
 
 
 def run_fit(cfg, workdir: Path) -> dict:
-    """``fit`` in this process on the card: the CLI's JSON fields from its
-    result, summarised as ``run_cli`` does."""
+    """``fit`` in this process on the card in chunks of
+    ``STEPS_PER_LOOP``: the CLI's JSON fields from its result, how its
+    steps ran and its timed window, summarised by ``summarize_run``.
+    Fails unless the step was captured once and every step after the
+    first replayed (no step ran eagerly in its place)."""
+    import torch
+
     from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
 
+    cfg = cfg.replace(steps_per_loop=STEPS_PER_LOOP)
+    # An earlier arm's graph pool stays reserved until the allocator's
+    # cache is emptied: empty it, so that the peak reserved is this arm's.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     r = trainlib.fit(cfg, str(workdir), device="cuda")
     result = {"final_metrics": r.final_metrics, "steps": r.state.step,
               "device": r.device,
               "steady_step_time_s": r.steady_step_time_s,
               "images_per_sec": r.images_per_sec,
-              "tokens_per_sec": r.tokens_per_sec}
+              "tokens_per_sec": r.tokens_per_sec,
+              "captures": r.captures, "capture_s": r.capture_s,
+              "replayed_steps": r.replayed_steps, "window_s": r.window_s,
+              "window_steps": r.window_steps,
+              "window_data_s": r.window_data_s,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30}
+    if (r.captures, r.replayed_steps) != (1, cfg.train_steps - 1):
+        fail(f"{cfg.name}: {r.captures} captures and {r.replayed_steps} "
+             f"replayed steps of {cfg.train_steps}: every step after the "
+             f"first must replay the one captured step")
     return summarize_run(result, r.history, cfg.train_steps)
 
 
 def summarize_run(result: dict, rows: list, steps: int) -> dict:
-    """Check a run's length and losses and add its losses, mean and median
-    wait for input and median and largest step time to ``result``."""
+    """Check a run's length and losses and add its losses and mean and
+    median wait for input to ``result``."""
     if result["steps"] != steps or len(rows) != steps:
         fail(f"trained {result['steps']} steps ({len(rows)} rows), "
              f"asked for {steps}")
@@ -776,13 +1039,10 @@ def summarize_run(result: dict, rows: list, steps: int) -> dict:
     if not all(math.isfinite(v) for v in losses):
         fail(f"non-finite loss: {losses}")
     result["losses"] = losses
-    steady = rows[1:] or rows
+    steady = rows[STEPS_PER_LOOP:] or rows
     waits = sorted(r["data_s"] for r in steady)
     result["data_s"] = sum(waits) / len(waits)
     result["median_data_s"] = waits[len(waits) // 2]
-    times = sorted(r["step_time_s"] for r in steady)
-    result["median_step_s"] = times[len(times) // 2]
-    result["max_step_s"] = times[-1]
     return result
 
 
@@ -846,100 +1106,48 @@ def _kernel_class(name: str) -> str:
 COPY_CLASS = "copies, pads, fills"
 
 
-@contextlib.contextmanager
-def copy_sources():
-    """Marks the port's functions whose copies the profile tells apart with
-    ``record_function`` ranges ``src:<source>``: the mxu route's forward
-    and dx (which copy weight slices only: the core's inputs are windows
-    the kernels read), its dw window dots and the patches lowering's
-    im2col (the 1x1 and low-Cin convs)."""
-    from torch.profiler import record_function
-
-    from distributed_tensorflow_models_tpu_torch.ops import conv as convlib
-    from distributed_tensorflow_models_tpu_torch.ops import conv_mxu
-
-    saved = []
-
-    def wrap(mod, name, label):
-        fn = getattr(mod, name)
-
-        def marked(*a, **kw):
-            with record_function(f"src:{label}"):
-                return fn(*a, **kw)
-
-        saved.append((mod, name, fn))
-        setattr(mod, name, marked)
-
-    wrap(conv_mxu, "_forward", "mxu forward: core inputs, phase sums")
-    wrap(conv_mxu, "_dx", "mxu dx: core inputs, dx buffer")
-    wrap(conv_mxu, "_dw", "mxu dw windows")
-    wrap(convlib, "conv2d_patches", "patches im2col")
-    wrap(conv_mxu, "conv2d_patches", "patches im2col")
-    try:
-        yield
-    finally:
-        for mod, name, fn in reversed(saved):
-            setattr(mod, name, fn)
-
-
-def copy_split(prof, steps: int) -> collections.Counter:
-    """Device ms per step of the copy class by source: the innermost
-    ``src:`` range around the op that launched the kernel, else
-    ``torch.cat`` outside them (the branch concatenations), else a dtype
-    cast (``aten::_to_copy``), else other (pools' pads, zero fills,
-    autograd's accumulations)."""
-    split = collections.Counter()
-    for e in prof.events():
-        for k in getattr(e, "kernels", None) or ():
-            if _kernel_class(k.name) != COPY_CLASS:
-                continue
-            src, seen, cur = None, set(), e
-            while cur is not None:
-                if cur.name.startswith("src:"):
-                    src = cur.name[4:]
-                    break
-                seen.add(cur.name)
-                cur = cur.cpu_parent
-            key = src or ("branch concatenations" if "aten::cat" in seen
-                          else "dtype casts" if "aten::_to_copy" in seen
-                          else "other")
-            split[key] += k.duration / 1e3 / steps
-    return split
-
-
 def phase_profile(cfg, arm: str, steps: int = 2) -> None:
     """Device time of the training step by kernel class, and the device's
-    idle share, over ``steps`` steps after one warm-up step (the batches
-    are on the card beforehand), with the conv lowering set as it is."""
+    idle share, over ``steps`` replays of the captured step (the K-step
+    call, as ``fit`` runs it), after a chunk of two that runs the first
+    step eagerly, captures it and replays it once (the batches are on the
+    card beforehand), with the conv lowering set as it is."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from distributed_tensorflow_models_tpu_torch.core import train_loop
     from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
 
     batch = cfg.global_batch_size
     dev = torch.device("cuda")
     state = trainlib.build_state(cfg, dev)
-    step_fn = trainlib.build_step(cfg, state)
+    multi = train_loop.MultiStep(trainlib.build_step(cfg, state),
+                                 name=cfg.model)
     batches = iter(trainlib.build_dataset(cfg))
     on_card = [{k: torch.from_numpy(v).to(dev) for k, v in
-                next(batches).items()} for _ in range(steps + 1)]
-    state, metrics = step_fn(state, on_card[0], cfg.seed)
-    float(metrics["loss"])
-    with copy_sources(), profile(activities=[ProfilerActivity.CPU,
-                                             ProfilerActivity.CUDA]) as prof:
+                next(batches).items()} for _ in range(steps + 2)]
+
+    def chunk(rows):
+        return {k: torch.stack([b[k] for b in rows]) for k in rows[0]}
+
+    state, rows = multi(state, chunk(on_card[:2]), cfg.seed)
+    timed = chunk(on_card[2:])
+    float(rows["loss"][-1])
+    with profile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for b in on_card[1:]:
-            state, metrics = step_fn(state, b, cfg.seed)
-        float(metrics["loss"])
+        state, rows = multi(state, timed, cfg.seed)
+        float(rows["loss"][-1])
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    if multi.captures != 1 or multi.replays != steps + 1:
+        fail(f"profile ({arm}): {multi.captures} captures, {multi.replays} "
+             f"replays, expected 1 and {steps + 1}")
     # Device-side events only: a CPU op's self device time repeats the
     # time of the kernels it launched.
-    # (The src: ranges show on the device timeline as annotations, not
-    # kernels.)
     kernels = [(e.device_time_total / 1e3 / steps, e.count // steps, e.key)
                for e in prof.key_averages()
                if e.device_type != torch.autograd.DeviceType.CPU
-               and e.device_time_total > 0 and not e.key.startswith("src:")]
+               and e.device_time_total > 0]
     busy_ms = sum(ms for ms, _, _ in kernels)
     if busy_ms == 0:
         fail(f"profile ({arm}): the profiler saw no device time")
@@ -949,16 +1157,11 @@ def phase_profile(cfg, arm: str, steps: int = 2) -> None:
     classes = collections.Counter()
     for ms, _, name in kernels:
         classes[_kernel_class(name)] += ms
-    log(f"profile ({arm}), per step at batch {batch}: wall {wall_ms:.2f} ms "
-        f"(profiler on), device busy {busy_ms:.2f} ms, idle share "
-        f"{1 - busy_ms / wall_ms:.3f}")
+    log(f"profile ({arm}, replayed step), per step at batch {batch}: wall "
+        f"{wall_ms:.2f} ms (profiler on), device busy {busy_ms:.2f} ms, "
+        f"idle share {1 - busy_ms / wall_ms:.3f}")
     for cls, ms in classes.most_common():
         log(f"  {cls:>22}: {ms:8.2f} ms  {ms / busy_ms:6.1%} of busy")
-    split = copy_split(prof, steps)
-    log(f"  {COPY_CLASS} by source ({sum(split.values()):.2f} ms of "
-        f"{classes[COPY_CLASS]:.2f} attributed):")
-    for src, ms in split.most_common():
-        log(f"    {src:>40}: {ms:8.2f} ms")
     for ms, count, name in sorted(kernels, reverse=True)[:12]:
         log(f"  {ms:8.3f} ms x{count:<4d} {name[:110]}")
 
@@ -1274,22 +1477,27 @@ def run_lm_arm(config: str, impl: str, steps: int, workdir: Path) -> dict:
     from distributed_tensorflow_models_tpu_torch.harness.config import get_config
 
     batch = get_config(config).global_batch_size
-    return run_cli(config, steps, batch, workdir, "--attn-impl", impl)
+    return run_named(config, steps, batch, workdir, attn_impl=impl)
 
 
 def log_arm(label: str, r: dict, per_step: int, card: str) -> None:
-    """One arm's end-to-end rate, step times and wait for input; ``per_step``
-    is the images (or tokens, for an LM) of one step."""
+    """One arm's end-to-end rate over its timed window (closed by a device
+    sync), its step time and wait for input there, its capture and its
+    peak memory; ``per_step`` is the images (or tokens, for an LM) of one
+    step."""
     unit = "tokens" if r.get("tokens_per_sec") else "images"
     rate = r["tokens_per_sec"] if unit == "tokens" else r["images_per_sec"]
-    log(f"arm {label:>18}: {rate:.1f} {unit}/s end to end (steady wall, "
-        f"the wait for input included); wait for input (data_s) median "
-        f"{r['median_data_s'] * 1e3:.3f} ms, mean {r['data_s'] * 1e3:.3f} ms "
-        f"a step; step median {r['median_step_s'] * 1e3:.3f} ms, mean "
-        f"{r['steady_step_time_s'] * 1e3:.3f} ms, max "
-        f"{r['max_step_s'] * 1e3:.3f} ms "
+    log(f"arm {label:>18}: {rate:.1f} {unit}/s end to end over "
+        f"{r['window_steps']} replayed steps ({r['window_s'] * 1e3:.1f} ms "
+        f"between device syncs, the wait for input included); step "
+        f"{r['steady_step_time_s'] * 1e3:.3f} ms less the wait "
         f"({per_step / r['steady_step_time_s']:.1f} {unit}/s for the step "
-        f"alone) | {card}")
+        f"alone); wait for input (data_s) median "
+        f"{r['median_data_s'] * 1e3:.3f} ms, mean {r['data_s'] * 1e3:.3f} ms "
+        f"a step; {r['captures']} capture in {r['capture_s']:.2f} s, "
+        f"{r['replayed_steps']} steps replayed; peak memory "
+        f"{r['peak_gib']:.2f} GiB allocated, {r['peak_reserved_gib']:.2f} "
+        f"GiB reserved | {card}")
 
 
 def zero_counts(fns) -> None:
@@ -1306,19 +1514,35 @@ def zero_counts(fns) -> None:
 # feeds stacked device batches; here four input workers keep the host
 # pipeline ahead of these short steps (one worker assembles a 128-image
 # batch in ~30 ms, more than AlexNet's step).
-def bench_config(model: str, batch: int, steps: int):
+def bench_overrides(model: str, batch: int) -> dict:
+    """``resnet50_synthetic``'s fields for VGG-16 or AlexNet with the JAX
+    bench's settings, the optimizer as a dict of its fields (so a process
+    of another tree can take them as JSON)."""
+    return {"model": model, "global_batch_size": batch, "weight_decay": 5e-4,
+            "data_workers": 4,
+            "optimizer": {"name": "momentum",
+                          "learning_rate": 0.1 * batch / 256,
+                          "decay_steps": 2000, "decay_rate": 0.9}}
+
+
+def named_config(config: str, over: dict):
+    """``get_config(config, **over)``, an ``optimizer`` dict of ``over``
+    made an ``OptimizerConfig``."""
     from distributed_tensorflow_models_tpu_torch.harness.config import (
         OptimizerConfig,
         get_config,
     )
 
-    return get_config(
-        "resnet50_synthetic", model=model, global_batch_size=batch,
-        weight_decay=5e-4, train_steps=steps, data_workers=4,
-        optimizer=OptimizerConfig(name="momentum",
-                                  learning_rate=0.1 * batch / 256,
-                                  decay_steps=2000, decay_rate=0.9),
-    ).replace(name=f"{model}_synthetic")
+    over = dict(over)
+    if "optimizer" in over:
+        over["optimizer"] = OptimizerConfig(**over["optimizer"])
+    return get_config(config, **over)
+
+
+def bench_config(model: str, batch: int, steps: int):
+    return named_config("resnet50_synthetic", {
+        **bench_overrides(model, batch), "train_steps": steps,
+    }).replace(name=f"{model}_synthetic")
 
 
 def phase_zoo_path(label: str, runner, per_step: int, k1_per_step: int,
@@ -1329,8 +1553,6 @@ def phase_zoo_path(label: str, runner, per_step: int, k1_per_step: int,
     (all in f32 for an f32 model) and K6 never; a K6 arm the reverse; an
     ``F.conv2d`` arm neither.  Returns the first K1 arm's and the K6 arm's
     counts and every arm's summary."""
-    import torch
-
     from distributed_tensorflow_models_tpu_torch.ops import conv as convlib
     from distributed_tensorflow_models_tpu_torch.ops import conv_mxu
 
@@ -1339,10 +1561,8 @@ def phase_zoo_path(label: str, runner, per_step: int, k1_per_step: int,
     for impl, knob, name in arms:
         convlib.set_default_conv_impl(impl)
         os.environ["DTM_CONV_MXU_PIPELINE"] = knob
-        torch.cuda.reset_peak_memory_stats()
         zero_counts((k1, k6))
         r = runner(workdir / f"{label}{len(out['arms'])}")
-        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         steps = r["steps"]
         got = {"K1": (k1.launches, k1.f32_launches),
                "K6": (k6.launches, k6.f32_launches)}
@@ -1365,7 +1585,7 @@ def phase_zoo_path(label: str, runner, per_step: int, k1_per_step: int,
 
 
 def phase_ptb(steps: int, card: str, workdir: Path) -> dict:
-    """``ptb_medium`` at full width through the CLI: tokens/s, the wait for
+    """``ptb_medium`` at full width through ``fit``: tokens/s, the wait for
     input, step times, peak memory and the losses, which must be finite
     and fall (the later half's mean under the first step's).  Then two
     steps of ``fit`` in this process: the carry reaching step 2 is the
@@ -1377,9 +1597,7 @@ def phase_ptb(steps: int, card: str, workdir: Path) -> dict:
     from distributed_tensorflow_models_tpu_torch.harness.config import get_config
 
     cfg = get_config("ptb_medium")
-    torch.cuda.reset_peak_memory_stats()
-    r = run_cli("ptb_medium", steps, cfg.global_batch_size, workdir / "ptb")
-    r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    r = run_named("ptb_medium", steps, cfg.global_batch_size, workdir / "ptb")
     losses = r["losses"]
     late = losses[len(losses) // 2:]
     log(f"ptb_medium (hidden 650, 2 layers, vocab 10000, dropout 0.5, batch "
@@ -1451,11 +1669,11 @@ def phases_zoo(steps: int, seed: int, card: str, workdir: Path) -> dict:
     alex = bench_config("alexnet", 128, steps)
     paths = {}
     for label, cfg, runner, k1_step, f32, arms in (
-            ("ResNet-32", r32, lambda wd: run_cli(
+            ("ResNet-32", r32, lambda wd: run_named(
                 "resnet32_cifar10", steps, r32.global_batch_size, wd),
              shapes["ResNet-32"], True,
              k1_arms + (("mxu", "1", "K6"),)),
-            ("LeNet", lenet, lambda wd: run_cli(
+            ("LeNet", lenet, lambda wd: run_named(
                 "lenet_mnist", steps, lenet.global_batch_size, wd),
              shapes["LeNet"], True, k1_arms),
             ("VGG-16", vgg, lambda wd: run_fit(vgg, wd), shapes["VGG-16"],
@@ -1491,10 +1709,12 @@ def main(argv=None) -> int:
     parser.add_argument("--parent-tree", type=Path, default=None,
                         help="another checkout of the repository (say the "
                         "parent commit's, unpacked by git archive): phase 3b "
-                        "also trains resnet50_synthetic, "
-                        "inception_v3_imagenet and transformer_lm through "
-                        "its CLI and this tree's in turns, each in a "
-                        "process of its own")
+                        "also trains every zoo path through its fit and "
+                        "this tree's (chunks of STEPS_PER_LOOP, captured) "
+                        "in turns, each in a process of its own")
+    parser.add_argument("--ab-only", action="store_true",
+                        help="with --parent-tree: phase 1 and the two "
+                        "trees' fit in turns alone; no result line")
     parser.add_argument("--flash-only", action="store_true",
                         help="phases 1 and 8 alone, for work on K2-K5: no "
                         "main path and no result line")
@@ -1596,6 +1816,14 @@ def main(argv=None) -> int:
         log(card)
         log("zoo-only run: phases 1 and 11-13 alone, no result")
         return 0
+    if args.ab_only:
+        if args.parent_tree is None:
+            fail("--ab-only needs --parent-tree")
+        phase_tree_ab(args.parent_tree.resolve(), args.batch_size, card)
+        log(card)
+        log("trees-in-turns run: phases 1 and 3b's fit in turns alone, no "
+            "result")
+        return 0
 
     # 2. K1 at the ResNet-50 path's launch shapes.
     calls = core_launch_shapes("resnet50", 224, args.batch_size)
@@ -1613,18 +1841,18 @@ def main(argv=None) -> int:
     # in turns.
     phase_pipeline(card, args.batch_size, args.seed)
     if args.parent_tree is not None:
-        phase_tree_ab(args.parent_tree.resolve(), steps, args.batch_size,
-                      card)
+        phase_tree_ab(args.parent_tree.resolve(), args.batch_size, card)
+
+    # 3c. Replay against eager on every zoo path.
+    phase_replay(args.batch_size, card)
 
     # 4. The ResNet-50 path, K1's counter zeroed just before it.
     if convlib.get_default_conv_impl() != "mxu":
         fail("DTM_CONV_IMPL=mxu did not reach the port's conv selector")
-    torch.cuda.reset_peak_memory_stats()
     zero_counts((k1, k6))
-    run = run_cli("resnet50_synthetic", steps, args.batch_size,
-                  workdir / "mxu")
+    run = run_named("resnet50_synthetic", steps, args.batch_size,
+                    workdir / "mxu")
     k1_launches, k6_stray = k1.launches, k6.launches
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     want = len(calls) * steps
     log(f"K1 launches in the ResNet-50 run: {k1_launches} (expected "
         f"{len(calls)} per step x {steps} steps = {want}); K6 {k6_stray}")
@@ -1633,8 +1861,9 @@ def main(argv=None) -> int:
              f"{k6_stray} (expected 0)")
     log(f"ResNet-50 path (K1 convs): batch {args.batch_size}, steps {steps}, "
         f"losses {run['losses']}, {run['images_per_sec']:.1f} images/s end "
-        f"to end over {steps - 1} steady steps; peak memory {peak_gib:.2f} "
-        f"GiB, K1 {k1_res['ms']:.2f} ms of the step | {card}")
+        f"to end over {run['window_steps']} replayed steps; peak memory "
+        f"{run['peak_gib']:.2f} GiB, K1 {k1_res['ms']:.2f} ms of the step "
+        f"| {card}")
     # Yardstick: the same run with every conv through F.conv2d (cuDNN), in
     # turns with the K1 arm: host noise on a shared machine moves step times
     # between runs.
@@ -1642,10 +1871,20 @@ def main(argv=None) -> int:
     for impl in ("xla", "mxu", "xla"):
         convlib.set_default_conv_impl(impl)
         arms.append(("K1" if impl == "mxu" else "F.conv2d",
-                     run_cli("resnet50_synthetic", steps, args.batch_size,
-                             workdir / f"{impl}{len(arms)}")))
+                     run_named("resnet50_synthetic", steps, args.batch_size,
+                               workdir / f"{impl}{len(arms)}")))
     for label, r in arms:
         log_arm(f"ResNet {label}", r, args.batch_size, card)
+    # The CLI on the same path: three steps, K1 50 a step.
+    convlib.set_default_conv_impl("mxu")
+    zero_counts((k1, k6))
+    cli_run = run_cli_train("resnet50_synthetic", 3, args.batch_size,
+                            workdir / "cli")
+    if (k1.launches, k6.launches) != (len(calls) * 3, 0):
+        fail(f"the CLI's ResNet-50 run launched K1 {k1.launches} and K6 "
+             f"{k6.launches} times, expected {len(calls) * 3} and 0")
+    log(f"CLI train --config resnet50_synthetic --train-steps 3 "
+        f"--steps-per-loop {STEPS_PER_LOOP}: {cli_run}")
 
     # 5. Where the ResNet step's device time goes, on both arms.
     r50 = get_config("resnet50_synthetic", global_batch_size=args.batch_size)
@@ -1675,11 +1914,9 @@ def main(argv=None) -> int:
                               ("xla", "0", "F.conv2d")):
         convlib.set_default_conv_impl(impl)
         os.environ["DTM_CONV_MXU_PIPELINE"] = knob
-        torch.cuda.reset_peak_memory_stats()
         zero_counts((k1, k6))
-        r = run_cli("inception_v3_imagenet", steps, args.batch_size,
-                    workdir / f"inception{len(inc_arms)}")
-        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        r = run_named("inception_v3_imagenet", steps, args.batch_size,
+                      workdir / f"inception{len(inc_arms)}")
         want = (len(inc_calls) * steps if impl == "mxu" else 0)
         got = (k6.launches, k1.launches) if knob == "1" else (k1.launches,
                                                               k6.launches)
@@ -1709,11 +1946,9 @@ def main(argv=None) -> int:
     lm_cfg = get_config("transformer_lm")
     layers = lm_cfg.model_kwargs["num_layers"]
     tokens = lm_cfg.global_batch_size * lm_cfg.num_steps
-    torch.cuda.reset_peak_memory_stats()
     zero_counts(flash_fns.values())
     lm_run = run_lm_arm("transformer_lm", "flash", steps, workdir / "lm")
     lm_launches = {kid: fn.launches for kid, fn in flash_fns.items()}
-    lm_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     want = {kid: layers * steps if kid in ("K2", "K3", "K4") else 0
             for kid in flash_fns}
     log(f"flash launches in the transformer_lm run: {lm_launches} (expected "
@@ -1721,8 +1956,8 @@ def main(argv=None) -> int:
     if lm_launches != want:
         fail(f"flash kernels launched {lm_launches}, expected {want}")
     log(f"transformer_lm (flash, K2-K4): {tokens} tokens a step, steps "
-        f"{steps}, losses {lm_run['losses']}; peak memory {lm_peak_gib:.3f} "
-        f"GiB | {card}")
+        f"{steps}, losses {lm_run['losses']}; peak memory "
+        f"{lm_run['peak_gib']:.3f} GiB | {card}")
     lm_arms = [("flash", lm_run)]
     for impl in ("auto", "flash", "auto"):
         zero_counts(flash_fns.values())
@@ -1748,11 +1983,9 @@ def main(argv=None) -> int:
     mod_arms = []
     for bwd in ("staged", "pair", "staged", "pair"):
         os.environ["DTM_FLASH_BWD"] = bwd
-        torch.cuda.reset_peak_memory_stats()
         zero_counts(flash_fns.values())
         r = run_lm_arm("transformer_lm_modern", "flash", steps,
                        workdir / f"modern{len(mod_arms)}")
-        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         got = {kid: fn.launches for kid, fn in flash_fns.items()}
         on = ("K2", "K5 dKV", "K5 dQ") if bwd == "staged" else ("K2", "K3",
                                                                 "K4")

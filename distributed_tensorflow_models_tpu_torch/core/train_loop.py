@@ -1,20 +1,26 @@
 """The synchronous train step and its builders.
 
 PyTorch counterpart of ``distributed_tensorflow_models_tpu/core/train_loop.py``
-for one device.  The step runs eagerly: forward, loss, ``autograd.grad``
-over the parameter dict, one optimizer update applied in place (then the
-EMA shadows, when kept), and the metrics as 0-d tensors (the caller
-decides when to read them back).
+for one device.  :class:`TrainStep` is the eager step: forward, loss,
+``autograd.grad`` over the parameter dict, one optimizer update applied in
+place (then the EMA shadows, when kept), and the metrics as 0-d tensors
+(the caller decides when to read them back).  :class:`MultiStep` runs the
+steps of a chunk of stacked batches; on CUDA it captures the step once as
+a CUDA graph and replays it, the counterpart of the JAX package's
+``make_multi_step``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Mapping, Sequence
+import time
+from typing import Callable, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
+from distributed_tensorflow_models_tpu_torch import telemetry
 from distributed_tensorflow_models_tpu_torch.core.train_state import TrainState
+from distributed_tensorflow_models_tpu_torch.ops import _kernels
 from distributed_tensorflow_models_tpu_torch.ops import ema as emalib
 from distributed_tensorflow_models_tpu_torch.ops import losses as losslib
 from distributed_tensorflow_models_tpu_torch.ops import metrics as metriclib
@@ -98,19 +104,40 @@ def lm_loss_fn(model: torch.nn.Module, fused_unembed: bool = False) -> LossFn:
     return loss_fn
 
 
-def per_step_rngs(seed: int, salt: int, rng_names: Sequence[str],
-                  device: torch.device | str = "cpu"
-                  ) -> dict[str, torch.Generator]:
-    """The per-step named generators: one seed derived from
-    ``(seed, salt, index of the name)`` each, so a step's randomness depends
-    only on the base seed and the step."""
-    out = {}
-    for i, name in enumerate(rng_names):
-        s = np.random.SeedSequence([seed, salt, i]).generate_state(1)[0]
-        g = torch.Generator(device=device)
-        g.manual_seed(int(s))
-        out[name] = g
-    return out
+def step_seed(seed: int, step: int, index: int) -> int:
+    """The seed of the ``index``-th named generator at ``step``."""
+    return int(np.random.SeedSequence([seed, step, index])
+               .generate_state(1)[0])
+
+
+class StepRngs:
+    """A step's named generators on one device, one per name, re-seeded
+    before every step from ``(seed, step, index of the name)``
+    (:func:`step_seed`), so a step's randomness depends only on the base
+    seed and the step, as the JAX package's ``fold_in(rng, state.step)``.
+    The generators live as long as the run: a captured step registers them
+    with its graph, whose replays read the seed and offset set here, so
+    step ``s`` draws the same bits eagerly and by replay."""
+
+    def __init__(self, names: Sequence[str], device: torch.device):
+        self.generators = {name: torch.Generator(device=device)
+                           for name in names}
+
+    def reseed(self, seed: int, step: int) -> dict[str, torch.Generator]:
+        for i, gen in enumerate(self.generators.values()):
+            gen.manual_seed(step_seed(seed, step, i))
+        return self.generators
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, Mapping):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
 
 
 def _detached(tree):
@@ -125,38 +152,91 @@ def _detached(tree):
     return tree
 
 
+@torch.no_grad()
+def _store_carry(old, new):
+    """The step's new carry, detached, written into the old carry's tensors
+    in place (a captured step keeps its state at fixed addresses); stored
+    as given, detached, where there is no old carry of the same shapes to
+    write into."""
+    if old is None or new is None:
+        return _detached(new)
+    olds, news = list(_leaves(old)), list(_leaves(new))
+    if (len(olds) != len(news)
+            or any(o.shape != n.shape or o.dtype != n.dtype
+                   for o, n in zip(olds, news))):
+        return _detached(new)
+    for o, n in zip(olds, news):
+        if o is not n:
+            o.copy_(n)
+    return old
+
+
 def apply_gradients(state: TrainState, grads: Mapping[str, torch.Tensor],
                     aux: dict) -> TrainState:
     """Optimizer update, EMA update and state advance from one gradient
-    computation.  The new carry is stored detached: the JAX package never
-    differentiates through ``state.carry``, and a carry that kept its
-    graph would tie each step's backward to the last one's (freed) graph
-    and hold its memory."""
+    computation, every tensor of the state updated in place.  The new
+    carry is stored detached: the JAX package never differentiates through
+    ``state.carry``, and a carry that kept its graph would tie each step's
+    backward to the last one's (freed) graph and hold its memory."""
     updates, new_opt_state = state.tx.update(grads, state.opt_state)
     optim.apply_updates(state.params, updates)
     if state.ema_params is not None:
         # The shadows follow the updated parameters, the decay damped by
         # the step count before this step (TF's num_updates).
         emalib.update_ema(state.ema_params, state.params, state.ema_decay,
-                          num_updates=state.step)
+                          num_updates=state.device_step)
+    state.device_step.add_(1)
     return state.replace(
         step=state.step + 1,
         batch_stats=aux.get("batch_stats", state.batch_stats),
         opt_state=new_opt_state,
-        carry=_detached(aux.get("carry", state.carry)),
+        carry=_store_carry(state.carry, aux.get("carry", state.carry)),
     )
 
 
-def make_train_step_fn(loss_fn: LossFn,
-                       rng_names: Sequence[str] = ("dropout",)
-                       ) -> Callable[[TrainState, Batch, int],
-                                     tuple[TrainState, dict]]:
-    """The ``(state, batch, seed) -> (state, metrics)`` step."""
+def _device_of(state: TrainState) -> torch.device:
+    return next(iter(state.params.values())).device
 
-    def step_fn(state: TrainState, batch: Batch, seed: int):
-        device = next(iter(state.params.values())).device
-        rngs = per_step_rngs(seed, state.step, rng_names, device)
-        loss, aux = loss_fn(state.params, state, batch, rngs)
+
+def _check_steps(state: TrainState, k: int) -> None:
+    """Raise, on the host, when the next ``k`` steps run past the steps the
+    optimizer's device tables were made for (``GradientTransformation.
+    num_steps``): on the device that read would be out of range."""
+    limit = state.tx.num_steps
+    if limit is not None and state.step + k > limit:
+        raise ValueError(
+            f"step {state.step + k - 1} is past the {limit} steps the "
+            f"optimizer's schedule tables cover (num_steps={limit})")
+
+
+class TrainStep:
+    """The eager step, ``(state, batch, seed) -> (state, metrics)``:
+    forward, loss, ``autograd.grad`` over the parameter dict, one
+    optimizer update applied in place (then the EMA shadows, when kept),
+    and the metrics as 0-d tensors on the device.  :meth:`body` is the
+    step without the host's part (re-seeding the generators), which is
+    what :class:`MultiStep` captures."""
+
+    def __init__(self, loss_fn: LossFn,
+                 rng_names: Sequence[str] = ("dropout",)):
+        self.loss_fn = loss_fn
+        self.rng_names = tuple(rng_names)
+        self._rngs: dict[torch.device, StepRngs] = {}
+
+    def rngs(self, device: torch.device) -> StepRngs:
+        rngs = self._rngs.get(device)
+        if rngs is None:
+            rngs = self._rngs[device] = StepRngs(self.rng_names, device)
+        return rngs
+
+    def __call__(self, state: TrainState, batch: Batch, seed: int):
+        _check_steps(state, 1)
+        gens = self.rngs(_device_of(state)).reseed(seed, state.step)
+        return self.body(state, batch, gens)
+
+    def body(self, state: TrainState, batch: Batch,
+             rngs: Mapping[str, torch.Generator]):
+        loss, aux = self.loss_fn(state.params, state, batch, rngs)
         names = list(state.params)
         grads = dict(zip(names, torch.autograd.grad(
             loss, [state.params[k] for k in names])))
@@ -164,34 +244,206 @@ def make_train_step_fn(loss_fn: LossFn,
         metrics["grad_norm"] = optim.global_norm(grads)
         return apply_gradients(state, grads, aux), metrics
 
-    return step_fn
+
+def make_train_step(loss_fn: LossFn,
+                    rng_names: Sequence[str] = ("dropout",)) -> TrainStep:
+    """The eager single step a driver (or a test) calls; :func:`make_multi_step`
+    is K of them in one call, captured on CUDA."""
+    return TrainStep(loss_fn, rng_names)
 
 
-def make_train_step(loss_fn: LossFn, rng_names: Sequence[str] = ("dropout",)):
-    """The step a driver calls.  PyTorch runs eagerly, so unlike the JAX
-    package there is no compiled single-step scan around it."""
-    return make_train_step_fn(loss_fn, rng_names)
+class StackedMetrics(Mapping):
+    """A chunk's metrics: row ``i`` of ``values`` (``[K, len(names)]``,
+    f32, on the device) holds step ``i``'s; ``m[name]`` is that name's
+    ``[K]`` column."""
+
+    def __init__(self, names: Sequence[str], values: torch.Tensor):
+        self.names = tuple(names)
+        self.values = values
+        self._col = {n: i for i, n in enumerate(self.names)}
+
+    def __getitem__(self, key):
+        return self.values[:, self._col[key]]
+
+    def __iter__(self):
+        return iter(self.names)
+
+    def __len__(self):
+        return len(self.names)
 
 
-def _float_leaves(tree):
-    if isinstance(tree, torch.Tensor):
-        if tree.is_floating_point():
-            yield tree
-    elif isinstance(tree, Mapping):
-        for v in tree.values():
-            yield from _float_leaves(v)
-    elif isinstance(tree, (tuple, list)):
-        for v in tree:
-            yield from _float_leaves(v)
+def _row_vector(metrics: Mapping[str, torch.Tensor],
+                names: Sequence[str]) -> torch.Tensor:
+    return torch.stack([metrics[n].float() for n in names])
+
+
+class _Captured:
+    __slots__ = ("graph", "batch", "metrics", "names", "launches")
+
+    def __init__(self, graph, batch, metrics, names, launches):
+        self.graph, self.batch, self.metrics = graph, batch, metrics
+        self.names, self.launches = names, launches
+
+
+class MultiStep:
+    """The steps of a chunk in one call: ``(state, chunk, seed) -> (state,
+    StackedMetrics)``, ``chunk`` holding each batch key stacked on a new
+    leading axis ``[K, ...]`` (``data/pipeline.py::BatchStacker``).
+
+    On the CPU the step runs K times eagerly.  On CUDA the first step at
+    each batch signature (keys, row shapes, dtypes) runs eagerly, on the
+    stream the step is then captured on, so that kernel builds, TMA
+    descriptors and cuBLAS handles and workspaces all exist before
+    capture.  The step's :meth:`TrainStep.body` is then captured once as a
+    CUDA graph, and every later step of that signature replays it: the
+    batch row copied into the graph's static batch buffer, the generators
+    re-seeded for the step, the graph launched, its metrics copied out.  A
+    shorter tail chunk replays the same graph.  No step runs twice or is
+    thrown away, so the trajectory is the eager one.
+
+    The state must stay where the capture found it: every tensor of it is
+    updated in place (checked after the capture).  A capture that fails
+    raises, naming the model: nothing falls back to eager steps.  Each
+    capture adds one record (its seconds) to ``registry``'s
+    ``train/compile`` timer; the kernels' launch counters count what each
+    replay launches (``ops/_kernels.py``)."""
+
+    def __init__(self, step: Callable, name: str = "the model",
+                 registry: Optional[telemetry.MetricsRegistry] = None):
+        self.step = step
+        self.name = name
+        self.registry = registry
+        self.captures = 0
+        self.capture_s = 0.0
+        self.replays = 0
+        self._captured: dict[tuple, _Captured] = {}
+        self._stream: Optional[torch.cuda.Stream] = None
+
+    def __call__(self, state: TrainState, chunk: Batch, seed: int):
+        k = next(iter(chunk.values())).shape[0]
+        _check_steps(state, k)
+        if _device_of(state).type != "cuda":
+            rows = []
+            for i in range(k):
+                state, metrics = self.step(
+                    state, {key: v[i] for key, v in chunk.items()}, seed)
+                rows.append(metrics)
+            names = list(rows[0])
+            return state, StackedMetrics(names, torch.stack(
+                [_row_vector(m, names) for m in rows]))
+        if not isinstance(self.step, TrainStep):
+            raise TypeError(f"a captured step needs a TrainStep, got "
+                            f"{type(self.step).__name__}")
+        sig = tuple((key, tuple(v.shape[1:]), v.dtype)
+                    for key, v in sorted(chunk.items()))
+        cap = self._captured.get(sig)
+        first = 0
+        if cap is None:
+            state, row0, names = self._eager_step(state, chunk, seed)
+            cap = self._capture(sig, state, chunk, names)
+            first = 1
+        values = torch.empty(k, len(cap.names), device=cap.metrics.device)
+        if first:
+            values[0].copy_(row0)
+        gens = self.step.rngs(_device_of(state))
+        for i in range(first, k):
+            for key, buf in cap.batch.items():
+                buf.copy_(chunk[key][i])
+            gens.reseed(seed, state.step)
+            cap.graph.replay()
+            _kernels.add_launches(cap.launches)
+            values[i].copy_(cap.metrics)
+            state = state.replace(step=state.step + 1)
+            self.replays += 1
+        return state, StackedMetrics(cap.names, values)
+
+    def _side_stream(self, device) -> torch.cuda.Stream:
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device)
+        return self._stream
+
+    def _eager_step(self, state, chunk, seed):
+        """Row 0 of ``chunk`` eagerly, on the capture stream; returns the
+        new state, the step's metric vector (usable on the caller's
+        stream) and the metrics' names."""
+        device = _device_of(state)
+        cur = torch.cuda.current_stream(device)
+        side = self._side_stream(device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            state, metrics = self.step(
+                state, {key: v[0] for key, v in chunk.items()}, seed)
+            names = list(metrics)
+            row = _row_vector(metrics, names)
+        cur.wait_stream(side)
+        row.record_stream(cur)
+        return state, row, names
+
+    def _capture(self, sig, state, chunk, names) -> _Captured:
+        device = _device_of(state)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        batch = {key: torch.empty_like(v[0]) for key, v in chunk.items()}
+        gens = self.step.rngs(device).generators
+        before = _kernels.launch_counts()
+        held = [id(t) for t in _state_leaves(state)]
+        try:
+            graph = torch.cuda.CUDAGraph()
+            for gen in gens.values():
+                graph.register_generator_state(gen)
+            with torch.cuda.graph(graph, stream=self._side_stream(device),
+                                  capture_error_mode="thread_local"):
+                new_state, metrics = self.step.body(state, batch, gens)
+                row = _row_vector(metrics, names)
+        except Exception as e:
+            raise RuntimeError(
+                f"capturing the train step of {self.name} as a CUDA graph "
+                f"failed: {e}") from e
+        launches = {key: n - before[key]
+                    for key, n in _kernels.launch_counts().items()
+                    if n != before[key]}
+        # The capture launched nothing: what it counted is per replay.
+        _kernels.add_launches(launches, -1)
+        if [id(t) for t in _state_leaves(new_state)] != held:
+            raise RuntimeError(
+                f"the train step of {self.name} rebinds state tensors; a "
+                f"captured step must update its state in place")
+        seconds = time.perf_counter() - t0
+        self.captures += 1
+        self.capture_s += seconds
+        if self.registry is not None:
+            self.registry.timer(telemetry.COMPILE).record(seconds)
+        cap = self._captured[sig] = _Captured(graph, batch, row, names,
+                                              launches)
+        return cap
+
+
+def _state_leaves(state: TrainState) -> list[torch.Tensor]:
+    return list(_leaves((state.params, state.batch_stats, state.opt_state,
+                         state.ema_params, state.carry, state.device_step)))
+
+
+def make_multi_step(loss_fn: LossFn, rng_names: Sequence[str] = ("dropout",),
+                    name: str = "the model",
+                    registry: Optional[telemetry.MetricsRegistry] = None
+                    ) -> MultiStep:
+    """The K-step train call, ``(state, chunk, seed) -> (state,
+    StackedMetrics)``: every metric a ``[K]`` column on the device.  The
+    JAX package's ``make_multi_step`` scans the step in one compiled
+    program; here it is :class:`MultiStep`, the step captured once as a
+    CUDA graph and replayed per row (K eager steps on the CPU)."""
+    return MultiStep(TrainStep(loss_fn, rng_names), name=name,
+                     registry=registry)
 
 
 def state_is_finite(state: TrainState) -> bool:
     """True when every float tensor of the trajectory-carrying state —
     parameters, BN statistics, carry, optimizer slots, EMA shadows — is
     finite; one reduction per tensor and one read back in all."""
-    leaves = [leaf for tree in (state.params, state.batch_stats, state.carry,
-                                state.opt_state, state.ema_params)
-              for leaf in _float_leaves(tree)]
+    leaves = [leaf for leaf in _leaves((state.params, state.batch_stats,
+                                        state.carry, state.opt_state,
+                                        state.ema_params))
+              if leaf.is_floating_point()]
     if not leaves:
         return True
     return bool(torch.stack([torch.isfinite(leaf).all().to(leaves[0].device)

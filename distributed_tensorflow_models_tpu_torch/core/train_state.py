@@ -8,7 +8,10 @@ them in place is what the model computes with next.  ``ema_params`` holds
 f32 shadow copies of the parameters when ``ema_decay`` is set (``None``
 otherwise); evaluation restores them through :attr:`TrainState.eval_params`.
 ``carry`` is the recurrent state an LM threads across steps (``None`` for
-the transformer, which passes it through).
+the transformer, which passes it through).  ``step`` is the host's count
+of steps taken; ``device_step`` the same count as a 0-d int64 tensor on the
+parameters' device, advanced in place by the step itself, which is what a
+captured step reads (the EMA's ``num_updates``).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ class TrainState:
     opt_state: dict[str, Any]
     model: nn.Module
     tx: GradientTransformation
+    device_step: torch.Tensor
     ema_params: Optional[dict[str, torch.Tensor]] = None
     carry: Optional[Any] = None
     ema_decay: Optional[float] = None
@@ -63,4 +67,6 @@ class TrainState:
             ema_params=ema_params,
             carry=carry,
             ema_decay=ema_decay,
+            device_step=torch.zeros((), dtype=torch.int64,
+                                    device=next(iter(params.values())).device),
         )

@@ -15,11 +15,13 @@ The port's own copy of ``distributed_tensorflow_models_tpu/data/``
   pure per-batch ``assemble`` function.
 - :mod:`resplit` — cursor re-split for an N -> M process resume.
 - :mod:`pipeline` — :class:`HostPipeline` (threaded producer, ordered
-  worker pool, checkpointable state) and :class:`DevicePrefetcher`
-  (page-locked staging and a CUDA copy stream).
+  worker pool, checkpointable state), :class:`DevicePrefetcher`
+  (page-locked staging and a CUDA copy stream) and :class:`BatchStacker`
+  (K batches stacked into one chunk for the K-step train call).
 """
 
 from distributed_tensorflow_models_tpu_torch.data.pipeline import (  # noqa: F401
+    BatchStacker,
     DevicePrefetcher,
     HostPipeline,
 )

@@ -39,7 +39,8 @@ The port's own copy of ``distributed_tensorflow_models_tpu/data/
 pipeline.py``: :class:`HostPipeline` is the same code on the port's
 registry; :class:`DevicePrefetcher` is written for CUDA (a pinned staging
 ring and a copy stream in place of the mesh placement) and keeps the
-reference's contract.  ``BatchStacker`` (K-step fusion) is not ported yet.
+reference's contract; :class:`BatchStacker` stacks K of its batches into
+one chunk for the K-step train call.
 """
 
 from __future__ import annotations
@@ -107,9 +108,12 @@ class HostPipeline:
     releases results strictly in index order into the bounded consumer
     buffer.  Because release is ordered and state was captured at
     dispatch, the checkpointable state follows the last *released* batch
-    exactly as in the serial path, and in-flight work is naturally
-    bounded by the dispatch queue depth + pool width (the reassembly
-    hold-back set can never exceed it).
+    exactly as in the serial path.  In-flight work (dispatched, not yet
+    released) is bounded by pool width + ``prefetch`` items: the
+    dispatcher takes a slot before it advances the cursor and
+    reassembly gives it back at release, so a consumer slower than the
+    pool holds the pool back.  (The JAX package's pool bounds only its
+    dispatch queue: its results queue grows while the consumer is slow.)
     """
 
     def __init__(
@@ -158,11 +162,12 @@ class HostPipeline:
             self._work_q: queue.Queue = queue.Queue(
                 maxsize=num_workers + prefetch
             )
-            # Unbounded on purpose: in-flight items are bounded by
-            # work_q depth + num_workers, and a bounded results queue
-            # could deadlock reassembly waiting for an index a blocked
-            # worker holds.
+            # Unbounded on purpose (a bounded results queue could
+            # deadlock reassembly waiting for an index a blocked worker
+            # holds); what bounds it are the in-flight slots, taken at
+            # dispatch and given back at release.
             self._results_q: queue.Queue = queue.Queue()
+            self._in_flight = threading.Semaphore(num_workers + prefetch)
             self._dispatched = 0
             self._dispatch_done = False
             # Reassembly's hold-back set, an attribute so stop() can
@@ -264,7 +269,7 @@ class HostPipeline:
         resume-exact value released alongside that batch downstream."""
         idx = 0
         try:
-            while not self._pool_halted():
+            while self._take_slot():
                 try:
                     work = self._dataset.next_work()
                 except StopIteration:
@@ -291,6 +296,13 @@ class HostPipeline:
             for _ in range(self._num_workers):
                 if not self._put_pool_aware(self._work_q, _STOP):
                     break
+
+    def _take_slot(self) -> bool:
+        """Wait for an in-flight slot; False once the pool is halted."""
+        while not self._pool_halted():
+            if self._in_flight.acquire(timeout=0.1):
+                return True
+        return False
 
     def _worker(self, wid: int) -> None:
         reg = self._registry
@@ -348,6 +360,7 @@ class HostPipeline:
                 reg.timer(telemetry.REASSEMBLY_WAIT).record(dt)
                 _trace_stall(reg, telemetry.REASSEMBLY_WAIT, dt, t0)
                 payload, state = pending.pop(next_idx)
+                self._in_flight.release()
                 next_idx += 1
                 if isinstance(payload, _Failure):
                     # Surfaces after every earlier good batch has drained
@@ -708,3 +721,61 @@ class DevicePrefetcher:
                 "device prefetch thread still alive after %.0f s join "
                 "timeout", _FILL_JOIN_TIMEOUT_S,
             )
+
+
+class BatchStacker:
+    """Assemble K consecutive batches into one stacked chunk for the K-step
+    train call (``core/train_loop.py::MultiStep``).
+
+    Sits after :class:`DevicePrefetcher`: :meth:`next_chunk` pulls up to
+    ``k`` batches and stacks every key on a new leading axis, ``[K, ...]``,
+    on the device, in the consumer's stream (where the prefetcher made the
+    batches ready).  A host numpy upstream stacks with numpy.
+
+    Checkpointing: :meth:`get_state` returns the producer state of the
+    *last* batch of the last chunk handed out, so a checkpoint taken at a
+    chunk boundary resumes at exactly the next unconsumed batch.
+
+    Ragged tail: when the upstream ends mid-chunk, the partial chunk
+    (length < k) is returned rather than dropped; the following call
+    raises ``StopIteration``.
+    """
+
+    def __init__(self, iterator):
+        self._it = iter(iterator)
+        self._source = iterator
+        self._state: Optional[dict] = (
+            iterator.get_state() if hasattr(iterator, "get_state") else None
+        )
+        self._exhausted = False
+
+    def next_chunk(self, k: int):
+        """Return ``(stacked_chunk, n)`` with ``n = min(k, batches left)``
+        rows; raises ``StopIteration`` once the upstream is exhausted."""
+        if self._exhausted:
+            raise StopIteration
+        rows = []
+        for _ in range(max(1, int(k))):
+            try:
+                rows.append(next(self._it))
+            except StopIteration:
+                self._exhausted = True
+                break
+        if not rows:
+            raise StopIteration
+        if hasattr(self._source, "get_state"):
+            self._state = self._source.get_state()
+        return self._stack(rows), len(rows)
+
+    @staticmethod
+    def _stack(rows: list[dict]) -> dict:
+        out = {}
+        for key, first in rows[0].items():
+            values = [row[key] for row in rows]
+            out[key] = (torch.stack(values) if isinstance(first, torch.Tensor)
+                        else np.stack(values))
+        return out
+
+    def get_state(self) -> Optional[dict]:
+        """Producer state as of the last batch in the last chunk."""
+        return self._state

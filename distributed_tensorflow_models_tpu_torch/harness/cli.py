@@ -8,7 +8,8 @@ Flags are spelled as in the JAX package's CLI.  ``--device`` defaults to
 ``cuda``; the run raises when no GPU is found unless ``--device cpu`` is
 given.  ``train`` prints one JSON object with the final metrics, the
 steady-state step time and the end-to-end images/s and, for an LM, tokens/s
-(the wait for input included).  ``--attn-impl`` picks the attention of
+(the wait for input included), and how the steps ran (CUDA-graph captures,
+their seconds, the steps replayed).  ``--attn-impl`` picks the attention of
 attention models: ``flash`` runs kernels K2-K4 on the card (K2 and K5
 with ``DTM_FLASH_BWD=staged``).
 """
@@ -43,6 +44,14 @@ def main(argv: list[str] | None = None) -> int:
                          "assembling batches behind ordered reassembly (1 = "
                          "one producer thread); the batch stream is the "
                          "same for any value")
+    p_train.add_argument("--steps-per-loop", type=int, default=None,
+                         help="train steps per call of the K-step train "
+                         "call: one chunk of stacked batches, one hook walk "
+                         "and no metric read back in between (1 = a call a "
+                         "step); the trajectory and the hooks' steps are "
+                         "the same for any value.  On CUDA every step after "
+                         "the first replays the step captured as a CUDA "
+                         "graph")
     p_train.add_argument("--device", default="cuda",
                          help="torch device (default cuda; cpu must be "
                          "asked for)")
@@ -70,6 +79,8 @@ def main(argv: list[str] | None = None) -> int:
         overrides["attn_impl"] = args.attn_impl
     if args.data_workers is not None:
         overrides["data_workers"] = args.data_workers
+    if args.steps_per_loop is not None:
+        overrides["steps_per_loop"] = args.steps_per_loop
     cfg = get_config(args.config, **overrides)
 
     from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
@@ -82,6 +93,9 @@ def main(argv: list[str] | None = None) -> int:
         "steady_step_time_s": result.steady_step_time_s,
         "images_per_sec": result.images_per_sec,
         "tokens_per_sec": result.tokens_per_sec,
+        "captures": result.captures,
+        "capture_s": result.capture_s,
+        "replayed_steps": result.replayed_steps,
     }))
     return 0
 

@@ -48,18 +48,22 @@ class OptimizerConfig:
                                        self.decay_rate,
                                        staircase=self.staircase)
 
-    def make(self) -> optim.GradientTransformation:
+    def make(self, num_steps: Optional[int] = None
+             ) -> optim.GradientTransformation:
+        """The transformation; ``num_steps`` is the run's length, the
+        counts its schedule is tabulated for on the device."""
         lr = self.schedule()
         if self.name == "sgd":
-            tx = optim.sgd(lr)
+            tx = optim.sgd(lr, num_steps=num_steps)
         elif self.name == "momentum":
-            tx = optim.tf_momentum(lr, self.momentum)
+            tx = optim.tf_momentum(lr, self.momentum, num_steps=num_steps)
         elif self.name == "rmsprop":
             tx = optim.tf_rmsprop(lr, decay=self.rmsprop_decay,
                                   momentum=self.momentum,
-                                  epsilon=self.rmsprop_epsilon)
+                                  epsilon=self.rmsprop_epsilon,
+                                  num_steps=num_steps)
         elif self.name == "adam":
-            tx = optim.adam(lr)
+            tx = optim.adam(lr, num_steps=num_steps)
         else:
             raise ValueError(f"unknown optimizer {self.name!r}")
         if self.clip_global_norm is not None:
@@ -92,6 +96,15 @@ class ExperimentConfig:
     vocab_size: int = 10000
     train_steps: int = 1000
     log_every_steps: int = 100
+    # Train steps per call of the K-step train call
+    # (core/train_loop.py::MultiStep): one chunk of stacked batches, one
+    # walk of the hooks that want a step in it, metrics left on the device
+    # until a hook or the run's end reads them.  Chunks shrink to end at
+    # log_every_steps boundaries, at train_steps and at the first step a
+    # hook wants, so hooks fire at the same steps for any value, and the
+    # trajectory is the same bit for bit.  On CUDA every step after the
+    # first is a CUDA-graph replay whatever the value.
+    steps_per_loop: int = 1
     seed: int = 0
     # Host input pipeline: worker threads assembling batches behind
     # ordered reassembly (1 = one producer thread).  The batch stream is

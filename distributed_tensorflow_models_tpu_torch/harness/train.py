@@ -5,13 +5,16 @@ PyTorch counterpart of the training path of
 ``distributed_tensorflow_models_tpu/harness/train.py`` on one device, for
 classification (``task="classification"``) and language models
 (``task="lm"``).  Batches reach the step through the input pipeline
-(``data/pipeline.py``).  Checkpointing, resilience and the telemetry
-reports are not ported yet; ``fit`` runs ``cfg.train_steps`` steps and
-reports per-step metrics, step time and images/s or tokens/s.
+(``data/pipeline.py``) in chunks of ``cfg.steps_per_loop``; on CUDA the
+step is captured once as a CUDA graph and replayed.  Checkpointing,
+resilience and the telemetry reports are not ported yet; ``fit`` runs
+``cfg.train_steps`` steps and reports per-step metrics, step time and
+images/s or tokens/s.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import glob
 import inspect
@@ -19,7 +22,7 @@ import json
 import logging
 import os
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -28,6 +31,7 @@ from distributed_tensorflow_models_tpu_torch.core import train_loop
 from distributed_tensorflow_models_tpu_torch.core.train_state import TrainState
 from distributed_tensorflow_models_tpu_torch.data import datasets as datalib
 from distributed_tensorflow_models_tpu_torch.data import pipeline as pipelib
+from distributed_tensorflow_models_tpu_torch.harness import hooks as hooklib
 from distributed_tensorflow_models_tpu_torch.harness.config import ExperimentConfig
 from distributed_tensorflow_models_tpu_torch.models import builder_takes, get_model
 
@@ -110,7 +114,7 @@ def build_state(cfg: ExperimentConfig, device: torch.device) -> TrainState:
     carry = None
     if cfg.task == "lm" and hasattr(model, "initial_carry"):
         carry = model.initial_carry(cfg.global_batch_size, device)
-    return TrainState.create(model, cfg.optimizer.make(),
+    return TrainState.create(model, cfg.optimizer.make(cfg.train_steps),
                              ema_decay=cfg.ema_decay, carry=carry)
 
 
@@ -128,42 +132,90 @@ def build_loss(cfg: ExperimentConfig, state: TrainState):
 
 
 def build_step(cfg: ExperimentConfig, state: TrainState):
+    """The eager single step (``TrainStep``) of ``cfg``."""
     return train_loop.make_train_step(build_loss(cfg, state))
+
+
+def _chunk_len(step: int, cfg: ExperimentConfig,
+               hooks: Sequence[hooklib.Hook] = ()) -> int:
+    """Length of the next chunk starting after ``step``: up to
+    ``cfg.steps_per_loop``, shrunk so the chunk ends exactly at (a) the
+    next ``log_every_steps`` boundary, (b) ``train_steps``, and (c) the
+    FIRST step any hook ``wants_step``: a chunk is one call, so the only
+    way a hook sees the state of the step it fires at is for the chunk to
+    end there.  Every hook therefore fires at the same steps, with the
+    same state, for any ``steps_per_loop`` (the JAX package's rule)."""
+    k = min(cfg.steps_per_loop, cfg.train_steps - step)
+    if cfg.log_every_steps and cfg.log_every_steps > 0:
+        k = min(k, cfg.log_every_steps - step % cfg.log_every_steps)
+    k = max(k, 1)
+    for i in range(1, k):
+        if any(h.wants_step(step + i) for h in hooks):
+            return i
+    return k
+
+
+# Chunks the host may have dispatched beyond the one the device runs: the
+# host runs ahead of the device (metrics stay there), and this bounds how
+# many batches and metric rows it holds for the device meanwhile.
+RUN_AHEAD_CHUNKS = 2
 
 
 @dataclasses.dataclass
 class FitResult:
+    """What ``fit`` returns.  ``history`` has a row per step: its metrics,
+    ``batch_size`` (and ``tokens`` for an LM), ``step``, ``data_s`` and
+    ``step_time_s`` (its chunk's wait for input and host time after it,
+    each divided by the chunk's steps) and ``end_s`` (its chunk's end
+    since the loop started, on the host's clock).  The timed window runs
+    from a device sync at the end of the first chunk (which pays kernel
+    builds and the capture) to one at the run's end; ``window_s`` is its
+    wall time, ``window_steps`` its steps and ``window_data_s`` the wait
+    for input in it (``None``, 0 and 0 for a run of one chunk).
+    ``captures``, ``capture_s`` and ``replayed_steps`` say how the steps
+    ran: CUDA-graph captures, their seconds, and the steps run by replay
+    (every step after the first on CUDA, none on the CPU).
+    ``chunks_in_flight`` is the most chunks the device had still to run
+    just after the host dispatched one (0 on the CPU): 2 or more means the
+    host ran ahead of the device."""
+
     state: TrainState
     final_metrics: dict
     history: list[dict]
     device: str
-
-    # The steady window is every step but the first, which pays kernel
-    # builds and library warm-up; both numbers are None for a one-step run.
+    window_s: Optional[float] = None
+    window_steps: int = 0
+    window_data_s: float = 0.0
+    captures: int = 0
+    capture_s: float = 0.0
+    replayed_steps: int = 0
+    chunks_in_flight: int = 0
+    registry: Optional[telemetry.MetricsRegistry] = None
 
     @property
     def steady_step_time_s(self) -> Optional[float]:
-        """Mean step time (batch handed over to metrics back) over the
-        steady window; the wait for input is not in it."""
-        times = [row["step_time_s"] for row in self.history[1:]]
-        return sum(times) / len(times) if times else None
+        """Mean step time over the timed window, the wait for input taken
+        out: (window wall - its wait for input) / its steps."""
+        if not self.window_steps:
+            return None
+        return (self.window_s - self.window_data_s) / self.window_steps
 
     def _steady_rate(self, key: str) -> Optional[float]:
-        if len(self.history) < 2:
+        if not self.window_steps:
             return None
-        total = sum(row[key] for row in self.history[1:])
-        return total / (self.history[-1]["end_s"] - self.history[0]["end_s"])
+        total = sum(row[key] for row in self.history[-self.window_steps:])
+        return total / self.window_s
 
     @property
     def images_per_sec(self) -> Optional[float]:
-        """End-to-end throughput: the steady window's examples (images, or
-        sequences of an LM) over its wall time, from the end of the first
-        step to the end of the last, the wait for input included."""
+        """End-to-end throughput: the timed window's examples (images, or
+        sequences of an LM) over its wall time, between two device syncs,
+        the wait for input included."""
         return self._steady_rate("batch_size")
 
     @property
     def tokens_per_sec(self) -> Optional[float]:
-        """An LM's end-to-end throughput: the steady window's tokens over
+        """An LM's end-to-end throughput: the timed window's tokens over
         its wall time, as ``images_per_sec``; None for image models."""
         if not self.history or "tokens" not in self.history[0]:
             return None
@@ -188,66 +240,141 @@ def _close_quietly(prefetcher, host) -> None:
             log.exception("host pipeline stop failed")
 
 
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
         device: Optional[str | torch.device] = None) -> FitResult:
     """Train ``cfg.train_steps`` steps from a fresh state.
 
     Batches come through the stack the JAX package's ``fit`` builds:
     :class:`HostPipeline` (``prefetch=4``, ``max(1, cfg.data_workers)``
-    workers) assembles them on host threads, then :class:`DevicePrefetcher`
+    workers) assembles them on host threads, :class:`DevicePrefetcher`
     (``depth=2``) stages them in page-locked memory and copies them to the
-    device on a stream of its own, while earlier steps run.
+    device on a stream of its own, and :class:`BatchStacker` stacks up to
+    ``cfg.steps_per_loop`` of them into one chunk (:func:`_chunk_len`).
+    The K-step call (``train_loop.MultiStep``) runs the chunk: on CUDA the
+    first step eagerly and every later one by replaying the step captured
+    as a CUDA graph, whatever ``steps_per_loop``; on the CPU eagerly.
 
-    Each row of the history holds the step's metrics, ``data_s`` (the time
-    blocked in ``next`` on the prefetcher: the wait for input left on the
-    step's path), ``step_time_s`` (from the batch handed over to the
-    metrics read back, which waits for the device) and ``end_s`` (the time
-    since the loop started at the step's end).  With a ``workdir`` the rows
-    also go to ``<workdir>/metrics.jsonl``.  Both pipeline stages are
-    stopped on the way out, however the loop ends."""
+    Metrics stay on the device: the hooks (stop, step counter, logging,
+    NaN guard, and ``<workdir>/metrics.jsonl`` at ``log_every_steps`` with
+    a ``workdir``) read them at their cadence, and
+    the history is filled at return from one transfer of every step's
+    metrics.  The host runs up to ``RUN_AHEAD_CHUNKS`` chunks ahead of the
+    device.  Time blocked on the next chunk is recorded under
+    ``train/data_wait``; each chunk's wall over its steps under
+    ``train/step_time``, once per step.  Both pipeline stages are stopped
+    on the way out, however the loop ends."""
     dev = resolve_device(device)
     state = build_state(cfg, dev)
-    step_fn = build_step(cfg, state)
-    dataset = build_dataset(cfg)
     registry = telemetry.MetricsRegistry()
-    history: list[dict] = []
-    out = host = batches = None
+    multi = train_loop.MultiStep(build_step(cfg, state), name=cfg.model,
+                                 registry=registry)
+    dataset = build_dataset(cfg)
+    hooks: list[hooklib.Hook] = [
+        hooklib.StopAtStepHook(cfg.train_steps),
+        hooklib.StepCounterHook(cfg.log_every_steps, cfg.global_batch_size),
+        hooklib.LoggingHook(cfg.log_every_steps, keys=("loss",)),
+    ]
+    chunks: list[tuple] = []
+    pending: collections.deque = collections.deque()
+    host = batches = None
+    window = None
+    in_flight = 0
     try:
         if workdir:
-            os.makedirs(workdir, exist_ok=True)
-            out = open(os.path.join(workdir, "metrics.jsonl"), "w")
+            hooks.append(hooklib.MetricWriterHook(workdir,
+                                                  cfg.log_every_steps))
+        hooks.append(hooklib.NanGuardHook(cfg.log_every_steps))
         host = pipelib.HostPipeline(
             dataset, prefetch=4, num_workers=max(1, int(cfg.data_workers)),
             registry=registry)
         batches = pipelib.DevicePrefetcher(host, dev, depth=2,
                                            registry=registry)
+        stacker = pipelib.BatchStacker(batches)
+        for h in hooks:
+            h.begin(state)
         start = time.perf_counter()
-        for _ in range(cfg.train_steps):
+        while state.step < cfg.train_steps:
+            first = state.step
             t0 = time.perf_counter()
-            batch = next(batches)
+            with registry.span(telemetry.DATA_WAIT):
+                chunk, k = stacker.next_chunk(_chunk_len(first, cfg, hooks))
             t1 = time.perf_counter()
-            state, metrics = step_fn(state, batch, cfg.seed)
-            row = {k: float(v) for k, v in metrics.items()}
-            t2 = time.perf_counter()
-            if cfg.task == "lm":
-                shape = batch["inputs"].shape
-                row.update(batch_size=int(shape[0]),
-                           tokens=int(shape[0] * shape[1]))
+            state, rows = multi(state, chunk, cfg.seed)
+            if dev.type == "cuda":
+                pending.append(torch.cuda.Event())
+                pending[-1].record()
+                in_flight = max(in_flight,
+                                sum(not e.query() for e in pending))
+                if len(pending) > RUN_AHEAD_CHUNKS:
+                    pending.popleft().synchronize()
+            if window is None:
+                _sync(dev)
+                window = [time.perf_counter(), 0, 0.0]
             else:
-                row.update(batch_size=int(batch["label"].shape[0]))
-            row.update(step=state.step, data_s=t1 - t0, step_time_s=t2 - t1,
-                       end_s=t2 - start)
-            history.append(row)
-            if out is not None:
-                out.write(json.dumps(row) + "\n")
-            if state.step % cfg.log_every_steps == 0 or state.step == 1:
-                log.info("step %d loss %.4f, wait for input %.1f ms + step "
-                         "%.1f ms", state.step, row["loss"],
-                         1e3 * row["data_s"], 1e3 * row["step_time_s"])
+                window[1] += k
+                window[2] += t1 - t0
+            t2 = time.perf_counter()
+            for _ in range(k):
+                registry.timer(telemetry.STEP_TIME).record((t2 - t0) / k)
+            chunks.append((rows, _sizes(cfg, chunk), k, t1 - t0, t2 - t1,
+                           t2 - start))
+            del chunk
+            ok = hooklib.run_hooks_after_chunk(
+                hooks, state, rows, first, k, registry=registry,
+                final_row=hooklib.LazyMetricRow(rows, k - 1, first + 1))
+            if not ok:
+                break
+        _sync(dev)
+        window_s = (time.perf_counter() - window[0]) if window else None
+        for h in hooks:
+            h.end(state)
+    except BaseException:
+        for h in hooks:
+            try:
+                h.abort(state)
+            except Exception:
+                log.exception("hook abort failed")
+        raise
     finally:
         _close_quietly(batches, host)
-        if out is not None:
-            out.close()
-    final = history[-1] if history else {}
-    return FitResult(state=state, final_metrics=final, history=history,
-                     device=str(dev))
+    history = _history(chunks)
+    return FitResult(
+        state=state, final_metrics=history[-1] if history else {},
+        history=history, device=str(dev),
+        window_s=window_s if window and window[1] else None,
+        window_steps=window[1] if window else 0,
+        window_data_s=window[2] if window else 0.0,
+        captures=multi.captures, capture_s=multi.capture_s,
+        replayed_steps=multi.replays, chunks_in_flight=in_flight,
+        registry=registry)
+
+
+def _sizes(cfg: ExperimentConfig, chunk: dict) -> dict:
+    """A chunk's examples per step (and tokens, for an LM)."""
+    if cfg.task == "lm":
+        _, b, t = chunk["inputs"].shape
+        return {"batch_size": int(b), "tokens": int(b * t)}
+    return {"batch_size": int(chunk["label"].shape[1])}
+
+
+def _history(chunks: list[tuple]) -> list[dict]:
+    """One row per step from the chunks' stacked metrics, read back in one
+    transfer, and their sizes and host times."""
+    if not chunks:
+        return []
+    names = chunks[0][0].names
+    values = torch.cat([rows.values for rows, *_ in chunks]).tolist()
+    history, step = [], 0
+    for rows, size, k, data_s, host_s, end_s in chunks:
+        for _ in range(k):
+            row = dict(zip(names, values[step]))
+            step += 1
+            row.update(size, step=step, data_s=data_s / k,
+                       step_time_s=host_s / k, end_s=end_s)
+            history.append(row)
+    return history

@@ -9,6 +9,13 @@ flags (an edit to a header rebuilds every library), and loaded with
 ``ctypes`` — seconds per kernel, where a build that includes PyTorch's
 headers takes minutes.  Nothing is compiled or loaded at import time: the
 CPU tests import every module here.
+
+Each kernel's wrapper counts its launches in attributes of its own
+(``fn.launches``), registered here with :func:`counted`.  A CUDA graph
+replays launches without running the wrappers, so a captured step takes
+the counts its capture added (:func:`launch_counts` before and after),
+takes them back off (nothing launched then) and adds them again on every
+replay (:func:`add_launches`).
 """
 
 from __future__ import annotations
@@ -40,6 +47,29 @@ _libs: dict[str, ctypes.CDLL] = {}
 # was already on disk has no entry.  chip_smoke.py reports both.
 build_seconds: dict[str, float] = {}
 build_logs: dict[str, str] = {}
+# (wrapper, attribute) of every launch counter, in registration order.
+_counters: list[tuple[object, str]] = []
+
+
+def counted(fn, *attrs: str) -> None:
+    """Register ``fn``'s launch counters ``attrs`` and set them to 0."""
+    for attr in attrs:
+        setattr(fn, attr, 0)
+        _counters.append((fn, attr))
+
+
+def launch_counts() -> dict[tuple[object, str], int]:
+    """Every registered counter's value, keyed by (wrapper, attribute)."""
+    return {(fn, attr): getattr(fn, attr) for fn, attr in _counters}
+
+
+def add_launches(counts: dict[tuple[object, str], int],
+                 times: int = 1) -> None:
+    """Add ``times`` x ``counts`` to the counters (a negative ``times``
+    takes them off)."""
+    for (fn, attr), n in counts.items():
+        if n:
+            setattr(fn, attr, getattr(fn, attr) + times * n)
 
 
 def _nvcc() -> str:

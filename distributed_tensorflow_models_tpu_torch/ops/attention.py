@@ -84,8 +84,9 @@ def _expand_kv(q, k, v):
     g = _group_size(q, k)
     if g == 1:
         return k, v
-    rows = _kv_row(H, Hkv, g)
-    idx = torch.tensor([rows(h) for h in range(H)], device=k.device)
+    # _kv_row(H, Hkv, g)(h) for h < H, made on the device (no host copy,
+    # so a captured step may take this path).
+    idx = torch.arange(H, device=k.device) // g
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
@@ -580,11 +581,11 @@ def flash_dq_staged(ds, k, *, scale, causal, window, q_offset, kv_offset):
     return dq
 
 
-flash_forward.launches = 0
-flash_dkv.launches = 0
-flash_dq.launches = 0
-flash_dkv_staged.launches = 0
-flash_dq_staged.launches = 0
+_kernels.counted(flash_forward, "launches")
+_kernels.counted(flash_dkv, "launches")
+_kernels.counted(flash_dq, "launches")
+_kernels.counted(flash_dkv_staged, "launches")
+_kernels.counted(flash_dq_staged, "launches")
 
 
 def _on_cpu(*tensors) -> bool:

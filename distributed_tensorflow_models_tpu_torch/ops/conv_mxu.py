@@ -196,9 +196,8 @@ def conv_implicit_gemm_pipelined(xpad: torch.Tensor,
     return _launch_window(xpad, kernel, None, pipelined=True)
 
 
-conv_implicit_gemm.launches = conv_implicit_gemm.f32_launches = 0
-conv_implicit_gemm_pipelined.launches = 0
-conv_implicit_gemm_pipelined.f32_launches = 0
+_kernels.counted(conv_implicit_gemm, "launches", "f32_launches")
+_kernels.counted(conv_implicit_gemm_pipelined, "launches", "f32_launches")
 
 # The C entry of each dtype the kernels take.
 _ENTRIES = {torch.bfloat16: "dtm_conv_window_bf16",

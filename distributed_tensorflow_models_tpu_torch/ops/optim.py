@@ -3,15 +3,29 @@
 PyTorch counterpart of ``distributed_tensorflow_models_tpu/ops/optim.py``,
 written as functional transformations over dicts of tensors in the shape of
 optax's: ``init(params) -> state`` and
-``update(grads, state) -> (updates, new_state)``.  :func:`apply_updates`
-adds the updates to the parameters in place (the model's own tensors),
-which saves a copy of every parameter per step.
+``update(grads, state) -> (updates, state)``.
+
+The updates are safe to capture in a CUDA graph: the step count is a 0-d
+int64 tensor on the parameters' device, a schedule is read from a device
+table by that count, and every slot is updated in place (``torch._foreach_*``
+for products and sums, per tensor for roots and quotients), so a replayed
+step reads and writes the same buffers the eager step did.  The arithmetic
+is the per-tensor form's, op for op (no fused multiply-add it did not do),
+so the values equal it bit for bit.  ``update`` returns the state it was
+given, advanced in place.  :func:`apply_updates` adds the updates to the
+parameters in place (the model's own tensors).
+
+A table covers the steps of one run, so a transformation that reads one (a
+schedule, or Adam's bias corrections) must be told the run's length,
+``num_steps``, and refuses to be made without it; it carries that length
+as :attr:`GradientTransformation.num_steps`, which the train step checks
+on the host before each step (``core/train_loop.py``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Mapping, NamedTuple, Union
+from typing import Callable, Mapping, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -24,41 +38,139 @@ ScalarOrSchedule = Union[float, Schedule]
 class GradientTransformation(NamedTuple):
     init: Callable[[Tensors], dict]
     update: Callable[[Tensors, dict], tuple[dict, dict]]
+    # The steps its device tables cover; None when it reads no table.
+    num_steps: Optional[int] = None
 
 
-def _lr_at(learning_rate: ScalarOrSchedule, count: int) -> float:
-    return learning_rate(count) if callable(learning_rate) else learning_rate
+class _CountTable:
+    """A host function of the step count, tabulated: its values at counts
+    0 .. ``num_steps`` rounded to f32 (a step reads its count before the
+    increment, Adam's corrections the count after it), put on a device
+    once by :meth:`init` and read there by a 0-d count tensor
+    (``index_select``, no host sync).  A replayed step so reads its own
+    count's value, and that value is the one an op on f32 tensors rounds
+    the host's Python float to.  ``what`` names the function in the error
+    raised when ``num_steps`` is not given."""
+
+    def __init__(self, fn: Callable[[int], float], num_steps: Optional[int],
+                 what: str):
+        if num_steps is None:
+            raise ValueError(f"{what} is read from a device table of the "
+                             f"run's step counts: pass num_steps")
+        self._fn = fn
+        self._len = int(num_steps) + 1
+        self._values: Optional[np.ndarray] = None
+        self._tables: dict[torch.device, torch.Tensor] = {}
+
+    def init(self, device: torch.device) -> None:
+        if device in self._tables:
+            return
+        if self._values is None:
+            self._values = np.array([self._fn(c) for c in range(self._len)],
+                                    np.float32)
+        self._tables[device] = torch.from_numpy(self._values).to(device)
+
+    def __call__(self, count: torch.Tensor) -> torch.Tensor:
+        table = self._tables[count.device]
+        return table.index_select(0, count.reshape(1)).reshape(())
+
+
+Rate = Union[float, _CountTable]
+
+
+class _Divisor:
+    """Division by a host function of the count, rounded as PyTorch
+    divides a tensor by a Python float: on the CPU by the float rounded to
+    f32, on CUDA by a product with its reciprocal taken in double and
+    rounded to f32.  Both are tabulated (:class:`_CountTable`)."""
+
+    def __init__(self, fn: Callable[[int], float], num_steps: Optional[int],
+                 what: str):
+        self._value = _CountTable(fn, num_steps, what)
+        self._inverse = _CountTable(
+            lambda c: 1.0 / fn(c) if fn(c) else math.inf, num_steps, what)
+
+    def init(self, device: torch.device) -> None:
+        self._value.init(device)
+        self._inverse.init(device)
+
+    def __call__(self, tensors: list[torch.Tensor],
+                 count: torch.Tensor) -> list[torch.Tensor]:
+        if count.device.type == "cuda":
+            return torch._foreach_mul(tensors, self._inverse(count))
+        value = self._value(count)
+        return [t / value for t in tensors]
+
+
+def _rate(learning_rate: ScalarOrSchedule, num_steps: Optional[int]) -> Rate:
+    """A constant stays a Python float (a constant of a captured step too);
+    a schedule becomes a :class:`_CountTable`."""
+    if callable(learning_rate):
+        return _CountTable(learning_rate, num_steps,
+                           "a learning-rate schedule")
+    return learning_rate
+
+
+def _steps(rate: Rate, num_steps: Optional[int]) -> Optional[int]:
+    """The transformation's :attr:`GradientTransformation.num_steps`."""
+    return num_steps if isinstance(rate, _CountTable) else None
+
+
+def _init_count(params: Tensors, *tables) -> torch.Tensor:
+    """The step count, 0, on the parameters' device, with every table
+    (a constant rate has none) put there."""
+    device = next(iter(params.values())).device if params else (
+        torch.device("cpu"))
+    for table in tables:
+        if hasattr(table, "init"):
+            table.init(device)
+    return torch.zeros((), dtype=torch.int64, device=device)
+
+
+def _at(rate: Rate, count: torch.Tensor):
+    return rate(count) if isinstance(rate, _CountTable) else rate
 
 
 def tf_momentum(learning_rate: ScalarOrSchedule, momentum: float = 0.9,
-                use_nesterov: bool = False) -> GradientTransformation:
+                use_nesterov: bool = False,
+                num_steps: Optional[int] = None) -> GradientTransformation:
     """``tf.train.MomentumOptimizer`` (optax ``trace`` then ``-lr``)::
 
         accum <- momentum * accum + g
         var   <- var - lr * accum                      (heavy-ball)
         var   <- var - lr * (g + momentum * accum)     (nesterov)
-    """
+
+    ``num_steps``: the run's length, which a schedule is tabulated for
+    (every transformation here takes it; required with a schedule)."""
+    rate = _rate(learning_rate, num_steps)
 
     def init(params):
-        return {"count": 0,
+        return {"count": _init_count(params, rate),
                 "trace": {k: torch.zeros_like(v) for k, v in params.items()}}
 
+    @torch.no_grad()
     def update(grads, state):
-        lr = _lr_at(learning_rate, state["count"])
-        trace = {k: g + momentum * state["trace"][k] for k, g in grads.items()}
+        lr = _at(rate, state["count"])
+        names = list(grads)
+        g = [grads[k] for k in names]
+        trace = [state["trace"][k] for k in names]
+        torch._foreach_mul_(trace, momentum)
+        torch._foreach_add_(trace, g)
+        direction = trace
         if use_nesterov:
-            direction = {k: g + momentum * trace[k] for k, g in grads.items()}
-        else:
-            direction = trace
-        updates = {k: -lr * d for k, d in direction.items()}
-        return updates, {"count": state["count"] + 1, "trace": trace}
+            direction = torch._foreach_mul(trace, momentum)
+            torch._foreach_add_(direction, g)
+        updates = torch._foreach_mul(direction, -lr)
+        state["count"].add_(1)
+        return dict(zip(names, updates)), state
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, _steps(rate, num_steps))
 
 
 def tf_rmsprop(learning_rate: ScalarOrSchedule, decay: float = 0.9,
                momentum: float = 0.9, epsilon: float = 1.0,
-               centered: bool = False) -> GradientTransformation:
+               centered: bool = False,
+               num_steps: Optional[int] = None) -> GradientTransformation:
     """``tf.train.RMSPropOptimizer`` with TF 1.x kernel semantics (epsilon
     inside the square root, unlike optax's default)::
 
@@ -70,51 +182,68 @@ def tf_rmsprop(learning_rate: ScalarOrSchedule, decay: float = 0.9,
     ``ms`` starts at ones, as in TF (with epsilon 1.0 this changes the
     first steps materially), ``mg`` at zeros.  The defaults are slim
     Inception-v3's."""
+    rate = _rate(learning_rate, num_steps)
 
     def init(params):
-        state = {"count": 0,
+        state = {"count": _init_count(params, rate),
                  "ms": {k: torch.ones_like(v) for k, v in params.items()},
                  "mom": {k: torch.zeros_like(v) for k, v in params.items()}}
         if centered:
             state["mg"] = {k: torch.zeros_like(v) for k, v in params.items()}
         return state
 
+    @torch.no_grad()
     def update(grads, state):
-        lr = _lr_at(learning_rate, state["count"])
-        ms, mg, mom, updates = {}, {}, {}, {}
-        for k, g in grads.items():
-            ms[k] = decay * state["ms"][k] + (1.0 - decay) * torch.square(g)
-            if centered:
-                mg[k] = decay * state["mg"][k] + (1.0 - decay) * g
-                denom = ms[k] - torch.square(mg[k]) + epsilon
-            else:
-                denom = ms[k] + epsilon
-            mom[k] = momentum * state["mom"][k] + lr * g * torch.rsqrt(denom)
-            updates[k] = -mom[k]
-        new_state = {"count": state["count"] + 1, "ms": ms, "mom": mom}
+        lr = _at(rate, state["count"])
+        names = list(grads)
+        g = [grads[k] for k in names]
+        ms = [state["ms"][k] for k in names]
+        mom = [state["mom"][k] for k in names]
+        sq = torch._foreach_mul(g, g)
+        torch._foreach_mul_(sq, 1.0 - decay)
+        torch._foreach_mul_(ms, decay)
+        torch._foreach_add_(ms, sq)
         if centered:
-            new_state["mg"] = mg
-        return updates, new_state
+            mg = [state["mg"][k] for k in names]
+            part = torch._foreach_mul(g, 1.0 - decay)
+            torch._foreach_mul_(mg, decay)
+            torch._foreach_add_(mg, part)
+            denom = torch._foreach_sub(ms, torch._foreach_mul(mg, mg))
+            torch._foreach_add_(denom, epsilon)
+        else:
+            denom = torch._foreach_add(ms, epsilon)
+        step = torch._foreach_mul(g, lr)
+        torch._foreach_mul_(step, [torch.rsqrt(d) for d in denom])
+        torch._foreach_mul_(mom, momentum)
+        torch._foreach_add_(mom, step)
+        state["count"].add_(1)
+        return dict(zip(names, torch._foreach_neg(mom))), state
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, _steps(rate, num_steps))
 
 
-def sgd(learning_rate: ScalarOrSchedule) -> GradientTransformation:
+def sgd(learning_rate: ScalarOrSchedule,
+        num_steps: Optional[int] = None) -> GradientTransformation:
     """``tf.train.GradientDescentOptimizer``: ``var <- var - lr * g``."""
+    rate = _rate(learning_rate, num_steps)
 
     def init(params):
-        return {"count": 0}
+        return {"count": _init_count(params, rate)}
 
+    @torch.no_grad()
     def update(grads, state):
-        lr = _lr_at(learning_rate, state["count"])
-        return ({k: -lr * g for k, g in grads.items()},
-                {"count": state["count"] + 1})
+        lr = _at(rate, state["count"])
+        names = list(grads)
+        updates = torch._foreach_mul([grads[k] for k in names], -lr)
+        state["count"].add_(1)
+        return dict(zip(names, updates)), state
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, _steps(rate, num_steps))
 
 
 def adam(learning_rate: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.999,
-         eps: float = 1e-8) -> GradientTransformation:
+         eps: float = 1e-8,
+         num_steps: Optional[int] = None) -> GradientTransformation:
     """optax ``scale_by_adam`` then ``-lr`` (``tf.train.AdamOptimizer``)::
 
         mu <- (1 - b1) g + b1 mu;   nu <- (1 - b2) g^2 + b2 nu
@@ -122,25 +251,44 @@ def adam(learning_rate: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.999,
         var <- var - lr u
 
     with ``t`` the step count after the increment; eps is added after the
-    square root and the bias correction."""
+    square root and the bias correction.  The corrections ``1 - b^t`` are
+    taken on the host in double and divide as the Python floats they were
+    (:class:`_Divisor`), so ``num_steps`` is required even with a constant
+    rate."""
+    rate = _rate(learning_rate, num_steps)
+    c1 = _Divisor(lambda t: 1.0 - b1 ** t, num_steps,
+                  "Adam's bias correction")
+    c2 = _Divisor(lambda t: 1.0 - b2 ** t, num_steps,
+                  "Adam's bias correction")
 
     def init(params):
-        return {"count": 0,
+        return {"count": _init_count(params, rate, c1, c2),
                 "mu": {k: torch.zeros_like(v) for k, v in params.items()},
                 "nu": {k: torch.zeros_like(v) for k, v in params.items()}}
 
+    @torch.no_grad()
     def update(grads, state):
-        lr = _lr_at(learning_rate, state["count"])
-        count = state["count"] + 1
-        c1, c2 = 1.0 - b1 ** count, 1.0 - b2 ** count
-        mu, nu, updates = {}, {}, {}
-        for k, g in grads.items():
-            mu[k] = (1.0 - b1) * g + b1 * state["mu"][k]
-            nu[k] = (1.0 - b2) * torch.square(g) + b2 * state["nu"][k]
-            updates[k] = -lr * ((mu[k] / c1) / (torch.sqrt(nu[k] / c2) + eps))
-        return updates, {"count": count, "mu": mu, "nu": nu}
+        count = state["count"]
+        lr = _at(rate, count)
+        count.add_(1)
+        names = list(grads)
+        g = [grads[k] for k in names]
+        mu = [state["mu"][k] for k in names]
+        nu = [state["nu"][k] for k in names]
+        part = torch._foreach_mul(g, 1.0 - b1)
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, part)
+        part = torch._foreach_mul(g, g)
+        torch._foreach_mul_(part, 1.0 - b2)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_add_(nu, part)
+        num = c1(mu, count)
+        den = [torch.sqrt(t) for t in c2(nu, count)]
+        torch._foreach_add_(den, eps)
+        updates = [n / d for n, d in zip(num, den)]
+        return dict(zip(names, torch._foreach_mul(updates, -lr))), state
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, num_steps)
 
 
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
@@ -162,7 +310,8 @@ def clip_by_global_norm(max_norm: float) -> GradientTransformation:
 
 def chain(*transforms: GradientTransformation) -> GradientTransformation:
     """optax ``chain``: the updates pass through each transformation in
-    turn; the state is the tuple of their states."""
+    turn; the state is the tuple of their states, the step limit the
+    least of theirs."""
 
     def init(params):
         return tuple(t.init(params) for t in transforms)
@@ -174,7 +323,9 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
             new_state.append(s)
         return grads, tuple(new_state)
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, min(
+        (t.num_steps for t in transforms if t.num_steps is not None),
+        default=None))
 
 
 def exponential_decay(initial_lr: float, decay_steps: int, decay_rate: float,
@@ -244,8 +395,9 @@ def piecewise_constant(boundaries: list[int],
 @torch.no_grad()
 def apply_updates(params: Tensors, updates: Tensors) -> None:
     """``params += updates``, in place."""
-    for k, p in params.items():
-        p.add_(updates[k].to(p.dtype))
+    names = list(params)
+    torch._foreach_add_([params[k] for k in names],
+                        [updates[k].to(params[k].dtype) for k in names])
 
 
 def global_norm(tree: Tensors) -> torch.Tensor:

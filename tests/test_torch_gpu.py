@@ -31,6 +31,12 @@ K1's f32 form (TF32 wgmma, f32 sums and output) is held elementwise to
 version on the operands' magnitudes, K = kh*kw*Cin (each operand keeps 10
 mantissa bits as tf32; both sides sum K products in f32).
 
+The K-step call (``core/train_loop.py::MultiStep``): a replayed chunk
+against the eager steps (bit for bit where the step has no atomics), the
+rate and EMA decay advancing across replays, the launch counters per
+replay, ``fit`` replaying every step after the first, and the in-place
+optimizers against their per-tensor forms bit for bit.
+
 K6 (the persistent, ring-pipelined K1) must equal K1 bit for bit, in both
 dtypes.  K5's
 dK and dV come from K3's own code and must equal K3's bit for bit; its dQ
@@ -40,6 +46,7 @@ K4's bit for bit (the JAX package's pair and staged backwards promise the
 same dQ).
 """
 
+import itertools
 import math
 import threading
 
@@ -311,7 +318,7 @@ def test_lm_train_step_on_card_runs_flash(cuda):
                           d_model=64, d_ff=128, max_len=64, dropout_rate=0.1,
                           attn_impl="flash", generator=gen).to(cuda)
     state = TrainState.create(model, optim.chain(
-        optim.clip_by_global_norm(1.0), optim.adam(3e-4)))
+        optim.clip_by_global_norm(1.0), optim.adam(3e-4, num_steps=2)))
     step = train_loop.make_train_step(
         train_loop.lm_loss_fn(model, fused_unembed=True))
     rng = np.random.default_rng(13)
@@ -465,7 +472,7 @@ def test_modern_lm_train_step_on_card_runs_k5(cuda, monkeypatch):
                           pos_encoding="rope", num_kv_heads=2, attn_window=48,
                           generator=gen).to(cuda)
     state = TrainState.create(model, optim.chain(
-        optim.clip_by_global_norm(1.0), optim.adam(3e-4)))
+        optim.clip_by_global_norm(1.0), optim.adam(3e-4, num_steps=2)))
     step = train_loop.make_train_step(
         train_loop.lm_loss_fn(model, fused_unembed=True))
     rng = np.random.default_rng(18)
@@ -1010,3 +1017,199 @@ def test_resnet32_step_mxu_matches_patches(cuda, monkeypatch):
     _, total, worst, _ = got[pairs[0]]
     _, order_total, order_worst, _ = got[pairs[3]]
     assert total <= 2 * order_total and worst <= 2 * order_worst
+
+
+# The K-step call on the card (core/train_loop.py::MultiStep): the first
+# step eager, the rest CUDA-graph replays.  Paths at small widths, each
+# with its kernels: LeNet (no kernel: its convs route to patches), ResNet-32
+# (K1's f32 form on stage 2), the transformer with dropout (K2-K4, head dim
+# 32) and the LSTM with its carry and dropout.  Where the step has no
+# atomics a replayed chunk equals the eager steps bit for bit.  The LM
+# paths' embedding gradient adds rows with atomics (index_add_), so their
+# sums run in another order on every run, eager or not: their losses are
+# held to 1e-5 relative and each state collection to 1e-4 in relative L2
+# (f32 sums reordered differ by a few ulps; a stale rate, stale dropout
+# bits or a stale batch move them by 1e-3 or more).
+REPLAY_CASES = {
+    "lenet_mnist": ("lenet_mnist", dict(
+        global_batch_size=8, model_kwargs={"conv_impl": "mxu"}), True),
+    "resnet32_cifar10": ("resnet32_cifar10", dict(
+        global_batch_size=8, model_kwargs={"conv_impl": "mxu"}), True),
+    "transformer_lm": ("transformer_lm", dict(
+        global_batch_size=4, num_steps=64, vocab_size=128, attn_impl="flash",
+        model_kwargs={"num_layers": 2, "num_heads": 4, "d_model": 128,
+                      "d_ff": 256, "max_len": 64, "vocab_size": 128,
+                      "dropout_rate": 0.1}), False),
+    "ptb_small": ("ptb_small", dict(
+        global_batch_size=4, num_steps=10, vocab_size=64,
+        model_kwargs={"config": "small", "vocab_size": 64, "hidden_size": 32,
+                      "dropout_rate": 0.5}), False),
+}
+
+
+def _state_tensors(state):
+    out = {f"params/{k}": v for k, v in state.params.items()}
+    out.update({f"batch_stats/{k}": v for k, v in state.batch_stats.items()})
+    for i, leaf in enumerate(train_loop._leaves(state.opt_state)):
+        out[f"opt_state/{i}"] = leaf
+    for i, leaf in enumerate(train_loop._leaves((state.ema_params,
+                                                 state.carry))):
+        out[f"ema_carry/{i}"] = leaf
+    out["device_step"] = state.device_step
+    return {k: v.detach() for k, v in out.items()}
+
+
+def _replay_and_eager(cfg, steps, k, device):
+    """``steps`` steps of ``cfg`` eagerly and through the K-step call in
+    chunks of ``k`` (the last one shorter), from the same seeded state on
+    the same batches: (eager state, captured state, eager losses, captured
+    losses, the K-step call)."""
+    import itertools
+
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+
+    batches = [{key: torch.from_numpy(v).to(device) for key, v in b.items()}
+               for b in itertools.islice(iter(trainlib.build_dataset(cfg)),
+                                         steps)]
+    eager = trainlib.build_state(cfg, device)
+    step = trainlib.build_step(cfg, eager)
+    eager_losses = []
+    for b in batches:
+        eager, metrics = step(eager, b, cfg.seed)
+        eager_losses.append(float(metrics["loss"]))
+    captured = trainlib.build_state(cfg, device)
+    multi = train_loop.MultiStep(trainlib.build_step(cfg, captured),
+                                 name=cfg.model)
+    losses = []
+    for i in range(0, steps, k):
+        rows = batches[i:i + k]
+        chunk = {key: torch.stack([b[key] for b in rows]) for key in rows[0]}
+        captured, metrics = multi(captured, chunk, cfg.seed)
+        losses += metrics["loss"].tolist()
+    torch.cuda.synchronize()
+    return eager, captured, eager_losses, losses, multi
+
+
+@pytest.mark.parametrize("case", sorted(REPLAY_CASES))
+def test_replayed_chunk_equals_eager_steps(cuda, case):
+    from distributed_tensorflow_models_tpu_torch.harness import config as tconfig
+
+    name, over, exact = REPLAY_CASES[case]
+    cfg = tconfig.get_config(name, train_steps=6, **over)
+    eager, captured, want, got, multi = _replay_and_eager(cfg, 6, 4, cuda)
+    assert multi.captures == 1 and multi.replays == 5
+    assert captured.step == eager.step == 6
+    a, b = _state_tensors(captured), _state_tensors(eager)
+    assert sorted(a) == sorted(b)
+    worst = max(_rel_l2(a[n].float(), b[n].float()) for n in a)
+    print(f"{case}: losses replayed {got} eager {want}; worst state "
+          f"tensor rel L2 {worst:.3g}")
+    if exact:
+        assert got == want
+        for n in a:
+            assert torch.equal(a[n], b[n]), n
+    else:
+        for x, y in zip(got, want):
+            assert abs(x - y) <= 1e-5 * abs(y)
+        for group in ("params", "batch_stats", "opt_state", "ema_carry"):
+            names = [n for n in a if n.startswith(group)
+                     and a[n].is_floating_point()]
+            if names:
+                assert _rel_l2(
+                    torch.cat([a[n].float().flatten() for n in names]),
+                    torch.cat([b[n].float().flatten() for n in names])
+                ) <= 1e-4, group
+        assert int(a["device_step"]) == 6
+
+
+def test_replays_advance_the_rate_and_the_ema(cuda):
+    """LeNet under a rate that falls every step (non-staircase decay at
+    one step per transition) with the weight EMA, whose decay warms up
+    every step: six steps in one chunk (five replays) equal the eager
+    steps bit for bit, so each replay read its own step's rate and
+    decay; the device counts say 6."""
+    from distributed_tensorflow_models_tpu_torch.harness import config as tconfig
+
+    cfg = tconfig.get_config(
+        "lenet_mnist", global_batch_size=8, train_steps=6, ema_decay=0.99,
+        model_kwargs={"conv_impl": "mxu"},
+        optimizer=tconfig.OptimizerConfig(
+            name="momentum", learning_rate=0.1, decay_steps=1,
+            decay_rate=0.5, staircase=False))
+    eager, captured, want, got, multi = _replay_and_eager(cfg, 6, 6, cuda)
+    assert multi.replays == 5 and got == want
+    a, b = _state_tensors(captured), _state_tensors(eager)
+    for n in a:
+        assert torch.equal(a[n], b[n]), n
+    assert int(captured.opt_state["count"]) == 6
+    assert int(captured.device_step) == 6
+
+
+@pytest.mark.parametrize("case", ["resnet32_cifar10", "transformer_lm"])
+def test_launch_counters_count_replays(cuda, case):
+    """A kernel's counter after a chunk of 4 (one eager step, three
+    replays) is 4 x what one eager step launches, and each graph holds
+    one step's launches."""
+    from distributed_tensorflow_models_tpu_torch.harness import config as tconfig
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+    from distributed_tensorflow_models_tpu_torch.ops import _kernels
+
+    name, over, _ = REPLAY_CASES[case]
+    cfg = tconfig.get_config(name, train_steps=5, **over)
+    batches = [{key: torch.from_numpy(v).to(cuda) for key, v in b.items()}
+               for b in itertools.islice(iter(trainlib.build_dataset(cfg)),
+                                         5)]
+    state = trainlib.build_state(cfg, cuda)
+    step = trainlib.build_step(cfg, state)
+    before = _kernels.launch_counts()
+    state, _ = step(state, batches[0], cfg.seed)
+    one = {key: n - before[key] for key, n in _kernels.launch_counts().items()
+           if n != before[key]}
+    assert one, "the step launched no kernel"
+    multi = train_loop.MultiStep(trainlib.build_step(cfg, state))
+    before = _kernels.launch_counts()
+    chunk = {key: torch.stack([b[key] for b in batches[1:]])
+             for key in batches[0]}
+    state, _ = multi(state, chunk, cfg.seed)
+    torch.cuda.synchronize()
+    got = {key: n - before[key] for key, n in _kernels.launch_counts().items()
+           if n != before[key]}
+    assert got == {key: 4 * n for key, n in one.items()}
+    graph = next(iter(multi._captured.values()))
+    assert graph.launches == one
+
+
+def test_fit_on_card_replays_every_step_after_the_first(cuda):
+    """fit on the card with steps_per_loop 3 over 7 steps (chunks 3, 3, 1):
+    one capture, six replayed steps, the losses of a serial eager loop on
+    the host's batches, and a timed window closed by a device sync."""
+    from distributed_tensorflow_models_tpu_torch.harness import config as tconfig
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+
+    cfg = tconfig.get_config("lenet_mnist", global_batch_size=8,
+                             train_steps=7, steps_per_loop=3,
+                             model_kwargs={"conv_impl": "mxu"})
+    result = trainlib.fit(cfg, device="cuda")
+    assert (result.captures, result.replayed_steps) == (1, 6)
+    assert result.window_steps == 4 and result.window_s > 0
+    state = trainlib.build_state(cfg, cuda)
+    step = trainlib.build_step(cfg, state)
+    want = []
+    for b in itertools.islice(iter(trainlib.build_dataset(cfg)), 7):
+        state, metrics = step(state, {k: torch.from_numpy(v).to(cuda)
+                                      for k, v in b.items()}, cfg.seed)
+        want.append(float(metrics["loss"]))
+    assert [row["loss"] for row in result.history] == want
+    snap = result.registry.snapshot()
+    assert snap["train/compile/count"] == 1
+
+
+def test_in_place_optimizers_equal_the_per_tensor_form_on_card(cuda):
+    """The in-place optimizers (products and sums by torch._foreach_*,
+    the rate and Adam's corrections read from device tables) and the EMA
+    against the per-tensor forms they replace, on the card, five steps
+    under a schedule: bit for bit."""
+    import torch_reference_optim as ref
+
+    for name in ref.CASES:
+        ref.check_against_per_tensor_form(name, cuda)

@@ -336,7 +336,8 @@ def test_training_steps_match_jax(variables, jax_trajectory, steps):
     cfg = tconfig.get_config("inception_v3_imagenet")
     tm = _port_model(variables)
     tstate = TrainState.create(
-        tm, dataclasses.replace(cfg.optimizer, learning_rate=LR).make(),
+        tm, dataclasses.replace(cfg.optimizer,
+                                learning_rate=LR).make(steps),
         ema_decay=cfg.ema_decay)
     tstep = ttrain.make_train_step(ttrain.classification_loss_fn(
         tm, label_smoothing=cfg.label_smoothing,
@@ -404,7 +405,7 @@ def test_eval_step_restores_ema_shadows(variables):
     eval step does; use_ema=False the raw parameters."""
     tm = _port_model(variables)
     state = TrainState.create(tm, tconfig.get_config(
-        "inception_v3_imagenet").optimizer.make(), ema_decay=0.9999)
+        "inception_v3_imagenet").optimizer.make(1), ema_decay=0.9999)
     shadows = {k: v * 0.5 for k, v in state.ema_params.items()}
     state = state.replace(ema_params=shadows)
     x = _images(7)

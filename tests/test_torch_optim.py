@@ -54,7 +54,8 @@ def test_tf_momentum_matches_optax(nesterov, schedule):
     jlr = joptim.exponential_decay(0.1, 2, 0.5) if schedule else 0.1
     tlr = toptim.exponential_decay(0.1, 2, 0.5) if schedule else 0.1
     jstate, tstate = _run_both(joptim.tf_momentum(jlr, 0.9, nesterov),
-                               toptim.tf_momentum(tlr, 0.9, nesterov))
+                               toptim.tf_momentum(tlr, 0.9, nesterov,
+                                                  num_steps=4))
     for k, v in tstate["trace"].items():
         np.testing.assert_allclose(v.numpy(), np.asarray(jstate[0].trace[k]),
                                    **TOL)
@@ -64,7 +65,7 @@ def test_tf_momentum_matches_optax(nesterov, schedule):
 def test_sgd_matches_optax(schedule):
     jlr = joptim.exponential_decay(0.5, 1, 0.9, staircase=False) if schedule else 0.5
     tlr = toptim.exponential_decay(0.5, 1, 0.9, staircase=False) if schedule else 0.5
-    _run_both(joptim.sgd(jlr), toptim.sgd(tlr))
+    _run_both(joptim.sgd(jlr), toptim.sgd(tlr, num_steps=4))
 
 
 @pytest.mark.parametrize("staircase", [True, False])
@@ -133,7 +134,8 @@ def test_metrics_match():
 def test_adam_matches_optax(schedule):
     jlr = joptim.exponential_decay(0.01, 2, 0.5) if schedule else 0.01
     tlr = toptim.exponential_decay(0.01, 2, 0.5) if schedule else 0.01
-    jstate, tstate = _run_both(joptim.adam(jlr), toptim.adam(tlr))
+    jstate, tstate = _run_both(joptim.adam(jlr),
+                               toptim.adam(tlr, num_steps=4))
     assert tstate["count"] == int(jstate[0].count) == 4
     for slot in ("mu", "nu"):
         for k, v in tstate[slot].items():
@@ -153,7 +155,8 @@ def test_chain_of_clip_and_adam_matches_optax():
 
     _, tstate = _run_both(
         optax.chain(joptim.clip_by_global_norm(1.0), joptim.adam(0.01)),
-        toptim.chain(toptim.clip_by_global_norm(1.0), toptim.adam(0.01)))
+        toptim.chain(toptim.clip_by_global_norm(1.0),
+                     toptim.adam(0.01, num_steps=4)))
     assert tstate[0] == {} and tstate[1]["count"] == 4
 
 
@@ -164,7 +167,8 @@ def test_tf_rmsprop_matches_jax(schedule):
     jlr = joptim.exponential_decay(0.045, 2, 0.94) if schedule else 0.045
     tlr = toptim.exponential_decay(0.045, 2, 0.94) if schedule else 0.045
     jstate, tstate = _run_both(joptim.tf_rmsprop(jlr, 0.9, 0.9, 1.0),
-                               toptim.tf_rmsprop(tlr, 0.9, 0.9, 1.0), steps=5)
+                               toptim.tf_rmsprop(tlr, 0.9, 0.9, 1.0,
+                                                 num_steps=5), steps=5)
     assert tstate["count"] == int(jstate.count) == 5
     for slot in ("ms", "mom"):
         for k, v in tstate[slot].items():
@@ -282,7 +286,8 @@ def test_sgd_with_clip_matches_jax_under_schedules(schedule):
           "zaremba": (joptim.zaremba_decay(1.0, 1, 1, 0.5),
                       toptim.zaremba_decay(1.0, 1, 1, 0.5))}[schedule]
     _run_both(optax.chain(joptim.clip_by_global_norm(0.5), joptim.sgd(lr[0])),
-              toptim.chain(toptim.clip_by_global_norm(0.5), toptim.sgd(lr[1])),
+              toptim.chain(toptim.clip_by_global_norm(0.5),
+                           toptim.sgd(lr[1], num_steps=5)),
               steps=5)
 
 
@@ -296,7 +301,8 @@ def test_centered_tf_rmsprop_matches_jax(schedule):
         schedule) else 0.045
     jstate, tstate = _run_both(
         joptim.tf_rmsprop(jlr, 0.9, 0.9, 1.0, centered=True),
-        toptim.tf_rmsprop(tlr, 0.9, 0.9, 1.0, centered=True), steps=5)
+        toptim.tf_rmsprop(tlr, 0.9, 0.9, 1.0, centered=True, num_steps=5),
+        steps=5)
     assert tstate["count"] == int(jstate.count) == 5
     for slot in ("ms", "mg", "mom"):
         for k, v in tstate[slot].items():

@@ -5,7 +5,8 @@
   arrays, a per-sample transform (CIFAR), process shards, PTB, decoded
   ImageNet records and a ``set_state`` resume; an error surfaces at the
   position it occurred, after the good batches before it; ``stop``
-  re-raises an error the consumer never reached and leaves no thread.
+  re-raises an error the consumer never reached and leaves no thread; a
+  stalled consumer holds the worker pool back.
 - ``DevicePrefetcher`` on the CPU: ``get_state`` after batch k, the
   deferred upstream error and exhaustion equal the JAX prefetcher's (on
   the test mesh); an abort is raised ahead of buffered batches; a CUDA
@@ -197,6 +198,27 @@ def test_host_pipeline_stop_joins_every_thread_and_ends_finite(
     # A stopped pipeline that never started consuming also joins.
     idle = tpipe.HostPipeline(_Exploding(-1), prefetch=1, num_workers=workers)
     idle.stop()
+    assert not pipeline_threads()
+
+
+@pytest.mark.parametrize("workers,prefetch", [(3, 2), (4, 4)])
+def test_host_pipeline_pool_holds_back_while_the_consumer_stalls(
+        workers, prefetch, pipeline_threads):
+    """With the consumer stalled, the pool keeps at most workers +
+    prefetch batches between dispatch and release (the dataset's cursor
+    stops there too), beside the prefetch buffer; the stream that follows
+    is unchanged.  The JAX package's pool bounds only its dispatch queue,
+    so there the results queue grows for as long as the consumer stalls."""
+    dataset = _Exploding(-1, n=200)
+    pipe = tpipe.HostPipeline(dataset, prefetch=prefetch,
+                              num_workers=workers)
+    time.sleep(0.5)
+    in_flight = (pipe._results_q.qsize() + len(pipe._pending)
+                 + pipe._work_q.qsize())
+    assert in_flight <= workers + prefetch
+    assert dataset.get_state()["i"] <= 2 * (workers + prefetch) + 1
+    assert [float(b["x"][0]) for b in pipe] == [float(i) for i in range(200)]
+    pipe.stop()
     assert not pipeline_threads()
 
 

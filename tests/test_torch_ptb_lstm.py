@@ -281,7 +281,8 @@ def test_ptb_small_trains_like_jax():
     tcfg = tconfig.get_config("ptb_small", global_batch_size=4)
     jcfg = jconfig.get_config("ptb_small")
     opt = dict(steps_per_epoch=1, hold_epochs=1, clip_global_norm=0.1)
-    ttx = tcfg.optimizer.__class__(**{**tcfg.optimizer.__dict__, **opt}).make()
+    ttx = tcfg.optimizer.__class__(**{**tcfg.optimizer.__dict__,
+                                      **opt}).make(STEPS)
     jtx = jcfg.optimizer.__class__(**{**jcfg.optimizer.__dict__, **opt}).make()
     tm = trainlib.build_model(tcfg, torch.device("cpu"))
     tree = interop.to_flax_variables(tm)

@@ -357,7 +357,7 @@ def test_training_steps_match_jax(name, impl):
         opt_state=jtx.init(params))
     jstep = jax.jit(jtrain.make_train_step_fn(jtrain.classification_loss_fn(
         jm.apply, weight_decay=jcfg.weight_decay)))
-    tstate = TrainState.create(tm, tcfg.optimizer.make())
+    tstate = TrainState.create(tm, tcfg.optimizer.make(STEPS))
     tstep = ttrain.make_train_step(ttrain.classification_loss_fn(
         tm, weight_decay=tcfg.weight_decay))
     for b in _step_batches(shape):
