@@ -57,7 +57,27 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    arm (cuDNN) follows as a yardstick, in turns with a second K1 arm; then
    three steps through the CLI (K1 50 a step).
 5. ``torch.profiler`` over two replays of each ResNet arm's captured
-   step: device time by kernel class and the device's idle share.
+   step: device time by kernel class and the device's idle share.  Each
+   profile (here and in every phase) traces one more replay first and
+   leaves it out, and is taken again, up to three times in all, if its
+   replays' graph launches do not hold the same kernels: the profiler
+   lost device records.
+5b. Data parallel: the process joins a world-1 NCCL group through the
+   port's ``launch.initialize_from_env`` (``DTM_*`` set by the script:
+   127.0.0.1, a free port, 1 process, id 0), and ``resnet50_synthetic``
+   (batch 256, K1 on every 3x3 conv, chunks of ``STEPS_PER_LOOP``) trains
+   through ``fit`` in it, in turns with ``fit`` without a group (no group,
+   group, group, no group).  Every arm's losses and the grouped arm's
+   state must equal the first arm's bit for bit; the collective counters
+   must show one gradient bucket, each BatchNorm's moments and their
+   cotangents (53 each) and one metric vector per step, replays included
+   (none without the group); K1 50 a step in every arm; and a profile of
+   two replays in the group must see, under each replay's graph launch,
+   one NCCL kernel per collective, and none outside the replays (each
+   all-reduce is a sum pre-multiplied by 1, which NCCL runs as a kernel at
+   one rank too).  Images/s of each arm, the NCCL kernels'
+   device time a step and peak memory are printed.  The group is
+   destroyed before phase 6.
 6. Phase 2 at every launch shape of one ``inception_v3_imagenet`` step at
    batch 256 (the 1x7, 7x1, 1x3, 3x1 taps, the aux head's 5x5, the phase
    kernels of its stride-2 convs and the dx of all of them).
@@ -145,7 +165,7 @@ host noise on a shared machine moves step times between runs.  The last
 lines are the card's name and power limit, a ``{"kernels": ...}`` JSON line (K1
 to K6, K5 as its two launches, K1's and K6's f32 forms as entries of their
 own) and ``{"ok": true, "device": {...}}``.  ``--zoo-only`` runs phases 1
-and 11-13 alone.
+and 11-13 alone, ``--dp-only`` phases 1 and 5b.
 """
 
 from __future__ import annotations
@@ -995,12 +1015,14 @@ def run_named(config: str, steps: int, batch: int, workdir: Path,
                               global_batch_size=batch, **over), workdir)
 
 
-def run_fit(cfg, workdir: Path) -> dict:
+def run_fit(cfg, workdir: Path, mesh=None, keep: bool = False) -> dict:
     """``fit`` in this process on the card in chunks of
-    ``STEPS_PER_LOOP``: the CLI's JSON fields from its result, how its
-    steps ran and its timed window, summarised by ``summarize_run``.
-    Fails unless the step was captured once and every step after the
-    first replayed (no step ran eagerly in its place)."""
+    ``STEPS_PER_LOOP`` (on ``mesh``, by default the config's): the CLI's
+    JSON fields from its result, how its steps ran and its timed window,
+    summarised by ``summarize_run`` (with the ``FitResult`` under
+    ``"fit"`` if ``keep``).  Fails unless the step was captured once and
+    every step after the first replayed (no step ran eagerly in its
+    place)."""
     import torch
 
     from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
@@ -1010,7 +1032,7 @@ def run_fit(cfg, workdir: Path) -> dict:
     # cache is emptied: empty it, so that the peak reserved is this arm's.
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    r = trainlib.fit(cfg, str(workdir), device="cuda")
+    r = trainlib.fit(cfg, str(workdir), device="cuda", mesh=mesh)
     result = {"final_metrics": r.final_metrics, "steps": r.state.step,
               "device": r.device,
               "steady_step_time_s": r.steady_step_time_s,
@@ -1026,6 +1048,8 @@ def run_fit(cfg, workdir: Path) -> dict:
         fail(f"{cfg.name}: {r.captures} captures and {r.replayed_steps} "
              f"replayed steps of {cfg.train_steps}: every step after the "
              f"first must replay the one captured step")
+    if keep:
+        result["fit"] = r
     return summarize_run(result, r.history, cfg.train_steps)
 
 
@@ -1079,6 +1103,8 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
 
 def _kernel_class(name: str) -> str:
     low = name.lower()
+    if "nccl" in low or "onerankreduce" in low:
+        return NCCL_CLASS
     if "conv_implicit_gemm_pipelined" in low:
         return "K6"
     if "conv_implicit_gemm" in low:
@@ -1104,50 +1130,135 @@ def _kernel_class(name: str) -> str:
 
 
 COPY_CLASS = "copies, pads, fills"
+NCCL_CLASS = "NCCL collectives"
 
 
-def phase_profile(cfg, arm: str, steps: int = 2) -> None:
+PROFILE_ATTEMPTS = 3
+
+
+def _timed_trace(prof) -> tuple[list, list, int]:
+    """The device events of ``prof`` caused by the host's CUDA calls after
+    the first ``cudaDeviceSynchronize`` that follows its first graph
+    launch (the warm-up replay), as (name, ns, correlation id).
+    CUDA calls are numbered in the order the host makes them, and each
+    device event carries its call's number (a replayed kernel its
+    ``cudaGraphLaunch``'s): the timestamps of host calls and of host ranges
+    come from two clocks and do not place a call in a range.  Also those
+    graph launches' events, counted by name, in launch order; and the
+    number of those NCCL kernels that no graph launch issued."""
+    import torch
+
+    cpu = torch.autograd.DeviceType.CPU
+    events = prof.profiler.kineto_results.events()
+    calls = collections.defaultdict(list)
+    for e in events:
+        if e.device_type() == cpu and e.correlation_id() > 0:
+            calls[e.name()].append(e.correlation_id())
+    warm = min(calls["cudaGraphLaunch"], default=None)
+    mark = min((c for c in calls["cudaDeviceSynchronize"]
+                if warm is not None and c > warm), default=None)
+    if mark is None:
+        fail(f"profile: no cudaDeviceSynchronize after a graph launch in "
+             f"the trace (launches {sorted(calls['cudaGraphLaunch'])}, "
+             f"syncs {sorted(calls['cudaDeviceSynchronize'])})")
+    launches = sorted(c for c in calls["cudaGraphLaunch"] if c > mark)
+    timed = [(e.name(), e.duration_ns(), e.correlation_id()) for e in events
+             if e.device_type() != cpu and e.correlation_id() > mark]
+    per_launch = {c: collections.Counter() for c in launches}
+    loose_nccl = 0
+    for name, _, corr in timed:
+        if corr in per_launch:
+            per_launch[corr][name] += 1
+        elif _kernel_class(name) == NCCL_CLASS:
+            loose_nccl += 1
+    return timed, list(per_launch.values()), loose_nccl
+
+
+def phase_profile(cfg, arm: str, steps: int = 2, mesh=None) -> dict:
     """Device time of the training step by kernel class, and the device's
     idle share, over ``steps`` replays of the captured step (the K-step
     call, as ``fit`` runs it), after a chunk of two that runs the first
     step eagerly, captures it and replays it once (the batches are on the
-    card beforehand), with the conv lowering set as it is."""
+    card beforehand), with the conv lowering set as it is; under
+    ``mesh``'s data axis if given, its state placed as ``fit`` places it.
+    One more replay runs first in each trace, before a device sync that
+    starts the timed part, and is left out: the first replay traced can
+    lose device records (seen in the smoke's world-1 NCCL profile, three
+    traces in a row, while the second replay lost none).
+
+    Every replay runs the same graph, so a complete trace holds the same
+    kernels under each graph launch.  A trace in which they differ lost
+    device records (the profiler's, not the card's): it is set aside and
+    the next replays are profiled instead, up to ``PROFILE_ATTEMPTS``
+    traces in all; the phase fails if none is complete.  Returns the kernels of the complete trace, (ms a step,
+    launches a step, name), under ``"kernels"``; each replay's device
+    events by name under ``"replays"``; and the NCCL kernels that no
+    replay issued under ``"loose_nccl"``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from distributed_tensorflow_models_tpu_torch.core import mesh as meshlib
     from distributed_tensorflow_models_tpu_torch.core import train_loop
     from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
 
+    # Room in the schedule tables for every trace this phase may take.
+    cfg = cfg.replace(train_steps=max(cfg.train_steps,
+                                      2 + (1 + steps) * PROFILE_ATTEMPTS))
     batch = cfg.global_batch_size
     dev = torch.device("cuda")
     state = trainlib.build_state(cfg, dev)
+    if mesh is not None:
+        state = train_loop.place_state(state, mesh)
     multi = train_loop.MultiStep(trainlib.build_step(cfg, state),
                                  name=cfg.model)
     batches = iter(trainlib.build_dataset(cfg))
     on_card = [{k: torch.from_numpy(v).to(dev) for k, v in
-                next(batches).items()} for _ in range(steps + 2)]
+                next(batches).items()} for _ in range(steps + 3)]
 
     def chunk(rows):
         return {k: torch.stack([b[k] for b in rows]) for k in rows[0]}
 
-    state, rows = multi(state, chunk(on_card[:2]), cfg.seed)
-    timed = chunk(on_card[2:])
+    with meshlib.data_parallel(mesh):
+        state, rows = multi(state, chunk(on_card[:2]), cfg.seed)
+    warm, timed = chunk(on_card[2:3]), chunk(on_card[3:])
     float(rows["loss"][-1])
-    with profile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, rows = multi(state, timed, cfg.seed)
-        float(rows["loss"][-1])
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    if multi.captures != 1 or multi.replays != steps + 1:
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            with meshlib.data_parallel(mesh):
+                state, rows = multi(state, warm, cfg.seed)
+            float(rows["loss"][-1])
+            torch.cuda.synchronize()  # the timed part's start, for the trace
+            t0 = time.perf_counter()
+            with meshlib.data_parallel(mesh):
+                state, rows = multi(state, timed, cfg.seed)
+            float(rows["loss"][-1])
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        events, replays, loose_nccl = _timed_trace(prof)
+        if len(replays) == steps and all(r == replays[0] for r in replays):
+            break
+        differ = sorted(name for name in set().union(*replays)
+                        if len({r[name] for r in replays}) > 1)
+        log(f"profile ({arm}): trace {attempt} is incomplete: its "
+            f"{len(replays)} graph launches (of {steps}) hold "
+            f"{[sum(r.values()) for r in replays]} device events (they "
+            f"differ in {[(n[:50], [r[n] for r in replays]) for n in differ[:4]]}"
+            f"); the profiler lost records, so the next replays are "
+            f"profiled")
+    else:
+        fail(f"profile ({arm}): no complete trace of {steps} replays in "
+             f"{PROFILE_ATTEMPTS} attempts")
+    if multi.captures != 1 or multi.replays != (1 + steps) * attempt + 1:
         fail(f"profile ({arm}): {multi.captures} captures, {multi.replays} "
-             f"replays, expected 1 and {steps + 1}")
+             f"replays, expected 1 and {(1 + steps) * attempt + 1}")
     # Device-side events only: a CPU op's self device time repeats the
     # time of the kernels it launched.
-    kernels = [(e.device_time_total / 1e3 / steps, e.count // steps, e.key)
-               for e in prof.key_averages()
-               if e.device_type != torch.autograd.DeviceType.CPU
-               and e.device_time_total > 0]
+    by_name = collections.defaultdict(lambda: [0, 0])
+    for name, ns, _ in events:
+        by_name[name][0] += ns
+        by_name[name][1] += 1
+    kernels = [(ns / 1e6 / steps, n // steps, name)
+               for name, (ns, n) in by_name.items() if ns > 0]
     busy_ms = sum(ms for ms, _, _ in kernels)
     if busy_ms == 0:
         fail(f"profile ({arm}): the profiler saw no device time")
@@ -1164,6 +1275,144 @@ def phase_profile(cfg, arm: str, steps: int = 2) -> None:
         log(f"  {cls:>22}: {ms:8.2f} ms  {ms / busy_ms:6.1%} of busy")
     for ms, count, name in sorted(kernels, reverse=True)[:12]:
         log(f"  {ms:8.3f} ms x{count:<4d} {name[:110]}")
+    return {"kernels": kernels, "replays": replays, "loose_nccl": loose_nccl}
+
+
+GROUP_ARM = "NCCL group"
+
+
+def phase_data_parallel(batch: int, steps: int, k1_per_step: int, card: str,
+                        workdir: Path) -> dict:
+    """The ResNet-50 path (K1 on every 3x3 conv) as one process of a world-1
+    NCCL group, joined through the port's ``launch.initialize_from_env``
+    from ``DTM_*`` variables set here (127.0.0.1, a free port, 1 process,
+    id 0), in turns with ``fit`` without a group (no group, group, group,
+    no group), each timed over the steps after the first chunk.  Fails
+    unless every arm's losses, and the first grouped arm's state tensors,
+    equal the first arm's bit for bit; the collective counters show, per
+    step of each grouped arm (every step after the first a replay), the
+    gradient bucket, each BatchNorm layer's moments and their cotangents
+    and the metric vector once (and the two startup checks), and none in
+    the arms without a group; K1 launches ``k1_per_step`` a step in every
+    arm; and a profile of two replays in the group sees, under each
+    replay's graph launch, one NCCL kernel per collective, and no NCCL
+    kernel outside the replays.  The group is destroyed at the end,
+    whatever happens."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from distributed_tensorflow_models_tpu_torch import launch
+    from distributed_tensorflow_models_tpu_torch.core import mesh as meshlib
+    from distributed_tensorflow_models_tpu_torch.core import sharding
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+    from distributed_tensorflow_models_tpu_torch.harness.config import get_config
+    from distributed_tensorflow_models_tpu_torch.ops import conv_mxu
+    from distributed_tensorflow_models_tpu_torch.ops.normalization import BatchNorm
+
+    k1 = conv_mxu.conv_implicit_gemm
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {launch.ENV_COORDINATOR: f"127.0.0.1:{port}",
+           launch.ENV_NUM_PROCESSES: "1", launch.ENV_PROCESS_ID: "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        if not launch.initialize_from_env():
+            fail("data parallel: initialize_from_env found no cluster")
+        init_s = time.perf_counter() - t0
+        try:
+            cfg = get_config("resnet50_synthetic", global_batch_size=batch,
+                             train_steps=steps)
+            group = trainlib.mesh_from_config(cfg)
+            if (group.world_size, group.backend) != (1, "nccl"):
+                fail(f"data parallel: a world of {group.world_size} over "
+                     f"{group.backend}, expected 1 over nccl")
+            alone = meshlib.local_mesh("cuda")
+            arms = []
+            for label, mesh in (("no group", alone), (GROUP_ARM, group),
+                                (GROUP_ARM, group), ("no group", alone)):
+                zero_counts((k1,))
+                before = sharding.collective_counts()
+                r = run_fit(cfg, workdir / f"dp{len(arms)}", mesh=mesh,
+                            keep=True)
+                r["collectives"] = sharding.counts_since(before)
+                r["k1"] = k1.launches
+                state = r.pop("fit").state
+                if not arms:
+                    bn = sum(isinstance(m, BatchNorm)
+                             for m in state.model.modules())
+                if len(arms) < 2:
+                    # On the host, so that no arm's peak holds another's.
+                    r["state"] = [t.cpu() for t in state_tensors(state)]
+                del state
+                arms.append((label, r))
+            want = {"replica_check": 2, "grads": steps, "metrics": steps,
+                    "bn_moments": bn * steps, "bn_moments_grad": bn * steps}
+            per_step = sum(n for site, n in want.items()
+                           if site != "replica_check") // steps
+            for label, r in arms:
+                counts = {site: n for site, (n, _) in r["collectives"].items()}
+                expected = want if label == GROUP_ARM else {}
+                if counts != expected:
+                    fail(f"data parallel, {label}: collectives {counts}, "
+                         f"expected {expected}")
+                if r["k1"] != k1_per_step * steps:
+                    fail(f"data parallel, {label}: K1 launched {r['k1']} "
+                         f"times, expected {k1_per_step * steps}")
+                if r["losses"] != arms[0][1]["losses"]:
+                    fail(f"data parallel, {label}: losses {r['losses']} "
+                         f"differ from {arms[0][1]['losses']}")
+            a, b = arms[1][1].pop("state"), arms[0][1].pop("state")
+            same = sum(bool(torch.equal(x, y)) for x, y in zip(a, b))
+            if len(a) != len(b) or same != len(a):
+                fail(f"data parallel: {same} of {len(a)} state tensors of "
+                     f"the grouped fit equal the fit without a group")
+            nbytes = {site: b for site, (_, b) in
+                      arms[1][1]["collectives"].items()}
+            log(f"data parallel: world-1 NCCL group joined in "
+                f"{init_s:.2f} s; ResNet-50 at batch {batch}, {steps} steps "
+                f"in chunks of {STEPS_PER_LOOP}: losses and all {len(a)} "
+                f"state tensors equal the fit without a group bit for bit; "
+                f"collectives a step: {per_step} (1 gradient bucket of "
+                f"{nbytes['grads'] // steps} bytes, {bn} BatchNorm moments "
+                f"and {bn} cotangents of {nbytes['bn_moments'] // steps} "
+                f"bytes in all, 1 metric vector); K1 {k1_per_step} a step "
+                f"| {card}")
+            del a, b
+            for label, r in arms:
+                log_arm(f"ResNet-50 {label}", r, batch, card)
+            prof = phase_profile(
+                cfg, "ResNet-50, K1 convs, world-1 NCCL group", mesh=group)
+            nccl = [(ms, name) for ms, _, name in prof["kernels"]
+                    if _kernel_class(name) == NCCL_CLASS]
+            nccl_ms = sum(ms for ms, _ in nccl)
+            per_replay = [sum(n for name, n in r.items()
+                              if _kernel_class(name) == NCCL_CLASS)
+                          for r in prof["replays"]]
+            names = ", ".join(sorted({name[:60] for _, name in nccl}))
+            log(f"data parallel: NCCL kernels inside each profiled replay "
+                f"(by its graph launch): {per_replay} ({names}), "
+                f"{prof['loose_nccl']} outside them, {nccl_ms:.4f} ms of "
+                f"device time a step | {card}")
+            if prof["loose_nccl"]:
+                fail(f"data parallel: the profile saw {prof['loose_nccl']} "
+                     f"NCCL kernels launched outside the replays")
+            if any(n != per_step for n in per_replay):
+                fail(f"data parallel: the profiled replays ran {per_replay} "
+                     f"NCCL kernels, expected {per_step} in each")
+        finally:
+            dist.destroy_process_group()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return {"arms": arms, "per_step": per_step, "nccl_ms": nccl_ms}
 
 
 def _flash_inputs(shape, seed: int):
@@ -1718,6 +1967,9 @@ def main(argv=None) -> int:
     parser.add_argument("--flash-only", action="store_true",
                         help="phases 1 and 8 alone, for work on K2-K5: no "
                         "main path and no result line")
+    parser.add_argument("--dp-only", action="store_true",
+                        help="phases 1 and 5b alone, for work on data "
+                        "parallelism: no result line")
     parser.add_argument("--zoo-only", action="store_true",
                         help="phases 1 and 11-13 alone, for work on the "
                         "LeNet, ResNet-32, VGG-16, AlexNet and PTB LSTM "
@@ -1816,6 +2068,13 @@ def main(argv=None) -> int:
         log(card)
         log("zoo-only run: phases 1 and 11-13 alone, no result")
         return 0
+    if args.dp_only:
+        phase_data_parallel(args.batch_size, args.train_steps, len(
+            core_launch_shapes("resnet50", 224, args.batch_size)), card,
+            workdir / "dp")
+        log(card)
+        log("data-parallel run: phases 1 and 5b alone, no result")
+        return 0
     if args.ab_only:
         if args.parent_tree is None:
             fail("--ab-only needs --parent-tree")
@@ -1893,6 +2152,11 @@ def main(argv=None) -> int:
         convlib.set_default_conv_impl(impl)
         phase_profile(r50, arm)
     convlib.set_default_conv_impl("mxu")
+
+    # 5b. The ResNet-50 path as one process of a world-1 NCCL group, in
+    # turns with fit without a group.
+    phase_data_parallel(args.batch_size, steps, len(calls), card,
+                        workdir / "dp")
 
     # 6. K1 and K6 at every launch shape of the Inception-v3 path.
     inc_calls = core_launch_shapes("inception_v3", 299, args.batch_size,

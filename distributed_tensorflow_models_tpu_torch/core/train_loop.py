@@ -1,13 +1,16 @@
 """The synchronous train step and its builders.
 
-PyTorch counterpart of ``distributed_tensorflow_models_tpu/core/train_loop.py``
-for one device.  :class:`TrainStep` is the eager step: forward, loss,
-``autograd.grad`` over the parameter dict, one optimizer update applied in
-place (then the EMA shadows, when kept), and the metrics as 0-d tensors
-(the caller decides when to read them back).  :class:`MultiStep` runs the
-steps of a chunk of stacked batches; on CUDA it captures the step once as
-a CUDA graph and replays it, the counterpart of the JAX package's
-``make_multi_step``.
+PyTorch counterpart of ``distributed_tensorflow_models_tpu/core/train_loop.py``.
+:class:`TrainStep` is the eager step: forward, loss, ``autograd.grad``
+over the parameter dict, the gradients averaged over the data-parallel
+mesh, one optimizer update applied in place (then the EMA shadows, when
+kept), and the metrics as 0-d tensors averaged over the mesh (the caller
+decides when to read them back).  :class:`MultiStep` runs the steps of a
+chunk of stacked batches; on CUDA it captures the step once as a CUDA
+graph, collectives included, and replays it, the counterpart of the JAX
+package's ``make_multi_step``.  :func:`place_state` lays the replicated
+state out without collectives and checks once that every process holds
+the same one.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import numpy as np
 import torch
 
 from distributed_tensorflow_models_tpu_torch import telemetry
+from distributed_tensorflow_models_tpu_torch.core import mesh as meshlib
+from distributed_tensorflow_models_tpu_torch.core import sharding as shardlib
 from distributed_tensorflow_models_tpu_torch.core.train_state import TrainState
 from distributed_tensorflow_models_tpu_torch.ops import _kernels
 from distributed_tensorflow_models_tpu_torch.ops import ema as emalib
@@ -215,7 +220,15 @@ class TrainStep:
     optimizer update applied in place (then the EMA shadows, when kept),
     and the metrics as 0-d tensors on the device.  :meth:`body` is the
     step without the host's part (re-seeding the generators), which is
-    what :class:`MultiStep` captures."""
+    what :class:`MultiStep` captures.
+
+    Under a data-parallel mesh (``core/mesh.py::data_parallel``; each
+    process's ``batch`` its rows of the global batch) the gradients are
+    averaged over the mesh (``sharding.all_reduce_mean_``) before anything
+    reads them, so the gradient norm, clipping, the optimizer and the EMA
+    all see the global batch's gradient, as in the JAX package; the
+    metrics are averaged in one more collective.  Without a process group
+    neither is issued."""
 
     def __init__(self, loss_fn: LossFn,
                  rng_names: Sequence[str] = ("dropout",)):
@@ -236,12 +249,15 @@ class TrainStep:
 
     def body(self, state: TrainState, batch: Batch,
              rngs: Mapping[str, torch.Generator]):
+        mesh = meshlib.current_mesh()
         loss, aux = self.loss_fn(state.params, state, batch, rngs)
         names = list(state.params)
         grads = dict(zip(names, torch.autograd.grad(
             loss, [state.params[k] for k in names])))
+        shardlib.all_reduce_mean_(grads.values(), mesh)
         metrics = dict(aux.get("metrics", {}))
         metrics["grad_norm"] = optim.global_norm(grads)
+        metrics = shardlib.all_reduce_metrics(metrics, mesh)
         return apply_gradients(state, grads, aux), metrics
 
 
@@ -278,11 +294,13 @@ def _row_vector(metrics: Mapping[str, torch.Tensor],
 
 
 class _Captured:
-    __slots__ = ("graph", "batch", "metrics", "names", "launches")
+    __slots__ = ("graph", "batch", "metrics", "names", "launches",
+                 "collectives")
 
-    def __init__(self, graph, batch, metrics, names, launches):
+    def __init__(self, graph, batch, metrics, names, launches, collectives):
         self.graph, self.batch, self.metrics = graph, batch, metrics
         self.names, self.launches = names, launches
+        self.collectives = collectives
 
 
 class MultiStep:
@@ -301,12 +319,20 @@ class MultiStep:
     shorter tail chunk replays the same graph.  No step runs twice or is
     thrown away, so the trajectory is the eager one.
 
+    Under a data-parallel mesh the step's collectives (the gradient
+    bucket, BatchNorm's moments and their cotangents, the metric vector)
+    are captured with it and replayed inside the graph; the eager first
+    step has created the process group's communicator by then.
+
     The state must stay where the capture found it: every tensor of it is
     updated in place (checked after the capture).  A capture that fails
-    raises, naming the model: nothing falls back to eager steps.  Each
-    capture adds one record (its seconds) to ``registry``'s
-    ``train/compile`` timer; the kernels' launch counters count what each
-    replay launches (``ops/_kernels.py``)."""
+    raises, naming the model: nothing falls back to eager steps, or to
+    eager collectives around a replay.  Each capture adds one record (its
+    seconds) to ``registry``'s ``train/compile`` timer; the kernels'
+    launch counters (``ops/_kernels.py``) and the collective counters
+    (``core/sharding.py``) count what each replay launches, and each call
+    adds the collectives its steps issued, and their bytes, to
+    ``registry``'s ``train/collectives`` and ``train/collective_bytes``."""
 
     def __init__(self, step: Callable, name: str = "the model",
                  registry: Optional[telemetry.MetricsRegistry] = None):
@@ -320,6 +346,17 @@ class MultiStep:
         self._stream: Optional[torch.cuda.Stream] = None
 
     def __call__(self, state: TrainState, chunk: Batch, seed: int):
+        before = shardlib.collective_counts()
+        state, rows = self._run(state, chunk, seed)
+        if self.registry is not None:
+            issued = shardlib.counts_since(before).values()
+            self.registry.counter(telemetry.COLLECTIVES).inc(
+                sum(n for n, _ in issued))
+            self.registry.counter(telemetry.COLLECTIVE_BYTES).inc(
+                sum(b for _, b in issued))
+        return state, rows
+
+    def _run(self, state: TrainState, chunk: Batch, seed: int):
         k = next(iter(chunk.values())).shape[0]
         _check_steps(state, k)
         if _device_of(state).type != "cuda":
@@ -352,6 +389,7 @@ class MultiStep:
             gens.reseed(seed, state.step)
             cap.graph.replay()
             _kernels.add_launches(cap.launches)
+            shardlib.add_collectives(cap.collectives)
             values[i].copy_(cap.metrics)
             state = state.replace(step=state.step + 1)
             self.replays += 1
@@ -386,6 +424,7 @@ class MultiStep:
         batch = {key: torch.empty_like(v[0]) for key, v in chunk.items()}
         gens = self.step.rngs(device).generators
         before = _kernels.launch_counts()
+        issued = shardlib.collective_counts()
         held = [id(t) for t in _state_leaves(state)]
         try:
             graph = torch.cuda.CUDAGraph()
@@ -402,8 +441,10 @@ class MultiStep:
         launches = {key: n - before[key]
                     for key, n in _kernels.launch_counts().items()
                     if n != before[key]}
+        collectives = shardlib.counts_since(issued)
         # The capture launched nothing: what it counted is per replay.
         _kernels.add_launches(launches, -1)
+        shardlib.add_collectives(collectives, -1)
         if [id(t) for t in _state_leaves(new_state)] != held:
             raise RuntimeError(
                 f"the train step of {self.name} rebinds state tensors; a "
@@ -414,7 +455,7 @@ class MultiStep:
         if self.registry is not None:
             self.registry.timer(telemetry.COMPILE).record(seconds)
         cap = self._captured[sig] = _Captured(graph, batch, row, names,
-                                              launches)
+                                              launches, collectives)
         return cap
 
 
@@ -434,6 +475,67 @@ def make_multi_step(loss_fn: LossFn, rng_names: Sequence[str] = ("dropout",),
     CUDA graph and replayed per row (K eager steps on the CPU)."""
     return MultiStep(TrainStep(loss_fn, rng_names), name=name,
                      registry=registry)
+
+
+def _named_leaves(tree, prefix: str):
+    if isinstance(tree, torch.Tensor):
+        yield prefix, tree
+    elif isinstance(tree, Mapping):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{prefix}/{k}")
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{prefix}/{i}")
+
+
+def _replicated_leaves(state: TrainState) -> list[tuple[str, torch.Tensor]]:
+    """Every tensor of the state that each process holds whole: all but
+    the carry, which holds each process's own rows."""
+    return list(_named_leaves({
+        "params": state.params, "batch_stats": state.batch_stats,
+        "opt_state": state.opt_state, "ema_params": state.ema_params,
+        "device_step": state.device_step}, "state"))
+
+
+@torch.no_grad()
+def check_replicas_agree(state: TrainState, mesh: meshlib.Mesh) -> None:
+    """Raise unless every process of ``mesh`` holds the same replicated
+    state: a checksum per tensor (its f64 sum and sum of squares), reduced
+    by MIN and by MAX over the group, must come back unchanged.  Two
+    collectives, once, outside the step; nothing without a group."""
+    if mesh.group is None:
+        return
+    leaves = _replicated_leaves(state)
+    sums = torch.stack([torch.stack([t.double().sum(),
+                                     t.double().square().sum()])
+                        for _, t in leaves]).to(mesh.device)
+    lo, hi = sums.clone(), sums.clone()
+    for t, op in ((lo, torch.distributed.ReduceOp.MIN),
+                  (hi, torch.distributed.ReduceOp.MAX)):
+        torch.distributed.all_reduce(t, op=op, group=mesh.group)
+        shardlib.add_collectives(
+            {"replica_check": (1, t.numel() * t.element_size())})
+    differ = (lo != hi).any(dim=1).nonzero().flatten().tolist()
+    if differ:
+        names = [leaves[i][0] for i in differ]
+        raise RuntimeError(
+            f"the {mesh.world_size} processes do not hold the same initial "
+            f"state: {len(names)} tensors differ, first {names[:5]}; every "
+            f"process must build it from the same seed")
+
+
+def place_state(state: TrainState, mesh: meshlib.Mesh) -> TrainState:
+    """Lay the train state out on the mesh, without collectives, as the
+    JAX package's ``place_state`` does: every process built the same
+    initial state from the config's seed, so each keeps its own copy of
+    the replicated parameters, BN statistics, optimizer slots and EMA
+    shadows (``sharding.tree_param_shardings``: no rules, all replicated),
+    and the carry holds this process's rows of the batch (built at the
+    local batch).  Then :func:`check_replicas_agree`, the one startup
+    check."""
+    shardlib.tree_param_shardings(mesh, state.params)
+    check_replicas_agree(state, mesh)
+    return state
 
 
 def state_is_finite(state: TrainState) -> bool:

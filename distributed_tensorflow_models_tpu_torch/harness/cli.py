@@ -12,6 +12,12 @@ steady-state step time and the end-to-end images/s and, for an LM, tokens/s
 their seconds, the steps replayed).  ``--attn-impl`` picks the attention of
 attention models: ``flash`` runs kernels K2-K4 on the card (K2 and K5
 with ``DTM_FLASH_BWD=staged``).
+
+Started by a launcher that sets ``DTM_COORDINATOR_ADDRESS``,
+``DTM_NUM_PROCESSES`` and ``DTM_PROCESS_ID`` (``launch.py``), ``train``
+first joins that process group (NCCL on ``cuda:{LOCAL_RANK or 0}``, gloo
+with ``--device cpu``) and trains as one process of a data-parallel
+world; the global batch is ``--batch-size``.
 """
 
 from __future__ import annotations
@@ -83,9 +89,19 @@ def main(argv: list[str] | None = None) -> int:
         overrides["steps_per_loop"] = args.steps_per_loop
     cfg = get_config(args.config, **overrides)
 
+    from distributed_tensorflow_models_tpu_torch import launch
     from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
 
-    result = trainlib.fit(cfg, args.workdir, device=args.device)
+    # Cluster facts from a launcher (DTM_* env): join its process group
+    # first; fit then runs as this process's share of the data axis.
+    in_cluster = launch.initialize_from_env(device=args.device)
+    try:
+        result = trainlib.fit(cfg, args.workdir, device=args.device)
+    finally:
+        if in_cluster:
+            import torch.distributed
+
+            torch.distributed.destroy_process_group()
     print(json.dumps({
         "final_metrics": result.final_metrics,
         "steps": result.state.step,

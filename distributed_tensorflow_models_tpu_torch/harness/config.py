@@ -106,6 +106,13 @@ class ExperimentConfig:
     # first is a CUDA-graph replay whatever the value.
     steps_per_loop: int = 1
     seed: int = 0
+    # Mesh axis sizes; -1 absorbs remaining devices (data axis).  The port
+    # is data parallel only: any other axis above 1 raises.
+    mesh_data: int = -1
+    mesh_model: int = 1
+    mesh_seq: int = 1
+    mesh_pipe: int = 1
+    mesh_expert: int = 1
     # Host input pipeline: worker threads assembling batches behind
     # ordered reassembly (1 = one producer thread).  The batch stream is
     # the same for any value.
@@ -117,6 +124,21 @@ class ExperimentConfig:
     # LM head: project and take the cross entropy chunked in bf16
     # (ops/losses.py::chunked_unembed_xent) instead of full f32 logits.
     fused_unembed: bool = False
+    # Named tensor-parallel rule set applied when mesh_model > 1 in the JAX
+    # package; "" = fully replicated params, the only layout ported.
+    param_rules: str = ""
+
+    def __post_init__(self):
+        wide = {f: getattr(self, f) for f in ("mesh_model", "mesh_seq",
+                                               "mesh_pipe", "mesh_expert")
+                if getattr(self, f) != 1}
+        if self.param_rules:
+            wide["param_rules"] = self.param_rules
+        if wide:
+            raise NotImplementedError(
+                f"{wide} not ported: the port is data parallel only "
+                f"(tensor, sequence, pipeline and expert parallelism are "
+                f"ROADMAP §1 item 6)")
 
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)

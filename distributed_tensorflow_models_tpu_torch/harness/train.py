@@ -2,14 +2,17 @@
 N steps.
 
 PyTorch counterpart of the training path of
-``distributed_tensorflow_models_tpu/harness/train.py`` on one device, for
-classification (``task="classification"``) and language models
-(``task="lm"``).  Batches reach the step through the input pipeline
-(``data/pipeline.py``) in chunks of ``cfg.steps_per_loop``; on CUDA the
-step is captured once as a CUDA graph and replayed.  Checkpointing,
-resilience and the telemetry reports are not ported yet; ``fit`` runs
-``cfg.train_steps`` steps and reports per-step metrics, step time and
-images/s or tokens/s.
+``distributed_tensorflow_models_tpu/harness/train.py``, for classification
+(``task="classification"``) and language models (``task="lm"``), on one
+device or as one process of a data-parallel world (``core/mesh.py``: one
+device per process, the gradients all-reduced in the step).  Batches
+reach the step through the input pipeline (``data/pipeline.py``) in chunks
+of ``cfg.steps_per_loop``, each process reading its rows of the global
+batch; on CUDA the step is captured once as a CUDA graph, collectives
+included, and replayed.  Checkpointing, resilience and the telemetry
+reports are not ported yet; ``fit`` runs ``cfg.train_steps`` steps and
+reports per-step metrics, step time and images/s or tokens/s of the
+global batch.
 """
 
 from __future__ import annotations
@@ -27,7 +30,9 @@ from typing import Optional, Sequence
 import torch
 
 from distributed_tensorflow_models_tpu_torch import telemetry
+from distributed_tensorflow_models_tpu_torch.core import mesh as meshlib
 from distributed_tensorflow_models_tpu_torch.core import train_loop
+from distributed_tensorflow_models_tpu_torch.core.mesh import resolve_device
 from distributed_tensorflow_models_tpu_torch.core.train_state import TrainState
 from distributed_tensorflow_models_tpu_torch.data import datasets as datalib
 from distributed_tensorflow_models_tpu_torch.data import pipeline as pipelib
@@ -38,32 +43,33 @@ from distributed_tensorflow_models_tpu_torch.models import builder_takes, get_mo
 log = logging.getLogger("dtm")
 
 
-def resolve_device(device: Optional[str | torch.device] = None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller asks for
-    the CPU.  Raises when CUDA is wanted and absent — never falls back."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device available; pass device='cpu' (--device cpu) "
-            "to run on the CPU"
-        )
-    return dev
-
-
-def build_dataset(cfg: ExperimentConfig, split: str = "train"):
+def build_dataset(cfg: ExperimentConfig, split: str = "train",
+                  mesh: Optional[meshlib.Mesh] = None):
     """The config's dataset, as the JAX package's ``build_dataset`` builds
-    it for process 0 of 1: MNIST and CIFAR-10 (their loaders' synthetic
-    sets where ``DATA_DIR`` holds no files), synthetic ImageNet, ImageNet
-    from the TFRecord shards ``DATA_DIR/imagenet/train-*`` (``validation-*``
-    for another split; the synthetic set only where no shard matches), and
-    PTB."""
+    it: MNIST and CIFAR-10 (their loaders' synthetic sets where
+    ``DATA_DIR`` holds no files), synthetic ImageNet, ImageNet from the
+    TFRecord shards ``DATA_DIR/imagenet/train-*`` (``validation-*`` for
+    another split; the synthetic set only where no shard matches), and
+    PTB.  Each process reads only its ``global_batch/process_count`` rows
+    of every global batch, in process order: process ``mesh.rank`` of
+    ``mesh.world_size`` (without a mesh, of the default process group's
+    world, or 0 of 1 when there is none)."""
+    if mesh is not None:
+        proc = dict(process_index=mesh.rank, process_count=mesh.world_size)
+    elif torch.distributed.is_initialized():
+        proc = dict(process_index=torch.distributed.get_rank(),
+                    process_count=torch.distributed.get_world_size())
+    else:
+        proc = dict(process_index=0, process_count=1)
     if cfg.dataset == "mnist":
-        return datalib.mnist_dataset(cfg.global_batch_size, split, cfg.seed)
+        return datalib.mnist_dataset(cfg.global_batch_size, split, cfg.seed,
+                                     **proc)
     if cfg.dataset == "cifar10":
-        return datalib.cifar10_dataset(cfg.global_batch_size, split, cfg.seed)
+        return datalib.cifar10_dataset(cfg.global_batch_size, split, cfg.seed,
+                                       **proc)
     if cfg.dataset == "imagenet_synthetic":
         return datalib.synthetic_imagenet_dataset(
-            cfg.global_batch_size, cfg.image_size, cfg.seed)
+            cfg.global_batch_size, cfg.image_size, cfg.seed, **proc)
     if cfg.dataset == "imagenet":
         pattern = os.path.join(
             datalib.DATA_DIR, "imagenet",
@@ -73,14 +79,27 @@ def build_dataset(cfg: ExperimentConfig, split: str = "train"):
             log.warning("no ImageNet shards under %s; using synthetic data",
                         pattern)
             return datalib.synthetic_imagenet_dataset(
-                cfg.global_batch_size, cfg.image_size, cfg.seed)
+                cfg.global_batch_size, cfg.image_size, cfg.seed, **proc)
         return datalib.ImageNetTFRecordDataset(
             paths, cfg.global_batch_size, train=split == "train",
-            image_size=cfg.image_size, seed=cfg.seed, label_offset=1)
+            image_size=cfg.image_size, seed=cfg.seed, label_offset=1, **proc)
     if cfg.dataset == "ptb":
         return datalib.ptb_dataset(cfg.global_batch_size, cfg.num_steps,
-                                   split, cfg.vocab_size)
+                                   split, cfg.vocab_size, **proc)
     raise ValueError(f"unknown dataset {cfg.dataset!r}")
+
+
+def mesh_from_config(cfg: ExperimentConfig,
+                     device: Optional[str | torch.device] = None
+                     ) -> meshlib.Mesh:
+    """The one place a config becomes a mesh: ``cfg.mesh_*`` over the
+    default process group's world (a world of one without a group), on
+    ``device`` (by default the group's; CUDA without a group)."""
+    return meshlib.create_mesh(
+        meshlib.MeshSpec(data=cfg.mesh_data, model=cfg.mesh_model,
+                         seq=cfg.mesh_seq, pipe=cfg.mesh_pipe,
+                         expert=cfg.mesh_expert),
+        device)
 
 
 def _model_kwargs(cfg: ExperimentConfig) -> dict:
@@ -106,14 +125,18 @@ def build_model(cfg: ExperimentConfig, device: torch.device) -> torch.nn.Module:
     return model.to(device)
 
 
-def build_state(cfg: ExperimentConfig, device: torch.device) -> TrainState:
+def build_state(cfg: ExperimentConfig, device: torch.device,
+                mesh: Optional[meshlib.Mesh] = None) -> TrainState:
     """The model, optimizer and EMA of ``cfg`` on ``device``; an LM whose
     model has ``initial_carry`` (the PTB LSTM) starts from its zero f32
-    carry at ``global_batch_size``, on the device."""
+    carry, on the device, at this process's rows of the global batch
+    (``global_batch_size`` without a mesh): the carry is batch-sharded."""
     model = build_model(cfg, device)
     carry = None
     if cfg.task == "lm" and hasattr(model, "initial_carry"):
-        carry = model.initial_carry(cfg.global_batch_size, device)
+        rows = (cfg.global_batch_size if mesh is None else
+                meshlib.local_batch_size(cfg.global_batch_size, mesh))
+        carry = model.initial_carry(rows, device)
     return TrainState.create(model, cfg.optimizer.make(cfg.train_steps),
                              ema_decay=cfg.ema_decay, carry=carry)
 
@@ -163,8 +186,9 @@ RUN_AHEAD_CHUNKS = 2
 
 @dataclasses.dataclass
 class FitResult:
-    """What ``fit`` returns.  ``history`` has a row per step: its metrics,
-    ``batch_size`` (and ``tokens`` for an LM), ``step``, ``data_s`` and
+    """What ``fit`` returns.  ``history`` has a row per step: its metrics
+    (averaged over the data axis), ``batch_size`` (and ``tokens`` for an
+    LM) of the global batch, ``step``, ``data_s`` and
     ``step_time_s`` (its chunk's wait for input and host time after it,
     each divided by the chunk's steps) and ``end_s`` (its chunk's end
     since the loop started, on the host's clock).  The timed window runs
@@ -246,8 +270,23 @@ def _sync(dev: torch.device) -> None:
 
 
 def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
-        device: Optional[str | torch.device] = None) -> FitResult:
-    """Train ``cfg.train_steps`` steps from a fresh state.
+        device: Optional[str | torch.device] = None,
+        mesh: Optional[meshlib.Mesh] = None) -> FitResult:
+    """Train ``cfg.train_steps`` steps from a fresh state, as this process's
+    share of ``mesh`` (default :func:`mesh_from_config`: every process of
+    the default process group on the data axis, or this process alone when
+    there is none; ``meshlib.local_mesh`` runs alone whatever the world).
+
+    Every process builds the same state from ``cfg.seed``; the state is
+    placed without collectives and checked once to agree across the
+    processes (``train_loop.place_state``).  Each process reads its rows
+    of every global batch (:func:`build_dataset`), and the steps run under
+    ``meshlib.data_parallel(mesh)``: the gradients and metrics are
+    averaged over the processes, BatchNorm's moments are global and
+    dropout draws the global batch's masks, so the trajectory is that of
+    one process at the global batch.  Only process 0 counts steps, logs
+    and writes ``metrics.jsonl``; every process stops at the same step
+    and runs the NaN guard on the same (averaged) metrics.
 
     Batches come through the stack the JAX package's ``fit`` builds:
     :class:`HostPipeline` (``prefetch=4``, ``max(1, cfg.data_workers)``
@@ -268,24 +307,32 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
     ``train/data_wait``; each chunk's wall over its steps under
     ``train/step_time``, once per step.  Both pipeline stages are stopped
     on the way out, however the loop ends."""
-    dev = resolve_device(device)
-    state = build_state(cfg, dev)
+    if mesh is None:
+        mesh = mesh_from_config(cfg, device)
+    elif device is not None and torch.device(device).type != mesh.device.type:
+        raise ValueError(f"fit was asked for {device} on a mesh of "
+                         f"{mesh.device}")
+    dev = resolve_device(mesh.device)
+    state = train_loop.place_state(build_state(cfg, dev, mesh), mesh)
     registry = telemetry.MetricsRegistry()
     multi = train_loop.MultiStep(build_step(cfg, state), name=cfg.model,
                                  registry=registry)
-    dataset = build_dataset(cfg)
-    hooks: list[hooklib.Hook] = [
-        hooklib.StopAtStepHook(cfg.train_steps),
-        hooklib.StepCounterHook(cfg.log_every_steps, cfg.global_batch_size),
-        hooklib.LoggingHook(cfg.log_every_steps, keys=("loss",)),
-    ]
+    dataset = build_dataset(cfg, mesh=mesh)
+    chief = mesh.rank == 0
+    hooks: list[hooklib.Hook] = [hooklib.StopAtStepHook(cfg.train_steps)]
+    if chief:
+        hooks += [
+            hooklib.StepCounterHook(cfg.log_every_steps,
+                                    cfg.global_batch_size),
+            hooklib.LoggingHook(cfg.log_every_steps, keys=("loss",)),
+        ]
     chunks: list[tuple] = []
     pending: collections.deque = collections.deque()
     host = batches = None
     window = None
     in_flight = 0
     try:
-        if workdir:
+        if workdir and chief:
             hooks.append(hooklib.MetricWriterHook(workdir,
                                                   cfg.log_every_steps))
         hooks.append(hooklib.NanGuardHook(cfg.log_every_steps))
@@ -304,7 +351,8 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
             with registry.span(telemetry.DATA_WAIT):
                 chunk, k = stacker.next_chunk(_chunk_len(first, cfg, hooks))
             t1 = time.perf_counter()
-            state, rows = multi(state, chunk, cfg.seed)
+            with meshlib.data_parallel(mesh):
+                state, rows = multi(state, chunk, cfg.seed)
             if dev.type == "cuda":
                 pending.append(torch.cuda.Event())
                 pending[-1].record()
@@ -321,8 +369,8 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
             t2 = time.perf_counter()
             for _ in range(k):
                 registry.timer(telemetry.STEP_TIME).record((t2 - t0) / k)
-            chunks.append((rows, _sizes(cfg, chunk), k, t1 - t0, t2 - t1,
-                           t2 - start))
+            chunks.append((rows, _sizes(cfg, chunk, mesh), k, t1 - t0,
+                           t2 - t1, t2 - start))
             del chunk
             ok = hooklib.run_hooks_after_chunk(
                 hooks, state, rows, first, k, registry=registry,
@@ -354,12 +402,14 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
         registry=registry)
 
 
-def _sizes(cfg: ExperimentConfig, chunk: dict) -> dict:
-    """A chunk's examples per step (and tokens, for an LM)."""
+def _sizes(cfg: ExperimentConfig, chunk: dict, mesh: meshlib.Mesh) -> dict:
+    """A chunk's examples per step (and tokens, for an LM) over the whole
+    data axis: this process's rows times the processes."""
     if cfg.task == "lm":
         _, b, t = chunk["inputs"].shape
+        b *= mesh.data_size
         return {"batch_size": int(b), "tokens": int(b * t)}
-    return {"batch_size": int(chunk["label"].shape[1])}
+    return {"batch_size": int(chunk["label"].shape[1] * mesh.data_size)}
 
 
 def _history(chunks: list[tuple]) -> list[dict]:

@@ -13,6 +13,15 @@ and would drift from the reference:
 Parameters ``scale``/``bias`` and buffers ``mean``/``var`` carry the flax
 names.  In training mode the running statistics are updated in place on
 the buffers (the JAX module returns them as a new collection).
+
+Under a data-parallel mesh (``core/mesh.py::data_parallel``) the moments
+are global across its processes, as XLA makes them for a batch-sharded
+array in the JAX package: each process sums its rows, one all-reduce
+adds the processes' ``[sum x, sum x^2]``, and the sums are divided by
+the global row count; the backward adds the processes' cotangents of the
+moments the same way.  Without a group the same sums and division run
+with no collective, so a group of one gives the same bits as none.  The
+running statistics then update identically on every process.
 """
 
 from __future__ import annotations
@@ -22,26 +31,38 @@ from typing import Callable
 import torch
 from torch import nn
 
+from distributed_tensorflow_models_tpu_torch.core import mesh as meshlib
+from distributed_tensorflow_models_tpu_torch.core import sharding as shardlib
+
 
 class _BatchMoments(torch.autograd.Function):
-    """``(E[x], E[x^2])`` over all but the last axis, in f32.
+    """``(E[x], E[x^2])`` over all but the last axis, in f32, over the rows
+    of every process of ``mesh`` (this process's alone when it is None).
 
     The f32 copy of ``x`` is transient: backward recomputes from the saved
     ``x`` instead of keeping an f32 activation alive per layer."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, mesh):
         dims = tuple(range(x.dim() - 1))
+        c = x.shape[-1]
+        n = x.numel() // c * (1 if mesh is None else mesh.data_size)
         xf = x.float()
+        sums = torch.cat([xf.sum(dims), (xf * xf).sum(dims)])
+        shardlib.all_reduce_sum_(sums, mesh, "bn_moments")
         ctx.save_for_backward(x)
-        return xf.mean(dims), (xf * xf).mean(dims)
+        ctx.mesh, ctx.n = mesh, n
+        moments = sums / n
+        return moments[:c], moments[c:]
 
     @staticmethod
     def backward(ctx, g_mean, g_sq):
         (x,) = ctx.saved_tensors
-        n = x.numel() // x.shape[-1]
-        gx = g_mean / n + 2.0 * x.float() * (g_sq / n)
-        return gx.to(x.dtype)
+        c, n = x.shape[-1], ctx.n
+        g = torch.cat([g_mean, g_sq])
+        shardlib.all_reduce_sum_(g, ctx.mesh, "bn_moments_grad")
+        gx = g[:c] / n + 2.0 * x.float() * (g[c:] / n)
+        return gx.to(x.dtype), None
 
 
 class BatchNorm(nn.Module):
@@ -62,7 +83,7 @@ class BatchNorm(nn.Module):
         if use_running_average:
             mean, var = self.mean, self.var
         else:
-            mean, mean_sq = _BatchMoments.apply(x)
+            mean, mean_sq = _BatchMoments.apply(x, meshlib.current_mesh())
             var = torch.clamp(mean_sq - mean * mean, min=0.0)
             m = self.momentum
             with torch.no_grad():

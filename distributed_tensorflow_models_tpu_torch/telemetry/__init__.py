@@ -23,6 +23,8 @@ from distributed_tensorflow_models_tpu_torch.telemetry.registry import (  # noqa
     CKPT_SAVE,
     CKPT_SIDECAR_FALLBACKS,
     CKPT_WAIT,
+    COLLECTIVE_BYTES,
+    COLLECTIVES,
     COMPILE,
     CONSENSUS_OVERRIDES,
     DATA_WAIT,

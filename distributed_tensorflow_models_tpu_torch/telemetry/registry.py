@@ -41,6 +41,11 @@ STEP_TIME = "train/step_time"  # timer: full iteration wall time
 # amortises (tier-1 micro-guard asserts the ≥K-fold drop).
 HOOK_WALKS = "train/hook_walks"
 COMPILE = "train/compile"  # timer: one record per XLA compile event
+# Counters: collectives the train steps issued over the data-parallel
+# process group, and their bytes (core/sharding.py; a replayed step counts
+# its graph's collectives).
+COLLECTIVES = "train/collectives"
+COLLECTIVE_BYTES = "train/collective_bytes"
 FLOPS_PER_STEP = "train/flops_per_step"  # gauge: XLA cost-analysis FLOPs
 FLOPS_TOTAL = "train/flops_total"  # counter: FLOPs retired across all steps
 HOST_QUEUE_DEPTH = "pipeline/host_queue_depth"  # gauge

@@ -37,6 +37,10 @@ rate and EMA decay advancing across replays, the launch counters per
 replay, ``fit`` replaying every step after the first, and the in-place
 optimizers against their per-tensor forms bit for bit.
 
+Data parallel: a world-1 NCCL process group, its collectives captured
+and replayed with the step, must leave cut ResNet-32's ``fit`` equal to
+the ``fit`` without a group bit for bit.
+
 K6 (the persistent, ring-pipelined K1) must equal K1 bit for bit, in both
 dtypes.  K5's
 dK and dV come from K3's own code and must equal K3's bit for bit; its dQ
@@ -1213,3 +1217,50 @@ def test_in_place_optimizers_equal_the_per_tensor_form_on_card(cuda):
 
     for name in ref.CASES:
         ref.check_against_per_tensor_form(name, cuda)
+
+
+def test_nccl_group_of_one_replays_equal_replays_without_a_group(cuda):
+    """Cut ResNet-32 (K1's f32 form, every BatchNorm) through ``fit`` in a
+    world-1 NCCL process group: every collective of the step (the gradient
+    bucket, each BatchNorm's moments and their cotangents, the metric
+    vector) is captured with it and replayed, and changes nothing: the
+    losses and the state equal a ``fit`` without a group bit for bit.
+    The collective counters advance once per step, replays included."""
+    import socket
+
+    import torch.distributed as dist
+
+    from distributed_tensorflow_models_tpu_torch.core import mesh as meshlib
+    from distributed_tensorflow_models_tpu_torch.core import sharding
+    from distributed_tensorflow_models_tpu_torch.harness import config as tconfig
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+    from distributed_tensorflow_models_tpu_torch.ops.normalization import BatchNorm
+
+    name, over, _ = REPLAY_CASES["resnet32_cifar10"]
+    cfg = tconfig.get_config(name, train_steps=6, steps_per_loop=3, **over)
+    alone = trainlib.fit(cfg, device="cuda", mesh=meshlib.local_mesh("cuda"))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    meshlib.initialize_multihost(f"127.0.0.1:{port}", 1, 0)
+    try:
+        assert trainlib.mesh_from_config(cfg).backend == "nccl"
+        before = sharding.collective_counts()
+        grouped = trainlib.fit(cfg, device="cuda")
+        issued = sharding.counts_since(before)
+    finally:
+        dist.destroy_process_group()
+    assert (grouped.captures, grouped.replayed_steps) == (1, 5)
+    assert [h["loss"] for h in grouped.history] == [
+        h["loss"] for h in alone.history]
+    a, b = _state_tensors(grouped.state), _state_tensors(alone.state)
+    assert sorted(a) == sorted(b)
+    for n in a:
+        assert torch.equal(a[n], b[n]), n
+    bn = sum(isinstance(m, BatchNorm) for m in grouped.state.model.modules())
+    steps = cfg.train_steps
+    assert {site: n for site, (n, _) in issued.items()} == {
+        "replica_check": 2, "grads": steps, "metrics": steps,
+        "bn_moments": bn * steps, "bn_moments_grad": bn * steps}
+    assert grouped.registry.snapshot()["train/collectives"] == (
+        (2 + 2 * bn) * steps)

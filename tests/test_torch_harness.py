@@ -67,7 +67,8 @@ def test_port_imports_nothing_of_jax(path):
 
 def test_guard_walks_every_module_of_the_port():
     """The walk covers each module of the port, those of the LM slice, the
-    input pipeline, the rest of the model zoo and the hooks included; what
+    input pipeline, the rest of the model zoo, the hooks and the
+    data-parallel modules (mesh, sharding, launch) included; what
     else the package holds is CUDA source and its shared header under
     csrc/, which import nothing of Python."""
     walked = {p.relative_to(PORT).as_posix() for p in _port_files()
@@ -83,7 +84,8 @@ def test_guard_walks_every_module_of_the_port():
             "telemetry/__init__.py", "telemetry/registry.py",
             "telemetry/trace.py", "models/lenet.py",
             "models/resnet_cifar.py", "models/vgg.py", "models/alexnet.py",
-            "models/ptb_lstm.py", "harness/hooks.py"} <= walked
+            "models/ptb_lstm.py", "harness/hooks.py", "core/mesh.py",
+            "core/sharding.py", "launch.py"} <= walked
     others = [p.relative_to(PORT).as_posix() for p in PORT.rglob("*")
               if p.is_file() and p.suffix not in (".py", ".pyc")]
     assert sorted(others) == ["csrc/conv_implicit_gemm.cu",
