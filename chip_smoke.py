@@ -78,6 +78,19 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    one rank too).  Images/s of each arm, the NCCL kernels'
    device time a step and peak memory are printed.  The group is
    destroyed before phase 6.
+5c. Checkpoint/resume (``harness/checkpoint.py``) on the same path, every
+   ``fit`` capturing the step once: (a) 12 steps straight against 8
+   steps and a second ``fit`` to 12 from the step-8 checkpoint, every
+   state tensor and the losses of steps 9-12 bit for bit; (b) the newest
+   step torn (its ``state.pt`` truncated), the resume walking back to step
+   8 and ending bit-identical; (c) ``nan_policy="rollback"`` with batch 6
+   poisoned by a dataset wrapper here: exactly the chunk of steps 5-8
+   skipped, one rollback, still one capture (the restore is in place
+   under the live graph), and every state tensor and loss bit for bit
+   those of a straight ``fit`` over the dataset without batches 5-8; (d) the save's cost, recorded only: a save
+   every 4 steps in turns with none, each save's snapshot and write
+   seconds and bytes, ``checkpoint/fence`` and images/s.
+   ``--resume-only`` runs phases 1 and 5c alone.
 6. Phase 2 at every launch shape of one ``inception_v3_imagenet`` step at
    batch 256 (the 1x7, 7x1, 1x3, 3x1 taps, the aux head's 5x5, the phase
    kernels of its stride-2 convs and the dx of all of them).
@@ -165,7 +178,9 @@ host noise on a shared machine moves step times between runs.  The last
 lines are the card's name and power limit, a ``{"kernels": ...}`` JSON line (K1
 to K6, K5 as its two launches, K1's and K6's f32 forms as entries of their
 own) and ``{"ok": true, "device": {...}}``.  ``--zoo-only`` runs phases 1
-and 11-13 alone, ``--dp-only`` phases 1 and 5b.
+and 11-13 alone, ``--dp-only`` phases 1 and 5b, ``--resume-only`` phases
+1 and 5c.  Each ``fit`` given a workdir under ``build/chip_smoke`` (emptied
+at the start) saves a final checkpoint there, which the smoke deletes.
 """
 
 from __future__ import annotations
@@ -179,6 +194,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -735,7 +751,7 @@ def phase_pipeline(card: str, batch: int, seed: int) -> dict:
 # chunk of STEPS_PER_LOOP left out.
 AB_WINDOW_FROM = 4
 AB_RUNNER = """
-import json, math, sys
+import json, math, os, shutil, sys
 import torch
 from distributed_tensorflow_models_tpu_torch.harness import config, train
 spec = json.loads(sys.argv[1])
@@ -744,6 +760,9 @@ if "optimizer" in over:
     over["optimizer"] = config.OptimizerConfig(**over["optimizer"])
 r = train.fit(config.get_config(spec["config"], **over), spec["workdir"],
               device="cuda")
+# A tree whose fit checkpoints saved a final step there; nothing reads it.
+shutil.rmtree(os.path.join(spec["workdir"], "checkpoints"),
+              ignore_errors=True)
 h = r.history
 if getattr(r, "window_s", None) is not None:
     window_s, window_steps = r.window_s, r.window_steps
@@ -997,6 +1016,7 @@ def run_cli_train(config: str, steps: int, batch: int,
                        str(STEPS_PER_LOOP), "--device", "cuda"])
     if rc != 0:
         fail(f"cli train exited {rc}")
+    shutil.rmtree(workdir / "checkpoints", ignore_errors=True)
     result = json.loads(buf.getvalue().strip().splitlines()[-1])
     if (result["steps"], result["captures"], result["replayed_steps"]) != (
             steps, 1, steps - 1):
@@ -1033,6 +1053,8 @@ def run_fit(cfg, workdir: Path, mesh=None, keep: bool = False) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     r = trainlib.fit(cfg, str(workdir), device="cuda", mesh=mesh)
+    # fit saved a final checkpoint there; no later arm reads it.
+    shutil.rmtree(workdir / "checkpoints", ignore_errors=True)
     result = {"final_metrics": r.final_metrics, "steps": r.state.step,
               "device": r.device,
               "steady_step_time_s": r.steady_step_time_s,
@@ -1413,6 +1435,236 @@ def phase_data_parallel(batch: int, steps: int, k1_per_step: int, card: str,
             else:
                 os.environ[k] = v
     return {"arms": arms, "per_step": per_step, "nccl_ms": nccl_ms}
+
+
+# Phase 5c: ResNet-50 runs of RESUME_STEPS steps; the resumed run stops
+# at RESUME_AT first.  A save every CKPT_EVERY steps in the cost arms.
+RESUME_STEPS = 12
+RESUME_AT = 8
+CKPT_EVERY = 4
+
+
+class PoisonAt:
+    """A dataset whose batch at one position (the one after which its
+    cursor reads ``after``) has every image value set to NaN: a poisoned
+    batch that a rollback's replay meets again at the same position."""
+
+    def __init__(self, ds, after: dict):
+        self._ds, self._after = ds, after
+
+    def __iter__(self):
+        import numpy as np
+
+        for batch in self._ds:
+            if self._ds.get_state() == self._after:
+                batch = dict(batch)
+                batch["image"] = np.full_like(batch["image"], np.nan)
+            yield batch
+
+    def get_state(self):
+        return self._ds.get_state()
+
+    def set_state(self, state):
+        self._ds.set_state(state)
+
+
+class DropBatches:
+    """A dataset without the batches at some positions (those after which
+    its cursor reads one of ``after``): the batches a rollback skips."""
+
+    def __init__(self, ds, after: list):
+        self._ds, self._after = ds, after
+
+    def __iter__(self):
+        for batch in self._ds:
+            if self._ds.get_state() not in self._after:
+                yield batch
+
+    def get_state(self):
+        return self._ds.get_state()
+
+    def set_state(self, state):
+        self._ds.set_state(state)
+
+
+def _fit_once(cfg, workdir, label: str, **kw):
+    """``fit`` on the card in chunks of ``STEPS_PER_LOOP``; fails unless
+    the step was captured once."""
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+
+    torch.cuda.empty_cache()
+    r = trainlib.fit(cfg.replace(steps_per_loop=STEPS_PER_LOOP),
+                     None if workdir is None else str(workdir),
+                     device="cuda", **kw)
+    if r.captures != 1:
+        fail(f"resume phase, {label}: {r.captures} captures, expected 1")
+    return r
+
+
+def _state_diff(a, b) -> list:
+    """Names of the state tensors that differ between two states (any
+    name, shape, dtype or bit)."""
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.harness import checkpoint
+
+    ta, pa = checkpoint.flatten_state(a)
+    tb, pb = checkpoint.flatten_state(b)
+    if sorted(ta) != sorted(tb) or pa != pb:
+        return ["<names>"]
+    return [k for k in ta if not torch.equal(ta[k], tb[k])]
+
+
+def phase_resume(batch: int, card: str, workdir: Path) -> dict:
+    """Checkpoint/resume on the ResNet-50 path at full width (batch
+    ``batch``, K1 on every 3x3 conv, chunks of ``STEPS_PER_LOOP``), each
+    ``fit`` capturing the step once, in a workdir emptied first:
+
+    (a) ``RESUME_STEPS`` steps straight, against ``RESUME_AT`` steps (a
+        final checkpoint) and a second ``fit`` to ``RESUME_STEPS`` from
+        it: every state tensor and the losses of the resumed steps equal
+        bit for bit (replay equals eager bit for bit on this path, so the
+        resumed run's eager first step changes nothing);
+    (b) the newest step (``RESUME_STEPS``) torn, its ``state.pt``
+        truncated: the next ``fit`` walks back to ``RESUME_AT`` and ends
+        bit-identical again;
+    (c) ``nan_policy="rollback"``, a checkpoint every ``CKPT_EVERY``
+        steps, batch 6 poisoned (NaN images): exactly its chunk (steps
+        5-8) is skipped, one rollback, and the run ends with one capture
+        (the restore went into the tensors the graph replays) equal bit
+        for bit, every state tensor and every loss, to a straight ``fit``
+        over the dataset without batches 5-8;
+    (d) the save's cost: the same run with a save every ``CKPT_EVERY``
+        steps (``keep_checkpoints`` 2) in turns with no workdir (none,
+        save, save, none): each save's snapshot and write seconds and
+        bytes, ``checkpoint/fence`` and ``checkpoint/save``, images/s over
+        the timed window.  Recorded only.
+
+    Nothing here is caught: any mismatch fails the run."""
+    from distributed_tensorflow_models_tpu_torch import telemetry
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+    from distributed_tensorflow_models_tpu_torch.harness.config import get_config
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    cfg = get_config("resnet50_synthetic", global_batch_size=batch,
+                     train_steps=RESUME_STEPS, log_every_steps=STEPS_PER_LOOP,
+                     checkpoint_every_secs=None, keep_checkpoints=2)
+    out = {}
+    # (a)
+    straight = _fit_once(cfg, None, "straight")
+    want_losses = [h["loss"] for h in straight.history]
+    first = _fit_once(cfg.replace(train_steps=RESUME_AT), workdir / "a",
+                      f"first {RESUME_AT} steps")
+    if [h["loss"] for h in first.history] != want_losses[:RESUME_AT]:
+        fail("resume phase (a): the first run's losses differ from the "
+             "straight run's")
+    del first
+    resumed = _fit_once(cfg, workdir / "a", "resumed")
+    diff = _state_diff(resumed.state, straight.state)
+    losses = [h["loss"] for h in resumed.history]
+    if (resumed.restored_from != RESUME_AT or diff
+            or losses != want_losses[RESUME_AT:]):
+        fail(f"resume phase (a): restored from {resumed.restored_from}, "
+             f"{len(diff)} state tensors differ ({diff[:3]}), losses "
+             f"{losses} against {want_losses[RESUME_AT:]}")
+    n_tensors = len(trainlib.ckptlib.flatten_state(straight.state)[0])
+    log(f"resume (a): {RESUME_STEPS} steps straight = {RESUME_AT} steps, "
+        f"checkpoint, a new fit to {RESUME_STEPS}: all {n_tensors} state "
+        f"tensors and the losses of steps {RESUME_AT + 1}-{RESUME_STEPS} "
+        f"equal bit for bit; each fit captured once | {card}")
+    del resumed
+    # (b)
+    newest = workdir / "a" / "checkpoints" / str(RESUME_STEPS)
+    with open(newest / "state.pt", "r+b") as f:
+        f.truncate(4096)
+    walked = _fit_once(cfg, workdir / "a", "walk-back")
+    diff = _state_diff(walked.state, straight.state)
+    if walked.restored_from != RESUME_AT or diff:
+        fail(f"resume phase (b): restored from {walked.restored_from} "
+             f"past the torn step {RESUME_STEPS}, {len(diff)} state tensors "
+             f"differ")
+    log(f"resume (b): step {RESUME_STEPS} torn (state.pt cut to 4096 "
+        f"bytes): walked back to {RESUME_AT}, ended bit-identical | {card}")
+    del walked, straight
+    # (c)
+    probe = trainlib.build_dataset(cfg)
+    it = iter(probe)
+    after = []
+    for _ in range(RESUME_STEPS + STEPS_PER_LOOP):
+        next(it)
+        after.append(probe.get_state())
+    want_cursor = after[-1]
+    skipped_after = after[STEPS_PER_LOOP:2 * STEPS_PER_LOOP]  # batches 5-8
+    del probe, it
+    build = trainlib.build_dataset
+
+    def fit_over(wrap, run_cfg, wd, label):
+        trainlib.build_dataset = lambda c, split="train", mesh=None: wrap(
+            build(c, split, mesh))
+        try:
+            return _fit_once(run_cfg, wd, label)
+        finally:
+            trainlib.build_dataset = build
+
+    rolled = fit_over(lambda ds: PoisonAt(ds, after[5]),
+                      cfg.replace(nan_policy="rollback",
+                                  checkpoint_every_steps=CKPT_EVERY),
+                      workdir / "c", "rollback")
+    rows = rolled.history
+    cursor = json.loads((workdir / "c" / "checkpoints" / str(RESUME_STEPS)
+                         / "data.json").read_text())["dataset"]
+    if ((rolled.rollbacks, rolled.skipped_batches) != (1, STEPS_PER_LOOP)
+            or [h["step"] for h in rows] != list(range(1, RESUME_STEPS + 1))
+            or not all(math.isfinite(h["loss"]) for h in rows)
+            or not trainlib.train_loop.state_is_finite(rolled.state)
+            or cursor != want_cursor):
+        fail(f"resume phase (c): {rolled.rollbacks} rollbacks, "
+             f"{rolled.skipped_batches} batches skipped, steps "
+             f"{[h['step'] for h in rows]}, losses {[h['loss'] for h in rows]}"
+             f", cursor {cursor} (expected {want_cursor})")
+    without = fit_over(lambda ds: DropBatches(ds, skipped_after), cfg, None,
+                       "straight without batches 5-8")
+    diff = _state_diff(rolled.state, without.state)
+    losses = [h["loss"] for h in rows]
+    want = [h["loss"] for h in without.history]
+    if diff or losses != want:
+        fail(f"resume phase (c): the rolled-back run differs from a straight "
+             f"run without batches 5-8: {len(diff)} state tensors "
+             f"({diff[:3]}), losses {losses} against {want}")
+    log(f"resume (c): batch 6 poisoned: 1 rollback to step {CKPT_EVERY}, the "
+        f"{STEPS_PER_LOOP} batches of steps 5-8 skipped, {RESUME_STEPS} "
+        f"finite steps, cursor {cursor}, 1 capture ({rolled.replayed_steps} "
+        f"steps replayed); every state tensor and loss equal bit for bit to "
+        f"a straight fit without batches 5-8 | {card}")
+    del rolled, without
+    # (d)
+    arms = []
+    for label in ("none", "save", "save", "none"):
+        wd = None if label == "none" else workdir / f"d{len(arms)}"
+        run = cfg.replace(checkpoint_every_steps=CKPT_EVERY)
+        r = _fit_once(run, wd, f"cost arm {label}")
+        snap = r.registry.snapshot()
+        arm = {"label": label, "images_per_sec": r.images_per_sec,
+               "window_steps": r.window_steps, "window_s": r.window_s,
+               "saves": r.saves,
+               "fence_count": snap.get(f"{telemetry.CKPT_FENCE}/count", 0),
+               "fence_s": snap.get(f"{telemetry.CKPT_FENCE}/total_s", 0.0),
+               "save_span_s": snap.get(f"{telemetry.CKPT_SAVE}/total_s",
+                                       0.0)}
+        arms.append(arm)
+        saves = [(e["step"], round(e["snapshot_s"], 4),
+                  round(e["write_s"], 4), e["bytes"]) for e in r.saves]
+        log(f"resume (d) arm {label}: {r.images_per_sec:.1f} images/s over "
+            f"{r.window_steps} steps ({r.window_s * 1e3:.1f} ms); saves "
+            f"{saves} (step, snapshot s, write s, bytes); fence "
+            f"{arm['fence_count']} waits, {arm['fence_s']:.4f} s | {card}")
+        del r
+    out["cost_arms"] = arms
+    log("resume phase: " + json.dumps(out))
+    shutil.rmtree(workdir, ignore_errors=True)
+    return out
 
 
 def _flash_inputs(shape, seed: int):
@@ -1970,6 +2222,9 @@ def main(argv=None) -> int:
     parser.add_argument("--dp-only", action="store_true",
                         help="phases 1 and 5b alone, for work on data "
                         "parallelism: no result line")
+    parser.add_argument("--resume-only", action="store_true",
+                        help="phases 1 and 5c alone, for work on "
+                        "checkpoint/resume: no result line")
     parser.add_argument("--zoo-only", action="store_true",
                         help="phases 1 and 11-13 alone, for work on the "
                         "LeNet, ResNet-32, VGG-16, AlexNet and PTB LSTM "
@@ -2063,6 +2318,14 @@ def main(argv=None) -> int:
         log("flash-only run: phases 1 and 8 alone, no main path, no result")
         return 0
     workdir = ROOT / "build" / "chip_smoke"
+    # Every fit with a workdir resumes from its checkpoints: start empty,
+    # so that no run resumes one of an earlier smoke run.
+    shutil.rmtree(workdir, ignore_errors=True)
+    if args.resume_only:
+        phase_resume(args.batch_size, card, workdir / "resume")
+        log(card)
+        log("resume run: phases 1 and 5c alone, no result")
+        return 0
     if args.zoo_only:
         phases_zoo(args.train_steps, args.seed + 4, card, workdir)
         log(card)
@@ -2157,6 +2420,9 @@ def main(argv=None) -> int:
     # turns with fit without a group.
     phase_data_parallel(args.batch_size, steps, len(calls), card,
                         workdir / "dp")
+
+    # 5c. Checkpoint/resume on the ResNet-50 path.
+    phase_resume(args.batch_size, card, workdir / "resume")
 
     # 6. K1 and K6 at every launch shape of the Inception-v3 path.
     inc_calls = core_launch_shapes("inception_v3", 299, args.batch_size,

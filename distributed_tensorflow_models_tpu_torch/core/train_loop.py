@@ -15,6 +15,7 @@ the same one.
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Callable, Mapping, Optional, Sequence
 
@@ -541,15 +542,23 @@ def place_state(state: TrainState, mesh: meshlib.Mesh) -> TrainState:
 def state_is_finite(state: TrainState) -> bool:
     """True when every float tensor of the trajectory-carrying state —
     parameters, BN statistics, carry, optimizer slots, EMA shadows — is
-    finite; one reduction per tensor and one read back in all."""
+    finite (the JAX package's ``state_is_finite``).  One fused multi-tensor
+    reduction (``torch._foreach_norm`` at order inf: each tensor's largest
+    magnitude, inf or NaN when the tensor holds one), one finiteness test
+    per dtype over those norms, and one read back."""
     leaves = [leaf for leaf in _leaves((state.params, state.batch_stats,
                                         state.carry, state.opt_state,
                                         state.ema_params))
               if leaf.is_floating_point()]
     if not leaves:
         return True
-    return bool(torch.stack([torch.isfinite(leaf).all().to(leaves[0].device)
-                             for leaf in leaves]).all())
+    norms = torch._foreach_norm(leaves, ord=math.inf)
+    by_dtype: dict = {}
+    for norm in norms:
+        by_dtype.setdefault(norm.dtype, []).append(norm)
+    flags = [torch.stack(group).isfinite().all()
+             for group in by_dtype.values()]
+    return bool(torch.stack(flags).all())
 
 
 def make_eval_step(model: torch.nn.Module, use_ema: bool = True

@@ -17,6 +17,9 @@ from typing import Any, Optional
 
 from distributed_tensorflow_models_tpu_torch.ops import optim
 
+# Steps between the multi-process preemption polls (the JAX package's).
+PREEMPT_POLL_STEPS_DEFAULT = 20
+
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
@@ -127,6 +130,34 @@ class ExperimentConfig:
     # Named tensor-parallel rule set applied when mesh_model > 1 in the JAX
     # package; "" = fully replicated params, the only layout ported.
     param_rules: str = ""
+    # Checkpoints under <workdir>/checkpoints (harness/checkpoint.py), only
+    # when fit is given a workdir: every checkpoint_every_secs on the
+    # chief's clock, every checkpoint_every_steps steps too when set (the
+    # step cadence is deterministic, so it reproduces across restarts),
+    # and at the end; the newest keep_checkpoints are kept.
+    checkpoint_every_secs: Optional[float] = 600.0
+    checkpoint_every_steps: Optional[int] = None
+    keep_checkpoints: int = 5
+    # Divergence policy.  "abort": a non-finite loss kills the run (the
+    # reference's NanTensorHook).  "rollback": restore the newest finite
+    # checkpoint in place, skip exactly the offending chunk's batches and
+    # retry, at most rollback_budget times per run (needs a workdir).
+    nan_policy: str = "abort"  # abort | rollback
+    rollback_budget: int = 3
+    # Step-progress watchdog (resilience/watchdog.py): an ERROR log when no
+    # chunk completes within this many seconds (None = off); with
+    # watchdog_abort the stall escalates to an interrupt of the main
+    # thread from the second interval on.
+    watchdog_timeout_s: Optional[float] = None
+    watchdog_abort: bool = False
+    # Multi-process preemption-notice poll cadence (steps): the SIGTERM flag
+    # is gathered every this-many steps so every process enters the
+    # emergency checkpoint together.  One process checks at every chunk
+    # boundary and ignores this.
+    preempt_poll_steps: int = PREEMPT_POLL_STEPS_DEFAULT
+    # Deterministic fault injection (the JAX package's resilience/chaos.py)
+    # is not ported: a non-empty value raises.
+    chaos: dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         wide = {f: getattr(self, f) for f in ("mesh_model", "mesh_seq",
@@ -134,6 +165,13 @@ class ExperimentConfig:
                 if getattr(self, f) != 1}
         if self.param_rules:
             wide["param_rules"] = self.param_rules
+        if self.chaos:
+            raise NotImplementedError(
+                f"chaos={self.chaos} not ported: fault injection "
+                f"(resilience/chaos.py) is ROADMAP §1 item 3")
+        if self.nan_policy not in ("abort", "rollback"):
+            raise ValueError(f"nan_policy must be 'abort' or 'rollback', "
+                             f"got {self.nan_policy!r}")
         if wide:
             raise NotImplementedError(
                 f"{wide} not ported: the port is data parallel only "

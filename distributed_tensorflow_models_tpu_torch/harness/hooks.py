@@ -3,8 +3,10 @@
 The port's copy of the part of ``distributed_tensorflow_models_tpu/
 harness/hooks.py`` that the chunked loop of ``fit`` needs: the ``Hook``
 protocol (with ``wants_step``), :class:`LazyMetricRow`, the stop, step
-counter, NaN guard, logging and metric-writer hooks, and the two walks.
-The logic is the JAX package's; device values are read with torch.
+counter, NaN guard, logging, metric-writer, checkpoint and
+fault-injection hooks, and the two walks.  The logic is the JAX
+package's; device values are read with torch, and the checkpoint hook's
+multi-process clock poll goes through ``resilience/consensus.py``.
 
 Metric readback note: ``after_step`` receives the *device* metrics (a
 :class:`LazyMetricRow` over a chunk's stacked metrics, or a dict of 0-d
@@ -262,6 +264,111 @@ class MetricWriterHook(Hook):
     def end(self, state):
         if not self._f.closed:
             self._f.close()
+
+
+class CheckpointHook(Hook):
+    """Save every ``every_secs`` (default 600 s, the reference's
+    CheckpointSaverHook default — TF monitored_session.py:525-528), every
+    ``every_steps`` steps when set, and at ``end``.  ``save_fn(state,
+    step)`` is provided by ``fit`` so the hook stays agnostic of the
+    checkpoint layout.
+
+    With several processes every process must decide "save now" at the
+    *same step* (the save decisions are agreed through consensus, a
+    collective).  A per-process wall clock cannot guarantee that, so the
+    chief alone reads the clock and its decision is gathered, polled every
+    ``poll_every_steps`` steps (``fit`` passes ``cfg.preempt_poll_steps``,
+    the cadence of its preemption poll) to keep the collective off the
+    per-step path; step-based triggers are deterministic on every process
+    and need no poll.  ``consensus`` defaults to the live process group's."""
+
+    def __init__(self, save_fn, every_secs: Optional[float] = 600.0,
+                 every_steps: Optional[int] = None, *,
+                 poll_every_steps: int, consensus=None):
+        from distributed_tensorflow_models_tpu_torch.resilience import (
+            consensus as conslib,
+        )
+
+        self._save = save_fn
+        self._every_secs = every_secs
+        self._every_steps = every_steps
+        self._poll = max(1, poll_every_steps)
+        self._last_time = time.time()
+        self._consensus = (conslib.Consensus() if consensus is None
+                           else consensus)
+        self._multiproc = self._consensus.active
+
+    def _time_due(self, step: int) -> bool:
+        if self._every_secs is None:
+            return False
+        if not self._multiproc:
+            return time.time() - self._last_time >= self._every_secs
+        if step % self._poll:
+            return False
+        chief_due = (self._consensus.is_chief
+                     and time.time() - self._last_time >= self._every_secs)
+        return bool(self._consensus.allgather_int(
+            int(chief_due), label="checkpoint-clock")[0])
+
+    def wants_step(self, step):
+        # Step triggers and the multi-process poll cadence are
+        # deterministic in step (required: the poll is a collective); the
+        # single-process clock check is local, so reading it here is safe.
+        if self._every_steps and step % self._every_steps == 0:
+            return True
+        if self._every_secs is None:
+            return False
+        if self._multiproc:
+            return step % self._poll == 0
+        return time.time() - self._last_time >= self._every_secs
+
+    def after_step(self, state, metrics, step):
+        due_step = self._every_steps and step % self._every_steps == 0
+        if due_step or self._time_due(step):
+            self._save(state, step)
+            self._last_time = time.time()
+
+    def end(self, state):
+        self._save(state, int(state.step))
+
+    def abort(self, state):
+        # A crash-time save is safe (and valuable) with one process; with
+        # peers its decision is a collective this lone failing process
+        # must NOT enter — the others are blocked elsewhere.  Recovery
+        # then restores the last scheduled checkpoint.
+        if not self._multiproc:
+            self._save(state, int(state.step))
+        else:
+            log.warning(
+                "skipping crash-time checkpoint save on a multi-process "
+                "failure (its decision is a collective one process cannot "
+                "run)"
+            )
+
+
+class FaultInjectionHook(Hook):
+    """Raise a chosen exception at a chosen step, once.
+
+    The reference has no fault injection anywhere; the rebuild adds it as
+    a first-class hook so the recovery path — the analogue of
+    ``_RecoverableSession``'s retry loop (TF
+    monitored_session.py:1261-1274) — is testable on demand rather than
+    only on real preemptions."""
+
+    def __init__(self, step: int, exc_factory=None):
+        self._step = step
+        self._fired = False
+        self._exc_factory = exc_factory or (
+            lambda: RuntimeError("injected preemption")
+        )
+
+    def wants_step(self, step):
+        return step == self._step and not self._fired
+
+    def after_step(self, state, metrics, step):
+        if step == self._step and not self._fired:
+            self._fired = True
+            raise self._exc_factory()
 
 
 def run_hooks_after_step(hooks: Sequence[Hook], state, metrics, step) -> bool:

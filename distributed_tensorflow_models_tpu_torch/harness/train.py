@@ -9,10 +9,14 @@ device per process, the gradients all-reduced in the step).  Batches
 reach the step through the input pipeline (``data/pipeline.py``) in chunks
 of ``cfg.steps_per_loop``, each process reading its rows of the global
 batch; on CUDA the step is captured once as a CUDA graph, collectives
-included, and replayed.  Checkpointing, resilience and the telemetry
-reports are not ported yet; ``fit`` runs ``cfg.train_steps`` steps and
-reports per-step metrics, step time and images/s or tokens/s of the
-global batch.
+included, and replayed.  Given a workdir, ``fit`` resumes from
+its newest valid checkpoint and saves on the config's cadence
+(``harness/checkpoint.py``), answers a preemption notice with an
+emergency checkpoint, can roll a divergence back to the last finite
+checkpoint, and runs under a progress watchdog (``resilience/``);
+:func:`recoverable_fit` restarts it on transient failures.  The
+telemetry reports are not ported yet; ``fit`` reports per-step metrics,
+step time and images/s or tokens/s of the global batch.
 """
 
 from __future__ import annotations
@@ -29,13 +33,14 @@ from typing import Optional, Sequence
 
 import torch
 
-from distributed_tensorflow_models_tpu_torch import telemetry
+from distributed_tensorflow_models_tpu_torch import resilience, telemetry
 from distributed_tensorflow_models_tpu_torch.core import mesh as meshlib
 from distributed_tensorflow_models_tpu_torch.core import train_loop
 from distributed_tensorflow_models_tpu_torch.core.mesh import resolve_device
 from distributed_tensorflow_models_tpu_torch.core.train_state import TrainState
 from distributed_tensorflow_models_tpu_torch.data import datasets as datalib
 from distributed_tensorflow_models_tpu_torch.data import pipeline as pipelib
+from distributed_tensorflow_models_tpu_torch.harness import checkpoint as ckptlib
 from distributed_tensorflow_models_tpu_torch.harness import hooks as hooklib
 from distributed_tensorflow_models_tpu_torch.harness.config import ExperimentConfig
 from distributed_tensorflow_models_tpu_torch.models import builder_takes, get_model
@@ -201,7 +206,19 @@ class FitResult:
     (every step after the first on CUDA, none on the CPU).
     ``chunks_in_flight`` is the most chunks the device had still to run
     just after the host dispatched one (0 on the CPU): 2 or more means the
-    host ran ahead of the device."""
+    host ran ahead of the device.
+
+    Resilience: ``restored_from`` is the checkpoint step the run resumed
+    from (None for a fresh start); ``preempted`` says the run stopped
+    early at a chunk boundary on a preemption notice, after an emergency
+    checkpoint — rerunning the same command resumes it, so callers treat
+    it as resumable, not failed; ``rollbacks`` and ``skipped_batches`` are
+    the ``nan_policy="rollback"`` activity (also the ``train/rollbacks``
+    and ``train/skipped_batches`` counters).  After a rollback the history
+    holds the steps of the timeline that survived.  ``saves`` has a row
+    per checkpoint save of the run: its ``step``, ``snapshot_s`` (the
+    device-to-host copies enqueued, on the host's clock), ``write_s`` (the
+    writer thread's wait for them and its write) and ``bytes``."""
 
     state: TrainState
     final_metrics: dict
@@ -215,6 +232,11 @@ class FitResult:
     replayed_steps: int = 0
     chunks_in_flight: int = 0
     registry: Optional[telemetry.MetricsRegistry] = None
+    preempted: bool = False
+    restored_from: Optional[int] = None
+    rollbacks: int = 0
+    skipped_batches: int = 0
+    saves: list[dict] = dataclasses.field(default_factory=list)
 
     @property
     def steady_step_time_s(self) -> Optional[float]:
@@ -246,11 +268,13 @@ class FitResult:
         return self._steady_rate("tokens")
 
 
-def _close_quietly(prefetcher, host) -> None:
+def _close_quietly(prefetcher, host, raise_pending: bool = True) -> None:
     """Stop the prefetcher, then the host pipeline it pulls from, so no
     thread is left blocked on a full buffer.  Either may be None (the
     build failed before it); a stop that raises (a pending producer error)
-    is logged, not raised, as the JAX package's teardown does."""
+    is logged, not raised, as the JAX package's teardown does.
+    ``raise_pending=False`` (the rollback, which abandons this stream
+    position) keeps even the log quiet about a pending producer error."""
     try:
         if prefetcher is not None:
             prefetcher.stop()
@@ -259,7 +283,7 @@ def _close_quietly(prefetcher, host) -> None:
     finally:
         try:
             if host is not None:
-                host.stop()
+                host.stop(raise_pending=raise_pending)
         except Exception:
             log.exception("host pipeline stop failed")
 
@@ -269,18 +293,43 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+class _PreemptPollHook(hooklib.Hook):
+    """Ends chunks at the multi-process preemption-poll steps (the poll is
+    a collective, so every process must stand at the same step)."""
+
+    def __init__(self, every_steps: int):
+        self._every = every_steps
+
+    def wants_step(self, step):
+        return step % self._every == 0
+
+
+# Sentinel of "no divergence seen here" in the any-process agreement on a
+# chunk's losses (min-reduced, so above any step, inside the int32 wire).
+_NO_BAD_STEP = 2**31 - 1
+
+
 def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
         device: Optional[str | torch.device] = None,
-        mesh: Optional[meshlib.Mesh] = None) -> FitResult:
-    """Train ``cfg.train_steps`` steps from a fresh state, as this process's
-    share of ``mesh`` (default :func:`mesh_from_config`: every process of
-    the default process group on the data axis, or this process alone when
-    there is none; ``meshlib.local_mesh`` runs alone whatever the world).
+        mesh: Optional[meshlib.Mesh] = None, *,
+        extra_hooks: Sequence[hooklib.Hook] = (),
+        restarts: int = 0,
+        listener: Optional[resilience.PreemptionListener] = None
+        ) -> FitResult:
+    """Train to ``cfg.train_steps`` as this process's share of ``mesh``
+    (default :func:`mesh_from_config`: every process of the default
+    process group on the data axis, or this process alone when there is
+    none; ``meshlib.local_mesh`` runs alone whatever the world), resuming
+    from ``workdir``'s newest valid checkpoint when there is one.
 
     Every process builds the same state from ``cfg.seed``; the state is
     placed without collectives and checked once to agree across the
-    processes (``train_loop.place_state``).  Each process reads its rows
-    of every global batch (:func:`build_dataset`), and the steps run under
+    processes (``train_loop.place_state``).  With a ``workdir`` the
+    checkpoint is then restored *into* the placed tensors
+    (``checkpoint.restore_or_init``: newest valid and finite step, torn
+    ones walked past) and the dataset cursor set to it before the input
+    pipeline opens.  Each process reads its rows of every global batch
+    (:func:`build_dataset`), and the steps run under
     ``meshlib.data_parallel(mesh)``: the gradients and metrics are
     averaged over the processes, BatchNorm's moments are global and
     dropout draws the global batch's masks, so the trajectory is that of
@@ -299,14 +348,44 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
     as a CUDA graph, whatever ``steps_per_loop``; on the CPU eagerly.
 
     Metrics stay on the device: the hooks (stop, step counter, logging,
-    NaN guard, and ``<workdir>/metrics.jsonl`` at ``log_every_steps`` with
-    a ``workdir``) read them at their cadence, and
-    the history is filled at return from one transfer of every step's
+    NaN guard, checkpoint, ``extra_hooks``, and ``<workdir>/metrics.jsonl``
+    at ``log_every_steps`` with a ``workdir``) read them at their cadence,
+    and the history is filled at return from one transfer of every step's
     metrics.  The host runs up to ``RUN_AHEAD_CHUNKS`` chunks ahead of the
     device.  Time blocked on the next chunk is recorded under
     ``train/data_wait``; each chunk's wall over its steps under
     ``train/step_time``, once per step.  Both pipeline stages are stopped
-    on the way out, however the loop ends."""
+    on the way out, however the loop ends.
+
+    Resilience, with a ``workdir`` (without one: no checkpoint, no resume,
+    no signal handlers):
+
+    - **Checkpoints** — ``CheckpointHook`` every
+      ``cfg.checkpoint_every_secs`` on the chief's clock and every
+      ``cfg.checkpoint_every_steps``, and at the end; each save snapshots
+      the state right after its chunk, with the ``BatchStacker``'s
+      position of that chunk, and writes in the background.
+    - **Preemption grace** — SIGTERM (or a first SIGINT) sets a flag
+      (``listener``, or one of the run's own) checked at chunk
+      boundaries, gathered every ``cfg.preempt_poll_steps`` steps across
+      processes; on it an emergency checkpoint is written and ``fit``
+      returns with ``preempted=True``.
+    - **Divergence rollback** — ``cfg.nan_policy="rollback"`` checks
+      every chunk's losses (one device reduction and one read, paid only
+      under rollback); a non-finite one stops both pipeline stages,
+      restores the newest finite checkpoint in place (a captured step
+      keeps replaying its graph), deletes the later steps, reopens the
+      pipeline at the restored cursor and skips exactly the offending
+      chunk's batches when the replay reaches them, at most
+      ``cfg.rollback_budget`` times.  The default ``"abort"`` raises.
+    - **Watchdog** — ``cfg.watchdog_timeout_s`` diagnoses a run in which
+      no chunk completes (beaten once per chunk).
+
+    ``restarts`` seeds the ``train/restarts`` counter
+    (:func:`recoverable_fit` passes its attempt number)."""
+    if cfg.nan_policy == "rollback" and not workdir:
+        raise ValueError("nan_policy='rollback' restores checkpoints: fit "
+                         "needs a workdir")
     if mesh is None:
         mesh = mesh_from_config(cfg, device)
     elif device is not None and torch.device(device).type != mesh.device.type:
@@ -315,9 +394,35 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
     dev = resolve_device(mesh.device)
     state = train_loop.place_state(build_state(cfg, dev, mesh), mesh)
     registry = telemetry.MetricsRegistry()
+    registry.counter(telemetry.RESTARTS).inc(restarts)
+    registry.counter(telemetry.ROLLBACKS)
+    registry.counter(telemetry.SKIPPED_BATCHES)
     multi = train_loop.MultiStep(build_step(cfg, state), name=cfg.model,
                                  registry=registry)
+    # Every fleet-visible decision (save skip/replace, restore pick,
+    # restore-vs-init, preemption, divergence) is the chief's; with one
+    # process (or a mesh of one) an exact no-op.
+    grouped = mesh.group is not None
+    consensus = resilience.Consensus(mesh.rank if grouped else 0,
+                                     mesh.world_size if grouped else 1)
+    manager = None
+    restored = False
+    if workdir:
+        manager = ckptlib.CheckpointManager(
+            workdir, keep=cfg.keep_checkpoints,
+            process_index=consensus.process_index,
+            process_count=consensus.process_count, registry=registry,
+            consensus=consensus)
+        t0 = time.perf_counter()
+        state, data_state, restored = ckptlib.restore_or_init(manager,
+                                                              state)
+        registry.gauge(telemetry.STARTUP_RESTORE).set(
+            time.perf_counter() - t0)
+    restored_from = state.step if restored else None
     dataset = build_dataset(cfg, mesh=mesh)
+    if restored and data_state.get("dataset") and hasattr(dataset,
+                                                          "set_state"):
+        dataset.set_state(data_state["dataset"])
     chief = mesh.rank == 0
     hooks: list[hooklib.Hook] = [hooklib.StopAtStepHook(cfg.train_steps)]
     if chief:
@@ -328,31 +433,196 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
         ]
     chunks: list[tuple] = []
     pending: collections.deque = collections.deque()
-    host = batches = None
+    host = batches = stacker = None
     window = None
     in_flight = 0
-    try:
-        if workdir and chief:
-            hooks.append(hooklib.MetricWriterHook(workdir,
-                                                  cfg.log_every_steps))
-        hooks.append(hooklib.NanGuardHook(cfg.log_every_steps))
+    # False while a chunk runs (its steps update the state in place, so a
+    # failure inside one leaves tensors no step number describes) and while
+    # a rollback has no pipeline open (no cursor belongs to the state):
+    # no crash-time save may write either.
+    consistent = True
+
+    def open_pipeline() -> None:
+        nonlocal host, batches, stacker
         host = pipelib.HostPipeline(
             dataset, prefetch=4, num_workers=max(1, int(cfg.data_workers)),
             registry=registry)
         batches = pipelib.DevicePrefetcher(host, dev, depth=2,
                                            registry=registry)
         stacker = pipelib.BatchStacker(batches)
+
+    def save_fn(s: TrainState, _step: Optional[int] = None) -> None:
+        # The cursor saved is the stacker's: the batches the state has
+        # consumed, not the host pipeline's read-ahead.
+        if not consistent or stacker is None:
+            log.warning("no checkpoint at step %d: the state is not that of "
+                        "a step with a known input position (a chunk or a "
+                        "rollback failed part way)", s.step)
+            return
+        manager.save(s, {"dataset": stacker.get_state()})
+
+    own_listener = listener is None and manager is not None
+    if own_listener:
+        listener = resilience.PreemptionListener()
+    poll_steps = max(1, int(cfg.preempt_poll_steps))
+
+    def preempt_due(step: int) -> bool:
+        if listener is None:
+            return False
+        if not consensus.active:
+            return listener.preempted
+        if step % poll_steps:
+            return False
+        return consensus.any_flag(listener.preempted, label="preempt-poll")
+
+    def check_chunk_finite(rows, start: int, k: int) -> None:
+        """Under rollback every chunk's losses are checked (one device
+        reduction and one read), so the divergence is pinned to its
+        chunk: the skip is exact only if detection lands in the offending
+        chunk.  With several processes the earliest bad step any process
+        saw is agreed, so all roll back together."""
+        loss = rows["loss"][:k]
+        bad_step = _NO_BAD_STEP
+        if not bool(torch.isfinite(loss).all()):
+            i = int((~torch.isfinite(loss)).nonzero()[0, 0])
+            bad_step = start + 1 + i
+        if consensus.active:
+            bad_step = min(consensus.allgather_int(bad_step,
+                                                   label="chunk-finite"))
+        if bad_step < _NO_BAD_STEP:
+            registry.trace.instant("train/divergence", {"step": bad_step})
+            raise FloatingPointError(f"loss is not finite at step "
+                                     f"{bad_step}")
+
+    preempted = False
+    rollbacks = skipped = 0
+    # Rollback bookkeeping, the JAX package's: pending [step, n] discards
+    # n batches when the replay reaches step; executed skips are
+    # re-scheduled when a later rollback rewinds behind them.
+    pending_skips: list[list[int]] = []
+    executed_skips: list[tuple[int, int]] = []
+
+    def discard_batches(n: int) -> int:
+        with registry.span(telemetry.DATA_WAIT):
+            try:
+                _, done = stacker.next_chunk(n)
+            except StopIteration:
+                done = 0
+        return done
+
+    def rollback(offender_start: int, offender_len: int) -> bool:
+        """Restore the newest finite checkpoint in place and schedule the
+        exact skip of the offending chunk; False when there is no finite
+        checkpoint to restore."""
+        nonlocal state, host, batches, stacker, window, consistent
+        consistent = False
+        _close_quietly(batches, host, raise_pending=False)
+        host = batches = stacker = None
+        manager.wait()
+        try:
+            state, restored_data = manager.restore_newest_valid(
+                state, accept=train_loop.state_is_finite,
+                accept_name="non-finite parameters")
+        except FileNotFoundError as e:  # NoValidCheckpointError included
+            log.error("rollback: no finite checkpoint to restore (%s)", e)
+            return False
+        step = state.step
+        for stale in manager.all_steps():
+            if stale > step:
+                log.warning("rollback: deleting post-divergence checkpoint "
+                            "at step %d", stale)
+                manager.delete(stale)
+        if restored_data.get("dataset") and hasattr(dataset, "set_state"):
+            dataset.set_state(restored_data["dataset"])
+        open_pipeline()
+        consistent = True
+        chunks[:] = [c for c in chunks if c[0] + c[3] <= step]
+        window = None
+        wanted = {s: n for s, n in executed_skips if s >= step}
+        for s, n in pending_skips:
+            wanted[s] = max(wanted.get(s, 0), n)
+        if offender_start >= step:
+            wanted[offender_start] = max(wanted.get(offender_start, 0),
+                                         offender_len)
+        pending_skips[:] = sorted([s, n] for s, n in wanted.items())
+        log.warning("rollback: restored step %d; will skip the offending "
+                    "chunk (steps %d..%d) on replay", step,
+                    offender_start + 1, offender_start + offender_len)
+        registry.trace.instant("train/rollback", {
+            "restored_step": step, "offender_start": offender_start,
+            "offender_len": offender_len})
+        return True
+
+    watchdog = None
+    listener_installed = False
+    try:
+        if workdir and chief:
+            hooks.append(hooklib.MetricWriterHook(workdir,
+                                                  cfg.log_every_steps))
+        hooks.append(hooklib.NanGuardHook(cfg.log_every_steps))
+        if manager is not None:
+            hooks.append(hooklib.CheckpointHook(
+                save_fn, every_secs=cfg.checkpoint_every_secs,
+                every_steps=cfg.checkpoint_every_steps,
+                poll_every_steps=poll_steps, consensus=consensus))
+        hooks += list(extra_hooks)
+        if consensus.active and listener is not None:
+            hooks.append(_PreemptPollHook(poll_steps))
+        if listener is not None:
+            listener_installed = own_listener and listener.install()
+        if cfg.watchdog_timeout_s:
+            watchdog = resilience.ProgressWatchdog(
+                cfg.watchdog_timeout_s, registry=registry,
+                abort=cfg.watchdog_abort)
+        open_pipeline()
         for h in hooks:
             h.begin(state)
+        if cfg.nan_policy == "rollback" and not restored:
+            # A restore anchor before the first scheduled save, durable
+            # before training can diverge past it.
+            save_fn(state)
+            manager.wait()
         start = time.perf_counter()
         while state.step < cfg.train_steps:
             first = state.step
+            if preempt_due(first):
+                log.warning("preemption: writing an emergency checkpoint at "
+                            "step %d and exiting (resumable: rerun the same "
+                            "command)", first)
+                registry.trace.instant("train/preempted", {"step": first})
+                if manager is not None:
+                    save_fn(state)
+                    manager.wait()
+                preempted = True
+                break
+            while pending_skips and pending_skips[0][0] <= first:
+                skip_at, n = pending_skips.pop(0)
+                if skip_at < first:
+                    log.warning("rollback: scheduled skip at step %d "
+                                "overshot (loop is at %d); dropping it",
+                                skip_at, first)
+                    continue
+                done = discard_batches(n)
+                skipped += done
+                registry.counter(telemetry.SKIPPED_BATCHES).inc(done)
+                registry.trace.instant("train/skip_batches",
+                                       {"step": first, "n": done})
+                executed_skips.append((first, done))
+                log.warning("rollback: advanced the dataset cursor past %d "
+                            "offending batch(es) at step %d", done, first)
+            k_req = _chunk_len(first, cfg, hooks)
+            if pending_skips:
+                # A chunk is one call: a scheduled skip is exact only if
+                # a chunk ends at its step.
+                k_req = min(k_req, pending_skips[0][0] - first)
             t0 = time.perf_counter()
             with registry.span(telemetry.DATA_WAIT):
-                chunk, k = stacker.next_chunk(_chunk_len(first, cfg, hooks))
+                chunk, k = stacker.next_chunk(k_req)
             t1 = time.perf_counter()
+            consistent = False
             with meshlib.data_parallel(mesh):
                 state, rows = multi(state, chunk, cfg.seed)
+            consistent = True
             if dev.type == "cuda":
                 pending.append(torch.cuda.Event())
                 pending[-1].record()
@@ -369,27 +639,70 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
             t2 = time.perf_counter()
             for _ in range(k):
                 registry.timer(telemetry.STEP_TIME).record((t2 - t0) / k)
-            chunks.append((rows, _sizes(cfg, chunk, mesh), k, t1 - t0,
+            chunks.append((first, rows, _sizes(cfg, chunk, mesh), k, t1 - t0,
                            t2 - t1, t2 - start))
             del chunk
-            ok = hooklib.run_hooks_after_chunk(
-                hooks, state, rows, first, k, registry=registry,
-                final_row=hooklib.LazyMetricRow(rows, k - 1, first + 1))
+            try:
+                if cfg.nan_policy == "rollback":
+                    check_chunk_finite(rows, first, k)
+                ok = hooklib.run_hooks_after_chunk(
+                    hooks, state, rows, first, k, registry=registry,
+                    final_row=hooklib.LazyMetricRow(rows, k - 1, first + 1))
+            except FloatingPointError:
+                if cfg.nan_policy != "rollback":
+                    raise
+                if rollbacks >= cfg.rollback_budget:
+                    log.error("rollback budget (%d) exhausted; aborting",
+                              cfg.rollback_budget)
+                    raise
+                # The verdict is agreed across processes, so every process
+                # rolls back together.
+                if not rollback(first, k):
+                    raise
+                rollbacks += 1
+                registry.counter(telemetry.ROLLBACKS).inc()
+                ok = True
+            if watchdog is not None:
+                watchdog.beat(state.step)
             if not ok:
                 break
         _sync(dev)
         window_s = (time.perf_counter() - window[0]) if window else None
-        for h in hooks:
-            h.end(state)
     except BaseException:
         for h in hooks:
             try:
                 h.abort(state)
             except Exception:
                 log.exception("hook abort failed")
+        if manager is not None:
+            try:
+                manager.wait()
+            except Exception:
+                log.exception("checkpoint write failed during error cleanup")
         raise
     finally:
+        if watchdog is not None:
+            watchdog.stop()
+        if listener_installed:
+            listener.uninstall()
         _close_quietly(batches, host)
+    # One hook's end() failing must not starve later hooks (the checkpoint
+    # hook's final save among them); the first error still propagates
+    # after the others ran and the last write is durable.
+    end_error: Optional[BaseException] = None
+    for h in hooks:
+        try:
+            h.end(state)
+        except BaseException as e:
+            log.exception("hook %r end() failed", h)
+            end_error = end_error or e
+    if manager is not None:
+        manager.wait()
+    if end_error is not None:
+        raise end_error
+    if preempted:
+        log.warning("run preempted at step %d after an emergency checkpoint; "
+                    "resumable by rerunning the same command", state.step)
     history = _history(chunks)
     return FitResult(
         state=state, final_metrics=history[-1] if history else {},
@@ -399,7 +712,102 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
         window_data_s=window[2] if window else 0.0,
         captures=multi.captures, capture_s=multi.capture_s,
         replayed_steps=multi.replays, chunks_in_flight=in_flight,
-        registry=registry)
+        registry=registry, preempted=preempted, restored_from=restored_from,
+        rollbacks=rollbacks, skipped_batches=skipped,
+        saves=manager.save_log if manager is not None else [])
+
+
+def default_recoverable_errors() -> tuple[type[BaseException], ...]:
+    """Failure classes worth restarting on — *transient* ones only: a
+    ``torch.distributed`` backend failure (a peer lost, a collective
+    timed out: the analogue of the AbortedError/UnavailableError set
+    ``_RecoverableSession`` retries on, TF monitored_session.py:
+    1261-1274) and connection/timeout failures to peers or storage.
+    Deliberately NOT blanket ``OSError`` or ``RuntimeError``: a bad
+    workdir, or a CUDA error, is deterministic or fatal to the process.
+    :func:`recoverable_fit` also filters the set by message with
+    :func:`is_transient_error`."""
+    import torch.distributed as dist
+
+    return (dist.DistBackendError, ConnectionError, TimeoutError)
+
+
+# Errors that poison the process's CUDA context: every later CUDA call of
+# the process fails too, so no in-process restart can recover (a new
+# process can).  Matched in the message, since a collective's backend
+# error can carry one.
+_STICKY_CUDA_MARKERS = (
+    "illegal memory access",
+    "device-side assert",
+    "unspecified launch failure",
+    "misaligned address",
+    "illegal instruction",
+    "uncorrectable ecc",
+)
+
+
+def is_transient_error(e: BaseException) -> bool:
+    """True if ``e`` is worth a restore-and-retry in this process.  A
+    sticky CUDA error (an illegal memory access, a device-side assert:
+    the context is poisoned) and ``torch.cuda.OutOfMemoryError`` (the
+    same program needs the same memory) are not, whatever class carries
+    them; any other error of the recoverable set is."""
+    if isinstance(e, torch.cuda.OutOfMemoryError):
+        return False
+    msg = str(e).lower()
+    return not any(marker in msg for marker in _STICKY_CUDA_MARKERS)
+
+
+# The restart schedule lives in resilience/backoff.py (the JAX package's
+# split); recoverable_fit's callers reach it here too.
+restart_backoff = resilience.restart_backoff
+
+
+# recoverable_fit's bound on restarts, and the cap of its backoff.
+MAX_RESTARTS = 3
+BACKOFF_MAX_S = 60.0
+
+
+def recoverable_fit(cfg: ExperimentConfig, workdir: str, *,
+                    backoff_base_s: float = 1.0, **fit_kwargs) -> FitResult:
+    """``fit`` wrapped in the reference's session-recovery loop.
+
+    ``_RecoverableSession`` catches preemption-class errors, recreates the
+    session and resumes from the last checkpoint (TF monitored_session.py:
+    1238,1261-1274).  Here that is calling ``fit`` again: it restores the
+    newest checkpoint — parameters, optimizer state, EMA, step, carry and
+    the input position — so no progress is lost beyond the last save.
+    Bounded by ``MAX_RESTARTS`` and spaced by :func:`restart_backoff`
+    (``backoff_base_s``, capped at ``BACKOFF_MAX_S``).  Only an error of
+    :func:`default_recoverable_errors` that :func:`is_transient_error`
+    passes is retried; any other propagates at once.  One preemption
+    listener spans every attempt and the backoff sleeps, so a notice
+    received in one is honoured by the next; a ``preempted`` result returns
+    as it is."""
+    recover_on = default_recoverable_errors()
+    listener = resilience.PreemptionListener()
+    listener.install()
+    attempt = 0
+    try:
+        while True:
+            try:
+                return fit(cfg, workdir, restarts=attempt, listener=listener,
+                           **fit_kwargs)
+            except recover_on as e:
+                if not is_transient_error(e):
+                    raise
+                attempt += 1
+                if attempt > MAX_RESTARTS:
+                    raise
+                delay = restart_backoff(attempt, base_s=backoff_base_s,
+                                        max_s=BACKOFF_MAX_S, seed=cfg.seed)
+                log.warning("fit failed (%s: %s); restart %d/%d from the "
+                            "newest checkpoint in %.2fs", type(e).__name__,
+                            e, attempt, MAX_RESTARTS, delay)
+                if delay > 0 and not listener.preempted:
+                    listener.wait(delay)
+    finally:
+        listener.uninstall()
 
 
 def _sizes(cfg: ExperimentConfig, chunk: dict, mesh: meshlib.Mesh) -> dict:
@@ -417,14 +825,14 @@ def _history(chunks: list[tuple]) -> list[dict]:
     transfer, and their sizes and host times."""
     if not chunks:
         return []
-    names = chunks[0][0].names
-    values = torch.cat([rows.values for rows, *_ in chunks]).tolist()
-    history, step = [], 0
-    for rows, size, k, data_s, host_s, end_s in chunks:
-        for _ in range(k):
-            row = dict(zip(names, values[step]))
-            step += 1
-            row.update(size, step=step, data_s=data_s / k,
+    names = chunks[0][1].names
+    values = torch.cat([c[1].values for c in chunks]).tolist()
+    history, i = [], 0
+    for first, rows, size, k, data_s, host_s, end_s in chunks:
+        for j in range(k):
+            row = dict(zip(names, values[i]))
+            i += 1
+            row.update(size, step=first + j + 1, data_s=data_s / k,
                        step_time_s=host_s / k, end_s=end_s)
             history.append(row)
     return history

@@ -5,7 +5,8 @@ PyTorch counterpart of the bootstrap half of
 package's ``launch_local``, or any other) starts one process per device
 and gives each the cluster's facts in ``DTM_*`` variables;
 :func:`initialize_from_env` joins this process to the others' process
-group (``core/mesh.py::initialize_multihost``).  The launcher itself and
+group (``core/mesh.py::initialize_multihost``).  A preempted training
+process exits with :data:`RESUMABLE_EXIT_CODE`.  The launcher itself and
 its supervision, and the fleet heartbeat the reference starts here, are
 not ported yet.
 """
@@ -23,6 +24,12 @@ ENV_PROCESS_ID = "DTM_PROCESS_ID"
 # Read by the JAX package (fake CPU devices per process); the port runs one
 # device per process and ignores it.
 ENV_CPU_DEVICES = "DTM_CPU_DEVICES_PER_PROCESS"
+
+# Exit code a preempted-but-checkpointed training process uses (BSD
+# EX_TEMPFAIL), the JAX package's: the run wrote an emergency checkpoint
+# on SIGTERM and rerunning the same command resumes it, so a launcher
+# tells "rerun me" from a failure.
+RESUMABLE_EXIT_CODE = 75
 
 
 def initialize_from_env(device: Optional[str | torch.device] = None) -> bool:

@@ -15,7 +15,8 @@ one-process ``fit`` of the port at the same global batch:
 - ``ptb_medium`` at a cut width (dropout 0.5 drawn for the global batch,
   global batch 20 so 10 rows a process, the carry sharded by rows, the
   clip below every step's gradient norm so that it acts on the global
-  gradient).
+  gradient); the same, checkpointed, killed at step 4 and resumed, must
+  equal its straight two-process run bit for bit.
 
 Tolerance: f32 sums taken per process and then across processes reorder
 the reduction, so losses, gradient norms and the state agree to ~1e-6;
@@ -168,3 +169,19 @@ def test_replica_check_raises_on_states_that_differ(cluster):
         msg = checks["replica_check"]
         assert msg is not None and "do not hold the same initial" in msg
         assert "state/params/" in msg
+
+
+def test_two_process_run_resumes_bit_identical(cluster):
+    """The cut ptb_medium over two processes, killed at step 4 after its
+    step-4 checkpoint (chief-decided saves over the consensus's own gloo
+    group; the chief's ``state.pt``, each process's sidecar and carry
+    rows) and resumed in a new ``fit``: on both processes the resume
+    starts at 4 and ends equal to the straight two-process run bit for
+    bit, losses of steps 5-6 and each process's carry rows included."""
+    for p in (0, 1):
+        got = json.loads((cluster / f"checks_p{p}.json").read_text())["resume"]
+        assert got["killed"] == "injected preemption"
+        assert (got["restored_from"], got["steps"]) == (4, 6)
+        assert got["names"] and got["differ"] == [] and got["losses_equal"]
+        assert got["sidecars"] == ["p0.carry.pt", "p0.json", "p1.carry.pt",
+                                   "p1.json"]

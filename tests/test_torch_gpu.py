@@ -37,6 +37,9 @@ rate and EMA decay advancing across replays, the launch counters per
 replay, ``fit`` replaying every step after the first, and the in-place
 optimizers against their per-tensor forms bit for bit.
 
+Checkpoint/resume: a run of cut ResNet-32 killed at step 4 and resumed
+from its checkpoint must equal the straight run bit for bit.
+
 Data parallel: a world-1 NCCL process group, its collectives captured
 and replayed with the step, must leave cut ResNet-32's ``fit`` equal to
 the ``fit`` without a group bit for bit.
@@ -1217,6 +1220,34 @@ def test_in_place_optimizers_equal_the_per_tensor_form_on_card(cuda):
 
     for name in ref.CASES:
         ref.check_against_per_tensor_form(name, cuda)
+
+
+def test_resume_on_card_equals_the_straight_run(cuda, tmp_path):
+    """Cut ResNet-32 (K1's f32 form) through ``fit`` with a workdir: a run
+    killed at step 4 (its crash-time checkpoint written from the replayed
+    state by the asynchronous snapshot) and resumed in a new ``fit`` ends
+    equal to the straight run bit for bit, losses of steps 5-8 included;
+    each ``fit`` captures the step once."""
+    from distributed_tensorflow_models_tpu_torch.harness import config as tconfig
+    from distributed_tensorflow_models_tpu_torch.harness import hooks as hooklib
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+
+    name, over, _ = REPLAY_CASES["resnet32_cifar10"]
+    cfg = tconfig.get_config(name, train_steps=8, steps_per_loop=4,
+                             log_every_steps=4, **over)
+    straight = trainlib.fit(cfg, device="cuda")
+    with pytest.raises(RuntimeError, match="injected"):
+        trainlib.fit(cfg, str(tmp_path), device="cuda",
+                     extra_hooks=[hooklib.FaultInjectionHook(4)])
+    resumed = trainlib.fit(cfg, str(tmp_path), device="cuda")
+    assert resumed.restored_from == 4
+    assert (straight.captures, resumed.captures) == (1, 1)
+    assert [h["loss"] for h in resumed.history] == [
+        h["loss"] for h in straight.history[4:]]
+    a, b = _state_tensors(resumed.state), _state_tensors(straight.state)
+    assert sorted(a) == sorted(b)
+    for n in a:
+        assert torch.equal(a[n], b[n]), n
 
 
 def test_nccl_group_of_one_replays_equal_replays_without_a_group(cuda):

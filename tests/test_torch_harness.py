@@ -1,8 +1,8 @@
 """The port's isolation from JAX, its entry points and its device rule.
 
 - No file of the port, and not ``chip_smoke.py``, imports jax, flax,
-  optax, orbax or the JAX package (an AST walk, so nothing is imported),
-  nor PIL or OpenCV when it loads.
+  optax, orbax, safetensors or the JAX package (an AST walk, so nothing
+  is imported), nor PIL or OpenCV when it loads.
 - Importing the port's CLI leaves ``jax`` out of ``sys.modules``.
 - The CLI trains a tiny config on the CPU when asked for it.
 - An entry point given no device raises where there is no CUDA device; it
@@ -33,7 +33,7 @@ from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "distributed_tensorflow_models_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "safetensors",
              "distributed_tensorflow_models_tpu")
 
 
@@ -67,8 +67,9 @@ def test_port_imports_nothing_of_jax(path):
 
 def test_guard_walks_every_module_of_the_port():
     """The walk covers each module of the port, those of the LM slice, the
-    input pipeline, the rest of the model zoo, the hooks and the
-    data-parallel modules (mesh, sharding, launch) included; what
+    input pipeline, the rest of the model zoo, the hooks, the
+    data-parallel modules (mesh, sharding, launch), the checkpoint and
+    the resilience modules included; what
     else the package holds is CUDA source and its shared header under
     csrc/, which import nothing of Python."""
     walked = {p.relative_to(PORT).as_posix() for p in _port_files()
@@ -85,7 +86,10 @@ def test_guard_walks_every_module_of_the_port():
             "telemetry/trace.py", "models/lenet.py",
             "models/resnet_cifar.py", "models/vgg.py", "models/alexnet.py",
             "models/ptb_lstm.py", "harness/hooks.py", "core/mesh.py",
-            "core/sharding.py", "launch.py"} <= walked
+            "core/sharding.py", "launch.py", "harness/checkpoint.py",
+            "resilience/__init__.py", "resilience/backoff.py",
+            "resilience/consensus.py", "resilience/fsck.py",
+            "resilience/preemption.py", "resilience/watchdog.py"} <= walked
     others = [p.relative_to(PORT).as_posix() for p in PORT.rglob("*")
               if p.is_file() and p.suffix not in (".py", ".pyc")]
     assert sorted(others) == ["csrc/conv_implicit_gemm.cu",
@@ -162,7 +166,11 @@ def test_configs_match_jax(name):
     j, t = jconfig.get_config(name), tconfig.get_config(name)
     for field in ("model", "dataset", "image_size", "global_batch_size",
                   "weight_decay", "label_smoothing", "aux_loss_weight",
-                  "ema_decay", "train_steps", "seed"):
+                  "ema_decay", "train_steps", "seed",
+                  "checkpoint_every_secs", "checkpoint_every_steps",
+                  "keep_checkpoints", "nan_policy", "rollback_budget",
+                  "watchdog_timeout_s", "watchdog_abort",
+                  "preempt_poll_steps", "chaos"):
         assert getattr(t, field) == getattr(j, field), field
     assert j.task == t.task == "classification"
     for field in ("name", "learning_rate", "momentum", "decay_steps",

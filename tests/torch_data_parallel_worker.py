@@ -10,9 +10,10 @@ Each process joins the group through the port's
 :data:`CASES` for a few steps through ``fit``; process 0 writes the losses,
 the gradient norms and the replicated state to ``<outdir>/<case>.npz``, and
 every process its carry rows to ``<outdir>/<case>_carry_p<i>.npz``.  Then
-two checks that need several processes: ``all_reduce_mean_`` on tensors of
-three dtypes, and ``place_state``'s replica check on states built from
-different seeds (``<outdir>/checks_p<i>.json``).  This module imports only
+three checks that need several processes: a run killed at a checkpoint and
+resumed (:func:`resume_check`), ``all_reduce_mean_`` on tensors of three
+dtypes, and ``place_state``'s replica check on states built from different
+seeds (``<outdir>/checks_p<i>.json``).  This module imports only
 the port (the test imports :data:`CASES` from it).
 """
 
@@ -50,10 +51,48 @@ CASES = {
         optimizer=dataclasses.replace(get_config("ptb_medium").optimizer,
                                       clip_global_norm=PTB_CLIP)),
 }
+# The resume case: the cut ptb_medium (its carry is each process's rows),
+# checkpointed every 2 steps, killed at step 4 and resumed to step 6.
+RESUME = CASES["ptb_medium"].replace(train_steps=6, log_every_steps=2,
+                                     checkpoint_every_secs=10_000.0,
+                                     checkpoint_every_steps=2)
 # all_reduce_mean_ inputs: process i holds (i + 1) x these values.
 MIXED = {"f32": (torch.float32, [1.5, -2.25, 3.0]),
          "bf16": (torch.bfloat16, [[0.5, 1.25], [-4.0, 8.0]]),
          "f64": (torch.float64, [1e-3, 7.0])}
+
+
+def resume_check(workdir: str) -> dict:
+    """The straight two-process run of :data:`RESUME`, and one killed at
+    step 4 (both processes raise after the step-4 checkpoint) and resumed
+    from it: whether the resumed state (this process's carry rows
+    included) equals the straight one bit for bit, and what the resume
+    found."""
+    from distributed_tensorflow_models_tpu_torch.harness import checkpoint
+    from distributed_tensorflow_models_tpu_torch.harness import hooks
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+
+    straight = trainlib.fit(RESUME, device="cpu")
+    try:
+        trainlib.fit(RESUME, workdir, device="cpu",
+                     extra_hooks=[hooks.FaultInjectionHook(4)])
+        killed = None
+    except RuntimeError as e:
+        killed = str(e)
+    resumed = trainlib.fit(RESUME, workdir, device="cpu")
+    a, _ = checkpoint.flatten_state(straight.state)
+    b, _ = checkpoint.flatten_state(resumed.state)
+    sidecars = os.path.join(workdir, "checkpoints", "dataset_states", "4")
+    return {
+        "killed": killed,
+        "restored_from": resumed.restored_from,
+        "steps": resumed.state.step,
+        "differ": sorted(k for k in a if not torch.equal(a[k], b[k])),
+        "names": sorted(a) == sorted(b),
+        "losses_equal": [h["loss"] for h in resumed.history]
+        == [h["loss"] for h in straight.history[4:]],
+        "sidecars": sorted(os.listdir(sidecars)),
+    }
 
 
 def main(outdir: str) -> int:
@@ -84,8 +123,8 @@ def main(outdir: str) -> int:
                          *[t.numpy() for t in
                            train_loop._leaves(r.state.carry)])
 
+        checks = {"resume": resume_check(os.path.join(outdir, "resume"))}
         mesh = trainlib.mesh_from_config(CASES["lenet_mnist"], "cpu")
-        checks = {}
         tensors = {k: torch.tensor(v, dtype=dt) * (pid + 1)
                    for k, (dt, v) in MIXED.items()}
         before = sharding.collective_counts()
