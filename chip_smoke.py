@@ -91,6 +91,28 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    every 4 steps in turns with none, each save's snapshot and write
    seconds and bytes, ``checkpoint/fence`` and images/s.
    ``--resume-only`` runs phases 1 and 5c alone.
+5d. A run's telemetry and its evaluation: ``resnet50_synthetic`` (batch
+   256) through ``fit`` with a workdir for ``TELEMETRY_STEPS`` steps, the
+   hooks every ``TELEMETRY_EVERY``: a K1 arm and an ``F.conv2d`` arm,
+   each leaving ``telemetry.json`` (the four fractions summing to 1, the
+   capture counted as a compile event), ``metrics.jsonl`` rows with the
+   telemetry keys and TensorBoard events, both files passing
+   ``scripts/check_metrics_schema.py``; ``flops_per_step`` must be the
+   same on both arms and equal the count taken on the CPU
+   (``R50_STEP_FLOPS_PER_IMAGE``).  The MFU (the report's, over the whole
+   run, and over the timed window), the four fractions and each row's
+   interval MFU are printed.  Two arms without ``TelemetryHook`` and
+   ``TensorBoardHook`` run in turns with two with them (the hooks' host
+   cost, in images/s).  Then ``evaluate_classification`` on the K1 arm's
+   checkpoint over ``EVAL_BATCHES`` batches on K1, on ``F.conv2d`` (in
+   turns) and on K1's plain version: K1 launches 25 a batch, the top-1
+   and top-5 verdicts and the xent held to the plain version's within
+   ``EVAL_COUNT_TOL`` and ``EVAL_XENT_RTOL``, images/s of each; and
+   ``transformer_lm`` trained ``LM_TRAIN_STEPS`` steps with flash and
+   ``evaluate_lm`` over ``LM_EVAL_BATCHES`` batches on K2 (4 launches a
+   batch) and on its plain version, the perplexity within
+   ``LM_PPL_RTOL``; tokens/s of each.  ``--telemetry-only`` runs phases 1
+   and 5d alone.
 6. Phase 2 at every launch shape of one ``inception_v3_imagenet`` step at
    batch 256 (the 1x7, 7x1, 1x3, 3x1 taps, the aux head's 5x5, the phase
    kernels of its stride-2 convs and the dx of all of them).
@@ -1667,6 +1689,298 @@ def phase_resume(batch: int, card: str, workdir: Path) -> dict:
     return out
 
 
+# Phase 5d: a run's telemetry and its evaluation.  ResNet-50 at full width
+# through fit with a workdir: TELEMETRY_STEPS steps, the hooks every
+# TELEMETRY_EVERY; eval of its checkpoint over EVAL_BATCHES batches;
+# transformer_lm trained LM_TRAIN_STEPS steps and evaluated over
+# LM_EVAL_BATCHES.
+TELEMETRY_STEPS = 12
+TELEMETRY_EVERY = 4
+EVAL_BATCHES = 8
+LM_TRAIN_STEPS = 4
+LM_EVAL_BATCHES = 4
+# FLOPs of one resnet50_synthetic training step per image of the batch, as
+# train_loop.step_flops counts them (every tap of each padded conv,
+# forward and backward; elementwise work 0): the count taken on the CPU
+# (meta device) for batch 256, 6,220,563,873,792, over 256.
+R50_STEP_FLOPS_PER_IMAGE = 24_299_077_632
+# K1 against its plain version in eval: each conv's bf16 output may round
+# the other way, so near-tied logits of the random-weight model can swap
+# ranks; at most 1 % of the examples may change their top-1 or top-5
+# verdict, and the mean xent may move by 2^-7 relative.  K2 against its
+# plain version: the perplexity to 1e-3 relative.
+EVAL_COUNT_TOL = 0.01
+EVAL_XENT_RTOL = 2.0 ** -7
+LM_PPL_RTOL = 1e-3
+# Keys TelemetryHook injects into every metrics.jsonl row at its cadence.
+TELEMETRY_KEYS = ("step_time_s", "data_wait_s", "dispatch_s",
+                  "steps_per_sec", "stall_fraction", "mfu", "compile_count",
+                  "compile_s", "checkpoint_s", "startup/restore_s",
+                  "startup/time_to_first_step_s", "host_queue_depth",
+                  "restarts", "rollbacks", "skipped_batches")
+# Declared registry keys a one-process run does not emit: no fault
+# injection, fleet or serving stack in the port, no restore in a fresh
+# run, one input worker (no pool), no watchdog.
+ALLOW_MISSING = ("chaos/", "fleet/", "serve/", "checkpoint/restore",
+                 "pipeline/reassembly_wait", "pipeline/worker_busy",
+                 "train/watchdog_last_progress_s")
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every K1/K6 launch and every K2 launch replaced by its plain
+    version on the same CUDA tensors (``conv_mxu._core_reference`` on the
+    materialised window, ``attention._flash_forward_reference``); the
+    launch counters do not move."""
+    from distributed_tensorflow_models_tpu_torch.ops import attention
+    from distributed_tensorflow_models_tpu_torch.ops import conv_mxu
+
+    def k1_plain(x, kernel, win, pipelined, out=None):
+        kh, kw = kernel.shape[:2]
+        h0, w0, sh, sw, oh, ow = win
+        y = conv_mxu._core_reference(conv_mxu._materialize_window(
+            x, (h0, w0, sh, sw, oh + kh - 1, ow + kw - 1)), kernel)
+        return y if out is None else out.copy_(y)
+
+    saved = conv_mxu._launch_window, attention.flash_forward
+    conv_mxu._launch_window = k1_plain
+    attention.flash_forward = attention._flash_forward_reference
+    try:
+        yield
+    finally:
+        conv_mxu._launch_window, attention.flash_forward = saved
+
+
+@contextlib.contextmanager
+def without_telemetry_hooks():
+    """``fit`` with an inert hook in place of ``TelemetryHook`` and
+    ``TensorBoardHook``: the arm that prices them."""
+    from distributed_tensorflow_models_tpu_torch.harness import hooks
+    from distributed_tensorflow_models_tpu_torch.harness import train
+
+    class Inert(hooks.Hook):
+        def __init__(self, *args, **kw):
+            pass
+
+        def wants_step(self, step):
+            return False
+
+    saved = train.hooklib.TelemetryHook, train.hooklib.TensorBoardHook
+    train.hooklib.TelemetryHook = train.hooklib.TensorBoardHook = Inert
+    try:
+        yield
+    finally:
+        train.hooklib.TelemetryHook, train.hooklib.TensorBoardHook = saved
+
+
+def fit_kept(cfg, workdir: Path):
+    """``fit`` on the card in chunks of ``STEPS_PER_LOOP`` into ``workdir``,
+    its checkpoint kept for an eval; fails unless the step was captured
+    once and replayed for every later step."""
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+
+    cfg = cfg.replace(steps_per_loop=STEPS_PER_LOOP)
+    torch.cuda.empty_cache()
+    r = trainlib.fit(cfg, str(workdir), device="cuda")
+    if (r.captures, r.replayed_steps) != (1, cfg.train_steps - 1):
+        fail(f"{cfg.name}: {r.captures} captures, {r.replayed_steps} "
+             f"replayed steps of {cfg.train_steps}")
+    summarize_run({"steps": r.state.step}, r.history, cfg.train_steps)
+    return r
+
+
+def check_telemetry(workdir: Path, steps: int, every: int) -> dict:
+    """The run's ``telemetry.json``, ``metrics.jsonl`` and TensorBoard
+    events: the four fractions sum to 1, a capture counted as a compile
+    event, the step's FLOPs counted, a row every ``every`` steps carrying
+    the telemetry keys, one event record per row behind the file's
+    version record (each record's checksums verified); both files pass
+    the repository's schema lint.  Returns the report and the rows."""
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.data import tfrecord
+
+    report = json.loads((workdir / "telemetry.json").read_text())
+    frac = report["fractions"]
+    if (set(frac) != {"compute", "data_stall", "checkpoint", "compile"}
+            or abs(math.fsum(frac.values()) - 1.0) > 1e-9
+            or min(frac.values()) < 0):
+        fail(f"telemetry.json fractions {frac}")
+    if report["compile_events"] < 1 or not report["flops_per_step"] > 0:
+        fail(f"telemetry.json: {report['compile_events']} compile events, "
+             f"flops_per_step {report['flops_per_step']}")
+    if (report["steps"], report["device_kind"], report["n_devices"]) != (
+            steps, torch.cuda.get_device_name(0), 1):
+        fail(f"telemetry.json: steps {report['steps']}, device "
+             f"{report['device_kind']}, {report['n_devices']} devices")
+    rows = [json.loads(line) for line in
+            (workdir / "metrics.jsonl").read_text().splitlines()]
+    if [r["step"] for r in rows] != list(range(every, steps + 1, every)):
+        fail(f"metrics.jsonl rows at steps {[r['step'] for r in rows]}")
+    for row in rows:
+        missing = [k for k in TELEMETRY_KEYS if k not in row]
+        if missing or not all(math.isfinite(row[k]) for k in TELEMETRY_KEYS):
+            fail(f"metrics.jsonl row {row['step']}: missing {missing}")
+    (events,) = (workdir / "tensorboard").iterdir()
+    records = list(tfrecord.read_records(events))
+    if len(records) != 1 + len(rows) or b"brain.Event:2" not in records[0]:
+        fail(f"{events}: {len(records)} records for {len(rows)} rows")
+    lint = str(ROOT / "scripts" / "check_metrics_schema.py")
+    allow = [a for p in ALLOW_MISSING for a in ("--allow-missing", p)]
+    registry = str(ROOT / "distributed_tensorflow_models_tpu_torch"
+                   / "telemetry" / "registry.py")
+    for args in ([str(workdir / "metrics.jsonl"), "--require-telemetry"],
+                 [str(workdir / "telemetry.json"), "--declared-coverage",
+                  registry, *allow]):
+        proc = subprocess.run([sys.executable, lint, *args],
+                              capture_output=True, text=True)
+        if proc.returncode:
+            fail(f"schema lint {args[1:]}: {proc.stderr}{proc.stdout}")
+    return {"report": report, "rows": rows}
+
+
+def phase_telemetry_eval(batch: int, card: str, workdir: Path,
+                         fwd_per_batch: int, seed: int) -> dict:
+    """Phase 5d: a run's telemetry and its evaluation on the card."""
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.harness import evaluate
+    from distributed_tensorflow_models_tpu_torch.harness.config import get_config
+    from distributed_tensorflow_models_tpu_torch.ops import attention
+    from distributed_tensorflow_models_tpu_torch.ops import conv as convlib
+    from distributed_tensorflow_models_tpu_torch.ops import conv_mxu
+
+    k1, k6 = conv_mxu.conv_implicit_gemm, conv_mxu.conv_implicit_gemm_pipelined
+    k2 = attention.flash_forward
+    cfg = get_config("resnet50_synthetic", global_batch_size=batch,
+                     train_steps=TELEMETRY_STEPS,
+                     log_every_steps=TELEMETRY_EVERY,
+                     checkpoint_every_secs=10_000.0, seed=seed)
+    # (a) The K1 arm and the F.conv2d arm: the same FLOPs, the CPU's.
+    arms, tele = {}, {}
+    for label, impl, hooks in (("K1", "mxu", True),
+                               ("F.conv2d", "xla", True),
+                               ("K1 without the hooks", "mxu", False),
+                               ("K1 again", "mxu", True),
+                               ("K1 without the hooks again", "mxu", False)):
+        convlib.set_default_conv_impl(impl)
+        zero_counts((k1, k6))
+        arm_dir = workdir / f"telemetry{len(arms)}"
+        with (contextlib.nullcontext() if hooks
+              else without_telemetry_hooks()):
+            arms[label] = fit_kept(cfg, arm_dir)
+        want = fwd_per_batch * 2 * TELEMETRY_STEPS if impl == "mxu" else 0
+        if (k1.launches, k6.launches) != (want, 0):
+            fail(f"telemetry arm {label}: K1 {k1.launches}, K6 "
+                 f"{k6.launches} launches, expected {want} and 0")
+        if hooks:
+            tele[label] = check_telemetry(arm_dir, TELEMETRY_STEPS,
+                                          TELEMETRY_EVERY)
+        if label != "K1":
+            shutil.rmtree(arm_dir / "checkpoints", ignore_errors=True)
+    convlib.set_default_conv_impl("mxu")
+    want_flops = R50_STEP_FLOPS_PER_IMAGE * batch
+    counts = {label: t["report"]["flops_per_step"]
+              for label, t in tele.items()}
+    log(f"FLOPs a ResNet-50 step (batch {batch}) by arm: {counts}; counted "
+        f"on the CPU: {want_flops}")
+    if set(counts.values()) != {want_flops}:
+        fail(f"flops_per_step {counts}, expected {want_flops} on every arm")
+    for label, t in tele.items():
+        rep, r = t["report"], arms[label]
+        steady = (rep["flops_per_step"] * r.window_steps
+                  / (r.window_s * rep["peak_bf16_flops"])
+                  if rep["peak_bf16_flops"] else 0.0)
+        log(f"telemetry.json, ResNet-50 {label}: MFU {rep['mfu']:.6f} over "
+            f"the run's {rep['total_s']:.3f} s (peak "
+            f"{rep['peak_bf16_flops']} FLOP/s for {rep['device_kind']}), "
+            f"{steady:.6f} over the timed window ({r.window_steps} steps, "
+            f"{r.window_s * 1e3:.1f} ms); fractions {rep['fractions']}; "
+            f"seconds {rep['seconds']}; {rep['compile_events']} compile "
+            f"events; startup {rep['startup']}; interval MFU by row "
+            f"{[(row['step'], round(row['mfu'], 6)) for row in t['rows']]}"
+            f" | {card}")
+    for label, r in arms.items():
+        log(f"hooks' cost, ResNet-50 arm {label}: {r.images_per_sec:.1f} "
+            f"images/s over {r.window_steps} replayed steps "
+            f"({r.window_s * 1e3:.1f} ms) | {card}")
+
+    # (b) Eval of the K1 arm's checkpoint: K1, its plain version and
+    # F.conv2d on the same batches.
+    ckpt = workdir / "telemetry0"
+    evals = {}
+    for label, impl, plain in (("K1", "mxu", False), ("F.conv2d", "xla", False),
+                               ("K1 again", "mxu", False),
+                               ("F.conv2d again", "xla", False),
+                               ("K1's plain version", "mxu", True)):
+        convlib.set_default_conv_impl(impl)
+        zero_counts((k1, k6))
+        with plain_kernels() if plain else contextlib.nullcontext():
+            ev = evaluate.evaluate_classification(
+                cfg, str(ckpt), device="cuda", max_batches=EVAL_BATCHES)
+        want = fwd_per_batch * EVAL_BATCHES if impl == "mxu" and not plain else 0
+        if (k1.launches, k6.launches) != (want, 0):
+            fail(f"eval {label}: K1 {k1.launches}, K6 {k6.launches} "
+                 f"launches, expected {want} and 0")
+        if ev.step != TELEMETRY_STEPS or ev.metrics["count"] != (
+                batch * EVAL_BATCHES):
+            fail(f"eval {label}: step {ev.step}, {ev.metrics}")
+        evals[label] = ev
+        log(f"eval ResNet-50 {label}: {ev.metrics}; K1 launches "
+            f"{k1.launches} ({k1.launches / EVAL_BATCHES:g} a batch); "
+            f"{ev.metrics['count'] / ev.seconds:.1f} images/s over "
+            f"{ev.seconds:.3f} s | {card}")
+    convlib.set_default_conv_impl("mxu")
+    got, ref = evals["K1"].metrics, evals["K1's plain version"].metrics
+    n = ref["count"]
+    flips = {k: abs(got[k] - ref[k]) * n for k in ("top1", "top5")}
+    xent_rel = abs(got["xent"] - ref["xent"]) / abs(ref["xent"])
+    log(f"eval K1 against its plain version: top-1/top-5 examples changed "
+        f"{flips} of {n:g} (tolerance {EVAL_COUNT_TOL * n:g}), xent "
+        f"relative difference {xent_rel:.3e} (tolerance {EVAL_XENT_RTOL:.3e})")
+    if max(flips.values()) > EVAL_COUNT_TOL * n or xent_rel > EVAL_XENT_RTOL:
+        fail("eval on K1 disagrees with its plain version")
+    shutil.rmtree(ckpt / "checkpoints", ignore_errors=True)
+
+    # (c) transformer_lm: trained with flash, evaluated on K2 and on its
+    # plain version.
+    lm_cfg = get_config("transformer_lm", attn_impl="flash",
+                        train_steps=LM_TRAIN_STEPS,
+                        checkpoint_every_secs=10_000.0, seed=seed)
+    layers = lm_cfg.model_kwargs["num_layers"]
+    lm_dir = workdir / "telemetry_lm"
+    fit_kept(lm_cfg, lm_dir)
+    lm = {}
+    for label, plain in (("K2", False), ("K2's plain version", True)):
+        k2.launches = 0
+        with plain_kernels() if plain else contextlib.nullcontext():
+            ev = evaluate.evaluate_lm(lm_cfg, str(lm_dir), device="cuda",
+                                      max_batches=LM_EVAL_BATCHES)
+        want = 0 if plain else layers * LM_EVAL_BATCHES
+        if k2.launches != want:
+            fail(f"LM eval {label}: K2 launched {k2.launches}, expected "
+                 f"{want}")
+        if not math.isfinite(ev.metrics["perplexity"]):
+            fail(f"LM eval {label}: {ev.metrics}")
+        tokens = lm_cfg.global_batch_size * lm_cfg.num_steps * LM_EVAL_BATCHES
+        lm[label] = (ev, want)
+        log(f"eval transformer_lm {label}: {ev.metrics}; K2 launches "
+            f"{k2.launches} ({k2.launches // LM_EVAL_BATCHES} a batch); "
+            f"{tokens / ev.seconds:.1f} tokens/s over {ev.seconds:.3f} s | "
+            f"{card}")
+    ppl = [lm[label][0].metrics["perplexity"] for label in lm]
+    ppl_rel = abs(ppl[0] - ppl[1]) / ppl[1]
+    log(f"LM eval K2 against its plain version: perplexity relative "
+        f"difference {ppl_rel:.3e} (tolerance {LM_PPL_RTOL:.0e})")
+    if ppl_rel > LM_PPL_RTOL:
+        fail("LM eval on K2 disagrees with its plain version")
+    shutil.rmtree(lm_dir / "checkpoints", ignore_errors=True)
+    return {"k1_eval_launches": fwd_per_batch * EVAL_BATCHES,
+            "k2_eval_launches": layers * LM_EVAL_BATCHES}
+
+
 def _flash_inputs(shape, seed: int):
     import numpy as np
     import torch
@@ -2225,6 +2539,9 @@ def main(argv=None) -> int:
     parser.add_argument("--resume-only", action="store_true",
                         help="phases 1 and 5c alone, for work on "
                         "checkpoint/resume: no result line")
+    parser.add_argument("--telemetry-only", action="store_true",
+                        help="phases 1 and 5d alone, for work on telemetry "
+                        "and eval: no result line")
     parser.add_argument("--zoo-only", action="store_true",
                         help="phases 1 and 11-13 alone, for work on the "
                         "LeNet, ResNet-32, VGG-16, AlexNet and PTB LSTM "
@@ -2326,6 +2643,12 @@ def main(argv=None) -> int:
         log(card)
         log("resume run: phases 1 and 5c alone, no result")
         return 0
+    if args.telemetry_only:
+        phase_telemetry_eval(args.batch_size, card, workdir / "telemetry",
+                             25, args.seed)
+        log(card)
+        log("telemetry run: phases 1 and 5d alone, no result")
+        return 0
     if args.zoo_only:
         phases_zoo(args.train_steps, args.seed + 4, card, workdir)
         log(card)
@@ -2423,6 +2746,11 @@ def main(argv=None) -> int:
 
     # 5c. Checkpoint/resume on the ResNet-50 path.
     phase_resume(args.batch_size, card, workdir / "resume")
+
+    # 5d. A run's telemetry and its evaluation: ResNet-50 (K1) and
+    # transformer_lm (K2).
+    tel = phase_telemetry_eval(args.batch_size, card, workdir / "telemetry",
+                               roles["fwd"], args.seed)
 
     # 6. K1 and K6 at every launch shape of the Inception-v3 path.
     inc_calls = core_launch_shapes("inception_v3", 299, args.batch_size,
@@ -2563,6 +2891,7 @@ def main(argv=None) -> int:
         "at_alexnet_shapes_ms": zk1["AlexNet"]["ms"],
         "launches_vgg16": zpaths["VGG-16"]["k1"][0],
         "launches_alexnet": zpaths["AlexNet"]["k1"][0],
+        "launches_eval_resnet50": tel["k1_eval_launches"],
     }, {
         "name": "K1 conv_implicit_gemm, f32 form (TF32 wgmma)",
         "route": "cuda",
@@ -2607,6 +2936,8 @@ def main(argv=None) -> int:
             "at_gqa_window_shape": flash[kid]["timed"][gqa_shape],
             "at_d128_sweep_shape": flash[kid]["timed"][d128_shape],
         })
+    next(k for k in kernels if k["name"].startswith("K2 "))[
+        "launches_eval_transformer_lm"] = tel["k2_eval_launches"]
     kernels[-1]["dq_vs_k4"] = flash["dq_vs_k4"]
     if parent is not None:
         kernels[-1]["dq_vs_k4_parent"] = flash["dq_vs_k4_parent"]

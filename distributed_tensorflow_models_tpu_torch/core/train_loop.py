@@ -10,17 +10,20 @@ chunk of stacked batches; on CUDA it captures the step once as a CUDA
 graph, collectives included, and replays it, the counterpart of the JAX
 package's ``make_multi_step``.  :func:`place_state` lays the replicated
 state out without collectives and checks once that every process holds
-the same one.
+the same one.  :func:`step_flops` counts a step's FLOPs for the MFU, the
+counterpart of the JAX package's XLA cost analysis.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 import time
 from typing import Callable, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from distributed_tensorflow_models_tpu_torch import telemetry
 from distributed_tensorflow_models_tpu_torch.core import mesh as meshlib
@@ -31,6 +34,9 @@ from distributed_tensorflow_models_tpu_torch.ops import ema as emalib
 from distributed_tensorflow_models_tpu_torch.ops import losses as losslib
 from distributed_tensorflow_models_tpu_torch.ops import metrics as metriclib
 from distributed_tensorflow_models_tpu_torch.ops import optim
+from distributed_tensorflow_models_tpu_torch.ops.conv import Conv2D
+
+log = logging.getLogger("dtm")
 
 Batch = Mapping[str, torch.Tensor]
 # loss_fn(params, state, batch, rngs) -> (loss, aux); aux may carry
@@ -333,29 +339,71 @@ class MultiStep:
     launch counters (``ops/_kernels.py``) and the collective counters
     (``core/sharding.py``) count what each replay launches, and each call
     adds the collectives its steps issued, and their bytes, to
-    ``registry``'s ``train/collectives`` and ``train/collective_bytes``."""
+    ``registry``'s ``train/collectives`` and ``train/collective_bytes``.
+    A call that captures nothing is timed on the host into
+    ``train/dispatch`` (one record a call: on CUDA the replays' enqueue,
+    on the CPU the eager steps themselves).
+
+    ``flops_of(batch)`` (a batch of the chunk's row shapes, on the device)
+    prices one step: it is called once per batch signature, before the
+    signature's first step, and sets ``train/flops_per_step``; every step
+    run, eager or replayed, then adds that count to ``train/flops_total``
+    on the host, as the launch counters count replays.  A failing count is
+    logged and counts 0."""
 
     def __init__(self, step: Callable, name: str = "the model",
-                 registry: Optional[telemetry.MetricsRegistry] = None):
+                 registry: Optional[telemetry.MetricsRegistry] = None,
+                 flops_of: Optional[Callable[[Batch], float]] = None):
         self.step = step
         self.name = name
         self.registry = registry
+        self.flops_of = flops_of
         self.captures = 0
         self.capture_s = 0.0
         self.replays = 0
         self._captured: dict[tuple, _Captured] = {}
+        self._flops: dict[tuple, float] = {}
         self._stream: Optional[torch.cuda.Stream] = None
+        if registry is not None:
+            # Zero is a reading (no capture on the CPU), absence is not.
+            registry.timer(telemetry.COMPILE)
+            registry.timer(telemetry.DISPATCH)
 
     def __call__(self, state: TrainState, chunk: Batch, seed: int):
         before = shardlib.collective_counts()
+        if self.registry is not None and self.flops_of is not None:
+            k = next(iter(chunk.values())).shape[0]
+            self.registry.counter(telemetry.FLOPS_TOTAL).inc(
+                k * self._step_flops(chunk))
+        captures = self.captures
+        t0 = time.perf_counter()
         state, rows = self._run(state, chunk, seed)
         if self.registry is not None:
+            if self.captures == captures:
+                self.registry.timer(telemetry.DISPATCH).record(
+                    time.perf_counter() - t0)
             issued = shardlib.counts_since(before).values()
             self.registry.counter(telemetry.COLLECTIVES).inc(
                 sum(n for n, _ in issued))
             self.registry.counter(telemetry.COLLECTIVE_BYTES).inc(
                 sum(b for _, b in issued))
         return state, rows
+
+    def _step_flops(self, chunk: Batch) -> float:
+        sig = _signature(chunk)
+        flops = self._flops.get(sig)
+        if flops is None:
+            try:
+                flops = max(float(self.flops_of(
+                    {key: v[0] for key, v in chunk.items()})), 0.0)
+            except Exception:  # noqa: BLE001 — telemetry must not fail a step
+                log.warning("the FLOPs of a step of %s could not be counted; "
+                            "MFU counts them as 0", self.name, exc_info=True)
+                flops = 0.0
+            self._flops[sig] = flops
+            if flops > 0:
+                self.registry.gauge(telemetry.FLOPS_PER_STEP).set(flops)
+        return flops
 
     def _run(self, state: TrainState, chunk: Batch, seed: int):
         k = next(iter(chunk.values())).shape[0]
@@ -372,8 +420,7 @@ class MultiStep:
         if not isinstance(self.step, TrainStep):
             raise TypeError(f"a captured step needs a TrainStep, got "
                             f"{type(self.step).__name__}")
-        sig = tuple((key, tuple(v.shape[1:]), v.dtype)
-                    for key, v in sorted(chunk.items()))
+        sig = _signature(chunk)
         cap = self._captured.get(sig)
         first = 0
         if cap is None:
@@ -460,9 +507,62 @@ class MultiStep:
         return cap
 
 
+def _signature(chunk: Batch) -> tuple:
+    """A chunk's batch signature: its keys, row shapes and dtypes."""
+    return tuple((key, tuple(v.shape[1:]), v.dtype)
+                 for key, v in sorted(chunk.items()))
+
+
 def _state_leaves(state: TrainState) -> list[torch.Tensor]:
     return list(_leaves((state.params, state.batch_stats, state.opt_state,
                          state.ema_params, state.carry, state.device_step)))
+
+
+def library_route(model: torch.nn.Module) -> torch.nn.Module:
+    """Point every lowering knob of ``model`` at the plain formulation, in
+    place: each conv at ``F.conv2d`` (``Conv2D.impl``; the pools'
+    ``conv_impl``), each attention at the reference softmax attention
+    (``attn_impl``).  What :func:`step_flops` counts on, so the count is
+    of the model's work and not of the route the run takes (K1, K6, the
+    patches matmul, ``DTM_CONV_IMPL``, flash or blockwise attention)."""
+    for module in model.modules():
+        if isinstance(module, Conv2D):
+            module.impl = "xla"
+        if hasattr(module, "conv_impl"):
+            module.conv_impl = "xla"
+        if hasattr(module, "attn_impl"):
+            module.attn_impl = "reference"
+    return model
+
+
+def step_flops(loss_fn: LossFn, model: torch.nn.Module, batch: Batch,
+               carry=None, rng_names: Sequence[str] = ("dropout",)) -> float:
+    """FLOPs of one train step's forward and backward: ``loss_fn`` (over
+    ``model``) and ``autograd.grad`` over every parameter, under
+    ``torch.utils.flop_counter.FlopCounterMode``.
+
+    Meant for a copy of the model on the meta device (nothing is computed
+    or allocated) put on the plain formulation (:func:`library_route`):
+    the counter sees only ATen operators, so a hand-written kernel behind
+    ``ctypes`` counts 0, and a replayed CUDA graph runs no operator at
+    all.  It counts the matrix products and convolutions (every tap of a
+    padded convolution, as ``F.conv2d`` computes it); elementwise work,
+    normalisation, reductions, the optimizer's update and the EMA count
+    0.  It runs outside any data-parallel mesh, on ``batch`` as given."""
+    params = dict(model.named_parameters())
+    device = next(iter(params.values())).device
+    state = TrainState(
+        step=0, params=params, batch_stats=dict(model.named_buffers()),
+        opt_state={}, model=model, tx=None, carry=carry,
+        device_step=torch.zeros((), dtype=torch.int64, device=device))
+    rngs = {name: torch.Generator() for name in rng_names}
+    # Outside any data axis: ``batch`` is the whole batch counted, and no
+    # collective may be issued for it.
+    with meshlib.data_parallel(None), FlopCounterMode(
+            display=False) as counter:
+        loss, _ = loss_fn(params, state, batch, rngs)
+        torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    return float(counter.get_total_flops())
 
 
 def make_multi_step(loss_fn: LossFn, rng_names: Sequence[str] = ("dropout",),

@@ -1,7 +1,9 @@
-"""Command-line entry point of the port: ``train`` and ``list``.
+"""Command-line entry point of the port: ``train``, ``eval`` and ``list``.
 
     python -m distributed_tensorflow_models_tpu_torch.harness.cli train \\
         --config resnet50_synthetic --workdir /tmp/r50 --train-steps 3
+    python -m distributed_tensorflow_models_tpu_torch.harness.cli eval \\
+        --config resnet50_synthetic --workdir /tmp/r50 --max-batches 4
     python -m distributed_tensorflow_models_tpu_torch.harness.cli list
 
 Flags are spelled as in the JAX package's CLI.  ``--device`` defaults to
@@ -20,7 +22,16 @@ restarts in process on transient failures (``recoverable_fit``), and on
 SIGTERM writes an emergency checkpoint and exits with
 ``launch.RESUMABLE_EXIT_CODE`` (75): rerunning the same command resumes.
 ``python -m distributed_tensorflow_models_tpu_torch.resilience.fsck
-<workdir>`` checks (and with ``--repair`` clears) the checkpoints.
+<workdir>`` checks (and with ``--repair`` clears) the checkpoints.  The
+workdir also receives ``metrics.jsonl``, TensorBoard events under
+``tensorboard/`` and, on exit, ``telemetry.json`` (the goodput split and
+the MFU).
+
+``eval`` restores the workdir's newest valid checkpoint (the EMA shadows
+when the config keeps them) and prints one JSON line: ``step`` and top-1,
+top-5, xent and the example count for a classifier, perplexity and nll
+for an LM; ``--max-batches`` bounds the pass, ``--continuous``
+re-evaluates each new checkpoint and prints a line for each.
 
 Started by a launcher that sets ``DTM_COORDINATOR_ADDRESS``,
 ``DTM_NUM_PROCESSES`` and ``DTM_PROCESS_ID`` (``launch.py``), ``train``
@@ -44,18 +55,8 @@ def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="dtm-torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     p_train = sub.add_parser("train", help="train a config for N steps")
-    p_train.add_argument("--config", required=True,
-                         help="config name (see `list`)")
-    p_train.add_argument("--workdir", required=True,
-                         help="metrics and checkpoint dir (a rerun resumes "
-                         "from its newest valid checkpoint)")
+    _add_common(p_train)
     p_train.add_argument("--train-steps", type=int, default=None)
-    p_train.add_argument("--batch-size", type=int, default=None)
-    p_train.add_argument("--seed", type=int, default=None)
-    p_train.add_argument("--attn-impl",
-                         choices=("auto", "reference", "blockwise", "flash"),
-                         default=None,
-                         help="attention implementation (auto = blockwise)")
     p_train.add_argument("--data-workers", type=int, default=None,
                          help="host input pipeline: worker threads "
                          "assembling batches behind ordered reassembly (1 = "
@@ -96,9 +97,11 @@ def main(argv: list[str] | None = None) -> int:
                          help="multi-process preemption-notice poll cadence "
                          "in steps (a collective; default 20); one process "
                          "polls at every chunk boundary")
-    p_train.add_argument("--device", default="cuda",
-                         help="torch device (default cuda; cpu must be "
-                         "asked for)")
+    p_eval = sub.add_parser("eval", help="evaluate the latest checkpoint")
+    _add_common(p_eval)
+    p_eval.add_argument("--continuous", action="store_true",
+                        help="re-evaluate as new checkpoints appear")
+    p_eval.add_argument("--max-batches", type=int, default=None)
     sub.add_parser("list", help="list available configs")
     args = parser.parse_args(argv)
 
@@ -113,14 +116,16 @@ def main(argv: list[str] | None = None) -> int:
         return 0
 
     overrides = {}
-    if args.train_steps is not None:
-        overrides["train_steps"] = args.train_steps
     if args.batch_size is not None:
         overrides["global_batch_size"] = args.batch_size
     if args.seed is not None:
         overrides["seed"] = args.seed
     if args.attn_impl is not None:
         overrides["attn_impl"] = args.attn_impl
+    if args.cmd == "eval":
+        return _eval(get_config(args.config, **overrides), args)
+    if args.train_steps is not None:
+        overrides["train_steps"] = args.train_steps
     if args.data_workers is not None:
         overrides["data_workers"] = args.data_workers
     if args.steps_per_loop is not None:
@@ -165,6 +170,51 @@ def main(argv: list[str] | None = None) -> int:
         # Checkpointed and stopped early: the resumable code (BSD
         # EX_TEMPFAIL) tells a launcher "rerun me" from a failure.
         return launch.RESUMABLE_EXIT_CODE
+    return 0
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--config", required=True,
+                   help="config name (see `list`)")
+    p.add_argument("--workdir", required=True,
+                   help="metrics and checkpoint dir (a rerun resumes from "
+                   "its newest valid checkpoint)")
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--attn-impl",
+                   choices=("auto", "reference", "blockwise", "flash"),
+                   default=None,
+                   help="attention implementation (auto = blockwise)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu must be asked "
+                   "for)")
+
+
+def _eval(cfg, args) -> int:
+    from distributed_tensorflow_models_tpu_torch import launch
+    from distributed_tensorflow_models_tpu_torch.harness import (
+        evaluate as evallib,
+    )
+
+    in_cluster = launch.initialize_from_env(device=args.device)
+    try:
+        if args.continuous:
+            for res in evallib.continuous_eval(
+                    cfg, args.workdir, max_batches=args.max_batches,
+                    device=args.device):
+                print(json.dumps({"step": res.step, **res.metrics}),
+                      flush=True)
+            return 0
+        fn = (evallib.evaluate_lm if cfg.task == "lm"
+              else evallib.evaluate_classification)
+        res = fn(cfg, args.workdir, max_batches=args.max_batches,
+                 device=args.device)
+    finally:
+        if in_cluster:
+            import torch.distributed
+
+            torch.distributed.destroy_process_group()
+    print(json.dumps({"step": res.step, **res.metrics}))
     return 0
 
 

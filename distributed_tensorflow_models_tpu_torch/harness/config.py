@@ -158,6 +158,19 @@ class ExperimentConfig:
     # Deterministic fault injection (the JAX package's resilience/chaos.py)
     # is not ported: a non-empty value raises.
     chaos: dict[str, Any] = dataclasses.field(default_factory=dict)
+    # Event tracing (telemetry/trace.py).  trace_ring_events: the bounded
+    # in-memory ring of span/instant events on the run's registry (0 turns
+    # tracing off).  trace_export: write it as Chrome-trace JSON
+    # (<workdir>/trace_p<i>.json) at every fit exit.  flight_recorder: dump
+    # the ring and a registry snapshot to <workdir>/flight_recorder_p<i>.json
+    # on abnormal exits (rollback, preemption, setup failure, crash, and a
+    # SIGTERM's arrival).
+    trace_ring_events: int = 4096
+    trace_export: bool = False
+    flight_recorder: bool = True
+    # Batches an eval pass reads (harness/evaluate.py); None = one pass
+    # over the split.
+    eval_batches: Optional[int] = None
 
     def __post_init__(self):
         wide = {f: getattr(self, f) for f in ("mesh_model", "mesh_seq",

@@ -3,10 +3,12 @@
 The port's copy of the part of ``distributed_tensorflow_models_tpu/
 harness/hooks.py`` that the chunked loop of ``fit`` needs: the ``Hook``
 protocol (with ``wants_step``), :class:`LazyMetricRow`, the stop, step
-counter, NaN guard, logging, metric-writer, checkpoint and
-fault-injection hooks, and the two walks.  The logic is the JAX
-package's; device values are read with torch, and the checkpoint hook's
-multi-process clock poll goes through ``resilience/consensus.py``.
+counter, NaN guard, logging, metric-writer, TensorBoard, telemetry,
+checkpoint, fault-injection and profiler hooks, and the two walks.  The
+logic is the JAX package's; device values are read with torch, the
+checkpoint hook's multi-process clock poll and the telemetry hook's
+per-process gather go through ``resilience/consensus.py`` (host tensors
+on a gloo group), and the profiler is ``torch.profiler``.
 
 Metric readback note: ``after_step`` receives the *device* metrics (a
 :class:`LazyMetricRow` over a chunk's stacked metrics, or a dict of 0-d
@@ -266,6 +268,179 @@ class MetricWriterHook(Hook):
             self._f.close()
 
 
+def _process_index() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+class TensorBoardHook(Hook):
+    """Scalar summaries into TensorBoard event files every ``every_steps``
+    (default 100, the reference's SummarySaverHook cadence — TF
+    monitored_session.py:517-518), via the no-TF writer in
+    :mod:`harness.summary`.  Chief-only, like the reference's
+    SummarySaverHook: only process 0 (``process_index``, by default the
+    process group's rank) writes, so no duplicate event streams."""
+
+    def __init__(self, workdir: str, every_steps: int = 100, *,
+                 process_index: Optional[int] = None):
+        self._writer = None
+        pid = _process_index() if process_index is None else process_index
+        if pid == 0:
+            from distributed_tensorflow_models_tpu_torch.harness.summary import (
+                SummaryWriter,
+            )
+
+            self._writer = SummaryWriter(os.path.join(workdir, "tensorboard"))
+        self._every = every_steps
+
+    def wants_step(self, step):
+        return self._writer is not None and step % self._every == 0
+
+    def after_step(self, state, metrics, step):
+        if self._writer is None or step % self._every:
+            return
+        values = {}
+        for k, v in metrics.items():
+            try:
+                values[k] = float(v)
+            except (TypeError, ValueError, RuntimeError):
+                continue
+        self._writer.scalars(step, values)
+        # Flush each write (log cadence, ~50 bytes a scalar): a live
+        # TensorBoard sees events at once and a SIGKILL loses nothing.
+        self._writer.flush()
+
+    def end(self, state):
+        if self._writer is not None:
+            self._writer.close()
+
+
+class TelemetryHook(Hook):
+    """Snapshot the telemetry registry every ``every_steps`` and inject the
+    derived scalars into the step's ``metrics``, where the writer hooks
+    after it (``MetricWriterHook`` → ``metrics.jsonl``, ``TensorBoardHook``
+    → event files) pick them up on the same cadence.  **Must be ordered
+    before the writer hooks** (``fit`` does this).  It reads only the
+    registry, on the host: no device value, so no sync of its own.
+
+    Injected keys (interval = since the previous cadence firing), the JAX
+    package's: ``step_time_s``, ``data_wait_s`` and ``dispatch_s`` (means
+    per step or per record), ``steps_per_sec``, ``stall_fraction`` (the
+    wait for input's share of the interval's wall), ``mfu`` (FLOPs retired
+    over interval wall × peak; 0.0 when the device has no known peak or
+    the FLOPs are unknown), ``compile_count``/``compile_s``,
+    ``checkpoint_s`` and ``checkpoint/fence_s``, the three ``startup/*``
+    gauges, ``host_queue_depth`` and the ``restarts``/``rollbacks``/
+    ``skipped_batches`` counters.
+
+    The peak is the device's (``telemetry.peak_flops`` of
+    ``telemetry.device_kind(device)``; a CPU has none) times
+    ``n_devices`` (default: the process group's world), since the FLOPs
+    counted are the global batch's.  With several processes the
+    ``[steps/s, stall_fraction]`` pairs are gathered through
+    ``consensus`` (a gloo group of host tensors, never the step's stream
+    or its graph; every process runs the hook at the same steps), and the
+    chief's writers record ``hosts/steps_per_sec_{min,mean}`` and
+    ``hosts/stall_fraction_max``."""
+
+    def __init__(self, registry: telemetry.MetricsRegistry,
+                 every_steps: int = 100,
+                 process_count: Optional[int] = None, *,
+                 device=None, n_devices: Optional[int] = None,
+                 consensus=None):
+        from distributed_tensorflow_models_tpu_torch.resilience import (
+            consensus as conslib,
+        )
+
+        self._reg = registry
+        self._every = every_steps
+        self._consensus = (conslib.Consensus() if consensus is None
+                           else consensus)
+        self._nproc = (self._consensus.process_count if process_count is None
+                       else process_count)
+        try:
+            peak = telemetry.peak_flops(telemetry.device_kind(device))
+            n = telemetry.device_count() if n_devices is None else n_devices
+            self._peak = peak and peak * n
+        except Exception:  # noqa: BLE001 — telemetry must never crash
+            self._peak = None
+        self._last: Optional[tuple[float, int, dict]] = None
+        self.last_emitted: Optional[dict] = None
+
+    def begin(self, state):
+        self._last = (time.perf_counter(), int(state.step),
+                      self._reg.snapshot())
+
+    def wants_step(self, step):
+        # Deterministic in step: the multi-process branch of after_step is
+        # a collective, so every process must walk the same rows.
+        return step % self._every == 0
+
+    def after_step(self, state, metrics, step):
+        if step % self._every:
+            return
+        now = time.perf_counter()
+        snap = self._reg.snapshot()
+        t0, s0, prev = self._last or (now, step, {})
+        self._last = (now, step, snap)
+        d_wall = max(now - t0, 1e-9)
+        d_steps = max(step - s0, 0)
+
+        def delta(key: str) -> float:
+            return snap.get(key, 0.0) - prev.get(key, 0.0)
+
+        def mean(name: str) -> float:
+            n = delta(f"{name}/count")
+            return delta(f"{name}/total_s") / n if n else 0.0
+
+        data_wait = delta(f"{telemetry.DATA_WAIT}/total_s")
+        sps = d_steps / d_wall
+        stall_frac = data_wait / d_wall
+        flops_done = delta(telemetry.FLOPS_TOTAL)
+        out = {
+            "step_time_s": mean(telemetry.STEP_TIME),
+            "data_wait_s": data_wait / max(d_steps, 1),
+            "dispatch_s": mean(telemetry.DISPATCH),
+            "steps_per_sec": sps,
+            "stall_fraction": stall_frac,
+            "mfu": (flops_done / (d_wall * self._peak)
+                    if self._peak and flops_done > 0 else 0.0),
+            "compile_count": snap.get(f"{telemetry.COMPILE}/count", 0.0),
+            "compile_s": snap.get(f"{telemetry.COMPILE}/total_s", 0.0),
+            "checkpoint_s": (
+                snap.get(f"{telemetry.CKPT_SAVE}/total_s", 0.0)
+                + snap.get(f"{telemetry.CKPT_RESTORE}/total_s", 0.0)
+                + snap.get(f"{telemetry.CKPT_WAIT}/total_s", 0.0)
+                + snap.get(f"{telemetry.CKPT_FENCE}/total_s", 0.0)
+            ),
+            "checkpoint/fence_s": snap.get(
+                f"{telemetry.CKPT_FENCE}/total_s", 0.0),
+            "startup/restore_s": snap.get(telemetry.STARTUP_RESTORE, 0.0),
+            "startup/aot_compile_s": snap.get(
+                telemetry.STARTUP_AOT_COMPILE, 0.0),
+            "startup/time_to_first_step_s": snap.get(
+                telemetry.STARTUP_FIRST_STEP, 0.0),
+            "host_queue_depth": snap.get(telemetry.HOST_QUEUE_DEPTH, 0.0),
+            # Always the three together (the schema lint checks the set).
+            "restarts": snap.get(telemetry.RESTARTS, 0.0),
+            "rollbacks": snap.get(telemetry.ROLLBACKS, 0.0),
+            "skipped_batches": snap.get(telemetry.SKIPPED_BATCHES, 0.0),
+        }
+        if self._nproc > 1:
+            gathered = self._consensus.allgather_floats(
+                [sps, stall_frac], label="telemetry")
+            rates = [row[0] for row in gathered]
+            out["hosts/steps_per_sec_min"] = min(rates)
+            out["hosts/steps_per_sec_mean"] = sum(rates) / len(rates)
+            out["hosts/stall_fraction_max"] = max(row[1] for row in gathered)
+        self.last_emitted = out
+        if isinstance(metrics, MutableMapping):
+            # A dict, or a LazyMetricRow (overlay write): both carry the
+            # injection to the writer hooks after this one.
+            metrics.update(out)
+
+
 class CheckpointHook(Hook):
     """Save every ``every_secs`` (default 600 s, the reference's
     CheckpointSaverHook default — TF monitored_session.py:525-528), every
@@ -369,6 +544,50 @@ class FaultInjectionHook(Hook):
         if step == self._step and not self._fired:
             self._fired = True
             raise self._exc_factory()
+
+
+class ProfilerHook(Hook):
+    """Profile steps [start, stop) with ``torch.profiler`` (host and, on
+    a card, device activity) and export a Chrome trace to
+    ``<workdir>/profile/trace_<start>_<stop>.json``: the Timeline/
+    FULL_TRACE replacement (SURVEY.md §5.1; TF client/timeline.py:410).
+    In the chunked loop a chunk ends at each of the two steps, so the
+    trace holds exactly the chunks of those steps."""
+
+    def __init__(self, workdir: str, start_step: int, stop_step: int):
+        self._dir = os.path.join(workdir, "profile")
+        self._start = start_step
+        self._stop = stop_step
+        self._prof = None
+        self.path: Optional[str] = None
+
+    def wants_step(self, step):
+        return (self._prof is None and step == self._start) or (
+            self._prof is not None and step >= self._stop)
+
+    def after_step(self, state, metrics, step):
+        if step == self._start and self._prof is None:
+            import torch
+
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=acts)
+            self._prof.start()
+        elif step >= self._stop and self._prof is not None:
+            self._finish(step)
+
+    def _finish(self, step: int) -> None:
+        prof, self._prof = self._prof, None
+        prof.stop()
+        os.makedirs(self._dir, exist_ok=True)
+        self.path = os.path.join(self._dir,
+                                 f"trace_{self._start}_{step}.json")
+        prof.export_chrome_trace(self.path)
+
+    def end(self, state):
+        if self._prof is not None:
+            self._finish(int(state.step))
 
 
 def run_hooks_after_step(hooks: Sequence[Hook], state, metrics, step) -> bool:

@@ -14,9 +14,12 @@ its newest valid checkpoint and saves on the config's cadence
 (``harness/checkpoint.py``), answers a preemption notice with an
 emergency checkpoint, can roll a divergence back to the last finite
 checkpoint, and runs under a progress watchdog (``resilience/``);
-:func:`recoverable_fit` restarts it on transient failures.  The
-telemetry reports are not ported yet; ``fit`` reports per-step metrics,
-step time and images/s or tokens/s of the global batch.
+:func:`recoverable_fit` restarts it on transient failures.  Every run
+keeps a telemetry registry with an event tracer; given a workdir, ``fit``
+writes ``metrics.jsonl`` (with the telemetry hook's keys), TensorBoard
+events and, on either exit, ``telemetry.json`` (the goodput report with
+the MFU), and a flight record on abnormal exits.  It returns per-step
+metrics, step time and images/s or tokens/s of the global batch.
 """
 
 from __future__ import annotations
@@ -147,16 +150,59 @@ def build_state(cfg: ExperimentConfig, device: torch.device,
 
 
 def build_loss(cfg: ExperimentConfig, state: TrainState):
+    return _loss_of(cfg, state.model)
+
+
+def _loss_of(cfg: ExperimentConfig, model: torch.nn.Module):
     if cfg.task == "lm":
-        forward = inspect.signature(state.model.forward).parameters
+        forward = inspect.signature(model.forward).parameters
         if cfg.fused_unembed and "return_hidden" not in forward:
             raise ValueError("fused_unembed requires a model with a "
                              f"return_hidden path ({cfg.model!r} has none)")
-        return train_loop.lm_loss_fn(state.model,
-                                     fused_unembed=cfg.fused_unembed)
+        return train_loop.lm_loss_fn(model, fused_unembed=cfg.fused_unembed)
     return train_loop.classification_loss_fn(
-        state.model, label_smoothing=cfg.label_smoothing,
+        model, label_smoothing=cfg.label_smoothing,
         weight_decay=cfg.weight_decay, aux_loss_weight=cfg.aux_loss_weight)
+
+
+# The counts taken in this process, by everything a count depends on (the
+# model's and the loss's settings, the global batch's shapes): the fits of
+# one configuration (arms in turns, a test's several runs) would otherwise
+# each build and trace the model on the meta device again (~1.3 s for
+# ResNet-50, ~2.8 s for Inception-v3).
+_STEP_FLOPS: dict[tuple, float] = {}
+
+
+def step_flops_fn(cfg: ExperimentConfig, mesh: meshlib.Mesh):
+    """``batch -> FLOPs`` of one step of ``cfg`` at the global batch (this
+    process's rows times the data axis), for ``MultiStep``'s ``flops_of``:
+    the config's model built anew on the meta device, put on the plain
+    formulation (``train_loop.library_route``) and counted by
+    ``train_loop.step_flops``.  The count is the model's, whatever route
+    the run's convolutions and attention take, and the same on every
+    process."""
+
+    def count(batch) -> float:
+        rows = next(iter(batch.values())).shape[0] * mesh.data_size
+        key = (cfg.model, repr(sorted(_model_kwargs(cfg).items())), cfg.task,
+               cfg.fused_unembed, cfg.label_smoothing, cfg.weight_decay,
+               cfg.aux_loss_weight, rows,
+               tuple((k, tuple(v.shape[1:]), v.dtype)
+                     for k, v in sorted(batch.items())))
+        if key not in _STEP_FLOPS:
+            with torch.device("meta"):
+                model = get_model(cfg.model, **_model_kwargs(cfg))
+                meta = {k: torch.empty((rows, *v.shape[1:]), dtype=v.dtype)
+                        for k, v in batch.items()}
+                carry = (model.initial_carry(rows, torch.device("meta"))
+                         if cfg.task == "lm"
+                         and hasattr(model, "initial_carry") else None)
+            train_loop.library_route(model)
+            _STEP_FLOPS[key] = train_loop.step_flops(
+                _loss_of(cfg, model), model, meta, carry)
+        return _STEP_FLOPS[key]
+
+    return count
 
 
 def build_step(cfg: ExperimentConfig, state: TrainState):
@@ -337,6 +383,20 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
     and writes ``metrics.jsonl``; every process stops at the same step
     and runs the NaN guard on the same (averaged) metrics.
 
+    Telemetry: the run owns a fresh registry, threaded through the
+    pipeline, the step (``MultiStep``: captures under ``train/compile``,
+    calls under ``train/dispatch``, the FLOPs of :func:`step_flops_fn`),
+    the checkpoint manager and a ``TelemetryHook`` ahead of the writer
+    hooks, with a ``Tracer`` of ``cfg.trace_ring_events`` events on it.
+    With a workdir the chief writes ``metrics.jsonl`` and TensorBoard
+    events at ``log_every_steps`` and, on exit, success *and* failure,
+    ``<workdir>/telemetry.json``: the goodput report splitting the wall
+    time into compute, data stall, checkpoint and capture, with the MFU
+    against the card's peak (``telemetry/goodput.py``); every process
+    writes ``flight_recorder_p<i>.json`` at a rollback, preemption, setup
+    failure, crash or SIGTERM (``cfg.flight_recorder``) and, with
+    ``cfg.trace_export``, ``trace_p<i>.json``.
+
     Batches come through the stack the JAX package's ``fit`` builds:
     :class:`HostPipeline` (``prefetch=4``, ``max(1, cfg.data_workers)``
     workers) assembles them on host threads, :class:`DevicePrefetcher`
@@ -386,19 +446,41 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
     if cfg.nan_policy == "rollback" and not workdir:
         raise ValueError("nan_policy='rollback' restores checkpoints: fit "
                          "needs a workdir")
+    t_run0 = time.perf_counter()
     if mesh is None:
         mesh = mesh_from_config(cfg, device)
     elif device is not None and torch.device(device).type != mesh.device.type:
         raise ValueError(f"fit was asked for {device} on a mesh of "
                          f"{mesh.device}")
     dev = resolve_device(mesh.device)
-    state = train_loop.place_state(build_state(cfg, dev, mesh), mesh)
     registry = telemetry.MetricsRegistry()
     registry.counter(telemetry.RESTARTS).inc(restarts)
     registry.counter(telemetry.ROLLBACKS)
     registry.counter(telemetry.SKIPPED_BATCHES)
-    multi = train_loop.MultiStep(build_step(cfg, state), name=cfg.model,
-                                 registry=registry)
+    # Nothing is compiled ahead of time: the step's capture is its compile
+    # (train/compile, at the first step).
+    registry.gauge(telemetry.STARTUP_AOT_COMPILE).set(0.0)
+    ring = int(cfg.trace_ring_events or 0)
+    tracer = telemetry.Tracer(capacity=max(1, ring),
+                              process_index=mesh.rank, enabled=ring > 0)
+    registry.trace = tracer
+    state: Optional[TrainState] = None
+
+    def dump_flight(reason: str) -> None:
+        """The ring and a registry snapshot to ``flight_recorder_p<i>.json``
+        (best-effort: forensics must never be what fails training)."""
+        if not workdir or not cfg.flight_recorder or not tracer.enabled:
+            return
+        try:
+            os.makedirs(workdir, exist_ok=True)
+            tracer.dump_flight_record(
+                telemetry.flight_record_path(workdir, tracer.process_index),
+                reason, registry,
+                extra={"step": -1 if state is None else state.step})
+        except Exception:  # noqa: BLE001
+            log.exception("flight-record dump (%s) failed", reason)
+
+    tracer.instant("fit/entry", {"config": cfg.name, "restarts": restarts})
     # Every fleet-visible decision (save skip/replace, restore pick,
     # restore-vs-init, preemption, divergence) is the chief's; with one
     # process (or a mesh of one) an exact no-op.
@@ -407,24 +489,39 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
                                      mesh.world_size if grouped else 1)
     manager = None
     restored = False
-    if workdir:
-        manager = ckptlib.CheckpointManager(
-            workdir, keep=cfg.keep_checkpoints,
-            process_index=consensus.process_index,
-            process_count=consensus.process_count, registry=registry,
-            consensus=consensus)
-        t0 = time.perf_counter()
-        state, data_state, restored = ckptlib.restore_or_init(manager,
-                                                              state)
-        registry.gauge(telemetry.STARTUP_RESTORE).set(
-            time.perf_counter() - t0)
-    restored_from = state.step if restored else None
-    dataset = build_dataset(cfg, mesh=mesh)
-    if restored and data_state.get("dataset") and hasattr(dataset,
-                                                          "set_state"):
-        dataset.set_state(data_state["dataset"])
+    try:
+        state = train_loop.place_state(build_state(cfg, dev, mesh), mesh)
+        multi = train_loop.MultiStep(build_step(cfg, state), name=cfg.model,
+                                     registry=registry,
+                                     flops_of=step_flops_fn(cfg, mesh))
+        if workdir:
+            manager = ckptlib.CheckpointManager(
+                workdir, keep=cfg.keep_checkpoints,
+                process_index=consensus.process_index,
+                process_count=consensus.process_count, registry=registry,
+                consensus=consensus)
+            t0 = time.perf_counter()
+            state, data_state, restored = ckptlib.restore_or_init(manager,
+                                                                  state)
+            registry.gauge(telemetry.STARTUP_RESTORE).set(
+                time.perf_counter() - t0)
+        restored_from = state.step if restored else None
+        dataset = build_dataset(cfg, mesh=mesh)
+        if restored and data_state.get("dataset") and hasattr(dataset,
+                                                              "set_state"):
+            dataset.set_state(data_state["dataset"])
+    except BaseException:
+        dump_flight("setup_failure")
+        raise
     chief = mesh.rank == 0
-    hooks: list[hooklib.Hook] = [hooklib.StopAtStepHook(cfg.train_steps)]
+    hooks: list[hooklib.Hook] = [
+        hooklib.StopAtStepHook(cfg.train_steps),
+        # Before the writer hooks, which record what it injects; on every
+        # process (its multi-process gather is a collective).
+        hooklib.TelemetryHook(registry, cfg.log_every_steps,
+                              consensus.process_count, device=dev,
+                              n_devices=mesh.data_size, consensus=consensus),
+    ]
     if chief:
         hooks += [
             hooklib.StepCounterHook(cfg.log_every_steps,
@@ -495,7 +592,7 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
                                      f"{bad_step}")
 
     preempted = False
-    rollbacks = skipped = 0
+    rollbacks = skipped = steps_run = 0
     # Rollback bookkeeping, the JAX package's: pending [step, n] discards
     # n batches when the replay reaches step; executed skips are
     # re-scheduled when a later rollback rewinds behind them.
@@ -555,10 +652,23 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
 
     watchdog = None
     listener_installed = False
+    fwatch: Optional[telemetry.FlightWatcher] = None
+    looping = False
+
+    def final_dump(reason: str) -> None:
+        # Stop the signal watcher first, so that its thinner at-arrival
+        # record cannot overwrite this one later.
+        if fwatch is not None:
+            fwatch.stop()
+        dump_flight(reason)
+
     try:
         if workdir and chief:
-            hooks.append(hooklib.MetricWriterHook(workdir,
-                                                  cfg.log_every_steps))
+            hooks += [
+                hooklib.MetricWriterHook(workdir, cfg.log_every_steps),
+                hooklib.TensorBoardHook(workdir, cfg.log_every_steps,
+                                        process_index=0),
+            ]
         hooks.append(hooklib.NanGuardHook(cfg.log_every_steps))
         if manager is not None:
             hooks.append(hooklib.CheckpointHook(
@@ -570,6 +680,14 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
             hooks.append(_PreemptPollHook(poll_steps))
         if listener is not None:
             listener_installed = own_listener and listener.install()
+        if (listener is not None and workdir and cfg.flight_recorder
+                and tracer.enabled):
+            # At-arrival forensics: a SIGTERM'd process wedged in a
+            # collective never reaches its chunk-boundary poll; the watcher
+            # dumps the moment the signal lands.
+            fwatch = telemetry.FlightWatcher(dump_flight)
+            if not fwatch.install():
+                fwatch = None
         if cfg.watchdog_timeout_s:
             watchdog = resilience.ProgressWatchdog(
                 cfg.watchdog_timeout_s, registry=registry,
@@ -583,6 +701,7 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
             save_fn(state)
             manager.wait()
         start = time.perf_counter()
+        looping = True
         while state.step < cfg.train_steps:
             first = state.step
             if preempt_due(first):
@@ -594,6 +713,7 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
                     save_fn(state)
                     manager.wait()
                 preempted = True
+                final_dump("preempted")
                 break
             while pending_skips and pending_skips[0][0] <= first:
                 skip_at, n = pending_skips.pop(0)
@@ -610,6 +730,8 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
                 executed_skips.append((first, done))
                 log.warning("rollback: advanced the dataset cursor past %d "
                             "offending batch(es) at step %d", done, first)
+                # Refresh the rollback's record with its last act.
+                dump_flight("rollback")
             k_req = _chunk_len(first, cfg, hooks)
             if pending_skips:
                 # A chunk is one call: a scheduled skip is exact only if
@@ -637,6 +759,7 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
                 window[1] += k
                 window[2] += t1 - t0
             t2 = time.perf_counter()
+            steps_run += k
             for _ in range(k):
                 registry.timer(telemetry.STEP_TIME).record((t2 - t0) / k)
             chunks.append((first, rows, _sizes(cfg, chunk, mesh), k, t1 - t0,
@@ -661,14 +784,24 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
                     raise
                 rollbacks += 1
                 registry.counter(telemetry.ROLLBACKS).inc()
+                dump_flight("rollback")
                 ok = True
+            # One complete event per chunk (dispatch and hook walk).
+            tracer.complete("train/chunk", time.perf_counter() - t0,
+                            ts_mono=t0, args={"start": first, "k": k})
+            first_step = registry.gauge(telemetry.STARTUP_FIRST_STEP)
+            if first_step.value == 0.0:
+                # Fit entry to the first completed chunk.
+                first_step.set(time.perf_counter() - t_run0)
             if watchdog is not None:
                 watchdog.beat(state.step)
             if not ok:
                 break
         _sync(dev)
         window_s = (time.perf_counter() - window[0]) if window else None
-    except BaseException:
+    except BaseException as e:
+        tracer.instant("fit/abort", {"step": state.step,
+                                     "error": repr(e)[:200]})
         for h in hooks:
             try:
                 h.abort(state)
@@ -679,10 +812,18 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
                 manager.wait()
             except Exception:
                 log.exception("checkpoint write failed during error cleanup")
+        # A goodput report from a crashed run is what its post-mortem
+        # wants; the trace gauges land before the report's snapshot.
+        final_dump("crash" if looping else "setup_failure")
+        _export_trace(workdir, registry, cfg)
+        _write_telemetry_report(workdir, registry, t_run0, steps_run, dev,
+                                mesh)
         raise
     finally:
         if watchdog is not None:
             watchdog.stop()
+        if fwatch is not None:
+            fwatch.stop()
         if listener_installed:
             listener.uninstall()
         _close_quietly(batches, host)
@@ -696,8 +837,17 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
         except BaseException as e:
             log.exception("hook %r end() failed", h)
             end_error = end_error or e
-    if manager is not None:
-        manager.wait()
+    try:
+        if manager is not None:
+            manager.wait()
+    finally:
+        # After the last wait: the report's checkpoint share includes the
+        # final save's wait until durable.
+        tracer.instant("fit/end", {"steps_run": steps_run,
+                                   "preempted": preempted})
+        _export_trace(workdir, registry, cfg)
+        _write_telemetry_report(workdir, registry, t_run0, steps_run, dev,
+                                mesh)
     if end_error is not None:
         raise end_error
     if preempted:
@@ -715,6 +865,54 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
         registry=registry, preempted=preempted, restored_from=restored_from,
         rollbacks=rollbacks, skipped_batches=skipped,
         saves=manager.save_log if manager is not None else [])
+
+
+def _export_trace(workdir: Optional[str],
+                  registry: telemetry.MetricsRegistry,
+                  cfg: ExperimentConfig) -> None:
+    """Per process, best-effort: stamp the ``trace/*`` gauges (how far the
+    ring reached, how much it dropped) and, under ``cfg.trace_export``,
+    write the Chrome trace ``<workdir>/trace_p<i>.json``.  Runs on both
+    exit paths, before the telemetry report snapshots the registry."""
+    tracer = registry.trace
+    if not tracer.enabled:
+        return
+    try:
+        registry.gauge(telemetry.TRACE_EVENTS).set(float(tracer.emitted))
+        registry.gauge(telemetry.TRACE_DROPPED).set(float(tracer.dropped))
+        if cfg.trace_export and workdir:
+            os.makedirs(workdir, exist_ok=True)
+            tracer.dump_chrome(
+                telemetry.chrome_trace_path(workdir, tracer.process_index))
+    except Exception:  # noqa: BLE001 — reporting must never mask training
+        log.exception("trace export failed")
+
+
+def _write_telemetry_report(workdir: Optional[str],
+                            registry: telemetry.MetricsRegistry,
+                            t_run0: float, steps_run: int,
+                            dev: torch.device, mesh: meshlib.Mesh) -> None:
+    """Chief-only, best-effort ``<workdir>/telemetry.json`` goodput report:
+    the run's device (a CPU has no peak, so its MFU is 0) and the data
+    axis's devices, over which the counted FLOPs of the global batch ran."""
+    if not workdir or mesh.rank != 0:
+        return
+    try:
+        report = telemetry.goodput_report(
+            registry, total_s=time.perf_counter() - t_run0, steps=steps_run,
+            kind=telemetry.device_kind(dev) or dev.type,
+            n_devices=mesh.data_size)
+        telemetry.write_report(os.path.join(workdir, "telemetry.json"),
+                               report)
+        frac = report["fractions"]
+        log.info(
+            "goodput: compute %.1f%%, data stall %.1f%%, checkpoint %.1f%%, "
+            "compile %.1f%% over %.1fs (%d compile events, mfu %.4f)",
+            100 * frac["compute"], 100 * frac["data_stall"],
+            100 * frac["checkpoint"], 100 * frac["compile"],
+            report["total_s"], report["compile_events"], report["mfu"])
+    except Exception:  # noqa: BLE001 — reporting must never mask training
+        log.exception("failed to write telemetry.json")
 
 
 def default_recoverable_errors() -> tuple[type[BaseException], ...]:

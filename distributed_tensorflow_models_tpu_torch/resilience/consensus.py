@@ -15,8 +15,10 @@ that as two allgather-based primitives:
 - :meth:`Consensus.allgather_int` — every process returns the full
   per-process vector (for any-host / earliest-host reductions);
 
-plus :meth:`Consensus.any_flag` built on them.  With one process both are
-**exact no-ops** — no collective, the local value straight back.
+plus :meth:`Consensus.any_flag` built on them, and
+:meth:`Consensus.allgather_floats` for the telemetry hook's per-process
+rates.  With one process all are **exact no-ops** — no collective, the
+local value straight back.
 
 The default :class:`Backend` is ``torch.distributed`` over a **gloo group
 of its own** (``dist.new_group(backend="gloo")``, made at the first
@@ -56,19 +58,34 @@ class Backend:
 
     def allgather(self, value: int) -> Sequence[int]:
         import torch
-        import torch.distributed as dist
 
         if not -(2**31) <= int(value) < 2**31:
             raise ValueError(
                 f"consensus value {value} does not fit the int32 wire"
             )
+        local = torch.tensor([int(value)], dtype=torch.int32)
+        return [int(t.item()) for t in self._gather(local)]
+
+    def allgather_floats(self, values: Sequence[float]
+                         ) -> list[list[float]]:
+        """Every process's float vector (f64 on the wire), on the same
+        gloo group: host telemetry, never the step's stream."""
+        import torch
+
+        local = torch.tensor([float(v) for v in values],
+                             dtype=torch.float64)
+        return [t.tolist() for t in self._gather(local)]
+
+    def _gather(self, local):
+        import torch
+        import torch.distributed as dist
+
         if self._group is None:
             self._group = dist.new_group(backend="gloo")
         world = dist.get_world_size(self._group)
-        local = torch.tensor([int(value)], dtype=torch.int32)
         out = [torch.empty_like(local) for _ in range(world)]
         dist.all_gather(out, local, group=self._group)
-        return [int(t.item()) for t in out]
+        return out
 
 
 class Consensus:
@@ -125,6 +142,16 @@ class Consensus:
         if self._backend is None:
             self._backend = Backend()
         return list(self._backend.allgather(int(value)))
+
+    def allgather_floats(self, values: Sequence[float], *,
+                         label: str = "") -> list[list[float]]:
+        """Every process's ``values`` (index == process index), for host
+        telemetry.  Single-process: ``[values]``, no collective."""
+        if not self.active:
+            return [[float(v) for v in values]]
+        if self._backend is None:
+            self._backend = Backend()
+        return [list(row) for row in self._backend.allgather_floats(values)]
 
     def broadcast_int(self, value: int, *, label: str = "") -> int:
         """The chief's ``value``, on every process.  Single-process: the

@@ -1,20 +1,32 @@
-"""Telemetry of the port: the metrics registry and the event tracer.
+"""Telemetry of the port: the metrics registry, the event tracer and the
+goodput report.
 
 The port's own copies of ``distributed_tensorflow_models_tpu/telemetry/``'s
-``registry.py`` and ``trace.py`` (stdlib only):
+``registry.py``, ``trace.py`` and ``goodput.py``:
 
 - :mod:`registry` — counters, gauges, timers (p50/p95/max over a bounded
   reservoir), ``span(name)`` and the canonical metric names.
 - :mod:`trace` — the bounded ring of span/instant events attached to each
   registry as ``registry.trace``, its flight-recorder dump and
   Chrome-trace export.
+- :mod:`goodput` — ``telemetry.json``: the run's wall time split into
+  compute, data stall, checkpoint and compile, and MFU against the card's
+  peak (``peak_flops``: the H100's dense bf16 rate, or ``DTM_PEAK_FLOPS``).
 
 ``data/pipeline.py`` records queue depth, producer wait, worker busy,
 reassembly wait and prefetch fill stalls into an injectable registry
-(default: the process-global one).  The goodput report, SLO monitor and
-time-series writer of the JAX package are not ported yet.
+(default: the process-global one); ``fit`` gives each run a registry of
+its own, with a tracer, and writes its goodput report.  The SLO monitor
+and time-series writer of the JAX package are not ported yet.
 """
 
+from distributed_tensorflow_models_tpu_torch.telemetry.goodput import (  # noqa: F401
+    device_count,
+    device_kind,
+    goodput_report,
+    peak_flops,
+    write_report,
+)
 from distributed_tensorflow_models_tpu_torch.telemetry.registry import (  # noqa: F401
     CHAOS_ARMED_UNFIRED,
     CKPT_FENCE,

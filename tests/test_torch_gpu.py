@@ -40,6 +40,13 @@ optimizers against their per-tensor forms bit for bit.
 Checkpoint/resume: a run of cut ResNet-32 killed at step 4 and resumed
 from its checkpoint must equal the straight run bit for bit.
 
+Eval (``harness/evaluate.py``) of a checkpoint on the card: cut ResNet-32
+on K1's f32 form and cut ``transformer_lm`` on K2, each against the same
+eval with every launch replaced by its plain version (the same top-k
+counts within one example, xent to 2e-3 and perplexity to 1e-3 relative:
+TF32 products and bf16 attention round differently from the plain f32
+and bf16 versions).
+
 Data parallel: a world-1 NCCL process group, its collectives captured
 and replayed with the step, must leave cut ResNet-32's ``fit`` equal to
 the ``fit`` without a group bit for bit.
@@ -53,6 +60,7 @@ K4's bit for bit (the JAX package's pair and staged backwards promise the
 same dQ).
 """
 
+import contextlib
 import itertools
 import math
 import threading
@@ -1295,3 +1303,66 @@ def test_nccl_group_of_one_replays_equal_replays_without_a_group(cuda):
         "bn_moments": bn * steps, "bn_moments_grad": bn * steps}
     assert grouped.registry.snapshot()["train/collectives"] == (
         (2 + 2 * bn) * steps)
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """Every K1/K6 and K2 launch replaced by its plain version on the same
+    CUDA tensors; the launch counters do not move."""
+    def k1_plain(x, kernel, win, pipelined, out=None):
+        kh, kw = kernel.shape[:2]
+        h0, w0, sh, sw, oh, ow = win
+        y = conv_mxu._core_reference(conv_mxu._materialize_window(
+            x, (h0, w0, sh, sw, oh + kh - 1, ow + kw - 1)), kernel)
+        return y if out is None else out.copy_(y)
+
+    saved = conv_mxu._launch_window, attnlib.flash_forward
+    conv_mxu._launch_window = k1_plain
+    attnlib.flash_forward = attnlib._flash_forward_reference
+    try:
+        yield
+    finally:
+        conv_mxu._launch_window, attnlib.flash_forward = saved
+
+
+@pytest.mark.parametrize("case", ["resnet32_cifar10", "transformer_lm"])
+def test_eval_on_the_kernels_matches_their_plain_versions(cuda, tmp_path,
+                                                          case):
+    """ResNet-32 cut to two blocks a stage (its three stage-2 3x3 convs
+    with 64 input channels on K1's f32 form: 3 forward launches a batch;
+    at full depth the eval-mode BatchNorm of a 4-step checkpoint passes
+    the residual stream's growth through 15 blocks, the xent reaches
+    ~2.7e5 and TF32's rounding moves it 0.3 %) and cut ``transformer_lm``
+    (K2 once a layer a batch) trained 4 steps on the card, then evaluated
+    over 3 batches on the kernels and on their plain versions."""
+    from distributed_tensorflow_models_tpu_torch.harness import config as tconfig
+    from distributed_tensorflow_models_tpu_torch.harness import evaluate
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+
+    name, over, _ = REPLAY_CASES[case]
+    if case == "resnet32_cifar10":
+        over = {**over, "model_kwargs": {"conv_impl": "mxu",
+                                         "blocks_per_stage": 2}}
+    cfg = tconfig.get_config(name, train_steps=4, steps_per_loop=4,
+                             checkpoint_every_secs=1e4, **over)
+    trainlib.fit(cfg, str(tmp_path), device="cuda")
+    run = (evaluate.evaluate_lm if cfg.task == "lm"
+           else evaluate.evaluate_classification)
+    k1, k2 = conv_mxu.conv_implicit_gemm, attnlib.flash_forward
+    k1.launches = k2.launches = 0
+    got = run(cfg, str(tmp_path), device="cuda", max_batches=3)
+    launches = (k1.launches, k2.launches)
+    with _plain_kernels():
+        want = run(cfg, str(tmp_path), device="cuda", max_batches=3)
+    assert (k1.launches, k2.launches) == launches
+    if cfg.task == "lm":
+        assert launches == (0, 2 * 3)
+        assert got.metrics["perplexity"] == pytest.approx(
+            want.metrics["perplexity"], rel=1e-3)
+    else:
+        assert launches == (3 * 3, 0)
+        assert got.metrics["count"] == want.metrics["count"] == 24
+        for k in ("top1", "top5"):
+            assert abs(got.metrics[k] - want.metrics[k]) * 24 <= 1
+        assert got.metrics["xent"] == pytest.approx(want.metrics["xent"],
+                                                    rel=2e-3)

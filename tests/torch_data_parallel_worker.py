@@ -10,10 +10,11 @@ Each process joins the group through the port's
 :data:`CASES` for a few steps through ``fit``; process 0 writes the losses,
 the gradient norms and the replicated state to ``<outdir>/<case>.npz``, and
 every process its carry rows to ``<outdir>/<case>_carry_p<i>.npz``.  Then
-three checks that need several processes: a run killed at a checkpoint and
-resumed (:func:`resume_check`), ``all_reduce_mean_`` on tensors of three
-dtypes, and ``place_state``'s replica check on states built from different
-seeds (``<outdir>/checks_p<i>.json``).  This module imports only
+four checks that need several processes: a run killed at a checkpoint and
+resumed (:func:`resume_check`), a run's telemetry and the eval of its
+checkpoint (:func:`telemetry_check`), ``all_reduce_mean_`` on tensors of
+three dtypes, and ``place_state``'s replica check on states built from
+different seeds (``<outdir>/checks_p<i>.json``).  This module imports only
 the port (the test imports :data:`CASES` from it).
 """
 
@@ -56,6 +57,11 @@ CASES = {
 RESUME = CASES["ptb_medium"].replace(train_steps=6, log_every_steps=2,
                                      checkpoint_every_secs=10_000.0,
                                      checkpoint_every_steps=2)
+# The telemetry case: LeNet with a workdir, the telemetry hook firing every
+# 2 steps, then EVAL_BATCHES batches of eval on its checkpoint.
+TELEMETRY = CASES["lenet_mnist"].replace(train_steps=4, log_every_steps=2,
+                                         checkpoint_every_secs=10_000.0)
+EVAL_BATCHES = 2
 # all_reduce_mean_ inputs: process i holds (i + 1) x these values.
 MIXED = {"f32": (torch.float32, [1.5, -2.25, 3.0]),
          "bf16": (torch.bfloat16, [[0.5, 1.25], [-4.0, 8.0]]),
@@ -95,6 +101,28 @@ def resume_check(workdir: str) -> dict:
     }
 
 
+def telemetry_check(workdir: str) -> dict:
+    """Two processes' ``fit`` of :data:`TELEMETRY` into ``workdir`` and an
+    eval of its checkpoint: this process's eval metrics and, on the chief,
+    the run's ``telemetry.json`` and ``metrics.jsonl`` rows."""
+    import torch.distributed as dist
+
+    from distributed_tensorflow_models_tpu_torch.harness import evaluate
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+
+    trainlib.fit(TELEMETRY, workdir, device="cpu")
+    ev = evaluate.evaluate_classification(TELEMETRY, workdir, device="cpu",
+                                          max_batches=EVAL_BATCHES)
+    out = {"eval": ev.metrics, "step": ev.step}
+    if dist.get_rank() == 0:
+        with open(os.path.join(workdir, "telemetry.json")) as f:
+            report = json.load(f)
+        out["report"] = {k: v for k, v in report.items() if k != "metrics"}
+        with open(os.path.join(workdir, "metrics.jsonl")) as f:
+            out["rows"] = [json.loads(line) for line in f]
+    return out
+
+
 def main(outdir: str) -> int:
     from distributed_tensorflow_models_tpu_torch import launch
 
@@ -123,7 +151,9 @@ def main(outdir: str) -> int:
                          *[t.numpy() for t in
                            train_loop._leaves(r.state.carry)])
 
-        checks = {"resume": resume_check(os.path.join(outdir, "resume"))}
+        checks = {"resume": resume_check(os.path.join(outdir, "resume")),
+                  "telemetry": telemetry_check(
+                      os.path.join(outdir, "telemetry"))}
         mesh = trainlib.mesh_from_config(CASES["lenet_mnist"], "cpu")
         tensors = {k: torch.tensor(v, dtype=dt) * (pid + 1)
                    for k, (dt, v) in MIXED.items()}
