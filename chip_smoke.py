@@ -113,6 +113,24 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    batch) and on its plain version, the perplexity within
    ``LM_PPL_RTOL``; tokens/s of each.  ``--telemetry-only`` runs phases 1
    and 5d alone.
+5e. Fault injection and the localhost fleet (``resilience/chaos.py``,
+   ``launch.py``) on the ResNet-50 path (batch 256, K1, chunks of 4, a
+   checkpoint every 4 steps), every ``fit`` capturing once, against a
+   straight 8-step run: (a) ``nan_policy="rollback"`` with the NaN of
+   ``nan_at_step=6`` written into the replayed chunk's second row: one
+   rollback, the chunk's four batches skipped, state and losses bit for
+   bit those of a straight run without them; (b) a 6-step run whose final
+   save is torn (``torn_checkpoint_at_step``), resumed to 8 by walking
+   back to step 4; (c) the CLI with ``--chaos sigterm_at_step=4`` exits 75
+   and the same command resumes; (d) the CLI under ``python -m
+   distributed_tensorflow_models_tpu_torch.launch --num-processes 1
+   --max-restarts 1`` with ``--chaos kill_at_step=6``: the child SIGKILLs
+   itself once, the launcher attributes it and relaunches, the relaunch
+   resumes; each ending at the straight run's state bit for bit, K1 50
+   launches for every step run (the relaunch's from its CLI line), the
+   ``fleet/*`` gauges in its ``metrics.jsonl``, each drill's seconds and
+   the relaunch's startup milestones printed.  ``--chaos-only`` runs
+   phases 1 and 5e alone.
 6. Phase 2 at every launch shape of one ``inception_v3_imagenet`` step at
    batch 256 (the 1x7, 7x1, 1x3, 3x1 taps, the aux head's 5x5, the phase
    kernels of its stride-2 convs and the dx of all of them).
@@ -201,7 +219,7 @@ lines are the card's name and power limit, a ``{"kernels": ...}`` JSON line (K1
 to K6, K5 as its two launches, K1's and K6's f32 forms as entries of their
 own) and ``{"ok": true, "device": {...}}``.  ``--zoo-only`` runs phases 1
 and 11-13 alone, ``--dp-only`` phases 1 and 5b, ``--resume-only`` phases
-1 and 5c.  Each ``fit`` given a workdir under ``build/chip_smoke`` (emptied
+1 and 5c, ``--chaos-only`` phases 1 and 5e.  Each ``fit`` given a workdir under ``build/chip_smoke`` (emptied
 at the start) saves a final checkpoint there, which the smoke deletes.
 """
 
@@ -1521,7 +1539,7 @@ def _fit_once(cfg, workdir, label: str, **kw):
                      None if workdir is None else str(workdir),
                      device="cuda", **kw)
     if r.captures != 1:
-        fail(f"resume phase, {label}: {r.captures} captures, expected 1")
+        fail(f"fit ({label}): {r.captures} captures, expected 1")
     return r
 
 
@@ -1687,6 +1705,310 @@ def phase_resume(batch: int, card: str, workdir: Path) -> dict:
     log("resume phase: " + json.dumps(out))
     shutil.rmtree(workdir, ignore_errors=True)
     return out
+
+
+# Phase 5e: fault injection and the localhost fleet on the ResNet-50 path.
+# Every drill trains CHAOS_STEPS steps in chunks of STEPS_PER_LOOP, a
+# checkpoint every STEPS_PER_LOOP: (a) NaN written into the batch of
+# CHAOS_NAN_AT (the second row of the chunk 5-8); (b) a run of
+# CHAOS_TORN_RUN steps whose final save is torn, resumed; (c) SIGTERM after
+# CHAOS_SIGTERM_AT; (d) SIGKILL after CHAOS_KILL_AT, in a supervised child
+# saving every CHAOS_KILL_EVERY steps: the save at the kill's step first
+# waits for the one before it to be written, so the relaunch finds that
+# one durable whatever the kill cuts short.
+CHAOS_STEPS = 8
+CHAOS_NAN_AT = 6
+CHAOS_TORN_RUN = 6
+CHAOS_SIGTERM_AT = 4
+CHAOS_KILL_AT = 6
+CHAOS_KILL_EVERY = 2
+# The supervised drill's processes (launcher, child, relaunch), at most.
+CHAOS_FLEET_TIMEOUT_S = 600
+
+
+def _fit_over(wrap, cfg, workdir, label: str):
+    """``_fit_once`` with ``build_dataset`` wrapped by ``wrap``."""
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+
+    build = trainlib.build_dataset
+    trainlib.build_dataset = lambda c, split="train", mesh=None: wrap(
+        build(c, split, mesh))
+    try:
+        return _fit_once(cfg, workdir, label)
+    finally:
+        trainlib.build_dataset = build
+
+
+def _checkpoint_diff(step_dir: Path, state) -> list:
+    """Names of the state tensors in ``step_dir``'s ``state.pt`` that
+    differ from ``state``'s (any name, shape, dtype or bit)."""
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.harness import checkpoint
+
+    saved = torch.load(step_dir / "state.pt", weights_only=True)
+    want, _ = checkpoint.flatten_state(state)
+    if sorted(saved) != sorted(want):
+        return ["<names>"]
+    return [k for k in want if not torch.equal(saved[k], want[k].cpu())]
+
+
+def _cli_in_process(argv: list) -> tuple:
+    from distributed_tensorflow_models_tpu_torch.harness import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def _supervised(argv: list, timeout_s: float) -> tuple:
+    """``argv`` (the port's launcher) in a session of its own, its output
+    captured; the whole session is killed if it outlives ``timeout_s``."""
+    import signal
+
+    proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        fail(f"chaos (d): the supervised fleet ran past {timeout_s} s; "
+             f"stderr tail: {err[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    return proc.returncode, out, err
+
+
+def phase_chaos(batch: int, card: str, workdir: Path, k1,
+                k1_per_step: int) -> dict:
+    """Fault injection (``resilience/chaos.py``) and the localhost fleet
+    (``launch.py``) on the ResNet-50 path at full width (batch ``batch``,
+    K1 on every 3x3 conv, chunks of ``STEPS_PER_LOOP``, a checkpoint every
+    ``STEPS_PER_LOOP`` steps), every ``fit`` capturing the step once, in a
+    workdir emptied first, against a straight run of ``CHAOS_STEPS``:
+
+    (a) ``nan_policy="rollback"`` with ``--chaos nan_at_step=6``: the NaN
+        is written into the stacked chunk 5-8 (its second row) before the
+        step copies it in; one rollback to step 4, the chunk's batches
+        skipped (the reference's rule: exactly the offending chunk), every
+        state tensor and loss equal bit for bit to a straight run over the
+        stream without batches 5-8, ``chaos/armed_unfired`` 0, the fire on
+        the flight record;
+    (b) ``torn_checkpoint_at_step=6`` on a 6-step run (its final save
+        torn once durable): fsck reports the walk-back, and the rerun to 8
+        restores step 4 and ends at the straight state;
+    (c) the CLI with ``--chaos sigterm_at_step=4``: it exits 75
+        (``RESUMABLE_EXIT_CODE``) after its emergency checkpoint at 4, and
+        the same command again resumes at 4 to a step-8 checkpoint equal to
+        the straight state;
+    (d) the CLI under the port's launcher (``python -m ...launch
+        --num-processes 1 --max-restarts 1``, so a world-1 NCCL group)
+        with ``--chaos kill_at_step=6``: the child SIGKILLs itself once
+        (the durable marker under ``.chaos_fired``), the launcher
+        attributes the death to process 0, prints the startup milestones
+        and relaunches it; the relaunch resumes from its checkpoint, exits
+        0 with K1 at 50 a step it trained, and its step-8 checkpoint equals
+        the straight state; ``metrics.jsonl`` rows carry the
+        ``fleet/*`` gauges.  It saves every ``CHAOS_KILL_EVERY`` steps, so
+        the save at step 6 waits for step 4's write and the relaunch
+        resumes at 4.
+
+    K1's counter must advance by ``k1_per_step`` for every step each
+    in-process run executes (the rolled-back chunk included); each
+    drill's seconds and the relaunch's milestones are printed.  Nothing
+    here is caught: any mismatch fails the run."""
+    import ast
+    import socket
+
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch import telemetry
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+    from distributed_tensorflow_models_tpu_torch.harness.config import get_config
+    from distributed_tensorflow_models_tpu_torch.resilience import fsck
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    t_phase = time.perf_counter()
+    cfg = get_config("resnet50_synthetic", global_batch_size=batch,
+                     train_steps=CHAOS_STEPS, log_every_steps=STEPS_PER_LOOP,
+                     checkpoint_every_secs=None,
+                     checkpoint_every_steps=STEPS_PER_LOOP,
+                     keep_checkpoints=2)
+    seconds = {}
+    k1_start = k1.launches
+
+    def drill(label: str, steps: int, run):
+        before = k1.launches
+        t0 = time.perf_counter()
+        out = run()
+        seconds[label] = round(time.perf_counter() - t0, 3)
+        got = k1.launches - before
+        if got != k1_per_step * steps:
+            fail(f"chaos {label}: K1 launched {got} times, expected "
+                 f"{k1_per_step} x {steps} steps")
+        return out
+
+    straight = drill("straight", CHAOS_STEPS, lambda: _fit_once(
+        cfg, None, "chaos straight"))
+    want_losses = [h["loss"] for h in straight.history]
+    # (a): the poisoned chunk runs, then its replay: 4 + 4 + 4 steps.
+    rolled = drill("(a) nan_at_step", CHAOS_STEPS + STEPS_PER_LOOP,
+                   lambda: _fit_once(cfg.replace(
+                       nan_policy="rollback",
+                       chaos={"nan_at_step": CHAOS_NAN_AT}),
+                       workdir / "a", "chaos (a)"))
+    snap = rolled.registry.snapshot()
+    record = json.loads((workdir / "a" / "flight_recorder_p0.json")
+                        .read_text())
+    events = {e["name"] for e in record["events"]}
+    if ((rolled.rollbacks, rolled.skipped_batches) != (1, STEPS_PER_LOOP)
+            or [h["step"] for h in rolled.history]
+            != list(range(1, CHAOS_STEPS + 1))
+            or snap[telemetry.CHAOS_ARMED_UNFIRED] != 0.0
+            or not {"chaos/nan_at_step", "train/rollback"} <= events):
+        fail(f"chaos (a): {rolled.rollbacks} rollbacks, "
+             f"{rolled.skipped_batches} skipped, steps "
+             f"{[h['step'] for h in rolled.history]}, armed_unfired "
+             f"{snap[telemetry.CHAOS_ARMED_UNFIRED]}, events {sorted(events)}")
+    probe = trainlib.build_dataset(cfg)
+    it = iter(probe)
+    after = []
+    for _ in range(CHAOS_STEPS):
+        next(it)
+        after.append(probe.get_state())
+    del probe, it
+    without = drill("(a) straight without 5-8", CHAOS_STEPS,
+                    lambda: _fit_over(lambda ds: DropBatches(
+                        ds, after[STEPS_PER_LOOP:2 * STEPS_PER_LOOP]), cfg,
+                        None, "chaos (a) without"))
+    diff = _state_diff(rolled.state, without.state)
+    losses = [h["loss"] for h in rolled.history]
+    if diff or losses != [h["loss"] for h in without.history]:
+        fail(f"chaos (a): the rolled-back run differs from a straight run "
+             f"without batches 5-8: {len(diff)} state tensors ({diff[:3]})")
+    log(f"chaos (a): NaN written into row 2 of the chunk 5-8 (step "
+        f"{CHAOS_NAN_AT}): 1 rollback to step {STEPS_PER_LOOP}, its "
+        f"{STEPS_PER_LOOP} batches skipped, 1 capture, armed_unfired 0; "
+        f"state and losses equal bit for bit to a straight run without "
+        f"batches 5-8 | {card}")
+    del rolled, without
+    # (b)
+    torn = {"torn_checkpoint_at_step": CHAOS_TORN_RUN}
+    drill("(b) torn run", CHAOS_TORN_RUN, lambda: _fit_once(
+        cfg.replace(train_steps=CHAOS_TORN_RUN, chaos=torn), workdir / "b",
+        "chaos (b) torn run"))
+    report = fsck.fsck_checkpoints(str(workdir / "b" / "checkpoints"))
+    if (report["latest_step"], report["newest_valid_step"]) != (
+            CHAOS_TORN_RUN, STEPS_PER_LOOP):
+        fail(f"chaos (b): fsck says latest {report['latest_step']}, newest "
+             f"valid {report['newest_valid_step']}")
+    walked = drill("(b) resumed", CHAOS_STEPS - STEPS_PER_LOOP,
+                   lambda: _fit_once(cfg.replace(chaos=torn), workdir / "b",
+                                     "chaos (b) resumed"))
+    diff = _state_diff(walked.state, straight.state)
+    if walked.restored_from != STEPS_PER_LOOP or diff:
+        fail(f"chaos (b): restored from {walked.restored_from}, {len(diff)} "
+             f"state tensors differ from the straight run")
+    log(f"chaos (b): step {CHAOS_TORN_RUN} torn (COMMITTED and "
+        f"manifest.json deleted once durable), fsck: walk back to "
+        f"{STEPS_PER_LOOP}; the resume restored {walked.restored_from} and "
+        f"ended bit-identical | {card}")
+    del walked
+    # (c)
+    flags = ["--config", "resnet50_synthetic", "--batch-size", str(batch),
+             "--train-steps", str(CHAOS_STEPS), "--steps-per-loop",
+             str(STEPS_PER_LOOP), "--log-every-steps", str(STEPS_PER_LOOP),
+             "--device", "cuda"]
+    argv = ["train", "--workdir", str(workdir / "c"), *flags,
+            "--checkpoint-every-steps", str(STEPS_PER_LOOP), "--chaos",
+            f"sigterm_at_step={CHAOS_SIGTERM_AT}"]
+    torch.cuda.empty_cache()
+    rc, out = drill("(c) sigterm", CHAOS_SIGTERM_AT,
+                    lambda: _cli_in_process(argv))
+    if (rc, out["preempted"], out["steps"], out["captures"]) != (
+            75, True, CHAOS_SIGTERM_AT, 1):
+        fail(f"chaos (c): the CLI returned {rc}: {out}")
+    rc, out = drill("(c) rerun", CHAOS_STEPS - CHAOS_SIGTERM_AT,
+                    lambda: _cli_in_process(argv))
+    diff = _checkpoint_diff(workdir / "c" / "checkpoints" / str(CHAOS_STEPS),
+                            straight.state)
+    if (rc, out["restored_from"], out["steps"], out["captures"]) != (
+            0, CHAOS_SIGTERM_AT, CHAOS_STEPS, 1) or diff:
+        fail(f"chaos (c): the rerun returned {rc}: {out}; {len(diff)} state "
+             f"tensors differ ({diff[:3]})")
+    log(f"chaos (c): CLI --chaos sigterm_at_step={CHAOS_SIGTERM_AT} exited "
+        f"75 (preempted at {CHAOS_SIGTERM_AT}); the same command resumed "
+        f"and its step-{CHAOS_STEPS} checkpoint equals the straight run bit "
+        f"for bit | {card}")
+    k1_in_process = k1.launches - k1_start
+    # (d)
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    wd = workdir / "d"
+    argv = [sys.executable, "-m", "distributed_tensorflow_models_tpu_torch."
+            "launch", "--num-processes", "1", "--max-restarts", "1",
+            "--term-grace", "10", "--coordinator", f"127.0.0.1:{port}", "--",
+            sys.executable, "-m",
+            "distributed_tensorflow_models_tpu_torch.harness.cli", "train",
+            "--workdir", str(wd), *flags, "--checkpoint-every-steps",
+            str(CHAOS_KILL_EVERY), "--chaos", f"kill_at_step={CHAOS_KILL_AT}"]
+    t0 = time.perf_counter()
+    rc, out, err = _supervised(argv, CHAOS_FLEET_TIMEOUT_S)
+    seconds["(d) supervised"] = round(time.perf_counter() - t0, 3)
+    lines = [line for line in out.splitlines()
+             if line.startswith('{"final_metrics"')]
+    mttr = {}
+    for m in re.finditer(r"fleet startup MTTR \((launch|relaunch) (\d)\).*?"
+                         r"p0=(\{[^}]*\})", err):
+        mttr[f"{m.group(1)} {m.group(2)}"] = ast.literal_eval(m.group(3))
+    if rc != 0 or len(lines) != 1:
+        fail(f"chaos (d): the launcher exited {rc} with {len(lines)} result "
+             f"lines; stderr tail: {err[-3000:]}")
+    res = json.loads(lines[0])
+    resumed_at = res["restored_from"]
+    k1_relaunch = res["kernel_launches"].get("conv_implicit_gemm.launches", 0)
+    rows = [json.loads(line) for line in
+            (wd / "metrics.jsonl").read_text().splitlines()]
+    report = json.loads((wd / "telemetry.json").read_text())
+    diff = _checkpoint_diff(wd / "checkpoints" / str(CHAOS_STEPS),
+                            straight.state)
+    fleet_ok = rows and all(
+        r.get(telemetry.FLEET_PEERS_ALIVE) == 1.0
+        and r.get(telemetry.FLEET_STEP_LAG) == 0.0
+        and telemetry.FLEET_HEARTBEAT_AGE in r for r in rows)
+    if ("process 0 died on SIGKILL" not in err
+            or "relaunch 1" not in mttr
+            or not (wd / ".chaos_fired" / "kill_at_step").exists()
+            or res["steps"] != CHAOS_STEPS or res["captures"] != 1
+            or resumed_at != CHAOS_KILL_AT - CHAOS_KILL_EVERY
+            or k1_relaunch != k1_per_step * (CHAOS_STEPS - resumed_at)
+            or report["metrics"][telemetry.CHAOS_ARMED_UNFIRED] != 0.0
+            or not fleet_ok or diff):
+        fail(f"chaos (d): result {res}; milestones {mttr}; K1 in the "
+             f"relaunch {k1_relaunch}; fleet rows {rows}; {len(diff)} state "
+             f"tensors differ ({diff[:3]}); stderr tail: {err[-3000:]}")
+    log(f"chaos (d): launcher (1 process, max 1 restart): the child "
+        f"SIGKILLed itself after step {CHAOS_KILL_AT} (marker written), "
+        f"'process 0 died on SIGKILL', relaunched; the relaunch resumed at "
+        f"{resumed_at}, K1 {k1_relaunch} launches ({k1_per_step} x "
+        f"{CHAOS_STEPS - resumed_at} steps), its step-{CHAOS_STEPS} "
+        f"checkpoint equals the straight run bit for bit; metrics.jsonl "
+        f"fleet/* gauges at steps {[r['step'] for r in rows]} | {card}")
+    for key in sorted(mttr):
+        log(f"chaos (d) startup milestones, {key}: {mttr[key]} (seconds "
+            f"from spawn: first beat, loop entry, first step) | {card}")
+    seconds["phase"] = round(time.perf_counter() - t_phase, 3)
+    log(f"chaos phase seconds: {seconds} | {card}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return {"k1_launches": k1_in_process, "k1_relaunch": k1_relaunch,
+            "seconds": seconds, "milestones": mttr}
 
 
 # Phase 5d: a run's telemetry and its evaluation.  ResNet-50 at full width
@@ -2542,6 +2864,9 @@ def main(argv=None) -> int:
     parser.add_argument("--telemetry-only", action="store_true",
                         help="phases 1 and 5d alone, for work on telemetry "
                         "and eval: no result line")
+    parser.add_argument("--chaos-only", action="store_true",
+                        help="phases 1 and 5e alone, for work on fault "
+                        "injection and the launcher: no result line")
     parser.add_argument("--zoo-only", action="store_true",
                         help="phases 1 and 11-13 alone, for work on the "
                         "LeNet, ResNet-32, VGG-16, AlexNet and PTB LSTM "
@@ -2649,6 +2974,14 @@ def main(argv=None) -> int:
         log(card)
         log("telemetry run: phases 1 and 5d alone, no result")
         return 0
+    if args.chaos_only:
+        k1_per_step = len(core_launch_shapes("resnet50", 224,
+                                             args.batch_size))
+        phase_chaos(args.batch_size, card, workdir / "chaos", k1,
+                    k1_per_step)
+        log(card)
+        log("chaos run: phases 1 and 5e alone, no result")
+        return 0
     if args.zoo_only:
         phases_zoo(args.train_steps, args.seed + 4, card, workdir)
         log(card)
@@ -2751,6 +3084,15 @@ def main(argv=None) -> int:
     # transformer_lm (K2).
     tel = phase_telemetry_eval(args.batch_size, card, workdir / "telemetry",
                                roles["fwd"], args.seed)
+
+    # 5e. Fault injection and the localhost fleet on the ResNet-50 path,
+    # K1's counter zeroed just before it and read just after.
+    zero_counts((k1, k6))
+    chaos = phase_chaos(args.batch_size, card, workdir / "chaos", k1,
+                        len(calls))
+    if chaos["k1_launches"] != k1.launches or k6.launches:
+        fail(f"chaos phase: K1 counter {k1.launches} (the drills counted "
+             f"{chaos['k1_launches']}), K6 {k6.launches}")
 
     # 6. K1 and K6 at every launch shape of the Inception-v3 path.
     inc_calls = core_launch_shapes("inception_v3", 299, args.batch_size,
@@ -2892,6 +3234,8 @@ def main(argv=None) -> int:
         "launches_vgg16": zpaths["VGG-16"]["k1"][0],
         "launches_alexnet": zpaths["AlexNet"]["k1"][0],
         "launches_eval_resnet50": tel["k1_eval_launches"],
+        "launches_chaos_resnet50": chaos["k1_launches"],
+        "launches_chaos_relaunch_resnet50": chaos["k1_relaunch"],
     }, {
         "name": "K1 conv_implicit_gemm, f32 form (TF32 wgmma)",
         "route": "cuda",

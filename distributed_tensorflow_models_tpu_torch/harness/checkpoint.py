@@ -79,7 +79,7 @@ import threading
 import time
 import uuid
 from collections.abc import Mapping
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 
@@ -251,6 +251,7 @@ class CheckpointManager:
         process_count: Optional[int] = None,
         registry: Optional[telemetry.MetricsRegistry] = None,
         consensus: Optional[conslib.Consensus] = None,
+        step_filter: Optional[Callable[[Sequence[int]], Sequence[int]]] = None,
     ):
         if keep < 1:
             raise ValueError(f"keep must be at least 1, got {keep}")
@@ -269,6 +270,12 @@ class CheckpointManager:
         # injected ones: those exist so that sidecar paths are testable in
         # one process, which must not be handed real collectives.
         self._consensus = live if consensus is None else consensus
+        # View filter (the chaos visibility-skew simulation,
+        # ``hide_newest_ckpt``): applied to every *listing* this manager
+        # reasons from — all_steps, latest_step, the save decision and the
+        # restore walk's candidates — never to reads or to the retention
+        # sweep, which is the real shape of object-store metadata lag.
+        self._step_filter = step_filter
         # Zero-vs-missing: both record only on warning paths, and zero is
         # the healthy reading; the fence records only when a save waited.
         self._registry.timer(telemetry.CKPT_FENCE)
@@ -299,10 +306,18 @@ class CheckpointManager:
     def is_chief(self) -> bool:
         return self._pid == 0
 
+    @property
+    def directory(self) -> str:
+        """The checkpoint root (``<workdir>/checkpoints``, absolute)."""
+        return self._dir
+
     def all_steps(self) -> list[int]:
         """Ascending retained steps (rollback and restore candidates), as
-        this process sees them."""
-        return fscklib.list_steps(self._dir)
+        this process sees them (``step_filter`` applied)."""
+        steps = fscklib.list_steps(self._dir)
+        if self._step_filter is not None:
+            steps = sorted(self._step_filter(steps))
+        return steps
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()

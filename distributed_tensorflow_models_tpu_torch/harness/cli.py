@@ -10,8 +10,9 @@ Flags are spelled as in the JAX package's CLI.  ``--device`` defaults to
 ``cuda``; the run raises when no GPU is found unless ``--device cpu`` is
 given.  ``train`` prints one JSON object with the final metrics, the
 steady-state step time and the end-to-end images/s and, for an LM, tokens/s
-(the wait for input included), and how the steps ran (CUDA-graph captures,
-their seconds, the steps replayed).  ``--attn-impl`` picks the attention of
+(the wait for input included), how the steps ran (CUDA-graph captures,
+their seconds, the steps replayed) and each hand-written kernel's launches
+in the process.  ``--attn-impl`` picks the attention of
 attention models: ``flash`` runs kernels K2-K4 on the card (K2 and K5
 with ``DTM_FLASH_BWD=staged``).
 
@@ -21,6 +22,9 @@ config's cadence (and every ``--checkpoint-every-steps``) and at the end,
 restarts in process on transient failures (``recoverable_fit``), and on
 SIGTERM writes an emergency checkpoint and exits with
 ``launch.RESUMABLE_EXIT_CODE`` (75): rerunning the same command resumes.
+``--chaos K=V[,K=V...]`` injects deterministic faults for drills
+(``resilience/chaos.py``), e.g. ``--nan-policy rollback --chaos
+nan_at_step=6`` or ``--chaos sigterm_at_step=4`` (exit 75).
 ``python -m distributed_tensorflow_models_tpu_torch.resilience.fsck
 <workdir>`` checks (and with ``--repair`` clears) the checkpoints.  The
 workdir also receives ``metrics.jsonl``, TensorBoard events under
@@ -34,10 +38,14 @@ for an LM; ``--max-batches`` bounds the pass, ``--continuous``
 re-evaluates each new checkpoint and prints a line for each.
 
 Started by a launcher that sets ``DTM_COORDINATOR_ADDRESS``,
-``DTM_NUM_PROCESSES`` and ``DTM_PROCESS_ID`` (``launch.py``), ``train``
-first joins that process group (NCCL on ``cuda:{LOCAL_RANK or 0}``, gloo
-with ``--device cpu``) and trains as one process of a data-parallel
-world; the global batch is ``--batch-size``.
+``DTM_NUM_PROCESSES`` and ``DTM_PROCESS_ID`` (``launch.py``, e.g.
+``python -m distributed_tensorflow_models_tpu_torch.launch
+--num-processes 2 --max-restarts 1 -- python -m
+distributed_tensorflow_models_tpu_torch.harness.cli train ...``),
+``train`` and ``eval`` first start the heartbeat the launcher reads and
+join that process group (NCCL on ``cuda:{LOCAL_RANK or 0}``, gloo with
+``--device cpu``), and run as one process of a data-parallel world; the
+global batch is ``--batch-size``.
 """
 
 from __future__ import annotations
@@ -97,6 +105,18 @@ def main(argv: list[str] | None = None) -> int:
                          help="multi-process preemption-notice poll cadence "
                          "in steps (a collective; default 20); one process "
                          "polls at every chunk boundary")
+    p_train.add_argument("--log-every-steps", type=int, default=None,
+                         help="the hooks' cadence: metrics.jsonl rows, the "
+                         "loss log line, the NaN guard, the telemetry and "
+                         "fleet gauges (the config's by default)")
+    p_train.add_argument("--chaos", type=_parse_chaos, default=None,
+                         metavar="K=V[,K=V...]",
+                         help="deterministic fault injection (drills; off "
+                         "by default): pipeline_fail_at_batch, nan_at_step, "
+                         "torn_checkpoint_at_step, sigterm_at_step, "
+                         "kill_at_step, hide_newest_ckpt, "
+                         "straggler_delay_ms, chaos_host — e.g. --chaos "
+                         "'nan_at_step=50' (resilience/chaos.py)")
     p_eval = sub.add_parser("eval", help="evaluate the latest checkpoint")
     _add_common(p_eval)
     p_eval.add_argument("--continuous", action="store_true",
@@ -105,12 +125,11 @@ def main(argv: list[str] | None = None) -> int:
     sub.add_parser("list", help="list available configs")
     args = parser.parse_args(argv)
 
-    from distributed_tensorflow_models_tpu_torch.harness.config import (
-        get_config,
-        list_configs,
-    )
-
     if args.cmd == "list":
+        from distributed_tensorflow_models_tpu_torch.harness.config import (
+            list_configs,
+        )
+
         for name in list_configs():
             print(name)
         return 0
@@ -122,8 +141,35 @@ def main(argv: list[str] | None = None) -> int:
         overrides["seed"] = args.seed
     if args.attn_impl is not None:
         overrides["attn_impl"] = args.attn_impl
-    if args.cmd == "eval":
-        return _eval(get_config(args.config, **overrides), args)
+
+    from distributed_tensorflow_models_tpu_torch import launch
+
+    # Cluster facts from a launcher (DTM_* env): start the fleet heartbeat
+    # (before torch is imported) and join its process group first; fit or
+    # the eval then runs as this process's share of the data axis.
+    in_cluster = launch.initialize_from_env(device=args.device)
+    try:
+        if args.cmd == "eval":
+            from distributed_tensorflow_models_tpu_torch.harness.config import (
+                get_config,
+            )
+
+            return _eval(get_config(args.config, **overrides), args)
+        return _train(args, overrides)
+    finally:
+        if in_cluster:
+            import torch.distributed
+
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, overrides: dict) -> int:
+    from distributed_tensorflow_models_tpu_torch import launch
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+    from distributed_tensorflow_models_tpu_torch.harness.config import (
+        get_config,
+    )
+
     if args.train_steps is not None:
         overrides["train_steps"] = args.train_steps
     if args.data_workers is not None:
@@ -132,25 +178,11 @@ def main(argv: list[str] | None = None) -> int:
         overrides["steps_per_loop"] = args.steps_per_loop
     for field in ("nan_policy", "rollback_budget", "watchdog_timeout_s",
                   "watchdog_abort", "checkpoint_every_steps",
-                  "preempt_poll_steps"):
+                  "preempt_poll_steps", "log_every_steps", "chaos"):
         if getattr(args, field) is not None:
             overrides[field] = getattr(args, field)
     cfg = get_config(args.config, **overrides)
-
-    from distributed_tensorflow_models_tpu_torch import launch
-    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
-
-    # Cluster facts from a launcher (DTM_* env): join its process group
-    # first; fit then runs as this process's share of the data axis.
-    in_cluster = launch.initialize_from_env(device=args.device)
-    try:
-        result = trainlib.recoverable_fit(cfg, args.workdir,
-                                          device=args.device)
-    finally:
-        if in_cluster:
-            import torch.distributed
-
-            torch.distributed.destroy_process_group()
+    result = trainlib.recoverable_fit(cfg, args.workdir, device=args.device)
     print(json.dumps({
         "final_metrics": result.final_metrics,
         "steps": result.state.step,
@@ -165,6 +197,7 @@ def main(argv: list[str] | None = None) -> int:
         "restored_from": result.restored_from,
         "rollbacks": result.rollbacks,
         "skipped_batches": result.skipped_batches,
+        "kernel_launches": _kernel_launches(),
     }))
     if result.preempted:
         # Checkpointed and stopped early: the resumable code (BSD
@@ -191,31 +224,39 @@ def _add_common(p: argparse.ArgumentParser) -> None:
 
 
 def _eval(cfg, args) -> int:
-    from distributed_tensorflow_models_tpu_torch import launch
     from distributed_tensorflow_models_tpu_torch.harness import (
         evaluate as evallib,
     )
 
-    in_cluster = launch.initialize_from_env(device=args.device)
-    try:
-        if args.continuous:
-            for res in evallib.continuous_eval(
-                    cfg, args.workdir, max_batches=args.max_batches,
-                    device=args.device):
-                print(json.dumps({"step": res.step, **res.metrics}),
-                      flush=True)
-            return 0
-        fn = (evallib.evaluate_lm if cfg.task == "lm"
-              else evallib.evaluate_classification)
-        res = fn(cfg, args.workdir, max_batches=args.max_batches,
-                 device=args.device)
-    finally:
-        if in_cluster:
-            import torch.distributed
-
-            torch.distributed.destroy_process_group()
+    if args.continuous:
+        for res in evallib.continuous_eval(
+                cfg, args.workdir, max_batches=args.max_batches,
+                device=args.device):
+            print(json.dumps({"step": res.step, **res.metrics}), flush=True)
+        return 0
+    fn = (evallib.evaluate_lm if cfg.task == "lm"
+          else evallib.evaluate_classification)
+    res = fn(cfg, args.workdir, max_batches=args.max_batches,
+             device=args.device)
     print(json.dumps({"step": res.step, **res.metrics}))
     return 0
+
+
+def _kernel_launches() -> dict:
+    """This process's launches of each hand-written kernel (its wrapper's
+    counters, replays included), the ones that launched."""
+    from distributed_tensorflow_models_tpu_torch.ops import _kernels
+
+    return {f"{fn.__name__}.{attr}": n
+            for (fn, attr), n in _kernels.launch_counts().items() if n}
+
+
+def _parse_chaos(text: str) -> dict:
+    """argparse ``type=`` for ``--chaos``: a ValueError here becomes a
+    clean usage error naming the bad key or value."""
+    from distributed_tensorflow_models_tpu_torch.resilience import chaos
+
+    return chaos.parse_chaos_spec(text)
 
 
 if __name__ == "__main__":

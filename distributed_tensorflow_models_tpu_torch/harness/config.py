@@ -155,8 +155,9 @@ class ExperimentConfig:
     # emergency checkpoint together.  One process checks at every chunk
     # boundary and ignores this.
     preempt_poll_steps: int = PREEMPT_POLL_STEPS_DEFAULT
-    # Deterministic fault injection (the JAX package's resilience/chaos.py)
-    # is not ported: a non-empty value raises.
+    # Deterministic fault injection (resilience/chaos.py): {key: int} of
+    # faults, each fired once at its position; empty = off.  fit checks
+    # the keys (unknown ones raise there, as in the JAX package).
     chaos: dict[str, Any] = dataclasses.field(default_factory=dict)
     # Event tracing (telemetry/trace.py).  trace_ring_events: the bounded
     # in-memory ring of span/instant events on the run's registry (0 turns
@@ -178,10 +179,6 @@ class ExperimentConfig:
                 if getattr(self, f) != 1}
         if self.param_rules:
             wide["param_rules"] = self.param_rules
-        if self.chaos:
-            raise NotImplementedError(
-                f"chaos={self.chaos} not ported: fault injection "
-                f"(resilience/chaos.py) is ROADMAP §1 item 3")
         if self.nan_policy not in ("abort", "rollback"):
             raise ValueError(f"nan_policy must be 'abort' or 'rollback', "
                              f"got {self.nan_policy!r}")

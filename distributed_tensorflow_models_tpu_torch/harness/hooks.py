@@ -4,8 +4,8 @@ The port's copy of the part of ``distributed_tensorflow_models_tpu/
 harness/hooks.py`` that the chunked loop of ``fit`` needs: the ``Hook``
 protocol (with ``wants_step``), :class:`LazyMetricRow`, the stop, step
 counter, NaN guard, logging, metric-writer, TensorBoard, telemetry,
-checkpoint, fault-injection and profiler hooks, and the two walks.  The
-logic is the JAX package's; device values are read with torch, the
+fleet, checkpoint, fault-injection and profiler hooks, and the two walks.
+The logic is the JAX package's; device values are read with torch, the
 checkpoint hook's multi-process clock poll and the telemetry hook's
 per-process gather go through ``resilience/consensus.py`` (host tensors
 on a gloo group), and the profiler is ``torch.profiler``.
@@ -438,6 +438,83 @@ class TelemetryHook(Hook):
         if isinstance(metrics, MutableMapping):
             # A dict, or a LazyMetricRow (overlay write): both carry the
             # injection to the writer hooks after this one.
+            metrics.update(out)
+
+
+class FleetHook(Hook):
+    """Chief-only fleet-health gauges from the heartbeat directory
+    (``resilience/heartbeat.py``): every ``every_steps`` it reads the
+    peers' heartbeat files — plain shared-filesystem reads, never a
+    collective — and injects/records
+
+    - ``fleet/peers_alive``     — processes with a fresh heartbeat,
+    - ``fleet/step_lag``        — max−min step among alive peers (the
+      straggler / slowest-process skew),
+    - ``fleet/heartbeat_age_s`` — the worst heartbeat age,
+
+    into the metrics row (→ metrics.jsonl / TensorBoard via the writer
+    hooks downstream — order this before them, like TelemetryHook) and
+    the registry (→ telemetry.json).  A dead process shows up here within
+    one cadence of its heartbeat going stale, with its process index in
+    the chief's log."""
+
+    def __init__(
+        self,
+        registry: telemetry.MetricsRegistry,
+        directory: str,
+        num_processes: int,
+        every_steps: int = 100,
+        *,
+        stale_after_s: float = 15.0,
+    ):
+        self._reg = registry
+        self._dir = directory
+        self._nproc = num_processes
+        self._every = max(1, every_steps)
+        self._stale = stale_after_s
+        self._warned_dead: set[int] = set()
+
+    def wants_step(self, step):
+        return step % self._every == 0
+
+    def after_step(self, state, metrics, step):
+        if step % self._every:
+            return
+        from distributed_tensorflow_models_tpu_torch.resilience import (
+            heartbeat,
+        )
+
+        try:
+            views = heartbeat.read_fleet(self._dir, self._nproc)
+            # One snapshot for both the per-peer warnings and the gauges:
+            # a second read could classify a peer differently mid-walk.
+            summary = heartbeat.fleet_summary(
+                self._dir, self._nproc, stale_after_s=self._stale,
+                views=views,
+            )
+        except Exception:  # noqa: BLE001 — telemetry must never kill a run
+            log.exception("fleet heartbeat read failed")
+            return
+        for i, view in enumerate(views):
+            stale = view is None or view["age_s"] > self._stale
+            if stale and i not in self._warned_dead:
+                self._warned_dead.add(i)
+                log.warning(
+                    "fleet: process %d heartbeat is %s (last step %s)",
+                    i,
+                    "missing" if view is None else f"{view['age_s']:.1f}s stale",
+                    "?" if view is None else view.get("step"),
+                )
+            elif not stale:
+                self._warned_dead.discard(i)
+        out = {
+            telemetry.FLEET_PEERS_ALIVE: float(summary["peers_alive"]),
+            telemetry.FLEET_STEP_LAG: float(summary["step_lag"]),
+            telemetry.FLEET_HEARTBEAT_AGE: float(summary["heartbeat_age_s"]),
+        }
+        for key, value in out.items():
+            self._reg.gauge(key).set(value)
+        if isinstance(metrics, MutableMapping):
             metrics.update(out)
 
 

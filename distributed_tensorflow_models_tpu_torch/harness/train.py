@@ -13,7 +13,8 @@ included, and replayed.  Given a workdir, ``fit`` resumes from
 its newest valid checkpoint and saves on the config's cadence
 (``harness/checkpoint.py``), answers a preemption notice with an
 emergency checkpoint, can roll a divergence back to the last finite
-checkpoint, and runs under a progress watchdog (``resilience/``);
+checkpoint, runs under a progress watchdog, takes injected faults
+(``cfg.chaos``) and heartbeats to a supervising launcher (``resilience/``);
 :func:`recoverable_fit` restarts it on transient failures.  Every run
 keeps a telemetry registry with an event tracer; given a workdir, ``fit``
 writes ``metrics.jsonl`` (with the telemetry hook's keys), TensorBoard
@@ -47,6 +48,8 @@ from distributed_tensorflow_models_tpu_torch.harness import checkpoint as ckptli
 from distributed_tensorflow_models_tpu_torch.harness import hooks as hooklib
 from distributed_tensorflow_models_tpu_torch.harness.config import ExperimentConfig
 from distributed_tensorflow_models_tpu_torch.models import builder_takes, get_model
+from distributed_tensorflow_models_tpu_torch.resilience import chaos as chaoslib
+from distributed_tensorflow_models_tpu_torch.resilience import heartbeat
 
 log = logging.getLogger("dtm")
 
@@ -440,6 +443,17 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
       ``cfg.rollback_budget`` times.  The default ``"abort"`` raises.
     - **Watchdog** — ``cfg.watchdog_timeout_s`` diagnoses a run in which
       no chunk completes (beaten once per chunk).
+    - **Chaos** — ``cfg.chaos`` (off by default) injects deterministic
+      faults at these seams (``resilience/chaos.py``): a failing batch
+      assembly, a NaN written into the chunk before the step copies it
+      in, a torn checkpoint, SIGTERM, SIGKILL, a hidden newest checkpoint
+      and a straggler delay, each once; ``chaos/armed_unfired`` in
+      ``telemetry.json`` counts the faults that never fired.
+    - **Fleet** — under a supervising launcher (``launch.py``) the
+      process heartbeats (``resilience/heartbeat.py``): its phase
+      (``restore``, ``compile``, ``train``, ``save``) and its step at
+      every chunk boundary; the chief exports the ``fleet/*`` gauges
+      (``FleetHook``).
 
     ``restarts`` seeds the ``train/restarts`` counter
     (:func:`recoverable_fit` passes its attempt number)."""
@@ -481,6 +495,13 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
             log.exception("flight-record dump (%s) failed", reason)
 
     tracer.instant("fit/entry", {"config": cfg.name, "restarts": restarts})
+    chaos = chaoslib.get_injector(cfg.chaos, seed=cfg.seed,
+                                  scope=workdir or "")
+    if chaos is not None:
+        # (Re)wire the memoised injector to THIS run's forensics: fires
+        # land on the timeline, and the kill fault dumps before SIGKILL.
+        chaos.tracer = tracer
+        chaos.flight_dump = dump_flight
     # Every fleet-visible decision (save skip/replace, restore pick,
     # restore-vs-init, preemption, divergence) is the chief's; with one
     # process (or a mesh of one) an exact no-op.
@@ -499,19 +520,30 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
                 workdir, keep=cfg.keep_checkpoints,
                 process_index=consensus.process_index,
                 process_count=consensus.process_count, registry=registry,
-                consensus=consensus)
+                consensus=consensus,
+                # The chaos visibility-skew simulation: the hidden step
+                # vanishes from this process's listings, never from reads.
+                step_filter=chaos.step_filter() if chaos is not None else None)
+            heartbeat.set_phase("restore")
             t0 = time.perf_counter()
             state, data_state, restored = ckptlib.restore_or_init(manager,
                                                                   state)
             registry.gauge(telemetry.STARTUP_RESTORE).set(
                 time.perf_counter() - t0)
         restored_from = state.step if restored else None
+        # "compile" until the first chunk completes: its eager first step
+        # and the capture (kernel builds included) live there, and a
+        # heartbeat frozen there says so.
+        heartbeat.set_phase("compile")
         dataset = build_dataset(cfg, mesh=mesh)
         if restored and data_state.get("dataset") and hasattr(dataset,
                                                               "set_state"):
             dataset.set_state(data_state["dataset"])
+        if chaos is not None:
+            dataset = chaos.wrap_dataset(dataset)
     except BaseException:
         dump_flight("setup_failure")
+        _unwire_chaos_forensics(chaos)
         raise
     chief = mesh.rank == 0
     hooks: list[hooklib.Hook] = [
@@ -522,6 +554,15 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
                               consensus.process_count, device=dev,
                               n_devices=mesh.data_size, consensus=consensus),
     ]
+    hb_writer = heartbeat.active_writer()
+    if chief and hb_writer is not None:
+        # Fleet-health gauges from the launcher's heartbeat directory
+        # (plain file reads), before the writer hooks that record them;
+        # a supervised fleet of one exports them too (the JAX package
+        # only above one process).
+        hooks.append(hooklib.FleetHook(registry, hb_writer.directory,
+                                       consensus.process_count,
+                                       cfg.log_every_steps))
     if chief:
         hooks += [
             hooklib.StepCounterHook(cfg.log_every_steps,
@@ -548,15 +589,26 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
                                            registry=registry)
         stacker = pipelib.BatchStacker(batches)
 
-    def save_fn(s: TrainState, _step: Optional[int] = None) -> None:
+    def save_fn(s: TrainState, _step: Optional[int] = None, *,
+                force: bool = False) -> None:
         # The cursor saved is the stacker's: the batches the state has
-        # consumed, not the host pipeline's read-ahead.
+        # consumed, not the host pipeline's read-ahead.  ``force`` (the
+        # chaos tear hook's) changes nothing: every call saves.
         if not consistent or stacker is None:
             log.warning("no checkpoint at step %d: the state is not that of "
                         "a step with a known input position (a chunk or a "
                         "rollback failed part way)", s.step)
             return
-        manager.save(s, {"dataset": stacker.get_state()})
+        prev_phase = heartbeat.set_phase("save")
+        try:
+            manager.save(s, {"dataset": stacker.get_state()})
+            if chaos is not None and chaos.should_tear(s.step):
+                # The torn-write drill damages only durable files.
+                manager.wait()
+                chaos.tear_checkpoint(manager.directory, s.step)
+        finally:
+            if prev_phase:
+                heartbeat.set_phase(prev_phase)
 
     own_listener = listener is None and manager is not None
     if own_listener:
@@ -675,11 +727,17 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
                 save_fn, every_secs=cfg.checkpoint_every_secs,
                 every_steps=cfg.checkpoint_every_steps,
                 poll_every_steps=poll_steps, consensus=consensus))
+        if listener is not None:
+            listener_installed = own_listener and listener.install()
+        if chaos is not None:
+            hooks += _chaos_hooks(
+                chaos, save_fn if manager is not None else None,
+                cfg.train_steps,
+                listener is not None and (listener_installed
+                                          or not own_listener))
         hooks += list(extra_hooks)
         if consensus.active and listener is not None:
             hooks.append(_PreemptPollHook(poll_steps))
-        if listener is not None:
-            listener_installed = own_listener and listener.install()
         if (listener is not None and workdir and cfg.flight_recorder
                 and tracer.enabled):
             # At-arrival forensics: a SIGTERM'd process wedged in a
@@ -702,6 +760,10 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
             manager.wait()
         start = time.perf_counter()
         looping = True
+        # The first beat carries the (possibly restored) entry step: the
+        # supervisor and the peers see "looping, at step N" before the
+        # first chunk, with its capture, completes.
+        heartbeat.beat(state.step)
         while state.step < cfg.train_steps:
             first = state.step
             if preempt_due(first):
@@ -740,6 +802,10 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
             t0 = time.perf_counter()
             with registry.span(telemetry.DATA_WAIT):
                 chunk, k = stacker.next_chunk(k_req)
+            if chaos is not None:
+                # In place into the stacker's fresh stack, on this stream,
+                # before the K-step call copies its rows into the step.
+                chunk = chaos.poison_batch(chunk, first + 1, k)
             t1 = time.perf_counter()
             consistent = False
             with meshlib.data_parallel(mesh):
@@ -793,8 +859,10 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
             if first_step.value == 0.0:
                 # Fit entry to the first completed chunk.
                 first_step.set(time.perf_counter() - t_run0)
+                heartbeat.set_phase("train")
             if watchdog is not None:
                 watchdog.beat(state.step)
+            heartbeat.beat(state.step)
             if not ok:
                 break
         _sync(dev)
@@ -813,7 +881,10 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
             except Exception:
                 log.exception("checkpoint write failed during error cleanup")
         # A goodput report from a crashed run is what its post-mortem
-        # wants; the trace gauges land before the report's snapshot.
+        # wants (with the armed-but-unfired chaos count); the trace gauges
+        # land before the report's snapshot.
+        if chaos is not None:
+            chaos.export_unfired(registry)
         final_dump("crash" if looping else "setup_failure")
         _export_trace(workdir, registry, cfg)
         _write_telemetry_report(workdir, registry, t_run0, steps_run, dev,
@@ -827,6 +898,9 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
         if listener_installed:
             listener.uninstall()
         _close_quietly(batches, host)
+        # The memoised injector outlives the run: a stale fire must not
+        # dump into a finished one.
+        _unwire_chaos_forensics(chaos)
     # One hook's end() failing must not starve later hooks (the checkpoint
     # hook's final save among them); the first error still propagates
     # after the others ran and the last write is durable.
@@ -842,12 +916,19 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
             manager.wait()
     finally:
         # After the last wait: the report's checkpoint share includes the
-        # final save's wait until durable.
+        # final save's wait until durable.  chaos/armed_unfired is set
+        # first so that it lands in the report's registry snapshot.
+        if chaos is not None:
+            chaos.export_unfired(registry)
         tracer.instant("fit/end", {"steps_run": steps_run,
                                    "preempted": preempted})
         _export_trace(workdir, registry, cfg)
         _write_telemetry_report(workdir, registry, t_run0, steps_run, dev,
                                 mesh)
+    if chaos is not None and not preempted:
+        # A drill whose fault never fired must not pass for one that did
+        # (a preempted run legitimately leaves later faults unfired).
+        chaos.warn_unfired()
     if end_error is not None:
         raise end_error
     if preempted:
@@ -865,6 +946,42 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
         registry=registry, preempted=preempted, restored_from=restored_from,
         rollbacks=rollbacks, skipped_batches=skipped,
         saves=manager.save_log if manager is not None else [])
+
+
+def _chaos_hooks(chaos: chaoslib.ChaosInjector, save_fn, final_step: int,
+                 listener_active: bool) -> list:
+    """The injector's hooks, after the checkpoint hook: SIGTERM (only
+    with an installed preemption listener: without its handler a raised
+    SIGTERM is a hard kill, not the graceful drill), the forced save to
+    tear (only with a checkpoint manager), the kill and the straggler
+    delay."""
+    out = []
+    sigterm = chaos.sigterm_hook()
+    if sigterm is not None:
+        if listener_active:
+            out.append(sigterm)
+        else:
+            log.warning("chaos sigterm_at_step disabled: no preemption "
+                        "listener (fit without a workdir, or not on the "
+                        "main thread)")
+    if save_fn is not None:
+        tear = chaos.tear_hook(save_fn, final_step=final_step)
+        if tear is not None:
+            out.append(tear)
+    elif chaos.config.torn_checkpoint_at_step is not None:
+        log.warning("chaos torn_checkpoint_at_step disabled: fit has no "
+                    "workdir to checkpoint into")
+    return out + [h for h in (chaos.kill_hook(), chaos.straggler_hook())
+                  if h is not None]
+
+
+def _unwire_chaos_forensics(chaos: Optional[chaoslib.ChaosInjector]) -> None:
+    """Detach a (memoised, process-lifetime) injector from a finished
+    run's tracer and flight-dump closure; ``fit`` rewires them at every
+    entry."""
+    if chaos is not None:
+        chaos.tracer = None
+        chaos.flight_dump = None
 
 
 def _export_trace(workdir: Optional[str],

@@ -15,26 +15,35 @@ wire, ``torch.distributed``):
 - :mod:`watchdog` — step-progress watchdog: a hung collective or input
   pipeline produces a diagnosis (and optionally an abort).
 - :mod:`backoff` — the deterministic-jitter restart schedule of
-  ``recoverable_fit``.
+  ``recoverable_fit`` and of the launcher's fleet restarts.
+- :mod:`chaos` — deterministic fault injection (``cfg.chaos`` /
+  ``--chaos``): each fault fires once, at an exact position.
+- :mod:`heartbeat` — fleet heartbeat files: written by every process of
+  a launched fleet, read by the launcher and the chief's ``FleetHook``.
 
 Divergence rollback (``nan_policy="rollback"``) lives in
-``harness/train.py::fit``.  :mod:`fsck` is imported by its users (and
-run as ``python -m ...resilience.fsck``), not here.  Not ported yet:
-``chaos.py`` (fault injection) and ``heartbeat.py`` (fleet heartbeat
-files).  This package never imports :mod:`harness`; the harness wires it
-in.
+``harness/train.py::fit``.  :mod:`fsck`, :mod:`chaos` and
+:mod:`heartbeat` are imported by their users (fsck is also run as
+``python -m ...resilience.fsck``).  The four names below are resolved on
+first use, so that importing a submodule (the launcher's
+:mod:`heartbeat`) does not import torch.  This package never imports
+:mod:`harness`; the harness wires it in.
 """
 
-from distributed_tensorflow_models_tpu_torch.resilience.backoff import (  # noqa: F401
-    restart_backoff,
-)
-from distributed_tensorflow_models_tpu_torch.resilience.consensus import (  # noqa: F401
-    Consensus,
-)
-from distributed_tensorflow_models_tpu_torch.resilience.preemption import (  # noqa: F401
-    PreemptionListener,
-)
-from distributed_tensorflow_models_tpu_torch.resilience.watchdog import (  # noqa: F401
-    ProgressWatchdog,
-)
+_LAZY = {
+    "restart_backoff": "backoff",
+    "Consensus": "consensus",
+    "PreemptionListener": "preemption",
+    "ProgressWatchdog": "watchdog",
+}
 
+
+def __getattr__(name: str):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    value = getattr(importlib.import_module(f"{__name__}.{_LAZY[name]}"),
+                    name)
+    globals()[name] = value
+    return value

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: a share under xdist)
 from jax import lax
 
 from distributed_tensorflow_models_tpu.ops import conv_mxu as jconv_mxu

@@ -21,6 +21,7 @@ import itertools
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: a share under xdist)
 
 from distributed_tensorflow_models_tpu.data import augment as jaug
 from distributed_tensorflow_models_tpu.data import datasets as jdata

@@ -1,10 +1,10 @@
 """The port's data parallelism across processes, on the CPU over gloo.
 
 One cluster of two processes (``tests/torch_data_parallel_worker.py``,
-which imports only the port) is launched once for the module by the JAX
-package's ``launch.launch_local``, which sets only the framework-neutral
-``DTM_*`` variables.  Each process joins through the port's
-``launch.initialize_from_env(device="cpu")`` and runs ``fit`` for a few
+which imports only the port) is launched once for the module by the
+port's own ``launch.launch_local``, which sets the ``DTM_*`` variables
+(and ``LOCAL_RANK``, unused on the CPU).  Each process joins through the
+port's ``launch.initialize_from_env(device="cpu")`` and runs ``fit`` for a few
 steps of three configs at cut widths; each is compared here with a
 one-process ``fit`` of the port at the same global batch:
 
@@ -45,8 +45,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: a share under xdist)
 
-from distributed_tensorflow_models_tpu import launch as jax_launch
+from distributed_tensorflow_models_tpu_torch import launch
 from distributed_tensorflow_models_tpu_torch.core import train_loop
 from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
 
@@ -83,7 +84,7 @@ def cluster(tmp_path_factory) -> Path:
                        "PYTHONPATH": os.pathsep.join(
                            [str(WORKER.parent.parent),
                             os.environ.get("PYTHONPATH", "")])}
-                codes = jax_launch.launch_local(
+                codes = launch.launch_local(
                     2, [sys.executable, str(WORKER), str(out)],
                     port=_free_port(), extra_env=env, timeout=240)
                 (out / "codes.json").write_text(json.dumps(codes))

@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: a share under xdist)
 
 from distributed_tensorflow_models_tpu.harness import checkpoint as jckpt
 from distributed_tensorflow_models_tpu.harness import config as jconfig

@@ -68,6 +68,7 @@ import threading
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: a share under xdist)
 
 from distributed_tensorflow_models_tpu_torch.core import train_loop
 from distributed_tensorflow_models_tpu_torch.core.train_state import TrainState
@@ -1254,6 +1255,79 @@ def test_resume_on_card_equals_the_straight_run(cuda, tmp_path):
         h["loss"] for h in straight.history[4:]]
     a, b = _state_tensors(resumed.state), _state_tensors(straight.state)
     assert sorted(a) == sorted(b)
+    for n in a:
+        assert torch.equal(a[n], b[n]), n
+
+
+class _DropBatches:
+    """The dataset without the batches after which its cursor reads one of
+    ``after``: the batches a rollback skips."""
+
+    def __init__(self, ds, after):
+        self._ds, self._after = ds, after
+
+    def __iter__(self):
+        for batch in self._ds:
+            if self._ds.get_state() not in self._after:
+                yield batch
+
+    def get_state(self):
+        return self._ds.get_state()
+
+    def set_state(self, state):
+        self._ds.set_state(state)
+
+
+def test_chaos_on_card_rollback_and_torn_walk_back(cuda, tmp_path,
+                                                    monkeypatch):
+    """Phase 5e's drills (a) and (b) of ``chip_smoke.py`` at a cut size
+    (ResNet-32 cut, K1's f32 form, chunks of 4): ``nan_at_step=6`` writes
+    NaN into the replayed chunk's second row; the run rolls back to step 4
+    once, skips the chunk of steps 5-8 and ends equal bit for bit to a
+    straight run over the stream without those batches, with one capture.
+    A 6-step run whose final save is torn (``torn_checkpoint_at_step=6``)
+    is resumed to 8: it walks back to step 4 and ends at the straight
+    run's state."""
+    from distributed_tensorflow_models_tpu_torch import telemetry
+    from distributed_tensorflow_models_tpu_torch.harness import config as tconfig
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+
+    name, over, _ = REPLAY_CASES["resnet32_cifar10"]
+    cfg = tconfig.get_config(name, train_steps=8, steps_per_loop=4,
+                             log_every_steps=4, checkpoint_every_secs=None,
+                             checkpoint_every_steps=4, **over)
+    straight = trainlib.fit(cfg, device="cuda")
+    rolled = trainlib.fit(cfg.replace(nan_policy="rollback",
+                                      chaos={"nan_at_step": 6}),
+                          str(tmp_path / "a"), device="cuda")
+    assert (rolled.captures, rolled.rollbacks, rolled.skipped_batches) == (
+        1, 1, 4)
+    assert rolled.registry.snapshot()[telemetry.CHAOS_ARMED_UNFIRED] == 0.0
+    probe = trainlib.build_dataset(cfg)
+    it = iter(probe)
+    after = []
+    for _ in range(8):
+        next(it)
+        after.append(probe.get_state())
+    build = trainlib.build_dataset
+    monkeypatch.setattr(trainlib, "build_dataset",
+                        lambda c, split="train", mesh=None: _DropBatches(
+                            build(c, split, mesh), after[4:8]))
+    without = trainlib.fit(cfg, device="cuda")
+    monkeypatch.setattr(trainlib, "build_dataset", build)
+    assert [h["loss"] for h in rolled.history] == [
+        h["loss"] for h in without.history]
+    a, b = _state_tensors(rolled.state), _state_tensors(without.state)
+    for n in a:
+        assert torch.equal(a[n], b[n]), n
+
+    torn = {"torn_checkpoint_at_step": 6}
+    trainlib.fit(cfg.replace(train_steps=6, chaos=torn), str(tmp_path / "b"),
+                 device="cuda")
+    walked = trainlib.fit(cfg.replace(chaos=torn), str(tmp_path / "b"),
+                          device="cuda")
+    assert (walked.restored_from, walked.captures) == (4, 1)
+    a, b = _state_tensors(walked.state), _state_tensors(straight.state)
     for n in a:
         assert torch.equal(a[n], b[n]), n
 

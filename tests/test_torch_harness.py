@@ -23,6 +23,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: a share under xdist)
 
 from distributed_tensorflow_models_tpu.data import datasets as jdata
 from distributed_tensorflow_models_tpu.harness import config as jconfig

@@ -48,6 +48,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: a share under xdist)
 
 from distributed_tensorflow_models_tpu.core import train_loop as jtrain
 from distributed_tensorflow_models_tpu.core.train_state import TrainState as JTrainState

@@ -26,6 +26,7 @@ import socket
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: a share under xdist)
 import torch.distributed as dist
 
 from distributed_tensorflow_models_tpu.core import mesh as jmesh

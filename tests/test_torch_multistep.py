@@ -24,6 +24,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: a share under xdist)
 
 from distributed_tensorflow_models_tpu.data import pipeline as jpipe
 from distributed_tensorflow_models_tpu.harness import config as jconfig

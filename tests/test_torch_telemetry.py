@@ -36,6 +36,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: a share under xdist)
 
 from distributed_tensorflow_models_tpu import telemetry as jtelemetry
 from distributed_tensorflow_models_tpu.harness import config as jconfig
