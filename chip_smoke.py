@@ -201,6 +201,38 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    for input, step times, peak memory, losses finite and falling; then
    two steps of ``fit``, whose carry must reach step 2 as the model's
    zero carry threaded on, ``[20, 650]`` per layer, f32, detached.
+14. The decode path (``harness/generate.py``, the model's ``KVCache``):
+   ``transformer_lm`` trained ``GEN_TRAIN_STEPS`` steps on flash through
+   ``fit`` with a workdir (K2-K4 4 launches a step each, counters zeroed
+   just before); ``python -m ...harness.cli generate`` on its checkpoint
+   in a process of its own, whose greedy tokens must equal this process's
+   ``generate`` on the restored model; then ``transformer_lm`` (restored)
+   and ``transformer_lm_modern`` (rotary, GQA 2 of 8, window 256; seeded
+   init) at their widths, batch 16, a 256-token PTB prompt and
+   ``GEN_NEW_TOKENS`` new tokens, which fill the 512-slot cache: greedy
+   ``generate`` with the one-token step captured as a CUDA graph (one
+   capture, a replay per later token) against every step eager, tokens
+   and each step's logits bit for bit; the decode logits against the
+   full forward of the generated sequence on K2 (one launch a layer,
+   counted) within ``DECODE_ATOL_OF_SCALE`` of the logits' scale; a
+   sampled stream (top-k 40, top-p 0.95) captured, eager and repeated
+   from its seed, bit for bit; decode tokens/s captured and eager, timed
+   in turns.  Beam search (batch ``BEAM_BATCH``, ``BEAM_SIZE`` beams)
+   and ``generate_rnn`` on ``ptb_medium`` (seeded init) captured against
+   eager, bit for bit, timed.  ``--generate-only`` runs phases 1 and 14.
+15. The cold start (``harness/startup.py``): ``transformer_lm`` on flash
+   resumed from phase 14's checkpoint for ``STARTUP_STEPS`` more steps,
+   each arm of ``STARTUP_ARMS`` in a fresh process joined to a world-1
+   NCCL group: the startup thread on and off (``aot_compile``), on the
+   kept kernel build and on a fresh one (``xla_cache_dir=""``: nvcc into
+   a temporary directory).  Every arm must resume at the checkpoint's
+   step, capture once and end at the same losses.  Each prints the split
+   of the time before its first step: the torch import, the port's
+   import, CUDA and the NCCL group's init, and from its run's trace
+   ``build_state``, the kernel loads and the FLOPs count (on the thread,
+   or in the step), the restore, the thread's join, the pipeline's fill
+   (the first chunk's wait), the eager step and the capture.
+   ``--startup-only`` runs phase 1, phase 14's training and phase 15.
 
 Every training arm runs ``fit`` in chunks of ``STEPS_PER_LOOP`` steps
 (``steps_per_loop``): the first step eager, the step then captured as a
@@ -219,7 +251,8 @@ lines are the card's name and power limit, a ``{"kernels": ...}`` JSON line (K1
 to K6, K5 as its two launches, K1's and K6's f32 forms as entries of their
 own) and ``{"ok": true, "device": {...}}``.  ``--zoo-only`` runs phases 1
 and 11-13 alone, ``--dp-only`` phases 1 and 5b, ``--resume-only`` phases
-1 and 5c, ``--chaos-only`` phases 1 and 5e.  Each ``fit`` given a workdir under ``build/chip_smoke`` (emptied
+1 and 5c, ``--chaos-only`` phases 1 and 5e, ``--generate-only`` phases 1 and
+14, ``--startup-only`` phases 1, 14's training and 15.  Each ``fit`` given a workdir under ``build/chip_smoke`` (emptied
 at the start) saves a final checkpoint there, which the smoke deletes.
 """
 
@@ -1195,7 +1228,12 @@ COPY_CLASS = "copies, pads, fills"
 NCCL_CLASS = "NCCL collectives"
 
 
-PROFILE_ATTEMPTS = 3
+# Traces a profile may take before its phase fails.  The profiler drops
+# device records of a large graph's second traced replay now and then
+# (Inception-v3: ~12,100 events a replay; three traces in a row lost
+# some in one smoke run): an incomplete trace is never used, only
+# retaken.
+PROFILE_ATTEMPTS = 6
 
 
 def _timed_trace(prof) -> tuple[list, list, int]:
@@ -2828,6 +2866,384 @@ def phases_zoo(steps: int, seed: int, card: str, workdir: Path) -> dict:
     return {"k1": res, "paths": paths, "ptb": ptb, "shapes": shapes}
 
 
+# The decode phase (14): the LM checkpoint's training, the CLI's generate,
+# and the decode path at full width.  GEN_* are its sizes: transformer_lm's
+# batch and segment as the prompt, and as many new tokens, which fills the
+# 512-slot cache; beam search at batch 4 with 4 beams; ptb_medium's batch
+# and unroll as its prompt.
+GEN_TRAIN_STEPS = 4
+GEN_NEW_TOKENS = 256
+GEN_CLI_NEW_TOKENS = 32
+BEAM_BATCH, BEAM_SIZE = 4, 4
+RNN_NEW_TOKENS = 64
+# Decode logits (bf16 model; reference attention over the cache) against
+# the full forward on K2 at the same positions: both round P to bf16 at
+# the same points and differ by K2's running-max rescale and summation
+# order (its 2^-6 relative plus 1e-2 of scale on the attention output,
+# phase 8), carried through 4 layers and the f32 head: 2^-5 of the
+# logits' largest magnitude.
+DECODE_ATOL_OF_SCALE = 2.0 ** -5
+# The startup phase's children (15): transformer_lm on flash resumed from
+# the decode phase's checkpoint for STARTUP_STEPS more steps, each in a
+# fresh process; (aot_compile, xla_cache_dir) per arm, in turns.
+STARTUP_STEPS = 4
+STARTUP_ARMS = (("on", True, None), ("off", False, None),
+                ("off, fresh build", False, ""), ("on, fresh build", True, ""))
+STARTUP_CHILD = r'''
+import json, os, sys, time
+t0 = time.perf_counter()
+import torch
+t_torch = time.perf_counter() - t0
+sys.path.insert(0, sys.argv[1])
+t1 = time.perf_counter()
+from distributed_tensorflow_models_tpu_torch import launch
+from distributed_tensorflow_models_tpu_torch.harness import config, train
+t_port = time.perf_counter() - t1
+t2 = time.perf_counter()
+if not launch.initialize_from_env(device="cuda"):
+    raise SystemExit("no cluster in the environment")
+torch.empty(1, device="cuda")
+torch.cuda.synchronize()
+t_init = time.perf_counter() - t2
+spec = json.loads(sys.argv[3])
+cfg = config.get_config("transformer_lm", attn_impl="flash",
+                        train_steps=spec["steps"], steps_per_loop=4,
+                        checkpoint_every_secs=1e9,
+                        aot_compile=spec["aot"],
+                        xla_cache_dir=spec["cache"])
+t3 = time.perf_counter()
+r = train.fit(cfg, sys.argv[2], device="cuda")
+t_fit = time.perf_counter() - t3
+ev = {}
+for e in r.registry.trace.events():
+    if "dur_s" in e and e["name"] not in ev:
+        ev[e["name"]] = e["dur_s"]
+snap = r.registry.snapshot()
+print(json.dumps({
+    "import_torch_s": t_torch, "import_port_s": t_port,
+    "cuda_nccl_init_s": t_init,
+    "fit_to_first_step_s": snap["startup/time_to_first_step_s"],
+    "process_to_first_step_s": (t3 - t0
+                                + snap["startup/time_to_first_step_s"]),
+    "fit_s": t_fit, "restored_from": r.restored_from,
+    "captures": r.captures, "spans": ev,
+    "aot_compile_s": snap["startup/aot_compile_s"],
+    "compile_total_s": snap.get("train/compile/total_s", 0.0),
+    "losses": [h["loss"] for h in r.history]}))
+torch.distributed.destroy_process_group()
+'''
+
+
+def train_lm_checkpoint(workdir: Path, flash_fns: dict, steps: int):
+    """``transformer_lm`` (flash: K2-K4) trained ``steps`` steps through
+    ``fit`` with ``workdir``, which keeps its final checkpoint; the flash
+    counters zeroed just before and read just after (4 layers x steps of
+    K2, K3 and K4 each, no K5)."""
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+    from distributed_tensorflow_models_tpu_torch.harness.config import get_config
+
+    cfg = get_config("transformer_lm", attn_impl="flash", train_steps=steps,
+                     steps_per_loop=STEPS_PER_LOOP,
+                     checkpoint_every_secs=1e9)
+    layers = cfg.model_kwargs["num_layers"]
+    zero_counts(flash_fns.values())
+    r = trainlib.fit(cfg, str(workdir), device="cuda")
+    got = {kid: fn.launches for kid, fn in flash_fns.items()}
+    want = {kid: layers * steps if kid in ("K2", "K3", "K4") else 0
+            for kid in flash_fns}
+    if got != want or r.state.step != steps or r.captures != 1:
+        fail(f"decode phase: the checkpoint's training launched {got} "
+             f"(expected {want}), reached step {r.state.step} with "
+             f"{r.captures} captures")
+    log(f"decode phase: transformer_lm trained {steps} steps on flash "
+        f"(launches {got}), losses {[h['loss'] for h in r.history]}; its "
+        f"checkpoint is in {workdir}")
+    return cfg, got
+
+
+def _restored_lm(cfg, workdir: Path):
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.harness import (
+        checkpoint as ckptlib,
+    )
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+
+    state, _ = ckptlib.CheckpointManager(str(workdir)).restore(
+        trainlib.build_state(cfg, torch.device("cuda")))
+    return state
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def decode_at_width(label: str, model, prompt, card: str, k2) -> dict:
+    """One LM's decode at full width: greedy ``generate`` captured (one
+    capture, a replay per later token) against every step eager (tokens
+    and each step's logits bit for bit), the decode logits against the
+    full forward on K2 (its counter zeroed just before, read just after:
+    one launch a layer), a sampled stream captured against eager and
+    repeated from its seed, and the two timed in turns."""
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.harness import generate as genlib
+
+    n = GEN_NEW_TOKENS
+    B, T = prompt.shape
+    caps, reps = genlib.captures, genlib.replays
+    (got, got_lg), cap_s = _timed(lambda: genlib.generate(
+        model, prompt, n, capture=True, return_logits=True))
+    if (genlib.captures - caps, genlib.replays - reps) != (1, n - 2):
+        fail(f"{label}: generate captured {genlib.captures - caps} times "
+             f"and replayed {genlib.replays - reps} (expected 1 and {n - 2})")
+    (want, want_lg), eager_s = _timed(lambda: genlib.generate(
+        model, prompt, n, capture=False, return_logits=True))
+    if not (torch.equal(got, want) and torch.equal(got_lg, want_lg)):
+        fail(f"{label}: the replayed decode step differs from the eager one "
+             f"({int((got != want).sum())} tokens differ)")
+    zero_counts([k2])
+    with torch.no_grad():
+        full, _ = model(got[:, :T + n])
+    if k2.launches != model.num_layers:
+        fail(f"{label}: the full forward launched K2 {k2.launches} times, "
+             f"expected {model.num_layers}")
+    k2_launches = k2.launches
+    ref = full[:, T - 1:T + n - 1].float()
+    err = float((got_lg - ref).abs().max())
+    scale = float(ref.abs().max())
+    agree = float((ref.argmax(-1) == got[:, T:]).float().mean())
+    if not err <= DECODE_ATOL_OF_SCALE * scale:
+        fail(f"{label}: decode logits differ from the K2 full forward by "
+             f"{err} (scale {scale}, bound {DECODE_ATOL_OF_SCALE} x scale)")
+    sample = dict(temperature=0.8, top_k=40, top_p=0.95, seed=1)
+    s_cap = genlib.generate(model, prompt, n, capture=True, **sample)
+    s_eager = genlib.generate(model, prompt, n, capture=False, **sample)
+    s_again = genlib.generate(model, prompt, n, capture=True, **sample)
+    if not (torch.equal(s_cap, s_eager) and torch.equal(s_cap, s_again)):
+        fail(f"{label}: the sampled stream differs between capture, eager "
+             f"and a repeat from its seed")
+    walls = {"captured": [cap_s], "eager": [eager_s]}
+    for arm in ("captured", "eager", "captured", "eager"):
+        _, s = _timed(lambda: genlib.generate(model, prompt, n,
+                                              capture=arm == "captured"))
+        walls[arm].append(s)
+    cache = model.init_cache(B, "cuda")
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in (*cache.keys, *cache.values))
+    del cache
+    best = {arm: min(v) for arm, v in walls.items()}
+    log(f"{label} decode: batch {B}, prompt {T}, {n} new tokens (the "
+        f"{T + n}-slot cache full: {cache_bytes} bytes of bf16 KV); "
+        f"captured = eager bit for bit (tokens and every step's logits), "
+        f"greedy and sampled; logits vs the K2 full forward max abs "
+        f"{err:.5f} of scale {scale:.3f} (bound {DECODE_ATOL_OF_SCALE} x "
+        f"scale), greedy tokens = its argmax at {agree:.4f} of positions; "
+        f"K2 {k2_launches} launches in that forward | {card}")
+    log(f"{label} decode walls (prompt pass + {n - 1} steps, synced), "
+        f"in turns: captured {[round(s, 4) for s in walls['captured']]} s, "
+        f"eager {[round(s, 4) for s in walls['eager']]} s; best: "
+        f"{B * n / best['captured']:.1f} tokens/s captured "
+        f"({best['captured'] / n * 1e3:.3f} ms a token), "
+        f"{B * n / best['eager']:.1f} tokens/s eager "
+        f"({best['eager'] / n * 1e3:.3f} ms a token) | {card}")
+    return {"err": err, "scale": scale, "agree": agree,
+            "k2_launches": k2_launches, "cache_bytes": cache_bytes,
+            "tokens_per_s_captured": B * n / best["captured"],
+            "tokens_per_s_eager": B * n / best["eager"],
+            "ms_per_token_captured": best["captured"] / n * 1e3,
+            "ms_per_token_eager": best["eager"] / n * 1e3}
+
+
+def phase_generate(card: str, workdir: Path, flash_fns: dict) -> dict:
+    """Phase 14, the decode path (``harness/generate.py``, the model's
+    ``KVCache``, the CLI's ``generate``) at full width."""
+    import numpy as np
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.harness import generate as genlib
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+    from distributed_tensorflow_models_tpu_torch.harness.config import get_config
+
+    t_phase = time.perf_counter()
+    ckpt = workdir / "lm"
+    cfg, train_launches = train_lm_checkpoint(ckpt, flash_fns,
+                                              GEN_TRAIN_STEPS)
+    # (b) The CLI's generate in a process of its own on that checkpoint,
+    # and the same greedy continuation in this process.
+    tokens = [int(t) for t in np.random.RandomState(0).randint(0, 10000, 16)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "distributed_tensorflow_models_tpu_torch.harness.cli", "generate",
+         "--config", "transformer_lm", "--workdir", str(ckpt), "--prompt",
+         ",".join(map(str, tokens)), "--max-new-tokens",
+         str(GEN_CLI_NEW_TOKENS)], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"cli generate exited {proc.returncode}: {proc.stderr[-2000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    state = _restored_lm(cfg, ckpt)
+    model = state.model
+    mine = genlib.generate(model, torch.tensor([tokens], device="cuda"),
+                           GEN_CLI_NEW_TOKENS)[0].tolist()
+    if (line["step"], line["prompt"], line["tokens"]) != (
+            GEN_TRAIN_STEPS, tokens, mine):
+        fail(f"cli generate printed {line}, expected step "
+             f"{GEN_TRAIN_STEPS} and the tokens {mine}")
+    log(f"decode phase: CLI generate --config transformer_lm --prompt (16 "
+        f"tokens) --max-new-tokens {GEN_CLI_NEW_TOKENS}: exit 0 in "
+        f"{cli_s:.2f} s (a fresh process), step {line['step']}, its greedy "
+        f"tokens = this process's generate on the restored model")
+    # (c) transformer_lm (restored) and transformer_lm_modern (seeded init)
+    # at their config widths: batch 16, a 256-token prompt from PTB.
+    results = {}
+    for name in ("transformer_lm", "transformer_lm_modern"):
+        lm_cfg = get_config(name, attn_impl="flash")
+        if name != "transformer_lm":
+            model = trainlib.build_model(lm_cfg, torch.device("cuda"))
+        model.eval()
+        batch = next(iter(trainlib.build_dataset(lm_cfg)))
+        prompt = torch.from_numpy(batch["inputs"]).cuda()
+        results[name] = decode_at_width(name, model, prompt, card,
+                                        flash_fns["K2"])
+    # (d) Beam search on transformer_lm: batch 4, 4 beams, 256 new tokens.
+    model = state.model
+    prompt = torch.from_numpy(next(iter(trainlib.build_dataset(cfg)))[
+        "inputs"][:BEAM_BATCH]).cuda()
+    def beam(capture):
+        return _timed(lambda: genlib.beam_search(
+            model, prompt, GEN_NEW_TOKENS, beam_size=BEAM_SIZE,
+            capture=capture))
+
+    caps = genlib.captures
+    (bt, bs), beam_s = beam(True)
+    if genlib.captures - caps != 1:
+        fail(f"beam search captured {genlib.captures - caps} times")
+    (et, es), beam_eager_s = beam(False)
+    for capture in (True, False):
+        s = beam(capture)[1]
+        if capture:
+            beam_s = min(beam_s, s)
+        else:
+            beam_eager_s = min(beam_eager_s, s)
+    if not (torch.equal(bt, et) and torch.equal(bs, es)):
+        fail(f"beam search: {genlib.captures - caps} captures; captured = "
+             f"eager: tokens {torch.equal(bt, et)}, scores "
+             f"{torch.equal(bs, es)}")
+    greedy = genlib.generate(model, prompt, GEN_NEW_TOKENS)
+    log(f"decode phase: beam search, batch {BEAM_BATCH} x {BEAM_SIZE} beams,"
+        f" {GEN_NEW_TOKENS} new tokens: captured = eager bit for bit (tokens"
+        f" and scores); best of two in turns {beam_s:.3f} s captured, "
+        f"{beam_eager_s:.3f} s eager;"
+        f" scores {[round(float(s), 3) for s in bs]}, greedy's tokens equal "
+        f"the best beam's in {int((greedy == bt).all(1).sum())} of "
+        f"{BEAM_BATCH} rows | {card}")
+    # (e) generate_rnn on ptb_medium (seeded init): batch 20, prompt 35.
+    ptb = get_config("ptb_medium")
+    rnn = trainlib.build_model(ptb, torch.device("cuda"))
+    rnn.eval()
+    prompt = torch.from_numpy(next(iter(trainlib.build_dataset(ptb)))[
+        "inputs"]).cuda()
+    def rnn_run(capture):
+        return _timed(lambda: genlib.generate_rnn(
+            rnn, prompt, RNN_NEW_TOKENS, capture=capture))
+
+    caps = genlib.captures
+    rt, rnn_s = rnn_run(True)
+    if genlib.captures - caps != 1:
+        fail(f"generate_rnn captured {genlib.captures - caps} times")
+    re_, rnn_eager_s = rnn_run(False)
+    if not torch.equal(rt, re_):
+        fail("generate_rnn: captured differs from eager")
+    for capture in (True, False):
+        s = rnn_run(capture)[1]
+        if capture:
+            rnn_s = min(rnn_s, s)
+        else:
+            rnn_eager_s = min(rnn_eager_s, s)
+    log(f"decode phase: generate_rnn on ptb_medium (hidden 650), batch "
+        f"{prompt.shape[0]}, prompt {prompt.shape[1]}, {RNN_NEW_TOKENS} new:"
+        f" captured = eager bit for bit; best of two in turns "
+        f"{prompt.shape[0] * RNN_NEW_TOKENS / rnn_s:.1f} tokens/s captured "
+        f"(the capture included), "
+        f"{prompt.shape[0] * RNN_NEW_TOKENS / rnn_eager_s:.1f} eager | {card}")
+    log(f"decode phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"ckpt": ckpt, "train_launches": train_launches,
+            "k2_decode_check": sum(r["k2_launches"]
+                                   for r in results.values()),
+            "paths": results}
+
+
+def phase_startup(card: str, workdir: Path, ckpt: Path) -> dict:
+    """Phase 15, the cold start (``harness/startup.py``): ``transformer_lm``
+    on flash resumed from ``ckpt`` for ``STARTUP_STEPS`` steps, each arm
+    of ``STARTUP_ARMS`` in a fresh process in a world-1 NCCL group, with
+    the startup thread on and off, on the kept build and on a fresh one
+    (nvcc into a temporary directory): the split of the time before the
+    first step, from the child's own clocks and its run's trace.  Every
+    arm ends at the same losses, one capture each."""
+    import socket
+
+    from distributed_tensorflow_models_tpu_torch import launch
+
+    t_phase = time.perf_counter()
+    arms = []
+    for label, aot, cache in STARTUP_ARMS:
+        wd = workdir / f"startup{len(arms)}"
+        shutil.copytree(ckpt, wd)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        env = {**os.environ, launch.ENV_COORDINATOR: f"127.0.0.1:{port}",
+               launch.ENV_NUM_PROCESSES: "1", launch.ENV_PROCESS_ID: "0"}
+        spec = {"steps": GEN_TRAIN_STEPS + STARTUP_STEPS, "aot": aot,
+                "cache": cache}
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", STARTUP_CHILD, str(ROOT), str(wd),
+             json.dumps(spec)], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"startup arm {label} exited {proc.returncode}: "
+                 f"{proc.stderr[-3000:]}")
+        r = json.loads(proc.stdout.strip().splitlines()[-1])
+        if r["restored_from"] != GEN_TRAIN_STEPS or r["captures"] != 1:
+            fail(f"startup arm {label}: {r}")
+        r["label"], r["wall_s"] = label, wall
+        arms.append(r)
+        shutil.rmtree(wd, ignore_errors=True)
+    if any(r["losses"] != arms[0]["losses"] for r in arms):
+        fail(f"startup arms differ: {[r['losses'] for r in arms]}")
+    keys = ("fit/build_state", "startup/kernel_load", "startup/flops_count",
+            "train/flops_count", "startup/aot_compile", "fit/restore",
+            "startup/aot_join", "train/data_wait", "train/eager_step",
+            "train/capture")
+    for r in arms:
+        split = {k: round(r["spans"][k], 4) for k in keys if k in r["spans"]}
+        log(f"startup arm {r['label']:>16}: import torch "
+            f"{r['import_torch_s']:.3f} s, the port {r['import_port_s']:.3f} "
+            f"s, CUDA + NCCL group init {r['cuda_nccl_init_s']:.3f} s; fit "
+            f"entry to its first step {r['fit_to_first_step_s']:.3f} s "
+            f"(process start to first step "
+            f"{r['process_to_first_step_s']:.3f} s, child wall "
+            f"{r['wall_s']:.2f} s); spans (s) {split}; startup/aot_compile_s"
+            f" {r['aot_compile_s']:.3f}, train/compile {r['compile_total_s']:.3f}"
+            f" s | {card}")
+    log(f"startup phase: {len(arms)} arms, the same losses "
+        f"{arms[0]['losses']}, one capture each; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"arms": arms}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch-size", type=int, default=256,
@@ -2871,8 +3287,16 @@ def main(argv=None) -> int:
                         help="phases 1 and 11-13 alone, for work on the "
                         "LeNet, ResNet-32, VGG-16, AlexNet and PTB LSTM "
                         "paths: no result line")
+    parser.add_argument("--generate-only", action="store_true",
+                        help="phases 1 and 14 alone, for work on the "
+                        "KV-cache decode: no result line")
+    parser.add_argument("--startup-only", action="store_true",
+                        help="phase 1, the checkpoint's training of phase "
+                        "14 and phase 15 alone, for work on the cold "
+                        "start: no result line")
     args = parser.parse_args(argv)
 
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2987,6 +3411,19 @@ def main(argv=None) -> int:
         log(card)
         log("zoo-only run: phases 1 and 11-13 alone, no result")
         return 0
+    if args.generate_only:
+        phase_generate(card, workdir / "generate", flash_fns)
+        log(card)
+        log("generate-only run: phases 1 and 14 alone, no result")
+        return 0
+    if args.startup_only:
+        train_lm_checkpoint(workdir / "generate" / "lm", flash_fns,
+                            GEN_TRAIN_STEPS)
+        phase_startup(card, workdir / "startup", workdir / "generate" / "lm")
+        log(card)
+        log("startup-only run: phase 1, phase 14's checkpoint and phase 15 "
+            "alone, no result")
+        return 0
     if args.dp_only:
         phase_data_parallel(args.batch_size, args.train_steps, len(
             core_launch_shapes("resnet50", 224, args.batch_size)), card,
@@ -3023,6 +3460,7 @@ def main(argv=None) -> int:
 
     # 3c. Replay against eager on every zoo path.
     phase_replay(args.batch_size, card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 3c")
 
     # 4. The ResNet-50 path, K1's counter zeroed just before it.
     if convlib.get_default_conv_impl() != "mxu":
@@ -3084,6 +3522,7 @@ def main(argv=None) -> int:
     # transformer_lm (K2).
     tel = phase_telemetry_eval(args.batch_size, card, workdir / "telemetry",
                                roles["fwd"], args.seed)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 5d")
 
     # 5e. Fault injection and the localhost fleet on the ResNet-50 path,
     # K1's counter zeroed just before it and read just after.
@@ -3093,6 +3532,8 @@ def main(argv=None) -> int:
     if chaos["k1_launches"] != k1.launches or k6.launches:
         fail(f"chaos phase: K1 counter {k1.launches} (the drills counted "
              f"{chaos['k1_launches']}), K6 {k6.launches}")
+
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 5e")
 
     # 6. K1 and K6 at every launch shape of the Inception-v3 path.
     inc_calls = core_launch_shapes("inception_v3", 299, args.batch_size,
@@ -3137,6 +3578,8 @@ def main(argv=None) -> int:
     for knob, kid in (("1", "K6"), ("0", "K1")):
         os.environ["DTM_CONV_MXU_PIPELINE"] = knob
         phase_profile(inc_cfg, f"Inception-v3, {kid} convs")
+
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 7")
 
     # 8. K2-K5 against their plain versions, timed against their bounds.
     flash = phase_flash(args.seed + 2, parent)
@@ -3211,6 +3654,17 @@ def main(argv=None) -> int:
     # AlexNet (bf16 K1) and the PTB LSTM.
     zoo = phases_zoo(steps, args.seed + 4, card, workdir)
     zk1, zpaths = zoo["k1"], zoo["paths"]
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 13")
+
+    # 14. The decode path: the LM checkpoint's training (K2-K4, counters
+    # zeroed just before), the CLI's generate, the decode at full width
+    # and its logits against the K2 full forward.
+    gen = phase_generate(card, workdir / "generate", flash_fns)
+
+    # 15. The cold start from that checkpoint, with the startup thread on
+    # and off, each arm a fresh process.
+    phase_startup(card, workdir / "startup", gen["ckpt"])
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 15")
 
     log(card)
     kernels = [{
@@ -3280,8 +3734,13 @@ def main(argv=None) -> int:
             "at_gqa_window_shape": flash[kid]["timed"][gqa_shape],
             "at_d128_sweep_shape": flash[kid]["timed"][d128_shape],
         })
-    next(k for k in kernels if k["name"].startswith("K2 "))[
-        "launches_eval_transformer_lm"] = tel["k2_eval_launches"]
+    k2_entry = next(k for k in kernels if k["name"].startswith("K2 "))
+    k2_entry["launches_eval_transformer_lm"] = tel["k2_eval_launches"]
+    k2_entry["launches_decode_check"] = gen["k2_decode_check"]
+    for k in kernels:
+        kid = k["name"].split(" ")[0]
+        if kid in ("K2", "K3", "K4"):
+            k["launches_generate_checkpoint"] = gen["train_launches"][kid]
     kernels[-1]["dq_vs_k4"] = flash["dq_vs_k4"]
     if parent is not None:
         kernels[-1]["dq_vs_k4_parent"] = flash["dq_vs_k4_parent"]

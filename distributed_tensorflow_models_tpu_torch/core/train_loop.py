@@ -349,7 +349,15 @@ class MultiStep:
     signature's first step, and sets ``train/flops_per_step``; every step
     run, eager or replayed, then adds that count to ``train/flops_total``
     on the host, as the launch counters count replays.  A failing count is
-    logged and counts 0."""
+    logged and counts 0.
+
+    ``pending_compile_s`` is time the caller waited, before the first
+    capture, for work done for the step elsewhere (``fit``'s startup
+    thread, ``harness/startup.py``): the next capture adds it to its
+    ``train/compile`` record (not to ``capture_s``) and resets it.  The
+    FLOPs count, the eager first step and each capture are traced on
+    ``registry.trace`` (``train/flops_count``; ``train/eager_step``, its
+    host time to the capture's device sync; ``train/capture``)."""
 
     def __init__(self, step: Callable, name: str = "the model",
                  registry: Optional[telemetry.MetricsRegistry] = None,
@@ -361,6 +369,7 @@ class MultiStep:
         self.captures = 0
         self.capture_s = 0.0
         self.replays = 0
+        self.pending_compile_s = 0.0
         self._captured: dict[tuple, _Captured] = {}
         self._flops: dict[tuple, float] = {}
         self._stream: Optional[torch.cuda.Stream] = None
@@ -393,6 +402,7 @@ class MultiStep:
         sig = _signature(chunk)
         flops = self._flops.get(sig)
         if flops is None:
+            t0 = time.perf_counter()
             try:
                 flops = max(float(self.flops_of(
                     {key: v[0] for key, v in chunk.items()})), 0.0)
@@ -400,6 +410,8 @@ class MultiStep:
                 log.warning("the FLOPs of a step of %s could not be counted; "
                             "MFU counts them as 0", self.name, exc_info=True)
                 flops = 0.0
+            self.registry.trace.complete(
+                "train/flops_count", time.perf_counter() - t0, ts_mono=t0)
             self._flops[sig] = flops
             if flops > 0:
                 self.registry.gauge(telemetry.FLOPS_PER_STEP).set(flops)
@@ -424,8 +436,9 @@ class MultiStep:
         cap = self._captured.get(sig)
         first = 0
         if cap is None:
+            t_eager = time.perf_counter()
             state, row0, names = self._eager_step(state, chunk, seed)
-            cap = self._capture(sig, state, chunk, names)
+            cap = self._capture(sig, state, chunk, names, t_eager)
             first = 1
         values = torch.empty(k, len(cap.names), device=cap.metrics.device)
         if first:
@@ -465,10 +478,14 @@ class MultiStep:
         row.record_stream(cur)
         return state, row, names
 
-    def _capture(self, sig, state, chunk, names) -> _Captured:
+    def _capture(self, sig, state, chunk, names,
+                 t_eager: Optional[float] = None) -> _Captured:
         device = _device_of(state)
         torch.cuda.synchronize(device)
         t0 = time.perf_counter()
+        if self.registry is not None and t_eager is not None:
+            self.registry.trace.complete("train/eager_step", t0 - t_eager,
+                                         ts_mono=t_eager)
         batch = {key: torch.empty_like(v[0]) for key, v in chunk.items()}
         gens = self.step.rngs(device).generators
         before = _kernels.launch_counts()
@@ -501,7 +518,10 @@ class MultiStep:
         self.captures += 1
         self.capture_s += seconds
         if self.registry is not None:
-            self.registry.timer(telemetry.COMPILE).record(seconds)
+            self.registry.trace.complete("train/capture", seconds, ts_mono=t0)
+            self.registry.timer(telemetry.COMPILE).record(
+                seconds + self.pending_compile_s)
+        self.pending_compile_s = 0.0
         cap = self._captured[sig] = _Captured(graph, batch, row, names,
                                               launches, collectives)
         return cap

@@ -1,9 +1,13 @@
-"""Command-line entry point of the port: ``train``, ``eval`` and ``list``.
+"""Command-line entry point of the port: ``train``, ``eval``, ``generate``
+and ``list``.
 
     python -m distributed_tensorflow_models_tpu_torch.harness.cli train \\
         --config resnet50_synthetic --workdir /tmp/r50 --train-steps 3
     python -m distributed_tensorflow_models_tpu_torch.harness.cli eval \\
         --config resnet50_synthetic --workdir /tmp/r50 --max-batches 4
+    python -m distributed_tensorflow_models_tpu_torch.harness.cli generate \\
+        --config transformer_lm --workdir /tmp/lm --prompt 5,6,7 \\
+        --max-new-tokens 32
     python -m distributed_tensorflow_models_tpu_torch.harness.cli list
 
 Flags are spelled as in the JAX package's CLI.  ``--device`` defaults to
@@ -36,6 +40,22 @@ when the config keeps them) and prints one JSON line: ``step`` and top-1,
 top-5, xent and the example count for a classifier, perplexity and nll
 for an LM; ``--max-batches`` bounds the pass, ``--continuous``
 re-evaluates each new checkpoint and prints a line for each.
+
+``generate`` restores the workdir's newest valid checkpoint of a
+``transformer_lm`` config and continues ``--prompt`` (comma-separated
+token ids; empty is the single token 0) by ``--max-new-tokens`` tokens
+through the KV cache (``harness/generate.py``; on the card the one-token
+step is a captured CUDA graph), greedy at ``--temperature 0`` (the
+default), else sampled with ``--top-k``/``--top-p`` from ``--seed``
+(default 0); ``--eos-id`` freezes a row at that token.  It prints one JSON
+line, ``{"step", "prompt", "tokens"}`` (the prompt included).  Other
+configs, and pipelined checkpoints, are refused.
+
+``train --aot-compile`` (the default) loads or builds the step's kernel
+libraries and counts its FLOPs on a background thread while the
+checkpoint restores (``harness/startup.py``); ``--no-aot-compile`` leaves
+both to the first step.  ``--xla-cache-dir`` names the kernel build cache
+(default ``build/kernels/``; ``''`` builds into a temporary directory).
 
 Started by a launcher that sets ``DTM_COORDINATOR_ADDRESS``,
 ``DTM_NUM_PROCESSES`` and ``DTM_PROCESS_ID`` (``launch.py``, e.g.
@@ -117,11 +137,42 @@ def main(argv: list[str] | None = None) -> int:
                          "kill_at_step, hide_newest_ckpt, "
                          "straggler_delay_ms, chaos_host — e.g. --chaos "
                          "'nan_at_step=50' (resilience/chaos.py)")
+    p_train.add_argument("--xla-cache-dir", type=str, default=None,
+                         help="the kernel build cache (the JAX package's "
+                         "name for its compilation cache): nvcc builds go "
+                         "there and a relaunch loads them (default "
+                         "build/kernels/ at the repository root; '' builds "
+                         "into a fresh temporary directory)")
+    p_train.add_argument("--aot-compile",
+                         action=argparse.BooleanOptionalAction, default=None,
+                         help="load (or build) the step's kernel libraries "
+                         "and count its FLOPs on a background thread while "
+                         "the checkpoint restores (default on; the run is "
+                         "the same bit for bit); --no-aot-compile leaves "
+                         "them to the first step")
     p_eval = sub.add_parser("eval", help="evaluate the latest checkpoint")
     _add_common(p_eval)
     p_eval.add_argument("--continuous", action="store_true",
                         help="re-evaluate as new checkpoints appear")
     p_eval.add_argument("--max-batches", type=int, default=None)
+    p_gen = sub.add_parser("generate", help="continue a prompt with a "
+                           "trained transformer LM checkpoint (KV-cache "
+                           "decode)")
+    p_gen.add_argument("--config", required=True)
+    p_gen.add_argument("--workdir", required=True)
+    p_gen.add_argument("--prompt", default="",
+                       help="comma-separated token ids (empty = the single "
+                       "token 0)")
+    p_gen.add_argument("--max-new-tokens", type=int, default=64)
+    p_gen.add_argument("--temperature", type=float, default=0.0)
+    p_gen.add_argument("--top-k", type=int, default=0)
+    p_gen.add_argument("--top-p", type=float, default=1.0)
+    # None keeps cfg.seed; the sampling seed falls back to 0.
+    p_gen.add_argument("--seed", type=int, default=None)
+    p_gen.add_argument("--eos-id", type=int, default=None)
+    p_gen.add_argument("--device", default="cuda",
+                       help="torch device (default cuda; cpu must be asked "
+                       "for)")
     sub.add_parser("list", help="list available configs")
     args = parser.parse_args(argv)
 
@@ -134,13 +185,7 @@ def main(argv: list[str] | None = None) -> int:
             print(name)
         return 0
 
-    overrides = {}
-    if args.batch_size is not None:
-        overrides["global_batch_size"] = args.batch_size
-    if args.seed is not None:
-        overrides["seed"] = args.seed
-    if args.attn_impl is not None:
-        overrides["attn_impl"] = args.attn_impl
+    overrides = _overrides(args)
 
     from distributed_tensorflow_models_tpu_torch import launch
 
@@ -155,6 +200,12 @@ def main(argv: list[str] | None = None) -> int:
             )
 
             return _eval(get_config(args.config, **overrides), args)
+        if args.cmd == "generate":
+            from distributed_tensorflow_models_tpu_torch.harness.config import (
+                get_config,
+            )
+
+            return _generate(get_config(args.config, **overrides), args)
         return _train(args, overrides)
     finally:
         if in_cluster:
@@ -170,17 +221,6 @@ def _train(args, overrides: dict) -> int:
         get_config,
     )
 
-    if args.train_steps is not None:
-        overrides["train_steps"] = args.train_steps
-    if args.data_workers is not None:
-        overrides["data_workers"] = args.data_workers
-    if args.steps_per_loop is not None:
-        overrides["steps_per_loop"] = args.steps_per_loop
-    for field in ("nan_policy", "rollback_budget", "watchdog_timeout_s",
-                  "watchdog_abort", "checkpoint_every_steps",
-                  "preempt_poll_steps", "log_every_steps", "chaos"):
-        if getattr(args, field) is not None:
-            overrides[field] = getattr(args, field)
     cfg = get_config(args.config, **overrides)
     result = trainlib.recoverable_fit(cfg, args.workdir, device=args.device)
     print(json.dumps({
@@ -204,6 +244,29 @@ def _train(args, overrides: dict) -> int:
         # EX_TEMPFAIL) tells a launcher "rerun me" from a failure.
         return launch.RESUMABLE_EXIT_CODE
     return 0
+
+
+# Config field of each flag that overrides one; a command without the flag
+# leaves the field alone.
+_OVERRIDES = (("batch_size", "global_batch_size"), ("seed", "seed"),
+              ("attn_impl", "attn_impl"), ("train_steps", "train_steps"),
+              ("data_workers", "data_workers"),
+              ("steps_per_loop", "steps_per_loop"),
+              ("nan_policy", "nan_policy"),
+              ("rollback_budget", "rollback_budget"),
+              ("watchdog_timeout_s", "watchdog_timeout_s"),
+              ("watchdog_abort", "watchdog_abort"),
+              ("checkpoint_every_steps", "checkpoint_every_steps"),
+              ("preempt_poll_steps", "preempt_poll_steps"),
+              ("log_every_steps", "log_every_steps"), ("chaos", "chaos"),
+              ("xla_cache_dir", "xla_cache_dir"),
+              ("aot_compile", "aot_compile"))
+
+
+def _overrides(args) -> dict:
+    """The config overrides of the parsed flags: every flag given."""
+    return {field: getattr(args, flag) for flag, field in _OVERRIDES
+            if getattr(args, flag, None) is not None}
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -239,6 +302,48 @@ def _eval(cfg, args) -> int:
     res = fn(cfg, args.workdir, max_batches=args.max_batches,
              device=args.device)
     print(json.dumps({"step": res.step, **res.metrics}))
+    return 0
+
+
+def _generate(cfg, args) -> int:
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.core.mesh import (
+        resolve_device,
+    )
+    from distributed_tensorflow_models_tpu_torch.harness import (
+        checkpoint as ckptlib,
+    )
+    from distributed_tensorflow_models_tpu_torch.harness import (
+        generate as genlib,
+    )
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+
+    if cfg.task != "lm" or cfg.model != "transformer_lm":
+        raise SystemExit("generate requires a transformer_lm config "
+                         f"(got model={cfg.model!r})")
+    if cfg.mesh_pipe > 1 or cfg.model_kwargs.get("pipelined"):
+        raise SystemExit("generate does not support pipelined checkpoints "
+                         "(stacked parameter layout)")
+    try:
+        tokens = [int(t) for t in args.prompt.split(",") if t.strip()]
+    except ValueError as e:
+        raise SystemExit(f"--prompt must be comma-separated ints: {e}") from e
+    tokens = tokens or [0]
+    dev = resolve_device(args.device)
+    template = trainlib.build_state(cfg, dev)
+    manager = ckptlib.CheckpointManager(args.workdir,
+                                        keep=cfg.keep_checkpoints)
+    try:
+        state, _ = manager.restore(template)
+    except FileNotFoundError as e:
+        raise SystemExit(f"no checkpoint in {args.workdir!r}: {e}") from e
+    out = genlib.generate(
+        state.model, torch.tensor([tokens], dtype=torch.int64, device=dev),
+        args.max_new_tokens, temperature=args.temperature, top_k=args.top_k,
+        top_p=args.top_p, seed=args.seed or 0, eos_id=args.eos_id)
+    print(json.dumps({"step": int(state.step), "prompt": tokens,
+                      "tokens": out[0].tolist()}))
     return 0
 
 

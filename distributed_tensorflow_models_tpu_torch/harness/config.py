@@ -138,6 +138,19 @@ class ExperimentConfig:
     checkpoint_every_secs: Optional[float] = 600.0
     checkpoint_every_steps: Optional[int] = None
     keep_checkpoints: int = 5
+    # Cold start (harness/startup.py), under the JAX package's names so a
+    # config reads the same in both packages.  xla_cache_dir names the
+    # kernel build cache here, where the JAX package kept its XLA
+    # compilation cache: None keeps the process's build directory (the
+    # default build/kernels/ of ops/_kernels.py unless an explicit
+    # setting came first), a path is used as it is, and "" keeps no
+    # persistent cache (kernels build into a fresh temporary directory).
+    # aot_compile: while fit restores the checkpoint, a background thread
+    # loads (or builds with nvcc) every kernel library the step will
+    # launch and runs the FLOPs count; the result is the same bit for bit
+    # with it on or off.
+    xla_cache_dir: Optional[str] = None
+    aot_compile: bool = True
     # Divergence policy.  "abort": a non-finite loss kills the run (the
     # reference's NanTensorHook).  "rollback": restore the newest finite
     # checkpoint in place, skip exactly the offending chunk's batches and

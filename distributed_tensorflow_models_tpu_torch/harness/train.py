@@ -32,6 +32,7 @@ import inspect
 import json
 import logging
 import os
+import threading
 import time
 from typing import Optional, Sequence
 
@@ -46,6 +47,7 @@ from distributed_tensorflow_models_tpu_torch.data import datasets as datalib
 from distributed_tensorflow_models_tpu_torch.data import pipeline as pipelib
 from distributed_tensorflow_models_tpu_torch.harness import checkpoint as ckptlib
 from distributed_tensorflow_models_tpu_torch.harness import hooks as hooklib
+from distributed_tensorflow_models_tpu_torch.harness import startup as startuplib
 from distributed_tensorflow_models_tpu_torch.harness.config import ExperimentConfig
 from distributed_tensorflow_models_tpu_torch.models import builder_takes, get_model
 from distributed_tensorflow_models_tpu_torch.resilience import chaos as chaoslib
@@ -172,8 +174,11 @@ def _loss_of(cfg: ExperimentConfig, model: torch.nn.Module):
 # model's and the loss's settings, the global batch's shapes): the fits of
 # one configuration (arms in turns, a test's several runs) would otherwise
 # each build and trace the model on the meta device again (~1.3 s for
-# ResNet-50, ~2.8 s for Inception-v3).
+# ResNet-50, ~2.8 s for Inception-v3).  The lock makes a second caller of
+# a count in flight (fit's first step, while the startup thread of
+# harness/startup.py counts) wait for it instead of counting again.
 _STEP_FLOPS: dict[tuple, float] = {}
+_STEP_FLOPS_LOCK = threading.Lock()
 
 
 def step_flops_fn(cfg: ExperimentConfig, mesh: meshlib.Mesh):
@@ -192,18 +197,20 @@ def step_flops_fn(cfg: ExperimentConfig, mesh: meshlib.Mesh):
                cfg.aux_loss_weight, rows,
                tuple((k, tuple(v.shape[1:]), v.dtype)
                      for k, v in sorted(batch.items())))
-        if key not in _STEP_FLOPS:
-            with torch.device("meta"):
-                model = get_model(cfg.model, **_model_kwargs(cfg))
-                meta = {k: torch.empty((rows, *v.shape[1:]), dtype=v.dtype)
-                        for k, v in batch.items()}
-                carry = (model.initial_carry(rows, torch.device("meta"))
-                         if cfg.task == "lm"
-                         and hasattr(model, "initial_carry") else None)
-            train_loop.library_route(model)
-            _STEP_FLOPS[key] = train_loop.step_flops(
-                _loss_of(cfg, model), model, meta, carry)
-        return _STEP_FLOPS[key]
+        with _STEP_FLOPS_LOCK:
+            if key not in _STEP_FLOPS:
+                with torch.device("meta"):
+                    model = get_model(cfg.model, **_model_kwargs(cfg))
+                    meta = {k: torch.empty((rows, *v.shape[1:]),
+                                           dtype=v.dtype)
+                            for k, v in batch.items()}
+                    carry = (model.initial_carry(rows, torch.device("meta"))
+                             if cfg.task == "lm"
+                             and hasattr(model, "initial_carry") else None)
+                train_loop.library_route(model)
+                _STEP_FLOPS[key] = train_loop.step_flops(
+                    _loss_of(cfg, model), model, meta, carry)
+            return _STEP_FLOPS[key]
 
     return count
 
@@ -455,6 +462,15 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
       every chunk boundary; the chief exports the ``fleet/*`` gauges
       (``FleetHook``).
 
+    Cold start (``harness/startup.py``): ``cfg.xla_cache_dir`` points the
+    kernel builds at their cache, and with ``cfg.aot_compile`` threads
+    started before the restore load (or build) the step's kernel libraries
+    and count its FLOPs; the first chunk waits
+    for what is left of that work (booked in its capture's
+    ``train/compile`` record) and raises a failed build.  The run is the
+    same bit for bit either way; ``startup/aot_compile_s`` is the threads'
+    duration.
+
     ``restarts`` seeds the ``train/restarts`` counter
     (:func:`recoverable_fit` passes its attempt number)."""
     if cfg.nan_policy == "rollback" and not workdir:
@@ -471,9 +487,10 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
     registry.counter(telemetry.RESTARTS).inc(restarts)
     registry.counter(telemetry.ROLLBACKS)
     registry.counter(telemetry.SKIPPED_BATCHES)
-    # Nothing is compiled ahead of time: the step's capture is its compile
-    # (train/compile, at the first step).
+    # 0 unless the startup thread runs (cfg.aot_compile), which stamps its
+    # real duration.
     registry.gauge(telemetry.STARTUP_AOT_COMPILE).set(0.0)
+    startuplib.apply_compile_cache(cfg.xla_cache_dir)
     ring = int(cfg.trace_ring_events or 0)
     tracer = telemetry.Tracer(capacity=max(1, ring),
                               process_index=mesh.rank, enabled=ring > 0)
@@ -510,11 +527,15 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
                                      mesh.world_size if grouped else 1)
     manager = None
     restored = False
+    aot: Optional[startuplib.AotTrainStep] = None
     try:
-        state = train_loop.place_state(build_state(cfg, dev, mesh), mesh)
+        flops_of = step_flops_fn(cfg, mesh)
+        with tracer.span("fit/build_state"):
+            state = train_loop.place_state(build_state(cfg, dev, mesh), mesh)
+        # The kernel loads and the FLOPs count run under the restore.
+        aot = _start_aot(cfg, state, mesh, dev, flops_of, registry)
         multi = train_loop.MultiStep(build_step(cfg, state), name=cfg.model,
-                                     registry=registry,
-                                     flops_of=step_flops_fn(cfg, mesh))
+                                     registry=registry, flops_of=flops_of)
         if workdir:
             manager = ckptlib.CheckpointManager(
                 workdir, keep=cfg.keep_checkpoints,
@@ -526,8 +547,9 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
                 step_filter=chaos.step_filter() if chaos is not None else None)
             heartbeat.set_phase("restore")
             t0 = time.perf_counter()
-            state, data_state, restored = ckptlib.restore_or_init(manager,
-                                                                  state)
+            with tracer.span("fit/restore"):
+                state, data_state, restored = ckptlib.restore_or_init(
+                    manager, state)
             registry.gauge(telemetry.STARTUP_RESTORE).set(
                 time.perf_counter() - t0)
         restored_from = state.step if restored else None
@@ -542,6 +564,8 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
         if chaos is not None:
             dataset = chaos.wrap_dataset(dataset)
     except BaseException:
+        if aot is not None:
+            aot.join(timeout=120.0)
         dump_flight("setup_failure")
         _unwire_chaos_forensics(chaos)
         raise
@@ -806,6 +830,12 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
                 # In place into the stacker's fresh stack, on this stream,
                 # before the K-step call copies its rows into the step.
                 chunk = chaos.poison_batch(chunk, first + 1, k)
+            if aot is not None:
+                # The first chunk waits for what is left of the startup
+                # work, and its capture books that wait as compile.
+                wait = aot.acquire(startuplib.signature(chunk))
+                if wait is not None:
+                    multi.pending_compile_s += wait
             t1 = time.perf_counter()
             consistent = False
             with meshlib.data_parallel(mesh):
@@ -891,6 +921,8 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
                                 mesh)
         raise
     finally:
+        if aot is not None:
+            aot.join(timeout=120.0)
         if watchdog is not None:
             watchdog.stop()
         if fwatch is not None:
@@ -946,6 +978,30 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
         registry=registry, preempted=preempted, restored_from=restored_from,
         rollbacks=rollbacks, skipped_batches=skipped,
         saves=manager.save_log if manager is not None else [])
+
+
+def _start_aot(cfg: ExperimentConfig, state: TrainState,
+               mesh: meshlib.Mesh, dev: torch.device, flops_of,
+               registry: telemetry.MetricsRegistry
+               ) -> Optional[startuplib.AotTrainStep]:
+    """Start the startup threads (``harness/startup.py``) for the dominant
+    chunk of ``cfg`` and the kernels of ``state``'s model, or None when
+    ``cfg.aot_compile`` is off or the dataset's batch structure is unknown
+    (the step then does the work at its first call, as with them off)."""
+    if not cfg.aot_compile:
+        return None
+    batch = startuplib.abstract_batch(cfg, mesh)
+    if batch is None:
+        log.info("aot_compile: the batch structure of dataset %r is "
+                 "unknown; the first step loads its kernels itself",
+                 cfg.dataset)
+        return None
+    k = startuplib.dominant_chunk_len(cfg, mesh.world_size)
+    return startuplib.AotTrainStep(
+        startuplib.stacked_batch(batch, k),
+        loaders=startuplib.kernel_loaders(state.model, dev),
+        flops_of=flops_of, registry=registry,
+        label=f"{k}-step chunk").start()
 
 
 def _chaos_hooks(chaos: chaoslib.ChaosInjector, save_fn, final_step: int,

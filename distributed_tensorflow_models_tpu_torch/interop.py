@@ -7,11 +7,16 @@ variable names, so the flax path ``stage0_block0/Conv2D_1/kernel`` is the
 state-dict name ``stage0_block0.Conv2D_1.kernel``; conv kernels stay HWIO
 and the head kernel stays ``[in, out]`` (the port's ``Dense`` is not
 ``nn.Linear``).  Values are copied unchanged, so the round trip is exact.
+
+The transformer's decode state converts too: the JAX ``cache`` collection
+(per block ``attn/cached_key``, ``attn/cached_value`` and
+``attn/cache_index``, and the model's ``pos_index``) to the port's
+``KVCache`` and back (:func:`cache_from_flax`, :func:`cache_to_flax`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -68,6 +73,46 @@ def load_flax_variables(model: nn.Module, variables: Mapping[str, Any]) -> None:
                 raise ValueError(
                     f"{coll}/{name}: shape {value.shape} != {tuple(t.shape)}")
             t.copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
+
+
+def cache_from_flax(cache: Mapping[str, Any],
+                    device: Optional[str | torch.device] = None):
+    """The port's ``KVCache`` of a JAX decode model's ``cache`` collection
+    (nested dicts of numpy arrays, values kept).  Every block's
+    ``cache_index`` and the ``pos_index`` must agree."""
+    from distributed_tensorflow_models_tpu_torch.models.transformer_lm import (
+        KVCache,
+    )
+
+    blocks = sorted((k for k in cache if k.startswith("blocks_")),
+                    key=lambda k: int(k.split("_")[1]))
+    indices = {int(np.asarray(cache[b]["attn"]["cache_index"]))
+               for b in blocks}
+    if "pos_index" in cache:
+        indices.add(int(np.asarray(cache["pos_index"])))
+    if len(indices) != 1:
+        raise ValueError(f"the cache's indices disagree: {sorted(indices)}")
+
+    def tensor(a):
+        return torch.from_numpy(np.array(a)).to(device)
+
+    return KVCache(
+        [tensor(cache[b]["attn"]["cached_key"]) for b in blocks],
+        [tensor(cache[b]["attn"]["cached_value"]) for b in blocks],
+        torch.tensor(indices.pop(), dtype=torch.int64, device=device))
+
+
+def cache_to_flax(cache) -> dict:
+    """A ``KVCache`` as the JAX decode model's ``cache`` collection: numpy
+    keys and values, int32 indices."""
+    index = np.asarray(int(cache.index), dtype=np.int32)
+    tree = {f"blocks_{i}": {"attn": {
+        "cached_key": k.detach().cpu().numpy().copy(),
+        "cached_value": v.detach().cpu().numpy().copy(),
+        "cache_index": index.copy()}}
+        for i, (k, v) in enumerate(zip(cache.keys, cache.values))}
+    tree["pos_index"] = index.copy()
+    return tree
 
 
 def to_flax_variables(model: nn.Module) -> dict[str, dict]:

@@ -16,12 +16,25 @@ position table is normal(0.02) and cast to the activation dtype before
 the add.  Module and parameter names are the flax paths
 (``blocks_0.attn.query.kernel``, ``embedding.embedding``,
 ``pos_embedding``...), so ``interop`` maps a flax tree onto the state
-dict name for name.  Decode (KV cache), MoE, the pipelined stack and
-remat are not ported yet and raise.
+dict name for name.  MoE, the pipelined stack and remat are not ported
+yet and raise.
+
+Decode: a forward given a :class:`KVCache` (``model.init_cache``; required
+with ``decode=True``) runs the JAX package's decode mode.  The tokens sit
+at global positions ``cache.index .. cache.index + T - 1``: the position
+table is read there (or q and k are rotated there), each block's keys
+(after rotation) and values are written into its cache at those rows
+(``index_copy_`` at a device index), and attention runs over the whole
+cache through :func:`...ops.attention.reference_attention` with the
+causal mask (and window) in global positions, which also hides the
+cache's unwritten tail.  The index then advances by ``T`` in place.  No
+host read is made, so a one-token decode step can be captured as a CUDA
+graph over the cache's static storage (``harness/generate.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping, Optional
 
 import torch
@@ -38,6 +51,28 @@ from distributed_tensorflow_models_tpu_torch.ops.embed import TokenEmbed
 
 def _not_ported(what: str):
     return NotImplementedError(f"transformer_lm: {what} is not ported yet")
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Decode state the caller owns: per block the keys (after rotation)
+    and values, ``[B, max_len, Hkv, Dh]`` in the model's dtype, and the
+    number of positions written so far, ``index`` (a 0-d int64 tensor on
+    the cache's device: the JAX package's ``cache_index`` of every block
+    and the model's ``pos_index``).  A decode forward writes its rows and
+    advances ``index`` in place; :meth:`reorder` gathers the rows of the
+    batch in place (beam search's parents)."""
+
+    keys: list[torch.Tensor]
+    values: list[torch.Tensor]
+    index: torch.Tensor
+
+    @torch.no_grad()
+    def reorder(self, rows: torch.Tensor) -> None:
+        """Row ``i`` of every block's keys and values becomes the old row
+        ``rows[i]``, in the same storage."""
+        for t in (*self.keys, *self.values):
+            t.copy_(t.index_select(0, rows))
 
 
 class LayerNorm(nn.Module):
@@ -87,18 +122,32 @@ class SelfAttention(nn.Module):
         self.value = Dense(d_model, kv, **dense)
         self.out = Dense(d_model, d_model, **dense)
 
-    def forward(self, x, train: bool = False, rngs=None):
+    def forward(self, x, train: bool = False, rngs=None, cache=None):
+        """``cache``: ``(keys, values, index)`` of this block, in decode."""
         B, T, _ = x.shape
         H, Hkv, Dh = self.num_heads, self.num_kv_heads, self.head_dim
         q = self.query(x).reshape(B, T, H, Dh)
         k = self.key(x).reshape(B, T, Hkv, Dh)
         v = self.value(x).reshape(B, T, Hkv, Dh)
-        if self.use_rope:
-            pos = torch.arange(T, device=x.device)
-            q = rotary.apply_rope(q, pos, self.rope_theta)
-            k = rotary.apply_rope(k, pos, self.rope_theta)
-        out = attnlib.attention(q, k, v, causal=True, impl=self.attn_impl,
-                                window=self.attn_window)
+        if cache is not None:
+            ck, cv, index = cache
+            pos = index + torch.arange(T, device=x.device)
+            if self.use_rope:
+                q = rotary.apply_rope(q, pos, self.rope_theta)
+                k = rotary.apply_rope(k, pos, self.rope_theta)
+            ck.index_copy_(1, pos, k.to(ck.dtype))
+            cv.index_copy_(1, pos, v.to(cv.dtype))
+            out = attnlib.reference_attention(q, ck, cv, causal=True,
+                                              q_offset=index,
+                                              window=self.attn_window)
+        else:
+            if self.use_rope:
+                pos = torch.arange(T, device=x.device)
+                q = rotary.apply_rope(q, pos, self.rope_theta)
+                k = rotary.apply_rope(k, pos, self.rope_theta)
+            out = attnlib.attention(q, k, v, causal=True,
+                                    impl=self.attn_impl,
+                                    window=self.attn_window)
         out = self.out(out.reshape(B, T, self.d_model))
         return dropout(out, self.dropout_rate, train, rngs)
 
@@ -132,8 +181,8 @@ class Block(nn.Module):
         self.ln2 = LayerNorm(d_model)
         self.mlp = MLP(d_model, d_ff, dropout_rate, dtype, generator)
 
-    def forward(self, x, train: bool = False, rngs=None):
-        x = x + self.attn(self.ln1(x).to(self.dtype), train, rngs)
+    def forward(self, x, train: bool = False, rngs=None, cache=None):
+        x = x + self.attn(self.ln1(x).to(self.dtype), train, rngs, cache)
         return x + self.mlp(self.ln2(x).to(self.dtype), train, rngs)
 
 
@@ -141,7 +190,9 @@ class TransformerLM(nn.Module):
     """Input ``tokens [B, T]`` int; returns ``(logits [B, T, V], carry)``.
     The carry passes through unchanged (the LM train-step contract shared
     with the PTB LSTM).  ``return_hidden=True`` returns the post-``ln_f``
-    hidden states instead of logits, for the fused chunked head."""
+    hidden states instead of logits, for the fused chunked head.  Given a
+    ``cache`` (:meth:`init_cache`) the forward decodes (module docstring);
+    ``decode=True`` makes the cache required."""
 
     def __init__(self, vocab_size: int = 10000, num_layers: int = 4,
                  num_heads: int = 8, d_model: int = 256, d_ff: int = 1024,
@@ -154,8 +205,9 @@ class TransformerLM(nn.Module):
                  decode: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if decode:
-            raise _not_ported("decode mode (the KV cache)")
+        if decode and (pipelined or num_experts):
+            raise ValueError("decode mode supports the dense non-pipelined "
+                             "stack")
         if num_experts:
             raise _not_ported("the MoE FFN (num_experts > 0)")
         if pipelined:
@@ -167,6 +219,10 @@ class TransformerLM(nn.Module):
                              "(want 'learned' or 'rope')")
         attnlib._check_window(attn_window)
         self.dtype = dtype
+        self.decode = decode
+        self.num_heads = num_heads
+        self.num_kv_heads = num_kv_heads or num_heads
+        self.head_dim = d_model // num_heads
         self.num_layers = num_layers
         self.dropout_rate = dropout_rate
         self.max_len = max_len
@@ -188,19 +244,44 @@ class TransformerLM(nn.Module):
         self.head = Dense(d_model, vocab_size, dtype=torch.float32,
                           generator=generator)
 
+    def init_cache(self, batch_size: int,
+                   device: Optional[str | torch.device] = None) -> KVCache:
+        """An empty cache for ``batch_size`` rows: zeros of ``[B, max_len,
+        num_kv_heads, head_dim]`` in the model's dtype per block, index 0."""
+        shape = (batch_size, self.max_len, self.num_kv_heads, self.head_dim)
+
+        def zeros():
+            return torch.zeros(shape, dtype=self.dtype, device=device)
+
+        return KVCache([zeros() for _ in range(self.num_layers)],
+                       [zeros() for _ in range(self.num_layers)],
+                       torch.zeros((), dtype=torch.int64, device=device))
+
     def forward(self, tokens, carry=None, train: bool = False,
                 return_hidden: bool = False,
-                rngs: Optional[Mapping[str, torch.Generator]] = None):
+                rngs: Optional[Mapping[str, torch.Generator]] = None,
+                cache: Optional[KVCache] = None):
         T = tokens.shape[1]
+        if self.decode and cache is None:
+            raise ValueError("decode mode needs a KVCache (model.init_cache)")
         x = self.embedding(tokens)
-        if self.pos_embedding is not None:
+        if cache is not None:
+            pos = cache.index + torch.arange(T, device=tokens.device)
+            if self.pos_embedding is not None:
+                x = x + self.pos_embedding.index_select(0, pos).to(self.dtype)
+        elif self.pos_embedding is not None:
             if T > self.max_len:
                 raise ValueError(f"sequence length {T} exceeds max_len "
                                  f"{self.max_len}")
             x = x + self.pos_embedding[:T].to(self.dtype)
         x = dropout(x, self.dropout_rate, train, rngs)
         for i in range(self.num_layers):
-            x = getattr(self, f"blocks_{i}")(x, train, rngs)
+            block_cache = (None if cache is None else
+                           (cache.keys[i], cache.values[i], cache.index))
+            x = getattr(self, f"blocks_{i}")(x, train, rngs, block_cache)
+        if cache is not None:
+            with torch.no_grad():
+                cache.index.add_(T)
         x = self.ln_f(x)
         if return_hidden:
             return x, carry

@@ -31,7 +31,11 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
+DEFAULT_BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
+# Where builds go and are looked up; harness/startup.py points it
+# elsewhere (a config's xla_cache_dir).  Libraries already loaded stay
+# loaded when it moves.
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -70,6 +74,13 @@ def add_launches(counts: dict[tuple[object, str], int],
     for (fn, attr), n in counts.items():
         if n:
             setattr(fn, attr, getattr(fn, attr) + times * n)
+
+
+def set_build_dir(path: str | os.PathLike) -> Path:
+    """Build into and load from ``path`` from now on; returns it."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
+    return BUILD_DIR
 
 
 def _nvcc() -> str:

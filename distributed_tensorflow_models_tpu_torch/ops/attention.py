@@ -91,9 +91,11 @@ def _expand_kv(q, k, v):
 
 
 def _valid(Tq: int, Tkv: int, causal: bool, window: Optional[int],
-           q_offset: int, kv_offset: int, device) -> Optional[torch.Tensor]:
+           q_offset: int | torch.Tensor, kv_offset: int,
+           device) -> Optional[torch.Tensor]:
     """``[Tq, Tkv]`` mask in global positions, or None when nothing is
-    masked."""
+    masked.  ``q_offset`` may be a 0-d device tensor (a decode cache's
+    index): no host read, so the mask can be captured in a CUDA graph."""
     if not causal and window is None:
         return None
     qi = q_offset + torch.arange(Tq, device=device)[:, None]
@@ -116,12 +118,14 @@ def _scores(q, k, scale: float, valid: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 def reference_attention(q, k, v, *, causal: bool = False,
-                        scale: Optional[float] = None, q_offset: int = 0,
+                        scale: Optional[float] = None,
+                        q_offset: int | torch.Tensor = 0,
                         kv_offset: int = 0,
                         window: Optional[int] = None) -> torch.Tensor:
     """Materialised-scores attention, BTHD in and out.  ``q_offset`` and
     ``kv_offset`` are the global positions of the first query and key
-    rows (a chunk of a longer sequence)."""
+    rows (a chunk of a longer sequence); ``q_offset`` may be a 0-d tensor
+    on the device (the decode step's cache index)."""
     s = _scale(q, scale)
     window = _check_window(window)
     k, v = _expand_kv(q, k, v)

@@ -29,7 +29,8 @@ def rope_angles(positions: torch.Tensor, dim: int, theta: float = 10000.0):
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 10000.0) -> torch.Tensor:
     """Rotate ``x [B, T, H, D]`` by its tokens' global ``positions``
-    (``[T]`` or ``[B, T]``)."""
+    (``[T]`` or ``[B, T]``, on ``x``'s device: in decode
+    ``cache.index + arange(T)``, made without a host read)."""
     D = x.shape[-1]
     cos, sin = rope_angles(positions, D, theta)  # [..., T, D/2]
     if cos.dim() == 2:

@@ -1440,3 +1440,117 @@ def test_eval_on_the_kernels_matches_their_plain_versions(cuda, tmp_path,
             assert abs(got.metrics[k] - want.metrics[k]) * 24 <= 1
         assert got.metrics["xent"] == pytest.approx(want.metrics["xent"],
                                                     rel=2e-3)
+
+
+# -- KV-cache decode and the cold start ------------------------------------
+
+
+def _decode_lm(**kw):
+    """A bf16 transformer LM on the card (2 layers, d_model 64, 2 heads of
+    32, vocabulary 128, max_len 64) from a seeded init."""
+    return TransformerLM(vocab_size=128, num_layers=2, num_heads=2,
+                         d_model=64, d_ff=128, max_len=64, dropout_rate=0.0,
+                         generator=torch.Generator().manual_seed(3),
+                         **kw).cuda()
+
+
+@pytest.mark.parametrize("kw", [{}, dict(pos_encoding="rope", num_kv_heads=1,
+                                         attn_window=8)],
+                         ids=["learned", "rope-gqa-window"])
+def test_captured_decode_step_equals_eager(cuda, kw):
+    """``generate`` with the one-token step captured as a CUDA graph (one
+    capture, a replay per later token) against every step eager: tokens
+    and every step's logits bit for bit, greedy with an EOS and sampled
+    (top-k and top-p, the noise from the graph-registered generator
+    re-seeded per token); ``beam_search`` the same, tokens and scores."""
+    from distributed_tensorflow_models_tpu_torch.harness import generate
+
+    model = _decode_lm(**kw)
+    prompt = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 128, (3, 20))).cuda()
+    for opts in (dict(eos_id=7), dict(temperature=0.9, top_k=20, top_p=0.9,
+                                      seed=11)):
+        caps, reps = generate.captures, generate.replays
+        got, got_lg = generate.generate(model, prompt, 24, capture=True,
+                                        return_logits=True, **opts)
+        assert (generate.captures - caps, generate.replays - reps) == (1, 22)
+        want, want_lg = generate.generate(model, prompt, 24, capture=False,
+                                          return_logits=True, **opts)
+        assert generate.captures - caps == 1
+        assert torch.equal(got, want), opts
+        assert torch.equal(got_lg, want_lg), opts
+    caps = generate.captures
+    bt, bs = generate.beam_search(model, prompt[:2], 16, beam_size=4,
+                                  capture=True)
+    assert generate.captures - caps == 1
+    et, es = generate.beam_search(model, prompt[:2], 16, beam_size=4,
+                                  capture=False)
+    assert torch.equal(bt, et) and torch.equal(bs, es)
+
+
+def test_captured_rnn_decode_equals_eager(cuda):
+    from distributed_tensorflow_models_tpu_torch.harness import generate
+    from distributed_tensorflow_models_tpu_torch.models import get_model
+
+    model = get_model("ptb_lstm", config="small", vocab_size=64,
+                      hidden_size=32, dropout_rate=0.0,
+                      generator=torch.Generator().manual_seed(0)).cuda()
+    prompt = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 64, (4, 7))).cuda()
+    for opts in ({}, dict(temperature=1.0, top_p=0.8, seed=5)):
+        caps = generate.captures
+        got = generate.generate_rnn(model, prompt, 12, capture=True, **opts)
+        assert generate.captures - caps == 1
+        want = generate.generate_rnn(model, prompt, 12, capture=False,
+                                     **opts)
+        assert torch.equal(got, want), opts
+
+
+def test_kernel_loads_overlap_the_restore(cuda, tmp_path, monkeypatch):
+    """Cut ``transformer_lm`` on flash (K2-K4), trained 2 steps with a
+    checkpoint, resumed to 4 twice: with the startup thread building the
+    flash library afresh (``xla_cache_dir=""``: nvcc into a temporary
+    directory) while the restore runs, and without the thread.  The
+    thread's build starts before the restore ends, the first chunk waits
+    only for what is left of it, and both resumed runs end equal bit for
+    bit with one capture each."""
+    from distributed_tensorflow_models_tpu_torch.harness import config as tconfig
+    from distributed_tensorflow_models_tpu_torch.harness import startup
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+    from distributed_tensorflow_models_tpu_torch.ops import _kernels
+
+    name, over, _ = REPLAY_CASES["transformer_lm"]
+    cfg = tconfig.get_config(name, train_steps=2, steps_per_loop=2,
+                             log_every_steps=2, checkpoint_every_secs=1e4,
+                             **over)
+    trainlib.fit(cfg, str(tmp_path / "a"), device="cuda")
+    import shutil
+
+    shutil.copytree(tmp_path / "a", tmp_path / "b")
+    before = _kernels.BUILD_DIR
+    # Forget this process's load of the flash library, so that the thread
+    # builds it afresh (a new process starts so).
+    monkeypatch.setattr(attnlib, "_lib", None)
+    monkeypatch.delitem(_kernels._libs, "flash_attention.cu", raising=False)
+    try:
+        on = trainlib.fit(cfg.replace(train_steps=4, xla_cache_dir=""),
+                          str(tmp_path / "a"), device="cuda")
+        assert startup.configured_cache_dir() is None
+        assert startup.cache_entry_count(str(_kernels.BUILD_DIR)) == 1
+    finally:
+        startup.apply_compile_cache(None)
+        _kernels.set_build_dir(before)
+    off = trainlib.fit(cfg.replace(train_steps=4, aot_compile=False),
+                       str(tmp_path / "b"), device="cuda")
+    assert on.restored_from == off.restored_from == 2
+    assert on.captures == off.captures == 1
+    ev = {e["name"]: e for e in on.registry.trace.events()}
+    load, restore = ev["startup/kernel_load"], ev["fit/restore"]
+    assert load["ts_mono"] < restore["ts_mono"] + restore["dur_s"]
+    assert (ev["startup/aot_join"]["dur_s"]
+            < ev["startup/aot_compile"]["dur_s"])
+    assert on.registry.snapshot()["startup/aot_compile_s"] > 0
+    assert [h["loss"] for h in on.history] == [h["loss"] for h in off.history]
+    a, b = _state_tensors(on.state), _state_tensors(off.state)
+    for n in a:
+        assert torch.equal(a[n], b[n]), n

@@ -469,7 +469,13 @@ def test_embed_grad_knob(monkeypatch):
                                 dict(pos_encoding="rope", decode=True)],
                          ids=["decode", "moe", "pipelined", "remat", "rope"])
 def test_unported_paths_raise(kw):
-    """Rotary positions train; the rotary KV-cache decode is not ported."""
+    """MoE, the pipelined stack and remat raise "not ported"; decode mode,
+    with learned or rotary positions, is ported: the model builds and
+    takes its cache (tests/test_torch_generate.py holds it to JAX)."""
+    if kw.get("decode"):
+        model = TransformerLM(**TINY, **kw)
+        assert model.decode and int(model.init_cache(1).index) == 0
+        return
     with pytest.raises(NotImplementedError, match="not ported yet"):
         TransformerLM(**TINY, **kw)
 
