@@ -233,6 +233,27 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    or in the step), the restore, the thread's join, the pipeline's fill
    (the first chunk's wait), the eager step and the capture.
    ``--startup-only`` runs phase 1, phase 14's training and phase 15.
+16. The Switch-MoE transformer and the model knobs, each run ``KNOB_STEPS``
+   steps through ``fit``, the counters zeroed just before it and read just
+   after: (a) ``transformer_lm_moe`` at its widths on flash (K2-K4 4
+   launches a step each) against its eager steps (losses within 1e-5
+   relative, state within 1e-4 in relative L2: the embedding gradient's
+   atomics), its aux loss finite and positive; one ``moe_ffn`` at its 4096
+   tokens on the card against the CPU (the share of equal expert choices,
+   the rows routed alike within f32 summation order, aux and the dropped
+   fraction).  (b) ``transformer_lm`` on flash, dropout 0.1, remat off and
+   on (K2 8 launches a step under remat, K3 and K4 4): the same losses and
+   state within the same bounds, so the recompute drew the forward's
+   dropout masks.  (c) ResNet-50 (batch 256) and Inception-v3 (batch
+   ``KNOB_INCEPTION_BATCH``) on K1, remat off and on: the BN running
+   statistics bit for bit (a recompute that updated them would not be),
+   K1's launches a step, the FLOPs counted.  (d) ``DTM_EMBED_GRAD=matmul``
+   against ``scatter`` on one ``transformer_lm`` step's embedding
+   gradient, and both backward lowerings timed.  (e) blockwise attention
+   with ``block_q=64`` against the unchunked loop at B4 T2048 H8 D64
+   causal bf16, output and gradients, both timed.  Every arm prints its
+   tokens/s or images/s, step time and peak memory.  ``--model-knobs-only``
+   runs phases 1 and 16.
 
 Every training arm runs ``fit`` in chunks of ``STEPS_PER_LOOP`` steps
 (``steps_per_loop``): the first step eager, the step then captured as a
@@ -252,7 +273,8 @@ to K6, K5 as its two launches, K1's and K6's f32 forms as entries of their
 own) and ``{"ok": true, "device": {...}}``.  ``--zoo-only`` runs phases 1
 and 11-13 alone, ``--dp-only`` phases 1 and 5b, ``--resume-only`` phases
 1 and 5c, ``--chaos-only`` phases 1 and 5e, ``--generate-only`` phases 1 and
-14, ``--startup-only`` phases 1, 14's training and 15.  Each ``fit`` given a workdir under ``build/chip_smoke`` (emptied
+14, ``--startup-only`` phases 1, 14's training and 15,
+``--model-knobs-only`` phases 1 and 16.  Each ``fit`` given a workdir under ``build/chip_smoke`` (emptied
 at the start) saves a final checkpoint there, which the smoke deletes.
 """
 
@@ -3244,6 +3266,364 @@ def phase_startup(card: str, workdir: Path, ckpt: Path) -> dict:
     return {"arms": arms}
 
 
+# Phase 16: the Switch-MoE transformer and the model knobs.  Training arms
+# run KNOB_STEPS steps (a chunk, then a timed chunk of replays); Inception
+# runs at KNOB_INCEPTION_BATCH to keep the phase's time.  The MoE FFN's
+# card-against-CPU check: the share of equal expert choices at least
+# MOE_CHOICE_SHARE; rows routed to the same slot within f32 summation
+# order (MOE_RTOL plus MOE_ATOL_OF_SCALE of the output's scale); aux and
+# the dropped fraction within MOE_SCALAR_TOL.  The embedding's two
+# gradients: the same f32 sums in another order, each rounded once to
+# the bf16 table (one ulp, 2^-7 relative) plus 1e-6 of the scale.  The
+# q-chunked blockwise against the unchunked loop: the same f32 products
+# per row, each bf16 output rounded once: one ulp plus 1e-3 of the scale.
+KNOB_STEPS = 8
+KNOB_INCEPTION_BATCH = 128
+MOE_CHOICE_SHARE = 0.999
+MOE_RTOL = 1e-4
+MOE_ATOL_OF_SCALE = 1e-5
+MOE_SCALAR_TOL = 1e-4
+EMBED_RTOL = 2.0 ** -7
+EMBED_ATOL_OF_SCALE = 1e-6
+BLOCKQ = 64
+BLOCKQ_SHAPE = (4, 2048, 8, 64)
+BLOCKQ_RTOL = 2.0 ** -7
+BLOCKQ_ATOL_OF_SCALE = 1e-3
+
+
+def _eager_run(cfg, steps: int) -> tuple[list, list]:
+    """``steps`` eager steps of ``cfg`` on the dataset's own stream from
+    the config's seeded state: (losses, the final state's tensors)."""
+    import itertools
+
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+
+    dev = torch.device("cuda")
+    state = trainlib.build_state(cfg, dev)
+    step = trainlib.build_step(cfg, state)
+    losses = []
+    for b in itertools.islice(iter(trainlib.build_dataset(cfg)), steps):
+        state, metrics = step(state, {k: torch.from_numpy(v).to(dev)
+                                      for k, v in b.items()}, cfg.seed)
+        losses.append(float(metrics["loss"]))
+    return losses, [t.clone() for t in state_tensors(state)]
+
+
+def _lm_states_close(label: str, got, want, a, b, card: str) -> None:
+    """Losses within 1e-5 relative and the states within 1e-4 in relative
+    L2 (the LM step's embedding gradient sums rows with atomics)."""
+    import torch
+
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(got, want))
+    floats = [(x.float(), y.float()) for x, y in zip(a, b)
+              if x.is_floating_point()]
+    total = rel_l2(torch.cat([x.flatten() for x, _ in floats]),
+                   torch.cat([y.flatten() for _, y in floats]))
+    same = sum(bool(torch.equal(x, y)) for x, y in zip(a, b))
+    log(f"{label}: losses {got} against {want}; largest loss difference "
+        f"{loss_rel:.3g} relative; {same} of {len(a)} state tensors equal "
+        f"bit for bit, state rel L2 {total:.3g} (bound 1e-4: atomics) "
+        f"| {card}")
+    if len(a) != len(b) or loss_rel > 1e-5 or total > 1e-4:
+        fail(f"{label}: loss {loss_rel:.3g} relative, state {total:.3g} in "
+             f"relative L2, over 1e-5 and 1e-4")
+
+
+def _flops_of(r) -> float:
+    from distributed_tensorflow_models_tpu_torch import telemetry
+
+    return r.registry.snapshot().get(telemetry.FLOPS_PER_STEP, 0.0)
+
+
+def _moe_check(cfg, seed: int, card: str) -> dict:
+    """One ``moe_ffn`` at the config's token count on the card against the
+    port's CPU ``moe_ffn`` on the same seeded f32 inputs."""
+    import numpy as np
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.parallel import moe
+
+    kw = cfg.model_kwargs
+    n, d, f, e = (cfg.global_batch_size * cfg.num_steps, kw["d_model"],
+                  kw["d_ff"], kw["num_experts"])
+    params = moe.init_moe_params(e, d, f, torch.Generator().manual_seed(seed))
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (n, d), dtype=np.float32))
+    cap = moe.capacity(1.25, n, e)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev) for k, v in params.items()}
+        xd = x.to(dev)
+        t0 = time.perf_counter()
+        out = moe.moe_ffn(p, xd, mesh=None)
+        with moe._exact_f32_matmul():
+            choice = torch.argmax(torch.softmax(xd @ p["router"], -1), -1)
+        dispatch = moe._route_local(xd, p["router"], e, cap)[0]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        res[dev] = (out, choice.cpu(), dispatch.cpu(),
+                    time.perf_counter() - t0)
+    (a, ca, da, _), (b, cb, db, cpu_s) = res["cuda"], res["cpu"]
+    share = float((ca == cb).float().mean())
+    rows = (da == db).flatten(1).all(1)
+    scale = float(b.out.abs().max())
+    err = (a.out.cpu()[rows] - b.out[rows]).abs()
+    limit = MOE_RTOL * b.out[rows].abs() + MOE_ATOL_OF_SCALE * scale
+    aux_d = abs(float(a.aux_loss) - float(b.aux_loss))
+    drop_d = abs(float(a.dropped_fraction) - float(b.dropped_fraction))
+    p_dev = {k: v.cuda() for k, v in params.items()}
+    x_dev = x.cuda()
+    ms = time_ms(lambda: moe.moe_ffn(p_dev, x_dev, mesh=None), 5)
+    log(f"moe_ffn at {n} tokens, d {d}, f {f}, {e} experts, capacity {cap}: "
+        f"card against CPU: {share:.6f} of the expert choices equal "
+        f"(needed {MOE_CHOICE_SHARE}); {int(rows.sum())} of {n} rows in the "
+        f"same slot, max abs err {float(err.max()):.3g} there (scale "
+        f"{scale:.3g}); aux {float(a.aux_loss):.6f} (CPU "
+        f"{float(b.aux_loss):.6f}), dropped fraction "
+        f"{float(a.dropped_fraction):.6f} (CPU "
+        f"{float(b.dropped_fraction):.6f}); forward {ms:.3f} ms on the card "
+        f"(events), {cpu_s:.2f} s on the CPU | {card}")
+    if (share < MOE_CHOICE_SHARE or not bool((err <= limit).all())
+            or aux_d > MOE_SCALAR_TOL or drop_d > MOE_SCALAR_TOL):
+        fail(f"moe_ffn card against CPU: choices {share:.6f}, err "
+             f"{float(err.max()):.3g}, aux {aux_d:.3g}, dropped {drop_d:.3g}")
+    return {"choice_share": share, "dropped_fraction":
+            float(a.dropped_fraction), "aux": float(a.aux_loss), "ms": ms}
+
+
+def _embed_check(card: str) -> dict:
+    """``DTM_EMBED_GRAD=matmul`` against ``scatter`` on one
+    ``transformer_lm`` step (flash, the same dropout bits): the embedding
+    gradient; then both backward lowerings timed at its shape."""
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.harness.config import get_config
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+    from distributed_tensorflow_models_tpu_torch.ops import embed
+
+    dev = torch.device("cuda")
+    cfg = get_config("transformer_lm", attn_impl="flash")
+    state = trainlib.build_state(cfg, dev)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in next(iter(trainlib.build_dataset(cfg))).items()}
+    loss_fn = trainlib.build_loss(cfg, state)
+    table = state.params["embedding.embedding"]
+    grads = {}
+    for impl in ("matmul", "scatter"):
+        state.model.embedding.grad_impl = impl
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        loss, _ = loss_fn(state.params, state, batch, {"dropout": gen})
+        grads[impl], = torch.autograd.grad(loss, [table])
+    state.model.embedding.grad_impl = "auto"
+    a, b = grads["matmul"].float(), grads["scatter"].float()
+    scale = float(b.abs().max())
+    err = (a - b).abs()
+    ok = bool((err <= EMBED_RTOL * b.abs() + EMBED_ATOL_OF_SCALE * scale)
+              .all())
+    V, d = table.shape
+    n = batch["inputs"].numel()
+    g = torch.randn(n, d, device=dev).bfloat16()
+    flat = batch["inputs"].reshape(-1)
+
+    def scatter():
+        t = torch.zeros(V, d, dtype=torch.float32, device=dev)
+        t.index_add_(0, flat, g.float())
+        return t
+
+    ms = {"matmul": time_ms(lambda: embed._one_hot_matmul_grad(
+        flat, g, V, 2048), 10), "scatter": time_ms(scatter, 10)}
+    log(f"embedding gradient, DTM_EMBED_GRAD=matmul against scatter on one "
+        f"transformer_lm step ({n} tokens, V {V}, d {d}): max abs diff "
+        f"{float(err.max()):.3g} (scale {scale:.3g}; bound one bf16 ulp + "
+        f"{EMBED_ATOL_OF_SCALE:g} of the scale); backward alone: one-hot "
+        f"matmul {ms['matmul']:.3f} ms, index_add_ {ms['scatter']:.3f} ms "
+        f"(events) | {card}")
+    if not ok:
+        fail(f"the matmul embedding gradient differs from the scatter's by "
+             f"{float(err.max()):.3g}")
+    return {"max_abs_diff": float(err.max()), "ms": ms}
+
+
+def _blockq_check(seed: int, card: str) -> dict:
+    """Blockwise attention with ``block_q`` against the unchunked loop at
+    ``BLOCKQ_SHAPE`` causal in bf16: output and the three gradients; both
+    timed (forward and backward)."""
+    import numpy as np
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.ops import attention as attnlib
+
+    rng = np.random.default_rng(seed)
+
+    def bf16():
+        return torch.from_numpy(rng.standard_normal(
+            BLOCKQ_SHAPE, dtype=np.float32)).cuda().bfloat16()
+
+    qkv = [bf16().requires_grad_() for _ in range(3)]
+    do = bf16()
+
+    def run(bq):
+        out = attnlib.blockwise_attention(*qkv, causal=True, block_q=bq)
+        return (out, *torch.autograd.grad(out, qkv, do))
+
+    res = {bq: run(bq) for bq in (None, BLOCKQ)}
+    worst = 0.0
+    for name, a, b in zip(("out", "dq", "dk", "dv"), res[BLOCKQ], res[None]):
+        a, b = a.detach().float(), b.detach().float()
+        scale = float(b.abs().max())
+        err = (a - b).abs()
+        worst = max(worst, float(err.max()) / scale)
+        if not bool((err <= BLOCKQ_RTOL * b.abs()
+                     + BLOCKQ_ATOL_OF_SCALE * scale).all()):
+            fail(f"blockwise block_q={BLOCKQ} {name}: max abs err "
+                 f"{float(err.max()):.3g} (scale {scale:.3g})")
+    del res
+    torch.cuda.empty_cache()
+    ms = {str(bq): time_ms(lambda bq=bq: run(bq), 3, warmup=1)
+          for bq in (None, BLOCKQ)}
+    log(f"blockwise attention at B{BLOCKQ_SHAPE[0]} T{BLOCKQ_SHAPE[1]} "
+        f"H{BLOCKQ_SHAPE[2]} D{BLOCKQ_SHAPE[3]} causal bf16, block_q="
+        f"{BLOCKQ} against the unchunked loop: output and gradients within "
+        f"one bf16 ulp + {BLOCKQ_ATOL_OF_SCALE:g} of the scale (largest "
+        f"error {worst:.3g} of the scale); forward + backward "
+        f"{ms['None']:.2f} ms unchunked, {ms[str(BLOCKQ)]:.2f} ms chunked "
+        f"(events) | {card}")
+    return {"ms": ms, "worst_of_scale": worst}
+
+
+def phase_model_knobs(card: str, workdir: Path, flash_fns: dict, k1, k6,
+                      batch: int, seed: int) -> dict:
+    """Phase 16: ``transformer_lm_moe`` through ``fit`` against its eager
+    steps and beside ``transformer_lm``; remat on the transformer, on
+    ResNet-50 and on Inception-v3 against the same run without it;
+    ``moe_ffn`` on the card against the CPU; ``DTM_EMBED_GRAD=matmul``
+    against ``scatter``; blockwise ``block_q`` against the unchunked
+    loop."""
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.harness.config import get_config
+    from distributed_tensorflow_models_tpu_torch.ops import conv as convlib
+
+    t_phase = time.perf_counter()
+    steps = KNOB_STEPS
+    os.environ["DTM_FLASH_BWD"] = "pair"
+    out = {}
+    lm_kids = ("K2", "K3", "K4")
+
+    def counts():
+        return {kid: fn.launches for kid, fn in flash_fns.items()}
+
+    # (a) transformer_lm_moe on flash, captured, against its eager steps.
+    moe_cfg = get_config("transformer_lm_moe", attn_impl="flash",
+                         train_steps=steps)
+    layers = moe_cfg.model_kwargs["num_layers"]
+    tokens = moe_cfg.global_batch_size * moe_cfg.num_steps
+    want_losses, eager = _eager_run(moe_cfg, steps)
+    zero_counts(flash_fns.values())
+    moe_run = run_fit(moe_cfg, workdir / "moe", keep=True)
+    got = counts()
+    want = {kid: layers * steps if kid in lm_kids else 0 for kid in got}
+    log(f"transformer_lm_moe: flash launches {got} (expected {want})")
+    if got != want:
+        fail(f"transformer_lm_moe launched {got}, expected {want}")
+    out["moe_launches"] = got
+    r = moe_run.pop("fit")
+    _lm_states_close("transformer_lm_moe, replayed against eager",
+                     moe_run["losses"], want_losses, state_tensors(r.state),
+                     eager, card)
+    aux = [row["aux_loss"] for row in r.history]
+    if not all(math.isfinite(v) and v > 0 for v in aux):
+        fail(f"transformer_lm_moe aux losses {aux}")
+    log(f"transformer_lm_moe: aux losses {aux}; FLOPs a step "
+        f"{_flops_of(r):.4g}")
+    del r, eager
+    out["moe"] = _moe_check(moe_cfg, seed, card)
+
+    # (b) transformer_lm on flash, dropout 0.1, remat off and on.
+    dense = get_config("transformer_lm", attn_impl="flash")
+    lm = {}
+    for label, remat in (("off", False), ("on", True)):
+        cfg = dense.replace(train_steps=steps, model_kwargs={
+            **dense.model_kwargs, "remat": remat})
+        zero_counts(flash_fns.values())
+        run = run_fit(cfg, workdir / f"lm_remat_{label}", keep=True)
+        run["launches"] = counts()
+        lm[label] = run
+    k2_step = {label: lm[label]["launches"]["K2"] / steps for label in lm}
+    for label, k2_times in (("off", 1), ("on", 2)):
+        want = {kid: (k2_times if kid == "K2" else 1) * layers * steps
+                if kid in lm_kids else 0 for kid in flash_fns}
+        if lm[label]["launches"] != want:
+            fail(f"transformer_lm with remat {label} launched "
+                 f"{lm[label]['launches']}, expected {want}")
+    out["remat_lm_launches"] = lm["on"]["launches"]
+    _lm_states_close("transformer_lm remat on against off",
+                     lm["on"]["losses"], lm["off"]["losses"],
+                     state_tensors(lm["on"]["fit"].state),
+                     state_tensors(lm["off"]["fit"].state), card)
+    flops = {label: _flops_of(lm[label]["fit"]) for label in lm}
+    log(f"transformer_lm K2 launches a step: remat off {k2_step['off']:g}, "
+        f"on {k2_step['on']:g}; FLOPs a step counted: off {flops['off']:.4g},"
+        f" on {flops['on']:.4g} (the recomputed forward included)")
+    for label, r in (("moe", moe_run), ("remat off", lm["off"]),
+                     ("remat on", lm["on"])):
+        log_arm(f"LM {label}", r, tokens, card)
+        r.pop("fit", None)
+    out["lm_flops"] = flops
+
+    # (c) ResNet-50 and Inception-v3 on K1, remat off and on: the BN
+    # running statistics after the run bit for bit.
+    convlib.set_default_conv_impl("mxu")
+    os.environ["DTM_CONV_MXU_PIPELINE"] = "0"
+    for name, config, b in (("ResNet-50", "resnet50_synthetic", batch),
+                            ("Inception-v3", "inception_v3_imagenet",
+                             KNOB_INCEPTION_BATCH)):
+        runs = {}
+        for label, remat in (("off", False), ("on", True)):
+            base = get_config(config)
+            cfg = base.replace(train_steps=steps, global_batch_size=b,
+                               model_kwargs={**base.model_kwargs,
+                                             "remat": remat})
+            zero_counts((k1, k6))
+            run = run_fit(cfg, workdir / f"{config}_remat_{label}",
+                          keep=True)
+            run["k1"] = (k1.launches, k6.launches)
+            runs[label] = run
+        a, c = runs["on"]["fit"].state, runs["off"]["fit"].state
+        stats_same = sum(bool(torch.equal(a.batch_stats[k],
+                                          c.batch_stats[k]))
+                         for k in c.batch_stats)
+        sa, sc = state_tensors(a), state_tensors(c)
+        same = sum(bool(torch.equal(x, y)) for x, y in zip(sa, sc))
+        per_step = {label: runs[label]["k1"][0] / steps for label in runs}
+        log(f"{name} remat on against off at batch {b}: {stats_same} of "
+            f"{len(c.batch_stats)} BN statistics equal bit for bit, {same} "
+            f"of {len(sc)} state tensors; losses on {runs['on']['losses']}, "
+            f"off {runs['off']['losses']}; K1 launches a step: off "
+            f"{per_step['off']:g}, on {per_step['on']:g}; FLOPs a step "
+            f"counted: off {_flops_of(runs['off']['fit']):.4g}, on "
+            f"{_flops_of(runs['on']['fit']):.4g} | {card}")
+        if stats_same != len(c.batch_stats) or not per_step["on"] > \
+                per_step["off"] or runs["on"]["k1"][1] or runs["off"]["k1"][1]:
+            fail(f"{name} remat: {stats_same} of {len(c.batch_stats)} BN "
+                 f"statistics equal, K1/K6 launches {runs['on']['k1']} on "
+                 f"and {runs['off']['k1']} off")
+        for label in ("off", "on"):
+            runs[label].pop("fit")
+            log_arm(f"{name} remat {label}", runs[label], b, card)
+        out[f"remat_{config}"] = {"k1_launches": runs["on"]["k1"][0],
+                                  "per_step": per_step, "batch": b}
+        del a, c, sa, sc, runs
+
+    # (d) and (e).
+    out["embed"] = _embed_check(card)
+    out["blockq"] = _blockq_check(seed + 1, card)
+    log(f"model knobs phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch-size", type=int, default=256,
@@ -3290,6 +3670,10 @@ def main(argv=None) -> int:
     parser.add_argument("--generate-only", action="store_true",
                         help="phases 1 and 14 alone, for work on the "
                         "KV-cache decode: no result line")
+    parser.add_argument("--model-knobs-only", action="store_true",
+                        help="phases 1 and 16 alone, for work on the MoE "
+                        "transformer, remat, the embedding's matmul "
+                        "gradient and blockwise q-chunking: no result line")
     parser.add_argument("--startup-only", action="store_true",
                         help="phase 1, the checkpoint's training of phase "
                         "14 and phase 15 alone, for work on the cold "
@@ -3423,6 +3807,12 @@ def main(argv=None) -> int:
         log(card)
         log("startup-only run: phase 1, phase 14's checkpoint and phase 15 "
             "alone, no result")
+        return 0
+    if args.model_knobs_only:
+        phase_model_knobs(card, workdir / "knobs", flash_fns, k1, k6,
+                          args.batch_size, args.seed + 5)
+        log(card)
+        log("model-knobs run: phases 1 and 16 alone, no result")
         return 0
     if args.dp_only:
         phase_data_parallel(args.batch_size, args.train_steps, len(
@@ -3666,6 +4056,13 @@ def main(argv=None) -> int:
     phase_startup(card, workdir / "startup", gen["ckpt"])
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 15")
 
+    # 16. The MoE transformer and the model knobs: remat (ResNet-50,
+    # Inception-v3, the transformer), the embedding's matmul gradient and
+    # blockwise q-chunking; every counter zeroed just before each run.
+    knobs = phase_model_knobs(card, workdir / "knobs", flash_fns, k1, k6,
+                              args.batch_size, args.seed + 5)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 16")
+
     log(card)
     kernels = [{
         "name": "K1 conv_implicit_gemm",
@@ -3690,6 +4087,14 @@ def main(argv=None) -> int:
         "launches_eval_resnet50": tel["k1_eval_launches"],
         "launches_chaos_resnet50": chaos["k1_launches"],
         "launches_chaos_relaunch_resnet50": chaos["k1_relaunch"],
+        "launches_remat_resnet50": knobs["remat_resnet50_synthetic"][
+            "k1_launches"],
+        "launches_remat_inception_v3": knobs[
+            "remat_inception_v3_imagenet"]["k1_launches"],
+        "remat_launches_per_step": {
+            "resnet50": knobs["remat_resnet50_synthetic"]["per_step"],
+            "inception_v3": knobs["remat_inception_v3_imagenet"][
+                "per_step"]},
     }, {
         "name": "K1 conv_implicit_gemm, f32 form (TF32 wgmma)",
         "route": "cuda",
@@ -3741,6 +4146,9 @@ def main(argv=None) -> int:
         kid = k["name"].split(" ")[0]
         if kid in ("K2", "K3", "K4"):
             k["launches_generate_checkpoint"] = gen["train_launches"][kid]
+            k["launches_transformer_lm_moe"] = knobs["moe_launches"][kid]
+            k["launches_remat_transformer_lm"] = knobs[
+                "remat_lm_launches"][kid]
     kernels[-1]["dq_vs_k4"] = flash["dq_vs_k4"]
     if parent is not None:
         kernels[-1]["dq_vs_k4_parent"] = flash["dq_vs_k4_parent"]

@@ -130,7 +130,7 @@ def _data_only(sizes: tuple[int, ...]) -> tuple[int, ...]:
         raise NotImplementedError(
             f"mesh axes {wide} are not ported: the port is data parallel "
             f"only (tensor, sequence, pipeline and expert parallelism are "
-            f"ROADMAP §1 item 6)")
+            f"the parallel layers, ROADMAP §1 item 1)")
     return sizes
 
 

@@ -13,7 +13,9 @@ mesh's process group:
   the reference's per-parameter reductions), then divided by the world
   size;
 - :func:`all_reduce_sum_` — any f32 tensor summed in place (BatchNorm's
-  moments and their cotangents, the step's metric vector).
+  moments and their cotangents, the step's metric vector);
+- :func:`all_gather_rows` — every process's rows concatenated in rank
+  order, differentiably (the MoE FFN's tokens, ``parallel/moe.py``).
 
 Without a process group nothing is issued: a world of one with no group
 runs the single-device step unchanged.  With one, the collectives run
@@ -110,6 +112,39 @@ def all_reduce_sum_(t: torch.Tensor, mesh: Optional[Mesh],
     return t
 
 
+class _AllGatherRows(torch.autograd.Function):
+    """Forward: the processes' ``[n, ...]`` tensors concatenated in rank
+    order.  Backward: the cotangent of the whole summed over the
+    processes (each computed its own loss from the gathered rows), and
+    this process's rows of the sum."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, site):
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(mesh.world_size)]
+        dist.all_gather(parts, x, group=mesh.group)
+        add_collectives({site: (1, mesh.world_size * x.numel()
+                                * x.element_size())})
+        ctx.mesh, ctx.site = mesh, site
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        all_reduce_sum_(g, ctx.mesh, f"{ctx.site}_grad")
+        return g[batch_rows(ctx.mesh, g.shape[0])], None, None
+
+
+def all_gather_rows(x: torch.Tensor, mesh: Mesh, site: str) -> torch.Tensor:
+    """Every process's ``x`` (same shape) concatenated along the leading
+    axis in rank order, over the mesh's group, counted under ``site``
+    (and its backward's sum under ``site + "_grad"``); ``x`` itself
+    without a group."""
+    if _group(mesh) is None:
+        return x
+    return _AllGatherRows.apply(x, mesh, site)
+
+
 def all_reduce_mean_(tensors: Iterable[torch.Tensor], mesh: Optional[Mesh],
                      site: str = "grads") -> None:
     """Replace each tensor by its mean over the mesh's processes, in
@@ -151,5 +186,6 @@ def tree_param_shardings(mesh: Mesh, params: Mapping[str, torch.Tensor],
     if rules:
         raise NotImplementedError(
             "parameter sharding rules are not ported: the port is data "
-            "parallel only (tensor parallelism is ROADMAP §1 item 6)")
+            "parallel only (tensor parallelism is among the parallel "
+            "layers, ROADMAP §1 item 1)")
     return dict.fromkeys(params, REPLICATED)

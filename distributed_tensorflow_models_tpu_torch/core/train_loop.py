@@ -16,6 +16,7 @@ counterpart of the JAX package's XLA cost analysis.
 
 from __future__ import annotations
 
+import inspect
 import logging
 import math
 import time
@@ -34,6 +35,7 @@ from distributed_tensorflow_models_tpu_torch.ops import ema as emalib
 from distributed_tensorflow_models_tpu_torch.ops import losses as losslib
 from distributed_tensorflow_models_tpu_torch.ops import metrics as metriclib
 from distributed_tensorflow_models_tpu_torch.ops import optim
+from distributed_tensorflow_models_tpu_torch.ops import remat as rematlib
 from distributed_tensorflow_models_tpu_torch.ops.conv import Conv2D
 
 log = logging.getLogger("dtm")
@@ -94,24 +96,39 @@ def lm_loss_fn(model: torch.nn.Module, fused_unembed: bool = False) -> LossFn:
     cross entropy chunked in bf16 (:func:`...ops.losses.chunked_unembed_xent`)
     on the model's own ``head`` parameters; otherwise the model's f32 head
     gives full logits.  The carry is read from ``state.carry`` and the
-    updated value returned through aux.  Metrics: ``loss`` and ``nll``
-    (perplexity = exp(nll))."""
+    updated value returned through aux.
+
+    A model whose forward takes ``losses`` (the transformer) is given a
+    fresh dict, the JAX package's mutable ``losses`` collection: what it
+    sows there (the MoE blocks' weighted aux losses) is summed, leaf by
+    leaf in the flax tree's key order, into the objective and kept out of
+    ``nll``.  Metrics: ``loss`` (nll + the sown sum), ``nll`` (perplexity
+    = exp(nll)) and, when anything was sown, ``aux_loss``."""
+    sows = "losses" in inspect.signature(model.forward).parameters
 
     def loss_fn(params, state, batch, rngs):
+        sown: dict = {}
+        kw = {"losses": sown} if sows else {}
         if fused_unembed:
             hidden, new_carry = model(batch["inputs"], carry=state.carry,
                                       train=True, return_hidden=True,
-                                      rngs=rngs)
+                                      rngs=rngs, **kw)
             nll = torch.mean(losslib.chunked_unembed_xent(
                 hidden, params["head.kernel"], params.get("head.bias"),
                 batch["targets"]))
         else:
             logits, new_carry = model(batch["inputs"], carry=state.carry,
-                                      train=True, rngs=rngs)
+                                      train=True, rngs=rngs, **kw)
             nll = torch.mean(losslib.softmax_cross_entropy(
                 logits, batch["targets"]))
-        metrics = {"loss": nll.detach(), "nll": nll.detach()}
-        return nll, {"metrics": metrics, "carry": new_carry}
+        loss = nll
+        metrics = {"nll": nll.detach()}
+        if sown:
+            aux = sum(sown[k] for k in sorted(sown))
+            loss = nll + aux
+            metrics["aux_loss"] = aux.detach()
+        metrics = {"loss": loss.detach(), **metrics}
+        return loss, {"metrics": metrics, "carry": new_carry}
 
     return loss_fn
 
@@ -302,12 +319,14 @@ def _row_vector(metrics: Mapping[str, torch.Tensor],
 
 class _Captured:
     __slots__ = ("graph", "batch", "metrics", "names", "launches",
-                 "collectives")
+                 "collectives", "twins")
 
-    def __init__(self, graph, batch, metrics, names, launches, collectives):
+    def __init__(self, graph, batch, metrics, names, launches, collectives,
+                 twins):
         self.graph, self.batch, self.metrics = graph, batch, metrics
         self.names, self.launches = names, launches
         self.collectives = collectives
+        self.twins = twins
 
 
 class MultiStep:
@@ -330,6 +349,12 @@ class MultiStep:
     bucket, BatchNorm's moments and their cotangents, the metric vector)
     are captured with it and replayed inside the graph; the eager first
     step has created the process group's communicator by then.
+
+    Under remat (``ops/remat.py``) the eager step records the Philox
+    offset at which each checkpointed block starts drawing from the step's
+    generators; the capture registers a twin generator for each, and the
+    host seeds the twins before every replay, so a block's recompute
+    draws its forward's dropout bits.
 
     The state must stay where the capture found it: every tensor of it is
     updated in place (checked after the capture).  A capture that fails
@@ -448,6 +473,7 @@ class MultiStep:
             for key, buf in cap.batch.items():
                 buf.copy_(chunk[key][i])
             gens.reseed(seed, state.step)
+            rematlib.seed_twins(cap.twins)
             cap.graph.replay()
             _kernels.add_launches(cap.launches)
             shardlib.add_collectives(cap.collectives)
@@ -469,7 +495,8 @@ class MultiStep:
         cur = torch.cuda.current_stream(device)
         side = self._side_stream(device)
         side.wait_stream(cur)
-        with torch.cuda.stream(side):
+        gens = self.step.rngs(device).generators
+        with torch.cuda.stream(side), rematlib.recording(gens.values()):
             state, metrics = self.step(
                 state, {key: v[0] for key, v in chunk.items()}, seed)
             names = list(metrics)
@@ -491,12 +518,16 @@ class MultiStep:
         before = _kernels.launch_counts()
         issued = shardlib.collective_counts()
         held = [id(t) for t in _state_leaves(state)]
+        twins = rematlib.make_twins(gens)
         try:
             graph = torch.cuda.CUDAGraph()
             for gen in gens.values():
                 graph.register_generator_state(gen)
+            for _, twin, _ in twins:
+                graph.register_generator_state(twin)
             with torch.cuda.graph(graph, stream=self._side_stream(device),
-                                  capture_error_mode="thread_local"):
+                                  capture_error_mode="thread_local"), \
+                    rematlib.capturing(twins):
                 new_state, metrics = self.step.body(state, batch, gens)
                 row = _row_vector(metrics, names)
         except Exception as e:
@@ -523,7 +554,7 @@ class MultiStep:
                 seconds + self.pending_compile_s)
         self.pending_compile_s = 0.0
         cap = self._captured[sig] = _Captured(graph, batch, row, names,
-                                              launches, collectives)
+                                              launches, collectives, twins)
         return cap
 
 

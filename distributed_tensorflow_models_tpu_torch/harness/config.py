@@ -199,7 +199,7 @@ class ExperimentConfig:
             raise NotImplementedError(
                 f"{wide} not ported: the port is data parallel only "
                 f"(tensor, sequence, pipeline and expert parallelism are "
-                f"ROADMAP §1 item 6)")
+                f"the parallel layers, ROADMAP §1 item 1)")
 
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)
@@ -391,6 +391,20 @@ _add(
         num_steps=64,
         vocab_size=256,
         train_steps=2,
+    )
+)
+
+
+# Switch-MoE variant: every odd block's FFN is 4 experts (parallel/moe.py),
+# routed over the global batch of the data axis; the expert axis is not
+# ported.
+_add(
+    _CONFIGS["transformer_lm"].replace(
+        name="transformer_lm_moe",
+        model_kwargs={
+            **_CONFIGS["transformer_lm"].model_kwargs,
+            "num_experts": 4,
+        },
     )
 )
 

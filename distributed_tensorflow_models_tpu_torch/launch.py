@@ -152,7 +152,7 @@ def _terminate_fleet(
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} not ported: the closed-loop serving autoscaler belongs to "
-        "the serving stack (ROADMAP §1 item 7)")
+        "the serving stack (ROADMAP §1 item 2)")
 
 
 class FleetAutoscaler:

@@ -23,6 +23,11 @@ in training, where its logits are returned.  It needs the 17x17 grid of a
 model's aux logits are NaN (the mean of an empty map) and so is a loss
 that weights them.  The port raises there instead; a smaller input trains
 with ``aux_head=False``.
+
+``remat=True`` recomputes each Inception and Reduction block (``Mixed_*``)
+in the backward (``ops/remat.py``), as the JAX model's ``nn.remat`` does;
+the stem, the aux head and the head are not checkpointed, and no
+state-dict name changes.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from distributed_tensorflow_models_tpu_torch.ops.conv import (
     avg_pool,
     max_pool,
 )
+from distributed_tensorflow_models_tpu_torch.ops import remat as rematlib
 from distributed_tensorflow_models_tpu_torch.ops.dropout import dropout
 from distributed_tensorflow_models_tpu_torch.ops.normalization import BatchNorm
 
@@ -244,9 +250,7 @@ class InceptionV3(nn.Module):
                  conv_impl: str = "auto", remat: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if remat:
-            raise NotImplementedError(
-                "inception_v3: remat is not ported yet")
+        self.remat = remat
         self.dtype = dtype
         self.conv_impl = conv_impl
         self.dropout_rate = dropout_rate
@@ -279,6 +283,12 @@ class InceptionV3(nn.Module):
         return max_pool(x, (3, 3), strides=(2, 2), padding="VALID",
                         impl=self.conv_impl)
 
+    def _block(self, name: str, x, train: bool):
+        block = getattr(self, name)
+        if self.remat:
+            return rematlib.checkpoint(block, x, train)
+        return block(x, train)
+
     def forward(self, x, train: bool = False, rngs=None):
         x = x.to(self.dtype)
         x = self.ConvBN_0(x, train)
@@ -290,11 +300,11 @@ class InceptionV3(nn.Module):
         x = self._pool(x)
         for name in ("Mixed_5b", "Mixed_5c", "Mixed_5d", "Mixed_6a",
                      "Mixed_6b", "Mixed_6c", "Mixed_6d", "Mixed_6e"):
-            x = getattr(self, name)(x, train)
+            x = self._block(name, x, train)
         aux = (self.AuxHead(x, train)
                if self.AuxHead is not None and train else None)
         for name in ("Mixed_7a", "Mixed_7b", "Mixed_7c"):
-            x = getattr(self, name)(x, train)
+            x = self._block(name, x, train)
         x = torch.mean(x, dim=(1, 2))
         x = dropout(x, self.dropout_rate, train, rngs)
         logits = self.head(x.to(torch.float32))

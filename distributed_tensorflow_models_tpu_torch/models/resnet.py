@@ -8,6 +8,9 @@ are NHWC in ``dtype`` (bf16 by default) with f32 BN statistics and an f32
 head.  Submodules carry the flax module names (``conv_init``,
 ``stage0_block0.Conv2D_1``, ``proj_bn``, ``head``...) so that a flax
 variable tree maps onto the state dict name for name (``interop.py``).
+``remat=True`` recomputes each bottleneck unit in the backward
+(``ops/remat.py``): the checkpoint wraps the call, not the module, so no
+state-dict name changes.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from torch import nn
 
 from distributed_tensorflow_models_tpu_torch.models import register
 from distributed_tensorflow_models_tpu_torch.ops.conv import Conv2D, Dense, max_pool
+from distributed_tensorflow_models_tpu_torch.ops import remat as rematlib
 from distributed_tensorflow_models_tpu_torch.ops.normalization import BatchNorm
 
 
@@ -70,11 +74,12 @@ class ResNet(nn.Module):
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  num_classes: int = 1000, width: int = 64,
                  dtype: torch.dtype = torch.bfloat16, conv_impl: str = "auto",
-                 in_channels: int = 3,
+                 in_channels: int = 3, remat: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype = dtype
         self.conv_impl = conv_impl
+        self.remat = remat
         self.conv_init = Conv2D(in_channels, width, (7, 7), strides=(2, 2),
                                 padding=[(3, 3), (3, 3)], use_bias=False,
                                 dtype=dtype, impl=conv_impl,
@@ -103,7 +108,9 @@ class ResNet(nn.Module):
         x = max_pool(x, (3, 3), strides=(2, 2), padding="SAME",
                      impl=self.conv_impl)
         for name in self.block_names:
-            x = getattr(self, name)(x, train)
+            block = getattr(self, name)
+            x = (rematlib.checkpoint(block, x, train) if self.remat
+                 else block(x, train))
         x = torch.mean(x, dim=(1, 2))
         return self.head(x.to(torch.float32))
 

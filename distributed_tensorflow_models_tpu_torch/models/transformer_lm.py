@@ -16,8 +16,18 @@ position table is normal(0.02) and cast to the activation dtype before
 the add.  Module and parameter names are the flax paths
 (``blocks_0.attn.query.kernel``, ``embedding.embedding``,
 ``pos_embedding``...), so ``interop`` maps a flax tree onto the state
-dict name for name.  MoE, the pipelined stack and remat are not ported
-yet and raise.
+dict name for name.  The pipelined stack is not ported yet and raises.
+
+``num_experts > 0`` makes every odd block's FFN a Switch-MoE layer
+(:class:`MoEFFN`, ``parallel/moe.py``; parameters ``blocks_{i}.moe.router``,
+``.w_in``, ``.w_out``, f32).  Its load-balancing loss, times
+``aux_loss_weight``, is the JAX module's ``sow`` into the ``losses``
+collection: a forward given a ``losses`` dict adds it there under the
+flax path (``blocks_1.moe.moe_aux``), as a tensor that carries its
+gradient and that the loss sums (``core/train_loop.py::lm_loss_fn``);
+without one (eval, decode) it is dropped.  ``remat=True`` recomputes each
+block in the backward (``ops/remat.py``); the aux loss comes out of the
+checkpoint with the block's output, once.
 
 Decode: a forward given a :class:`KVCache` (``model.init_cache``; required
 with ``decode=True``) runs the JAX package's decode mode.  The tokens sit
@@ -43,14 +53,20 @@ from torch import nn
 
 from distributed_tensorflow_models_tpu_torch.models import register
 from distributed_tensorflow_models_tpu_torch.ops import attention as attnlib
+from distributed_tensorflow_models_tpu_torch.ops import remat as rematlib
 from distributed_tensorflow_models_tpu_torch.ops import rotary
 from distributed_tensorflow_models_tpu_torch.ops.conv import Dense
 from distributed_tensorflow_models_tpu_torch.ops.dropout import dropout
 from distributed_tensorflow_models_tpu_torch.ops.embed import TokenEmbed
+from distributed_tensorflow_models_tpu_torch.parallel import moe as moelib
 
 
 def _not_ported(what: str):
     return NotImplementedError(f"transformer_lm: {what} is not ported yet")
+
+
+DECODE_DENSE_ONLY = ("decode mode supports the dense non-pipelined stack "
+                     "without a sequence-parallel attention_fn")
 
 
 @dataclasses.dataclass
@@ -166,11 +182,44 @@ class MLP(nn.Module):
         return dropout(self.down(h), self.dropout_rate, train, rngs)
 
 
+class MoEFFN(nn.Module):
+    """Switch-MoE FFN (the JAX ``MoEFFN``): parameters ``router [d, E]``,
+    ``w_in [E, d, f]``, ``w_out [E, f, d]`` in f32, normals scaled by
+    ``1/sqrt(d)``, ``1/sqrt(d)`` and ``1/sqrt(f)``; the tokens ``[B*T, d]``
+    through :func:`...parallel.moe.moe_ffn` on the current data axis.
+    Returns ``(out [B, T, d] in x's dtype, aux_loss_weight * aux)``."""
+
+    def __init__(self, num_experts: int, d_model: int, d_ff: int,
+                 capacity_factor: float = 1.25, aux_loss_weight: float = 0.01,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.capacity_factor = capacity_factor
+        self.aux_loss_weight = aux_loss_weight
+        init = moelib.init_moe_params(num_experts, d_model, d_ff, generator)
+        self.router = nn.Parameter(init["router"])
+        self.w_in = nn.Parameter(init["w_in"])
+        self.w_out = nn.Parameter(init["w_out"])
+
+    def forward(self, x):
+        B, T, d = x.shape
+        params = {"router": self.router, "w_in": self.w_in,
+                  "w_out": self.w_out}
+        res = moelib.moe_ffn(params, x.reshape(B * T, d),
+                             capacity_factor=self.capacity_factor)
+        return (res.out.reshape(B, T, d).to(x.dtype),
+                self.aux_loss_weight * res.aux_loss)
+
+
 class Block(nn.Module):
+    """Pre-LN block; its FFN is the dense :class:`MLP` (``mlp``) or, with
+    ``num_experts``, the :class:`MoEFFN` (``moe``), and then the block
+    returns ``(x, weighted aux loss)``."""
+
     def __init__(self, num_heads: int, d_model: int, d_ff: int,
                  dropout_rate: float, dtype: torch.dtype, attn_impl: str,
                  num_kv_heads: int = 0, attn_window: Optional[int] = None,
                  use_rope: bool = False, rope_theta: float = 10000.0,
+                 num_experts: int = 0, moe_capacity_factor: float = 1.25,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype = dtype
@@ -179,11 +228,19 @@ class Block(nn.Module):
                                   attn_impl, num_kv_heads, attn_window,
                                   use_rope, rope_theta, generator)
         self.ln2 = LayerNorm(d_model)
-        self.mlp = MLP(d_model, d_ff, dropout_rate, dtype, generator)
+        if num_experts:
+            self.moe = MoEFFN(num_experts, d_model, d_ff,
+                              moe_capacity_factor, generator=generator)
+        else:
+            self.mlp = MLP(d_model, d_ff, dropout_rate, dtype, generator)
 
     def forward(self, x, train: bool = False, rngs=None, cache=None):
         x = x + self.attn(self.ln1(x).to(self.dtype), train, rngs, cache)
-        return x + self.mlp(self.ln2(x).to(self.dtype), train, rngs)
+        h = self.ln2(x).to(self.dtype)
+        if hasattr(self, "moe"):
+            out, aux = self.moe(h)
+            return x + out, aux
+        return x + self.mlp(h, train, rngs)
 
 
 class TransformerLM(nn.Module):
@@ -200,26 +257,23 @@ class TransformerLM(nn.Module):
                  dtype: torch.dtype = torch.bfloat16, attn_impl: str = "auto",
                  num_kv_heads: int = 0, attn_window: Optional[int] = None,
                  pos_encoding: str = "learned", rope_theta: float = 10000.0,
-                 num_experts: int = 0,
+                 num_experts: int = 0, moe_capacity_factor: float = 1.25,
                  pipelined: bool = False, remat: bool = False,
                  decode: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if decode and (pipelined or num_experts):
-            raise ValueError("decode mode supports the dense non-pipelined "
-                             "stack")
-        if num_experts:
-            raise _not_ported("the MoE FFN (num_experts > 0)")
+            raise ValueError(DECODE_DENSE_ONLY)
         if pipelined:
             raise _not_ported("the pipelined block stack")
-        if remat:
-            raise _not_ported("remat")
         if pos_encoding not in ("learned", "rope"):
             raise ValueError(f"unknown pos_encoding {pos_encoding!r} "
                              "(want 'learned' or 'rope')")
         attnlib._check_window(attn_window)
         self.dtype = dtype
         self.decode = decode
+        self.remat = remat
+        self.num_experts = num_experts
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads or num_heads
         self.head_dim = d_model // num_heads
@@ -239,7 +293,8 @@ class TransformerLM(nn.Module):
             self.add_module(f"blocks_{i}", Block(
                 num_heads, d_model, d_ff, dropout_rate, dtype, attn_impl,
                 num_kv_heads, attn_window, pos_encoding == "rope",
-                rope_theta, generator))
+                rope_theta, num_experts if i % 2 == 1 else 0,
+                moe_capacity_factor, generator))
         self.ln_f = LayerNorm(d_model)
         self.head = Dense(d_model, vocab_size, dtype=torch.float32,
                           generator=generator)
@@ -247,7 +302,10 @@ class TransformerLM(nn.Module):
     def init_cache(self, batch_size: int,
                    device: Optional[str | torch.device] = None) -> KVCache:
         """An empty cache for ``batch_size`` rows: zeros of ``[B, max_len,
-        num_kv_heads, head_dim]`` in the model's dtype per block, index 0."""
+        num_kv_heads, head_dim]`` in the model's dtype per block, index 0.
+        The MoE stack has no decode mode (the JAX ``ValueError``)."""
+        if self.num_experts:
+            raise ValueError(DECODE_DENSE_ONLY)
         shape = (batch_size, self.max_len, self.num_kv_heads, self.head_dim)
 
         def zeros():
@@ -260,10 +318,15 @@ class TransformerLM(nn.Module):
     def forward(self, tokens, carry=None, train: bool = False,
                 return_hidden: bool = False,
                 rngs: Optional[Mapping[str, torch.Generator]] = None,
-                cache: Optional[KVCache] = None):
+                cache: Optional[KVCache] = None,
+                losses: Optional[dict] = None):
+        """``losses``: the ``losses`` collection to sow into (module
+        docstring); None drops what the MoE blocks would sow."""
         T = tokens.shape[1]
         if self.decode and cache is None:
             raise ValueError("decode mode needs a KVCache (model.init_cache)")
+        if cache is not None and self.num_experts:
+            raise ValueError(DECODE_DENSE_ONLY)
         x = self.embedding(tokens)
         if cache is not None:
             pos = cache.index + torch.arange(T, device=tokens.device)
@@ -276,9 +339,20 @@ class TransformerLM(nn.Module):
             x = x + self.pos_embedding[:T].to(self.dtype)
         x = dropout(x, self.dropout_rate, train, rngs)
         for i in range(self.num_layers):
-            block_cache = (None if cache is None else
-                           (cache.keys[i], cache.values[i], cache.index))
-            x = getattr(self, f"blocks_{i}")(x, train, rngs, block_cache)
+            block = getattr(self, f"blocks_{i}")
+            if cache is not None:
+                x = block(x, train, rngs,
+                          (cache.keys[i], cache.values[i], cache.index))
+                continue
+            if self.remat:
+                x = rematlib.checkpoint(block, x, train, rngs=rngs)
+            else:
+                x = block(x, train, rngs)
+            if isinstance(x, tuple):
+                x, aux = x
+                if losses is not None:
+                    key = f"blocks_{i}.moe.moe_aux"
+                    losses[key] = losses.get(key, 0.0) + aux
         if cache is not None:
             with torch.no_grad():
                 cache.index.add_(T)

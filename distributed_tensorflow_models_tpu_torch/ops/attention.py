@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import sys
 import time
 from typing import Optional
 
@@ -139,19 +140,67 @@ def reference_attention(q, k, v, *, causal: bool = False,
 # --------------------------------------------------------------- blockwise
 
 
-def _block_update(carry, s_block, v_block):
+def _block_update(carry, s_block, v_block, p_dtype=None):
     """One step of the streaming-softmax recurrence over ``(m, l, acc)``:
     running row max and normalizer ``[..., q, 1]`` and the unnormalized
-    output ``[..., q, d]``, all f32."""
+    output ``[..., q, d]``, all f32.  ``p_dtype`` (by default the values')
+    is the dtype P is rounded to before P V."""
     m, l, acc = carry
     m_new = torch.maximum(m, s_block.amax(dim=-1, keepdim=True))
     alpha = torch.exp(m - m_new)
     p = torch.exp(s_block - m_new)
     l_new = alpha * l + p.sum(dim=-1, keepdim=True)
     # p V with p in the value dtype and f32 accumulation.
-    acc_new = alpha * acc + torch.matmul(p.to(v_block.dtype).float(),
-                                         v_block.float())
+    acc_new = alpha * acc + torch.matmul(
+        p.to(p_dtype or v_block.dtype).float(), v_block.float())
     return m_new, l_new, acc_new
+
+
+def _resolve_qblock(block_q: Optional[int], Tq: int) -> Optional[int]:
+    """The q chunk of :func:`blockwise_attention`: ``block_q``, else
+    ``DTM_BLOCKWISE_QBLOCK``, else None (the single full-``Tq`` loop).
+    A chunk longer than ``Tq`` is clamped to it (and said so); a chunk
+    that does not divide ``Tq``, or that would unroll more than 64
+    chunks, raises naming the knob that set it."""
+    src = "block_q"
+    if block_q is None:
+        env = os.environ.get("DTM_BLOCKWISE_QBLOCK")
+        if not env:
+            return None
+        src = "DTM_BLOCKWISE_QBLOCK"
+        try:
+            block_q = int(env)
+        except ValueError:
+            raise ValueError(
+                f"DTM_BLOCKWISE_QBLOCK must be an integer, got {env!r}"
+            ) from None
+    if block_q < 1:
+        raise ValueError(f"{src} must be >= 1, got {block_q}")
+    v = min(block_q, Tq)
+    if v != block_q:
+        print(f"[attention] {src}={block_q} clamped to {v} "
+              f"(query length {Tq}) — one full-length chunk",
+              file=sys.stderr)
+    if Tq % v:
+        raise ValueError(
+            f"{src}={block_q} does not divide the query length {Tq} — "
+            "a silent fallback would mislabel an A/B artifact")
+    if Tq // v > 64:
+        raise ValueError(
+            f"{src}={block_q} would unroll {Tq // v} q chunks "
+            "(cap 64): the trace blow-up risks a wedged remote compile")
+    return v
+
+
+def _masked_block(s_block, qi, kv_lo, n_kv, causal, window):
+    """``s_block`` with the pairs the causal/window mask rules out set to
+    NEG_INF; ``qi`` ``[q, 1]`` global query positions, the block's keys
+    at global positions ``kv_lo .. kv_lo + n_kv - 1``."""
+    kj = kv_lo + torch.arange(n_kv, device=s_block.device)[None, :]
+    valid = qi >= kj if causal else torch.ones_like(qi >= kj)
+    if window is not None:
+        valid = valid & (qi - kj < window)
+    return torch.where(valid, s_block, torch.full_like(s_block, NEG_INF))
 
 
 def blockwise_attention(q, k, v, *, causal: bool = False,
@@ -163,11 +212,14 @@ def blockwise_attention(q, k, v, *, causal: bool = False,
     as :func:`reference_attention`.  A KV length the block does not divide
     leaves a shorter last block.  Autograd stores each block's scores for
     the backward (the JAX package rematerialises them under
-    ``jax.checkpoint``)."""
-    if block_q is not None or os.environ.get("DTM_BLOCKWISE_QBLOCK"):
-        raise NotImplementedError(
-            "blockwise q-chunking (block_q / DTM_BLOCKWISE_QBLOCK) is not "
-            "ported yet")
+    ``jax.checkpoint``).
+
+    ``block_q`` (or ``DTM_BLOCKWISE_QBLOCK``; :func:`_resolve_qblock`)
+    chunks the queries for a causal or windowed mask at int offsets: each
+    chunk visits only the KV blocks its mask reaches, masking only the
+    blocks on its boundary (:func:`_blockwise_q_chunked`), and gives the
+    unchunked values.  Without either mask, or at tensor offsets or where
+    a row could have no valid key, the chunk is ignored, and said so."""
     window = _check_window(window)
     k, v = _expand_kv(q, k, v)
     Tq, Tkv = q.shape[1], k.shape[1]
@@ -176,6 +228,31 @@ def blockwise_attention(q, k, v, *, causal: bool = False,
     qf = q.transpose(1, 2)  # [B, H, Tq, D]
     kf = k.transpose(1, 2)
     vf = v.transpose(1, 2)
+    block_q = _resolve_qblock(block_q, Tq)
+    masked = causal or window is not None
+    if block_q is not None and not masked:
+        print(f"[attention] block_q={block_q} ignored: neither causal nor "
+              "window is set, so the unchunked scan runs (a 'qchunk' A/B "
+              "label on this config would measure the baseline)",
+              file=sys.stderr)
+    # Rows with no valid key get documented garbage that depends on how
+    # many masked blocks were visited, so chunking (which visits fewer)
+    # needs static offsets under which every row reaches a key.
+    no_dead_rows = (
+        isinstance(q_offset, int) and isinstance(kv_offset, int)
+        and (not causal or q_offset >= kv_offset)
+        and (window is None
+             or (q_offset + Tq - 1) - (kv_offset + Tkv - 1) < window))
+    if block_q is not None and masked and not no_dead_rows:
+        print(f"[attention] block_q={block_q} ignored: traced offsets or "
+              "possible fully-masked rows (q_offset/kv_offset/window gate) "
+              "— running the unchunked scan", file=sys.stderr)
+    if block_q is not None and masked and no_dead_rows:
+        out = _blockwise_q_chunked(
+            qf, kf, vf, causal=causal, scale=s, block_kv=block_kv,
+            block_q=block_q, q_offset=q_offset, kv_offset=kv_offset,
+            window=window)
+        return out.transpose(1, 2).to(q.dtype)
     qi = q_offset + torch.arange(Tq, device=q.device)[:, None]
     m = torch.full((*qf.shape[:-1], 1), NEG_INF, dtype=torch.float32,
                    device=q.device)
@@ -185,17 +262,65 @@ def blockwise_attention(q, k, v, *, causal: bool = False,
         k_j = kf[:, :, lo:lo + block_kv]
         v_j = vf[:, :, lo:lo + block_kv]
         s_block = torch.matmul(qf.float(), k_j.float().transpose(-1, -2)) * s
-        if causal or window is not None:
-            kj = kv_offset + lo + torch.arange(k_j.shape[2],
-                                               device=q.device)[None, :]
-            valid = qi >= kj if causal else torch.ones_like(qi >= kj)
-            if window is not None:
-                valid = valid & (qi - kj < window)
-            s_block = torch.where(valid, s_block,
-                                  torch.full_like(s_block, NEG_INF))
+        if masked:
+            s_block = _masked_block(s_block, qi, kv_offset + lo,
+                                    k_j.shape[2], causal, window)
         m, l, acc = _block_update((m, l, acc), s_block, v_j)
     out = acc / torch.clamp(l, min=1e-30)
     return out.transpose(1, 2).to(q.dtype)
+
+
+def _blockwise_q_chunked(qf, kf, vf, *, causal, scale, block_kv, block_q,
+                         q_offset, kv_offset, window):
+    """The chunked half of :func:`blockwise_attention` on ``[B, H, T,
+    D]`` inputs; returns the f32 output ``[B, H, Tq, D]``.  Each chunk of
+    ``block_q`` queries visits, in ascending order, the KV blocks from
+    the window's start to the causal diagonal, and masks only those that
+    straddle either (or are the short last block).  Skipped leading
+    blocks are exactly zeroed by the renormalisation in the unchunked
+    loop, and skipped trailing ones add exactly nothing there.  K and V
+    enter in f32 once (P still rounded to V's dtype), so the cotangents a
+    block gets from every chunk sum in f32 and round to the input dtype
+    once, as the unchunked loop's do."""
+    Tq, Tkv = qf.shape[2], kf.shape[2]
+    nblocks = -(-Tkv // block_kv)
+    p_dtype = vf.dtype
+    kf, vf = kf.float(), vf.float()
+
+    def mask_needed(b, q_min_g, q_max_g):
+        if (b + 1) * block_kv > Tkv:
+            return True
+        k_min = kv_offset + b * block_kv
+        k_max = kv_offset + (b + 1) * block_kv - 1
+        if causal and q_min_g < k_max:
+            return True
+        return window is not None and q_max_g - k_min >= window
+
+    outs = []
+    for q0 in range(0, Tq, block_q):
+        qc = qf[:, :, q0:q0 + block_q].float()
+        q_min_g = q_offset + q0
+        q_max_g = q_min_g + block_q - 1
+        end = (min(nblocks, (q_max_g - kv_offset) // block_kv + 1)
+               if causal else nblocks)
+        start = (max(0, (q_min_g - window + 1 - kv_offset) // block_kv)
+                 if window is not None else 0)
+        qi = q_min_g + torch.arange(block_q, device=qf.device)[:, None]
+        m = torch.full((*qc.shape[:-1], 1), NEG_INF, dtype=torch.float32,
+                       device=qf.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(qc.shape, dtype=torch.float32, device=qf.device)
+        for b in range(start, end):
+            lo = b * block_kv
+            k_j = kf[:, :, lo:lo + block_kv]
+            v_j = vf[:, :, lo:lo + block_kv]
+            s_block = torch.matmul(qc, k_j.transpose(-1, -2)) * scale
+            if mask_needed(b, q_min_g, q_max_g):
+                s_block = _masked_block(s_block, qi, kv_offset + lo,
+                                        k_j.shape[2], causal, window)
+            m, l, acc = _block_update((m, l, acc), s_block, v_j, p_dtype)
+        outs.append(acc / torch.clamp(l, min=1e-30))
+    return torch.cat(outs, dim=2)
 
 
 # --------------------------------------------------------- block predicates

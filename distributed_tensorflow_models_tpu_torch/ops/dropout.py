@@ -21,7 +21,11 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     batch-leading), and this process keeps its rows of it: W processes
     then draw exactly the masks of one process at the global batch, as the
     JAX package draws one mask for the global array.  It costs W times the
-    draws of the local mask."""
+    draws of the local mask.
+
+    Under remat (``ops/remat.py``) a block's recompute is given
+    generators that start where its forward's did, so it draws the
+    forward's masks again, bit for bit."""
     if not rate or not train:
         return x
     if not rngs or "dropout" not in rngs:

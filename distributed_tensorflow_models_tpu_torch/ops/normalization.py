@@ -14,6 +14,11 @@ Parameters ``scale``/``bias`` and buffers ``mean``/``var`` carry the flax
 names.  In training mode the running statistics are updated in place on
 the buffers (the JAX module returns them as a new collection).
 
+Under remat (``ops/remat.py``) a block's recompute in the backward leaves
+the running statistics alone: they take one update a step, as from one
+forward (its moments' all-reduce does run again, as a rematerialised
+``psum`` does in the JAX package, and counts again).
+
 Under a data-parallel mesh (``core/mesh.py::data_parallel``) the moments
 are global across its processes, as XLA makes them for a batch-sharded
 array in the JAX package: each process sums its rows, one all-reduce
@@ -33,6 +38,7 @@ from torch import nn
 
 from distributed_tensorflow_models_tpu_torch.core import mesh as meshlib
 from distributed_tensorflow_models_tpu_torch.core import sharding as shardlib
+from distributed_tensorflow_models_tpu_torch.ops import remat as rematlib
 
 
 class _BatchMoments(torch.autograd.Function):
@@ -85,10 +91,11 @@ class BatchNorm(nn.Module):
         else:
             mean, mean_sq = _BatchMoments.apply(x, meshlib.current_mesh())
             var = torch.clamp(mean_sq - mean * mean, min=0.0)
-            m = self.momentum
-            with torch.no_grad():
-                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
-                self.var.copy_(m * self.var + (1.0 - m) * var)
+            if not rematlib.recomputing():
+                m = self.momentum
+                with torch.no_grad():
+                    self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                    self.var.copy_(m * self.var + (1.0 - m) * var)
         inv = torch.rsqrt(var + self.epsilon) * self.scale
         shift = self.bias - mean * inv
         return x * inv.to(x.dtype) + shift.to(x.dtype)

@@ -1,0 +1,176 @@
+"""Switch-style mixture of experts: top-1 routing with a per-expert
+capacity, ReLU experts, and the load-balancing loss.
+
+PyTorch counterpart of ``distributed_tensorflow_models_tpu/parallel/moe.py``,
+data axis only.  The routing is the JAX package's, to the op:
+
+- the router product ``x @ router`` and its softmax in f32 (with TF32 off
+  for the product: a rounded router can flip ``argmax`` on near-ties and
+  move whole tokens between experts);
+- top-1 by ``argmax`` (the first index on ties), the gate its probability;
+- each token's place in its expert's queue by ``cumsum(onehot) * onehot -
+  onehot``, in token order;
+- capacity ``C = max(1, int(capacity_factor * tokens / E))``; a token past
+  it gets an all-zero ``[E, C]`` slot row (the one-hot of an out-of-range
+  place is built by comparison with ``arange(C)``, so it is zero, not an
+  error), is dropped, and its residual carries it;
+- dispatch and combine ``[n, E, C]``, the experts' ``relu(x W_in) W_out``
+  on ``[E, C, d]`` slots, the output cast to the input's dtype;
+- aux ``E * sum(fraction * mean_prob)``, ``dropped = 1 - sum(dispatch) / n``.
+
+The dispatch, expert and combine products are plain XLA products in the
+JAX package, and plain ``einsum`` here.
+
+Under a data axis of W processes (:func:`moe_ffn`) the JAX package's
+``moe_ffn`` maps tokens over the ``expert`` axis only, so XLA gathers the
+data-sharded tokens and routes the *global* token set.  Here each process
+all-gathers the tokens over the data group (``core/sharding.py``, counted;
+its backward sums the cotangents), routes and runs the experts on the
+global set, and keeps its own rows: the redundant compute XLA does.  An
+expert axis wider than one is not ported.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from distributed_tensorflow_models_tpu_torch.core import mesh as meshlib
+from distributed_tensorflow_models_tpu_torch.core import sharding as shardlib
+
+
+class MoEOutput(NamedTuple):
+    out: torch.Tensor  # [tokens, d_model] combined expert outputs
+    aux_loss: torch.Tensor  # scalar load-balancing loss
+    dropped_fraction: torch.Tensor  # scalar diagnostic
+
+
+def init_moe_params(num_experts: int, d_model: int, d_ff: int,
+                    generator: Optional[torch.Generator] = None
+                    ) -> dict[str, torch.Tensor]:
+    """Per-expert FFN (``w_in [E, d, f]``, ``w_out [E, f, d]``) and
+    ``router [d, E]``, f32 normals scaled by ``1/sqrt(d)`` (router, w_in)
+    and ``1/sqrt(f)`` (w_out), drawn in that order."""
+    def normal(*shape):
+        return torch.randn(shape, generator=generator)
+
+    return {
+        "router": normal(d_model, num_experts) * d_model ** -0.5,
+        "w_in": normal(num_experts, d_model, d_ff) * d_model ** -0.5,
+        "w_out": normal(num_experts, d_ff, d_model) * d_ff ** -0.5,
+    }
+
+
+def capacity(capacity_factor: float, tokens: int, num_experts: int) -> int:
+    return max(1, int(capacity_factor * tokens / num_experts))
+
+
+@contextlib.contextmanager
+def _exact_f32_matmul():
+    """cuBLAS's f32 products without TF32 while the block runs, whatever
+    the process has set."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _route_local(x, router, num_experts: int, capacity: int):
+    """Top-1 routing of tokens ``x [n, d]`` (f32) -> ``(dispatch [n, E,
+    C] 0/1, combine [n, E, C] gate-weighted, aux_loss, dropped_fraction)``;
+    places within an expert's capacity are given in token order."""
+    n = x.shape[0]
+    with _exact_f32_matmul():
+        logits = x @ router
+    probs = torch.softmax(logits.float(), dim=-1)
+    expert_idx = torch.argmax(probs, dim=-1)
+    gate = torch.gather(probs, 1, expert_idx[:, None])[:, 0]
+    experts = torch.arange(num_experts, device=x.device)
+    onehot = (expert_idx[:, None] == experts).to(torch.float32)
+    position = torch.cumsum(onehot, dim=0) * onehot - onehot
+    pos = torch.sum(position, dim=-1).to(torch.int32)
+    slots = torch.arange(capacity, device=x.device, dtype=torch.int32)
+    pos_onehot = (pos[:, None] == slots).to(torch.float32)
+    dispatch = onehot[:, :, None] * pos_onehot[:, None, :]
+    combine = dispatch * gate[:, None, None]
+    fraction = torch.mean(onehot, dim=0)
+    mean_prob = torch.mean(probs, dim=0)
+    aux = num_experts * torch.sum(fraction * mean_prob)
+    dropped = 1.0 - torch.sum(dispatch) / n
+    return dispatch, combine, aux, dropped
+
+
+def _experts(params, xl, capacity_: int, activation):
+    """Route ``xl [n, d]`` (f32) and run the experts: ``(out [n, d] f32,
+    aux, dropped)``."""
+    num_experts = params["w_in"].shape[0]
+    dispatch, combine, aux, dropped = _route_local(
+        xl, params["router"], num_experts, capacity_)
+    expert_in = torch.einsum("nec,nd->ecd", dispatch, xl)
+    h = activation(torch.einsum("ecd,edf->ecf", expert_in, params["w_in"]))
+    expert_out = torch.einsum("ecf,efd->ecd", h, params["w_out"])
+    return torch.einsum("nec,ecd->nd", combine, expert_out), aux, dropped
+
+
+def moe_ffn_reference(params: dict, x: torch.Tensor, *, num_ranks: int,
+                      capacity_factor: float = 1.25,
+                      activation: Callable = torch.relu) -> MoEOutput:
+    """Single-device oracle: the token shards of ``num_ranks`` expert
+    ranks routed shard by shard, each with the capacity of its own token
+    count (the per-source-rank accounting expert parallelism implies);
+    aux and the dropped fraction are the shards' means."""
+    num_experts = params["w_in"].shape[0]
+    tokens = x.shape[0]
+    if tokens % num_ranks:
+        raise ValueError(
+            f"tokens {tokens} not divisible by num_ranks {num_ranks}")
+    local = tokens // num_ranks
+    cap = capacity(capacity_factor, local, num_experts)
+    outs, auxes, drops = [], [], []
+    for r in range(num_ranks):
+        xl = x[r * local:(r + 1) * local].to(torch.float32)
+        out, aux, dropped = _experts(params, xl, cap, activation)
+        outs.append(out.to(x.dtype))
+        auxes.append(aux)
+        drops.append(dropped)
+    return MoEOutput(out=torch.cat(outs, dim=0),
+                     aux_loss=torch.mean(torch.stack(auxes)),
+                     dropped_fraction=torch.mean(torch.stack(drops)))
+
+
+def moe_ffn(params: dict, x: torch.Tensor, *,
+            mesh: Optional[meshlib.Mesh] = None,
+            capacity_factor: float = 1.25,
+            activation: Callable = torch.relu) -> MoEOutput:
+    """The Switch FFN over this process's tokens ``x [n, d]`` under the
+    data axis of ``mesh`` (by default the current one): the tokens of
+    every process gathered in rank order, routed with the capacity of the
+    global count, the experts run on them, and this process's rows of the
+    output returned; aux and the dropped fraction are the global set's.
+    Without a process group it is :func:`moe_ffn_reference` with one
+    rank."""
+    mesh = meshlib.current_mesh() if mesh is None else mesh
+    if mesh is not None and mesh.shape[meshlib.AxisNames.EXPERT] > 1:
+        raise NotImplementedError(
+            "the expert mesh axis is not ported: the MoE FFN runs on the "
+            "data axis only (the parallel layers are ROADMAP §1 item 1)")
+    if mesh is None or mesh.group is None:
+        if mesh is not None and mesh.world_size > 1:
+            raise RuntimeError(
+                f"a data axis of {mesh.world_size} with no process group "
+                f"cannot gather the tokens of its processes")
+        return moe_ffn_reference(params, x, num_ranks=1,
+                                 capacity_factor=capacity_factor,
+                                 activation=activation)
+    num_experts = params["w_in"].shape[0]
+    xg = shardlib.all_gather_rows(x, mesh, "moe_tokens")
+    cap = capacity(capacity_factor, xg.shape[0], num_experts)
+    out, aux, dropped = _experts(params, xg.to(torch.float32), cap,
+                                 activation)
+    rows = shardlib.batch_rows(mesh, xg.shape[0])
+    return MoEOutput(out=out[rows].to(x.dtype), aux_loss=aux,
+                     dropped_fraction=dropped)

@@ -202,6 +202,108 @@ def test_blockwise_matches_jax(case):
     _assert_run_close(got, want)
 
 
+QCHUNK_CASES = [
+    dict(causal=True, block_kv=32, block_q=20),
+    dict(causal=True, block_kv=48, block_q=25, window=40),
+    dict(causal=False, block_kv=32, block_q=20, window=30),
+    dict(causal=True, block_kv=48, block_q=50, q_offset=20, kv_offset=5,
+         hkv=2),
+]
+QCHUNK_IDS = ["causal", "causal-window-ragged-kv", "window", "offsets-gqa"]
+
+
+@pytest.mark.parametrize("case", QCHUNK_CASES, ids=QCHUNK_IDS)
+def test_blockwise_q_chunks_match_jax(case):
+    """``block_q`` chunking at T=100 against JAX's chunked blockwise (with
+    the same arguments) and against the port's unchunked loop: each chunk
+    skips the blocks its mask rules out, which changes nothing (bit for
+    bit against the unchunked loop here)."""
+    case = dict(case)
+    hkv = case.pop("hkv", None)
+    q, k, v = _qkv(Tq=100, H=4, Hkv=hkv, seed=11)
+    want = _jax_run(functools.partial(jattn.blockwise_attention, **case),
+                    q, k, v)
+    got = _torch_run(functools.partial(tattn.blockwise_attention, **case),
+                     q, k, v)
+    _assert_run_close(got, want)
+    case.pop("block_q")
+    plain = _torch_run(functools.partial(tattn.blockwise_attention, **case),
+                       q, k, v)
+    np.testing.assert_array_equal(got[0], plain[0])
+    for g, w in zip(got[1], plain[1]):
+        np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-7)
+
+
+def test_blockwise_q_chunk_env_knob(monkeypatch, capsys):
+    """``DTM_BLOCKWISE_QBLOCK`` sets the chunk when ``block_q`` is not
+    given; a chunk past the length is clamped and said so, with JAX's
+    words."""
+    q, k, v = (torch.tensor(x) for x in _qkv(B=1, Tq=64, H=2, seed=12))
+    plain = tattn.blockwise_attention(q, k, v, causal=True, block_kv=16)
+    monkeypatch.setenv("DTM_BLOCKWISE_QBLOCK", "16")
+    assert tattn._resolve_qblock(None, 64) == 16
+    assert torch.equal(tattn.blockwise_attention(q, k, v, causal=True,
+                                                  block_kv=16), plain)
+    for mod in (jattn, tattn):
+        assert mod._resolve_qblock(100, 64) == 64
+    err = capsys.readouterr().err.splitlines()
+    assert len(err) == 2 and err[0] == err[1]
+    assert "block_q=100 clamped to 64" in err[0]
+
+
+@pytest.mark.parametrize("block_q,env,Tq", [
+    (24, None, 100), (1, None, 128), (0, None, 64), (None, "x", 64),
+    (None, "24", 100), (None, "-1", 64)],
+    ids=["no-divide", "too-many", "zero", "not-int", "env-no-divide",
+         "env-negative"])
+def test_blockwise_q_chunk_errors_match_jax(monkeypatch, block_q, env, Tq):
+    """Every refusal raises JAX's ValueError, naming the knob that set
+    the chunk."""
+    if env is not None:
+        monkeypatch.setenv("DTM_BLOCKWISE_QBLOCK", env)
+    with pytest.raises(ValueError) as want:
+        jattn._resolve_qblock(block_q, Tq)
+    with pytest.raises(ValueError) as got:
+        tattn._resolve_qblock(block_q, Tq)
+    assert str(got.value) == str(want.value)
+    assert ("DTM_BLOCKWISE_QBLOCK" if env is not None else "block_q") in str(
+        got.value)
+    q, k, v = (torch.tensor(x) for x in _qkv(B=1, Tq=Tq, H=2, seed=13))
+    with pytest.raises(ValueError, match=str(want.value)[:20]):
+        tattn.blockwise_attention(q, k, v, causal=True, block_q=block_q)
+
+
+@pytest.mark.parametrize("kw", [dict(causal=False),
+                                dict(causal=True, q_offset=0, kv_offset=8),
+                                dict(causal=True, window=4, kv_offset=0,
+                                     q_offset=80)],
+                         ids=["no-mask", "dead-rows", "window-dead-rows"])
+def test_blockwise_q_chunk_ignored_with_jax_notice(capsys, kw):
+    """With neither mask, or where a row could see no key, the chunk is
+    ignored (the unchunked loop's bits) with JAX's stderr line."""
+    q, k, v = _qkv(B=1, Tq=64, H=2, seed=14)
+    want = _jax_run(functools.partial(jattn.blockwise_attention,
+                                      block_kv=16, block_q=16, **kw), q, k, v)
+    jerr = capsys.readouterr().err
+    ts = [torch.tensor(x) for x in (q, k, v)]
+    got = tattn.blockwise_attention(*ts, block_kv=16, block_q=16, **kw)
+    terr = capsys.readouterr().err
+    assert terr == jerr and "ignored" in terr
+    assert torch.equal(got, tattn.blockwise_attention(*ts, block_kv=16, **kw))
+    np.testing.assert_allclose(got.numpy(), want[0], **FWD_TOL)
+
+
+def test_blockwise_q_chunk_ignored_at_tensor_offsets(capsys):
+    """A tensor offset (a decode cache's index) is not static: the chunk
+    is ignored, as JAX ignores a traced offset."""
+    ts = [torch.tensor(x) for x in _qkv(B=1, Tq=32, H=2, seed=15)]
+    got = tattn.blockwise_attention(*ts, causal=True, block_kv=8,
+                                    block_q=8, q_offset=torch.tensor(0))
+    assert "traced offsets" in capsys.readouterr().err
+    assert torch.equal(got, tattn.blockwise_attention(*ts, causal=True,
+                                                      block_kv=8))
+
+
 def test_block_predicates_match_jax():
     """_block_should_run and _block_fully_valid on every combination of
     small tiles, offsets, windows and tile indices (so each boundary

@@ -410,6 +410,40 @@ def test_cli_generate_rejects_non_lm_and_a_missing_checkpoint(tmp_path):
                   "--workdir", str(tmp_path / "empty"), "--device", "cpu"])
 
 
+def test_cli_moe_trains_evals_and_refuses_to_generate(tmp_path, capsys):
+    """``transformer_lm_moe`` at its widths through the CLI on the CPU
+    (batch 2, one step): ``list`` names it, ``train`` reports its aux
+    loss, ``eval`` reads its checkpoint, and ``generate`` raises the JAX
+    package's ValueError: the MoE stack has no decode mode."""
+    from distributed_tensorflow_models_tpu.models.transformer_lm import (
+        TransformerLM as JTransformerLM,
+    )
+
+    assert cli.main(["list"]) == 0
+    assert "transformer_lm_moe" in capsys.readouterr().out.split()
+    wd = str(tmp_path / "wd")
+    assert cli.main(["train", "--config", "transformer_lm_moe", "--workdir",
+                     wd, "--batch-size", "2", "--train-steps", "1",
+                     "--device", "cpu"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    metrics = line["final_metrics"]
+    assert metrics["aux_loss"] > 0 and np.isclose(
+        metrics["loss"], metrics["nll"] + metrics["aux_loss"], rtol=1e-6)
+    assert cli.main(["eval", "--config", "transformer_lm_moe", "--workdir",
+                     wd, "--batch-size", "2", "--max-batches", "1",
+                     "--device", "cpu"]) == 0
+    ev = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert ev["step"] == 1 and np.isfinite(ev["perplexity"])
+    jm = JTransformerLM(vocab_size=16, num_layers=2, num_heads=2, d_model=8,
+                        d_ff=16, max_len=8, num_experts=2, decode=True)
+    with pytest.raises(ValueError) as want:
+        jm.init(jax.random.key(0), jnp.zeros((1, 1), jnp.int32))
+    with pytest.raises(ValueError) as got:
+        cli.main(["generate", "--config", "transformer_lm_moe", "--workdir",
+                  wd, "--prompt", "5,6", "--device", "cpu"])
+    assert str(got.value) == str(want.value)
+
+
 @pytest.mark.parametrize("window", [None, 3], ids=["causal", "window"])
 def test_reference_attention_takes_a_tensor_offset(window):
     """The decode step's mask: ``q_offset`` as a 0-d int64 tensor gives

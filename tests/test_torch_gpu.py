@@ -1554,3 +1554,188 @@ def test_kernel_loads_overlap_the_restore(cuda, tmp_path, monkeypatch):
     a, b = _state_tensors(on.state), _state_tensors(off.state)
     for n in a:
         assert torch.equal(a[n], b[n]), n
+
+
+# The Switch-MoE transformer and the model knobs on the card.  The LM
+# paths' embedding gradient adds rows with atomics (index_add_), so as
+# above their losses are held to 1e-5 relative and each state collection
+# to 1e-4 in relative L2; ResNet's step has no atomics, so its remat and
+# no-remat runs must leave the BN statistics (and the whole state) equal
+# bit for bit: a recompute that updated them again would move them by the
+# momentum's share.
+MOE_LM = dict(
+    global_batch_size=4, num_steps=64, vocab_size=128, attn_impl="flash",
+    model_kwargs={"num_layers": 2, "num_heads": 4, "d_model": 128,
+                  "d_ff": 256, "max_len": 64, "vocab_size": 128,
+                  "dropout_rate": 0.1, "num_experts": 4})
+
+
+def _assert_lm_states_close(a, b, got, want):
+    for x, y in zip(got, want):
+        assert abs(x - y) <= 1e-5 * abs(y)
+    for group in ("params", "opt_state"):
+        names = [n for n in a if n.startswith(group)
+                 and a[n].is_floating_point()]
+        assert _rel_l2(torch.cat([a[n].float().flatten() for n in names]),
+                       torch.cat([b[n].float().flatten() for n in names])
+                       ) <= 1e-4, group
+
+
+def test_moe_replayed_chunk_equals_eager_steps(cuda):
+    """The cut MoE transformer (experts on block 1, dropout 0.1): six
+    steps in a chunk of 4 and a tail against the eager steps, aux loss
+    reported by both."""
+    from distributed_tensorflow_models_tpu_torch.harness import config as tconfig
+
+    cfg = tconfig.get_config("transformer_lm_moe", train_steps=6, **MOE_LM)
+    eager, captured, want, got, multi = _replay_and_eager(cfg, 6, 4, cuda)
+    assert multi.captures == 1 and multi.replays == 5
+    assert "aux_loss" in next(iter(multi._captured.values())).names
+    _assert_lm_states_close(_state_tensors(captured), _state_tensors(eager),
+                            got, want)
+
+
+def test_moe_ffn_on_card_matches_cpu(cuda):
+    """``moe_ffn`` at 2048 tokens, d 128, f 256, 4 experts on the card
+    against the CPU on the same f32 inputs: at least 99.9 % of the expert
+    choices equal (the router runs without TF32 on both), the rows routed
+    to the same slot within f32 summation order (1e-4 relative plus 1e-5
+    of the scale), aux and the dropped fraction within 1e-4."""
+    from distributed_tensorflow_models_tpu_torch.parallel import moe
+
+    rng = np.random.default_rng(31)
+    params = moe.init_moe_params(4, 128, 256,
+                                 torch.Generator().manual_seed(3))
+    x = torch.from_numpy(rng.standard_normal((2048, 128), dtype=np.float32))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev) for k, v in params.items()}
+        xd = x.to(dev)
+        out = moe.moe_ffn(p, xd, mesh=None, capacity_factor=1.25)
+        cap = moe.capacity(1.25, 2048, 4)
+        dispatch, _, _, _ = moe._route_local(xd, p["router"], 4, cap)
+        res[dev] = (out, dispatch.cpu())
+    (a, da), (b, db) = res["cuda"], res["cpu"]
+    same_expert = (da.sum(2).argmax(1) == db.sum(2).argmax(1)).float().mean()
+    assert float(same_expert) >= 0.999
+    rows = (da == db).flatten(1).all(1)
+    assert float(rows.float().mean()) >= 0.99
+    scale = float(b.out.abs().max())
+    torch.testing.assert_close(a.out.cpu()[rows], b.out[rows], rtol=1e-4,
+                               atol=1e-5 * scale)
+    assert abs(float(a.aux_loss) - float(b.aux_loss)) <= 1e-4
+    assert abs(float(a.dropped_fraction) - float(b.dropped_fraction)) <= 1e-4
+
+
+def test_captured_remat_equals_eager_no_remat(cuda):
+    """The cut transformer with dropout 0.1 under remat, captured (the
+    recompute's dropout drawing from the twin generators the host seeds
+    before each replay), against the eager steps without remat: the same
+    losses and state, so the same masks."""
+    from distributed_tensorflow_models_tpu_torch.harness import config as tconfig
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+
+    over = dict(REPLAY_CASES["transformer_lm"][1])
+    plain = tconfig.get_config("transformer_lm", train_steps=6, **over)
+    remat = plain.replace(model_kwargs={**plain.model_kwargs, "remat": True})
+    batches = [{k: torch.from_numpy(v).to(cuda) for k, v in b.items()}
+               for b in itertools.islice(iter(trainlib.build_dataset(plain)),
+                                         6)]
+    eager = trainlib.build_state(plain, cuda)
+    step = trainlib.build_step(plain, eager)
+    want = []
+    for b in batches:
+        eager, metrics = step(eager, b, plain.seed)
+        want.append(float(metrics["loss"]))
+    captured = trainlib.build_state(remat, cuda)
+    multi = train_loop.MultiStep(trainlib.build_step(remat, captured))
+    got = []
+    for i in range(0, 6, 4):
+        rows = batches[i:i + 4]
+        chunk = {k: torch.stack([b[k] for b in rows]) for k in rows[0]}
+        captured, metrics = multi(captured, chunk, remat.seed)
+        got += metrics["loss"].tolist()
+    torch.cuda.synchronize()
+    assert multi.replays == 5
+    cap = next(iter(multi._captured.values()))
+    # One twin of the dropout generator per block.
+    assert len(cap.twins) == over["model_kwargs"]["num_layers"]
+    _assert_lm_states_close(_state_tensors(captured), _state_tensors(eager),
+                            got, want)
+
+
+def test_remat_resnet_on_card_leaves_bn_statistics_bit_for_bit(cuda):
+    """``resnet50_synthetic_tiny`` at width 16 (K1 on the 3x3 convs of
+    64 channels and more) through ``fit`` with remat on and off: the BN running
+    statistics, and the whole state, equal bit for bit; the remat run
+    launches K1's forwards again."""
+    from distributed_tensorflow_models_tpu_torch.harness import config as tconfig
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+    from distributed_tensorflow_models_tpu_torch.ops import _kernels
+
+    runs = {}
+    for remat in (False, True):
+        cfg = tconfig.get_config(
+            "resnet50_synthetic_tiny", train_steps=5, steps_per_loop=4,
+            global_batch_size=8,
+            model_kwargs={"width": 16, "conv_impl": "mxu", "remat": remat})
+        before = _kernels.launch_counts()
+        r = trainlib.fit(cfg, device="cuda")
+        runs[remat] = (r, {k: n - before[k] for k, n in
+                           _kernels.launch_counts().items() if n != before[k]})
+    (a, la), (b, lb) = runs[False], runs[True]
+    assert [h["loss"] for h in a.history] == [h["loss"] for h in b.history]
+    for k, v in a.state.batch_stats.items():
+        assert torch.equal(v, b.state.batch_stats[k]), k
+    sa, sb = _state_tensors(a.state), _state_tensors(b.state)
+    for k in sa:
+        assert torch.equal(sa[k], sb[k]), k
+    k1 = (conv_mxu.conv_implicit_gemm, "launches")
+    assert lb[k1] > la[k1] > 0
+
+
+def test_embed_matmul_grad_on_card_matches_scatter(cuda):
+    """The one-hot matmul embedding gradient at ``transformer_lm``'s
+    shape (4096 tokens, V 10000, d 256, chunks of 2048) against the
+    scatter (atomics): f32 sums in another order, 1e-5 relative plus 1e-6
+    of the scale; the bf16 table's once-rounded sums to one bf16 ulp."""
+    from distributed_tensorflow_models_tpu_torch.ops import embed
+
+    rng = np.random.default_rng(41)
+    tokens = torch.from_numpy(rng.integers(0, 10000, (16, 256))).to(cuda)
+    g = torch.from_numpy(rng.standard_normal((16, 256, 256),
+                                             dtype=np.float32)).to(cuda)
+    for dtype, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):
+        grads = {}
+        for impl in ("matmul", "scatter"):
+            t = torch.zeros(10000, 256, dtype=dtype, device=cuda,
+                            requires_grad=True)
+            embed.embed_lookup(t, tokens, impl).backward(g.to(dtype))
+            grads[impl] = t.grad.float()
+        scale = float(grads["scatter"].abs().max())
+        torch.testing.assert_close(grads["matmul"], grads["scatter"],
+                                   rtol=rtol, atol=1e-6 * scale)
+
+
+def test_blockwise_q_chunks_on_card_match_unchunked(cuda):
+    """Blockwise attention with ``block_q=64`` against the unchunked loop
+    at B2 T1024 H4 D64 causal in bf16: the same f32 arithmetic per row
+    (products of bf16 values are exact in f32), so the outputs and
+    gradients agree to one bf16 ulp (2^-7 relative) plus 1e-3 of the
+    scale."""
+    rng = np.random.default_rng(43)
+    qkv = [torch.from_numpy(rng.standard_normal((2, 1024, 4, 64),
+                                                dtype=np.float32)).to(
+        cuda).bfloat16().requires_grad_() for _ in range(3)]
+    do = torch.from_numpy(rng.standard_normal((2, 1024, 4, 64),
+                                              dtype=np.float32)).to(
+        cuda).bfloat16()
+    outs = {}
+    for bq in (None, 64):
+        out = attnlib.blockwise_attention(*qkv, causal=True, block_q=bq)
+        grads = torch.autograd.grad(out, qkv, do)
+        outs[bq] = (out, *grads)
+    for a, b in zip(outs[64], outs[None]):
+        scale = float(b.detach().float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), rtol=2.0 ** -7,
+                                   atol=1e-3 * scale)

@@ -70,7 +70,7 @@ def test_guard_walks_every_module_of_the_port():
     """The walk covers each module of the port, those of the LM slice, the
     input pipeline, the rest of the model zoo, the hooks, the
     data-parallel modules (mesh, sharding, launch), the checkpoint and
-    the resilience modules included; what
+    the resilience modules, the MoE layer and remat included; what
     else the package holds is CUDA source and its shared header under
     csrc/, which import nothing of Python."""
     walked = {p.relative_to(PORT).as_posix() for p in _port_files()
@@ -90,7 +90,9 @@ def test_guard_walks_every_module_of_the_port():
             "core/sharding.py", "launch.py", "harness/checkpoint.py",
             "resilience/__init__.py", "resilience/backoff.py",
             "resilience/consensus.py", "resilience/fsck.py",
-            "resilience/preemption.py", "resilience/watchdog.py"} <= walked
+            "resilience/preemption.py", "resilience/watchdog.py",
+            "parallel/__init__.py", "parallel/moe.py",
+            "ops/remat.py"} <= walked
     others = [p.relative_to(PORT).as_posix() for p in PORT.rglob("*")
               if p.is_file() and p.suffix not in (".py", ".pyc")]
     assert sorted(others) == ["csrc/conv_implicit_gemm.cu",

@@ -233,9 +233,19 @@ def test_small_input_aux_head(variables):
                                _jax_apply(variables, x, False)[0], **MODEL_TOL)
 
 
-def test_remat_is_not_ported():
-    with pytest.raises(NotImplementedError, match="remat"):
-        InceptionV3(remat=True)
+def test_remat_is_not_ported(variables):
+    """Remat is ported now (the name is kept from when it raised): the
+    remat model builds, carries the same state-dict names, and the
+    bridged weights round-trip through it exactly
+    (``tests/test_torch_remat.py`` holds its numbers)."""
+    tm = _port_model(variables, remat=True)
+    assert tm.remat
+    assert set(tm.state_dict()) == set(InceptionV3(**SMALL).state_dict())
+    back = interop.to_flax_variables(tm)
+    want, got = _leaves(variables), _leaves(back)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 STEPS, BATCH, LR = 3, 4, 1e-4

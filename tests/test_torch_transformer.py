@@ -109,7 +109,8 @@ def tiny_params():
 
 
 @pytest.mark.parametrize("name", ["transformer_lm", "tiny",
-                                  "transformer_lm_modern"])
+                                  "transformer_lm_modern",
+                                  "transformer_lm_moe"])
 def test_interop_round_trip_exact(name):
     if name.startswith("transformer_lm"):
         # The full-width tree's structure without running the model; values
@@ -123,7 +124,8 @@ def test_interop_round_trip_exact(name):
         params = jax.tree.map(lambda s: rng.standard_normal(
             s.shape, dtype=np.float32), dict(shapes["params"]))
         tm = get_model("transformer_lm", **kw)
-        assert ("pos_embedding" in params) == (name == "transformer_lm")
+        assert ("pos_embedding" in params) == (name != "transformer_lm_modern")
+        assert ("moe" in params["blocks_3"]) == (name == "transformer_lm_moe")
     else:
         params, tm = _jax_params(_jax_model(), 3), TransformerLM(**TINY)
     assert "blocks_0.attn.query.kernel" in dict(tm.named_parameters())
@@ -456,12 +458,76 @@ def test_embed_lookup_and_grad_match_jax(dtype):
 
 
 def test_embed_grad_knob(monkeypatch):
+    """``DTM_EMBED_GRAD=matmul`` selects the one-hot matmul gradient, which
+    gives the scatter's values up to f32 summation order; any other value
+    raises naming the knob."""
     monkeypatch.setenv("DTM_EMBED_GRAD", "matmul")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tembed.resolve_embed_grad_impl()
+    assert tembed.resolve_embed_grad_impl() == "matmul"
+    rng = np.random.RandomState(13)
+    table = torch.tensor(rng.randn(40, 8).astype(np.float32),
+                         requires_grad=True)
+    tokens = torch.from_numpy(rng.randint(0, 40, (3, 50)))
+    g = torch.from_numpy(rng.randn(3, 50, 8).astype(np.float32))
+    grads = {}
+    for impl in ("auto", "scatter"):
+        out = tembed.embed_lookup(table, tokens, impl)
+        grads[impl], = torch.autograd.grad(out, table, g)
+    np.testing.assert_allclose(grads["auto"].numpy(),
+                               grads["scatter"].numpy(), rtol=1e-6,
+                               atol=1e-6)
     monkeypatch.setenv("DTM_EMBED_GRAD", "other")
     with pytest.raises(ValueError, match="DTM_EMBED_GRAD"):
         tembed.resolve_embed_grad_impl()
+
+
+def _jax_embed_grad(table, tokens, g, impl, chunk):
+    @jax.jit
+    def run(t):
+        out, vjp = jax.vjp(lambda t: jembed.embed_lookup(t, tokens, impl,
+                                                         chunk), t)
+        return out, vjp(g)[0]
+
+    return run(table)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["negative-ids", "ragged-chunk", "empty"])
+def test_embed_matmul_grad_matches_jax(case, dtype):
+    """The chunked one-hot matmul backward against JAX ``_embed_bwd(
+    grad_impl="matmul")`` and against the port's scatter: negative ids
+    (wrapped by +V in the gather and both backwards), a chunk of 7 that
+    does not divide the 5x9 tokens, and no tokens at all (a zero
+    gradient).  f32 sums in another order: 1e-6 in f32; bf16 tables
+    round the sum once, to one bf16 ulp."""
+    rng = np.random.RandomState(21)
+    V, d = 30, 6
+    shape = {"negative-ids": (4, 11), "ragged-chunk": (5, 9),
+             "empty": (0, 3)}[case]
+    table = rng.randn(V, d).astype(np.float32)
+    tokens = rng.randint(-V if case == "negative-ids" else 0, V,
+                         shape).astype(np.int32)
+    g = rng.randn(*shape, d).astype(np.float32)
+    chunk = 7 if case == "ragged-chunk" else 2048
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jout, jgrad = _jax_embed_grad(jnp.asarray(table).astype(jdt), tokens,
+                                  g.astype(jdt), "matmul", chunk)
+    tol = (dict(rtol=1e-6, atol=1e-6) if dtype == "float32"
+           else dict(rtol=2 ** -8, atol=1e-6))
+    grads = {}
+    for impl in ("matmul", "scatter"):
+        t = torch.tensor(table).to(tdt).requires_grad_()
+        out = tembed.embed_lookup(t, torch.from_numpy(tokens), impl,
+                                  chunk=chunk)
+        np.testing.assert_array_equal(out.detach().float().numpy(),
+                                      np.asarray(jout, np.float32))
+        out.backward(torch.from_numpy(g).to(tdt))
+        assert t.grad.dtype == tdt
+        grads[impl] = t.grad.float().numpy()
+    np.testing.assert_allclose(grads["matmul"], np.asarray(jgrad, np.float32),
+                               **tol)
+    np.testing.assert_allclose(grads["matmul"], grads["scatter"], **tol)
+    if case == "empty":
+        assert not grads["matmul"].any()
 
 
 @pytest.mark.parametrize("kw", [dict(decode=True), dict(num_experts=4),
@@ -469,15 +535,29 @@ def test_embed_grad_knob(monkeypatch):
                                 dict(pos_encoding="rope", decode=True)],
                          ids=["decode", "moe", "pipelined", "remat", "rope"])
 def test_unported_paths_raise(kw):
-    """MoE, the pipelined stack and remat raise "not ported"; decode mode,
+    """Only the pipelined stack still raises "not ported".  Decode mode,
     with learned or rotary positions, is ported: the model builds and
-    takes its cache (tests/test_torch_generate.py holds it to JAX)."""
+    takes its cache (tests/test_torch_generate.py holds it to JAX).  The
+    MoE stack builds with its experts on the odd blocks, and remat builds
+    with the dense stack's parameters; both are held to JAX in
+    ``test_moe_*`` below and ``tests/test_torch_remat.py``."""
     if kw.get("decode"):
         model = TransformerLM(**TINY, **kw)
         assert model.decode and int(model.init_cache(1).index) == 0
         return
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TransformerLM(**TINY, **kw)
+    if kw.get("pipelined"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            TransformerLM(**TINY, **kw)
+        return
+    model = TransformerLM(**TINY, **kw)
+    names = set(dict(model.named_parameters()))
+    dense = set(dict(TransformerLM(**TINY).named_parameters()))
+    if kw.get("remat"):
+        assert model.remat and names == dense
+    else:
+        assert "blocks_1.moe.router" in names
+        assert "blocks_0.mlp.up.kernel" in names
+        assert not any(n.startswith("blocks_1.mlp") for n in names)
 
 
 def test_ptb_batches_and_cursor_equal_jax():
@@ -528,6 +608,117 @@ def test_ptb_tokens_fall_back_to_synthetic_like_jax(tmp_path, monkeypatch):
         got = tdata.load_ptb_tokens(split, 256)
         np.testing.assert_array_equal(got, jdata.load_ptb_tokens(split, 256))
         assert len(got) == (200_000 if split == "train" else 20_000)
+
+
+MOE = dict(num_experts=4)
+
+
+@pytest.fixture(scope="module")
+def moe_params():
+    return _jax_params(_jax_model(**MOE), 5)
+
+
+def test_moe_forward_matches_jax(moe_params):
+    """The tiny stack with 4 experts on block 1 (the JAX model on its
+    mesh-free path, the one-rank reference): logits and hidden states to
+    f32 round-off; the parameters carried by interop name for name."""
+    assert set(moe_params["blocks_1"]["moe"]) == {"router", "w_in", "w_out"}
+    jm = _jax_model(**MOE)
+    toks = _tokens()["inputs"]
+    run = jax.jit(lambda p, t, h: jm.apply({"params": p}, t, return_hidden=h),
+                  static_argnums=2)
+    tm = _port_model(moe_params, **MOE)
+    with torch.no_grad():
+        for hidden in (False, True):
+            want, _ = run(moe_params, jnp.asarray(toks), hidden)
+            got, _ = tm(torch.from_numpy(toks), return_hidden=hidden)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       err_msg=f"return_hidden={hidden}",
+                                       **F32_TOL)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_moe_lm_loss_and_grads_match_jax(moe_params, fused):
+    """One ``lm_loss_fn`` of the MoE stack: ``loss`` = ``nll`` + the sown
+    0.01-weighted aux loss, ``aux_loss`` reported apart, and every
+    gradient (the router's through the gates and the aux loss), at the
+    tolerances of the dense step's test."""
+    batch = _tokens()
+    jm = _jax_model(**MOE)
+    jloss = jtrain.lm_loss_fn(jm.apply, fused_unembed=fused)
+    jstate = JTrainState.create(jm, optax.identity(), jax.random.key(0),
+                                jnp.zeros((2, 64), jnp.int32))
+    (jl, jaux), jgrads = jax.jit(lambda p, b: jax.value_and_grad(
+        jloss, has_aux=True)(p, jstate, b, {}))(
+            jax.tree.map(jnp.asarray, moe_params),
+            {k: jnp.asarray(v) for k, v in batch.items()})
+    tm = _port_model(moe_params, **MOE)
+    tstate = TrainState.create(tm, toptim.sgd(0.0))
+    tl, taux = ttrain.lm_loss_fn(tm, fused_unembed=fused)(
+        tstate.params, tstate, {k: torch.from_numpy(v)
+                                for k, v in batch.items()}, {})
+    tol = FUSED_TOL if fused else F32_TOL
+    assert sorted(taux["metrics"]) == sorted(jaux["metrics"]) == [
+        "aux_loss", "loss", "nll"]
+    for k, v in jaux["metrics"].items():
+        np.testing.assert_allclose(float(taux["metrics"][k]), float(v),
+                                   err_msg=k, **tol)
+    assert 0 < float(taux["metrics"]["aux_loss"]) < 0.1
+    np.testing.assert_allclose(float(tl.detach()), float(jl), **tol)
+    names = list(tstate.params)
+    grads = dict(zip(names, torch.autograd.grad(
+        tl, [tstate.params[n] for n in names])))
+    want = _leaves(jax.tree.map(np.asarray, dict(jgrads)))
+    got = {k.replace(".", "/"): v.numpy() for k, v in grads.items()}
+    _assert_tree_close(got, want, tol["rtol"], one_ulp_rare=fused)
+
+
+def test_moe_sows_nothing_outside_the_loss(moe_params):
+    """Eval and a plain forward pass no ``losses``: the aux loss is
+    dropped, and the dense stack sows nothing (no ``aux_loss`` metric)."""
+    tm = _port_model(moe_params, **MOE)
+    toks = torch.from_numpy(_tokens()["inputs"])
+    sown = {}
+    with torch.no_grad():
+        tm(toks, losses=sown)
+        assert sorted(sown) == ["blocks_1.moe.moe_aux"]
+        logits, _ = tm(toks)
+    assert logits.shape == (4, 64, TINY["vocab_size"])
+    dense = TransformerLM(**{**TINY, "dtype": torch.float32})
+    state = TrainState.create(dense, toptim.sgd(0.0))
+    _, aux = ttrain.lm_loss_fn(dense)(state.params, state, {
+        "inputs": toks, "targets": toks}, {})
+    assert sorted(aux["metrics"]) == ["loss", "nll"]
+
+
+def test_moe_decode_raises_the_jax_error(moe_params):
+    """The MoE stack has no decode mode: the JAX ValueError, from the JAX
+    model in decode mode and from the port's cache and decode paths."""
+    jm = _jax_model(**MOE, decode=True)
+    with pytest.raises(ValueError) as want:
+        jm.init(jax.random.key(0), jnp.zeros((1, 1), jnp.int32))
+    tm = _port_model(moe_params, **MOE)
+    for build in (lambda: tm.init_cache(1),
+                  lambda: TransformerLM(**TINY, **MOE, decode=True),
+                  lambda: tm(torch.zeros(1, 1, dtype=torch.int64),
+                             cache=TransformerLM(**TINY).init_cache(1))):
+        with pytest.raises(ValueError) as got:
+            build()
+        assert str(got.value) == str(want.value)
+
+
+def test_moe_config_matches_jax():
+    j, t = (jconfig.get_config("transformer_lm_moe"),
+            tconfig.get_config("transformer_lm_moe"))
+    for field in ("model", "task", "model_kwargs", "dataset",
+                  "global_batch_size", "num_steps", "vocab_size",
+                  "attn_impl", "fused_unembed", "train_steps", "seed"):
+        assert getattr(t, field) == getattr(j, field), field
+    for field in ("name", "learning_rate", "clip_global_norm"):
+        assert getattr(t.optimizer, field) == getattr(j.optimizer, field)
+    assert t.model_kwargs["num_experts"] == 4
+    assert j.param_rules == "transformer_tp" and not t.param_rules
+    assert "transformer_lm_moe" in tconfig.list_configs()
 
 
 def test_lm_configs_match_jax():

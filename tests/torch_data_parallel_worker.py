@@ -14,7 +14,10 @@ four checks that need several processes: a run killed at a checkpoint and
 resumed (:func:`resume_check`), a run's telemetry and the eval of its
 checkpoint (:func:`telemetry_check`), ``all_reduce_mean_`` on tensors of
 three dtypes, and ``place_state``'s replica check on states built from
-different seeds (``<outdir>/checks_p<i>.json``).  This module imports only
+different seeds (``<outdir>/checks_p<i>.json``); and the MoE FFN on each
+process's half of a token set, with its gradients
+(:func:`moe_check`, ``<outdir>/moe_p<i>.npz``, read by
+``tests/test_torch_moe.py``).  This module imports only
 the port (the test imports :data:`CASES` from it).
 """
 
@@ -32,6 +35,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from distributed_tensorflow_models_tpu_torch.harness.config import (  # noqa: E402
+    OptimizerConfig,
     get_config,
 )
 
@@ -51,6 +55,19 @@ CASES = {
                       "hidden_size": 16},
         optimizer=dataclasses.replace(get_config("ptb_medium").optimizer,
                                       clip_global_norm=PTB_CLIP)),
+    # The cut MoE transformer in f32 (bf16 products would round each
+    # process's partial sums): its MoE block routes the global batch.  SGD,
+    # not the config's Adam: the key projection's bias has an exactly-zero
+    # true gradient, and Adam scales each run's round-off there to a step
+    # of up to lr.
+    "transformer_lm_moe": get_config(
+        "transformer_lm_moe", train_steps=STEPS, global_batch_size=4,
+        num_steps=16, vocab_size=64, fused_unembed=False,
+        optimizer=OptimizerConfig(name="sgd", learning_rate=0.1),
+        model_kwargs={"num_layers": 2, "num_heads": 2, "d_model": 32,
+                      "d_ff": 64, "max_len": 16, "vocab_size": 64,
+                      "dropout_rate": 0.1, "num_experts": 4,
+                      "dtype": torch.float32}),
 }
 # The resume case: the cut ptb_medium (its carry is each process's rows),
 # checkpointed every 2 steps, killed at step 4 and resumed to step 6.
@@ -62,6 +79,59 @@ RESUME = CASES["ptb_medium"].replace(train_steps=6, log_every_steps=2,
 TELEMETRY = CASES["lenet_mnist"].replace(train_steps=4, log_every_steps=2,
                                          checkpoint_every_secs=10_000.0)
 EVAL_BATCHES = 2
+# The MoE check: MOE_TOKENS tokens of width MOE_D over MOE_EXPERTS experts
+# (hidden MOE_F), from numpy seed MOE_SEED, at each capacity factor.
+MOE_TOKENS, MOE_D, MOE_F, MOE_EXPERTS, MOE_SEED = 64, 16, 32, 4, 17
+MOE_FACTORS = (0.5, 1.25)
+
+
+def moe_inputs():
+    """The MoE check's f32 inputs, the same on every process: the
+    parameters, the global tokens and a cotangent for the output."""
+    rng = np.random.default_rng(MOE_SEED)
+    d, f, e = MOE_D, MOE_F, MOE_EXPERTS
+    params = {"router": rng.standard_normal((d, e)) / np.sqrt(d),
+              "w_in": rng.standard_normal((e, d, f)) / np.sqrt(d),
+              "w_out": rng.standard_normal((e, f, d)) / np.sqrt(f)}
+    x = rng.standard_normal((MOE_TOKENS, d))
+    g = rng.standard_normal((MOE_TOKENS, d))
+    return ({k: v.astype(np.float32) for k, v in params.items()},
+            x.astype(np.float32), g.astype(np.float32))
+
+
+def moe_check(outdir: str, pid: int) -> None:
+    """``moe_ffn`` on this process's rows of :func:`moe_inputs`' tokens,
+    the loss ``sum(out * g) / local tokens + aux`` (whose mean over the
+    processes is the global batch's), and its gradients: the parameters'
+    averaged over the processes, the tokens' as this process has them."""
+    from distributed_tensorflow_models_tpu_torch.core import mesh as meshlib
+    from distributed_tensorflow_models_tpu_torch.core import sharding
+    from distributed_tensorflow_models_tpu_torch.parallel import moe
+
+    mesh = meshlib.data_parallel_mesh("cpu")
+    params, x, g = moe_inputs()
+    rows = sharding.batch_rows(mesh, MOE_TOKENS)
+    out = {}
+    for cf in MOE_FACTORS:
+        p = {k: torch.tensor(v, requires_grad=True) for k, v in params.items()}
+        xl = torch.tensor(x[rows], requires_grad=True)
+        before = sharding.collective_counts()
+        res = moe.moe_ffn(p, xl, mesh=mesh, capacity_factor=cf)
+        loss = (res.out * torch.from_numpy(g[rows])).sum() / xl.shape[0]
+        loss = loss + res.aux_loss
+        grads = torch.autograd.grad(loss, [*p.values(), xl])
+        sharding.all_reduce_mean_(grads[:-1], mesh)
+        counts = sharding.counts_since(before)
+        out.update({f"{cf}/out": res.out.detach().numpy(),
+                    f"{cf}/aux": res.aux_loss.detach().numpy(),
+                    f"{cf}/dropped": res.dropped_fraction.detach().numpy(),
+                    f"{cf}/dx": grads[-1].numpy(),
+                    f"{cf}/gathers": counts["moe_tokens"][0],
+                    f"{cf}/gather_grads": counts["moe_tokens_grad"][0]})
+        out.update({f"{cf}/d{k}": t.numpy() for k, t in zip(p, grads)})
+    np.savez(os.path.join(outdir, f"moe_p{pid}.npz"), **out)
+
+
 # all_reduce_mean_ inputs: process i holds (i + 1) x these values.
 MIXED = {"f32": (torch.float32, [1.5, -2.25, 3.0]),
          "bf16": (torch.bfloat16, [[0.5, 1.25], [-4.0, 8.0]]),
@@ -151,6 +221,7 @@ def main(outdir: str) -> int:
                          *[t.numpy() for t in
                            train_loop._leaves(r.state.carry)])
 
+        moe_check(outdir, pid)
         checks = {"resume": resume_check(os.path.join(outdir, "resume")),
                   "telemetry": telemetry_check(
                       os.path.join(outdir, "telemetry"))}
