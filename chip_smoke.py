@@ -254,6 +254,27 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    causal bf16, output and gradients, both timed.  Every arm prints its
    tokens/s or images/s, step time and peak memory.  ``--model-knobs-only``
    runs phases 1 and 16.
+17. Tensor and sequence parallelism, where the card holds one rank:
+   (a) the ring's per-rank arithmetic at full width,
+   ``parallel/ring.py::emulate`` (``ring_step`` for each of n = 2 and 4
+   virtual ranks on the KV blocks in the order it receives them: K2
+   forward, K3 + K4 backward per block, wholly masked blocks included) at
+   FLASH_SHAPES (b) and (c), against one full ``flash_attention`` and
+   the plain ``reference_attention`` on the same bf16 inputs within the
+   K2-K4 tolerance, nothing non-finite, K2/K3/K4 n launches per virtual
+   rank, the n-rank ring body and one full call timed per direction.  (b)
+   ``transformer_lm`` with its ``param_rules="transformer_tp"`` and
+   ``seq_impl="ring"`` at model and seq axes of one (flash, dropout 0.1,
+   ``PAR_STEPS`` steps in chunks of 4, a world-1 NCCL group), in turns
+   with the same fit without rules or ``seq_impl``: the same collectives
+   a run and none on the axes of one, one capture a fit, K2/K3/K4 one
+   launch a layer a step (the counters zeroed just before each arm), the
+   losses and state within the LM bound; tokens/s and step time of each.
+   (c) ``cnn_tp``'s split convolutions: K1 on each half of the output
+   channels of every ResNet-50 launch shape at the batch, concatenated,
+   against K1 on all of them, bit for bit (K1's routing rule reads kh,
+   kw and Cin, not Cout, so the split moves no conv off K1).
+   ``--parallel-only`` runs phases 1 and 17.
 
 Every training arm runs ``fit`` in chunks of ``STEPS_PER_LOOP`` steps
 (``steps_per_loop``): the first step eager, the step then captured as a
@@ -274,7 +295,8 @@ own) and ``{"ok": true, "device": {...}}``.  ``--zoo-only`` runs phases 1
 and 11-13 alone, ``--dp-only`` phases 1 and 5b, ``--resume-only`` phases
 1 and 5c, ``--chaos-only`` phases 1 and 5e, ``--generate-only`` phases 1 and
 14, ``--startup-only`` phases 1, 14's training and 15,
-``--model-knobs-only`` phases 1 and 16.  Each ``fit`` given a workdir under ``build/chip_smoke`` (emptied
+``--model-knobs-only`` phases 1 and 16, ``--parallel-only`` phases 1 and
+17.  Each ``fit`` given a workdir under ``build/chip_smoke`` (emptied
 at the start) saves a final checkpoint there, which the smoke deletes.
 """
 
@@ -3624,6 +3646,275 @@ def phase_model_knobs(card: str, workdir: Path, flash_fns: dict, k1, k6,
     return out
 
 
+# Phase 17: the ring's per-rank arithmetic at FLASH_SHAPES (b) and (c)
+# over n virtual ranks, the restored transformer_tp + ring fit at axes of
+# one, and cnn_tp's split convolutions.
+PAR_SHAPES = (
+    # name, B, T, H, Hkv, D, causal, window
+    ("b", 4, 2048, 8, 8, 64, True, None),
+    ("c", 4, 2048, 8, 2, 32, True, 256),
+)
+PAR_RINGS = (2, 4)
+PAR_STEPS = 8
+PAR_TIME_ITERS = 5
+
+
+def _ring_check(shape, n: int, seed: int, flash_fns: dict, card: str,
+                full: dict) -> dict:
+    """``parallel/ring.py::emulate`` (``ring_step`` per virtual rank, the
+    KV blocks in the order each rank receives them, K2 forward and K3 + K4
+    backward per block) against the full ``flash_attention`` and the plain
+    ``reference_attention`` on the same inputs; K2-K4 launches counted
+    over one emulated call (n per virtual rank each); the emulated ring's
+    forward and backward timed against one full flash call's."""
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.parallel import ring as ringlib
+
+    name, B, T, H, Hkv, D, causal, window = shape
+    q, k, v, do = full["inputs"]
+    zero_counts(flash_fns.values())
+    out, dq, dk, dv = ringlib.emulate(q, k, v, n, impl="flash", causal=causal,
+                                      window=window, dout=do)
+    torch.cuda.synchronize()
+    launches = {kid: fn.launches for kid, fn in flash_fns.items()}
+    want = {kid: n * n if kid in ("K2", "K3", "K4") else 0
+            for kid in flash_fns}
+    if launches != want:
+        fail(f"ring ({name}, n={n}): launches {launches}, expected {want}")
+    for t, what in ((out, "out"), (dq, "dq"), (dk, "dk"), (dv, "dv")):
+        if not bool(torch.isfinite(t).all()):
+            fail(f"ring ({name}, n={n}): {what} is not finite")
+    errs = {}
+    for ref in ("flash", "reference"):
+        for what, got, want_t in zip(("out", "dq", "dk", "dv"),
+                                     (out, dq, dk, dv), full[ref]):
+            errs[f"{what} vs {ref}"] = _flash_err(
+                f"ring ({name}, n={n}) {what} against the full {ref}", got,
+                want_t)
+    masked = sum(ringlib.fully_masked(i * (T // n), ((i - r) % n) * (T // n),
+                                      T // n, T // n, causal, window)
+                 for i in range(n) for r in range(n))
+    ring_fwd = time_ms(lambda: ringlib.emulate(
+        q, k, v, n, impl="flash", causal=causal, window=window),
+        PAR_TIME_ITERS, 1)
+    ring_all = time_ms(lambda: ringlib.emulate(
+        q, k, v, n, impl="flash", causal=causal, window=window, dout=do),
+        PAR_TIME_ITERS, 1)
+    log(f"ring ({name}: B{B} T{T} H{H} Hkv{Hkv} D{D}"
+        f"{' window ' + str(window) if window else ''}), n={n} virtual "
+        f"ranks ({T // n} tokens each, {masked} of {n * n} blocks wholly "
+        f"masked): K2/K3/K4 {n * n} launches each; max abs err "
+        + ", ".join(f"{k_} {v_:.4g}" for k_, v_ in errs.items())
+        + f"; the n-rank ring body {ring_fwd:.3f} ms forward, "
+        f"{ring_all - ring_fwd:.3f} ms backward (its recompute-free "
+        f"autograd), against one full flash_attention {full['fwd_ms']:.3f} "
+        f"and {full['bwd_ms']:.3f} ms | {card}")
+    return {"launches": launches, "max_abs_err": max(errs.values()),
+            "fwd_ms": ring_fwd, "bwd_ms": ring_all - ring_fwd,
+            "masked_blocks": masked}
+
+
+def _full_attention(shape, seed: int) -> dict:
+    """The shape's bf16 inputs and the full ``flash_attention`` (K2-K4)
+    and plain ``reference_attention`` outputs and gradients, the flash
+    call timed per direction."""
+    import numpy as np
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.ops import attention as attnlib
+
+    _, B, T, H, Hkv, D, causal, window = shape
+    rng = np.random.default_rng(seed)
+
+    def bf16(*dims):
+        return torch.from_numpy(rng.standard_normal(
+            dims, dtype=np.float32)).cuda().bfloat16()
+
+    q, do = bf16(B, T, H, D), bf16(B, T, H, D)
+    k, v = bf16(B, T, Hkv, D), bf16(B, T, Hkv, D)
+    out = {"inputs": (q, k, v, do)}
+    for ref, fn in (("flash", lambda a, b, c: attnlib.flash_attention(
+            a, b, c, causal, None, None, None, window)),
+                    ("reference", lambda a, b, c: attnlib.reference_attention(
+                        a, b, c, causal=causal, window=window))):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*leaves)
+        o.backward(do)
+        out[ref] = (o.detach(), *(t.grad for t in leaves))
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def fwd():
+        return attnlib.flash_attention(*leaves, causal, None, None, None,
+                                       window)
+
+    def both():
+        fwd().backward(do)
+
+    out["fwd_ms"] = time_ms(fwd, PAR_TIME_ITERS, 1)
+    out["bwd_ms"] = time_ms(both, PAR_TIME_ITERS, 1) - out["fwd_ms"]
+    return out
+
+
+def phase_parallel(card: str, workdir: Path, flash_fns: dict, k1,
+                   batch: int, seed: int) -> dict:
+    """Phase 17: tensor and sequence parallelism on the card, where one
+    GPU holds one rank.  (a) The ring's per-rank arithmetic at full width:
+    ``ring.emulate`` at shapes (b) and (c) for n = 2 and 4 virtual ranks
+    against the full flash kernels and the plain reference; (b) ``fit`` of
+    ``transformer_lm`` with its ``param_rules="transformer_tp"`` and
+    ``seq_impl="ring"`` at model and seq axes of one (flash, dropout 0.1,
+    a world-1 NCCL group, 8 steps in chunks of 4, captured) in turns with
+    the same fit without rules or ``seq_impl``: the same collectives a
+    step, one capture a fit, K2/K3/K4 at 4 launches a step, the states
+    within the LM bound; (c) ``cnn_tp``'s split convolutions: K1 on each
+    half of the output channels of every ResNet-50 launch shape,
+    concatenated, against K1 on all of them."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from distributed_tensorflow_models_tpu_torch import launch
+    from distributed_tensorflow_models_tpu_torch.core import sharding
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+    from distributed_tensorflow_models_tpu_torch.harness.config import get_config
+    from distributed_tensorflow_models_tpu_torch.ops import conv_mxu
+
+    t_phase = time.perf_counter()
+    os.environ["DTM_FLASH_BWD"] = "pair"
+    out = {"ring": {}}
+
+    # (a) The ring's per-rank arithmetic.
+    for i, shape in enumerate(PAR_SHAPES):
+        full = _full_attention(shape, seed + i)
+        for n in PAR_RINGS:
+            out["ring"][(shape[0], n)] = _ring_check(shape, n, seed + i,
+                                                     flash_fns, card, full)
+        del full
+        torch.cuda.empty_cache()
+    ring_launches = {kid: sum(r["launches"][kid] for r in
+                              out["ring"].values()) for kid in flash_fns}
+
+    # (b) The restored rule set and the ring at axes of one, in a world-1
+    # NCCL group, in turns with the plain fit.
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {launch.ENV_COORDINATOR: f"127.0.0.1:{port}",
+           launch.ENV_NUM_PROCESSES: "1", launch.ENV_PROCESS_ID: "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    lm = get_config("transformer_lm", attn_impl="flash",
+                    train_steps=PAR_STEPS)
+    if lm.param_rules != "transformer_tp":
+        fail(f"transformer_lm's param_rules are {lm.param_rules!r}")
+    layers = lm.model_kwargs["num_layers"]
+    tokens = lm.global_batch_size * lm.num_steps
+    arms = []
+    try:
+        if not launch.initialize_from_env():
+            fail("parallel: initialize_from_env found no cluster")
+        try:
+            for label in ("tp + ring", "plain", "tp + ring", "plain"):
+                cfg = (lm.replace(seq_impl="ring") if label != "plain"
+                       else lm.replace(param_rules="", seq_impl=None))
+                mesh = trainlib.mesh_from_config(cfg)
+                if (mesh.shape["model"], mesh.shape["seq"], mesh.backend) != (
+                        1, 1, "nccl"):
+                    fail(f"parallel: mesh {mesh.shape} over {mesh.backend}")
+                zero_counts(flash_fns.values())
+                before = sharding.collective_counts()
+                r = run_fit(cfg, workdir / f"lm{len(arms)}", mesh=mesh,
+                            keep=True)
+                r["collectives"] = sharding.counts_since(before)
+                r["launches"] = {kid: fn.launches
+                                 for kid, fn in flash_fns.items()}
+                want = {kid: layers * PAR_STEPS if kid in ("K2", "K3", "K4")
+                        else 0 for kid in flash_fns}
+                if r["launches"] != want:
+                    fail(f"parallel, {label}: launches {r['launches']}, "
+                         f"expected {want}")
+                if len(arms) < 2:
+                    r["state"] = [t.cpu() for t in
+                                  state_tensors(r["fit"].state)]
+                r.pop("fit")
+                arms.append((label, r))
+        finally:
+            dist.destroy_process_group()
+    finally:
+        for key, val in saved.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+    counts = [{site: n for site, (n, _) in r["collectives"].items()}
+              for _, r in arms]
+    if any(c != counts[1] for c in counts) or any(
+            "/" in site for site in counts[0]):
+        fail(f"parallel: collectives {counts}: the axes of one must add "
+             f"none")
+    ring_state, plain_state = arms[0][1].pop("state"), arms[1][1].pop("state")
+    _lm_states_close("transformer_lm, transformer_tp + ring at axes of one "
+                     "against the plain fit", arms[0][1]["losses"],
+                     arms[1][1]["losses"], ring_state, plain_state, card)
+    same = sum(bool(torch.equal(a, b)) for a, b in zip(ring_state,
+                                                       plain_state))
+    out["fit"] = {"launches": arms[0][1]["launches"], "same": same,
+                  "tensors": len(ring_state),
+                  "losses_equal": arms[0][1]["losses"] == arms[1][1][
+                      "losses"],
+                  "collectives": counts[0]}
+    log(f"parallel fit: collectives a run {counts[0]} on every arm "
+        f"({PAR_STEPS} steps); K2/K3/K4 {layers} launches a step; "
+        f"{same} of {len(ring_state)} state tensors bit for bit, losses "
+        f"{'equal' if out['fit']['losses_equal'] else 'differ'} | {card}")
+    for label, r in arms:
+        log_arm(f"LM {label}", r, tokens, card)
+    del ring_state, plain_state
+
+    # (c) cnn_tp's split convolutions: K1 on each half of the output
+    # channels against K1 on all of them.
+    calls = core_launch_shapes("resnet50", 224, batch)
+    shapes = sorted({(xs, ks) for _, xs, ks in calls})
+    rng = np.random.default_rng(seed + 9)
+    zero_counts((k1,))
+    equal, worst = 0, 0.0
+    for xs, ks in shapes:
+        x = torch.from_numpy(rng.standard_normal(xs).astype("float32")
+                             ).cuda().bfloat16()
+        w = (torch.from_numpy(rng.standard_normal(ks).astype("float32"))
+             / math.sqrt(ks[0] * ks[1] * ks[2])).cuda().bfloat16()
+        whole = conv_mxu.conv_implicit_gemm(x, w)
+        c = ks[3] // 2
+        halves = torch.cat([conv_mxu.conv_implicit_gemm(
+            x, w[..., :c].contiguous()), conv_mxu.conv_implicit_gemm(
+            x, w[..., c:].contiguous())], dim=-1)
+        torch.cuda.synchronize()
+        if torch.equal(halves, whole):
+            equal += 1
+        worst = max(worst, float((halves.float() - whole.float()).abs().max()))
+        del x, w, whole, halves
+    split_launches = k1.launches
+    if equal != len(shapes):
+        fail(f"cnn_tp: K1 on halves of the output channels differs from K1 "
+             f"on all at {len(shapes) - equal} of {len(shapes)} shapes (max "
+             f"abs {worst:.4g})")
+    # The routing rule (conv_mxu._use_mxu_kernel) reads the kernel's kh,
+    # kw and Cin and not Cout, so a split of Cout moves no conv off K1.
+    log(f"cnn_tp: K1 on each half of the output channels, concatenated, "
+        f"equals K1 on all of them bit for bit at all {len(shapes)} "
+        f"ResNet-50 launch shapes ({split_launches} launches); "
+        f"_use_mxu_kernel does not read Cout, so no conv leaves K1 at "
+        f"Cout/2; at model=2 a ResNet-50 step launches K1 {len(calls)} "
+        f"times a process, each on half the output channels | {card}")
+    out["cnn_tp"] = {"launches": split_launches, "shapes": len(shapes)}
+    out["ring_launches"] = ring_launches
+    log(f"parallel phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch-size", type=int, default=256,
@@ -3674,6 +3965,9 @@ def main(argv=None) -> int:
                         help="phases 1 and 16 alone, for work on the MoE "
                         "transformer, remat, the embedding's matmul "
                         "gradient and blockwise q-chunking: no result line")
+    parser.add_argument("--parallel-only", action="store_true",
+                        help="phases 1 and 17 alone, for work on tensor "
+                        "and sequence parallelism: no result line")
     parser.add_argument("--startup-only", action="store_true",
                         help="phase 1, the checkpoint's training of phase "
                         "14 and phase 15 alone, for work on the cold "
@@ -3813,6 +4107,12 @@ def main(argv=None) -> int:
                           args.batch_size, args.seed + 5)
         log(card)
         log("model-knobs run: phases 1 and 16 alone, no result")
+        return 0
+    if args.parallel_only:
+        phase_parallel(card, workdir / "parallel", flash_fns, k1,
+                       args.batch_size, args.seed + 6)
+        log(card)
+        log("parallel run: phases 1 and 17 alone, no result")
         return 0
     if args.dp_only:
         phase_data_parallel(args.batch_size, args.train_steps, len(
@@ -4063,6 +4363,14 @@ def main(argv=None) -> int:
                               args.batch_size, args.seed + 5)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 16")
 
+    # 17. Tensor and sequence parallelism: the ring's per-rank arithmetic,
+    # the restored rule set and the ring at axes of one (this slice's main
+    # path: the flash counters zeroed just before each run, read after),
+    # cnn_tp's split convolutions.
+    par = phase_parallel(card, workdir / "parallel", flash_fns, k1,
+                         args.batch_size, args.seed + 6)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 17")
+
     log(card)
     kernels = [{
         "name": "K1 conv_implicit_gemm",
@@ -4091,6 +4399,7 @@ def main(argv=None) -> int:
             "k1_launches"],
         "launches_remat_inception_v3": knobs[
             "remat_inception_v3_imagenet"]["k1_launches"],
+        "launches_cnn_tp_split": par["cnn_tp"]["launches"],
         "remat_launches_per_step": {
             "resnet50": knobs["remat_resnet50_synthetic"]["per_step"],
             "inception_v3": knobs["remat_inception_v3_imagenet"][
@@ -4149,6 +4458,8 @@ def main(argv=None) -> int:
             k["launches_transformer_lm_moe"] = knobs["moe_launches"][kid]
             k["launches_remat_transformer_lm"] = knobs[
                 "remat_lm_launches"][kid]
+            k["launches_tp_ring_fit"] = par["fit"]["launches"][kid]
+            k["launches_ring_emulation"] = par["ring_launches"][kid]
     kernels[-1]["dq_vs_k4"] = flash["dq_vs_k4"]
     if parent is not None:
         kernels[-1]["dq_vs_k4_parent"] = flash["dq_vs_k4_parent"]

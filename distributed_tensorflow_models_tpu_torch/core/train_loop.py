@@ -37,6 +37,7 @@ from distributed_tensorflow_models_tpu_torch.ops import metrics as metriclib
 from distributed_tensorflow_models_tpu_torch.ops import optim
 from distributed_tensorflow_models_tpu_torch.ops import remat as rematlib
 from distributed_tensorflow_models_tpu_torch.ops.conv import Conv2D
+from distributed_tensorflow_models_tpu_torch.parallel import tensor as tensorlib
 
 log = logging.getLogger("dtm")
 
@@ -103,7 +104,16 @@ def lm_loss_fn(model: torch.nn.Module, fused_unembed: bool = False) -> LossFn:
     sows there (the MoE blocks' weighted aux losses) is summed, leaf by
     leaf in the flax tree's key order, into the objective and kept out of
     ``nll``.  Metrics: ``loss`` (nll + the sown sum), ``nll`` (perplexity
-    = exp(nll)) and, when anything was sown, ``aux_loss``."""
+    = exp(nll)) and, when anything was sown, ``aux_loss``.
+
+    Under a seq axis the batch is this process's columns, and the mean is
+    over its tokens: the step's average over data x seq
+    (``sharding.all_reduce_mean_``) makes it the mean over the global
+    tokens, the blocks being of one size.  Under ``transformer_tp`` with
+    ``fused_unembed`` the head's kernel and bias, split over the
+    vocabulary, are all-gathered whole each step (two gathers forward, no
+    collective in their backward) and the chunked head runs on them
+    unchanged: no ``[B*T, V]`` f32 logits are made."""
     sows = "losses" in inspect.signature(model.forward).parameters
 
     def loss_fn(params, state, batch, rngs):
@@ -113,8 +123,12 @@ def lm_loss_fn(model: torch.nn.Module, fused_unembed: bool = False) -> LossFn:
             hidden, new_carry = model(batch["inputs"], carry=state.carry,
                                       train=True, return_hidden=True,
                                       rngs=rngs, **kw)
+            # A head split over the vocabulary is gathered whole for the
+            # chunked head, differentiably (its backward slices).
+            split = getattr(model.head, "tp", None)
             nll = torch.mean(losslib.chunked_unembed_xent(
-                hidden, params["head.kernel"], params.get("head.bias"),
+                hidden, tensorlib.whole(params["head.kernel"], split),
+                tensorlib.whole(params.get("head.bias"), split),
                 batch["targets"]))
         else:
             logits, new_carry = model(batch["inputs"], carry=state.carry,
@@ -651,11 +665,12 @@ def _replicated_leaves(state: TrainState) -> list[tuple[str, torch.Tensor]]:
 
 @torch.no_grad()
 def check_replicas_agree(state: TrainState, mesh: meshlib.Mesh) -> None:
-    """Raise unless every process of ``mesh`` holds the same replicated
-    state: a checksum per tensor (its f64 sum and sum of squares), reduced
-    by MIN and by MAX over the group, must come back unchanged.  Two
-    collectives, once, outside the step; nothing without a group."""
-    if mesh.group is None:
+    """Raise unless every process of ``mesh``'s data x seq group (the
+    processes that hold the same slices) holds the same state: a checksum
+    per tensor (its f64 sum and sum of squares), reduced by MIN and by MAX
+    over the group, must come back unchanged.  Two collectives, once,
+    outside the step; nothing without a group."""
+    if mesh.dp_group is None:
         return
     leaves = _replicated_leaves(state)
     sums = torch.stack([torch.stack([t.double().sum(),
@@ -664,14 +679,14 @@ def check_replicas_agree(state: TrainState, mesh: meshlib.Mesh) -> None:
     lo, hi = sums.clone(), sums.clone()
     for t, op in ((lo, torch.distributed.ReduceOp.MIN),
                   (hi, torch.distributed.ReduceOp.MAX)):
-        torch.distributed.all_reduce(t, op=op, group=mesh.group)
+        torch.distributed.all_reduce(t, op=op, group=mesh.dp_group)
         shardlib.add_collectives(
             {"replica_check": (1, t.numel() * t.element_size())})
     differ = (lo != hi).any(dim=1).nonzero().flatten().tolist()
     if differ:
         names = [leaves[i][0] for i in differ]
         raise RuntimeError(
-            f"the {mesh.world_size} processes do not hold the same initial "
+            f"the {mesh.dp_size} processes do not hold the same initial "
             f"state: {len(names)} tensors differ, first {names[:5]}; every "
             f"process must build it from the same seed")
 
@@ -679,13 +694,12 @@ def check_replicas_agree(state: TrainState, mesh: meshlib.Mesh) -> None:
 def place_state(state: TrainState, mesh: meshlib.Mesh) -> TrainState:
     """Lay the train state out on the mesh, without collectives, as the
     JAX package's ``place_state`` does: every process built the same
-    initial state from the config's seed, so each keeps its own copy of
-    the replicated parameters, BN statistics, optimizer slots and EMA
-    shadows (``sharding.tree_param_shardings``: no rules, all replicated),
-    and the carry holds this process's rows of the batch (built at the
-    local batch).  Then :func:`check_replicas_agree`, the one startup
-    check."""
-    shardlib.tree_param_shardings(mesh, state.params)
+    initial state from the config's seed and kept its slices of the
+    parameters a rule set splits over the model axis (``harness/train.py::
+    build_model``), so each holds its own copy of the rest, the BN
+    statistics, the optimizer slots and EMA shadows of its slices, and
+    the carry holds this process's rows of the batch (built at the local
+    batch).  Then :func:`check_replicas_agree`, the one startup check."""
     check_replicas_agree(state, mesh)
     return state
 

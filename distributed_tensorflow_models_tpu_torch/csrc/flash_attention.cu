@@ -499,7 +499,9 @@ __device__ __forceinline__ void fwd_consume(const Params& p,
   }
 
   // Epilogue: O / max(l, 1e-30) in bf16 through a padded staging tile, then
-  // 16-byte stores clipped at Tq; LSE = m + log(max(l, 1e-30)).
+  // 16-byte stores clipped at Tq; LSE = m + log(max(l, 1e-30)), or NEG_INF
+  // for a row that visited no tile (l = 0: a wholly masked chunk's), whose
+  // O is 0: it then weighs nothing where chunks merge by their LSE.
   const float lc0 = fmaxf(l0, 1e-30f), lc1 = fmaxf(l1, 1e-30f);
   bf16* epi = reinterpret_cast<bf16*>(smem + C::EPI) + g * 64 * C::EPI_LD;
 #pragma unroll
@@ -512,8 +514,10 @@ __device__ __forceinline__ void fwd_consume(const Params& p,
   }
   if ((lane & 3) == 0) {
     float* lse = p.lse_out + (long long)bh * p.Tq;
-    if (q0 + r < p.Tq) lse[q0 + r] = m0 * p.scale + logf(lc0);
-    if (q0 + r + 8 < p.Tq) lse[q0 + r + 8] = m1 * p.scale + logf(lc1);
+    if (q0 + r < p.Tq)
+      lse[q0 + r] = l0 > 0.0f ? m0 * p.scale + logf(lc0) : NEG_INF;
+    if (q0 + r + 8 < p.Tq)
+      lse[q0 + r + 8] = l1 > 0.0f ? m1 * p.scale + logf(lc1) : NEG_INF;
   }
   named_bar_sync(1 + g);
   constexpr int CPR = D / 8;  // 16-byte chunks per row

@@ -170,19 +170,24 @@ def main(argv: list[str] | None = None) -> int:
     # None keeps cfg.seed; the sampling seed falls back to 0.
     p_gen.add_argument("--seed", type=int, default=None)
     p_gen.add_argument("--eos-id", type=int, default=None)
+    _add_mesh(p_gen)
     p_gen.add_argument("--device", default="cuda",
                        help="torch device (default cuda; cpu must be asked "
                        "for)")
-    sub.add_parser("list", help="list available configs")
+    sub.add_parser("list", help="list available configs (with their "
+                   "param_rules where they have one)")
     args = parser.parse_args(argv)
 
     if args.cmd == "list":
         from distributed_tensorflow_models_tpu_torch.harness.config import (
+            get_config,
             list_configs,
         )
 
+        # Each name, with its tensor-parallel rule set where it has one.
         for name in list_configs():
-            print(name)
+            rules = get_config(name).param_rules
+            print(f"{name}\tparam_rules={rules}" if rules else name)
         return 0
 
     overrides = _overrides(args)
@@ -260,7 +265,9 @@ _OVERRIDES = (("batch_size", "global_batch_size"), ("seed", "seed"),
               ("preempt_poll_steps", "preempt_poll_steps"),
               ("log_every_steps", "log_every_steps"), ("chaos", "chaos"),
               ("xla_cache_dir", "xla_cache_dir"),
-              ("aot_compile", "aot_compile"))
+              ("aot_compile", "aot_compile"),
+              ("mesh_model", "mesh_model"), ("mesh_seq", "mesh_seq"),
+              ("seq_impl", "seq_impl"))
 
 
 def _overrides(args) -> dict:
@@ -281,9 +288,19 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    choices=("auto", "reference", "blockwise", "flash"),
                    default=None,
                    help="attention implementation (auto = blockwise)")
+    _add_mesh(p)
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu must be asked "
                    "for)")
+
+
+def _add_mesh(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--mesh-model", type=int, default=None,
+                   help="tensor-parallel axis size (default 1)")
+    p.add_argument("--mesh-seq", type=int, default=None,
+                   help="sequence-parallel axis size (default 1)")
+    p.add_argument("--seq-impl", choices=("ring", "ulysses"), default=None,
+                   help="sequence-parallelism strategy over the seq axis")
 
 
 def _eval(cfg, args) -> int:
@@ -331,7 +348,12 @@ def _generate(cfg, args) -> int:
         raise SystemExit(f"--prompt must be comma-separated ints: {e}") from e
     tokens = tokens or [0]
     dev = resolve_device(args.device)
-    template = trainlib.build_state(cfg, dev)
+    # The mesh is checked as the JAX package checks it (a seq or model axis
+    # wider than this one process raises there); the decode model is the
+    # plain one, its window kept, with no sequence-parallel attention_fn.
+    trainlib.mesh_from_config(cfg, dev)
+    template = trainlib.build_state(cfg.replace(seq_impl=None, mesh_seq=1),
+                                    dev)
     manager = ckptlib.CheckpointManager(args.workdir,
                                         keep=cfg.keep_checkpoints)
     try:

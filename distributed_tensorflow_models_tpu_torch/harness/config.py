@@ -109,8 +109,8 @@ class ExperimentConfig:
     # first is a CUDA-graph replay whatever the value.
     steps_per_loop: int = 1
     seed: int = 0
-    # Mesh axis sizes; -1 absorbs remaining devices (data axis).  The port
-    # is data parallel only: any other axis above 1 raises.
+    # Mesh axis sizes; -1 absorbs remaining devices (data axis).  The pipe
+    # and expert axes are not ported: either above 1 raises.
     mesh_data: int = -1
     mesh_model: int = 1
     mesh_seq: int = 1
@@ -127,8 +127,16 @@ class ExperimentConfig:
     # LM head: project and take the cross entropy chunked in bf16
     # (ops/losses.py::chunked_unembed_xent) instead of full f32 logits.
     fused_unembed: bool = False
-    # Named tensor-parallel rule set applied when mesh_model > 1 in the JAX
-    # package; "" = fully replicated params, the only layout ported.
+    # Sequence parallelism when mesh_seq > 1: "ring" (parallel/ring.py's
+    # ring attention; attn_impl auto takes its flash chunk path on the
+    # card in bf16, flash that path always, reference/blockwise its fold)
+    # | "ulysses" (all-to-all, local attention by attn_impl); None = the
+    # model's own attention.  A language model's tokens split over a seq
+    # axis wider than one only under transformer_lm with a seq_impl.
+    seq_impl: Optional[str] = None
+    # Named tensor-parallel rule set (parallel/tensor.py::RULE_SETS) whose
+    # parameters are split over the model axis; "" = fully replicated.
+    # At mesh_model=1 a rule set changes nothing.
     param_rules: str = ""
     # Checkpoints under <workdir>/checkpoints (harness/checkpoint.py), only
     # when fit is given a workdir: every checkpoint_every_secs on the
@@ -187,19 +195,24 @@ class ExperimentConfig:
     eval_batches: Optional[int] = None
 
     def __post_init__(self):
-        wide = {f: getattr(self, f) for f in ("mesh_model", "mesh_seq",
-                                               "mesh_pipe", "mesh_expert")
+        wide = {f: getattr(self, f) for f in ("mesh_pipe", "mesh_expert")
                 if getattr(self, f) != 1}
-        if self.param_rules:
-            wide["param_rules"] = self.param_rules
         if self.nan_policy not in ("abort", "rollback"):
             raise ValueError(f"nan_policy must be 'abort' or 'rollback', "
                              f"got {self.nan_policy!r}")
         if wide:
             raise NotImplementedError(
-                f"{wide} not ported: the port is data parallel only "
-                f"(tensor, sequence, pipeline and expert parallelism are "
-                f"the parallel layers, ROADMAP §1 item 1)")
+                f"{wide} not ported: the port has the data, model and seq "
+                f"axes (pipeline and expert parallelism are among the "
+                f"parallel layers, ROADMAP §1 item 1)")
+        if (self.task == "lm" and self.mesh_seq > 1
+                and not (self.model == "transformer_lm" and self.seq_impl)):
+            raise ValueError(
+                f"mesh_seq={self.mesh_seq} splits each process's tokens into "
+                f"blocks of the sequence, and {self.model!r} with "
+                f"seq_impl={self.seq_impl!r} would run each block alone: only "
+                f"transformer_lm with seq_impl 'ring' or 'ulysses' computes "
+                f"across the blocks")
 
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)
@@ -371,6 +384,7 @@ _add(
             name="adam", learning_rate=3e-4, clip_global_norm=1.0
         ),
         fused_unembed=True,
+        param_rules="transformer_tp",
         train_steps=10_000,
     )
 )
@@ -396,8 +410,8 @@ _add(
 
 
 # Switch-MoE variant: every odd block's FFN is 4 experts (parallel/moe.py),
-# routed over the global batch of the data axis; the expert axis is not
-# ported.
+# routed over the global batch of the data x seq processes; the expert
+# axis is not ported.
 _add(
     _CONFIGS["transformer_lm"].replace(
         name="transformer_lm_moe",

@@ -27,7 +27,6 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from distributed_tensorflow_models_tpu_torch import resilience
 from distributed_tensorflow_models_tpu_torch.core import mesh as meshlib
 from distributed_tensorflow_models_tpu_torch.core import train_loop
 from distributed_tensorflow_models_tpu_torch.core.mesh import resolve_device
@@ -35,6 +34,7 @@ from distributed_tensorflow_models_tpu_torch.harness import checkpoint as ckptli
 from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
 from distributed_tensorflow_models_tpu_torch.harness.config import ExperimentConfig
 from distributed_tensorflow_models_tpu_torch.ops import losses as losslib
+from distributed_tensorflow_models_tpu_torch.parallel import tensor as tensorlib
 
 log = logging.getLogger("dtm")
 
@@ -55,17 +55,17 @@ def _restore(cfg: ExperimentConfig, workdir: str, mesh: meshlib.Mesh):
     state on the mesh's device, and the consensus of the mesh's processes
     (the restore walk is chief-decided, as in ``fit``)."""
     dev = resolve_device(mesh.device)
-    grouped = mesh.group is not None
-    consensus = resilience.Consensus(mesh.rank if grouped else 0,
-                                     mesh.world_size if grouped else 1)
-    template = train_loop.place_state(trainlib.build_state(cfg, dev, mesh),
-                                      mesh)
+    consensus = trainlib.mesh_consensus(mesh)
+    state = train_loop.place_state(trainlib.build_state(cfg, dev, mesh),
+                                   mesh)
     manager = ckptlib.CheckpointManager(
         workdir, keep=cfg.keep_checkpoints,
         process_index=consensus.process_index,
         process_count=consensus.process_count, consensus=consensus)
-    state, _ = manager.restore(template)
-    return state, consensus, dev
+    # The checkpoint holds whole tensors: read into a whole-shaped
+    # template, then keep this process's slices.
+    whole, _ = manager.restore(tensorlib.whole_state(state, mesh))
+    return tensorlib.scatter_state_(state, whole, mesh), consensus, dev
 
 
 def _summed(sums: torch.Tensor, consensus) -> list[float]:
@@ -172,7 +172,7 @@ def evaluate_lm(
     sums = torch.zeros(2, dtype=torch.float64, device=dev)
     it = iter(dataset)
     t0 = time.perf_counter()
-    with torch.no_grad():
+    with torch.no_grad(), meshlib.data_parallel(mesh, trainlib.seq_dim(cfg)):
         for _ in range(n_batches):
             batch = {k: torch.as_tensor(v).to(dev)
                      for k, v in next(it).items()}

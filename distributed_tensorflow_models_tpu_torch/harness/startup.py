@@ -131,8 +131,9 @@ def abstract_batch(cfg: ExperimentConfig,
                    mesh: Optional[meshlib.Mesh] = None) -> Optional[dict]:
     """Meta-device tensors of the shapes and dtypes of the batches
     ``DevicePrefetcher`` will hand the step for ``cfg``: this process's
-    rows of the global batch (all of it without a mesh); None where the
-    dataset's batch structure is unknown."""
+    rows of the global batch (all of it without a mesh), and a language
+    model's columns over a seq axis; None where the dataset's batch
+    structure is unknown."""
     rows = (cfg.global_batch_size if mesh is None
             else meshlib.local_batch_size(cfg.global_batch_size, mesh))
 
@@ -142,8 +143,11 @@ def abstract_batch(cfg: ExperimentConfig,
     if cfg.task == "lm":
         if cfg.dataset != "ptb":
             return None
-        return {"inputs": leaf((rows, cfg.num_steps), torch.int32),
-                "targets": leaf((rows, cfg.num_steps), torch.int32)}
+        cols = cfg.num_steps
+        if mesh is not None and mesh.seq_size > 1:
+            cols //= mesh.seq_size
+        return {"inputs": leaf((rows, cols), torch.int32),
+                "targets": leaf((rows, cols), torch.int32)}
     if cfg.dataset not in ("mnist", "cifar10", "imagenet",
                            "imagenet_synthetic"):
         return None

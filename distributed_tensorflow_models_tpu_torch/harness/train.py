@@ -4,8 +4,10 @@ N steps.
 PyTorch counterpart of the training path of
 ``distributed_tensorflow_models_tpu/harness/train.py``, for classification
 (``task="classification"``) and language models (``task="lm"``), on one
-device or as one process of a data-parallel world (``core/mesh.py``: one
-device per process, the gradients all-reduced in the step).  Batches
+device or as one process of a world laid out by ``cfg.mesh_*``
+(``core/mesh.py``: one device per process; the data axis all-reduces the
+gradients, the model axis splits the parameters of ``cfg.param_rules``,
+the seq axis a language model's tokens under ``cfg.seq_impl``).  Batches
 reach the step through the input pipeline (``data/pipeline.py``) in chunks
 of ``cfg.steps_per_loop``, each process reading its rows of the global
 batch; on CUDA the step is captured once as a CUDA graph, collectives
@@ -36,10 +38,12 @@ import threading
 import time
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from distributed_tensorflow_models_tpu_torch import resilience, telemetry
 from distributed_tensorflow_models_tpu_torch.core import mesh as meshlib
+from distributed_tensorflow_models_tpu_torch.core import sharding as shardlib
 from distributed_tensorflow_models_tpu_torch.core import train_loop
 from distributed_tensorflow_models_tpu_torch.core.mesh import resolve_device
 from distributed_tensorflow_models_tpu_torch.core.train_state import TrainState
@@ -50,6 +54,7 @@ from distributed_tensorflow_models_tpu_torch.harness import hooks as hooklib
 from distributed_tensorflow_models_tpu_torch.harness import startup as startuplib
 from distributed_tensorflow_models_tpu_torch.harness.config import ExperimentConfig
 from distributed_tensorflow_models_tpu_torch.models import builder_takes, get_model
+from distributed_tensorflow_models_tpu_torch.parallel import tensor as tensorlib
 from distributed_tensorflow_models_tpu_torch.resilience import chaos as chaoslib
 from distributed_tensorflow_models_tpu_torch.resilience import heartbeat
 
@@ -65,8 +70,10 @@ def build_dataset(cfg: ExperimentConfig, split: str = "train",
     another split; the synthetic set only where no shard matches), and
     PTB.  Each process reads only its ``global_batch/process_count`` rows
     of every global batch, in process order: process ``mesh.rank`` of
-    ``mesh.world_size`` (without a mesh, of the default process group's
-    world, or 0 of 1 when there is none)."""
+    ``mesh.world_size``, its index on the data axis (without a mesh, of
+    the default process group's world, or 0 of 1 when there is none); a
+    language model's batches keep this process's columns over a seq axis
+    (``_SeqColumns``)."""
     if mesh is not None:
         proc = dict(process_index=mesh.rank, process_count=mesh.world_size)
     elif torch.distributed.is_initialized():
@@ -97,9 +104,55 @@ def build_dataset(cfg: ExperimentConfig, split: str = "train",
             paths, cfg.global_batch_size, train=split == "train",
             image_size=cfg.image_size, seed=cfg.seed, label_offset=1, **proc)
     if cfg.dataset == "ptb":
-        return datalib.ptb_dataset(cfg.global_batch_size, cfg.num_steps,
-                                   split, cfg.vocab_size, **proc)
+        ds = datalib.ptb_dataset(cfg.global_batch_size, cfg.num_steps,
+                                 split, cfg.vocab_size, **proc)
+        if mesh is not None and mesh.seq_size > 1:
+            check_seq_len(cfg, mesh)
+            ds = _SeqColumns(ds, mesh)
+        return ds
     raise ValueError(f"unknown dataset {cfg.dataset!r}")
+
+
+class _SeqColumns:
+    """A dataset whose batches keep this process's columns of the token
+    axis over the seq axis (``sharding.seq_split`` on the host, before the
+    copy to the device); transparent otherwise."""
+
+    def __init__(self, dataset, mesh: meshlib.Mesh):
+        self._dataset = dataset
+        self._mesh = mesh
+
+    def __getattr__(self, name):  # get_state/batches_per_epoch/...
+        return getattr(self._dataset, name)
+
+    def set_state(self, state) -> None:
+        self._dataset.set_state(state)
+
+    def _split(self, batch):
+        return {k: np.ascontiguousarray(v) for k, v in
+                shardlib.seq_split(self._mesh, batch, 1).items()}
+
+    def assemble(self, work):
+        return self._split(self._dataset.assemble(work))
+
+    def __iter__(self):
+        return (self._split(b) for b in self._dataset)
+
+
+def check_seq_len(cfg: ExperimentConfig, mesh: meshlib.Mesh) -> None:
+    """A language model's segment must split over the seq axis: the JAX
+    package's ring raises on an indivisible one, and so does the port
+    before any batch is read."""
+    n = mesh.seq_size
+    if cfg.task == "lm" and n > 1 and cfg.num_steps % n:
+        raise ValueError(f"seq len {cfg.num_steps} not divisible by seq "
+                         f"axis {n}")
+
+
+def seq_dim(cfg: ExperimentConfig) -> Optional[int]:
+    """The batch dim split over the seq axis: the token axis of a language
+    model's ``[B, T]`` batches, none for images."""
+    return 1 if cfg.task == "lm" else None
 
 
 def mesh_from_config(cfg: ExperimentConfig,
@@ -115,26 +168,86 @@ def mesh_from_config(cfg: ExperimentConfig,
         device)
 
 
-def _model_kwargs(cfg: ExperimentConfig) -> dict:
+def seq_attention_fn(cfg: ExperimentConfig, mesh: Optional[meshlib.Mesh],
+                     counting: bool = False):
+    """The sequence-parallel ``attention_fn`` of ``cfg.seq_impl`` over
+    ``mesh``'s seq axis (the JAX harness's closures), with the model's
+    ``attn_window`` moved into it: the ring (``attn_impl`` auto takes its
+    ``auto`` impl, the flash chunk kernels on the card in bf16; flash its
+    ``flash`` impl, which never folds and on the card raises for a tensor
+    the kernels do not take; reference or blockwise its fold) or Ulysses
+    (local attention by ``attn_impl``).
+    ``counting``: the plain forms (the fold, the reference) for the FLOPs
+    count on the meta device."""
+    from distributed_tensorflow_models_tpu_torch.parallel import ring as ringlib
+
+    window = cfg.model_kwargs.get("attn_window")
+    if cfg.seq_impl == "ring":
+        impl = ("fold" if counting or cfg.attn_impl not in ("auto", "flash")
+                else cfg.attn_impl)
+        return lambda q, k, v, causal=True: ringlib.ring_attention(
+            q, k, v, mesh, causal=causal, impl=impl, window=window)
+    if cfg.seq_impl == "ulysses":
+        impl = "reference" if counting else cfg.attn_impl
+        return lambda q, k, v, causal=True: ringlib.ulysses_attention(
+            q, k, v, mesh, causal=causal, impl=impl, window=window)
+    raise ValueError(f"unknown seq_impl {cfg.seq_impl!r}")
+
+
+def _model_kwargs(cfg: ExperimentConfig,
+                  mesh: Optional[meshlib.Mesh] = None,
+                  counting: bool = False) -> dict:
     """The config's model kwargs plus, for the transformer, its attention
-    implementation (the JAX harness's ``_mesh_model_kwargs``) and, for a
-    model whose builder takes ``image_size`` (one whose first dense width
+    implementation and, with ``cfg.seq_impl``, the sequence-parallel
+    ``attention_fn`` over ``mesh`` with the window moved into it (the JAX
+    harness's ``_mesh_model_kwargs``/``_init_model_kwargs``); for a model
+    whose builder takes ``image_size`` (one whose first dense width
     follows from the input's size: flax infers it from the sample at init,
     the port fixes it at construction), ``cfg.image_size``; an explicit
     ``model_kwargs`` entry wins."""
     kwargs = {}
     if cfg.model == "transformer_lm":
+        if cfg.mesh_pipe > 1 and cfg.seq_impl:
+            raise ValueError(
+                "mesh_pipe and seq_impl cannot combine: the pipelined block "
+                "stack schedules whole blocks per stage and does not route "
+                "through the sequence-parallel attention_fn")
+        if cfg.mesh_pipe > 1 and cfg.mesh_model > 1:
+            raise ValueError(
+                "mesh_pipe and mesh_model cannot combine: the "
+                "tensor-parallel rule sets target per-block parameter "
+                "names, which the pipelined stacked layout does not use — "
+                "TP would silently fall back to replication")
         kwargs["attn_impl"] = cfg.attn_impl
+        if cfg.seq_impl:
+            kwargs["attention_fn"] = seq_attention_fn(cfg, mesh, counting)
     if builder_takes(cfg.model, "image_size"):
         kwargs["image_size"] = cfg.image_size
-    return {**kwargs, **cfg.model_kwargs}
+    kwargs = {**kwargs, **cfg.model_kwargs}
+    if cfg.seq_impl:
+        # The window lives in the attention_fn's closure.
+        kwargs.pop("attn_window", None)
+    return kwargs
 
 
-def build_model(cfg: ExperimentConfig, device: torch.device) -> torch.nn.Module:
-    """The config's model, initialised from ``cfg.seed`` on the CPU (so the
-    weights do not depend on the device) and moved to ``device``."""
+def _model_key(cfg: ExperimentConfig) -> str:
+    """The model kwargs as a cache key (the closure left out)."""
+    kwargs = {k: v for k, v in _model_kwargs(cfg).items()
+              if k != "attention_fn"}
+    return repr(sorted(kwargs.items()))
+
+
+def build_model(cfg: ExperimentConfig, device: torch.device,
+                mesh: Optional[meshlib.Mesh] = None) -> torch.nn.Module:
+    """The config's model, initialised whole from ``cfg.seed`` on the CPU
+    (so the weights do not depend on the device or the layout), cut to
+    this process's slices of ``cfg.param_rules`` over ``mesh``'s model
+    axis (``parallel/tensor.py::shard_model``) and moved to ``device``."""
     gen = torch.Generator().manual_seed(cfg.seed)
-    model = get_model(cfg.model, generator=gen, **_model_kwargs(cfg))
+    model = get_model(cfg.model, generator=gen, **_model_kwargs(cfg, mesh))
+    if mesh is not None and cfg.param_rules:
+        tensorlib.shard_model(model, tensorlib.get_rules(cfg.param_rules),
+                              mesh)
     return model.to(device)
 
 
@@ -144,7 +257,7 @@ def build_state(cfg: ExperimentConfig, device: torch.device,
     model has ``initial_carry`` (the PTB LSTM) starts from its zero f32
     carry, on the device, at this process's rows of the global batch
     (``global_batch_size`` without a mesh): the carry is batch-sharded."""
-    model = build_model(cfg, device)
+    model = build_model(cfg, device, mesh)
     carry = None
     if cfg.task == "lm" and hasattr(model, "initial_carry"):
         rows = (cfg.global_batch_size if mesh is None else
@@ -182,17 +295,24 @@ _STEP_FLOPS_LOCK = threading.Lock()
 
 
 def step_flops_fn(cfg: ExperimentConfig, mesh: meshlib.Mesh):
-    """``batch -> FLOPs`` of one step of ``cfg`` at the global batch (this
+    """``batch -> FLOPs`` of one step of ``cfg`` over the data axis (this
     process's rows times the data axis), for ``MultiStep``'s ``flops_of``:
-    the config's model built anew on the meta device, put on the plain
-    formulation (``train_loop.library_route``) and counted by
-    ``train_loop.step_flops``.  The count is the model's, whatever route
-    the run's convolutions and attention take, and the same on every
+    the config's model built anew on the meta device, cut to this
+    process's slices over the model axis, its sequence-parallel attention
+    on this process's columns (the collectives keep only their shapes
+    there), put on the plain formulation (``train_loop.library_route``)
+    and counted by ``train_loop.step_flops``.  The count is the model's
+    share that this process computes, times the data axis, whatever route
+    the run's convolutions and attention take; at model and seq axes of
+    one, the whole model's at the global batch, the same on every
     process."""
+    sizes, coords = getattr(mesh, "sizes", None), getattr(mesh, "coords", None)
+    split = getattr(mesh, "model_size", 1) > 1 and cfg.param_rules
 
     def count(batch) -> float:
         rows = next(iter(batch.values())).shape[0] * mesh.data_size
-        key = (cfg.model, repr(sorted(_model_kwargs(cfg).items())), cfg.task,
+        key = (cfg.model, _model_key(cfg), cfg.task, cfg.seq_impl,
+               cfg.param_rules, sizes, coords,
                cfg.fused_unembed, cfg.label_smoothing, cfg.weight_decay,
                cfg.aux_loss_weight, rows,
                tuple((k, tuple(v.shape[1:]), v.dtype)
@@ -200,7 +320,11 @@ def step_flops_fn(cfg: ExperimentConfig, mesh: meshlib.Mesh):
         with _STEP_FLOPS_LOCK:
             if key not in _STEP_FLOPS:
                 with torch.device("meta"):
-                    model = get_model(cfg.model, **_model_kwargs(cfg))
+                    model = get_model(cfg.model, **_model_kwargs(
+                        cfg, mesh if cfg.seq_impl else None, counting=True))
+                    if split:
+                        tensorlib.shard_model(
+                            model, tensorlib.get_rules(cfg.param_rules), mesh)
                     meta = {k: torch.empty((rows, *v.shape[1:]),
                                            dtype=v.dtype)
                             for k, v in batch.items()}
@@ -493,7 +617,8 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
     startuplib.apply_compile_cache(cfg.xla_cache_dir)
     ring = int(cfg.trace_ring_events or 0)
     tracer = telemetry.Tracer(capacity=max(1, ring),
-                              process_index=mesh.rank, enabled=ring > 0)
+                              process_index=mesh.process_index,
+                              enabled=ring > 0)
     registry.trace = tracer
     state: Optional[TrainState] = None
 
@@ -522,9 +647,7 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
     # Every fleet-visible decision (save skip/replace, restore pick,
     # restore-vs-init, preemption, divergence) is the chief's; with one
     # process (or a mesh of one) an exact no-op.
-    grouped = mesh.group is not None
-    consensus = resilience.Consensus(mesh.rank if grouped else 0,
-                                     mesh.world_size if grouped else 1)
+    consensus = mesh_consensus(mesh)
     manager = None
     restored = False
     aot: Optional[startuplib.AotTrainStep] = None
@@ -548,8 +671,8 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
             heartbeat.set_phase("restore")
             t0 = time.perf_counter()
             with tracer.span("fit/restore"):
-                state, data_state, restored = ckptlib.restore_or_init(
-                    manager, state)
+                state, data_state, restored = restore_or_init(
+                    manager, state, mesh)
             registry.gauge(telemetry.STARTUP_RESTORE).set(
                 time.perf_counter() - t0)
         restored_from = state.step if restored else None
@@ -569,7 +692,7 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
         dump_flight("setup_failure")
         _unwire_chaos_forensics(chaos)
         raise
-    chief = mesh.rank == 0
+    chief = mesh.process_index == 0
     hooks: list[hooklib.Hook] = [
         hooklib.StopAtStepHook(cfg.train_steps),
         # Before the writer hooks, which record what it injects; on every
@@ -625,7 +748,8 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
             return
         prev_phase = heartbeat.set_phase("save")
         try:
-            manager.save(s, {"dataset": stacker.get_state()})
+            manager.save(tensorlib.whole_state(s, mesh),
+                         {"dataset": stacker.get_state()})
             if chaos is not None and chaos.should_tear(s.step):
                 # The torn-write drill damages only durable files.
                 manager.wait()
@@ -693,9 +817,11 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
         host = batches = stacker = None
         manager.wait()
         try:
-            state, restored_data = manager.restore_newest_valid(
-                state, accept=train_loop.state_is_finite,
+            saved, restored_data = manager.restore_newest_valid(
+                tensorlib.whole_state(state, mesh),
+                accept=train_loop.state_is_finite,
                 accept_name="non-finite parameters")
+            state = tensorlib.scatter_state_(state, saved, mesh)
         except FileNotFoundError as e:  # NoValidCheckpointError included
             log.error("rollback: no finite checkpoint to restore (%s)", e)
             return False
@@ -838,7 +964,7 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
                     multi.pending_compile_s += wait
             t1 = time.perf_counter()
             consistent = False
-            with meshlib.data_parallel(mesh):
+            with meshlib.data_parallel(mesh, seq_dim(cfg)):
                 state, rows = multi(state, chunk, cfg.seed)
             consistent = True
             if dev.type == "cuda":
@@ -980,6 +1106,28 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
         saves=manager.save_log if manager is not None else [])
 
 
+def mesh_consensus(mesh: meshlib.Mesh) -> resilience.Consensus:
+    """The fleet's decisions over every process of the world (an exact
+    no-op for a process alone)."""
+    if mesh.group is None and mesh.dp_group is None and not mesh.axis_groups:
+        return resilience.Consensus(0, 1)
+    return resilience.Consensus(mesh.process_index, mesh.process_count)
+
+
+def restore_or_init(manager: ckptlib.CheckpointManager, state: TrainState,
+                    mesh: meshlib.Mesh):
+    """``checkpoint.restore_or_init`` for a state whose parameters may be
+    split over the model axis: the checkpoint holds whole tensors, so the
+    restore reads into a whole-shaped template (the split tensors
+    gathered, the others the live ones) and this process's slices are
+    then copied into its live tensors."""
+    whole = tensorlib.whole_state(state, mesh)
+    restored, data, ok = ckptlib.restore_or_init(manager, whole)
+    if not ok:
+        return state, data, ok
+    return tensorlib.scatter_state_(state, restored, mesh), data, ok
+
+
 def _start_aot(cfg: ExperimentConfig, state: TrainState,
                mesh: meshlib.Mesh, dev: torch.device, flops_of,
                registry: telemetry.MetricsRegistry
@@ -1068,7 +1216,7 @@ def _write_telemetry_report(workdir: Optional[str],
     """Chief-only, best-effort ``<workdir>/telemetry.json`` goodput report:
     the run's device (a CPU has no peak, so its MFU is 0) and the data
     axis's devices, over which the counted FLOPs of the global batch ran."""
-    if not workdir or mesh.rank != 0:
+    if not workdir or mesh.process_index != 0:
         return
     try:
         report = telemetry.goodput_report(
@@ -1183,11 +1331,12 @@ def recoverable_fit(cfg: ExperimentConfig, workdir: str, *,
 
 def _sizes(cfg: ExperimentConfig, chunk: dict, mesh: meshlib.Mesh) -> dict:
     """A chunk's examples per step (and tokens, for an LM) over the whole
-    data axis: this process's rows times the processes."""
+    data axis: this process's rows times the data axis (its columns times
+    the seq axis)."""
     if cfg.task == "lm":
         _, b, t = chunk["inputs"].shape
         b *= mesh.data_size
-        return {"batch_size": int(b), "tokens": int(b * t)}
+        return {"batch_size": int(b), "tokens": int(b * t * mesh.seq_size)}
     return {"batch_size": int(chunk["label"].shape[1] * mesh.data_size)}
 
 

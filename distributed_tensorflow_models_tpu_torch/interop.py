@@ -8,6 +8,12 @@ state-dict name ``stage0_block0.Conv2D_1.kernel``; conv kernels stay HWIO
 and the head kernel stays ``[in, out]`` (the port's ``Dense`` is not
 ``nn.Linear``).  Values are copied unchanged, so the round trip is exact.
 
+A model cut to its slices over the model axis (``parallel/tensor.py::
+shard_model``) takes a whole flax tree: each split parameter gets this
+process's slice of it; and gives one back, its slices all-gathered over
+the model axis (a collective every process of the axis makes).  Both
+exact.
+
 The transformer's decode state converts too: the JAX ``cache`` collection
 (per block ``attn/cached_key``, ``attn/cached_value`` and
 ``attn/cache_index``, and the model's ``pos_index``) to the port's
@@ -58,7 +64,11 @@ def load_flax_variables(model: nn.Module, variables: Mapping[str, Any]) -> None:
 
     Every tensor of the model must be given, with its exact shape; a
     missing, extra or misshapen entry raises."""
+    from distributed_tensorflow_models_tpu_torch.parallel import tensor
+
     targets = _targets(model)
+    dims = getattr(model, "tp_dims", {})
+    mesh = getattr(model, "tp_split_mesh", None)
     for coll in COLLECTIONS:
         flat = _flatten(variables.get(coll, {}))
         want = targets[coll]
@@ -69,6 +79,8 @@ def load_flax_variables(model: nn.Module, variables: Mapping[str, Any]) -> None:
             )
         for name, value in flat.items():
             t = want[name]
+            if coll == "params":
+                value = tensor.local_slice(name, value, dims, mesh)
             if tuple(value.shape) != tuple(t.shape):
                 raise ValueError(
                     f"{coll}/{name}: shape {value.shape} != {tuple(t.shape)}")
@@ -117,10 +129,22 @@ def cache_to_flax(cache) -> dict:
 
 def to_flax_variables(model: nn.Module) -> dict[str, dict]:
     """``model``'s parameters and buffers as a flax-shaped tree of numpy
-    arrays; a collection the model has nothing in (the transformer's
-    ``batch_stats``) is left out, as flax leaves it out."""
+    arrays, split parameters gathered whole; a collection the model has
+    nothing in (the transformer's ``batch_stats``) is left out, as flax
+    leaves it out."""
+    from distributed_tensorflow_models_tpu_torch.parallel import tensor
+
+    dims = getattr(model, "tp_dims", {})
+    mesh = getattr(model, "tp_split_mesh", None)
+
+    def whole(coll, name, t):
+        if coll == "params" and name in dims and mesh is not None and (
+                mesh.model_size > 1):
+            t = tensor.gather_whole(t.detach(), mesh, dims[name])
+        return t.detach().cpu().numpy().copy()
+
     return {
-        coll: _unflatten({name: t.detach().cpu().numpy().copy()
+        coll: _unflatten({name: whole(coll, name, t)
                           for name, t in tensors.items()})
         for coll, tensors in _targets(model).items()
         if tensors

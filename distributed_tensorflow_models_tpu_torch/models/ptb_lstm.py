@@ -20,6 +20,12 @@ explicit generator.  ``forward`` returns ``(logits, new_carry)``; the
 carry is a tuple of ``(c, h)`` per layer, each ``[B, hidden]`` f32.  Its
 matmuls are plain products, as the JAX package leaves them to XLA: the
 LSTM runs no hand-written kernel.
+
+Under ``lstm_tp`` (``parallel/tensor.py``) ``lstm_<l>_ih`` and the
+recurrent ``lstm_<l>.hh`` are column-parallel over the model axis: each
+process computes its block of the fused gates' columns and all-gathers
+them, ``hh`` once every time step; the embedding gathers its columns and
+the head its logits, so the carry stays whole on every process.
 """
 
 from __future__ import annotations
@@ -65,9 +71,16 @@ class _RecurrentCore(nn.Module):
     def forward(self, carry, gx):
         c, h = carry
         kernel = self.hh.kernel.to(self.dtype)
+        tp = self.hh.tp
         outs = []
         for t in range(gx.shape[1]):
-            gates = (gx[:, t] + torch.matmul(h.to(self.dtype), kernel)).float()
+            if tp is None:
+                gh = torch.matmul(h.to(self.dtype), kernel)
+            else:
+                # Column-parallel under lstm_tp: this process's gate columns
+                # of the product, gathered over the model axis every step.
+                gh = tp.exit(torch.matmul(tp.enter(h.to(self.dtype)), kernel))
+            gates = (gx[:, t] + gh).float()
             i, f, g, o = gates.chunk(4, dim=-1)
             c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
             h = torch.sigmoid(o) * torch.tanh(c)  # f32, like c

@@ -29,6 +29,18 @@ without one (eval, decode) it is dropped.  ``remat=True`` recomputes each
 block in the backward (``ops/remat.py``); the aux loss comes out of the
 checkpoint with the block's output, once.
 
+Parallel layouts (``core/mesh.py``): under ``transformer_tp``
+(``parallel/tensor.py::shard_model``) the attention's projections and
+the MLP are split Megatron-style over the model axis (each process runs
+attention on its ``H/M`` query and ``H_kv/M`` KV heads), the embedding
+gathers its columns and the head its logits (or, in the fused chunked
+head, its weights).  ``attention_fn`` (the harness's sequence-parallel
+closure, ``parallel/ring.py``) replaces the attention call, and then the
+window lives in the closure (``attn_window`` with an ``attention_fn``
+raises the JAX package's error); positions are global: a process on the
+seq axis holds tokens ``rank_seq * T ..`` (:func:`position_offset`), so
+the position table and RoPE are read there.
+
 Decode: a forward given a :class:`KVCache` (``model.init_cache``; required
 with ``decode=True``) runs the JAX package's decode mode.  The tokens sit
 at global positions ``cache.index .. cache.index + T - 1``: the position
@@ -51,6 +63,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from distributed_tensorflow_models_tpu_torch.core import mesh as meshlib
 from distributed_tensorflow_models_tpu_torch.models import register
 from distributed_tensorflow_models_tpu_torch.ops import attention as attnlib
 from distributed_tensorflow_models_tpu_torch.ops import remat as rematlib
@@ -59,6 +72,7 @@ from distributed_tensorflow_models_tpu_torch.ops.conv import Dense
 from distributed_tensorflow_models_tpu_torch.ops.dropout import dropout
 from distributed_tensorflow_models_tpu_torch.ops.embed import TokenEmbed
 from distributed_tensorflow_models_tpu_torch.parallel import moe as moelib
+from distributed_tensorflow_models_tpu_torch.parallel import tensor as tensorlib
 
 
 def _not_ported(what: str):
@@ -67,6 +81,22 @@ def _not_ported(what: str):
 
 DECODE_DENSE_ONLY = ("decode mode supports the dense non-pipelined stack "
                      "without a sequence-parallel attention_fn")
+WINDOW_IN_CLOSURE = (
+    "attn_window is not threaded through the harness's sequence-parallel "
+    "attention_fn closures — training would use full causal attention "
+    "while decode applies the window.  (ring_attention/ulysses_attention "
+    "DO accept window= at the library level; pass a closure that sets it "
+    "and leave attn_window unset here.)")
+
+
+def position_offset(T: int) -> int:
+    """The global position of this process's first token: ``rank_seq * T``
+    when the current mesh splits the token axis over seq
+    (``core/mesh.py::current_seq_dim``), else 0."""
+    mesh = meshlib.current_mesh()
+    if meshlib.current_seq_dim() != 1:
+        return 0
+    return mesh.coord(meshlib.AxisNames.SEQ) * T
 
 
 @dataclasses.dataclass
@@ -113,15 +143,26 @@ class LayerNorm(nn.Module):
 class SelfAttention(nn.Module):
     """Causal multi-head self-attention: ``query`` (H heads) and
     ``key``/``value`` (``num_kv_heads`` heads, GQA when fewer), q and k
-    rotated by their positions ``0..T-1`` when ``use_rope``, attention,
-    ``out``, dropout."""
+    rotated by their global positions when ``use_rope``, attention (or
+    the sequence-parallel ``attention_fn(q, k, v, causal=True)`` of the
+    harness, ``parallel/ring.py``), ``out``, dropout.
+
+    Under ``transformer_tp`` (``parallel/tensor.py``) the three
+    projections are column-parallel and ``out`` row-parallel: this
+    process runs attention on its ``H/M`` query and ``H_kv/M`` KV heads
+    (both must divide by the model axis's M), and ``out`` sums the heads'
+    products over the model axis before its bias."""
+
+    TP_PAIRS = (("query", "key", "value"), "out")
 
     def __init__(self, num_heads: int, d_model: int, dropout_rate: float = 0.0,
                  dtype: torch.dtype = torch.bfloat16, attn_impl: str = "auto",
                  num_kv_heads: int = 0, attn_window: Optional[int] = None,
                  use_rope: bool = False, rope_theta: float = 10000.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 attention_fn=None):
         super().__init__()
+        self.attention_fn = attention_fn
         self.use_rope = use_rope
         self.rope_theta = rope_theta
         self.num_heads = num_heads
@@ -142,6 +183,16 @@ class SelfAttention(nn.Module):
         """``cache``: ``(keys, values, index)`` of this block, in decode."""
         B, T, _ = x.shape
         H, Hkv, Dh = self.num_heads, self.num_kv_heads, self.head_dim
+        mesh = getattr(self, "tp_mesh", None)
+        if mesh is not None:
+            n = mesh.model_size
+            if H % n or Hkv % n:
+                raise ValueError(
+                    f"query heads {H} and kv heads {Hkv} must both divide "
+                    f"by the model axis size {n} (the tensor-parallel rules "
+                    f"split the head axis)")
+            H, Hkv = H // n, Hkv // n
+        x = tensorlib.enter(self, x)
         q = self.query(x).reshape(B, T, H, Dh)
         k = self.key(x).reshape(B, T, Hkv, Dh)
         v = self.value(x).reshape(B, T, Hkv, Dh)
@@ -158,17 +209,26 @@ class SelfAttention(nn.Module):
                                               window=self.attn_window)
         else:
             if self.use_rope:
-                pos = torch.arange(T, device=x.device)
+                off = position_offset(T)
+                pos = torch.arange(off, off + T, device=x.device)
                 q = rotary.apply_rope(q, pos, self.rope_theta)
                 k = rotary.apply_rope(k, pos, self.rope_theta)
-            out = attnlib.attention(q, k, v, causal=True,
-                                    impl=self.attn_impl,
-                                    window=self.attn_window)
-        out = self.out(out.reshape(B, T, self.d_model))
+            if self.attention_fn is not None:
+                out = self.attention_fn(q, k, v, causal=True)
+            else:
+                out = attnlib.attention(q, k, v, causal=True,
+                                        impl=self.attn_impl,
+                                        window=self.attn_window)
+        out = self.out(out.reshape(B, T, H * Dh))
         return dropout(out, self.dropout_rate, train, rngs)
 
 
 class MLP(nn.Module):
+    """``up`` -> GELU -> ``down`` -> dropout; under ``transformer_tp`` the
+    pair column-/row-parallel over the model axis."""
+
+    TP_PAIRS = (("up",), "down")
+
     def __init__(self, d_model: int, d_ff: int, dropout_rate: float = 0.0,
                  dtype: torch.dtype = torch.bfloat16,
                  generator: Optional[torch.Generator] = None):
@@ -178,15 +238,16 @@ class MLP(nn.Module):
         self.down = Dense(d_ff, d_model, dtype=dtype, generator=generator)
 
     def forward(self, x, train: bool = False, rngs=None):
-        h = F.gelu(self.up(x), approximate="tanh")
+        h = F.gelu(self.up(tensorlib.enter(self, x)), approximate="tanh")
         return dropout(self.down(h), self.dropout_rate, train, rngs)
 
 
 class MoEFFN(nn.Module):
     """Switch-MoE FFN (the JAX ``MoEFFN``): parameters ``router [d, E]``,
     ``w_in [E, d, f]``, ``w_out [E, f, d]`` in f32, normals scaled by
-    ``1/sqrt(d)``, ``1/sqrt(d)`` and ``1/sqrt(f)``; the tokens ``[B*T, d]``
-    through :func:`...parallel.moe.moe_ffn` on the current data axis.
+    ``1/sqrt(d)``, ``1/sqrt(d)`` and ``1/sqrt(f)``; the tokens ``[B, T, d]``
+    through :func:`...parallel.moe.moe_ffn` over the current mesh's data x
+    seq processes.
     Returns ``(out [B, T, d] in x's dtype, aux_loss_weight * aux)``."""
 
     def __init__(self, num_experts: int, d_model: int, d_ff: int,
@@ -201,13 +262,10 @@ class MoEFFN(nn.Module):
         self.w_out = nn.Parameter(init["w_out"])
 
     def forward(self, x):
-        B, T, d = x.shape
         params = {"router": self.router, "w_in": self.w_in,
                   "w_out": self.w_out}
-        res = moelib.moe_ffn(params, x.reshape(B * T, d),
-                             capacity_factor=self.capacity_factor)
-        return (res.out.reshape(B, T, d).to(x.dtype),
-                self.aux_loss_weight * res.aux_loss)
+        res = moelib.moe_ffn(params, x, capacity_factor=self.capacity_factor)
+        return res.out.to(x.dtype), self.aux_loss_weight * res.aux_loss
 
 
 class Block(nn.Module):
@@ -220,13 +278,15 @@ class Block(nn.Module):
                  num_kv_heads: int = 0, attn_window: Optional[int] = None,
                  use_rope: bool = False, rope_theta: float = 10000.0,
                  num_experts: int = 0, moe_capacity_factor: float = 1.25,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 attention_fn=None):
         super().__init__()
         self.dtype = dtype
         self.ln1 = LayerNorm(d_model)
         self.attn = SelfAttention(num_heads, d_model, dropout_rate, dtype,
                                   attn_impl, num_kv_heads, attn_window,
-                                  use_rope, rope_theta, generator)
+                                  use_rope, rope_theta, generator,
+                                  attention_fn)
         self.ln2 = LayerNorm(d_model)
         if num_experts:
             self.moe = MoEFFN(num_experts, d_model, d_ff,
@@ -260,10 +320,13 @@ class TransformerLM(nn.Module):
                  num_experts: int = 0, moe_capacity_factor: float = 1.25,
                  pipelined: bool = False, remat: bool = False,
                  decode: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 attention_fn=None):
         super().__init__()
-        if decode and (pipelined or num_experts):
+        if decode and (pipelined or num_experts or attention_fn is not None):
             raise ValueError(DECODE_DENSE_ONLY)
+        if attn_window is not None and attention_fn is not None:
+            raise ValueError(WINDOW_IN_CLOSURE)
         if pipelined:
             raise _not_ported("the pipelined block stack")
         if pos_encoding not in ("learned", "rope"):
@@ -272,6 +335,7 @@ class TransformerLM(nn.Module):
         attnlib._check_window(attn_window)
         self.dtype = dtype
         self.decode = decode
+        self.attention_fn = attention_fn
         self.remat = remat
         self.num_experts = num_experts
         self.num_heads = num_heads
@@ -294,7 +358,7 @@ class TransformerLM(nn.Module):
                 num_heads, d_model, d_ff, dropout_rate, dtype, attn_impl,
                 num_kv_heads, attn_window, pos_encoding == "rope",
                 rope_theta, num_experts if i % 2 == 1 else 0,
-                moe_capacity_factor, generator))
+                moe_capacity_factor, generator, attention_fn))
         self.ln_f = LayerNorm(d_model)
         self.head = Dense(d_model, vocab_size, dtype=torch.float32,
                           generator=generator)
@@ -325,7 +389,8 @@ class TransformerLM(nn.Module):
         T = tokens.shape[1]
         if self.decode and cache is None:
             raise ValueError("decode mode needs a KVCache (model.init_cache)")
-        if cache is not None and self.num_experts:
+        if cache is not None and (self.num_experts
+                                  or self.attention_fn is not None):
             raise ValueError(DECODE_DENSE_ONLY)
         x = self.embedding(tokens)
         if cache is not None:
@@ -333,10 +398,11 @@ class TransformerLM(nn.Module):
             if self.pos_embedding is not None:
                 x = x + self.pos_embedding.index_select(0, pos).to(self.dtype)
         elif self.pos_embedding is not None:
-            if T > self.max_len:
-                raise ValueError(f"sequence length {T} exceeds max_len "
-                                 f"{self.max_len}")
-            x = x + self.pos_embedding[:T].to(self.dtype)
+            off = position_offset(T)
+            if off + T > self.max_len:
+                raise ValueError(f"sequence length {off + T} exceeds "
+                                 f"max_len {self.max_len}")
+            x = x + self.pos_embedding[off:off + T].to(self.dtype)
         x = dropout(x, self.dropout_rate, train, rngs)
         for i in range(self.num_layers):
             block = getattr(self, f"blocks_{i}")

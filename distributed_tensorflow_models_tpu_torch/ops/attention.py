@@ -419,7 +419,9 @@ def _flash_forward_reference(q, k, v, *, scale, causal, window, q_offset,
                              kv_offset):
     """Plain K2: ``(out [B, Tq, H, D] in q's dtype, lse [B, H, Tq] f32)``:
     P = exp(S - m) cast to V's dtype before P V, out = acc / max(l, 1e-30),
-    lse = m + log(max(l, 1e-30))."""
+    lse = m + log(max(l, 1e-30)).  A row with no valid key (a wholly
+    masked chunk's, which the kernel visits no tile for) gets out 0 and
+    lse NEG_INF, so it weighs nothing where chunks merge by their LSE."""
     ke, ve = _expand_kv(q, k, v)
     valid = _valid(q.shape[1], k.shape[1], causal, window, q_offset,
                    kv_offset, q.device)
@@ -429,16 +431,25 @@ def _flash_forward_reference(q, k, v, *, scale, causal, window, q_offset,
     l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
     acc = torch.matmul(p.to(v.dtype).float(), ve.float().transpose(1, 2))
     out = (acc / l).transpose(1, 2).to(q.dtype)
-    return out, (m + torch.log(l)).squeeze(-1)
+    lse = (m + torch.log(l)).squeeze(-1)
+    if valid is not None:
+        seen = valid.any(dim=-1)
+        out = torch.where(seen[:, None, None], out, torch.zeros_like(out))
+        lse = torch.where(seen, lse, torch.full_like(lse, NEG_INF))
+    return out, lse
 
 
 def _p_and_ds(q, k, v, do, lse, delta, *, scale, causal, window, q_offset,
               kv_offset):
     """The backward recurrence of both gradient kernels on full scores:
-    P = exp(S - LSE), dS = P * (dO V^T - delta), all f32; k, v expanded."""
+    P = exp(S - LSE), 0 at masked pairs (where a row with no valid key
+    would otherwise rebuild exp(NEG_INF - NEG_INF) = 1), dS = P * (dO V^T
+    - delta), all f32; k, v expanded."""
     valid = _valid(q.shape[1], k.shape[1], causal, window, q_offset,
                    kv_offset, q.device)
     p = torch.exp(_scores(q, k, scale, valid) - lse[..., None])
+    if valid is not None:
+        p = torch.where(valid, p, torch.zeros_like(p))
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     return p, p * (dp - delta[..., None])
 

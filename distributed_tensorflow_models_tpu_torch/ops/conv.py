@@ -226,14 +226,20 @@ class Conv2D(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
                      else None)
 
+    # How the layer computes on a slice of its output channels under the
+    # model axis (parallel/tensor.py::Split); None when it is whole.
+    tp = None
+
     def forward(self, x):
         dtype = self.dtype or torch.promote_types(x.dtype, torch.float32)
         x = x.to(dtype)
+        if self.tp is not None:
+            x = self.tp.enter(x)
         y = conv2d(x, self.kernel.to(dtype), self.strides, self.padding,
                    impl=self.impl)
         if self.bias is not None:
             y = y + self.bias.to(dtype)
-        return y
+        return y if self.tp is None else self.tp.exit(y)
 
 
 class Dense(nn.Module):
@@ -258,6 +264,19 @@ class Dense(nn.Module):
                                               generator))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
+    # How the layer computes on its slice under the model axis
+    # (parallel/tensor.py::Split): a column layer's output features, or a
+    # row layer's input features, whose product is summed before the
+    # bias.  None when it is whole.
+    tp = None
+
     def forward(self, x):
-        y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
-        return y if self.bias is None else y + self.bias.to(self.dtype)
+        tp = self.tp
+        x = x.to(self.dtype)
+        if tp is not None:
+            x = tp.enter(x)
+        y = torch.matmul(x, self.kernel.to(self.dtype))
+        if tp is not None:
+            y = tp.reduce(y)
+        y = y if self.bias is None else y + self.bias.to(self.dtype)
+        return y if tp is None else tp.exit(y)

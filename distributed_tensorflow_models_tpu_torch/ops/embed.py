@@ -112,6 +112,12 @@ class TokenEmbed(nn.Module):
             self.embedding.normal_(0.0, 1.0 / math.sqrt(features),
                                    generator=generator)
 
+    # A table split over its columns under the model axis
+    # (parallel/tensor.py::Split, kind "embed") gathers them after the
+    # lookup; None when it is whole.
+    tp = None
+
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return embed_lookup(self.embedding.to(self.dtype), tokens,
-                            self.grad_impl)
+        out = embed_lookup(self.embedding.to(self.dtype), tokens,
+                           self.grad_impl)
+        return out if self.tp is None else self.tp.exit(out)

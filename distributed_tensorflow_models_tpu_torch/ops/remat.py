@@ -24,8 +24,9 @@ recompute must not change, and how each is kept:
   then: one update a step, as one forward makes.
 - **The data axis.**  The recompute may run on the autograd engine's
   device thread, which does not see the caller's
-  ``core/mesh.py::data_parallel`` block; it re-enters the mesh the forward
-  saw, so BatchNorm's moments and dropout's global draw are the forward's.
+  ``core/mesh.py::data_parallel`` block; it re-enters the mesh (and the
+  seq dim) the forward saw, so BatchNorm's moments and dropout's global
+  draw are the forward's.
 
 Outside autograd (``torch.no_grad``, eval, decode) the block just runs.
 """
@@ -123,7 +124,7 @@ def checkpoint(fn: Callable, *args,
     if not torch.is_grad_enabled():
         return call(args, rngs)
     replay = _replay_source(rngs)
-    mesh = meshlib.current_mesh()
+    layout = meshlib.current_layout()
     runs = 0
 
     def run(*a):
@@ -131,7 +132,7 @@ def checkpoint(fn: Callable, *args,
         runs += 1
         if runs == 1:
             return call(a, rngs)
-        with _recompute(), meshlib.data_parallel(mesh):
+        with _recompute(), meshlib.data_parallel(*layout):
             return call(a, replay())
 
     return torch.utils.checkpoint.checkpoint(

@@ -146,31 +146,34 @@ def moe_ffn(params: dict, x: torch.Tensor, *,
             mesh: Optional[meshlib.Mesh] = None,
             capacity_factor: float = 1.25,
             activation: Callable = torch.relu) -> MoEOutput:
-    """The Switch FFN over this process's tokens ``x [n, d]`` under the
-    data axis of ``mesh`` (by default the current one): the tokens of
-    every process gathered in rank order, routed with the capacity of the
-    global count, the experts run on them, and this process's rows of the
-    output returned; aux and the dropped fraction are the global set's.
-    Without a process group it is :func:`moe_ffn_reference` with one
-    rank."""
+    """The Switch FFN over this process's tokens ``x [..., d]`` (``[n,
+    d]``, or the ``[Bl, Tl, d]`` block of a batch under a seq axis) under
+    the data x seq processes of ``mesh`` (by default the current one): the
+    tokens of every process gathered in the global batch's order
+    (``sharding.all_gather_rows``), routed with the capacity of the global
+    count, the experts run on them, and this process's tokens of the
+    output returned in ``x``'s shape; aux and the dropped fraction are the
+    global set's.  Without a process group it is
+    :func:`moe_ffn_reference` with one rank."""
     mesh = meshlib.current_mesh() if mesh is None else mesh
     if mesh is not None and mesh.shape[meshlib.AxisNames.EXPERT] > 1:
         raise NotImplementedError(
             "the expert mesh axis is not ported: the MoE FFN runs on the "
             "data axis only (the parallel layers are ROADMAP §1 item 1)")
-    if mesh is None or mesh.group is None:
-        if mesh is not None and mesh.world_size > 1:
+    if mesh is None or mesh.dp_group is None:
+        if mesh is not None and mesh.dp_size > 1:
             raise RuntimeError(
-                f"a data axis of {mesh.world_size} with no process group "
+                f"a data axis of {mesh.dp_size} with no process group "
                 f"cannot gather the tokens of its processes")
-        return moe_ffn_reference(params, x, num_ranks=1,
-                                 capacity_factor=capacity_factor,
-                                 activation=activation)
+        res = moe_ffn_reference(params, x.reshape(-1, x.shape[-1]),
+                                num_ranks=1, capacity_factor=capacity_factor,
+                                activation=activation)
+        return res._replace(out=res.out.reshape(x.shape))
     num_experts = params["w_in"].shape[0]
     xg = shardlib.all_gather_rows(x, mesh, "moe_tokens")
     cap = capacity(capacity_factor, xg.shape[0], num_experts)
     out, aux, dropped = _experts(params, xg.to(torch.float32), cap,
                                  activation)
-    rows = shardlib.batch_rows(mesh, xg.shape[0])
-    return MoEOutput(out=out[rows].to(x.dtype), aux_loss=aux,
+    return MoEOutput(out=shardlib.own_rows(out, mesh, x.shape[:-1]).to(
+                         x.dtype), aux_loss=aux,
                      dropped_fraction=dropped)

@@ -232,6 +232,11 @@ FLASH_CASES = [
     (2, 160, 296, 8, 2, 32, True, 96, 136, 0),
     (1, 384, 384, 2, 2, 128, True, 100, 0, 0),
     (1, 130, 77, 2, 1, 128, False, None, 0, 0),
+    # Wholly masked chunks, as a ring visits them: every key in the
+    # queries' future, and a window older than every query.
+    (2, 256, 256, 4, 2, 64, True, None, 0, 256),
+    (1, 128, 256, 2, 1, 128, True, None, 0, 128),
+    (1, 256, 256, 8, 2, 32, True, 256, 1024, 256),
 ]
 FLASH_RTOL, FLASH_ATOL_OF_SCALE, LSE_ATOL = 2.0 ** -6, 1e-2, 1e-4
 
@@ -268,10 +273,20 @@ def test_flash_kernels_match_plain(cuda, case):
     torch.cuda.synchronize()
     want_out, want_lse = attnlib._flash_forward_reference(q, k, v, **kw)
     assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
-    _assert_flash_close(out[:, rows], want_out[:, rows], "K2 out")
-    torch.testing.assert_close(lse[:, :, rows], want_lse[:, :, rows],
+    # A wholly masked chunk's rows are all compared: out 0, lse NEG_INF.
+    sel = rows if bool(rows.any()) else torch.ones_like(rows)
+    _assert_flash_close(out[:, sel], want_out[:, sel], "K2 out")
+    torch.testing.assert_close(lse[:, :, sel], want_lse[:, :, sel],
                                rtol=0, atol=LSE_ATOL)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    if not bool(rows.any()):
+        # A wholly masked chunk: out 0 and lse at NEG_INF, so it weighs
+        # nothing in a merge; its gradients 0 also under an LSE cotangent.
+        assert bool((out == 0).all())
+        assert float(lse.max()) <= attnlib.NEG_INF / 2
+        g_lse = torch.randn(lse.shape, device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(3))
+        delta = (delta - g_lse).contiguous()
     args = (q, k, v, do, lse, delta)
     dk, dv = attnlib.flash_dkv(*args, **kw)
     dq = attnlib.flash_dq(*args, **kw)
@@ -279,8 +294,12 @@ def test_flash_kernels_match_plain(cuda, case):
     want_dk, want_dv = attnlib._flash_dkv_reference(*args, **kw)
     want_dq = attnlib._flash_dq_reference(*args, **kw)
     # dK/dV sum over queries: a row with no valid key enters them, so
-    # every row must have one here (all cases do, rows.all()).
-    assert bool(rows.all())
+    # every row must have one here, or none (a wholly masked chunk, whose
+    # gradients are 0 exactly).
+    if not bool(rows.any()):
+        for name, g in (("dk", dk), ("dv", dv), ("dq", dq)):
+            assert bool((g == 0).all()), f"wholly masked chunk: {name} != 0"
+    assert bool(rows.all()) or not bool(rows.any())
     _assert_flash_close(dk, want_dk, "K3 dk")
     _assert_flash_close(dv, want_dv, "K3 dv")
     _assert_flash_close(dq, want_dq, "K4 dq")
@@ -443,11 +462,15 @@ def test_flash_staged_matches_pair_and_plain(cuda, case):
     # K4 forms dS as K3 does and sums dS K in K5's order: the same bits.
     assert torch.equal(dq, pair_dq), (
         f"K5 dq differs from K4's in {int((dq != pair_dq).sum())} elements")
-    # Every valid pair lies in a tile that runs: its staged dS is written.
+    # Every valid pair lies in a tile that runs: its staged dS is written
+    # (a wholly masked chunk has no valid pair, and no tile runs).
     valid = attnlib._valid(Tq, k.shape[1], kw["causal"], kw["window"],
                            kw["q_offset"], kw["kv_offset"], "cuda")
     sel = (torch.ones(Tq, k.shape[1], dtype=torch.bool, device=cuda)
            if valid is None else valid)
+    if not bool(sel.any()):
+        assert bool((dq == 0).all()) and bool((dk == 0).all())
+        return
     got_ds = ds.view(B, H, Tq, -1)[:, :, sel]
     _assert_flash_close(got_ds, want_ds.view(B, H, Tq, -1)[:, :, sel],
                         "K5 ds")
@@ -1739,3 +1762,96 @@ def test_blockwise_q_chunks_on_card_match_unchunked(cuda):
         scale = float(b.detach().float().abs().max())
         torch.testing.assert_close(a.float(), b.float(), rtol=2.0 ** -7,
                                    atol=1e-3 * scale)
+
+
+# Tensor and sequence parallelism on the card (one GPU holds one rank).
+RING_GPU_CASES = [  # B, T, H, Hkv, D, causal, window, n
+    (1, 1024, 4, 4, 64, True, None, 2),
+    (1, 1024, 4, 2, 32, True, 128, 4),
+    # transformer_lm's T at a seq axis of 4: blocks of 64 rows, half of
+    # K2's 128-row tile.
+    (2, 256, 8, 8, 64, True, None, 4),
+]
+
+
+@pytest.mark.parametrize("case", RING_GPU_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_ring_emulation_on_card_matches_full_flash(cuda, case):
+    """``parallel/ring.py::emulate`` (``ring_step`` per virtual rank, K2
+    forward and K3 + K4 backward per KV block, wholly masked blocks
+    included) against one full ``flash_attention``: within the K2-K4
+    tolerance, nothing non-finite, K2/K3/K4 n launches per virtual rank.
+    The ring's ``auto`` takes the kernels at every block length, one
+    shorter than K2's tile too."""
+    from distributed_tensorflow_models_tpu_torch.parallel import ring as ringlib
+
+    B, T, H, Hkv, D, causal, window, n = case
+    rng = np.random.default_rng(51)
+    q, do = _bf16(rng, (B, T, H, D)), _bf16(rng, (B, T, H, D))
+    k, v = _bf16(rng, (B, T, Hkv, D)), _bf16(rng, (B, T, Hkv, D))
+    assert ringlib.resolve_impl("auto", q[:, :T // n]) == "flash"
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    full = attnlib.flash_attention(*leaves, causal, None, None, None, window)
+    full.backward(do)
+    kernels = (attnlib.flash_forward, attnlib.flash_dkv, attnlib.flash_dq)
+    before = [fn.launches for fn in kernels]
+    got = ringlib.emulate(q, k, v, n, impl="flash", causal=causal,
+                          window=window, dout=do)
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(kernels, before)] == [n * n] * 3
+    for name, g, want in zip(("out", "dq", "dk", "dv"), got,
+                             (full.detach(), *(t.grad for t in leaves))):
+        assert bool(torch.isfinite(g).all()), name
+        _assert_flash_close(g, want, f"ring {name}")
+
+
+def test_tp_and_ring_at_axes_of_one_equal_the_plain_fit(cuda):
+    """Cut ``transformer_lm`` on flash (dropout 0.1) with its
+    ``param_rules="transformer_tp"`` and ``seq_impl="ring"`` at model and
+    seq axes of one, captured, against the same fit without them: no
+    collective on the axes of one, K2-K4 one launch a layer a step, the
+    losses and state within the LM bound (the embedding's atomic sums)."""
+    from distributed_tensorflow_models_tpu_torch.core import mesh as meshlib
+    from distributed_tensorflow_models_tpu_torch.core import sharding
+    from distributed_tensorflow_models_tpu_torch.harness import config as tconfig
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+
+    base = tconfig.get_config(
+        "transformer_lm", attn_impl="flash", train_steps=6, steps_per_loop=4,
+        global_batch_size=4, model_kwargs={
+            **tconfig.get_config("transformer_lm").model_kwargs,
+            "num_layers": 2})
+    runs = {}
+    for label, cfg in (("tp_ring", base.replace(seq_impl="ring")),
+                       ("plain", base.replace(param_rules="",
+                                              seq_impl=None))):
+        before = sharding.collective_counts()
+        k2 = attnlib.flash_forward.launches
+        r = trainlib.fit(cfg, device="cuda", mesh=meshlib.local_mesh("cuda"))
+        assert sharding.counts_since(before) == {}
+        assert attnlib.flash_forward.launches - k2 == 2 * 6
+        assert (r.captures, r.replayed_steps) == (1, 5)
+        runs[label] = r
+    a, b = (_state_tensors(runs[k].state) for k in ("tp_ring", "plain"))
+    _assert_lm_states_close(a, b, [h["loss"] for h in runs["tp_ring"].history],
+                            [h["loss"] for h in runs["plain"].history])
+
+
+def test_cnn_tp_split_convolutions_equal_k1_on_all_channels(cuda):
+    """K1 on each half of the output channels of ResNet-50's 3x3 launch
+    shapes (at batch 8), concatenated, equals K1 on all of them bit for
+    bit: each output channel's sum runs in the same order whatever the
+    channel tile."""
+    rng = np.random.default_rng(52)
+    for xs, ks in (((8, 58, 58, 64), (3, 3, 64, 64)),
+                   ((8, 30, 30, 128), (3, 3, 128, 128)),
+                   ((8, 16, 16, 256), (3, 3, 256, 256)),
+                   ((8, 9, 9, 512), (3, 3, 512, 512))):
+        x = _bf16(rng, xs)
+        w = _bf16(rng, ks, 1.0 / math.sqrt(ks[0] * ks[1] * ks[2]))
+        whole = conv_mxu.conv_implicit_gemm(x, w)
+        c = ks[3] // 2
+        halves = torch.cat([
+            conv_mxu.conv_implicit_gemm(x, w[..., :c].contiguous()),
+            conv_mxu.conv_implicit_gemm(x, w[..., c:].contiguous())], dim=-1)
+        assert torch.equal(halves, whole), (xs, ks)

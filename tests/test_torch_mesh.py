@@ -116,19 +116,67 @@ def test_a_cuda_group_without_cuda_raises():
     ("mesh_model", 2), ("mesh_seq", 2), ("mesh_pipe", 2), ("mesh_expert", 2),
     ("param_rules", "head_tp")])
 def test_non_data_parallel_configs_raise_not_ported(field, value):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tconfig.get_config("lenet_mnist", **{field: value})
+    """The model and seq axes and the rule sets are ported: their configs
+    build.  The pipe and expert axes still raise "not ported"."""
+    if field in ("mesh_pipe", "mesh_expert"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            tconfig.get_config("lenet_mnist", **{field: value})
+    else:
+        cfg = tconfig.get_config("lenet_mnist", **{field: value})
+        assert getattr(cfg, field) == value
     tconfig.get_config("lenet_mnist", mesh_data=1)
 
 
+@pytest.mark.parametrize("name,seq_impl,builds", [
+    ("transformer_lm_tiny", None, False),
+    ("ptb_small", None, False),
+    ("ptb_small", "ring", False),
+    ("transformer_lm_tiny", "ring", True),
+    ("transformer_lm_tiny", "ulysses", True),
+    ("lenet_mnist", None, True)])
+def test_lm_seq_axis_needs_sequence_parallel_attention(name, seq_impl,
+                                                       builds):
+    """A seq axis wider than one splits a language model's tokens into
+    blocks (``train.build_dataset``): only ``transformer_lm`` with a
+    ``seq_impl`` computes across them, so any other LM layout raises
+    instead of training each block alone.  Images are not split over seq
+    (each seq process holds the same rows), so they build."""
+    kw = dict(mesh_data=1, mesh_seq=2, seq_impl=seq_impl)
+    if builds:
+        assert tconfig.get_config(name, **kw).mesh_seq == 2
+    else:
+        with pytest.raises(ValueError, match="computes across the blocks"):
+            tconfig.get_config(name, **kw)
+    assert tconfig.get_config(name, mesh_data=1, seq_impl=seq_impl)
+
+
+def test_cli_list_shows_the_param_rules(capsys):
+    """``list`` names every config and, beside the transformer family, its
+    restored ``param_rules`` (the JAX configs' ``transformer_tp``)."""
+    assert cli.main(["list"]) == 0
+    rows = dict((line.split("\t") + [""])[:2] for line in
+                capsys.readouterr().out.splitlines())
+    assert set(rows) == set(tconfig.list_configs())
+    for name in ("transformer_lm", "transformer_lm_moe",
+                 "transformer_lm_modern"):
+        assert rows[name] == "param_rules=transformer_tp"
+    assert rows["lenet_mnist"] == ""
+
+
 def test_axes_and_rules_beyond_data_raise_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        meshlib._data_only((1, 2, 1, 1, 1))
-    params = {"w": torch.zeros(2)}
+    """A model axis builds and rules place parameters (first match wins,
+    the rest replicated); a pipe or expert axis still raises."""
+    assert meshlib._not_ported((1, 2, 1, 1, 1)) == (1, 2, 1, 1, 1)
+    for sizes in ((1, 1, 1, 2, 1), (1, 1, 1, 1, 2)):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            meshlib._not_ported(sizes)
+    params = {"w": torch.zeros(2), "head.kernel": torch.zeros(2, 3)}
     assert sharding.tree_param_shardings(_mesh(1), params) == {
-        "w": sharding.REPLICATED}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        sharding.tree_param_shardings(_mesh(1), params, [("w", None)])
+        "w": sharding.REPLICATED, "head.kernel": sharding.REPLICATED}
+    rules = [("w$", ("model",)), (r"head/kernel$", (None, "model")),
+             (r"kernel$", ("model", None))]
+    assert sharding.tree_param_shardings(_mesh(1), params, rules) == {
+        "w": ("model",), "head.kernel": (None, "model")}
     with pytest.raises(ValueError, match="wants 2 devices, have 1"):
         trainlib.mesh_from_config(tconfig.get_config("lenet_mnist",
                                                      mesh_data=2), "cpu")

@@ -717,7 +717,7 @@ def test_moe_config_matches_jax():
     for field in ("name", "learning_rate", "clip_global_norm"):
         assert getattr(t.optimizer, field) == getattr(j.optimizer, field)
     assert t.model_kwargs["num_experts"] == 4
-    assert j.param_rules == "transformer_tp" and not t.param_rules
+    assert t.param_rules == j.param_rules == "transformer_tp"
     assert "transformer_lm_moe" in tconfig.list_configs()
 
 
