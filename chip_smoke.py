@@ -66,9 +66,9 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    port's ``launch.initialize_from_env`` (``DTM_*`` set by the script:
    127.0.0.1, a free port, 1 process, id 0), and ``resnet50_synthetic``
    (batch 256, K1 on every 3x3 conv, chunks of ``STEPS_PER_LOOP``) trains
-   through ``fit`` in it, in turns with ``fit`` without a group (no group,
-   group, group, no group).  Every arm's losses and the grouped arm's
-   state must equal the first arm's bit for bit; the collective counters
+   through ``fit`` in it, after ``fit`` without a group (no group,
+   group).  The grouped arm's losses and state must equal the first
+   arm's bit for bit; the collective counters
    must show one gradient bucket, each BatchNorm's moments and their
    cotangents (53 each) and one metric vector per step, replays included
    (none without the group); K1 50 a step in every arm; and a profile of
@@ -88,7 +88,7 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    skipped, one rollback, still one capture (the restore is in place
    under the live graph), and every state tensor and loss bit for bit
    those of a straight ``fit`` over the dataset without batches 5-8; (d) the save's cost, recorded only: a save
-   every 4 steps in turns with none, each save's snapshot and write
+   every 4 steps after a run with none, each save's snapshot and write
    seconds and bytes, ``checkpoint/fence`` and images/s.
    ``--resume-only`` runs phases 1 and 5c alone.
 5d. A run's telemetry and its evaluation: ``resnet50_synthetic`` (batch
@@ -101,11 +101,11 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    same on both arms and equal the count taken on the CPU
    (``R50_STEP_FLOPS_PER_IMAGE``).  The MFU (the report's, over the whole
    run, and over the timed window), the four fractions and each row's
-   interval MFU are printed.  Two arms without ``TelemetryHook`` and
-   ``TensorBoardHook`` run in turns with two with them (the hooks' host
-   cost, in images/s).  Then ``evaluate_classification`` on the K1 arm's
-   checkpoint over ``EVAL_BATCHES`` batches on K1, on ``F.conv2d`` (in
-   turns) and on K1's plain version: K1 launches 25 a batch, the top-1
+   interval MFU are printed.  A K1 arm without ``TelemetryHook`` and
+   ``TensorBoardHook`` follows (the hooks' host cost, in images/s).  Then
+   ``evaluate_classification`` on the K1 arm's checkpoint over
+   ``EVAL_BATCHES`` batches on K1, on ``F.conv2d`` and on K1's plain
+   version: K1 launches 25 a batch, the top-1
    and top-5 verdicts and the xent held to the plain version's within
    ``EVAL_COUNT_TOL`` and ``EVAL_XENT_RTOL``, images/s of each; and
    ``transformer_lm`` trained ``LM_TRAIN_STEPS`` steps with flash and
@@ -138,7 +138,7 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    (299x299, batch 256, RMSProp, label smoothing, the 0.4-weighted aux
    head, L2, the weight EMA) with ``DTM_CONV_MXU_PIPELINE=1``: K6's
    counter must equal its launches per step times the steps and K1's must
-   stay 0.  The K1 arm (knob 0) follows in turns, then one ``F.conv2d``
+   stay 0.  The K1 arm (knob 0) follows, then one ``F.conv2d``
    arm; images/s, step times, peak memory and losses of each, and
    profiles of the K6 and K1 arms as in phase 5.
 8. K2-K5 (``csrc/flash_attention.cu``) against their plain versions in
@@ -274,7 +274,27 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    channels of every ResNet-50 launch shape at the batch, concatenated,
    against K1 on all of them, bit for bit (K1's routing rule reads kh,
    kw and Cin, not Cout, so the split moves no conv off K1).
-   ``--parallel-only`` runs phases 1 and 17.
+   ``--parallel-only`` runs phases 1, 17 and 18.
+18. Pipeline and expert parallelism, where the card holds one rank: (a)
+   the pipelined ``transformer_lm`` stack at full width (4 layers, d 256,
+   B16 T256, bf16, flash, dropout 0.1): ``PipelinedBlocks.emulate`` (the
+   GPipe tick schedule of n = 2 and 4 virtual stages, lists rotated in
+   place of the P2P exchanges) at 4 and 8 microbatches against the
+   stack's sequential schedule on the same weights and dropout bits, the
+   output and every gradient within the K2-K4 tolerance, K2/K3/K4 one
+   launch a layer a microbatch.  (b) ``transformer_lm`` pipelined (pipe 1,
+   4 microbatches, ``PAR_STEPS`` steps in chunks of 4, a world-1 NCCL
+   group) in turns with the plain fit: K2/K3/K4 16 launches a step (4
+   plain), the same collectives as the plain fit and none on ``pipe/*``,
+   the replayed state against the eager steps within the LM bound (the
+   bit-for-bit count printed), tokens/s of each.  (c) the expert layout's
+   per-rank arithmetic, ``moe.emulate`` at E = 2 and 4 over
+   ``transformer_lm_moe``'s 4096 tokens (d 256, f 1024, 4 experts, f32)
+   against ``moe_ffn_reference(num_ranks=E)``: out, aux, dropped and the
+   gradients; ``transformer_lm_moe`` at expert 1 in the NCCL group
+   against the plain fit (phase 16's path), within the LM bound; one sum
+   of an f32, bf16 and f16 tensor in the group, NCCL's pre-multiplied
+   one printed and the port's required unchanged.
 
 Every training arm runs ``fit`` in chunks of ``STEPS_PER_LOOP`` steps
 (``steps_per_loop``): the first step eager, the step then captured as a
@@ -295,8 +315,8 @@ own) and ``{"ok": true, "device": {...}}``.  ``--zoo-only`` runs phases 1
 and 11-13 alone, ``--dp-only`` phases 1 and 5b, ``--resume-only`` phases
 1 and 5c, ``--chaos-only`` phases 1 and 5e, ``--generate-only`` phases 1 and
 14, ``--startup-only`` phases 1, 14's training and 15,
-``--model-knobs-only`` phases 1 and 16, ``--parallel-only`` phases 1 and
-17.  Each ``fit`` given a workdir under ``build/chip_smoke`` (emptied
+``--model-knobs-only`` phases 1 and 16, ``--parallel-only`` phases 1,
+17 and 18.  Each ``fit`` given a workdir under ``build/chip_smoke`` (emptied
 at the start) saves a final checkpoint there, which the smoke deletes.
 """
 
@@ -1273,10 +1293,11 @@ NCCL_CLASS = "NCCL collectives"
 
 
 # Traces a profile may take before its phase fails.  The profiler drops
-# device records of a large graph's second traced replay now and then
-# (Inception-v3: ~12,100 events a replay; three traces in a row lost
-# some in one smoke run): an incomplete trace is never used, only
-# retaken.
+# device records of a large graph's replay now and then (Inception-v3:
+# ~12,100 events a replay; six traces of three replays in a row lost some
+# in one smoke run, always in the third, and a trace of two once in the
+# second): a trace holds two replays, and one that lost records is never
+# used, only retaken.
 PROFILE_ATTEMPTS = 6
 
 
@@ -1325,19 +1346,21 @@ def phase_profile(cfg, arm: str, steps: int = 2, mesh=None) -> dict:
     step eagerly, captures it and replays it once (the batches are on the
     card beforehand), with the conv lowering set as it is; under
     ``mesh``'s data axis if given, its state placed as ``fit`` places it.
-    One more replay runs first in each trace, before a device sync that
-    starts the timed part, and is left out: the first replay traced can
-    lose device records (seen in the smoke's world-1 NCCL profile, three
-    traces in a row, while the second replay lost none).
+    Each trace holds one timed replay, after one more replay that starts
+    it and a device sync that starts the timed part; that first replay is
+    left out: the first replay traced can lose device records (seen in
+    the smoke's world-1 NCCL profile, three traces in a row, while the
+    second replay lost none), and so can a third (Inception-v3's).
 
-    Every replay runs the same graph, so a complete trace holds the same
-    kernels under each graph launch.  A trace in which they differ lost
-    device records (the profiler's, not the card's): it is set aside and
-    the next replays are profiled instead, up to ``PROFILE_ATTEMPTS``
-    traces in all; the phase fails if none is complete.  Returns the kernels of the complete trace, (ms a step,
-    launches a step, name), under ``"kernels"``; each replay's device
-    events by name under ``"replays"``; and the NCCL kernels that no
-    replay issued under ``"loose_nccl"``."""
+    Every replay runs the same graph, so complete traces hold the same
+    kernels under their timed graph launch.  Traces are taken until
+    ``steps`` of them agree, up to ``PROFILE_ATTEMPTS`` in all; one that
+    differs lost device records (the profiler's, not the card's) and is
+    never used; the phase fails if no ``steps`` traces agree.  Returns
+    the kernels of the agreeing traces, (ms a step, launches a step,
+    name), under ``"kernels"``; each timed replay's device events by name
+    under ``"replays"``; and the NCCL kernels that no replay issued under
+    ``"loose_nccl"``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1347,7 +1370,7 @@ def phase_profile(cfg, arm: str, steps: int = 2, mesh=None) -> dict:
 
     # Room in the schedule tables for every trace this phase may take.
     cfg = cfg.replace(train_steps=max(cfg.train_steps,
-                                      2 + (1 + steps) * PROFILE_ATTEMPTS))
+                                      2 + 2 * PROFILE_ATTEMPTS))
     batch = cfg.global_batch_size
     dev = torch.device("cuda")
     state = trainlib.build_state(cfg, dev)
@@ -1357,15 +1380,16 @@ def phase_profile(cfg, arm: str, steps: int = 2, mesh=None) -> dict:
                                  name=cfg.model)
     batches = iter(trainlib.build_dataset(cfg))
     on_card = [{k: torch.from_numpy(v).to(dev) for k, v in
-                next(batches).items()} for _ in range(steps + 3)]
+                next(batches).items()} for _ in range(4)]
 
     def chunk(rows):
         return {k: torch.stack([b[k] for b in rows]) for k in rows[0]}
 
     with meshlib.data_parallel(mesh):
         state, rows = multi(state, chunk(on_card[:2]), cfg.seed)
-    warm, timed = chunk(on_card[2:3]), chunk(on_card[3:])
+    warm, timed = chunk(on_card[2:3]), chunk(on_card[3:4])
     float(rows["loss"][-1])
+    traces = []  # (events, the timed replay's events by name, loose, ms)
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
@@ -1377,24 +1401,31 @@ def phase_profile(cfg, arm: str, steps: int = 2, mesh=None) -> dict:
             with meshlib.data_parallel(mesh):
                 state, rows = multi(state, timed, cfg.seed)
             float(rows["loss"][-1])
-            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+            wall_ms = (time.perf_counter() - t0) * 1e3
         events, replays, loose_nccl = _timed_trace(prof)
-        if len(replays) == steps and all(r == replays[0] for r in replays):
+        if len(replays) != 1:
+            fail(f"profile ({arm}): trace {attempt} holds {len(replays)} "
+                 f"timed graph launches, expected 1")
+        traces.append((events, replays[0], loose_nccl, wall_ms))
+        agree = [t for t in traces if t[1] == replays[0]]
+        if len(agree) == steps:
             break
-        differ = sorted(name for name in set().union(*replays)
-                        if len({r[name] for r in replays}) > 1)
-        log(f"profile ({arm}): trace {attempt} is incomplete: its "
-            f"{len(replays)} graph launches (of {steps}) hold "
-            f"{[sum(r.values()) for r in replays]} device events (they "
-            f"differ in {[(n[:50], [r[n] for r in replays]) for n in differ[:4]]}"
-            f"); the profiler lost records, so the next replays are "
-            f"profiled")
+        if len(traces) > 1:
+            log(f"profile ({arm}): trace {attempt}'s replay holds "
+                f"{sum(replays[0].values())} device events, the earlier "
+                f"traces' {[sum(t[1].values()) for t in traces[:-1]]}: the "
+                f"profiler lost records in one of them, so another replay "
+                f"is profiled")
     else:
-        fail(f"profile ({arm}): no complete trace of {steps} replays in "
-             f"{PROFILE_ATTEMPTS} attempts")
-    if multi.captures != 1 or multi.replays != (1 + steps) * attempt + 1:
+        fail(f"profile ({arm}): no {steps} traces of {PROFILE_ATTEMPTS} "
+             f"agree")
+    if multi.captures != 1 or multi.replays != 2 * attempt + 1:
         fail(f"profile ({arm}): {multi.captures} captures, {multi.replays} "
-             f"replays, expected 1 and {(1 + steps) * attempt + 1}")
+             f"replays, expected 1 and {2 * attempt + 1}")
+    events = [e for t in agree for e in t[0]]
+    replays = [t[1] for t in agree]
+    loose_nccl = sum(t[2] for t in agree)
+    wall_ms = sum(t[3] for t in agree) / steps
     # Device-side events only: a CPU op's self device time repeats the
     # time of the kernels it launched.
     by_name = collections.defaultdict(lambda: [0, 0])
@@ -1430,10 +1461,9 @@ def phase_data_parallel(batch: int, steps: int, k1_per_step: int, card: str,
     """The ResNet-50 path (K1 on every 3x3 conv) as one process of a world-1
     NCCL group, joined through the port's ``launch.initialize_from_env``
     from ``DTM_*`` variables set here (127.0.0.1, a free port, 1 process,
-    id 0), in turns with ``fit`` without a group (no group, group, group,
-    no group), each timed over the steps after the first chunk.  Fails
-    unless every arm's losses, and the first grouped arm's state tensors,
-    equal the first arm's bit for bit; the collective counters show, per
+    id 0), after ``fit`` without a group (no group, group), each timed
+    over the steps after the first chunk.  Fails unless the grouped arm's
+    losses and state tensors equal the first arm's bit for bit; the collective counters show, per
     step of each grouped arm (every step after the first a replay), the
     gradient bucket, each BatchNorm layer's moments and their cotangents
     and the metric vector once (and the two startup checks), and none in
@@ -1477,8 +1507,7 @@ def phase_data_parallel(batch: int, steps: int, k1_per_step: int, card: str,
                      f"{group.backend}, expected 1 over nccl")
             alone = meshlib.local_mesh("cuda")
             arms = []
-            for label, mesh in (("no group", alone), (GROUP_ARM, group),
-                                (GROUP_ARM, group), ("no group", alone)):
+            for label, mesh in (("no group", alone), (GROUP_ARM, group)):
                 zero_counts((k1,))
                 before = sharding.collective_counts()
                 r = run_fit(cfg, workdir / f"dp{len(arms)}", mesh=mesh,
@@ -1659,8 +1688,8 @@ def phase_resume(batch: int, card: str, workdir: Path) -> dict:
         for bit, every state tensor and every loss, to a straight ``fit``
         over the dataset without batches 5-8;
     (d) the save's cost: the same run with a save every ``CKPT_EVERY``
-        steps (``keep_checkpoints`` 2) in turns with no workdir (none,
-        save, save, none): each save's snapshot and write seconds and
+        steps (``keep_checkpoints`` 2) after one with no workdir (none,
+        save): each save's snapshot and write seconds and
         bytes, ``checkpoint/fence`` and ``checkpoint/save``, images/s over
         the timed window.  Recorded only.
 
@@ -1763,7 +1792,7 @@ def phase_resume(batch: int, card: str, workdir: Path) -> dict:
     del rolled, without
     # (d)
     arms = []
-    for label in ("none", "save", "save", "none"):
+    for label in ("none", "save"):
         wd = None if label == "none" else workdir / f"d{len(arms)}"
         run = cfg.replace(checkpoint_every_steps=CKPT_EVERY)
         r = _fit_once(run, wd, f"cost arm {label}")
@@ -2266,9 +2295,7 @@ def phase_telemetry_eval(batch: int, card: str, workdir: Path,
     arms, tele = {}, {}
     for label, impl, hooks in (("K1", "mxu", True),
                                ("F.conv2d", "xla", True),
-                               ("K1 without the hooks", "mxu", False),
-                               ("K1 again", "mxu", True),
-                               ("K1 without the hooks again", "mxu", False)):
+                               ("K1 without the hooks", "mxu", False)):
         convlib.set_default_conv_impl(impl)
         zero_counts((k1, k6))
         arm_dir = workdir / f"telemetry{len(arms)}"
@@ -2316,8 +2343,6 @@ def phase_telemetry_eval(batch: int, card: str, workdir: Path,
     ckpt = workdir / "telemetry0"
     evals = {}
     for label, impl, plain in (("K1", "mxu", False), ("F.conv2d", "xla", False),
-                               ("K1 again", "mxu", False),
-                               ("F.conv2d again", "xla", False),
                                ("K1's plain version", "mxu", True)):
         convlib.set_default_conv_impl(impl)
         zero_counts((k1, k6))
@@ -2879,7 +2904,8 @@ def phases_zoo(steps: int, seed: int, card: str, workdir: Path) -> dict:
     log(f"conv core launches per LeNet step: {shapes['LeNet']}")
 
     # 12. The new conv paths through fit, K1 (and, for ResNet-32, K6) arms
-    # in turns with F.conv2d arms; a profile of each K1 arm.
+    # in turns with F.conv2d arms (one of each for VGG-16 and AlexNet); a
+    # profile of each K1 arm.
     k1_arms = (("mxu", "0", "K1"), ("xla", "0", "F.conv2d"),
                ("mxu", "0", "K1"), ("xla", "0", "F.conv2d"))
     r32 = get_config("resnet32_cifar10")
@@ -2896,9 +2922,9 @@ def phases_zoo(steps: int, seed: int, card: str, workdir: Path) -> dict:
                 "lenet_mnist", steps, lenet.global_batch_size, wd),
              shapes["LeNet"], True, k1_arms),
             ("VGG-16", vgg, lambda wd: run_fit(vgg, wd), shapes["VGG-16"],
-             False, k1_arms),
+             False, k1_arms[:2]),
             ("AlexNet", alex, lambda wd: run_fit(alex, wd),
-             shapes["AlexNet"], False, k1_arms)):
+             shapes["AlexNet"], False, k1_arms[:2])):
         paths[label] = phase_zoo_path(
             label, runner, cfg.global_batch_size, k1_step, f32, arms, card,
             workdir)
@@ -3915,6 +3941,333 @@ def phase_parallel(card: str, workdir: Path, flash_fns: dict, k1,
     return out
 
 
+# Phase 18: the pipelined stack's schedule at n virtual stages and m
+# microbatches, the pipelined fit at a pipe axis of one, the expert
+# layout's per-rank arithmetic and the MoE fit at an expert axis of one.
+PIPE_STAGES = (2, 4)
+PIPE_MICRO = (4, 8)
+PIPE_FIT_MICRO = 4
+EXPERT_RANKS = (2, 4)
+
+
+def _pipeline_check(stack, n: int, m: int, seed: int, flash_fns: dict,
+                    card: str) -> dict:
+    """``PipelinedBlocks.emulate`` (the pipelined schedule of ``n``
+    virtual stages) against the stack's sequential schedule on the same
+    weights, input, output cotangent and dropout bits, at ``m``
+    microbatches: the output and the gradients of the input and of every
+    stacked parameter within the K2-K4 tolerance; K2/K3/K4 launches
+    counted over the emulated forward and backward (one a layer a
+    microbatch each)."""
+    import torch
+
+    stack.num_microbatches = m
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    d = stack.wq.shape[1]
+    x = torch.randn((16, 256, d), generator=g, device="cuda").bfloat16()
+    dy = torch.randn((16, 256, d), generator=g, device="cuda").bfloat16()
+    params = list(stack.parameters())
+
+    def run(emulated: bool):
+        xs = x.clone().requires_grad_()
+        rngs = {"dropout": torch.Generator(device="cuda").manual_seed(seed)}
+        y = (stack.emulate(xs, n, True, rngs) if emulated
+             else stack(xs, True, rngs))
+        grads = torch.autograd.grad(y, [xs, *params], dy)
+        return [y.detach(), *grads]
+
+    want = run(False)
+    zero_counts(flash_fns.values())
+    got = run(True)
+    torch.cuda.synchronize()
+    launches = {kid: fn.launches for kid, fn in flash_fns.items()}
+    expect = {kid: stack.num_layers * m if kid in ("K2", "K3", "K4") else 0
+              for kid in flash_fns}
+    if launches != expect:
+        fail(f"pipeline emulation (n={n}, m={m}): launches {launches}, "
+             f"expected {expect}")
+    names = ["out", "dx"] + [f"d{k}" for k in stack.PARAMS]
+    errs = {what: _flash_err(f"pipeline emulation (n={n}, m={m}) {what}",
+                             a, b) for what, a, b in zip(names, got, want)}
+    same = sum(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    log(f"pipeline emulation: {n} virtual stages, {m} microbatches of "
+        f"{16 // m} rows (B16 T256 d{d}, bf16, flash, dropout "
+        f"{stack.dropout_rate}): K2/K3/K4 {stack.num_layers * m} launches "
+        f"each; {same} of {len(names)} outputs and gradients bit for bit "
+        f"against the sequential schedule, max abs err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f" | {card}")
+    return {"launches": launches, "max_abs_err": max(errs.values()),
+            "same": same}
+
+
+def _expert_check(params, x, ranks: int, card: str) -> dict:
+    """``moe.emulate`` (the expert layout's per-rank arithmetic for
+    ``ranks`` virtual expert ranks) against ``moe_ffn_reference(num_ranks
+    =ranks)`` on the card: out, aux, the dropped fraction, and the
+    gradients of ``mean(out**2) + 0.01 * aux`` for the tokens and every
+    parameter; both timed forward."""
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.parallel import moe
+
+    runs = []
+    for fn in (moe.emulate, moe.moe_ffn_reference):
+        p = {k: v.clone().requires_grad_() for k, v in params.items()}
+        xs = x.clone().requires_grad_()
+        r = fn(p, xs, num_ranks=ranks)
+        loss = torch.mean(r.out ** 2) + 0.01 * r.aux_loss
+        grads = torch.autograd.grad(loss, [xs, *p.values()])
+        runs.append(([r.out.detach(), *grads], float(r.aux_loss.detach()),
+                     float(r.dropped_fraction)))
+    (got, aux, drop), (want, aux_ref, drop_ref) = runs
+    worst = 0.0
+    for what, a, b in zip(("out", "dx", "drouter", "dw_in", "dw_out"), got,
+                          want):
+        scale = float(b.abs().max())
+        err = (a - b).abs()
+        if not bool((err <= MOE_RTOL * b.abs()
+                     + MOE_ATOL_OF_SCALE * scale).all()):
+            fail(f"expert emulation ({ranks} ranks) {what}: max abs err "
+                 f"{float(err.max()):.3g} at scale {scale:.3g}")
+        worst = max(worst, float(err.max()) / max(scale, 1e-30))
+    if abs(aux - aux_ref) > MOE_SCALAR_TOL or abs(drop - drop_ref) > \
+            MOE_SCALAR_TOL:
+        fail(f"expert emulation ({ranks} ranks): aux {aux} against {aux_ref}"
+             f", dropped {drop} against {drop_ref}")
+    ms = {name: time_ms(lambda fn=fn: fn(params, x, num_ranks=ranks),
+                        PAR_TIME_ITERS, 1)
+          for name, fn in (("emulated", moe.emulate),
+                           ("reference", moe.moe_ffn_reference))}
+    log(f"expert emulation: {ranks} virtual expert ranks over "
+        f"{x.shape[0]} tokens (d {x.shape[1]}, f {params['w_in'].shape[2]}, "
+        f"{params['w_in'].shape[0]} experts, f32): out and gradients within "
+        f"rtol {MOE_RTOL} + {MOE_ATOL_OF_SCALE} of scale of "
+        f"moe_ffn_reference(num_ranks={ranks}) (largest error {worst:.3g} "
+        f"of scale); aux {aux:.6f} ({aux_ref:.6f}), dropped {drop:.6f} "
+        f"({drop_ref:.6f}); forward {ms['emulated']:.3f} ms emulated, "
+        f"{ms['reference']:.3f} ms the reference (events) | {card}")
+    return {"rel_err": worst, "aux": aux, "dropped": drop, **ms}
+
+
+def _sum_check(mesh, card: str) -> dict:
+    """In the world-1 NCCL group: one all-reduce of a seeded 4096-element
+    tensor in f32, bf16 and f16 by NCCL's sum pre-multiplied by 1
+    (printed: the card's NCCL gave zeros for bf16, F8) and by the port's
+    ``sharding.all_reduce_sum_``, which must leave each unchanged."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_tensorflow_models_tpu_torch.core import sharding
+
+    base = torch.randn(4096, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        x = base.to(dtype)
+        raw = x.clone()
+        dist.all_reduce(raw, op=dist._make_nccl_premul_sum(1.0),
+                        group=mesh.dp_group)
+        ours = sharding.all_reduce_sum_(x.clone(), mesh, "sum_check",
+                                        dp=True)
+        torch.cuda.synchronize()
+        ratio = (raw.float() / x.float())[x.float().abs() > 1e-3]
+        out[str(dtype)] = {"premul_equal": bool(torch.equal(raw, x)),
+                           "premul_ratio": (float(ratio.min()),
+                                            float(ratio.max())),
+                           "port_equal": bool(torch.equal(ours, x))}
+        log(f"world-1 NCCL sum of a {dtype} tensor: pre-multiplied by 1 "
+            f"{'unchanged' if out[str(dtype)]['premul_equal'] else 'changed'}"
+            f" (result / input {float(ratio.min()):.6g} to "
+            f"{float(ratio.max()):.6g}); "
+            f"the port's all_reduce_sum_ "
+            f"{'unchanged' if out[str(dtype)]['port_equal'] else 'CHANGED'}"
+            f" | {card}")
+        if not out[str(dtype)]["port_equal"]:
+            fail(f"the port's world-1 NCCL sum changed a {dtype} tensor")
+    return out
+
+
+def phase_pipe_expert(card: str, workdir: Path, flash_fns: dict,
+                      seed: int) -> dict:
+    """Phase 18: pipeline and expert parallelism on the card, where one
+    GPU holds one rank.  (a) The pipelined ``transformer_lm`` stack at
+    full width: its schedule emulated at 2 and 4 virtual stages and 4 and
+    8 microbatches against its sequential schedule.  (b) ``fit`` of
+    ``transformer_lm`` pipelined (pipe 1, 4 microbatches, flash, dropout
+    0.1, a world-1 NCCL group, ``PAR_STEPS`` steps in chunks of 4,
+    captured) in turns with the plain fit: K2/K3/K4 at layers x
+    microbatches a step, no ``pipe/*`` collective, replay against the
+    eager steps, tokens/s of both.  (c) The expert layout's per-rank
+    arithmetic at ``transformer_lm_moe``'s width against
+    ``moe_ffn_reference(num_ranks=E)``, E = 2 and 4; ``fit`` of
+    ``transformer_lm_moe`` at expert 1 in the NCCL group against the plain
+    fit (phase 16's path)."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from distributed_tensorflow_models_tpu_torch import launch
+    from distributed_tensorflow_models_tpu_torch.core import sharding
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+    from distributed_tensorflow_models_tpu_torch.harness.config import get_config
+    from distributed_tensorflow_models_tpu_torch.parallel import moe
+
+    t_phase = time.perf_counter()
+    os.environ["DTM_FLASH_BWD"] = "pair"
+    out = {"pipe": {}, "expert": {}}
+    base = get_config("transformer_lm", attn_impl="flash",
+                      train_steps=PAR_STEPS)
+    layers = base.model_kwargs["num_layers"]
+    tokens = base.global_batch_size * base.num_steps
+    piped = base.replace(model_kwargs={
+        **base.model_kwargs, "pipelined": True,
+        "pipeline_microbatches": PIPE_FIT_MICRO})
+
+    # (a) The pipelined schedule's arithmetic.
+    model = trainlib.build_model(piped, torch.device("cuda"))
+    for n in PIPE_STAGES:
+        for m in PIPE_MICRO:
+            out["pipe"][(n, m)] = _pipeline_check(model.pipeline, n, m,
+                                                  seed + n + m, flash_fns,
+                                                  card)
+    del model
+    torch.cuda.empty_cache()
+    emu_launches = {kid: sum(r["launches"][kid]
+                             for r in out["pipe"].values())
+                    for kid in flash_fns}
+
+    # (b) The pipelined fit at a pipe axis of one in a world-1 NCCL group,
+    # in turns with the plain fit; (c)'s MoE fit at an expert axis of one.
+    want_losses, eager = _eager_run(piped, PAR_STEPS)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {launch.ENV_COORDINATOR: f"127.0.0.1:{port}",
+           launch.ENV_NUM_PROCESSES: "1", launch.ENV_PROCESS_ID: "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    moe_cfg = get_config("transformer_lm_moe", attn_impl="flash",
+                         train_steps=PAR_STEPS)
+    arms = []
+    try:
+        if not launch.initialize_from_env():
+            fail("pipe/expert: initialize_from_env found no cluster")
+        try:
+            for label in ("pipelined", "plain", "pipelined", "plain"):
+                cfg = piped if label == "pipelined" else base
+                mesh = trainlib.mesh_from_config(cfg)
+                if (mesh.shape["pipe"], mesh.backend) != (1, "nccl"):
+                    fail(f"pipe/expert: mesh {mesh.shape} over "
+                         f"{mesh.backend}")
+                zero_counts(flash_fns.values())
+                before = sharding.collective_counts()
+                r = run_fit(cfg, workdir / f"lm{len(arms)}", mesh=mesh,
+                            keep=True)
+                r["collectives"] = sharding.counts_since(before)
+                r["launches"] = {kid: fn.launches
+                                 for kid, fn in flash_fns.items()}
+                per = PIPE_FIT_MICRO if label == "pipelined" else 1
+                want = {kid: layers * per * PAR_STEPS
+                        if kid in ("K2", "K3", "K4") else 0
+                        for kid in flash_fns}
+                if r["launches"] != want:
+                    fail(f"pipe/expert, {label}: launches {r['launches']}, "
+                         f"expected {want}")
+                if not arms:
+                    r["state"] = [t.cpu() for t in
+                                  state_tensors(r["fit"].state)]
+                r.pop("fit")
+                arms.append((label, r))
+            zero_counts(flash_fns.values())
+            mesh = trainlib.mesh_from_config(moe_cfg)
+            if mesh.shape["expert"] != 1:
+                fail(f"pipe/expert: mesh {mesh.shape}")
+            before = sharding.collective_counts()
+            moe_group = run_fit(moe_cfg, workdir / "moe_group", mesh=mesh,
+                                keep=True)
+            moe_group["collectives"] = sharding.counts_since(before)
+            moe_group["launches"] = {kid: fn.launches
+                                     for kid, fn in flash_fns.items()}
+            moe_group["state"] = [t.cpu() for t in
+                                  state_tensors(moe_group.pop("fit").state)]
+            out["sums"] = _sum_check(mesh, card)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        for key, val in saved.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+    counts = [{site: n for site, (n, _) in r["collectives"].items()}
+              for _, r in arms]
+    if any(c != counts[1] for c in counts) or any(
+            site.startswith("pipe/") for site in counts[0]):
+        fail(f"pipe/expert: collectives {counts}: a pipe axis of one must "
+             f"add none")
+    piped_state = arms[0][1].pop("state")
+    same = sum(bool(torch.equal(a, b.cpu())) for a, b in zip(piped_state,
+                                                             eager))
+    _lm_states_close("transformer_lm pipelined, replayed against eager",
+                     arms[0][1]["losses"], want_losses, piped_state,
+                     [t.cpu() for t in eager], card)
+    out["fit"] = {"launches": arms[0][1]["launches"], "same": same,
+                  "tensors": len(piped_state), "collectives": counts[0],
+                  "losses_equal": arms[0][1]["losses"] == want_losses}
+    log(f"pipelined fit (pipe 1, {PIPE_FIT_MICRO} microbatches): "
+        f"collectives a run {counts[0]} on every arm ({PAR_STEPS} steps), "
+        f"no pipe/*; K2/K3/K4 {layers * PIPE_FIT_MICRO} launches a step "
+        f"(plain {layers}); replay against eager: {same} of "
+        f"{len(piped_state)} state tensors bit for bit, losses "
+        f"{'equal' if out['fit']['losses_equal'] else 'differ'} | {card}")
+    for label, r in arms:
+        log_arm(f"LM {label}", r, tokens, card)
+    del piped_state, eager
+
+    # (c) The expert layout's per-rank arithmetic at transformer_lm_moe's
+    # width, and the MoE fit at expert 1 against the plain fit.
+    kw = moe_cfg.model_kwargs
+    n_tok = moe_cfg.global_batch_size * moe_cfg.num_steps
+    params = {k: v.cuda() for k, v in moe.init_moe_params(
+        kw["num_experts"], kw["d_model"], kw["d_ff"],
+        torch.Generator().manual_seed(seed)).items()}
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (n_tok, kw["d_model"]), dtype=np.float32)).cuda()
+    for ranks in EXPERT_RANKS:
+        out["expert"][ranks] = _expert_check(params, x, ranks, card)
+    del params, x
+    zero_counts(flash_fns.values())
+    moe_plain = run_fit(moe_cfg, workdir / "moe_plain", keep=True)
+    plain_state = [t.cpu() for t in state_tensors(moe_plain.pop("fit").state)]
+    group_state = moe_group.pop("state")
+    want = {kid: layers * PAR_STEPS if kid in ("K2", "K3", "K4") else 0
+            for kid in flash_fns}
+    if moe_group["launches"] != want:
+        fail(f"transformer_lm_moe at expert 1: launches "
+             f"{moe_group['launches']}, expected {want}")
+    if any(site.startswith("expert/") for site in moe_group["collectives"]):
+        fail(f"transformer_lm_moe at expert 1: collectives "
+             f"{moe_group['collectives']}")
+    _lm_states_close("transformer_lm_moe at expert 1 in a world-1 NCCL "
+                     "group against the plain fit", moe_group["losses"],
+                     moe_plain["losses"], group_state, plain_state, card)
+    moe_same = sum(bool(torch.equal(a, b)) for a, b in zip(group_state,
+                                                           plain_state))
+    out["moe_fit"] = {"launches": moe_group["launches"], "same": moe_same,
+                      "tensors": len(plain_state)}
+    log(f"transformer_lm_moe at expert 1: {moe_same} of {len(plain_state)} "
+        f"state tensors bit for bit with the plain fit; collectives "
+        f"{ {k: n for k, (n, _) in moe_group['collectives'].items()} } | "
+        f"{card}")
+    for label, r in (("moe expert 1", moe_group), ("moe plain", moe_plain)):
+        log_arm(f"LM {label}", r, tokens, card)
+    out["emu_launches"] = emu_launches
+    log(f"pipe/expert phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch-size", type=int, default=256,
@@ -3966,8 +4319,9 @@ def main(argv=None) -> int:
                         "transformer, remat, the embedding's matmul "
                         "gradient and blockwise q-chunking: no result line")
     parser.add_argument("--parallel-only", action="store_true",
-                        help="phases 1 and 17 alone, for work on tensor "
-                        "and sequence parallelism: no result line")
+                        help="phases 1, 17 and 18 alone, for work on "
+                        "tensor, sequence, pipeline and expert "
+                        "parallelism: no result line")
     parser.add_argument("--startup-only", action="store_true",
                         help="phase 1, the checkpoint's training of phase "
                         "14 and phase 15 alone, for work on the cold "
@@ -4111,8 +4465,10 @@ def main(argv=None) -> int:
     if args.parallel_only:
         phase_parallel(card, workdir / "parallel", flash_fns, k1,
                        args.batch_size, args.seed + 6)
+        phase_pipe_expert(card, workdir / "pipe_expert", flash_fns,
+                          args.seed + 7)
         log(card)
-        log("parallel run: phases 1 and 17 alone, no result")
+        log("parallel run: phases 1, 17 and 18 alone, no result")
         return 0
     if args.dp_only:
         phase_data_parallel(args.batch_size, args.train_steps, len(
@@ -4200,8 +4556,8 @@ def main(argv=None) -> int:
         phase_profile(r50, arm)
     convlib.set_default_conv_impl("mxu")
 
-    # 5b. The ResNet-50 path as one process of a world-1 NCCL group, in
-    # turns with fit without a group.
+    # 5b. The ResNet-50 path as one process of a world-1 NCCL group, after
+    # fit without a group.
     phase_data_parallel(args.batch_size, steps, len(calls), card,
                         workdir / "dp")
 
@@ -4236,12 +4592,11 @@ def main(argv=None) -> int:
 
     # 7. The Inception-v3 path with every routed conv on K6, the two
     # counters zeroed just before it and read just after; then the K1 arm
-    # in turns and the F.conv2d arm as a yardstick.
+    # and the F.conv2d arm as a yardstick.
     inc_cfg = get_config("inception_v3_imagenet",
                          global_batch_size=args.batch_size)
     inc_arms = []
     for impl, knob, label in (("mxu", "1", "K6"), ("mxu", "0", "K1"),
-                              ("mxu", "1", "K6"), ("mxu", "0", "K1"),
                               ("xla", "0", "F.conv2d")):
         convlib.set_default_conv_impl(impl)
         os.environ["DTM_CONV_MXU_PIPELINE"] = knob
@@ -4371,6 +4726,14 @@ def main(argv=None) -> int:
                          args.batch_size, args.seed + 6)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 17")
 
+    # 18. Pipeline and expert parallelism: the pipelined schedule's and the
+    # expert layout's per-rank arithmetic, the pipelined fit at a pipe axis
+    # of one (this slice's main path: the flash counters zeroed just before
+    # each run, read after) and the MoE fit at an expert axis of one.
+    pipex = phase_pipe_expert(card, workdir / "pipe_expert", flash_fns,
+                              args.seed + 7)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 18")
+
     log(card)
     kernels = [{
         "name": "K1 conv_implicit_gemm",
@@ -4460,6 +4823,10 @@ def main(argv=None) -> int:
                 "remat_lm_launches"][kid]
             k["launches_tp_ring_fit"] = par["fit"]["launches"][kid]
             k["launches_ring_emulation"] = par["ring_launches"][kid]
+            k["launches_pipelined_fit"] = pipex["fit"]["launches"][kid]
+            k["launches_pipeline_emulation"] = pipex["emu_launches"][kid]
+            k["launches_moe_expert1_fit"] = pipex["moe_fit"]["launches"][
+                kid]
     kernels[-1]["dq_vs_k4"] = flash["dq_vs_k4"]
     if parent is not None:
         kernels[-1]["dq_vs_k4_parent"] = flash["dq_vs_k4_parent"]

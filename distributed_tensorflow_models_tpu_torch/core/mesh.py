@@ -15,9 +15,16 @@ unravelled over the sizes in :class:`AxisNames` order.
 - ``seq`` — sequence parallelism: a language model's tokens are split
   into column blocks over it; its group carries the ring's rotations and
   Ulysses' all-to-alls (``parallel/ring.py``).
-- The gradients and the metrics are averaged over data x seq (the
-  processes that share a model coordinate), the ``dp_group``.
-- ``pipe`` and ``expert`` are not ported: a mesh that widens them raises.
+- ``pipe`` — pipeline parallelism: the pipelined block stack's layers are
+  split over it, one stage per process; its group carries the
+  activations' rotations from stage to stage (``parallel/pipeline.py``).
+- ``expert`` — expert parallelism: the MoE FFN's experts are split over
+  it; its group carries the two all-to-alls of the routed tokens
+  (``parallel/moe.py``).
+- The gradients and the metrics are averaged over data x seq, the
+  ``dp_group``.  The processes of one data block hold its rows whatever
+  their model, pipe and expert coordinates (the batch is split over
+  ``data`` only, and a language model's tokens over ``seq``).
 
 An axis of size one issues no collective (it gets no group), so a mesh
 that widens only the data axis runs the data-parallel step unchanged.  The
@@ -109,10 +116,11 @@ class Mesh:
 
     The groups: ``group`` is the data axis's (the processes that differ
     only in their data coordinate; BatchNorm's moments are reduced over
-    it), ``axis_groups`` maps ``"model"`` and ``"seq"`` to theirs where
-    the axis is wider than one, and ``dp_group`` is data x seq (the
-    processes that share this one's model coordinate: the gradients and
-    metrics are averaged over it).  A group is None where nothing is to be
+    it), ``axis_groups`` maps ``"model"``, ``"seq"``, ``"pipe"`` and
+    ``"expert"`` to theirs where the axis is wider than one, and
+    ``dp_group`` is data x seq (the processes that share this one's
+    model, pipe and expert coordinates: the gradients and metrics are
+    averaged over it).  A group is None where nothing is to be
     reduced: without a process group, and for an axis of size one inside
     a wider world (a world of one keeps its group on the data axis, so a
     world-1 NCCL group still issues the step's collectives).  A process
@@ -168,6 +176,14 @@ class Mesh:
         return self.sizes[2]
 
     @property
+    def pipe_size(self) -> int:
+        return self.sizes[3]
+
+    @property
+    def expert_size(self) -> int:
+        return self.sizes[4]
+
+    @property
     def dp_size(self) -> int:
         """Processes the gradients are averaged over: data x seq."""
         return self.sizes[0] * self.sizes[2]
@@ -177,8 +193,8 @@ class Mesh:
         return self.coords[AxisNames.ALL.index(axis)]
 
     def axis_group(self, axis: str) -> Optional[dist.ProcessGroup]:
-        """The group of ``axis`` (``"data"``, ``"model"`` or ``"seq"``);
-        None where the axis issues nothing."""
+        """The group of ``axis`` (any of :class:`AxisNames`); None where
+        the axis issues nothing."""
         if axis == AxisNames.DATA:
             return self.group
         return self.axis_groups.get(axis)
@@ -198,19 +214,6 @@ class Mesh:
             if g is not None:
                 return dist.get_backend(g)
         return None
-
-
-def _not_ported(sizes: tuple[int, ...]) -> tuple[int, ...]:
-    """``sizes``, unless the pipe or expert axis is wider than one: those
-    are not ported and raise."""
-    wide = {name: n for name, n in zip(AxisNames.ALL[3:], sizes[3:])
-            if n != 1}
-    if wide:
-        raise NotImplementedError(
-            f"mesh axes {wide} are not ported: the port has the data, model "
-            f"and seq axes (pipeline and expert parallelism are among the "
-            f"parallel layers, ROADMAP §1 item 1)")
-    return sizes
 
 
 def _check_device(device: torch.device, backend: str) -> torch.device:
@@ -267,28 +270,29 @@ def create_mesh(spec: Optional[MeshSpec] = None,
     of one (no group, no collective) when no group is initialised.  A
     process's coordinates are its rank unravelled over the five sizes in
     :class:`AxisNames` order (the JAX package reshapes its devices so).
-    The model and seq axes get a group each where they are wider than
-    one, and data x seq its own where both are; every group is created
-    here, before any step runs.
+    The model, seq, pipe and expert axes get a group each where they are
+    wider than one (in that order), and data x seq its own where both
+    are; every group is created here, before any step runs, in the same
+    order on every process.
 
     ``device`` defaults to the group's: the CUDA device the process set
     for NCCL, the CPU for gloo; without a group, CUDA, which must be
     there (the CPU must be asked for)."""
     spec = spec or MeshSpec()
     if not dist.is_initialized():
-        return Mesh(_not_ported(spec.sizes(1)), 0, 1, resolve_device(device))
+        return Mesh(spec.sizes(1), 0, 1, resolve_device(device))
     backend = dist.get_backend()
     if device is None:
         device = (torch.device("cuda", torch.cuda.current_device())
                   if backend == "nccl" else torch.device("cpu"))
     world, rank = dist.get_world_size(), dist.get_rank()
-    sizes = _not_ported(spec.sizes(world))
+    sizes = spec.sizes(world)
     coords = tuple(int(c) for c in np.unravel_index(rank, sizes))
-    data, model, seq = 0, 1, 2
+    data, seq = 0, 2
     group = (dist.group.WORLD if sizes[data] == world
              else _groups_over(sizes, (data,), rank))
     axis_groups = {}
-    for name, axis in ((AxisNames.MODEL, model), (AxisNames.SEQ, seq)):
+    for axis, name in enumerate(AxisNames.ALL[1:], start=1):
         g = _groups_over(sizes, (axis,), rank)
         if g is not None:
             axis_groups[name] = g

@@ -25,18 +25,31 @@ them), and the collectives are issued explicitly over the mesh's groups
   all-reduce whose backward is the identity (*g*); :func:`copy_in`, the
   identity whose backward all-reduces (*f*);
 - on the ``seq`` axis: :func:`ring`, the point-to-point rotations around
-  the ring, whose backward rotates the other way, and :func:`all_to_all`.
+  the ring, whose backward rotates the other way, and :func:`all_to_all`;
+- on the ``pipe`` axis: :func:`rotate`, one point-to-point rotation of the
+  pipeline's activations to the next stage (its backward the other way),
+  with *f* and *g* (:func:`copy_in`, :func:`reduce_sum`) on the stack's
+  input and output;
+- on the ``expert`` axis: :func:`split`, this process's chunk of the
+  tokens, whose backward all-gathers the chunks' cotangents, the two
+  exchanges of the routed slots (:func:`all_to_all`), the combined chunks
+  gathered back (:func:`gather`) and *f* on the router;
+- :func:`square_sum`, the sum of squares of a tree of tensors as whole
+  arrays: the split tensors' partial sums summed over their axes, the
+  replicated ones counted once (the gradient norm that clipping reads).
 
 Without a process group nothing is issued: a world of one with no group
 runs the single-device step unchanged, and so does an axis of size one.
-On NCCL a sum is issued as a sum pre-multiplied by 1
-(``_make_nccl_premul_sum(1.0)``): the same sum, bit for bit, but NCCL
+On NCCL a sum of an f32 or f64 tensor is issued as a sum pre-multiplied
+by 1 (``_make_nccl_premul_sum(1.0)``): the same sum, bit for bit, but NCCL
 launches a kernel for it at one rank too, where it makes a plain in-place
-sum a no-op that never reaches the device.
+sum a no-op that never reaches the device.  A bf16 or f16 tensor's sum
+is the plain SUM (at one rank the card's NCCL zeroed a bf16 tensor's
+pre-multiplied sum).
 
 Every collective counts itself under its site (``collective_counts``),
-like the kernels' launch counters, the model and seq axes' under sites
-that start with the axis's name: a captured step takes off what its
+like the kernels' launch counters, the model, seq, pipe and expert axes'
+under sites that start with the axis's name: a captured step takes off what its
 capture counted and adds it back per replay (:func:`add_collectives`).
 """
 
@@ -135,8 +148,13 @@ def shard_batch(mesh: Mesh, batch: Mapping[str, torch.Tensor],
     return seq_split(mesh, rows, seq_dim)
 
 
-def _sum_op(group: dist.ProcessGroup):
-    if dist.get_backend(group) == "nccl":
+def _sum_op(group: dist.ProcessGroup, dtype: torch.dtype):
+    """SUM; on NCCL, for f32 and f64, the sum pre-multiplied by 1 (module
+    docstring).  Not for bf16 or f16: at one rank the card's NCCL gave
+    zeros for a bf16 tensor's pre-multiplied sum, so those take the plain
+    SUM (a no-op at one rank)."""
+    if dist.get_backend(group) == "nccl" and dtype in (torch.float32,
+                                                        torch.float64):
         return dist._make_nccl_premul_sum(1.0)
     return dist.ReduceOp.SUM
 
@@ -164,18 +182,21 @@ def all_reduce_sum_(t: torch.Tensor, mesh: Optional[Mesh],
     returns ``t``."""
     group = _group(mesh, dp)
     if group is not None:
-        dist.all_reduce(t, op=_sum_op(group), group=group)
+        dist.all_reduce(t, op=_sum_op(group, t.dtype), group=group)
         add_collectives({site: (1, t.numel() * t.element_size())})
     return t
 
 
 def _gather_list(x: torch.Tensor, group, n: int, site: str
                  ) -> list[torch.Tensor]:
+    """The group's ``n`` copies of ``x``'s shape, in rank order: one
+    all-gather into one buffer, viewed as its ``n`` parts (no copy per
+    part)."""
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x, group=group)
+    out = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, x.reshape(-1), group=group)
     add_collectives({site: (1, n * x.numel() * x.element_size())})
-    return parts
+    return list(out.view(n, *x.shape).unbind(0))
 
 
 class _AllGatherRows(torch.autograd.Function):
@@ -279,7 +300,7 @@ def all_reduce_metrics(metrics: Mapping[str, torch.Tensor],
     return {n: vec[i] for i, n in enumerate(names)}
 
 
-# ------------------------------------------------- the model and seq axes
+# ------------------------------------- the model, seq, pipe and expert axes
 
 
 class _Gather(torch.autograd.Function):
@@ -308,7 +329,7 @@ class _ReduceSum(torch.autograd.Function):
     def forward(ctx, x, mesh, axis, site):
         y = x.contiguous().clone()
         group = mesh.axis_group(axis)
-        dist.all_reduce(y, op=_sum_op(group), group=group)
+        dist.all_reduce(y, op=_sum_op(group, y.dtype), group=group)
         add_collectives({site: (1, y.numel() * y.element_size())})
         return y
 
@@ -330,7 +351,7 @@ class _CopyIn(torch.autograd.Function):
     def backward(ctx, g):
         g = g.contiguous().clone()
         group = ctx.mesh.axis_group(ctx.axis)
-        dist.all_reduce(g, op=_sum_op(group), group=group)
+        dist.all_reduce(g, op=_sum_op(group, g.dtype), group=group)
         add_collectives({ctx.site: (1, g.numel() * g.element_size())})
         return g, None, None, None
 
@@ -459,6 +480,93 @@ def ring(xs: Sequence[torch.Tensor], mesh: Optional[Mesh],
     return [list(flat[r * k:(r + 1) * k]) for r in range(n)]
 
 
+class _Rotate(torch.autograd.Function):
+    """One rotation of a ring: ``xs`` sent to the next process on the
+    axis, and what the previous one sent returned.  The backward rotates
+    the cotangents of the floating tensors the other way (zeros where this
+    process's loss reached none), so every process of the axis that runs
+    one of the rotation's backwards pairs with its neighbours'."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, site, *xs):
+        ctx.mesh, ctx.axis, ctx.site = mesh, axis, site
+        ctx.shapes = [(x.shape, x.dtype, x.device) for x in xs]
+        outs = _sendrecv(xs, mesh, axis, 1, site)
+        ctx.mark_non_differentiable(*(o for o in outs
+                                      if not o.is_floating_point()))
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        floats = [i for i, (_, dtype, _) in enumerate(ctx.shapes)
+                  if dtype.is_floating_point]
+        send = [gs[i] if gs[i] is not None else torch.zeros(
+                    ctx.shapes[i][0], dtype=ctx.shapes[i][1],
+                    device=ctx.shapes[i][2]) for i in floats]
+        back = _sendrecv(send, ctx.mesh, ctx.axis, -1, f"{ctx.site}_grad")
+        grads = [None] * len(ctx.shapes)
+        for i, g in zip(floats, back):
+            grads[i] = g
+        return (None, None, None, *grads)
+
+
+def rotate(xs: Sequence[torch.Tensor], mesh: Optional[Mesh],
+           axis: str = AxisNames.PIPE, site: str = "rotate"
+           ) -> list[torch.Tensor]:
+    """What the process one place behind this one on the axis's ring holds
+    of ``xs``: one point-to-point rotation (a send to the next process and
+    a receive from the previous, counted under ``"<axis>/<site>"``; the
+    backward's, the other way, under ``"<axis>/<site>_grad"``).  ``xs``
+    themselves on an axis of one, or on the meta device."""
+    xs = list(xs)
+    n = 1 if mesh is None else mesh.shape[axis]
+    if not _wide(mesh, axis, xs[0]):
+        if n > 1 and xs[0].device.type != "meta":
+            raise RuntimeError(f"a {axis} axis of {n} with no process group "
+                               f"cannot rotate around its processes")
+        return xs
+    return list(_Rotate.apply(mesh, axis, f"{axis}/{site}", *xs))
+
+
+class _Split(torch.autograd.Function):
+    """This process's chunk of ``x`` along ``dim`` over an axis (every
+    process of the axis holds the same ``x``); the backward all-gathers
+    the chunks' cotangents, so each process gets the whole cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, site):
+        n, i = mesh.shape[axis], mesh.coord(axis)
+        ctx.mesh, ctx.axis, ctx.dim, ctx.site = mesh, axis, dim, site
+        return x.chunk(n, dim=dim)[i].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, n = ctx.mesh, ctx.mesh.shape[ctx.axis]
+        parts = _gather_list(g, mesh.axis_group(ctx.axis), n, ctx.site)
+        return torch.cat(parts, dim=ctx.dim), None, None, None, None
+
+
+def split(x: torch.Tensor, mesh: Optional[Mesh], dim: int,
+          axis: str = AxisNames.EXPERT, site: str = "split_grad"
+          ) -> torch.Tensor:
+    """This process's chunk of ``x`` (the same on every process of the
+    axis) along ``dim``: the ``coord(axis)``-th of ``n`` equal chunks.
+    Its backward all-gathers the cotangents (counted under
+    ``"<axis>/<site>"``).  ``x`` itself on an axis of one."""
+    n = 1 if mesh is None else mesh.shape[axis]
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"a dim of {x.shape[dim]} does not split over a "
+                         f"{axis} axis of {n}")
+    if not _wide(mesh, axis, x):
+        if x.device.type != "meta":
+            raise RuntimeError(f"a {axis} axis of {n} with no process group "
+                               f"cannot gather the cotangents of its chunks")
+        return x.chunk(n, dim=dim)[mesh.coord(axis)]
+    return _Split.apply(x, mesh, axis, dim, f"{axis}/{site}")
+
+
 def _all_to_all(x: torch.Tensor, group, site: str) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
@@ -491,6 +599,37 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str = AxisNames.SEQ,
     if not _wide(mesh, axis, x):
         return x
     return _AllToAll.apply(x, mesh, axis, f"{axis}/{site}")
+
+
+def square_sum(tree: Mapping[str, torch.Tensor], mesh: Optional[Mesh],
+               axes: Mapping[str, str]) -> torch.Tensor:
+    """The sum of squares (f32) of the tensors of ``tree`` read as whole
+    arrays: ``axes`` names the axis each split tensor is split over; the
+    partial sums of the tensors split over an axis with a group are summed
+    over it (one all-reduce per such axis, counted under
+    ``"<axis>/norm"``) and every other tensor, each process's whole copy,
+    counted once.  Where no tensor is split over an axis with a group no
+    collective is issued, and the sum is the tensors' in ``tree``'s
+    order."""
+
+    def sq(v):
+        return torch.sum(torch.square(v.float()))
+
+    wide = {k: a for k, a in axes.items()
+            if k in tree and mesh is not None
+            and mesh.axis_group(a) is not None}
+    if not wide:
+        return sum(sq(v) for v in tree.values())
+    total = sum(sq(v) for k, v in tree.items() if k not in wide)
+    for axis in AxisNames.ALL:
+        names = [k for k in tree if wide.get(k) == axis]
+        if names:
+            part = sum(sq(tree[k]) for k in names)
+            group = mesh.axis_group(axis)
+            dist.all_reduce(part, op=_sum_op(group, part.dtype), group=group)
+            add_collectives({f"{axis}/norm": (1, part.element_size())})
+            total = total + part
+    return total
 
 
 # ------------------------------------------------------------ parameters

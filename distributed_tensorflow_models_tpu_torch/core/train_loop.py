@@ -215,13 +215,15 @@ def _store_carry(old, new):
 
 
 def apply_gradients(state: TrainState, grads: Mapping[str, torch.Tensor],
-                    aux: dict) -> TrainState:
+                    aux: dict, norm: Optional[torch.Tensor] = None
+                    ) -> TrainState:
     """Optimizer update, EMA update and state advance from one gradient
-    computation, every tensor of the state updated in place.  The new
+    computation, every tensor of the state updated in place; ``norm``,
+    where given, is the gradients' global norm, which a clip reads.  The new
     carry is stored detached: the JAX package never differentiates through
     ``state.carry``, and a carry that kept its graph would tie each step's
     backward to the last one's (freed) graph and hold its memory."""
-    updates, new_opt_state = state.tx.update(grads, state.opt_state)
+    updates, new_opt_state = state.tx.update(grads, state.opt_state, norm)
     optim.apply_updates(state.params, updates)
     if state.ema_params is not None:
         # The shadows follow the updated parameters, the decay damped by
@@ -266,7 +268,12 @@ class TrainStep:
     reads them, so the gradient norm, clipping, the optimizer and the EMA
     all see the global batch's gradient, as in the JAX package; the
     metrics are averaged in one more collective.  Without a process group
-    neither is issued."""
+    neither is issued.  The gradient norm is taken once, for the
+    ``grad_norm`` metric and the clip alike.  Where parameters are split
+    over the model, pipe or expert axis it is the whole arrays': the split
+    gradients' sums of squares are summed over their axes
+    (``sharding.square_sum``), as optax's norm runs over the JAX package's
+    sharded arrays."""
 
     def __init__(self, loss_fn: LossFn,
                  rng_names: Sequence[str] = ("dropout",)):
@@ -294,9 +301,22 @@ class TrainStep:
             loss, [state.params[k] for k in names])))
         shardlib.all_reduce_mean_(grads.values(), mesh)
         metrics = dict(aux.get("metrics", {}))
-        metrics["grad_norm"] = optim.global_norm(grads)
+        norm = _grad_norm(state.model, grads)
+        metrics["grad_norm"] = norm
         metrics = shardlib.all_reduce_metrics(metrics, mesh)
-        return apply_gradients(state, grads, aux), metrics
+        return apply_gradients(state, grads, aux, norm), metrics
+
+
+def _grad_norm(model: torch.nn.Module, grads: Mapping[str, torch.Tensor]
+               ) -> torch.Tensor:
+    """The global norm of ``grads`` as whole arrays: where ``model``'s
+    parameters are split over processes (``parallel/tensor.py::
+    split_axes``), ``sharding.square_sum`` over the mesh it was cut on;
+    else this process's tensors'."""
+    axes = tensorlib.split_axes(model)
+    if not axes:
+        return optim.global_norm(grads)
+    return torch.sqrt(shardlib.square_sum(grads, model.split_mesh, axes))
 
 
 def make_train_step(loss_fn: LossFn,

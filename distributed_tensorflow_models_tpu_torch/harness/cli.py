@@ -267,6 +267,7 @@ _OVERRIDES = (("batch_size", "global_batch_size"), ("seed", "seed"),
               ("xla_cache_dir", "xla_cache_dir"),
               ("aot_compile", "aot_compile"),
               ("mesh_model", "mesh_model"), ("mesh_seq", "mesh_seq"),
+              ("mesh_pipe", "mesh_pipe"), ("mesh_expert", "mesh_expert"),
               ("seq_impl", "seq_impl"))
 
 
@@ -299,6 +300,10 @@ def _add_mesh(p: argparse.ArgumentParser) -> None:
                    help="tensor-parallel axis size (default 1)")
     p.add_argument("--mesh-seq", type=int, default=None,
                    help="sequence-parallel axis size (default 1)")
+    p.add_argument("--mesh-pipe", type=int, default=None,
+                   help="pipeline axis size (default 1)")
+    p.add_argument("--mesh-expert", type=int, default=None,
+                   help="expert-parallel axis size (default 1)")
     p.add_argument("--seq-impl", choices=("ring", "ulysses"), default=None,
                    help="sequence-parallelism strategy over the seq axis")
 

@@ -110,7 +110,8 @@ class ExperimentConfig:
     steps_per_loop: int = 1
     seed: int = 0
     # Mesh axis sizes; -1 absorbs remaining devices (data axis).  The pipe
-    # and expert axes are not ported: either above 1 raises.
+    # axis runs transformer_lm's pipelined block stack (GPipe), the expert
+    # axis splits the MoE FFN's experts.
     mesh_data: int = -1
     mesh_model: int = 1
     mesh_seq: int = 1
@@ -195,16 +196,9 @@ class ExperimentConfig:
     eval_batches: Optional[int] = None
 
     def __post_init__(self):
-        wide = {f: getattr(self, f) for f in ("mesh_pipe", "mesh_expert")
-                if getattr(self, f) != 1}
         if self.nan_policy not in ("abort", "rollback"):
             raise ValueError(f"nan_policy must be 'abort' or 'rollback', "
                              f"got {self.nan_policy!r}")
-        if wide:
-            raise NotImplementedError(
-                f"{wide} not ported: the port has the data, model and seq "
-                f"axes (pipeline and expert parallelism are among the "
-                f"parallel layers, ROADMAP §1 item 1)")
         if (self.task == "lm" and self.mesh_seq > 1
                 and not (self.model == "transformer_lm" and self.seq_impl)):
             raise ValueError(
@@ -410,8 +404,8 @@ _add(
 
 
 # Switch-MoE variant: every odd block's FFN is 4 experts (parallel/moe.py),
-# routed over the global batch of the data x seq processes; the expert
-# axis is not ported.
+# routed over the global batch of the data x seq processes, or split over
+# the expert axis (mesh_expert).
 _add(
     _CONFIGS["transformer_lm"].replace(
         name="transformer_lm_moe",

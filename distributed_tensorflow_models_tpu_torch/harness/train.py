@@ -200,11 +200,13 @@ def _model_kwargs(cfg: ExperimentConfig,
     """The config's model kwargs plus, for the transformer, its attention
     implementation and, with ``cfg.seq_impl``, the sequence-parallel
     ``attention_fn`` over ``mesh`` with the window moved into it (the JAX
-    harness's ``_mesh_model_kwargs``/``_init_model_kwargs``); for a model
-    whose builder takes ``image_size`` (one whose first dense width
+    harness's ``_mesh_model_kwargs``/``_init_model_kwargs``), and
+    ``pipelined=True`` where ``cfg.mesh_pipe`` is wider than one (the JAX
+    model runs its pipelined stack whenever it is given a pipe mesh); for a
+    model whose builder takes ``image_size`` (one whose first dense width
     follows from the input's size: flax infers it from the sample at init,
     the port fixes it at construction), ``cfg.image_size``; an explicit
-    ``model_kwargs`` entry wins."""
+    ``model_kwargs`` entry wins otherwise."""
     kwargs = {}
     if cfg.model == "transformer_lm":
         if cfg.mesh_pipe > 1 and cfg.seq_impl:
@@ -224,6 +226,8 @@ def _model_kwargs(cfg: ExperimentConfig,
     if builder_takes(cfg.model, "image_size"):
         kwargs["image_size"] = cfg.image_size
     kwargs = {**kwargs, **cfg.model_kwargs}
+    if cfg.model == "transformer_lm" and cfg.mesh_pipe > 1:
+        kwargs["pipelined"] = True
     if cfg.seq_impl:
         # The window lives in the attention_fn's closure.
         kwargs.pop("attn_window", None)
@@ -241,11 +245,13 @@ def build_model(cfg: ExperimentConfig, device: torch.device,
                 mesh: Optional[meshlib.Mesh] = None) -> torch.nn.Module:
     """The config's model, initialised whole from ``cfg.seed`` on the CPU
     (so the weights do not depend on the device or the layout), cut to
-    this process's slices of ``cfg.param_rules`` over ``mesh``'s model
-    axis (``parallel/tensor.py::shard_model``) and moved to ``device``."""
+    this process's slices over ``mesh`` (``parallel/tensor.py::
+    shard_model``: ``cfg.param_rules`` over the model axis, the pipelined
+    stack's layers over pipe, the MoE's experts over expert) and moved to
+    ``device``."""
     gen = torch.Generator().manual_seed(cfg.seed)
     model = get_model(cfg.model, generator=gen, **_model_kwargs(cfg, mesh))
-    if mesh is not None and cfg.param_rules:
+    if mesh is not None:
         tensorlib.shard_model(model, tensorlib.get_rules(cfg.param_rules),
                               mesh)
     return model.to(device)
@@ -298,16 +304,18 @@ def step_flops_fn(cfg: ExperimentConfig, mesh: meshlib.Mesh):
     """``batch -> FLOPs`` of one step of ``cfg`` over the data axis (this
     process's rows times the data axis), for ``MultiStep``'s ``flops_of``:
     the config's model built anew on the meta device, cut to this
-    process's slices over the model axis, its sequence-parallel attention
-    on this process's columns (the collectives keep only their shapes
-    there), put on the plain formulation (``train_loop.library_route``)
-    and counted by ``train_loop.step_flops``.  The count is the model's
-    share that this process computes, times the data axis, whatever route
-    the run's convolutions and attention take; at model and seq axes of
-    one, the whole model's at the global batch, the same on every
-    process."""
+    process's slices over the model, pipe and expert axes, its
+    sequence-parallel attention on this process's columns (the
+    collectives keep only their shapes there), put on the plain
+    formulation (``train_loop.library_route``) and counted by
+    ``train_loop.step_flops``.  The count is the model's share that this
+    process computes (its pipeline stage's layers on every microbatch, its
+    expert chunk's routing and its experts on every source's slots), times
+    the data axis, whatever route the run's convolutions and attention
+    take; at model, seq, pipe and expert axes of one, the whole model's at
+    the global batch, the same on every process."""
     sizes, coords = getattr(mesh, "sizes", None), getattr(mesh, "coords", None)
-    split = getattr(mesh, "model_size", 1) > 1 and cfg.param_rules
+    split = any(n > 1 for n in (sizes or (1,))[1:])
 
     def count(batch) -> float:
         rows = next(iter(batch.values())).shape[0] * mesh.data_size

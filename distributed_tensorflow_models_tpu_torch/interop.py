@@ -8,11 +8,11 @@ state-dict name ``stage0_block0.Conv2D_1.kernel``; conv kernels stay HWIO
 and the head kernel stays ``[in, out]`` (the port's ``Dense`` is not
 ``nn.Linear``).  Values are copied unchanged, so the round trip is exact.
 
-A model cut to its slices over the model axis (``parallel/tensor.py::
-shard_model``) takes a whole flax tree: each split parameter gets this
-process's slice of it; and gives one back, its slices all-gathered over
-the model axis (a collective every process of the axis makes).  Both
-exact.
+A model cut to its slices over the model, pipe or expert axis
+(``parallel/tensor.py::shard_model``) takes a whole flax tree: each split
+parameter gets this process's slice of it; and gives one back, its slices
+all-gathered over their axis (a collective every process of the axis
+makes).  Both exact.
 
 The transformer's decode state converts too: the JAX ``cache`` collection
 (per block ``attn/cached_key``, ``attn/cached_value`` and
@@ -67,8 +67,8 @@ def load_flax_variables(model: nn.Module, variables: Mapping[str, Any]) -> None:
     from distributed_tensorflow_models_tpu_torch.parallel import tensor
 
     targets = _targets(model)
-    dims = getattr(model, "tp_dims", {})
-    mesh = getattr(model, "tp_split_mesh", None)
+    dims = getattr(model, "split_dims", {})
+    mesh = getattr(model, "split_mesh", None)
     for coll in COLLECTIONS:
         flat = _flatten(variables.get(coll, {}))
         want = targets[coll]
@@ -134,13 +134,13 @@ def to_flax_variables(model: nn.Module) -> dict[str, dict]:
     leaves it out."""
     from distributed_tensorflow_models_tpu_torch.parallel import tensor
 
-    dims = getattr(model, "tp_dims", {})
-    mesh = getattr(model, "tp_split_mesh", None)
+    dims = getattr(model, "split_dims", {})
+    mesh = getattr(model, "split_mesh", None)
 
     def whole(coll, name, t):
         if coll == "params" and name in dims and mesh is not None and (
-                mesh.model_size > 1):
-            t = tensor.gather_whole(t.detach(), mesh, dims[name])
+                mesh.shape[dims[name][0]] > 1):
+            t = tensor.gather_whole(t.detach(), mesh, *dims[name])
         return t.detach().cpu().numpy().copy()
 
     return {

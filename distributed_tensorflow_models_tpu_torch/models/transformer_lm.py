@@ -16,7 +16,14 @@ position table is normal(0.02) and cast to the activation dtype before
 the add.  Module and parameter names are the flax paths
 (``blocks_0.attn.query.kernel``, ``embedding.embedding``,
 ``pos_embedding``...), so ``interop`` maps a flax tree onto the state
-dict name for name.  The pipelined stack is not ported yet and raises.
+dict name for name.
+
+``pipelined=True`` replaces the blocks by :class:`PipelinedBlocks`
+(``pipeline``): the JAX package's stacked ``[L, ...]`` parameters
+(``pipeline.wq``, ...), run as a GPipe pipeline over the pipe axis
+(``parallel/pipeline.py``) when the stack is cut over one, and by the
+sequential schedule otherwise; dense MHA blocks with learned positions
+only (the JAX package's ``ValueError`` otherwise).
 
 ``num_experts > 0`` makes every odd block's FFN a Switch-MoE layer
 (:class:`MoEFFN`, ``parallel/moe.py``; parameters ``blocks_{i}.moe.router``,
@@ -69,14 +76,12 @@ from distributed_tensorflow_models_tpu_torch.ops import attention as attnlib
 from distributed_tensorflow_models_tpu_torch.ops import remat as rematlib
 from distributed_tensorflow_models_tpu_torch.ops import rotary
 from distributed_tensorflow_models_tpu_torch.ops.conv import Dense
+from distributed_tensorflow_models_tpu_torch.ops import dropout as droplib
 from distributed_tensorflow_models_tpu_torch.ops.dropout import dropout
 from distributed_tensorflow_models_tpu_torch.ops.embed import TokenEmbed
 from distributed_tensorflow_models_tpu_torch.parallel import moe as moelib
+from distributed_tensorflow_models_tpu_torch.parallel import pipeline as pplib
 from distributed_tensorflow_models_tpu_torch.parallel import tensor as tensorlib
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"transformer_lm: {what} is not ported yet")
 
 
 DECODE_DENSE_ONLY = ("decode mode supports the dense non-pipelined stack "
@@ -87,6 +92,11 @@ WINDOW_IN_CLOSURE = (
     "while decode applies the window.  (ring_attention/ulysses_attention "
     "DO accept window= at the library level; pass a closure that sets it "
     "and leave attn_window unset here.)")
+PIPELINED_DENSE_ONLY = (
+    "pipelined path supports dense MHA blocks with remat=False, full "
+    "causal attention, and learned positions; num_kv_heads/attn_window/"
+    "rope are not plumbed into the stacked layout — training would "
+    "silently diverge from the non-pipelined model")
 
 
 def position_offset(T: int) -> int:
@@ -247,7 +257,9 @@ class MoEFFN(nn.Module):
     ``w_in [E, d, f]``, ``w_out [E, f, d]`` in f32, normals scaled by
     ``1/sqrt(d)``, ``1/sqrt(d)`` and ``1/sqrt(f)``; the tokens ``[B, T, d]``
     through :func:`...parallel.moe.moe_ffn` over the current mesh's data x
-    seq processes.
+    seq processes, or, cut over an expert axis (``param_spec``; its
+    ``expert_mesh`` set by ``parallel/tensor.py::shard_model``), over
+    that mesh's expert-parallel layout with this process's experts.
     Returns ``(out [B, T, d] in x's dtype, aux_loss_weight * aux)``."""
 
     def __init__(self, num_experts: int, d_model: int, d_ff: int,
@@ -261,10 +273,21 @@ class MoEFFN(nn.Module):
         self.w_in = nn.Parameter(init["w_in"])
         self.w_out = nn.Parameter(init["w_out"])
 
+    def param_spec(self, mesh: meshlib.Mesh) -> dict[str, tuple]:
+        """The JAX package's ``moe_param_spec``: the experts over
+        ``expert``; its ``ValueError`` where they do not divide."""
+        e_size = mesh.expert_size
+        if self.router.shape[-1] % e_size:
+            raise ValueError(f"num_experts {self.router.shape[-1]} not "
+                             f"divisible by expert axis {e_size}")
+        return moelib.moe_param_spec()
+
     def forward(self, x):
         params = {"router": self.router, "w_in": self.w_in,
                   "w_out": self.w_out}
-        res = moelib.moe_ffn(params, x, capacity_factor=self.capacity_factor)
+        res = moelib.moe_ffn(params, x, mesh=getattr(self, "expert_mesh",
+                                                     None),
+                             capacity_factor=self.capacity_factor)
         return res.out.to(x.dtype), self.aux_loss_weight * res.aux_loss
 
 
@@ -303,6 +326,175 @@ class Block(nn.Module):
         return x + self.mlp(h, train, rngs)
 
 
+def _stack_ln(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor
+              ) -> torch.Tensor:
+    """The pipelined stack's LayerNorm (JAX ``PipelinedBlocks._ln``): f32,
+    two-pass variance, eps 1e-6."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
+    return (x32 - mu) * torch.rsqrt(var + 1e-6) * scale + bias
+
+
+class PipelinedBlocks(nn.Module):
+    """The block stack with per-layer-stacked parameters (the JAX
+    ``PipelinedBlocks``): ``ln1_scale``, ``ln1_bias``, ``wq``, ``wk``,
+    ``wv``, ``wo``, ``ln2_scale``, ``ln2_bias``, ``w_up``, ``w_down``, each
+    ``[L, ...]`` in f32, the projections normals scaled by ``d**-0.5``
+    (``w_down`` by ``f**-0.5``).  A layer is JAX's ``one_layer``: LN (f32,
+    then cast), bias-free projections, causal ``attention(impl=attn_impl)``
+    (K2-K4 on the card under ``flash``), tanh GELU, dropout on both
+    residual branches.
+
+    The batch is split into ``num_microbatches`` and run through stages of
+    ``L/n`` layers: as a GPipe pipeline over the pipe axis
+    (:func:`...parallel.pipeline.pipeline_apply`) when the stack was cut
+    over one (``param_spec``; ``pipe_mesh`` set by ``shard_model``, each
+    process holding its ``[L/n, ...]`` slice), else by the sequential
+    schedule, where a count that does not divide the batch is clamped to
+    one.  Dropout masks depend only on (step, layer, sublayer, global
+    batch row): the masks of every layer are drawn at once for the global
+    batch (``ops/dropout.py::uniform``) and each microbatch reads its
+    rows, whose ids travel with it through the stages; so every schedule,
+    microbatch count and data layout draws the same masks (Philox bits,
+    not JAX's)."""
+
+    PARAMS = ("ln1_scale", "ln1_bias", "wq", "wk", "wv", "wo", "ln2_scale",
+              "ln2_bias", "w_up", "w_down")
+
+    def __init__(self, num_layers: int, num_heads: int, d_model: int,
+                 d_ff: int, dtype: torch.dtype = torch.bfloat16,
+                 attn_impl: str = "auto", num_microbatches: int = 4,
+                 dropout_rate: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        L, d, f = num_layers, d_model, d_ff
+        self.num_layers, self.num_heads = L, num_heads
+        self.dtype, self.attn_impl = dtype, attn_impl
+        self.num_microbatches = num_microbatches
+        self.dropout_rate = dropout_rate
+
+        def stacked(shape, stddev):
+            return nn.Parameter(torch.randn((L, *shape), generator=generator)
+                                * stddev)
+
+        self.ln1_scale = nn.Parameter(torch.ones(L, d))
+        self.ln1_bias = nn.Parameter(torch.zeros(L, d))
+        self.wq = stacked((d, d), d ** -0.5)
+        self.wk = stacked((d, d), d ** -0.5)
+        self.wv = stacked((d, d), d ** -0.5)
+        self.wo = stacked((d, d), d ** -0.5)
+        self.ln2_scale = nn.Parameter(torch.ones(L, d))
+        self.ln2_bias = nn.Parameter(torch.zeros(L, d))
+        self.w_up = stacked((d, f), d ** -0.5)
+        self.w_down = stacked((f, d), f ** -0.5)
+
+    def param_spec(self, mesh: meshlib.Mesh) -> dict[str, tuple]:
+        """Every stacked parameter's layer dim over ``pipe``
+        (``pipeline_spec``); the JAX package's ``ValueError`` where the
+        layers do not divide."""
+        n = mesh.pipe_size
+        if self.num_layers % n:
+            raise ValueError(
+                f"num_layers {self.num_layers} not divisible by pipe axis {n}"
+            )
+        return pplib.pipeline_spec({k: getattr(self, k) for k in self.PARAMS})
+
+    def _layer(self, p, i: int, x, rid, keep):
+        """JAX's ``one_layer`` on this stage's ``i``-th layer."""
+        B, T, d = x.shape
+        H = self.num_heads
+        Dh, dt = d // H, self.dtype
+
+        def drop(y, sub):
+            if keep is None:
+                return y
+            k = keep[p["layer_id"][i], sub].index_select(0, rid)
+            rate = self.dropout_rate
+            return torch.where(k, y / (1.0 - rate), torch.zeros_like(y))
+
+        h = _stack_ln(x, p["ln1_scale"][i], p["ln1_bias"][i]).to(dt)
+        q = (h @ p["wq"][i].to(dt)).reshape(B, T, H, Dh)
+        k = (h @ p["wk"][i].to(dt)).reshape(B, T, H, Dh)
+        v = (h @ p["wv"][i].to(dt)).reshape(B, T, H, Dh)
+        a = attnlib.attention(q, k, v, causal=True, impl=self.attn_impl)
+        a = a.reshape(B, T, d) @ p["wo"][i].to(dt)
+        x = x + drop(a, 0)
+        h = _stack_ln(x, p["ln2_scale"][i], p["ln2_bias"][i]).to(dt)
+        h = F.gelu(h @ p["w_up"][i].to(dt), approximate="tanh")
+        h = h @ p["w_down"][i].to(dt)
+        return x + drop(h, 1)
+
+    def stage_fn(self, keep):
+        """``(stage_params, {"x", "rid"}) -> {"x", "rid"}``: a stage's
+        layers (each parameter indexed by layer, ``stage_params
+        ["layer_id"]`` their global ids as host ints) on a microbatch and
+        its row ids; ``keep`` the drawn masks ``[L, 2, rows, T, d]`` (None
+        without dropout)."""
+        def fn(p, xm):
+            x = xm["x"]
+            for i in range(len(p["wq"])):
+                x = self._layer(p, i, x, xm["rid"], keep)
+            return {"x": x, "rid": xm["rid"]}
+
+        return fn
+
+    def _schedule_inputs(self, x, train: bool, rngs, m: int):
+        """The drawn masks (None without dropout) and the microbatches of
+        ``x`` with their row ids."""
+        keep = None
+        if train and self.dropout_rate:
+            u = droplib.uniform((self.num_layers, 2, *x.shape), rngs,
+                                x.device, 2)
+            keep = u < 1.0 - self.dropout_rate
+        B = x.shape[0]
+        return keep, {"x": pplib.split_microbatches(x, m),
+                      "rid": torch.arange(B, device=x.device).reshape(
+                          m, B // m)}
+
+    def forward(self, x, train: bool = False, rngs=None):
+        mesh = getattr(self, "pipe_mesh", None)
+        m = self.num_microbatches
+        if mesh is None and x.shape[0] % m:
+            # The sequential schedule's result does not depend on the
+            # count: clamp rather than reject (the JAX mesh-free path).
+            m = 1
+        keep, tree = self._schedule_inputs(x, train, rngs, m)
+        # Each layer's slice of every stacked parameter, taken once: the
+        # backward then stacks the layers' gradients in one node.
+        params = {k: list(getattr(self, k).unbind(0)) for k in self.PARAMS}
+        fn = self.stage_fn(keep)
+        if mesh is None:
+            staged = {k: [v] for k, v in params.items()}
+            staged["layer_id"] = [list(range(self.num_layers))]
+            out = pplib.sequential_apply(fn, staged, tree)
+        else:
+            per = len(params["wq"])
+            start = mesh.coord(meshlib.AxisNames.PIPE) * per
+            out = pplib.pipeline_apply(
+                fn, {**params, "layer_id": list(range(start, start + per))},
+                tree, mesh=mesh)
+        return pplib.merge_microbatches(out["x"])
+
+    def emulate(self, x, n: int, train: bool = False, rngs=None):
+        """The whole stack's forward by the pipelined schedule of ``n``
+        virtual stages in one process (:func:`...parallel.pipeline.
+        emulate`) at ``num_microbatches``: what ``n`` pipe processes
+        compute, with no collective."""
+        L = self.num_layers
+        if L % n:
+            raise ValueError(f"num_layers {L} not divisible by pipe axis {n}")
+        keep, tree = self._schedule_inputs(x, train, rngs,
+                                           self.num_microbatches)
+        staged = {k: getattr(self, k).reshape(n, L // n,
+                                               *getattr(self, k).shape[1:])
+                  for k in self.PARAMS}
+        staged["layer_id"] = [list(range(r * L // n, (r + 1) * L // n))
+                              for r in range(n)]
+        out = pplib.emulate(self.stage_fn(keep), staged, tree, n)
+        return pplib.merge_microbatches(out["x"])
+
+
 class TransformerLM(nn.Module):
     """Input ``tokens [B, T]`` int; returns ``(logits [B, T, V], carry)``.
     The carry passes through unchanged (the LM train-step contract shared
@@ -318,8 +510,8 @@ class TransformerLM(nn.Module):
                  num_kv_heads: int = 0, attn_window: Optional[int] = None,
                  pos_encoding: str = "learned", rope_theta: float = 10000.0,
                  num_experts: int = 0, moe_capacity_factor: float = 1.25,
-                 pipelined: bool = False, remat: bool = False,
-                 decode: bool = False,
+                 pipelined: bool = False, pipeline_microbatches: int = 4,
+                 remat: bool = False, decode: bool = False,
                  generator: Optional[torch.Generator] = None,
                  attention_fn=None):
         super().__init__()
@@ -327,8 +519,10 @@ class TransformerLM(nn.Module):
             raise ValueError(DECODE_DENSE_ONLY)
         if attn_window is not None and attention_fn is not None:
             raise ValueError(WINDOW_IN_CLOSURE)
-        if pipelined:
-            raise _not_ported("the pipelined block stack")
+        if pipelined and (num_experts or remat or num_kv_heads
+                          or attn_window is not None
+                          or pos_encoding != "learned"):
+            raise ValueError(PIPELINED_DENSE_ONLY)
         if pos_encoding not in ("learned", "rope"):
             raise ValueError(f"unknown pos_encoding {pos_encoding!r} "
                              "(want 'learned' or 'rope')")
@@ -353,7 +547,12 @@ class TransformerLM(nn.Module):
                 self.pos_embedding.normal_(0.0, 0.02, generator=generator)
         else:
             self.register_parameter("pos_embedding", None)
-        for i in range(num_layers):
+        self.pipelined = pipelined
+        if pipelined:
+            self.pipeline = PipelinedBlocks(
+                num_layers, num_heads, d_model, d_ff, dtype, attn_impl,
+                pipeline_microbatches, dropout_rate, generator)
+        for i in range(0 if pipelined else num_layers):
             self.add_module(f"blocks_{i}", Block(
                 num_heads, d_model, d_ff, dropout_rate, dtype, attn_impl,
                 num_kv_heads, attn_window, pos_encoding == "rope",
@@ -367,8 +566,9 @@ class TransformerLM(nn.Module):
                    device: Optional[str | torch.device] = None) -> KVCache:
         """An empty cache for ``batch_size`` rows: zeros of ``[B, max_len,
         num_kv_heads, head_dim]`` in the model's dtype per block, index 0.
-        The MoE stack has no decode mode (the JAX ``ValueError``)."""
-        if self.num_experts:
+        The MoE and pipelined stacks have no decode mode (the JAX
+        ``ValueError``)."""
+        if self.num_experts or self.pipelined:
             raise ValueError(DECODE_DENSE_ONLY)
         shape = (batch_size, self.max_len, self.num_kv_heads, self.head_dim)
 
@@ -389,7 +589,7 @@ class TransformerLM(nn.Module):
         T = tokens.shape[1]
         if self.decode and cache is None:
             raise ValueError("decode mode needs a KVCache (model.init_cache)")
-        if cache is not None and (self.num_experts
+        if cache is not None and (self.num_experts or self.pipelined
                                   or self.attention_fn is not None):
             raise ValueError(DECODE_DENSE_ONLY)
         x = self.embedding(tokens)
@@ -404,7 +604,9 @@ class TransformerLM(nn.Module):
                                  f"max_len {self.max_len}")
             x = x + self.pos_embedding[off:off + T].to(self.dtype)
         x = dropout(x, self.dropout_rate, train, rngs)
-        for i in range(self.num_layers):
+        if self.pipelined:
+            x = self.pipeline(x, train, rngs)
+        for i in range(0 if self.pipelined else self.num_layers):
             block = getattr(self, f"blocks_{i}")
             if cache is not None:
                 x = block(x, train, rngs,

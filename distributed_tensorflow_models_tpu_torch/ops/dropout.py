@@ -32,20 +32,31 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     forward's masks again, bit for bit."""
     if not rate or not train:
         return x
+    keep = uniform(x.shape, rngs, x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def uniform(shape, rngs: Optional[Mapping[str, torch.Generator]],
+            device: torch.device, batch_dim: int = 0) -> torch.Tensor:
+    """:func:`dropout`'s uniform draw for a tensor of ``shape`` whose batch
+    dim is ``batch_dim`` (and whose token dim, under a seq axis, the
+    context's ``seq_dim`` after it): the global array's draw from
+    ``rngs['dropout']``, this process's block of it kept."""
     if not rngs or "dropout" not in rngs:
         raise ValueError("dropout in training needs rngs={'dropout': gen}")
     mesh = meshlib.current_mesh()
-    shape, block = list(x.shape), [slice(None)] * x.ndim
+    shape = list(shape)
+    local, block = list(shape), [slice(None)] * len(shape)
     if mesh is not None:
         seq_dim = meshlib.current_seq_dim()
         if mesh.data_size > 1:
-            shape[0] *= mesh.data_size
-            block[0] = shardlib.batch_rows(mesh, shape[0])
+            shape[batch_dim] *= mesh.data_size
+            block[batch_dim] = shardlib.batch_rows(mesh, shape[batch_dim])
         if seq_dim is not None:
-            shape[seq_dim] *= mesh.seq_size
-            block[seq_dim] = shardlib.seq_cols(mesh, shape[seq_dim])
-    u = torch.rand(shape, generator=rngs["dropout"], device=x.device)
-    if shape != list(x.shape):
+            d = batch_dim + seq_dim
+            shape[d] *= mesh.seq_size
+            block[d] = shardlib.seq_cols(mesh, shape[d])
+    u = torch.rand(shape, generator=rngs["dropout"], device=device)
+    if shape != local:
         u = u[tuple(block)]
-    keep = u < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+    return u

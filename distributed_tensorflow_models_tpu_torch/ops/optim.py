@@ -3,7 +3,11 @@
 PyTorch counterpart of ``distributed_tensorflow_models_tpu/ops/optim.py``,
 written as functional transformations over dicts of tensors in the shape of
 optax's: ``init(params) -> state`` and
-``update(grads, state) -> (updates, state)``.
+``update(grads, state, norm=None) -> (updates, state)``.  ``norm``, where
+the caller has it, is the global norm of ``grads`` as whole arrays (the
+train step's ``grad_norm``, summed over the processes that hold split
+gradients): :func:`clip_by_global_norm` reads it in place of taking its
+own of this process's tensors.
 
 The updates are safe to capture in a CUDA graph: the step count is a 0-d
 int64 tensor on the parameters' device, a schedule is read from a device
@@ -37,7 +41,7 @@ ScalarOrSchedule = Union[float, Schedule]
 
 class GradientTransformation(NamedTuple):
     init: Callable[[Tensors], dict]
-    update: Callable[[Tensors, dict], tuple[dict, dict]]
+    update: Callable[..., tuple[dict, dict]]
     # The steps its device tables cover; None when it reads no table.
     num_steps: Optional[int] = None
 
@@ -149,7 +153,7 @@ def tf_momentum(learning_rate: ScalarOrSchedule, momentum: float = 0.9,
                 "trace": {k: torch.zeros_like(v) for k, v in params.items()}}
 
     @torch.no_grad()
-    def update(grads, state):
+    def update(grads, state, norm=None):
         lr = _at(rate, state["count"])
         names = list(grads)
         g = [grads[k] for k in names]
@@ -193,7 +197,7 @@ def tf_rmsprop(learning_rate: ScalarOrSchedule, decay: float = 0.9,
         return state
 
     @torch.no_grad()
-    def update(grads, state):
+    def update(grads, state, norm=None):
         lr = _at(rate, state["count"])
         names = list(grads)
         g = [grads[k] for k in names]
@@ -231,7 +235,7 @@ def sgd(learning_rate: ScalarOrSchedule,
         return {"count": _init_count(params, rate)}
 
     @torch.no_grad()
-    def update(grads, state):
+    def update(grads, state, norm=None):
         lr = _at(rate, state["count"])
         names = list(grads)
         updates = torch._foreach_mul([grads[k] for k in names], -lr)
@@ -267,7 +271,7 @@ def adam(learning_rate: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.999,
                 "nu": {k: torch.zeros_like(v) for k, v in params.items()}}
 
     @torch.no_grad()
-    def update(grads, state):
+    def update(grads, state, norm=None):
         count = state["count"]
         lr = _at(rate, count)
         count.add_(1)
@@ -293,14 +297,17 @@ def adam(learning_rate: ScalarOrSchedule, b1: float = 0.9, b2: float = 0.999,
 
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     """optax's rule (``tf.clip_by_global_norm``): leave the gradients alone
-    when their global norm is under ``max_norm``, else scale every one by
+    when their global norm (``update``'s ``norm`` where given, the whole
+    arrays' where the gradients are split over processes; else
+    :func:`global_norm`) is under ``max_norm``, else scale every one by
     ``max_norm / norm``.  Decided on the device, with no host sync."""
 
     def init(params):
         return {}
 
-    def update(grads, state):
-        norm = global_norm(grads)
+    def update(grads, state, norm=None):
+        if norm is None:
+            norm = global_norm(grads)
         keep = norm < max_norm
         return ({k: torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm)
                  for k, g in grads.items()}, state)
@@ -316,10 +323,14 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
     def init(params):
         return tuple(t.init(params) for t in transforms)
 
-    def update(grads, state):
+    def update(grads, state, norm=None):
         new_state = []
         for t, s in zip(transforms, state):
-            grads, s = t.update(grads, s)
+            # ``norm`` is the norm of the gradients as they came in: the
+            # first transformation's alone.
+            grads, s = (t.update(grads, s) if norm is None
+                        else t.update(grads, s, norm))
+            norm = None
             new_state.append(s)
         return grads, tuple(new_state)
 
@@ -401,5 +412,6 @@ def apply_updates(params: Tensors, updates: Tensors) -> None:
 
 
 def global_norm(tree: Tensors) -> torch.Tensor:
+    """The L2 norm of all of ``tree``'s tensors together, in f32."""
     return torch.sqrt(sum(torch.sum(torch.square(v.float()))
                           for v in tree.values()))

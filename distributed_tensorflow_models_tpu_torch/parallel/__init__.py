@@ -1,9 +1,14 @@
 """The parallel layers of the port: the Switch-MoE FFN over the data x seq
-processes (``moe.py``), tensor parallelism over the model axis
-(``tensor.py``: the rule sets and the split layers) and sequence
-parallelism over the seq axis (``ring.py``: ring and Ulysses attention).
-Pipeline and expert parallelism are not ported yet."""
+processes or the expert axis (``moe.py``), tensor parallelism over the
+model axis (``tensor.py``: the rule sets and the split layers), sequence
+parallelism over the seq axis (``ring.py``: ring and Ulysses attention)
+and pipeline parallelism over the pipe axis (``pipeline.py``: GPipe)."""
 
-from distributed_tensorflow_models_tpu_torch.parallel import moe, ring, tensor
+from distributed_tensorflow_models_tpu_torch.parallel import (
+    moe,
+    pipeline,
+    ring,
+    tensor,
+)
 
-__all__ = ["moe", "ring", "tensor"]
+__all__ = ["moe", "pipeline", "ring", "tensor"]

@@ -32,6 +32,16 @@ process's heads or hidden units) and the module applies *f* once to their
 shared input (:func:`enter`).  A row-parallel layer without its pair
 raises.
 
+The pipe and expert axes split the parameters their layers declare
+(``param_spec()``: :func:`...parallel.pipeline.pipeline_spec` for the
+pipelined block stack, :func:`...parallel.moe.moe_param_spec` for the MoE
+FFN): :func:`shard_model` cuts those too, dim 0 over the axis, and gives
+the layer the mesh it was cut on (``pipe_mesh``, ``expert_mesh``).  One
+record serves the three axes: ``model.split_dims`` maps each split
+parameter to ``(axis, dim)``, and the cut (:func:`local_slice`), the
+gather (:func:`gather_whole`), ``interop``'s flax trees and the gradient
+norm (:func:`split_axes`) read it.
+
 :func:`whole_state` and :func:`scatter_state_` gather a train state's
 split tensors to whole ones (a checkpoint holds whole tensors, as the JAX
 package's global arrays) and put a whole state's slices back in place.
@@ -213,19 +223,63 @@ def _split_dim(name: str, spec: Any, ndim: int) -> Optional[int]:
     return dims[0] if dims else None
 
 
-def shard_model(model: nn.Module, rules, mesh: Mesh) -> dict[str, int]:
+def _cut(owner: nn.Module, leaf: str, mesh: Mesh, axis: str, dim: int
+         ) -> None:
+    """Replace ``owner.<leaf>`` by this process's slice over ``axis``."""
+    param = getattr(owner, leaf)
+    piece = param.detach().chunk(mesh.shape[axis], dim=dim)[
+        mesh.coord(axis)].clone()
+    setattr(owner, leaf, nn.Parameter(piece,
+                                      requires_grad=param.requires_grad))
+
+
+def _layer_axis(name: str, spec: tuple) -> Optional[tuple[str, int]]:
+    """The ``(axis, dim)`` a layer's own spec splits a parameter over."""
+    dims = [(a, i) for i, a in enumerate(spec) if a is not None]
+    if len(dims) > 1:
+        raise ValueError(f"{name}: spec {spec} splits more than one dim")
+    return dims[0] if dims else None
+
+
+def shard_model(model: nn.Module, rules, mesh: Mesh
+                ) -> dict[str, tuple[str, int]]:
     """Cut every parameter of ``model`` that ``rules`` split over
-    ``model`` to this process's slice, in place, and give the layers their
-    :class:`Split` (module docstring).  Returns ``{name: dim}`` of the
-    split parameters (also kept as ``model.tp_dims``).  At a model axis of
-    one nothing changes: a slice of the whole is the whole, and no layer
-    is told to communicate."""
+    ``model``, and every parameter that its layer's ``param_spec()``
+    splits over ``pipe`` or ``expert`` (``param_spec(mesh)``), to this process's slice, in place;
+    give the model axis's layers their :class:`Split` (module docstring)
+    and a pipe or expert layer the mesh it was cut on (``pipe_mesh``,
+    ``expert_mesh``).  Returns ``{name: (axis, dim)}`` of the split
+    parameters (also kept as ``model.split_dims``, the mesh as
+    ``model.split_mesh``).  At an axis of one nothing changes: a slice of
+    the whole is the whole, and no layer is told to communicate."""
     specs = shardlib.tree_param_shardings(mesh, dict(model.named_parameters()),
                                           rules)
     n, m = mesh.model_size, mesh.coord(M)
-    dims: dict[str, int] = {}
+    dims: dict[str, tuple[str, int]] = {}
     modules = dict(model.named_modules())
+    for owner_name, owner in modules.items():
+        spec_of = getattr(owner, "param_spec", None)
+        if spec_of is None:
+            continue
+        for leaf, spec in spec_of(mesh).items():
+            name = f"{owner_name}.{leaf}" if owner_name else leaf
+            split = _layer_axis(name, tuple(spec))
+            if split is None:
+                continue
+            axis, dim = split
+            size = mesh.shape[axis]
+            param = getattr(owner, leaf)
+            if param.shape[dim] % size:
+                raise ValueError(f"{name}: dim {dim} of "
+                                 f"{tuple(param.shape)} does not split over "
+                                 f"a {axis} axis of {size}")
+            dims[name] = (axis, dim)
+            if size > 1:
+                _cut(owner, leaf, mesh, axis, dim)
+                setattr(owner, f"{axis}_mesh", mesh)
     for name, param in list(model.named_parameters()):
+        if name in dims:
+            continue
         dim = _split_dim(name, specs[name], param.ndim)
         if dim is None:
             continue
@@ -239,12 +293,10 @@ def shard_model(model: nn.Module, rules, mesh: Mesh) -> dict[str, int]:
         if param.shape[dim] % n:
             raise ValueError(f"{name}: dim {dim} of {tuple(param.shape)} "
                              f"does not split over a model axis of {n}")
-        dims[name] = dim
+        dims[name] = (M, dim)
         if n == 1:
             continue
-        piece = param.detach().chunk(n, dim=dim)[m].clone()
-        setattr(owner, leaf, nn.Parameter(piece,
-                                          requires_grad=param.requires_grad))
+        _cut(owner, leaf, mesh, M, dim)
         kind = _KINDS[key]
         if kind is not None:
             owner.tp = Split(mesh, kind)
@@ -276,19 +328,29 @@ def shard_model(model: nn.Module, rules, mesh: Mesh) -> dict[str, int]:
             raise ValueError(
                 f"{owner_name} is row-parallel without its column-parallel "
                 f"partner: its input would have to be split first")
-    model.tp_dims = dims
-    model.tp_split_mesh = mesh
+    model.split_dims = dims
+    model.split_mesh = mesh
     return dims
+
+
+def split_axes(model: nn.Module) -> dict[str, str]:
+    """``{name: axis}`` of ``model``'s parameters split over an axis wider
+    than one (empty for a model that was not cut)."""
+    mesh = getattr(model, "split_mesh", None)
+    return {name: axis for name, (axis, _) in
+            getattr(model, "split_dims", {}).items()
+            if mesh is not None and mesh.shape[axis] > 1}
 
 
 # ------------------------------------------------------- whole state trees
 
 
-def _map_named(tree, dims: Mapping[str, int], fn: Callable, key=None):
+def _map_named(tree, dims: Mapping[str, tuple[str, int]], fn: Callable,
+               key=None):
     """``tree`` with every tensor leaf stored under a split parameter's
-    name replaced by ``fn(leaf, dim)``."""
+    name replaced by ``fn(leaf, axis, dim)``."""
     if isinstance(tree, torch.Tensor):
-        return fn(tree, dims[key]) if key in dims else tree
+        return fn(tree, *dims[key]) if key in dims else tree
     if isinstance(tree, Mapping):
         return type(tree)((k, _map_named(v, dims, fn, k))
                           for k, v in tree.items())
@@ -300,24 +362,32 @@ def _map_named(tree, dims: Mapping[str, int], fn: Callable, key=None):
 
 
 @torch.no_grad()
-def gather_whole(t: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
-    """``t``'s slices over ``model`` concatenated along ``dim`` (a counted
+def gather_whole(t: torch.Tensor, mesh: Mesh, axis: str, dim: int
+                 ) -> torch.Tensor:
+    """``t``'s slices over ``axis`` concatenated along ``dim`` (a counted
     all-gather outside the step)."""
-    return torch.cat(shardlib._gather_list(t, mesh.axis_group(M),
-                                           mesh.model_size,
-                                           f"{M}/state_gather"), dim=dim)
+    return torch.cat(shardlib._gather_list(t, mesh.axis_group(axis),
+                                           mesh.shape[axis],
+                                           f"{axis}/state_gather"), dim=dim)
+
+
+def _wide_dims(model: nn.Module, mesh: Mesh) -> dict[str, tuple[str, int]]:
+    """The split dims of ``model`` over the axes of ``mesh`` wider than
+    one."""
+    return {k: v for k, v in getattr(model, "split_dims", {}).items()
+            if mesh.shape[v[0]] > 1}
 
 
 def whole_state(state, mesh: Mesh):
     """``state`` with its split tensors (the parameters, their optimizer
     slots and EMA shadows) gathered whole, the others the live tensors
     themselves.  ``state`` itself when nothing is split."""
-    dims = getattr(state.model, "tp_dims", None)
-    if not dims or mesh.model_size == 1:
+    dims = _wide_dims(state.model, mesh)
+    if not dims:
         return state
 
-    def full(t, dim):
-        return gather_whole(t, mesh, dim)
+    def full(t, axis, dim):
+        return gather_whole(t, mesh, axis, dim)
 
     return state.replace(
         params=_map_named(state.params, dims, full),
@@ -330,15 +400,14 @@ def scatter_state_(state, whole, mesh: Mesh):
     """Copy this process's slices of ``whole`` (a state of
     :func:`whole_state`'s layout, restored) into ``state``'s live split
     tensors; returns ``whole`` with them in place of its gathered ones."""
-    dims = getattr(state.model, "tp_dims", None)
-    if not dims or mesh.model_size == 1:
+    dims = _wide_dims(state.model, mesh)
+    if not dims:
         return whole
-    n, m = mesh.model_size, mesh.coord(M)
 
     def put(live, saved, key=None):
         if isinstance(live, torch.Tensor):
             if key in dims:
-                live.copy_(saved.chunk(n, dim=dims[key])[m])
+                live.copy_(local_slice(key, saved, dims, mesh))
                 return live
             return saved
         if isinstance(live, Mapping):
@@ -355,15 +424,17 @@ def scatter_state_(state, whole, mesh: Mesh):
         ema_params=put(state.ema_params, whole.ema_params))
 
 
-def local_slice(name: str, value: torch.Tensor, dims: Mapping[str, int],
-                mesh: Optional[Mesh]) -> torch.Tensor:
+def local_slice(name: str, value, dims: Mapping[str, tuple[str, int]],
+                mesh: Optional[Mesh]):
     """This process's slice of a whole parameter ``value`` (a tensor or a
-    numpy array) named ``name`` (``value`` itself where it is not
-    split)."""
-    if mesh is None or name not in dims or mesh.model_size == 1:
+    numpy array) named ``name`` over its axis (``value`` itself where it
+    is not split, or its axis has size one)."""
+    if mesh is None or name not in dims:
         return value
-    n, m = mesh.model_size, mesh.coord(M)
+    axis, dim = dims[name]
+    n, c = mesh.shape[axis], mesh.coord(axis)
+    if n == 1:
+        return value
     if isinstance(value, torch.Tensor):
-        return value.chunk(n, dim=dims[name])[m]
-    return np.split(np.asarray(value), n, axis=dims[name])[m]
-
+        return value.chunk(n, dim=dim)[c]
+    return np.split(np.asarray(value), n, axis=dim)[c]

@@ -51,6 +51,12 @@ Data parallel: a world-1 NCCL process group, its collectives captured
 and replayed with the step, must leave cut ResNet-32's ``fit`` equal to
 the ``fit`` without a group bit for bit.
 
+Pipeline and expert parallelism, one rank's arithmetic: the pipelined
+stack's GPipe schedule of n virtual stages (``PipelinedBlocks.emulate``,
+K2-K4 in every stage) against its sequential schedule within the K2-K4
+tolerance, and the expert layout's per-rank arithmetic (``moe.emulate``)
+against ``moe_ffn_reference(num_ranks=E)`` within f32 summation order.
+
 K6 (the persistent, ring-pipelined K1) must equal K1 bit for bit, in both
 dtypes.  K5's
 dK and dV come from K3's own code and must equal K3's bit for bit; its dQ
@@ -1855,3 +1861,114 @@ def test_cnn_tp_split_convolutions_equal_k1_on_all_channels(cuda):
             conv_mxu.conv_implicit_gemm(x, w[..., :c].contiguous()),
             conv_mxu.conv_implicit_gemm(x, w[..., c:].contiguous())], dim=-1)
         assert torch.equal(halves, whole), (xs, ks)
+
+
+PIPE_GPU_CASES = [(2, 4), (4, 8)]
+
+
+@pytest.mark.parametrize("case", PIPE_GPU_CASES,
+                         ids=lambda c: f"n{c[0]}-m{c[1]}")
+def test_pipeline_emulation_on_card_matches_sequential(cuda, case):
+    """The pipelined stack (4 layers, d 128, flash, dropout 0.1) by the
+    GPipe tick schedule of n virtual stages (``PipelinedBlocks.emulate``)
+    against its sequential schedule on the same weights and dropout bits,
+    at m microbatches: the output and every gradient within the K2-K4
+    tolerance, K2/K3/K4 one launch a layer a microbatch."""
+    n, m = case
+    model = TransformerLM(num_layers=4, num_heads=4, d_model=128, d_ff=256,
+                          max_len=256, vocab_size=64, dropout_rate=0.1,
+                          attn_impl="flash", pipelined=True,
+                          pipeline_microbatches=m,
+                          generator=torch.Generator().manual_seed(0)).to(cuda)
+    stack = model.pipeline
+    rng = np.random.default_rng(53)
+    x, dy = _bf16(rng, (8, 256, 128)), _bf16(rng, (8, 256, 128))
+    params = list(stack.parameters())
+    kernels = (attnlib.flash_forward, attnlib.flash_dkv, attnlib.flash_dq)
+    runs = []
+    for emulated in (False, True):
+        xs = x.clone().requires_grad_()
+        rngs = {"dropout": torch.Generator(device="cuda").manual_seed(7)}
+        before = [fn.launches for fn in kernels]
+        y = (stack.emulate(xs, n, True, rngs) if emulated
+             else stack(xs, True, rngs))
+        grads = torch.autograd.grad(y, [xs, *params], dy)
+        torch.cuda.synchronize()
+        assert [fn.launches - b for fn, b in zip(kernels, before)] == (
+            [4 * m] * 3)
+        runs.append([y.detach(), *grads])
+    for what, got, want in zip(["out", "dx", *stack.PARAMS], *runs):
+        assert bool(torch.isfinite(got).all()), what
+        _assert_flash_close(got, want, f"pipeline {what}")
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_expert_emulation_on_card_matches_the_reference(cuda, ranks):
+    """``moe.emulate`` (the expert layout's per-rank arithmetic: chunk
+    routing, the two exchanges as list transposes, each rank's experts)
+    at 2048 tokens, d 128, f 256, 4 experts on the card against
+    ``moe_ffn_reference(num_ranks=ranks)``: out and the gradients within
+    f32 summation order (1e-4 relative plus 1e-5 of the scale), aux and
+    the dropped fraction within 1e-4."""
+    from distributed_tensorflow_models_tpu_torch.parallel import moe
+
+    params = {k: v.to(cuda) for k, v in moe.init_moe_params(
+        4, 128, 256, torch.Generator().manual_seed(4)).items()}
+    x = torch.from_numpy(np.random.default_rng(32).standard_normal(
+        (2048, 128), dtype=np.float32)).to(cuda)
+    runs = []
+    for fn in (moe.emulate, moe.moe_ffn_reference):
+        p = {k: v.clone().requires_grad_() for k, v in params.items()}
+        xs = x.clone().requires_grad_()
+        r = fn(p, xs, num_ranks=ranks)
+        loss = torch.mean(r.out ** 2) + 0.01 * r.aux_loss
+        runs.append((r, torch.autograd.grad(loss, [xs, *p.values()])))
+    (a, ga), (b, gb) = runs
+    for got, want in zip((a.out, *ga), (b.out, *gb)):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got.detach(), want.detach(), rtol=1e-4,
+                                   atol=1e-5 * scale)
+    assert abs(float(a.aux_loss.detach()) - float(b.aux_loss.detach())) <= 1e-4
+    assert abs(float(a.dropped_fraction) - float(b.dropped_fraction)) <= 1e-4
+
+
+def test_nccl_group_of_one_sums_bf16_unchanged(cuda):
+    """F8: in a world-1 NCCL group a sum of a bf16 tensor leaves it as it
+    is (NCCL's sum pre-multiplied by 1 gave zeros for bf16 on the card, so
+    the port issues bf16 sums as the plain SUM), and the MoE transformer,
+    whose token gather's backward sums a bf16 cotangent over the data
+    group, trains in the group as without one."""
+    import socket
+
+    import torch.distributed as dist
+
+    from distributed_tensorflow_models_tpu_torch.core import mesh as meshlib
+    from distributed_tensorflow_models_tpu_torch.core import sharding
+    from distributed_tensorflow_models_tpu_torch.harness import config as tconfig
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+
+    cfg = tconfig.get_config("transformer_lm_moe", train_steps=4,
+                             steps_per_loop=2, **MOE_LM)
+    alone = trainlib.fit(cfg, device="cuda", mesh=meshlib.local_mesh("cuda"))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    meshlib.initialize_multihost(f"127.0.0.1:{port}", 1, 0)
+    try:
+        mesh = trainlib.mesh_from_config(cfg)
+        assert mesh.backend == "nccl"
+        base = torch.randn(4096, generator=torch.Generator(
+            device="cuda").manual_seed(0), device="cuda")
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            x = base.to(dtype)
+            y = sharding.all_reduce_sum_(x.clone(), mesh, "test", dp=True)
+            assert torch.equal(y, x), dtype
+        grouped = trainlib.fit(cfg, device="cuda")
+    finally:
+        dist.destroy_process_group()
+    assert [h["loss"] for h in grouped.history] == [
+        h["loss"] for h in alone.history]
+    _assert_lm_states_close(_state_tensors(grouped.state),
+                            _state_tensors(alone.state),
+                            [h["loss"] for h in grouped.history],
+                            [h["loss"] for h in alone.history])

@@ -5,7 +5,8 @@ data-parallel paths of BatchNorm, dropout, ``TrainStep`` and ``fit``.
 - ``MeshSpec.sizes`` (copied) against the JAX package's over a grid of
   specs and device counts, its raises included; ``local_batch_size``'s
   raises; ``batch_rows``; ``initialize_from_env`` without the cluster's
-  variables; the axes, configs and sharding rules that are not ported.
+  variables; the axes, configs and sharding rules beyond the data axis
+  (all ported now).
 - Dropout under a data axis of W processes (a simulated mesh: dropout
   reads only the axis's size and this process's index) draws the global
   batch's mask and keeps its rows.
@@ -116,14 +117,10 @@ def test_a_cuda_group_without_cuda_raises():
     ("mesh_model", 2), ("mesh_seq", 2), ("mesh_pipe", 2), ("mesh_expert", 2),
     ("param_rules", "head_tp")])
 def test_non_data_parallel_configs_raise_not_ported(field, value):
-    """The model and seq axes and the rule sets are ported: their configs
-    build.  The pipe and expert axes still raise "not ported"."""
-    if field in ("mesh_pipe", "mesh_expert"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tconfig.get_config("lenet_mnist", **{field: value})
-    else:
-        cfg = tconfig.get_config("lenet_mnist", **{field: value})
-        assert getattr(cfg, field) == value
+    """The model, seq, pipe and expert axes and the rule sets are ported:
+    their configs build (nothing raises "not ported" any more)."""
+    cfg = tconfig.get_config("lenet_mnist", **{field: value})
+    assert getattr(cfg, field) == value
     tconfig.get_config("lenet_mnist", mesh_data=1)
 
 
@@ -164,12 +161,17 @@ def test_cli_list_shows_the_param_rules(capsys):
 
 
 def test_axes_and_rules_beyond_data_raise_not_ported():
-    """A model axis builds and rules place parameters (first match wins,
-    the rest replicated); a pipe or expert axis still raises."""
-    assert meshlib._not_ported((1, 2, 1, 1, 1)) == (1, 2, 1, 1, 1)
-    for sizes in ((1, 1, 1, 2, 1), (1, 1, 1, 1, 2)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            meshlib._not_ported(sizes)
+    """Every axis builds now (a mesh of the model, pipe or expert axis
+    says its sizes and coordinates), and rules place parameters (first
+    match wins, the rest replicated)."""
+    for sizes in ((1, 2, 1, 1, 1), (1, 1, 1, 2, 1), (1, 1, 1, 1, 2)):
+        spec = dict(zip(("data", "model", "seq", "pipe", "expert"), sizes))
+        assert meshlib.MeshSpec(**spec).sizes(2) == sizes
+        coords = tuple(int(n > 1) for n in sizes)
+        mesh = meshlib.Mesh(sizes, 0, 1, CPU, coords=coords)
+        assert (mesh.model_size, mesh.pipe_size, mesh.expert_size) == (
+            sizes[1], sizes[3], sizes[4])
+        assert mesh.global_rank() == 1
     params = {"w": torch.zeros(2), "head.kernel": torch.zeros(2, 3)}
     assert sharding.tree_param_shardings(_mesh(1), params) == {
         "w": sharding.REPLICATED, "head.kernel": sharding.REPLICATED}

@@ -126,7 +126,9 @@ def test_validation_errors_match_jax():
 def test_moe_ffn_without_a_group_is_the_one_rank_reference():
     """No mesh, or a mesh of one with no group: ``moe_ffn`` is the
     reference at one rank, bit for bit; a data axis of 2 with no group to
-    gather over raises, and so does an expert axis."""
+    gather over raises, and so does an expert axis of 2 with no group to
+    exchange over (the expert axis is ported:
+    ``tests/test_torch_expert_parallel.py``)."""
     params, x = _inputs(seed=3)
     tp, tx = _torch(params, x)
     want = tmoe.moe_ffn_reference(tp, tx, num_ranks=1)
@@ -138,7 +140,7 @@ def test_moe_ffn_without_a_group_is_the_one_rank_reference():
     with pytest.raises(RuntimeError, match="no process group"):
         tmoe.moe_ffn(tp, tx, mesh=two)
     expert = tmesh.Mesh((1, 1, 1, 1, 2), 0, 1, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(RuntimeError, match="no process group"):
         tmoe.moe_ffn(tp, tx, mesh=expert)
 
 

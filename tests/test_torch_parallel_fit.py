@@ -11,9 +11,20 @@ trains 3 steps on each layout:
 - ``seq=2`` with the ring and with Ulysses, ``model=2`` (``transformer_tp``,
   fused head), the ring with GQA, a window and RoPE, the ring with the
   MoE blocks under remat (the MoE routes the global batch of data x seq),
-  and ``model=2 x seq=2`` on 4 processes: each step's loss within 1e-3 of
+  and ``model=2 x seq=2`` on 4 processes; the pipelined stack at
+  ``pipe=2``, ``pipe=4`` and ``data=2 x pipe=2``, the MoE blocks at
+  ``expert=2`` and ``data=2 x expert=2``: each step's loss within 1e-3 of
   the one-process run (the JAX package asks that of its layouts), and each
-  layout's collectives on its own axis;
+  layout's collectives on its own axis.  The pipe layouts of one data
+  block equal the one-process run bit for bit.  The expert layout routes
+  each chunk with its own capacity and averages the chunks' aux losses
+  (``moe_ffn_reference(num_ranks=E)``, the per-source accounting of the
+  JAX package's layout): its one-process oracle routes so too; at
+  capacity factor 8, where no token is dropped either way, the first
+  step's nll also equals the plain one-process run's;
+- F7: under SGD with a clip that acts at every step, the ``model=2``,
+  ``pipe=2`` and ``expert=2`` runs equal the one-process run (losses,
+  ``grad_norm``, the parameters): the global norm is the whole arrays';
 - the ring's first loss with dropout off against the JAX package's
   single-device loss from the same flax tree (fused head: rtol 1e-4);
 - ``eval`` of a ring run's checkpoint on the seq mesh against the same eval
@@ -87,15 +98,55 @@ AXIS_SITES = {
                   "model/gather": 1, "model/weight_gather": 2,
                   "model/sum": 2 * LAYERS, "model/copy_grad": 2 * LAYERS},
 }
+# The pipeline's M + n - 2 rotations each way, its input's *f*, its
+# output's *g* (the activations; the row ids are returned as given), and
+# the norm's sum.
+MICRO = worker.PIPE_KW["pipeline_microbatches"]
+for _name, _n in (("pipe", 2), ("pipe4", 4), ("data_pipe", 2)):
+    AXIS_SITES[_name] = {"pipe/rotate": MICRO + _n - 2,
+                         "pipe/rotate_grad": MICRO + _n - 2,
+                         "pipe/input_grad": 1, "pipe/output": 1,
+                         "pipe/norm": 1}
+# One MoE block (blocks_1): its two all-to-alls each way, the chunks'
+# gather and its backward, the aux/dropped mean, the router's *f*, and
+# the norm's sum over the split experts.
+for _name in ("expert", "data_expert"):
+    AXIS_SITES[_name] = {
+        "expert/dispatch": 1, "expert/return": 1, "expert/dispatch_grad": 1,
+        "expert/return_grad": 1, "expert/tokens": 1,
+        "expert/tokens_grad": 1, "expert/stats": 1, "expert/router_grad": 1,
+        "expert/norm": 1}
+AXES = ("model", "seq", "pipe", "expert")
 FITS = [(w, name) for w in (2, 4) for name in worker.FIT_CASES[w]]
+
+
+def _route_by_chunks(monkeypatch, kw):
+    """Where ``kw`` splits the MoE's experts over E processes, make the
+    one-process MoE route as that layout does: the global tokens in E
+    chunks, each with its own capacity (``moe_ffn_reference(num_ranks=
+    E)``)."""
+    ranks = kw.get("mesh_expert", 1)
+    if ranks == 1:
+        return
+    from distributed_tensorflow_models_tpu_torch.parallel import moe
+
+    def by_chunks(params, x, *, mesh=None, capacity_factor=1.25,
+                  activation=torch.relu):
+        res = moe.moe_ffn_reference(
+            params, x.reshape(-1, x.shape[-1]), num_ranks=ranks,
+            capacity_factor=capacity_factor, activation=activation)
+        return res._replace(out=res.out.reshape(x.shape))
+
+    monkeypatch.setattr(moe, "moe_ffn", by_chunks)
 
 
 @pytest.mark.parametrize("world,name", FITS, ids=[n for _, n in FITS])
 def test_fit_on_each_layout_matches_one_process(cluster2, cluster4, world,
-                                                name):
+                                                name, monkeypatch):
     got = json.loads(({2: cluster2, 4: cluster4}[world]
                       / f"fits{world}.json").read_text())[name]
     kw = worker.FIT_CASES[world][name]
+    _route_by_chunks(monkeypatch, kw)
     want = trainlib.fit(_one_process(kw), device="cpu",
                         mesh=meshlib.local_mesh("cpu"))
     np.testing.assert_allclose(got["loss"], [float(r["loss"]) for r in
@@ -104,7 +155,67 @@ def test_fit_on_each_layout_matches_one_process(cluster2, cluster4, world,
         assert got["collectives"][site][0] == per_step * STEPS, site
     # Nothing rides an axis of size one.
     axes = {s.split("/")[0] for s in got["collectives"] if "/" in s}
-    assert axes == {a for a in ("model", "seq") if kw.get(f"mesh_{a}", 1) > 1}
+    assert axes == {a for a in AXES if kw.get(f"mesh_{a}", 1) > 1}
+
+
+@pytest.mark.parametrize("world,name", [(2, "pipe"), (4, "pipe4")])
+def test_pipe_fit_equals_one_process_bit_for_bit(cluster2, cluster4, world,
+                                                 name):
+    """One data block on a pipe axis computes each microbatch's layers as
+    the one process does, and its only sums add zeros (the input's *f*,
+    the output's *g*): the losses are equal bit for bit."""
+    got = json.loads(({2: cluster2, 4: cluster4}[world]
+                      / f"fits{world}.json").read_text())[name]
+    want = trainlib.fit(_one_process(worker.FIT_CASES[world][name]),
+                        device="cpu", mesh=meshlib.local_mesh("cpu"))
+    assert got["loss"] == [float(r["loss"]) for r in want.history]
+    assert got["nll"] == [float(r["nll"]) for r in want.history]
+
+
+@pytest.mark.parametrize("world,name", [(2, "expert"), (4, "data_expert")])
+def test_expert_fit_first_nll_equals_one_process(cluster2, cluster4, world,
+                                                 name):
+    """At capacity factor 8 no token is dropped by the expert layout's
+    per-chunk capacity nor by one process's global one, so at the initial
+    weights the two compute the same outputs: the first step's nll
+    agrees to round-off (the aux losses differ by design: a mean of the
+    chunks' against the global set's)."""
+    got = json.loads(({2: cluster2, 4: cluster4}[world]
+                      / f"fits{world}.json").read_text())[name]
+    want = trainlib.fit(_one_process(worker.FIT_CASES[world][name]),
+                        device="cpu", mesh=meshlib.local_mesh("cpu"))
+    np.testing.assert_allclose(got["nll"][0], float(want.history[0]["nll"]),
+                               rtol=1e-6)
+    assert got["aux_loss"][0] > 0
+
+
+@pytest.mark.parametrize("name", list(worker.CLIP_CASES))
+def test_clipped_fit_on_a_split_layout_matches_one_process(cluster2, name,
+                                                           monkeypatch):
+    """F7: clipping reads the global norm of the whole arrays.  With a
+    clip far below the gradient norm it scales every step, so a norm
+    taken over one process's slices of the split gradients would move
+    the trajectory (and report a smaller ``grad_norm``).  The norm is
+    taken once a step, for the metric and the clip alike: one sum over
+    the layout's axis."""
+    got = np.load(cluster2 / "clips.npz")
+    kw = worker.CLIP_CASES[name]
+    _route_by_chunks(monkeypatch, kw)
+    want = trainlib.fit(_one_process(kw).replace(optimizer=worker.CLIP),
+                        device="cpu", mesh=meshlib.local_mesh("cpu"))
+    norms = [float(r["grad_norm"]) for r in want.history]
+    assert min(norms) > 10 * worker.CLIP.clip_global_norm
+    np.testing.assert_allclose(got[f"{name}/__loss"],
+                               [float(r["loss"]) for r in want.history],
+                               atol=LOSS_ATOL)
+    np.testing.assert_allclose(got[f"{name}/__grad_norm"], norms, rtol=1e-5)
+    assert int(got[f"{name}/__norm_sums"]) == STEPS
+    flat = worker._flat(interop.to_flax_variables(want.state.model)["params"])
+    assert {k[len(name) + 1:] for k in got.files
+            if k.startswith(f"{name}/") and "__" not in k} == set(flat)
+    for k, v in flat.items():
+        np.testing.assert_allclose(got[f"{name}/{k}"], np.asarray(v),
+                                   rtol=1e-4, atol=1e-5, err_msg=k)
 
 
 def test_first_ring_loss_matches_jax(cluster2):

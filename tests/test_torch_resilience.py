@@ -264,9 +264,13 @@ def test_fit_runs_under_the_watchdog(straight):
 
 def test_chaos_is_not_ported():
     """Chaos is ported now (``tests/test_torch_chaos.py``): a config with
-    a fault builds, and what stays unported (the pipe axis; the model axis
-    is ported since tensor parallelism) still raises."""
+    a fault builds, and so does one with a pipe axis (ported since
+    pipeline parallelism); what stays unported of the fleet (the serving
+    autoscaler) still raises."""
+    from distributed_tensorflow_models_tpu_torch import launch
+
     cfg = tconfig.get_config("lenet_mnist", chaos={"nan_at_step": 3})
     assert cfg.chaos == {"nan_at_step": 3}
+    assert tconfig.get_config("lenet_mnist", mesh_pipe=2).mesh_pipe == 2
     with pytest.raises(NotImplementedError, match="not ported"):
-        tconfig.get_config("lenet_mnist", mesh_pipe=2)
+        launch.FleetAutoscaler()

@@ -200,15 +200,16 @@ def test_interop_loads_each_processes_slices_exactly():
                         process_index=1, process_count=2)
     cut = worker.tp_model("transformer_tp")
     dims = tensor.shard_model(cut, tensor.get_rules("transformer_tp"), mesh)
-    assert dims["blocks_0.attn.out.kernel"] == 0
-    assert dims["head.kernel"] == 1 and "blocks_0.ln1.scale" not in dims
+    assert dims["blocks_0.attn.out.kernel"] == ("model", 0)
+    assert dims["head.kernel"] == ("model", 1)
+    assert "blocks_0.ln1.scale" not in dims
     with torch.no_grad():
         for p in cut.parameters():
             p.zero_()
     interop.load_flax_variables(cut, flax)
     ref = dict(whole.named_parameters())
     for k, p in cut.named_parameters():
-        want = ref[k] if k not in dims else ref[k].chunk(2, dims[k])[1]
+        want = ref[k] if k not in dims else ref[k].chunk(2, dims[k][1])[1]
         assert torch.equal(p, want), k
 
 

@@ -535,19 +535,22 @@ def test_embed_matmul_grad_matches_jax(case, dtype):
                                 dict(pos_encoding="rope", decode=True)],
                          ids=["decode", "moe", "pipelined", "remat", "rope"])
 def test_unported_paths_raise(kw):
-    """Only the pipelined stack still raises "not ported".  Decode mode,
-    with learned or rotary positions, is ported: the model builds and
-    takes its cache (tests/test_torch_generate.py holds it to JAX).  The
-    MoE stack builds with its experts on the odd blocks, and remat builds
-    with the dense stack's parameters; both are held to JAX in
-    ``test_moe_*`` below and ``tests/test_torch_remat.py``."""
+    """Nothing raises "not ported" any more.  Decode mode, with learned
+    or rotary positions, is ported: the model builds and takes its cache
+    (tests/test_torch_generate.py holds it to JAX).  The MoE stack builds
+    with its experts on the odd blocks, and remat builds with the dense
+    stack's parameters; both are held to JAX in ``test_moe_*`` below and
+    ``tests/test_torch_remat.py``.  The pipelined stack builds with its
+    stacked parameters in place of the blocks
+    (``tests/test_torch_gpipe.py`` holds it to JAX)."""
     if kw.get("decode"):
         model = TransformerLM(**TINY, **kw)
         assert model.decode and int(model.init_cache(1).index) == 0
         return
     if kw.get("pipelined"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            TransformerLM(**TINY, **kw)
+        names = set(dict(TransformerLM(**TINY, **kw).named_parameters()))
+        assert "pipeline.wq" in names
+        assert not any(n.startswith("blocks_") for n in names)
         return
     model = TransformerLM(**TINY, **kw)
     names = set(dict(model.named_parameters()))

@@ -3,8 +3,9 @@
 ``cluster(tmp_path_factory, world)`` launches ``world`` processes of
 ``tests/torch_parallel_worker.py`` (2 or 4, gloo on the CPU) through the
 port's own ``launch.launch_local`` and returns their output directory;
-with 2 it then runs the CLI's ``train --mesh-seq 2 --seq-impl ring`` as a
-2-process cluster of its own into ``<outdir>/cli_ring``.  The first xdist
+with 2 it then runs the CLI's ``train`` as a 2-process cluster of its own
+on each of :data:`CLI_RUNS` (``--mesh-seq 2 --seq-impl ring``,
+``--mesh-pipe 2``, ``--mesh-expert 2``) into ``<outdir>/cli_<name>``.  The first xdist
 worker to take the machine-wide multi-process lock (the one the other
 clusters of the port's tests take) runs it and leaves its output in the
 session's shared temporary directory; the others read it there.
@@ -24,9 +25,16 @@ from distributed_tensorflow_models_tpu_torch import launch
 WORKER = Path(__file__).resolve().parent / "torch_parallel_worker.py"
 REPO = WORKER.parent.parent
 CLI_ARGV = ["-m", "distributed_tensorflow_models_tpu_torch.harness.cli",
-            "train", "--config", "transformer_lm_tiny", "--batch-size", "4",
-            "--train-steps", "2", "--mesh-seq", "2", "--seq-impl", "ring",
-            "--device", "cpu"]
+            "train", "--batch-size", "4", "--train-steps", "2", "--device",
+            "cpu"]
+# name -> the config and mesh flags of a CLI run.
+CLI_RUNS = {
+    "ring": ["--config", "transformer_lm_tiny", "--mesh-seq", "2",
+             "--seq-impl", "ring"],
+    "pipe": ["--config", "transformer_lm_tiny", "--mesh-pipe", "2"],
+    "expert": ["--config", "transformer_lm_moe", "--mesh-expert", "2",
+               "--batch-size", "2", "--train-steps", "1"],
+}
 
 
 def _free_port() -> int:
@@ -57,10 +65,13 @@ def cluster(tmp_path_factory, world: int) -> Path:
                 codes = launch.launch_local(
                     world, [sys.executable, str(WORKER), str(out)],
                     port=_free_port(), extra_env=_env(), timeout=300)
-                if world == 2 and codes == [0, 0]:
+                for name, flags in (CLI_RUNS.items() if world == 2
+                                     else ()):
+                    if codes != [0] * len(codes):
+                        break
                     codes += launch.launch_local(
-                        2, [sys.executable, *CLI_ARGV, "--workdir",
-                            str(out / "cli_ring")],
+                        2, [sys.executable, *CLI_ARGV, *flags, "--workdir",
+                            str(out / f"cli_{name}")],
                         port=_free_port(), extra_env=_env(), timeout=120)
                 (out / "codes.json").write_text(json.dumps(codes))
         finally:

@@ -25,7 +25,18 @@ under ``<outdir>`` (``*_p<rank>.npz`` and ``*.json``):
   the ring's first loss with dropout off, an eval of a seq-layout
   checkpoint on the seq mesh, a ``model=2`` run killed at step 2 and
   resumed against its straight run, and the MoE FFN on each process's
-  block under data x seq.
+  block under data x seq;
+- :data:`CLIP_CASES` (world 2) — ``fit`` under SGD with a global-norm
+  clip that acts at every step on the ``model``, ``pipe`` and ``expert``
+  layouts: losses, ``grad_norm`` and the whole parameters at the end;
+- :data:`STAGE_CASES` — ``pipeline_apply`` of the JAX package's tanh
+  stages (forward and gradients), and :data:`PIPE_LM_CASES` the pipelined
+  tiny transformer's loss and gradients (dropout 0.3) on the pipe
+  layouts of the world's size; :data:`EXPERT_CASES` the expert-parallel
+  MoE FFN (out, aux, dropped, gradients) on the expert layouts; at world
+  2 a ``pipe=2`` run checkpointed at step 2 and resumed against its
+  straight run, and evals of pipe and expert checkpoints on their
+  meshes.
 
 The models' weights are built whole from their seeds, every bias set to a
 seeded nonzero value (a bias added before a row-parallel sum would show),
@@ -93,6 +104,12 @@ LM = get_config("transformer_lm_tiny", train_steps=3, global_batch_size=4,
                 checkpoint_every_secs=10_000.0,
                 optimizer=OptimizerConfig(name="adam", learning_rate=1e-3),
                 model_kwargs=LM_KW)
+# The pipelined tiny transformer: 4 layers (one a stage at pipe 4), two
+# microbatches; the MoE one at capacity factor 8, where no token drops and
+# the expert layout's per-chunk capacity routes as one process does.
+PIPE_KW = {**LM_KW, "num_layers": 4, "pipelined": True,
+           "pipeline_microbatches": 2}
+MOE_KW = {**LM_KW, "num_experts": 4, "moe_capacity_factor": 8.0}
 FIT_CASES = {
     2: {
         "ring": dict(mesh_data=1, mesh_seq=2, seq_impl="ring"),
@@ -111,8 +128,46 @@ FIT_CASES = {
                           seq_impl="ring"),
     },
 }
+FIT_CASES[2].update({
+    "pipe": dict(mesh_data=1, mesh_pipe=2, model_kwargs=PIPE_KW),
+    "expert": dict(mesh_data=1, mesh_expert=2, fused_unembed=False,
+                   model_kwargs=MOE_KW),
+})
+FIT_CASES[4].update({
+    "pipe4": dict(mesh_data=1, mesh_pipe=4, model_kwargs=PIPE_KW),
+    "data_pipe": dict(mesh_data=2, mesh_pipe=2, model_kwargs=PIPE_KW),
+    "data_expert": dict(mesh_data=2, mesh_expert=2, fused_unembed=False,
+                        model_kwargs=MOE_KW),
+})
 # The fields that make a layout; the data-parallel oracle resets them.
-LAYOUT = dict(mesh_data=-1, mesh_model=1, mesh_seq=1, seq_impl=None)
+LAYOUT = dict(mesh_data=-1, mesh_model=1, mesh_seq=1, mesh_pipe=1,
+              mesh_expert=1, seq_impl=None)
+
+# SGD with a clip far below the tiny transformer's gradient norm (~2-4),
+# so it scales every step: the norm must be the whole arrays'.
+CLIP = OptimizerConfig(name="sgd", learning_rate=0.5, clip_global_norm=0.05)
+CLIP_CASES = {
+    "model": dict(mesh_data=1, mesh_model=2),
+    "pipe": dict(mesh_data=1, mesh_pipe=2, model_kwargs=PIPE_KW),
+    "expert": dict(mesh_data=1, mesh_expert=2, fused_unembed=False,
+                   model_kwargs=MOE_KW),
+}
+
+# The JAX package's pipeline test (tests/test_pipeline.py): 4 tanh stages
+# of width 16, 8 microbatches of 4 rows; a process of a pipe axis of n
+# applies 4/n of them.
+STAGES, MICRO, MICRO_ROWS, WIDTH = 4, 8, 4, 16
+STAGE_CASES = {2: {"pipe2": dict(data=1, pipe=2)},
+               4: {"pipe4": dict(data=1, pipe=4),
+                   "data_pipe": dict(data=2, pipe=2)}}
+PIPE_LM_CASES = STAGE_CASES
+PIPE_LM_KW = {**PIPE_KW, "dropout_rate": 0.3, "attn_impl": "reference"}
+# The JAX package's MoE test (tests/test_moe.py): 8 experts, d 16, f 32,
+# 64 tokens.
+EXPERTS, MOE_D, MOE_F, MOE_TOKENS = 8, 16, 32, 64
+EXPERT_CASES = {2: {"expert2": dict(data=1, expert=2)},
+                4: {"expert4": dict(data=1, expert=4),
+                    "data_expert": dict(data=2, expert=2)}}
 
 TP_LR = 0.1
 # name -> (model, model kwargs, rule set, loss kind)
@@ -263,7 +318,9 @@ def run_fits(out: str, world: int, rank: int) -> None:
         before = sharding.collective_counts()
         res = trainlib.fit(LM.replace(**kw), device="cpu")
         results[name] = {
-            "loss": [float(r["loss"]) for r in res.history],
+            **{k: [float(r[k]) for r in res.history]
+               for k in ("loss", "nll", "aux_loss", "grad_norm")
+               if k in res.history[0]},
             "collectives": {k: list(v) for k, v in
                             sharding.counts_since(before).items()}}
     if rank == 0:
@@ -354,6 +411,214 @@ def moe_on_blocks(out: str, mesh, rank: int) -> None:
                               zip(params, grads[1:])}})
 
 
+def stage_inputs():
+    """The tanh stages' stacked parameters, the microbatches and the
+    target, as the JAX package's test draws them (numpy)."""
+    rng = np.random.RandomState(0)
+    w, b = [], []
+    for _ in range(STAGES):
+        w.append((rng.randn(WIDTH, WIDTH) / np.sqrt(WIDTH)).astype(
+            np.float32))
+        b.append((rng.randn(WIDTH) * 0.1).astype(np.float32))
+    x = rng.randn(MICRO * MICRO_ROWS, WIDTH).astype(np.float32)
+    return {"w": np.stack(w), "b": np.stack(b)}, x
+
+
+def tanh_stage(p, x):
+    """The JAX test's ``tanh(x @ w + b)`` for each of the stage's layers."""
+    for i in range(len(p["w"])):
+        x = torch.tanh(x @ p["w"][i] + p["b"][i])
+    return x
+
+
+def run_stages(out: str, world: int, rank: int) -> None:
+    """``pipeline_apply`` of the tanh stages: this process's output rows
+    and the gradients of ``mean((out - 0.3)**2)`` (the JAX test's loss
+    over the whole batch) for its stage's parameters and its input rows."""
+    from distributed_tensorflow_models_tpu_torch.core import mesh as meshlib
+    from distributed_tensorflow_models_tpu_torch.core import sharding
+    from distributed_tensorflow_models_tpu_torch.parallel import pipeline
+
+    params, x = stage_inputs()
+    for name, spec in STAGE_CASES[world].items():
+        mesh = meshlib.create_mesh(meshlib.MeshSpec(**spec), "cpu")
+        n, r = mesh.pipe_size, mesh.coord("pipe")
+        k = STAGES // n
+        mine = {key: torch.from_numpy(v[r * k:(r + 1) * k]).requires_grad_()
+                for key, v in params.items()}
+        rows = sharding.batch_rows(mesh, MICRO_ROWS)
+        mbs = pipeline.split_microbatches(torch.from_numpy(x), MICRO)
+        xl = mbs[:, rows].clone().requires_grad_()
+        y = pipeline.pipeline_apply(tanh_stage, mine, xl, mesh=mesh)
+        loss = ((y - 0.3) ** 2).sum() / (MICRO * MICRO_ROWS * WIDTH)
+        grads = torch.autograd.grad(loss, [xl, *mine.values()])
+        _save(os.path.join(out, f"stages_{name}_p{rank}.npz"),
+              {"out": y.detach(), "dx": grads[0],
+               **{f"d_{key}": g for key, g in zip(mine, grads[1:])}})
+
+
+def pipe_lm(kw=None):
+    """The pipelined tiny transformer, whole, from seed 0."""
+    from distributed_tensorflow_models_tpu_torch.models import get_model
+
+    return get_model("transformer_lm", generator=torch.Generator().manual_seed(
+        0), **{**PIPE_LM_KW, **(kw or {})})
+
+
+def pipe_lm_batch() -> dict:
+    rng = np.random.default_rng(13)
+    toks = rng.integers(0, 64, (8, 17)).astype(np.int64)
+    return {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+def run_pipe_lm(out: str, world: int, rank: int) -> None:
+    """The pipelined transformer cut over each pipe layout: the loss of
+    this process's rows (dropout 0.3, generator seed 9) and the whole
+    gradients averaged over the data axis (the step's gradient)."""
+    from distributed_tensorflow_models_tpu_torch.core import mesh as meshlib
+    from distributed_tensorflow_models_tpu_torch.core import sharding
+    from distributed_tensorflow_models_tpu_torch.core import train_loop
+    from distributed_tensorflow_models_tpu_torch.parallel import tensor
+
+    batch = pipe_lm_batch()
+    for name, spec in PIPE_LM_CASES[world].items():
+        mesh = meshlib.create_mesh(meshlib.MeshSpec(**spec), "cpu")
+        model = pipe_lm()
+        tensor.shard_model(model, [], mesh)
+        rows = sharding.batch_rows(mesh, 8)
+        local = {k: torch.from_numpy(v[rows]) for k, v in batch.items()}
+        params = dict(model.named_parameters())
+        loss_fn = train_loop.lm_loss_fn(model)
+        with meshlib.data_parallel(mesh, 1):
+            loss, _ = loss_fn(params, train_loop.TrainState(
+                step=0, params=params, batch_stats={}, opt_state={},
+                model=model, tx=None, device_step=torch.zeros(())), local,
+                {"dropout": torch.Generator().manual_seed(9)})
+            grads = torch.autograd.grad(loss, list(params.values()))
+            sharding.all_reduce_mean_(grads, mesh)
+        whole = {}
+        dims = model.split_dims
+        for (k, g) in zip(params, grads):
+            if k in dims and mesh.shape[dims[k][0]] > 1:
+                g = tensor.gather_whole(g, mesh, *dims[k])
+            whole[f"d/{k}"] = g
+        _save(os.path.join(out, f"pipe_lm_{name}_p{rank}.npz"),
+              {"loss": loss.detach(), **whole})
+
+
+def moe_inputs():
+    """The MoE test's parameters and tokens (numpy, seeded)."""
+    rng = np.random.default_rng(21)
+    params = {
+        "router": rng.standard_normal((MOE_D, EXPERTS)) / np.sqrt(MOE_D),
+        "w_in": rng.standard_normal((EXPERTS, MOE_D, MOE_F)) / np.sqrt(MOE_D),
+        "w_out": rng.standard_normal((EXPERTS, MOE_F, MOE_D)) / np.sqrt(MOE_F),
+    }
+    x = rng.standard_normal((MOE_TOKENS, MOE_D))
+    return ({k: v.astype(np.float32) for k, v in params.items()},
+            x.astype(np.float32))
+
+
+def run_experts(out: str, world: int, rank: int) -> None:
+    """The MoE FFN over each expert layout: this process's rows of the
+    output, aux, the dropped fraction, and the gradients of the JAX test's
+    ``mean(out**2) + 0.01 * aux`` over the whole tokens (summed over the
+    data axis) for this process's parameters and rows."""
+    from distributed_tensorflow_models_tpu_torch.core import mesh as meshlib
+    from distributed_tensorflow_models_tpu_torch.core import sharding
+    from distributed_tensorflow_models_tpu_torch.parallel import moe
+
+    params, x = moe_inputs()
+    for name, spec in EXPERT_CASES[world].items():
+        mesh = meshlib.create_mesh(meshlib.MeshSpec(**spec), "cpu")
+        E, c = mesh.expert_size, mesh.coord("expert")
+        el = EXPERTS // E
+        mine = {k: torch.from_numpy(v if k == "router"
+                                    else v[c * el:(c + 1) * el]
+                                    ).requires_grad_()
+                for k, v in params.items()}
+        xl = torch.from_numpy(x[sharding.batch_rows(mesh, MOE_TOKENS)]
+                              ).requires_grad_()
+        res = moe.moe_ffn(mine, xl, mesh=mesh)
+        loss = ((res.out ** 2).sum() / (MOE_TOKENS * MOE_D)
+                + 0.01 * res.aux_loss / mesh.data_size)
+        grads = list(torch.autograd.grad(loss, [xl, *mine.values()]))
+        for g in grads[1:]:
+            sharding.all_reduce_sum_(g, mesh, "test_grads")
+        _save(os.path.join(out, f"experts_{name}_p{rank}.npz"),
+              {"out": res.out.detach(), "aux": res.aux_loss.detach(),
+               "dropped": res.dropped_fraction, "dx": grads[0],
+               **{f"d_{k}": g for k, g in zip(mine, grads[1:])}})
+
+
+def run_clips(out: str, rank: int) -> None:
+    """Each :data:`CLIP_CASES` layout's ``fit`` under :data:`CLIP`: the
+    losses, the ``grad_norm`` metric, the whole parameters, and the count
+    of the norm's sums over the layout's axis (``<axis>/norm``)."""
+    from distributed_tensorflow_models_tpu_torch import interop
+    from distributed_tensorflow_models_tpu_torch.core import sharding
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+
+    arrays = {}
+    for name, kw in CLIP_CASES.items():
+        before = sharding.collective_counts()
+        res = trainlib.fit(LM.replace(optimizer=CLIP, **kw), device="cpu")
+        counts = sharding.counts_since(before)
+        arrays[f"{name}/__norm_sums"] = counts.get(f"{name}/norm",
+                                                   (0, 0))[0]
+        arrays[f"{name}/__loss"] = [float(r["loss"]) for r in res.history]
+        arrays[f"{name}/__grad_norm"] = [float(r["grad_norm"])
+                                         for r in res.history]
+        for k, v in _flat(interop.to_flax_variables(
+                res.state.model)["params"]).items():
+            arrays[f"{name}/{k}"] = v
+    if rank == 0:
+        _save(os.path.join(out, "clips.npz"), arrays)
+
+
+def resume_and_eval_on_pipe(out: str, rank: int) -> None:
+    """``pipe=2``, 4 steps straight against 2 steps checkpointed and
+    resumed to 4 (both states' whole parameters), then ``eval`` of the
+    resumed run's checkpoint on the pipe mesh."""
+    from distributed_tensorflow_models_tpu_torch import interop
+    from distributed_tensorflow_models_tpu_torch.harness import evaluate
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+
+    cfg = LM.replace(**FIT_CASES[2]["pipe"], train_steps=4,
+                     log_every_steps=2)
+    straight = trainlib.fit(cfg, device="cpu")
+    workdir = os.path.join(out, "resume_pipe")
+    trainlib.fit(cfg.replace(train_steps=2), workdir, device="cpu")
+    resumed = trainlib.fit(cfg, workdir, device="cpu")
+    arrays = {}
+    for tag, res in (("straight", straight), ("resumed", resumed)):
+        for k, v in _flat(interop.to_flax_variables(
+                res.state.model)["params"]).items():
+            arrays[f"{tag}/{k}"] = v
+        arrays[f"{tag}/__step"] = res.state.step
+    arrays["__restored_from"] = resumed.restored_from
+    ev = evaluate.evaluate_lm(cfg, workdir, max_batches=2, device="cpu")
+    if rank == 0:
+        _save(os.path.join(out, "resume_pipe.npz"), arrays)
+        with open(os.path.join(out, "eval_pipe.json"), "w") as f:
+            json.dump({"step": ev.step, **ev.metrics}, f)
+
+
+def eval_on_expert(out: str, rank: int) -> None:
+    """An ``expert=2`` run checkpointed at its end, evaluated on the
+    expert mesh."""
+    from distributed_tensorflow_models_tpu_torch.harness import evaluate
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+
+    cfg = LM.replace(**FIT_CASES[2]["expert"], train_steps=2)
+    workdir = os.path.join(out, "eval_expert")
+    trainlib.fit(cfg, workdir, device="cpu")
+    res = evaluate.evaluate_lm(cfg, workdir, max_batches=2, device="cpu")
+    if rank == 0:
+        with open(os.path.join(out, "eval_expert.json"), "w") as f:
+            json.dump({"step": res.step, **res.metrics}, f)
+
+
 def main(out: str) -> int:
     from distributed_tensorflow_models_tpu_torch import launch
     from distributed_tensorflow_models_tpu_torch.core import mesh as meshlib
@@ -370,10 +635,16 @@ def main(out: str) -> int:
         run_tp(out, model_mesh, rank)
         moe_on_blocks(out, seq_mesh, rank)
         first_loss_on_ring(out, rank)
+    run_stages(out, world, rank)
+    run_pipe_lm(out, world, rank)
+    run_experts(out, world, rank)
     run_fits(out, world, rank)
     if world == 2:
         eval_on_seq_mesh(out, rank)
         resume_on_tp(out, rank)
+        run_clips(out, rank)
+        resume_and_eval_on_pipe(out, rank)
+        eval_on_expert(out, rank)
     dist.destroy_process_group()
     return 0
 
