@@ -295,6 +295,22 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    against the plain fit (phase 16's path), within the LM bound; one sum
    of an f32, bf16 and f16 tensor in the group, NCCL's pre-multiplied
    one printed and the port's required unchanged.
+19. The reference's flagship async-PS vs sync A/B
+   (``harness/experiment.py``) and its emulators, every counter zeroed
+   at the phase's start: (a) ``async_vs_sync`` on ``resnet50_synthetic``
+   (batch 256, K1) ``AB_STEPS`` steps a mode at K = 1 (async equals sync
+   bit for bit, losses and every state tensor) and K = 4 (staleness 0, 1,
+   2, 3, 3, ...; the replayed events equal the emulator run eagerly bit
+   for bit), the emulator at staleness limit 2 (the drops the host
+   predicts, the step the applied events), K1 50 launches a step and an
+   event; (b) the backup emulator at M = 4, N = 3 on 64-row shards (the
+   discarded shard zeroed leaves the state bit for bit, BN statistics one
+   update by the last chosen replica, K1 150 launches a round); (c)
+   ``async_vs_sync`` on ``transformer_lm`` (flash) at K = 1 (async
+   against sync within the LM bound) and K = 2, K2-K4 4 launches a step
+   and an event; (d) the CLI's ``ab`` in this process.  Each mode's
+   seconds and images/s or tokens/s, its capture seconds, the staleness
+   profile and peak memory are printed.
 
 Every training arm runs ``fit`` in chunks of ``STEPS_PER_LOOP`` steps
 (``steps_per_loop``): the first step eager, the step then captured as a
@@ -316,7 +332,7 @@ and 11-13 alone, ``--dp-only`` phases 1 and 5b, ``--resume-only`` phases
 1 and 5c, ``--chaos-only`` phases 1 and 5e, ``--generate-only`` phases 1 and
 14, ``--startup-only`` phases 1, 14's training and 15,
 ``--model-knobs-only`` phases 1 and 16, ``--parallel-only`` phases 1,
-17 and 18.  Each ``fit`` given a workdir under ``build/chip_smoke`` (emptied
+17 and 18, ``--async-only`` phases 1 and 19.  Each ``fit`` given a workdir under ``build/chip_smoke`` (emptied
 at the start) saves a final checkpoint there, which the smoke deletes.
 """
 
@@ -4268,6 +4284,302 @@ def phase_pipe_expert(card: str, workdir: Path, flash_fns: dict,
     return out
 
 
+AB_STEPS = 8
+AB_WORKERS = 4
+AB_LIMIT = 2
+AB_BACKUP = (4, 3)  # total replicas M, replicas aggregated N
+AB_LM_WORKERS = (1, 2)
+AB_CLI_STEPS = 4
+AB_CLI_WORKERS = 2
+
+
+def _predicted_drops(workers: int, limit: int, events: int) -> tuple:
+    """Round robin at a staleness limit, on the host: (staleness log,
+    dropped flags)."""
+    step, versions, log_, drops = 0, [0] * workers, [], []
+    for e in range(events):
+        w = e % workers
+        stale = step - versions[w]
+        log_.append(stale)
+        drops.append(stale > limit)
+        step += stale <= limit
+        versions[w] = step
+    return log_, drops
+
+
+def _ab_log(label: str, res, per_step: int, unit: str, card: str) -> None:
+    steps = len(res.sync_losses)
+    log(f"A/B {label}: sync {res.sync_seconds:.3f} s "
+        f"({per_step * steps / res.sync_seconds:.1f} {unit}/s), async "
+        f"{res.async_seconds:.3f} s ({per_step * steps / res.async_seconds:.1f}"
+        f" {unit}/s) over {steps} steps a mode, each closed by a device "
+        f"sync; captures {res.capture_s}; staleness {res.staleness_log}, "
+        f"mean {res.mean_staleness:.3f}, histogram {res.staleness_hist}, "
+        f"dropped {res.dropped}; launches {res.launches}; sync losses "
+        f"{res.sync_losses}; async losses {res.async_losses} | {card}")
+
+
+def phase_async(card: str, flash_fns: dict, k1, k6, k1_per_step: int,
+                batch: int) -> dict:
+    """Phase 19: the reference's flagship async-PS vs sync A/B
+    (``harness/experiment.py``) and its emulators (``parallel/async_ps.py``,
+    ``parallel/backup.py``) on the card, every kernel counter zeroed at the
+    phase's start and read at its end.  (a) ``async_vs_sync`` on
+    ``resnet50_synthetic`` (full width, ``batch``, K1), ``AB_STEPS`` steps
+    a mode: at K = 1 the async losses and every state tensor equal the sync
+    mode's bit for bit; at K = 4 round robin the staleness ramps 0, 1, 2, 3
+    and holds 3, and the async events equal the emulator run eagerly on
+    the same batches bit for bit; at a staleness limit of 2 the drops are
+    the host's prediction and the canonical step counts the applied
+    events; K1 ``k1_per_step`` launches a step in the sync mode and an
+    event in the async one.  (b) The backup emulator at M = 4, N = 3 on
+    the batch's 64-row shards: the discarded shard zeroed leaves the state
+    bit for bit, the BN statistics are one update from the canonical ones
+    by the last chosen replica, K1 3 x ``k1_per_step`` launches a round.
+    (c) ``async_vs_sync`` on ``transformer_lm`` (flash, K2-K4) at K = 1
+    (async against sync within the LM bound: the embedding gradient's
+    atomics) and K = 2, K2/K3/K4 one launch a layer a step and an event.
+    (d) The CLI's ``ab`` in this process.  Each mode's seconds and rate,
+    its capture seconds, the staleness profile and the peak memory are
+    printed."""
+    import numpy as np
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.core import mesh as meshlib
+    from distributed_tensorflow_models_tpu_torch.core import train_loop
+    from distributed_tensorflow_models_tpu_torch.harness import experiment
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+    from distributed_tensorflow_models_tpu_torch.harness.config import get_config
+    from distributed_tensorflow_models_tpu_torch.parallel import async_ps, backup
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    r50, lm = "resnet50_synthetic", "transformer_lm"
+    out = {}
+    k1_key = f"{k1.__name__}.launches"
+    flash_keys = {kid: f"{fn.__name__}.launches"
+                  for kid, fn in flash_fns.items()}
+
+    def reset_peak() -> None:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def check_launches(label, launches, want: dict) -> None:
+        if launches != want:
+            fail(f"{label}: launches {launches}, expected {want}")
+
+    # One materialised batch stream per configuration, shared by its A/Bs
+    # and emulator runs (the batches are only read).
+    cache: dict = {}
+    real_batches = experiment.ab_batches
+
+    def ab_batches(cfg, steps, mesh):
+        key = (cfg.name, cfg.global_batch_size, steps)
+        if key not in cache:
+            cache[key] = real_batches(cfg, steps, mesh)
+        return cache[key]
+
+    def fresh(cfg):
+        mesh = trainlib.mesh_from_config(cfg, dev)
+        state = train_loop.place_state(trainlib.build_state(
+            cfg, dev, mesh, num_steps=max(cfg.train_steps, AB_STEPS)), mesh)
+        return mesh, state
+
+    zero_counts((k1, k6, *flash_fns.values()))
+    experiment.ab_batches = ab_batches
+    try:
+        # (a) ResNet-50.
+        cfg = get_config(r50, global_batch_size=batch)
+        seed = cfg.seed + 1
+        k1_run = {k1_key: k1_per_step * AB_STEPS}
+        ab = {}
+        for workers in (1, AB_WORKERS):
+            reset_peak()
+            res = experiment.async_vs_sync(cfg, AB_STEPS,
+                                           num_workers=workers,
+                                           device="cuda", keep_states=True)
+            res.peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            _ab_log(f"{r50}, K = {workers}", res, batch, "images", card)
+            for mode in ("sync", "async"):
+                check_launches(f"A/B {r50} K = {workers}, {mode}",
+                               res.launches[mode], k1_run)
+            ab[workers] = res
+        one, four = ab[1], ab[AB_WORKERS]
+        a = state_tensors(one.sync_state)
+        b = state_tensors(one.async_state)
+        same = sum(bool(torch.equal(x, y)) for x, y in zip(a, b))
+        log(f"A/B {r50}, K = 1: async against sync: losses "
+            f"{'equal' if one.async_losses == one.sync_losses else 'differ'}"
+            f", {same} of {len(a)} state tensors bit for bit; peak memory "
+            f"{one.peak_gib:.2f} GiB (K = 1), {four.peak_gib:.2f} GiB "
+            f"(K = {AB_WORKERS}: {AB_WORKERS} snapshots and a stash of the "
+            f"f32 parameters more) | {card}")
+        if one.async_losses != one.sync_losses or same != len(a) or len(
+                a) != len(b):
+            fail(f"A/B {r50}, K = 1: the async mode differs from the sync "
+                 f"mode")
+        del a, b, one.sync_state, one.async_state, four.sync_state
+        want_log = [min(e, AB_WORKERS - 1) for e in range(AB_STEPS)]
+        if four.staleness_log != want_log:
+            fail(f"A/B {r50}, K = {AB_WORKERS}: staleness "
+                 f"{four.staleness_log}, expected {want_log}")
+        # The async events replayed against the emulator run eagerly.
+        mesh, state = fresh(cfg)
+        batches = ab_batches(cfg, AB_STEPS, mesh)
+        with meshlib.data_parallel(mesh, trainlib.seq_dim(cfg)):
+            eager = async_ps.AsyncPSEmulator(
+                state, trainlib.build_loss(cfg, state),
+                async_ps.AsyncConfig(num_workers=AB_WORKERS, seed=cfg.seed),
+                name=cfg.model, capture=False)
+            losses = [float(r["metrics"]["loss"])
+                      for r in eager.run(batches, seed)]
+        a = state_tensors(eager.state)
+        b = state_tensors(four.async_state)
+        same = sum(bool(torch.equal(x, y)) for x, y in zip(a, b))
+        log(f"A/B {r50}, K = {AB_WORKERS}: the replayed async events against "
+            f"the emulator run eagerly: losses "
+            f"{'equal' if losses == four.async_losses else 'differ'}, "
+            f"{same} of {len(a)} state tensors bit for bit | {card}")
+        if losses != four.async_losses or same != len(a) or len(a) != len(b):
+            fail(f"A/B {r50}: the replayed async events differ from the "
+                 f"eager ones")
+        del a, b, eager, state, four.async_state
+        # The staleness limit.
+        mesh, state = fresh(cfg)
+        with meshlib.data_parallel(mesh, trainlib.seq_dim(cfg)):
+            lim = async_ps.AsyncPSEmulator(
+                state, trainlib.build_loss(cfg, state),
+                async_ps.AsyncConfig(num_workers=AB_WORKERS, seed=cfg.seed,
+                                     staleness_limit=AB_LIMIT),
+                name=cfg.model)
+            lim.warm_up(batches[0], seed)
+            recs = lim.run(batches, seed)
+        want_log, want_drops = _predicted_drops(AB_WORKERS, AB_LIMIT,
+                                                AB_STEPS)
+        drops = [r["dropped"] for r in recs]
+        log(f"{r50}, K = {AB_WORKERS} at staleness limit {AB_LIMIT}: "
+            f"staleness {lim.staleness_log}, dropped {drops} (predicted "
+            f"{want_drops}), canonical step {lim.state.step} | {card}")
+        if (lim.staleness_log, drops) != (want_log, want_drops) or (
+                lim.state.step != AB_STEPS - sum(want_drops)):
+            fail(f"{r50} at staleness limit {AB_LIMIT}: staleness "
+                 f"{lim.staleness_log}, drops {drops}, step {lim.state.step}")
+        del lim, state, recs
+        out["r50"] = {"ab": {w: {"sync_s": r.sync_seconds,
+                                 "async_s": r.async_seconds,
+                                 "capture_s": r.capture_s,
+                                 "peak_gib": r.peak_gib}
+                             for w, r in ab.items()}}
+
+        # (b) Backup replicas on the batch's shards.
+        M, N = AB_BACKUP
+        order = np.random.RandomState(cfg.seed).permutation(M)
+        chosen, late = [int(i) for i in order[:N]], int(order[N])
+        shards = backup.split_into_shards(batches[0], M)
+        zeroed = list(shards)
+        zeroed[late] = {k: torch.zeros_like(v) for k, v in shards[late].items()}
+        rounds = []
+        for label, sh in (("plain", shards), ("zeroed", zeroed)):
+            mesh, state = fresh(cfg)
+            with meshlib.data_parallel(mesh, trainlib.seq_dim(cfg)):
+                emu = backup.SyncBackupEmulator(
+                    state, trainlib.build_loss(cfg, state),
+                    backup.BackupConfig(M, N, seed=cfg.seed), name=cfg.model)
+                emu.warm_up(sh, seed)
+                before = k1.launches
+                rec = emu.step(sh, seed)
+                per_round = k1.launches - before
+            if rec["chosen"] != chosen:
+                fail(f"backup: chosen {rec['chosen']}, predicted {chosen}")
+            if per_round != N * k1_per_step:
+                fail(f"backup: K1 {per_round} launches a round, expected "
+                     f"{N * k1_per_step}")
+            rounds.append((label, emu, per_round))
+        a = state_tensors(rounds[0][1].state)
+        b = state_tensors(rounds[1][1].state)
+        same = sum(bool(torch.equal(x, y)) for x, y in zip(a, b))
+        # One forward of the last chosen replica's shard from the canonical
+        # statistics.
+        mesh, ref = fresh(cfg)
+        gens = train_loop.StepRngs(("dropout",), dev).reseed(0, 0)
+        with torch.no_grad(), meshlib.data_parallel(mesh):
+            ref.model(shards[chosen[-1]]["image"], train=True, rngs=gens)
+        stats = [(x, y) for x, y in zip(
+            rounds[0][1].state.batch_stats.values(),
+            ref.batch_stats.values()) if x.is_floating_point()]
+        stat_same = sum(bool(torch.equal(x, y)) for x, y in stats)
+        stat_err = max(float(((x - y).abs() / (y.abs() + 1e-6)).max())
+                       for x, y in stats)
+        log(f"backup M = {M}, N = {N} on {batch // M}-row shards: chosen "
+            f"{chosen}, discarded [{late}]; the discarded shard zeroed: "
+            f"{same} of {len(a)} state tensors bit for bit; BN statistics "
+            f"against one update by the last chosen replica: {stat_same} of "
+            f"{len(stats)} bit for bit, largest relative difference "
+            f"{stat_err:.3g}; K1 {[r[2] for r in rounds]} launches a round "
+            f"(expected {N * k1_per_step}) | {card}")
+        if same != len(a) or len(a) != len(b):
+            fail("backup: the discarded replica's shard moved the state")
+        if stat_err > 1e-6:
+            fail(f"backup: BN statistics {stat_err:.3g} from one update by "
+                 f"the last chosen replica")
+        del a, b, rounds, ref, shards, zeroed
+        cache.clear()
+
+        # (c) transformer_lm on flash.
+        lm_cfg = get_config(lm, attn_impl="flash")
+        layers = lm_cfg.model_kwargs["num_layers"]
+        tokens = lm_cfg.global_batch_size * lm_cfg.num_steps
+        want = {flash_keys[kid]: layers * AB_STEPS for kid in ("K2", "K3",
+                                                              "K4")}
+        lm_ab = {}
+        for workers in AB_LM_WORKERS:
+            reset_peak()
+            res = experiment.async_vs_sync(lm_cfg, AB_STEPS,
+                                           num_workers=workers,
+                                           device="cuda",
+                                           keep_states=workers == 1)
+            res.peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            _ab_log(f"{lm}, K = {workers}", res, tokens, "tokens", card)
+            for mode in ("sync", "async"):
+                check_launches(f"A/B {lm} K = {workers}, {mode}",
+                               res.launches[mode], want)
+            lm_ab[workers] = res
+        one = lm_ab[1]
+        _lm_states_close(f"A/B {lm}, K = 1: async against sync",
+                         one.async_losses, one.sync_losses,
+                         state_tensors(one.async_state),
+                         state_tensors(one.sync_state), card)
+        del one.sync_state, one.async_state
+        out["lm"] = {w: {"sync_s": r.sync_seconds, "async_s": r.async_seconds,
+                         "capture_s": r.capture_s, "peak_gib": r.peak_gib}
+                     for w, r in lm_ab.items()}
+        cache.clear()
+
+        # (d) The CLI's ab in this process.
+        rc, res = _cli_in_process([
+            "ab", "--config", r50, "--steps", str(AB_CLI_STEPS),
+            "--async-workers", str(AB_CLI_WORKERS), "--batch-size",
+            str(batch), "--device", "cuda"])
+        hist = dict(collections.Counter(
+            str(min(e, AB_CLI_WORKERS - 1)) for e in range(AB_CLI_STEPS)))
+        log(f"cli ab --config {r50} --steps {AB_CLI_STEPS} --async-workers "
+            f"{AB_CLI_WORKERS}: {json.dumps(res)}")
+        if (rc != 0 or set(res) != {"sync", "async"}
+                or len(res["async"]["losses"]) != AB_CLI_STEPS
+                or res["async"]["staleness_hist"] != hist):
+            fail(f"cli ab: exit {rc}, {res}")
+    finally:
+        experiment.ab_batches = real_batches
+    out["launches"] = {"K1": k1.launches, "K6": k6.launches,
+                       **{kid: fn.launches for kid, fn in flash_fns.items()}}
+    log(f"A/B phase launches: {out['launches']}")
+    if (not k1.launches or k6.launches or any(
+            not out["launches"][kid] for kid in ("K2", "K3", "K4"))):
+        fail(f"A/B phase: launches {out['launches']}")
+    log(f"A/B phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch-size", type=int, default=256,
@@ -4322,6 +4634,10 @@ def main(argv=None) -> int:
                         help="phases 1, 17 and 18 alone, for work on "
                         "tensor, sequence, pipeline and expert "
                         "parallelism: no result line")
+    parser.add_argument("--async-only", action="store_true",
+                        help="phases 1 and 19 alone, for work on the "
+                        "async-PS vs sync A/B and its emulators: no result "
+                        "line")
     parser.add_argument("--startup-only", action="store_true",
                         help="phase 1, the checkpoint's training of phase "
                         "14 and phase 15 alone, for work on the cold "
@@ -4469,6 +4785,12 @@ def main(argv=None) -> int:
                           args.seed + 7)
         log(card)
         log("parallel run: phases 1, 17 and 18 alone, no result")
+        return 0
+    if args.async_only:
+        phase_async(card, flash_fns, k1, k6, len(core_launch_shapes(
+            "resnet50", 224, args.batch_size)), args.batch_size)
+        log(card)
+        log("async run: phases 1 and 19 alone, no result")
         return 0
     if args.dp_only:
         phase_data_parallel(args.batch_size, args.train_steps, len(
@@ -4734,6 +5056,12 @@ def main(argv=None) -> int:
                               args.seed + 7)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 18")
 
+    # 19. The async-PS vs sync A/B and its emulators on ResNet-50 (K1) and
+    # transformer_lm (K2-K4), every counter zeroed at the phase's start and
+    # read at its end.
+    abx = phase_async(card, flash_fns, k1, k6, len(calls), args.batch_size)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 19")
+
     log(card)
     kernels = [{
         "name": "K1 conv_implicit_gemm",
@@ -4763,6 +5091,7 @@ def main(argv=None) -> int:
         "launches_remat_inception_v3": knobs[
             "remat_inception_v3_imagenet"]["k1_launches"],
         "launches_cnn_tp_split": par["cnn_tp"]["launches"],
+        "launches_async_ab_phase": abx["launches"]["K1"],
         "remat_launches_per_step": {
             "resnet50": knobs["remat_resnet50_synthetic"]["per_step"],
             "inception_v3": knobs["remat_inception_v3_imagenet"][
@@ -4827,6 +5156,7 @@ def main(argv=None) -> int:
             k["launches_pipeline_emulation"] = pipex["emu_launches"][kid]
             k["launches_moe_expert1_fit"] = pipex["moe_fit"]["launches"][
                 kid]
+            k["launches_async_ab_phase"] = abx["launches"][kid]
     kernels[-1]["dq_vs_k4"] = flash["dq_vs_k4"]
     if parent is not None:
         kernels[-1]["dq_vs_k4_parent"] = flash["dq_vs_k4_parent"]

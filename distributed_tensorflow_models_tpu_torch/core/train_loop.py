@@ -8,7 +8,9 @@ kept), and the metrics as 0-d tensors averaged over the mesh (the caller
 decides when to read them back).  :class:`MultiStep` runs the steps of a
 chunk of stacked batches; on CUDA it captures the step once as a CUDA
 graph, collectives included, and replays it, the counterpart of the JAX
-package's ``make_multi_step``.  :func:`place_state` lays the replicated
+package's ``make_multi_step``.  :class:`GradApply` runs the step's
+gradient part and its apply as two such programs, for the async-PS and
+backup emulators of ``parallel/``.  :func:`place_state` lays the replicated
 state out without collectives and checks once that every process holds
 the same one.  :func:`step_flops` counts a step's FLOPs for the MFU, the
 counterpart of the JAX package's XLA cost analysis.
@@ -294,21 +296,46 @@ class TrainStep:
 
     def body(self, state: TrainState, batch: Batch,
              rngs: Mapping[str, torch.Generator]):
-        mesh = meshlib.current_mesh()
-        loss, aux = self.loss_fn(state.params, state, batch, rngs)
-        names = list(state.params)
-        grads = dict(zip(names, torch.autograd.grad(
-            loss, [state.params[k] for k in names])))
-        shardlib.all_reduce_mean_(grads.values(), mesh)
-        metrics = dict(aux.get("metrics", {}))
-        norm = _grad_norm(state.model, grads)
-        metrics["grad_norm"] = norm
-        metrics = shardlib.all_reduce_metrics(metrics, mesh)
+        grads, aux, norm, metrics = self.gradients(state.params, state,
+                                                   batch, rngs)
         return apply_gradients(state, grads, aux, norm), metrics
 
+    def gradients(self, params: Mapping[str, torch.Tensor],
+                  state: TrainState, batch: Batch,
+                  rngs: Mapping[str, torch.Generator]):
+        """The step's gradient part, ``(grads, aux, norm, metrics)``: the
+        loss at ``params``, ``autograd.grad`` over them, the gradients
+        averaged over the data x seq processes, their whole-array norm
+        (the clip's and the ``grad_norm`` metric's) and the metrics
+        averaged.  :meth:`body` is this followed by :func:`apply_gradients`;
+        the emulators of ``parallel/async_ps.py`` and ``parallel/backup.py``
+        put their own bookkeeping between the two.
 
-def _grad_norm(model: torch.nn.Module, grads: Mapping[str, torch.Tensor]
-               ) -> torch.Tensor:
+        ``params`` must be the tensors the model computes with
+        (``state.params``, its own parameters): the loss runs the model,
+        which reads its parameters, not the dict it is handed.  A caller
+        that wants the gradient at other values (a stale snapshot) writes
+        them into those tensors first."""
+        if len(params) != len(state.params) or any(
+                params.get(k) is not v for k, v in state.params.items()):
+            raise ValueError("gradients are taken at the model's own "
+                             "parameters (state.params); write other "
+                             "values into them first")
+        mesh = meshlib.current_mesh()
+        loss, aux = self.loss_fn(params, state, batch, rngs)
+        names = list(params)
+        grads = dict(zip(names, torch.autograd.grad(
+            loss, [params[k] for k in names])))
+        shardlib.all_reduce_mean_(grads.values(), mesh)
+        metrics = dict(aux.get("metrics", {}))
+        norm = grad_norm(state.model, grads)
+        metrics["grad_norm"] = norm
+        metrics = shardlib.all_reduce_metrics(metrics, mesh)
+        return grads, aux, norm, metrics
+
+
+def grad_norm(model: torch.nn.Module, grads: Mapping[str, torch.Tensor]
+              ) -> torch.Tensor:
     """The global norm of ``grads`` as whole arrays: where ``model``'s
     parameters are split over processes (``parallel/tensor.py::
     split_axes``), ``sharding.square_sum`` over the mesh it was cut on;
@@ -549,36 +576,14 @@ class MultiStep:
                                          ts_mono=t_eager)
         batch = {key: torch.empty_like(v[0]) for key, v in chunk.items()}
         gens = self.step.rngs(device).generators
-        before = _kernels.launch_counts()
-        issued = shardlib.collective_counts()
-        held = [id(t) for t in _state_leaves(state)]
-        twins = rematlib.make_twins(gens)
-        try:
-            graph = torch.cuda.CUDAGraph()
-            for gen in gens.values():
-                graph.register_generator_state(gen)
-            for _, twin, _ in twins:
-                graph.register_generator_state(twin)
-            with torch.cuda.graph(graph, stream=self._side_stream(device),
-                                  capture_error_mode="thread_local"), \
-                    rematlib.capturing(twins):
-                new_state, metrics = self.step.body(state, batch, gens)
-                row = _row_vector(metrics, names)
-        except Exception as e:
-            raise RuntimeError(
-                f"capturing the train step of {self.name} as a CUDA graph "
-                f"failed: {e}") from e
-        launches = {key: n - before[key]
-                    for key, n in _kernels.launch_counts().items()
-                    if n != before[key]}
-        collectives = shardlib.counts_since(issued)
-        # The capture launched nothing: what it counted is per replay.
-        _kernels.add_launches(launches, -1)
-        shardlib.add_collectives(collectives, -1)
-        if [id(t) for t in _state_leaves(new_state)] != held:
-            raise RuntimeError(
-                f"the train step of {self.name} rebinds state tensors; a "
-                f"captured step must update its state in place")
+
+        def step():
+            new_state, metrics = self.step.body(state, batch, gens)
+            return new_state, _row_vector(metrics, names)
+
+        graph, (_, row), launches, collectives, twins = capture_call(
+            step, state, gens, self._side_stream(device),
+            f"the train step of {self.name}")
         seconds = time.perf_counter() - t0
         self.captures += 1
         self.capture_s += seconds
@@ -590,6 +595,231 @@ class MultiStep:
         cap = self._captured[sig] = _Captured(graph, batch, row, names,
                                               launches, collectives, twins)
         return cap
+
+
+class _GradGraph:
+    __slots__ = ("graph", "batch", "out", "launches", "collectives", "twins")
+
+    def __init__(self, graph, batch, out, launches, collectives, twins):
+        self.graph, self.batch, self.out = graph, batch, out
+        self.launches, self.collectives = launches, collectives
+        self.twins = twins
+
+
+class _ApplyGraph:
+    __slots__ = ("graph", "inputs", "launches", "collectives")
+
+    def __init__(self, graph, inputs, launches, collectives):
+        self.graph, self.inputs = graph, inputs
+        self.launches, self.collectives = launches, collectives
+
+
+class GradApply:
+    """A train step's gradient part (:meth:`TrainStep.gradients`) and its
+    apply (``apply_fn``, :func:`apply_gradients` by default) as two
+    programs, for callers that put work of their own between them: the
+    async-PS and backup-replica emulators (``parallel/async_ps.py``,
+    ``parallel/backup.py``).
+
+    On the CPU, and with ``capture=False``, both run eagerly.  On CUDA each
+    runs eagerly the first time, on the stream it is then captured on (so
+    that kernel builds, cuBLAS handles and the communicator exist before
+    the capture, as in :class:`MultiStep`), is captured right after as a
+    CUDA graph, and is replayed from then on:
+
+    - :meth:`grads` copies the batch into the graph's static batch buffers,
+      re-seeds the step's generators for ``(seed, salt)`` (and the remat
+      twins) and replays.  It returns the graph's static outputs ``(grads,
+      aux, norm, metrics)`` (the first call copies its eager outputs into
+      them), which the next call overwrites: a caller keeps what it needs
+      before then.
+    - :meth:`apply` takes its gradients at fixed addresses (the grad
+      graph's outputs, or the caller's own buffers) and replays; every
+      state tensor is updated in place.
+
+    The state must stay where the first calls found it, and a later batch
+    must have the first one's shapes.  A capture that fails raises, naming
+    the model: nothing falls back to eager work.  The replays add their
+    launches and collectives to the counters; ``captures`` and
+    ``capture_s`` count the captures and their seconds."""
+
+    def __init__(self, step: TrainStep, name: str = "the model",
+                 capture: bool = True,
+                 apply_fn: Optional[Callable] = None):
+        self.step = step
+        self.name = name
+        self.capture = capture
+        self.apply_fn = apply_fn or apply_gradients
+        self.captures = 0
+        self.capture_s = 0.0
+        self._stream: Optional[torch.cuda.Stream] = None
+        self._grad: Optional[_GradGraph] = None
+        self._apply: Optional[_ApplyGraph] = None
+
+    def _captured(self, state: TrainState) -> bool:
+        return self.capture and _device_of(state).type == "cuda"
+
+    def _side(self, device) -> tuple[torch.cuda.Stream, torch.cuda.Stream]:
+        """(the capture stream, made to wait for the current one; the
+        current stream)."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device)
+        cur = torch.cuda.current_stream(device)
+        self._stream.wait_stream(cur)
+        return self._stream, cur
+
+    def _captured_now(self, t0: float) -> None:
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+
+    def grads(self, state: TrainState, batch: Batch, seed: int, salt: int):
+        """``TrainStep.gradients`` at the model's parameters on ``batch``,
+        the generators seeded from ``(seed, salt)``."""
+        device = _device_of(state)
+        gens = self.step.rngs(device).reseed(seed, salt)
+        if not self._captured(state):
+            return self.step.gradients(state.params, state, batch, gens)
+        g = self._grad
+        if g is None:
+            return self._first_grads(state, batch, gens)
+        for key, buf in g.batch.items():
+            v = batch[key]
+            if v.shape != buf.shape or v.dtype != buf.dtype:
+                raise ValueError(
+                    f"the gradient program of {self.name} was captured on "
+                    f"{key} {tuple(buf.shape)} {buf.dtype}, given "
+                    f"{tuple(v.shape)} {v.dtype}")
+            buf.copy_(v)
+        rematlib.seed_twins(g.twins)
+        g.graph.replay()
+        _kernels.add_launches(g.launches)
+        shardlib.add_collectives(g.collectives)
+        return g.out
+
+    def _first_grads(self, state, batch, gens):
+        device = _device_of(state)
+        side, cur = self._side(device)
+        with torch.cuda.stream(side), rematlib.recording(gens.values()):
+            eager = self.step.gradients(state.params, state, batch, gens)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        static = {key: torch.empty_like(v) for key, v in batch.items()}
+        graph, out, launches, collectives, twins = capture_call(
+            lambda: self.step.gradients(state.params, state, static, gens),
+            state, gens, side, f"the gradient program of {self.name}")
+        outs, eagers = list(_leaves(out)), list(_leaves(eager))
+        if len(outs) != len(eagers):
+            raise RuntimeError(f"the gradient program of {self.name} "
+                               f"returned another structure when captured")
+        with torch.no_grad(), torch.cuda.stream(side):
+            for a, b in zip(outs, eagers):
+                if a is not b:
+                    a.copy_(b)
+        cur.wait_stream(side)
+        self._grad = _GradGraph(graph, static, out, launches, collectives,
+                                twins)
+        self._captured_now(t0)
+        return out
+
+    def apply(self, state: TrainState, grads: Mapping[str, torch.Tensor],
+              aux: dict, norm: Optional[torch.Tensor]) -> TrainState:
+        """``apply_fn(state, grads, aux, norm)``: the state one step on."""
+        _check_steps(state, 1)
+        if not self._captured(state):
+            return self.apply_fn(state, grads, aux, norm)
+        inputs = [id(t) for t in _leaves((grads, aux.get("carry"), norm))]
+        a = self._apply
+        if a is None:
+            return self._first_apply(state, grads, aux, norm, inputs)
+        if inputs != a.inputs:
+            raise RuntimeError(
+                f"the apply program of {self.name} was captured on other "
+                f"gradient tensors; pass the same ones to every call")
+        a.graph.replay()
+        _kernels.add_launches(a.launches)
+        shardlib.add_collectives(a.collectives)
+        return state.replace(step=state.step + 1)
+
+    def _first_apply(self, state, grads, aux, norm, inputs):
+        device = _device_of(state)
+        side, cur = self._side(device)
+        with torch.cuda.stream(side):
+            new_state = self.apply_fn(state, grads, aux, norm)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        graph, _, launches, collectives, _ = capture_call(
+            lambda: self.apply_fn(new_state, grads, aux, norm), new_state,
+            {}, side, f"the apply program of {self.name}")
+        cur.wait_stream(side)
+        self._apply = _ApplyGraph(graph, inputs, launches, collectives)
+        self._captured_now(t0)
+        return new_state
+
+
+def copy_state(state: TrainState) -> list[torch.Tensor]:
+    """A copy of every tensor of ``state`` (parameters, BN statistics,
+    optimizer slots, EMA shadows, carry, device step), for
+    :func:`restore_state_`."""
+    with torch.no_grad():
+        return [t.detach().clone() for t in _state_leaves(state)]
+
+
+def restore_state_(state: TrainState, copies: Sequence[torch.Tensor]
+                   ) -> None:
+    """Write :func:`copy_state`'s copies back into ``state``'s tensors, in
+    place (a captured program keeps reading them where they are)."""
+    leaves = _state_leaves(state)
+    if len(leaves) != len(copies):
+        raise ValueError(f"{len(copies)} copies for a state of "
+                         f"{len(leaves)} tensors")
+    with torch.no_grad():
+        for t, c in zip(leaves, copies):
+            t.copy_(c)
+
+
+def capture_call(fn: Callable, state: TrainState,
+                 gens: Mapping[str, torch.Generator],
+                 stream: torch.cuda.Stream, what: str) -> tuple:
+    """``fn()`` captured once as a CUDA graph on ``stream``, the step's
+    generators ``gens`` and the remat twins of the eager call recorded
+    just before it (``ops/remat.py``) registered with the graph:
+    ``(graph, fn's output, launches per replay, collectives per replay,
+    twins)``.  Nothing runs: the kernels' launch counters and the
+    collective counters are put back, and a replay adds what the capture
+    recorded.  ``state`` must keep every tensor where it is (checked when
+    ``fn`` returns a state first, or nothing).  A capture that fails
+    raises, naming ``what``: nothing falls back to eager work."""
+    before = _kernels.launch_counts()
+    issued = shardlib.collective_counts()
+    held = [id(t) for t in _state_leaves(state)]
+    twins = rematlib.make_twins(gens)
+    try:
+        graph = torch.cuda.CUDAGraph()
+        for gen in gens.values():
+            graph.register_generator_state(gen)
+        for _, twin, _ in twins:
+            graph.register_generator_state(twin)
+        with torch.cuda.graph(graph, stream=stream,
+                              capture_error_mode="thread_local"), \
+                rematlib.capturing(twins):
+            out = fn()
+    except Exception as e:
+        raise RuntimeError(
+            f"capturing {what} as a CUDA graph failed: {e}") from e
+    launches = {key: n - before[key]
+                for key, n in _kernels.launch_counts().items()
+                if n != before[key]}
+    collectives = shardlib.counts_since(issued)
+    # The capture launched nothing: what it counted is per replay.
+    _kernels.add_launches(launches, -1)
+    shardlib.add_collectives(collectives, -1)
+    new_state = out[0] if isinstance(out, tuple) and out else out
+    if (isinstance(new_state, TrainState)
+            and [id(t) for t in _state_leaves(new_state)] != held):
+        raise RuntimeError(
+            f"{what} rebinds state tensors; a captured step must update "
+            f"its state in place")
+    return graph, out, launches, collectives, twins
 
 
 def _signature(chunk: Batch) -> tuple:

@@ -1,5 +1,5 @@
-"""Command-line entry point of the port: ``train``, ``eval``, ``generate``
-and ``list``.
+"""Command-line entry point of the port: ``train``, ``eval``, ``ab``,
+``generate`` and ``list``.
 
     python -m distributed_tensorflow_models_tpu_torch.harness.cli train \\
         --config resnet50_synthetic --workdir /tmp/r50 --train-steps 3
@@ -8,6 +8,8 @@ and ``list``.
     python -m distributed_tensorflow_models_tpu_torch.harness.cli generate \\
         --config transformer_lm --workdir /tmp/lm --prompt 5,6,7 \\
         --max-new-tokens 32
+    python -m distributed_tensorflow_models_tpu_torch.harness.cli ab \\
+        --config resnet50_synthetic --steps 50 --async-workers 4
     python -m distributed_tensorflow_models_tpu_torch.harness.cli list
 
 Flags are spelled as in the JAX package's CLI.  ``--device`` defaults to
@@ -41,6 +43,17 @@ top-5, xent and the example count for a classifier, perplexity and nll
 for an LM; ``--max-batches`` bounds the pass, ``--continuous``
 re-evaluates each new checkpoint and prints a line for each.
 
+``ab`` runs the reference's flagship experiment
+(``harness/experiment.py``): ``--steps`` updates of ``--config`` in sync
+mode (``fit``'s step) and through the async-PS emulator with
+``--async-workers`` virtual workers (``--schedule round_robin`` or
+``random``, ``--staleness-limit`` to drop stale gradients), from the same
+init and batches, and prints ``ABResult.to_json()`` (each mode's losses
+and seconds, the staleness profile) as its last line.  It needs no
+workdir and writes nothing.  ``--multihost`` asks for a cluster: the
+port joins one only through a launcher's variables (below), and raises
+without them.
+
 ``generate`` restores the workdir's newest valid checkpoint of a
 ``transformer_lm`` config and continues ``--prompt`` (comma-separated
 token ids; empty is the single token 0) by ``--max-new-tokens`` tokens
@@ -62,7 +75,7 @@ Started by a launcher that sets ``DTM_COORDINATOR_ADDRESS``,
 ``python -m distributed_tensorflow_models_tpu_torch.launch
 --num-processes 2 --max-restarts 1 -- python -m
 distributed_tensorflow_models_tpu_torch.harness.cli train ...``),
-``train`` and ``eval`` first start the heartbeat the launcher reads and
+``train``, ``eval`` and ``ab`` first start the heartbeat the launcher reads and
 join that process group (NCCL on ``cuda:{LOCAL_RANK or 0}``, gloo with
 ``--device cpu``), and run as one process of a data-parallel world; the
 global batch is ``--batch-size``.
@@ -155,6 +168,28 @@ def main(argv: list[str] | None = None) -> int:
     p_eval.add_argument("--continuous", action="store_true",
                         help="re-evaluate as new checkpoints appear")
     p_eval.add_argument("--max-batches", type=int, default=None)
+    p_ab = sub.add_parser("ab", help="async-PS vs sync-replica comparison "
+                          "(the reference's flagship experiment)")
+    p_ab.add_argument("--config", required=True)
+    p_ab.add_argument("--steps", type=int, default=50)
+    p_ab.add_argument("--async-workers", type=int, default=4)
+    p_ab.add_argument("--schedule", choices=("round_robin", "random"),
+                      default="round_robin")
+    p_ab.add_argument("--staleness-limit", type=int, default=None)
+    p_ab.add_argument("--batch-size", type=int, default=None)
+    p_ab.add_argument("--seed", type=int, default=None)
+    p_ab.add_argument("--mesh-model", type=int, default=None,
+                      help="tensor-parallel axis size (default 1)")
+    p_ab.add_argument("--fused-unembed",
+                      action=argparse.BooleanOptionalAction, default=None,
+                      help="fused chunked LM head in both modes (LM "
+                      "configs)")
+    p_ab.add_argument("--multihost", action="store_true",
+                      help="run as one process of a launcher's cluster "
+                      "(raises without its DTM_* variables)")
+    p_ab.add_argument("--device", default="cuda",
+                      help="torch device (default cuda; cpu must be asked "
+                      "for)")
     p_gen = sub.add_parser("generate", help="continue a prompt with a "
                            "trained transformer LM checkpoint (KV-cache "
                            "decode)")
@@ -199,6 +234,13 @@ def main(argv: list[str] | None = None) -> int:
     # the eval then runs as this process's share of the data axis.
     in_cluster = launch.initialize_from_env(device=args.device)
     try:
+        if args.cmd == "ab":
+            if args.multihost and not in_cluster:
+                raise SystemExit(
+                    "ab --multihost: no cluster in the environment; start "
+                    "the processes with the port's launcher (python -m "
+                    "distributed_tensorflow_models_tpu_torch.launch)")
+            return _ab(args, overrides)
         if args.cmd == "eval":
             from distributed_tensorflow_models_tpu_torch.harness.config import (
                 get_config,
@@ -251,6 +293,20 @@ def _train(args, overrides: dict) -> int:
     return 0
 
 
+def _ab(args, overrides: dict) -> int:
+    from distributed_tensorflow_models_tpu_torch.harness import experiment
+    from distributed_tensorflow_models_tpu_torch.harness.config import (
+        get_config,
+    )
+
+    result = experiment.async_vs_sync(
+        get_config(args.config, **overrides), args.steps,
+        num_workers=args.async_workers, schedule=args.schedule,
+        staleness_limit=args.staleness_limit, device=args.device)
+    print(json.dumps(result.to_json()))
+    return 0
+
+
 # Config field of each flag that overrides one; a command without the flag
 # leaves the field alone.
 _OVERRIDES = (("batch_size", "global_batch_size"), ("seed", "seed"),
@@ -268,7 +324,7 @@ _OVERRIDES = (("batch_size", "global_batch_size"), ("seed", "seed"),
               ("aot_compile", "aot_compile"),
               ("mesh_model", "mesh_model"), ("mesh_seq", "mesh_seq"),
               ("mesh_pipe", "mesh_pipe"), ("mesh_expert", "mesh_expert"),
-              ("seq_impl", "seq_impl"))
+              ("seq_impl", "seq_impl"), ("fused_unembed", "fused_unembed"))
 
 
 def _overrides(args) -> dict:

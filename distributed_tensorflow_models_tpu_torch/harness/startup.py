@@ -297,13 +297,26 @@ class AotTrainStep:
             log.info("startup: built %d kernel libraries of the %s", built,
                      self._label)
 
-    def _join_all(self, timeout: Optional[float] = None) -> bool:
+    def _join_all(self, timeout: Optional[float] = None,
+                  waiter: bool = False) -> Optional[float]:
+        """Join the threads; the clock read (``perf_counter``) at which all
+        were seen ended, None while one still runs.  A ``waiter`` (the
+        join that waited for them) ends the span there: the span is then
+        at least the wait, whatever the wake-up after the last thread's
+        own clock read cost."""
         deadline = None if timeout is None else time.monotonic() + timeout
         for thread in self._threads:
             thread.join(None if deadline is None
                         else max(0.0, deadline - time.monotonic()))
-        done = not any(t.is_alive() for t in self._threads)
-        if done and not self._traced:
+        if any(t.is_alive() for t in self._threads):
+            return None
+        end = time.perf_counter()
+        if waiter:
+            with self._lock:
+                self._span = max(self._span, end - self._t0)
+                self._registry.gauge(telemetry.STARTUP_AOT_COMPILE).set(
+                    self._span)
+        if not self._traced:
             self._traced = True
             self._registry.trace.complete(
                 "startup/aot_compile", self._span, ts_mono=self._t0,
@@ -312,7 +325,7 @@ class AotTrainStep:
             log.info("startup work for the %s done in %.2fs (%d kernel "
                      "libraries)", self._label, self._span,
                      len(self._loaders))
-        return done
+        return end
 
     def acquire(self, sig: tuple) -> Optional[float]:
         """Seconds waited for the threads when ``sig`` is the signature
@@ -323,8 +336,10 @@ class AotTrainStep:
             return None
         self._acquired = True
         t0 = time.perf_counter()
-        self._join_all()
-        wait = time.perf_counter() - t0
+        waiting = any(t.is_alive() for t in self._threads)
+        # The wait and the span's end are one clock read.
+        end = self._join_all(waiter=waiting)
+        wait = end - t0 if waiting else 0.0
         self._registry.trace.complete("startup/aot_join", wait, ts_mono=t0,
                                       args={"label": self._label})
         if self._error is not None:
@@ -338,7 +353,7 @@ class AotTrainStep:
     def join(self, timeout: Optional[float] = None) -> None:
         """Reap the threads (an ``nvcc`` build cannot be cancelled, so an
         aborted ``fit`` must not leave one running into its caller)."""
-        if not self._join_all(timeout):
+        if self._join_all(timeout) is None:
             log.warning("the %s startup work still runs after %.0fs of "
                         "teardown; leaving its daemon threads to finish",
                         self._label, timeout or 0.0)

@@ -258,18 +258,23 @@ def build_model(cfg: ExperimentConfig, device: torch.device,
 
 
 def build_state(cfg: ExperimentConfig, device: torch.device,
-                mesh: Optional[meshlib.Mesh] = None) -> TrainState:
+                mesh: Optional[meshlib.Mesh] = None,
+                num_steps: Optional[int] = None) -> TrainState:
     """The model, optimizer and EMA of ``cfg`` on ``device``; an LM whose
     model has ``initial_carry`` (the PTB LSTM) starts from its zero f32
     carry, on the device, at this process's rows of the global batch
-    (``global_batch_size`` without a mesh): the carry is batch-sharded."""
+    (``global_batch_size`` without a mesh): the carry is batch-sharded.
+    The optimizer's device tables cover ``num_steps`` steps
+    (``cfg.train_steps`` by default); the schedules' values do not depend
+    on it."""
     model = build_model(cfg, device, mesh)
     carry = None
     if cfg.task == "lm" and hasattr(model, "initial_carry"):
         rows = (cfg.global_batch_size if mesh is None else
                 meshlib.local_batch_size(cfg.global_batch_size, mesh))
         carry = model.initial_carry(rows, device)
-    return TrainState.create(model, cfg.optimizer.make(cfg.train_steps),
+    return TrainState.create(model, cfg.optimizer.make(
+        cfg.train_steps if num_steps is None else num_steps),
                              ema_decay=cfg.ema_decay, carry=carry)
 
 

@@ -57,6 +57,12 @@ K2-K4 in every stage) against its sequential schedule within the K2-K4
 tolerance, and the expert layout's per-rank arithmetic (``moe.emulate``)
 against ``moe_ffn_reference(num_ranks=E)`` within f32 summation order.
 
+The async-PS and backup emulators (``parallel/async_ps.py``,
+``parallel/backup.py``): their gradient and apply programs captured and
+replayed against the same events run eagerly (bit for bit where the step
+has no atomics, else the LM bound), and ``async_vs_sync`` at one worker
+equal to its sync mode (``fit``'s captured step) bit for bit.
+
 K6 (the persistent, ring-pipelined K1) must equal K1 bit for bit, in both
 dtypes.  K5's
 dK and dV come from K3's own code and must equal K3's bit for bit; its dQ
@@ -1972,3 +1978,87 @@ def test_nccl_group_of_one_sums_bf16_unchanged(cuda):
                             _state_tensors(alone.state),
                             [h["loss"] for h in grouped.history],
                             [h["loss"] for h in alone.history])
+
+
+def _emulator_runs(cfg, device, events, make):
+    """``make(state, loss, capture)`` -> an emulator, run on ``events``
+    batches of ``cfg`` (``shards`` of each for a backup emulator) from the
+    same seeded state, captured and eagerly: [(losses, emulator), ...]."""
+    from distributed_tensorflow_models_tpu_torch.core import mesh as meshlib
+    from distributed_tensorflow_models_tpu_torch.harness import experiment
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+
+    batches = experiment.ab_batches(cfg, events, meshlib.local_mesh(device))
+    runs = []
+    for capture in (True, False):
+        state = trainlib.build_state(
+            cfg, device, num_steps=max(cfg.train_steps, events))
+        emu = make(state, trainlib.build_loss(cfg, state), capture)
+        recs = [emu.step(b, cfg.seed) for b in batches]
+        runs.append(([float(r["metrics"]["loss"]) for r in recs], emu))
+    return runs
+
+
+@pytest.mark.parametrize("case", ["resnet32_cifar10", "transformer_lm"])
+def test_async_emulator_replays_equal_eager_events(cuda, case):
+    """The async-PS emulator at K = 4 round robin (staleness 0, 1, 2, 3, 3,
+    3: the snapshot copied into the grad graph's parameters) with its
+    gradient and apply programs captured, against the same events run
+    eagerly: bit for bit where the step has no atomics, else within the LM
+    bound; one capture of each program."""
+    from distributed_tensorflow_models_tpu_torch.harness import config as tconfig
+    from distributed_tensorflow_models_tpu_torch.parallel import async_ps
+
+    name, over, exact = REPLAY_CASES[case]
+    cfg = tconfig.get_config(name, **over)
+    (got, cap), (want, eager) = _emulator_runs(
+        cfg, cuda, 6, lambda s, loss, capture: async_ps.AsyncPSEmulator(
+            s, loss, async_ps.AsyncConfig(num_workers=4), capture=capture))
+    assert cap.programs.captures == 2 and eager.programs.captures == 0
+    assert cap.staleness_log == eager.staleness_log == [0, 1, 2, 3, 3, 3]
+    a, b = _state_tensors(cap.state), _state_tensors(eager.state)
+    if exact:
+        assert got == want
+        assert all(torch.equal(a[k], b[k]) for k in b)
+    else:
+        _assert_lm_states_close(a, b, got, want)
+
+
+def test_backup_emulator_replays_equal_eager_rounds(cuda):
+    """The backup emulator (M = 4, N = 3) on cut ResNet-32 with its
+    programs captured against the same rounds run eagerly, bit for bit:
+    the BN statistics restored between the chosen replicas' replays."""
+    from distributed_tensorflow_models_tpu_torch.harness import config as tconfig
+    from distributed_tensorflow_models_tpu_torch.parallel import backup
+
+    name, over, _ = REPLAY_CASES["resnet32_cifar10"]
+    cfg = tconfig.get_config(name, **over)
+
+    class Sharded(backup.SyncBackupEmulator):
+        def step(self, batch, seed):
+            return super().step(backup.split_into_shards(batch, 4), seed)
+
+    (got, cap), (want, eager) = _emulator_runs(
+        cfg, cuda, 3, lambda s, loss, capture: Sharded(
+            s, loss, backup.BackupConfig(4, 3), capture=capture))
+    assert cap.programs.captures == 2 and cap.discarded == 3
+    a, b = _state_tensors(cap.state), _state_tensors(eager.state)
+    assert got == want and all(torch.equal(a[k], b[k]) for k in b)
+
+
+def test_ab_one_worker_equals_sync_on_card(cuda):
+    """``async_vs_sync`` on cut ResNet-32 (K1's f32 form) at K = 1: the
+    async mode's losses and state equal the sync mode's (``fit``'s
+    captured step) bit for bit, K1 launched as often in each."""
+    from distributed_tensorflow_models_tpu_torch.harness import config as tconfig
+    from distributed_tensorflow_models_tpu_torch.harness import experiment
+
+    name, over, _ = REPLAY_CASES["resnet32_cifar10"]
+    cfg = tconfig.get_config(name, **over)
+    res = experiment.async_vs_sync(cfg, 4, num_workers=1, device="cuda",
+                                   keep_states=True)
+    assert res.async_losses == res.sync_losses
+    a, b = _state_tensors(res.sync_state), _state_tensors(res.async_state)
+    assert all(torch.equal(a[k], b[k]) for k in b)
+    assert res.launches["sync"] == res.launches["async"]
+    assert res.launches["sync"]

@@ -29,6 +29,10 @@ under ``<outdir>`` (``*_p<rank>.npz`` and ``*.json``):
 - :data:`CLIP_CASES` (world 2) — ``fit`` under SGD with a global-norm
   clip that acts at every step on the ``model``, ``pipe`` and ``expert``
   layouts: losses, ``grad_norm`` and the whole parameters at the end;
+- :data:`ASYNC_CASES` (world 2) — the async-PS emulator, two workers in
+  round robin, on a data axis of two and at ``model=2`` under
+  :data:`CLIP`: each event's loss, ``grad_norm``, staleness and dropped
+  flag, and the whole parameters after the events;
 - :data:`STAGE_CASES` — ``pipeline_apply`` of the JAX package's tanh
   stages (forward and gradients), and :data:`PIPE_LM_CASES` the pipelined
   tiny transformer's loss and gradients (dropout 0.3) on the pipe
@@ -151,6 +155,18 @@ CLIP_CASES = {
     "pipe": dict(mesh_data=1, mesh_pipe=2, model_kwargs=PIPE_KW),
     "expert": dict(mesh_data=1, mesh_expert=2, fused_unembed=False,
                    model_kwargs=MOE_KW),
+}
+
+# The async-PS emulator (parallel/async_ps.py) across processes: two
+# workers in round robin, ASYNC_EVENTS events of the tiny transformer on a
+# data axis of two (SGD and the f32 head: Adam would turn the round-off
+# of the key biases' zero gradient into steps of lr, and the fused bf16
+# head rounds each process's rows apart), and at model=2 under CLIP.
+ASYNC_EVENTS = 3
+ASYNC_CASES = {
+    "data": dict(mesh_data=2, fused_unembed=False,
+                 optimizer=OptimizerConfig(name="sgd", learning_rate=0.1)),
+    "model_clip": dict(mesh_data=1, mesh_model=2, optimizer=CLIP),
 }
 
 # The JAX package's pipeline test (tests/test_pipeline.py): 4 tanh stages
@@ -576,6 +592,49 @@ def run_clips(out: str, rank: int) -> None:
         _save(os.path.join(out, "clips.npz"), arrays)
 
 
+def async_run(name: str, single: bool = False) -> dict:
+    """:data:`ASYNC_CASES` ``name``: the emulator's per-event losses,
+    ``grad_norm``, staleness and dropped flags and the whole parameters
+    after the events, each process feeding its block of the A/B's batch
+    stream (``harness/experiment.py::ab_batches``); ``single``: the case
+    with the layout taken out, alone (the one-process oracle)."""
+    from distributed_tensorflow_models_tpu_torch import interop
+    from distributed_tensorflow_models_tpu_torch.core import mesh as meshlib
+    from distributed_tensorflow_models_tpu_torch.core import train_loop
+    from distributed_tensorflow_models_tpu_torch.harness import experiment
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+    from distributed_tensorflow_models_tpu_torch.parallel import async_ps
+
+    cfg = LM.replace(**ASYNC_CASES[name])
+    if single:
+        cfg = cfg.replace(**LAYOUT)
+        mesh = meshlib.local_mesh("cpu")
+    else:
+        mesh = trainlib.mesh_from_config(cfg, "cpu")
+    state = train_loop.place_state(trainlib.build_state(
+        cfg, mesh.device, mesh, num_steps=ASYNC_EVENTS), mesh)
+    emu = async_ps.AsyncPSEmulator(state, trainlib.build_loss(cfg, state),
+                                   async_ps.AsyncConfig(num_workers=2))
+    batches = experiment.ab_batches(cfg, ASYNC_EVENTS, mesh)
+    with meshlib.data_parallel(mesh, trainlib.seq_dim(cfg)):
+        recs = emu.run(batches, cfg.seed + 1)
+    arrays = {"__loss": [float(r["metrics"]["loss"]) for r in recs],
+              "__grad_norm": [float(r["metrics"]["grad_norm"])
+                              for r in recs],
+              "__staleness": emu.staleness_log,
+              "__dropped": [r["dropped"] for r in recs]}
+    arrays.update(_flat(interop.to_flax_variables(
+        emu.state.model)["params"]))
+    return arrays
+
+
+def run_async(out: str, rank: int) -> None:
+    for name in ASYNC_CASES:
+        arrays = async_run(name)
+        if rank == 0:
+            _save(os.path.join(out, f"async_{name}.npz"), arrays)
+
+
 def resume_and_eval_on_pipe(out: str, rank: int) -> None:
     """``pipe=2``, 4 steps straight against 2 steps checkpointed and
     resumed to 4 (both states' whole parameters), then ``eval`` of the
@@ -643,6 +702,7 @@ def main(out: str) -> int:
         eval_on_seq_mesh(out, rank)
         resume_on_tp(out, rank)
         run_clips(out, rank)
+        run_async(out, rank)
         resume_and_eval_on_pipe(out, rank)
         eval_on_expert(out, rank)
     dist.destroy_process_group()
