@@ -6,11 +6,12 @@
 Every phase fails loudly (exit code 1); none is caught and skipped.
 
 1. Device: the card's name and power limit, and the build of the port's
-   CUDA kernels from ``csrc/`` (one nvcc per source, both started at
+   CUDA kernels from ``csrc/`` (one nvcc per source, all started at
    once): K1 and K6 in ``conv_implicit_gemm.cu``, K2-K5 in
    ``flash_attention.cu``, both on the shared Hopper helpers of
-   ``hopper.cuh``; the build seconds and what ``-Xptxas -v`` says of every
-   kernel instance (registers, shared memory, spills), K2's instances,
+   ``hopper.cuh``, and R1 in ``row_gemm.cu``; the build seconds and
+   what ``-Xptxas -v`` says of every kernel instance (registers, shared
+   memory, spills), K2's instances,
    K3's and K5's, and K4's summarised on lines of their own.
 2. K1 and K6 against K1's plain version (``conv_mxu._core_reference``, f32)
    at every launch shape of one ResNet-50 training step at batch 256
@@ -54,8 +55,9 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
 4. The ResNet-50 path: ``fit`` trains ``resnet50_synthetic`` (224x224,
    batch 256) with ``DTM_CONV_IMPL=mxu``; K1's counter must equal its
    launches per step times the steps (K6's stays 0).  The ``F.conv2d``
-   arm (cuDNN) follows as a yardstick, in turns with a second K1 arm; then
-   three steps through the CLI (K1 50 a step).
+   arm (cuDNN) follows as a yardstick (one arm each since PR 21, which
+   cut the second pair for time); then three steps through the CLI (K1
+   50 a step).
 5. ``torch.profiler`` over two replays of each ResNet arm's captured
    step: device time by kernel class and the device's idle share.  Each
    profile (here and in every phase) traces one more replay first and
@@ -167,14 +169,13 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
 9. The transformer_lm path: ``fit`` trains ``transformer_lm`` (4 layers, 8
    heads, d_model 256, sequence 256, batch 16) with ``--attn-impl
    flash``; K2, K3 and K4 must each launch 4 layers x steps times.  The
-   blockwise arm (``auto``) follows as a yardstick, in turns with a second
-   flash arm (the same counts; the blockwise arms launch none); a profile
-   of each.
+   blockwise arm (``auto``, which launches none) follows as a yardstick
+   (one arm each since PR 21); a profile of each.
 10. The transformer_lm_modern path: the same width with rotary positions,
    GQA (2 KV heads for 8) and a 256-token window, ``DTM_FLASH_BWD=staged``:
    K2 and both K5 launches must each equal layers x steps, K3 and K4 0.
-   The pair backward follows in turns; tokens/s and peak memory of each,
-   and a profile of the staged arm.
+   The pair backward follows (one arm each since PR 21); tokens/s and
+   peak memory of each, and a profile of the staged arm.
 11. K1 and K6 at every launch shape of the new conv paths, traced on the
    meta device as for phases 2 and 6: ``resnet32_cifar10`` at batch 128 in
    f32 (the kernels' f32 form: TF32 products, held elementwise to
@@ -185,8 +186,8 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    224x224 and batch 128 in bf16 (its 5x5 ``conv2`` and dx included); K6
    equal to K1 bit for bit in both dtypes; each shape's N tile, time,
    bound (the dense TF32 or bf16 peak, or the bytes) and cuDNN time.
-12. The new conv paths through ``fit``, each K1 arm (``DTM_CONV_IMPL=mxu``)
-   in turns with an ``F.conv2d`` arm: ``resnet32_cifar10`` (batch 128,
+12. The new conv paths through ``fit``, a K1 arm (``DTM_CONV_IMPL=mxu``)
+   and an ``F.conv2d`` arm (one of each since PR 21): ``resnet32_cifar10`` (batch 128,
    f32; also a K6 arm) and ``lenet_mnist`` (batch 64; its convs route to
    patches, so no kernel launches) as named configs, VGG-16 and AlexNet
    on ``resnet50_synthetic`` with the JAX bench's settings (batch
@@ -217,9 +218,16 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    counted) within ``DECODE_ATOL_OF_SCALE`` of the logits' scale; a
    sampled stream (top-k 40, top-p 0.95) captured, eager and repeated
    from its seed, bit for bit; decode tokens/s captured and eager, timed
-   in turns.  Beam search (batch ``BEAM_BATCH``, ``BEAM_SIZE`` beams)
-   and ``generate_rnn`` on ``ptb_medium`` (seeded init) captured against
-   eager, bit for bit, timed.  ``--generate-only`` runs phases 1 and 14.
+   in turns (two runs of each since PR 21).  Beam search (batch
+   ``BEAM_BATCH``, ``BEAM_SIZE`` beams; one run of each since PR 21) and
+   ``generate_rnn`` on ``ptb_medium`` (seeded init) captured against
+   eager, bit for bit, timed.  R1 at each LM's decode shapes: every
+   launch of its ``[16, 256]`` prompt pass and of one ``[16, 1]`` step
+   against its plain version bit for bit, timed beside its bound and
+   ``torch.matmul``; R1's counter zeroed just before the timed captured
+   ``generate`` and read just after, where it must equal the prompt
+   pass's launches plus one step's for each later token.
+   ``--generate-only`` runs phases 1 and 14.
 15. The cold start (``harness/startup.py``): ``transformer_lm`` on flash
    resumed from phase 14's checkpoint for ``STARTUP_STEPS`` more steps,
    each arm of ``STARTUP_ARMS`` in a fresh process joined to a world-1
@@ -311,6 +319,26 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    and an event; (d) the CLI's ``ab`` in this process.  Each mode's
    seconds and images/s or tokens/s, its capture seconds, the staleness
    profile and peak memory are printed.
+20. The serving engine (``serving/``) on ``transformer_lm`` at full
+   width (its seeded init, bf16): (a) the invariance check: a 150-token
+   prompt's logits and every block's K/V whole, in chunks of 32 and of
+   1, and an ``[8, 1]`` step over per-lane lengths against each lane's
+   ``[1, 1]`` step alone, all bit for bit; (b) R1 against its plain
+   version, bit for bit (no tolerance: the same f32 additions in the
+   same order), at every launch of that decode step and of a ``[2, 32]``
+   prefill dispatch, each timed (R1, its plain version, ``torch.matmul``
+   on the same operands) beside its bound; (c) 16 requests (prompts of
+   17-200 tokens, 32-96 new, the six sampling modes in turn, four on a
+   shared 128-token prefix, admitted mid-flight) through the engine (8
+   slots, chunks of 32, 2 prefill lanes, pages of 16) after a warm-up
+   request that builds its programs, R1's counter zeroed just before and
+   read after: every stream equal to solo ``generate`` (captured, batch
+   1), programs (1, 1), ``fsck()`` clean after every step, the shared
+   prefix reused; served tokens/s against solo ``generate`` one request
+   at a time, prefill and decode ms a dispatch; (d) ``decode_burst`` 4
+   on four requests and ``spec_tokens`` 4 on a random and two repetitive
+   prompts: streams equal solo, programs (1, 1) and (1, 2), drafts
+   accepted printed.
 
 Every training arm runs ``fit`` in chunks of ``STEPS_PER_LOOP`` steps
 (``steps_per_loop``): the first step eager, the step then captured as a
@@ -321,18 +349,21 @@ then the CUDA ``DevicePrefetcher`` and the ``BatchStacker``) and prints
 its images/s or tokens/s over the timed window (from a device sync at the
 end of the first chunk to one at the run's end), its median and mean wait
 for input (``data_s``), its capture's count and seconds, and its peak
-memory, allocated and reserved (the graph's private pool).  Every comparison of arms runs them in turns (K1, F.conv2d,
-K1, F.conv2d for ResNet-50; flash, blockwise, flash, blockwise for
-transformer_lm):
-host noise on a shared machine moves step times between runs.  The last
+memory, allocated and reserved (the graph's private pool).  Arms
+compared run one after the other in one process (K1 then F.conv2d for
+ResNet-50, flash then blockwise for transformer_lm; PR 21 cut the second
+pair of phases 4, 9, 10 and 12 and the repeated decode and beam runs of
+phase 14 after a 1126.3 s smoke): host noise on a shared machine moves
+step times between runs.  The last
 lines are the card's name and power limit, a ``{"kernels": ...}`` JSON line (K1
 to K6, K5 as its two launches, K1's and K6's f32 forms as entries of their
-own) and ``{"ok": true, "device": {...}}``.  ``--zoo-only`` runs phases 1
+own, and R1) and ``{"ok": true, "device": {...}}``.  ``--zoo-only`` runs phases 1
 and 11-13 alone, ``--dp-only`` phases 1 and 5b, ``--resume-only`` phases
 1 and 5c, ``--chaos-only`` phases 1 and 5e, ``--generate-only`` phases 1 and
 14, ``--startup-only`` phases 1, 14's training and 15,
 ``--model-knobs-only`` phases 1 and 16, ``--parallel-only`` phases 1,
-17 and 18, ``--async-only`` phases 1 and 19.  Each ``fit`` given a workdir under ``build/chip_smoke`` (emptied
+17 and 18, ``--async-only`` phases 1 and 19, ``--serve-only`` phases 1
+and 20.  Each ``fit`` given a workdir under ``build/chip_smoke`` (emptied
 at the start) saves a final checkpoint there, which the smoke deletes.
 """
 
@@ -2919,11 +2950,9 @@ def phases_zoo(steps: int, seed: int, card: str, workdir: Path) -> dict:
                                              dropout_rate=0.0))
     log(f"conv core launches per LeNet step: {shapes['LeNet']}")
 
-    # 12. The new conv paths through fit, K1 (and, for ResNet-32, K6) arms
-    # in turns with F.conv2d arms (one of each for VGG-16 and AlexNet); a
-    # profile of each K1 arm.
-    k1_arms = (("mxu", "0", "K1"), ("xla", "0", "F.conv2d"),
-               ("mxu", "0", "K1"), ("xla", "0", "F.conv2d"))
+    # 12. The new conv paths through fit: a K1 arm and an F.conv2d arm
+    # (and, for ResNet-32, a K6 arm); a profile of each K1 arm.
+    k1_arms = (("mxu", "0", "K1"), ("xla", "0", "F.conv2d"))
     r32 = get_config("resnet32_cifar10")
     lenet = get_config("lenet_mnist")
     vgg = bench_config("vgg16", 64, steps)
@@ -2938,9 +2967,9 @@ def phases_zoo(steps: int, seed: int, card: str, workdir: Path) -> dict:
                 "lenet_mnist", steps, lenet.global_batch_size, wd),
              shapes["LeNet"], True, k1_arms),
             ("VGG-16", vgg, lambda wd: run_fit(vgg, wd), shapes["VGG-16"],
-             False, k1_arms[:2]),
+             False, k1_arms),
             ("AlexNet", alex, lambda wd: run_fit(alex, wd),
-             shapes["AlexNet"], False, k1_arms[:2])):
+             shapes["AlexNet"], False, k1_arms)):
         paths[label] = phase_zoo_path(
             label, runner, cfg.global_batch_size, k1_step, f32, arms, card,
             workdir)
@@ -3076,19 +3105,42 @@ def decode_at_width(label: str, model, prompt, card: str, k2) -> dict:
     and each step's logits bit for bit), the decode logits against the
     full forward on K2 (its counter zeroed just before, read just after:
     one launch a layer), a sampled stream captured against eager and
-    repeated from its seed, and the two timed in turns."""
+    repeated from its seed, and the two timed in turns.  R1 at this
+    path's shapes: every launch of one prompt pass and of one step held
+    to its plain version bit for bit and timed (``_r1_table``), and its
+    counter, zeroed just before the timed captured ``generate`` and read
+    just after, at one prompt pass's launches plus one step's per later
+    token (the eager first step and each replay)."""
     import torch
 
     from distributed_tensorflow_models_tpu_torch.harness import generate as genlib
+    from distributed_tensorflow_models_tpu_torch.ops import rowwise
 
     n = GEN_NEW_TOKENS
     B, T = prompt.shape
+    cache = model.init_cache(B, "cuda")
+    prompt_calls, lg = _record_r1(lambda: model(prompt, cache=cache)[0])
+    step_calls, _ = _record_r1(lambda: model(
+        lg[:, -1].argmax(-1, keepdim=True), cache=cache)[0])
+    del cache, lg
+    r1_prompt = _r1_table(prompt_calls, f"{label} decode: R1, the "
+                          f"[{B}, {T}] prompt pass", card)
+    r1_step = _r1_table(step_calls, f"{label} decode: R1, one [{B}, 1] "
+                        f"step", card)
+    del prompt_calls, step_calls
     caps, reps = genlib.captures, genlib.replays
+    zero_counts([rowwise.row_matmul])
     (got, got_lg), cap_s = _timed(lambda: genlib.generate(
         model, prompt, n, capture=True, return_logits=True))
+    r1_launches = rowwise.row_matmul.launches
     if (genlib.captures - caps, genlib.replays - reps) != (1, n - 2):
         fail(f"{label}: generate captured {genlib.captures - caps} times "
              f"and replayed {genlib.replays - reps} (expected 1 and {n - 2})")
+    r1_want = r1_prompt["launches"] + (n - 1) * r1_step["launches"]
+    if r1_launches != r1_want:
+        fail(f"{label}: the captured generate launched R1 {r1_launches} "
+             f"times, expected {r1_prompt['launches']} for the prompt pass "
+             f"+ {n - 1} x {r1_step['launches']} = {r1_want}")
     (want, want_lg), eager_s = _timed(lambda: genlib.generate(
         model, prompt, n, capture=False, return_logits=True))
     if not (torch.equal(got, want) and torch.equal(got_lg, want_lg)):
@@ -3116,7 +3168,7 @@ def decode_at_width(label: str, model, prompt, card: str, k2) -> dict:
         fail(f"{label}: the sampled stream differs between capture, eager "
              f"and a repeat from its seed")
     walls = {"captured": [cap_s], "eager": [eager_s]}
-    for arm in ("captured", "eager", "captured", "eager"):
+    for arm in ("captured", "eager"):
         _, s = _timed(lambda: genlib.generate(model, prompt, n,
                                               capture=arm == "captured"))
         walls[arm].append(s)
@@ -3138,9 +3190,12 @@ def decode_at_width(label: str, model, prompt, card: str, k2) -> dict:
         f"{B * n / best['captured']:.1f} tokens/s captured "
         f"({best['captured'] / n * 1e3:.3f} ms a token), "
         f"{B * n / best['eager']:.1f} tokens/s eager "
-        f"({best['eager'] / n * 1e3:.3f} ms a token) | {card}")
+        f"({best['eager'] / n * 1e3:.3f} ms a token); R1 {r1_launches} "
+        f"launches in the timed captured run | {card}")
     return {"err": err, "scale": scale, "agree": agree,
             "k2_launches": k2_launches, "cache_bytes": cache_bytes,
+            "r1_launches": r1_launches, "r1_prompt": r1_prompt,
+            "r1_step": r1_step,
             "tokens_per_s_captured": B * n / best["captured"],
             "tokens_per_s_eager": B * n / best["eager"],
             "ms_per_token_captured": best["captured"] / n * 1e3,
@@ -3214,12 +3269,6 @@ def phase_generate(card: str, workdir: Path, flash_fns: dict) -> dict:
     if genlib.captures - caps != 1:
         fail(f"beam search captured {genlib.captures - caps} times")
     (et, es), beam_eager_s = beam(False)
-    for capture in (True, False):
-        s = beam(capture)[1]
-        if capture:
-            beam_s = min(beam_s, s)
-        else:
-            beam_eager_s = min(beam_eager_s, s)
     if not (torch.equal(bt, et) and torch.equal(bs, es)):
         fail(f"beam search: {genlib.captures - caps} captures; captured = "
              f"eager: tokens {torch.equal(bt, et)}, scores "
@@ -3227,7 +3276,7 @@ def phase_generate(card: str, workdir: Path, flash_fns: dict) -> dict:
     greedy = genlib.generate(model, prompt, GEN_NEW_TOKENS)
     log(f"decode phase: beam search, batch {BEAM_BATCH} x {BEAM_SIZE} beams,"
         f" {GEN_NEW_TOKENS} new tokens: captured = eager bit for bit (tokens"
-        f" and scores); best of two in turns {beam_s:.3f} s captured, "
+        f" and scores); {beam_s:.3f} s captured, "
         f"{beam_eager_s:.3f} s eager;"
         f" scores {[round(float(s), 3) for s in bs]}, greedy's tokens equal "
         f"the best beam's in {int((greedy == bt).all(1).sum())} of "
@@ -3265,6 +3314,7 @@ def phase_generate(card: str, workdir: Path, flash_fns: dict) -> dict:
     return {"ckpt": ckpt, "train_launches": train_launches,
             "k2_decode_check": sum(r["k2_launches"]
                                    for r in results.values()),
+            "r1_launches": sum(r["r1_launches"] for r in results.values()),
             "paths": results}
 
 
@@ -4580,6 +4630,409 @@ def phase_async(card: str, flash_fns: dict, k1, k6, k1_per_step: int,
     return out
 
 
+# Phase 20: the serving engine on transformer_lm at full width.  R1 is
+# held to its plain version bit for bit (the same f32 additions in the
+# same order: exact, no tolerance).  R1's bound: bf16 operands at the dense
+# bf16 peak, f32 operands at the f32 peak outside the tensor cores (it
+# computes in full f32).
+R1_SOURCE = "distributed_tensorflow_models_tpu_torch/csrc/row_gemm.cu"
+PEAK_F32_FLOPS = 67e12
+SERVE_ENGINE = dict(max_slots=8, prefill_chunk=32, prefill_lanes=2,
+                    kv_page_tokens=16)
+SERVE_REQUESTS = 16
+SERVE_SHARED_PREFIX = 128
+SERVE_SHARERS = (2, 5, 9, 13)
+# Arrival step of each request id (the rest arrive at step 0).
+SERVE_ARRIVALS = {8: 6, 9: 6, 10: 12, 11: 12, 12: 20, 13: 20, 14: 30,
+                  15: 30}
+SERVE_MODES = ((0.0, 0, 1.0), (1.0, 0, 1.0), (0.8, 5, 1.0), (1.0, 0, 0.9),
+               (0.7, 8, 0.85), (0.0, 0, 1.0))
+
+
+def _serve_traffic(seed: int, vocab: int) -> list[dict]:
+    """The phase's 16 requests: prompts of 17-200 tokens and 32-96 new
+    tokens from ``seed``, the six sampling modes in turn, four prompts on
+    one shared 128-token prefix (two in the first wave, cold; two later,
+    warm, each with its own tail: copy-on-write past the shared pages)."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    shared = rs.randint(0, vocab, SERVE_SHARED_PREFIX)
+    out = []
+    for i in range(SERVE_REQUESTS):
+        plen = int(rs.randint(17, 201))
+        if i in SERVE_SHARERS:
+            plen = max(plen, SERVE_SHARED_PREFIX + 12)
+            prompt = np.concatenate([shared, rs.randint(
+                0, vocab, plen - SERVE_SHARED_PREFIX)])
+        else:
+            prompt = rs.randint(0, vocab, plen)
+        t, k, p = SERVE_MODES[i % len(SERVE_MODES)]
+        out.append(dict(rid=i, prompt=prompt.astype(np.int32),
+                        max_new=int(rs.randint(32, 97)), t=t, k=k, p=p,
+                        seed=seed * 1000 + i if t > 0 else None))
+    return out
+
+
+def _solo_stream(model, r: dict) -> list:
+    """Request ``r`` through solo ``generate`` at batch 1 (its step
+    captured on the card)."""
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.harness import generate as genlib
+
+    device = model.head.kernel.device
+    out = genlib.generate(
+        model, torch.tensor(r["prompt"][None], dtype=torch.int64,
+                            device=device), r["max_new"], temperature=r["t"],
+        top_k=r["k"], top_p=r["p"], seed=r["seed"])
+    return out[0, len(r["prompt"]):].tolist()
+
+
+class _CountedProgram:
+    """An engine program that counts its dispatches."""
+
+    def __init__(self, prog):
+        self.prog, self.calls = prog, 0
+
+    def __call__(self):
+        self.calls += 1
+        self.prog()
+
+    @property
+    def built(self) -> bool:
+        return self.prog.built
+
+
+def _serve(eng, traffic: list[dict], arrivals: dict) -> dict:
+    """Drive ``traffic`` through a scheduler over ``eng``; request ``rid``
+    arrives at step ``arrivals.get(rid, 0)``.  Returns ``{rid: tokens}``."""
+    from distributed_tensorflow_models_tpu_torch.serving import scheduler
+
+    sched = scheduler.ContinuousBatchingScheduler(eng)
+    done, step = [], 0
+    last = max(arrivals.values(), default=0)
+    while step <= last or sched.has_work:
+        for r in traffic:
+            if arrivals.get(r["rid"], 0) == step:
+                sched.submit(scheduler.Request(
+                    r["rid"], r["prompt"], r["max_new"], temperature=r["t"],
+                    top_k=r["k"], top_p=r["p"], rng=r["seed"]))
+        done += sched.step()
+        if eng.fsck():
+            fail(f"serve: fsck after step {step}: {eng.fsck()}")
+        step += 1
+        if step > 2000:
+            fail("serve: the scheduler did not drain in 2000 steps")
+    return {c.request_id: c.tokens for c in done}
+
+
+def _record_r1(fn):
+    """The R1 products ``fn()`` runs, as ``(a, b, out_dtype)`` (clones of
+    the operands in their strided layout), ``fn``'s result."""
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.ops import rowwise
+
+    calls = []
+    real = rowwise.row_matmul
+
+    def record(a, b, out_dtype=None):
+        def keep(t):
+            return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                       device=t.device).copy_(t)
+        calls.append((keep(a), keep(b), out_dtype or a.dtype))
+        return real(a, b, out_dtype)
+
+    # The real wrapper counts its launches on the module's row_matmul:
+    # these checking launches land on the recorder's own counter, not on
+    # the main path's.
+    record.launches = 0
+    rowwise.row_matmul = record
+    try:
+        with torch.no_grad():
+            out = fn()
+    finally:
+        rowwise.row_matmul = real
+    return calls, out
+
+
+def _r1_table(calls, label: str, card: str) -> dict:
+    """Each recorded product: R1 against its plain version on its own
+    operands (equal bit for bit); then per distinct shape R1 and
+    ``torch.matmul`` (the library call on the same operands, in their
+    dtype) timed by CUDA-graph replay (``graph_ms``: at these sizes
+    events over eager calls time the host), the plain version by events,
+    and the bound from the bytes (each input once, the output once; a
+    weight broadcast over groups once) and the operations.  Sums over
+    the calls."""
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.ops import rowwise
+
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+               flops=0.0, bytes=0.0, t_ops=0.0, t_bytes=0.0)
+    groups: dict = {}
+    err = 0.0
+    for a, b, out_dtype in calls:
+        a4, b4, _ = rowwise._operands(a, b)
+        got = rowwise.row_matmul(a, b, out_dtype)
+        want = rowwise._plain_matmul(a4, b4, out_dtype).reshape(got.shape)
+        d = float((got.float() - want.float()).abs().max())
+        if not torch.equal(got, want):
+            fail(f"{label}: R1 differs from its plain version at "
+                 f"{tuple(a4.shape)} x {tuple(b4.shape)} (max abs {d})")
+        err = max(err, d)
+        key = (tuple(a4.shape), a4.stride(), tuple(b4.shape), b4.stride(),
+               a.dtype, out_dtype)
+        groups.setdefault(key, [a, b, out_dtype, 0])[3] += 1
+    for (ashape, _, bshape, bstride, dt, odt), (a, b, out_dtype, n) in (
+            groups.items()):
+        a4, b4, _ = rowwise._operands(a, b)
+        G1, G2, M, K = ashape
+        N = bshape[3]
+        esz = a.element_size()
+        b_unique = (bshape[0] * bshape[1] if bstride[0] or bstride[1]
+                    else 1) * K * N
+        out_esz = torch.empty((), dtype=odt).element_size()
+        nbytes = esz * (a.numel() + b_unique) + G1 * G2 * M * N * out_esz
+        flops = 2.0 * G1 * G2 * M * N * K
+        peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS
+        t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
+        r1_ms = graph_ms(lambda: rowwise.row_matmul(a, b, out_dtype))
+        lib_ms = graph_ms(lambda: torch.matmul(a4, b4))
+        plain_ms = time_ms(lambda: rowwise._plain_matmul(a4, b4, out_dtype),
+                           1, warmup=1)
+        tot["ms"] += n * r1_ms
+        tot["library_ms"] += n * lib_ms
+        tot["plain_ms"] += n * plain_ms
+        tot["bound_ms"] += n * 1e3 * max(t_ops, t_bytes)
+        tot["t_ops"] += n * t_ops
+        tot["t_bytes"] += n * t_bytes
+        tot["flops"] += n * flops
+        tot["bytes"] += n * nbytes
+        log(f"  {n} x a{list(ashape)} @ b{list(bshape)} {str(dt)[6:]}->"
+            f"{str(odt)[6:]}: R1 {r1_ms:.4f} ms, torch.matmul {lib_ms:.4f}, "
+            f"plain {plain_ms:.3f}, bound {1e3 * max(t_ops, t_bytes):.5f}")
+    tot["bound_by"] = ("operations" if tot["t_ops"] >= tot["t_bytes"]
+                       else "bytes")
+    log(f"{label}: {len(calls)} R1 launches, each equal to its plain "
+        f"version bit for bit; R1 {tot['ms']:.3f} ms, plain "
+        f"{tot['plain_ms']:.3f} ms, torch.matmul {tot['library_ms']:.3f} "
+        f"ms, bound {tot['bound_ms']:.4f} ms ({tot['bound_by']}: "
+        f"{tot['flops'] / 1e9:.3f} GFLOP, {tot['bytes'] / 1e6:.2f} MB) | "
+        f"{card}")
+    return {**tot, "launches": len(calls), "max_abs_err": err}
+
+
+def _invariance_check(model, seed: int, card: str) -> dict:
+    """One prompt's K/V and logits whole and in chunks of 1 and 32, and
+    an ``[8, 1]`` step over per-lane lengths against each lane's
+    ``[1, 1]`` step alone, all bit for bit; the R1 launches of that step
+    and of a ``[2, 32]`` prefill chunk, recorded for timing."""
+    import numpy as np
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.models.transformer_lm import (
+        KVCache,
+    )
+
+    rs = np.random.RandomState(seed)
+    V = model.head.kernel.shape[1]
+    dev = model.head.kernel.device
+    prompt = torch.tensor(rs.randint(0, V, (1, 150)), device=dev)
+
+    def prefill(chunk):
+        cache = model.init_cache(1, dev)
+        with torch.no_grad():
+            logits = torch.cat([model(prompt[:, i:i + chunk], cache=cache)[0]
+                                for i in range(0, 150, chunk)], 1)
+        return logits, cache
+
+    whole, cw = prefill(150)
+    for chunk in (32, 1):
+        got, cc = prefill(chunk)
+        if not torch.equal(got, whole):
+            fail(f"invariance: logits of chunks of {chunk} differ from the "
+                 f"whole prompt's ({int((got != whole).sum())} values)")
+        for i, (a, b) in enumerate(zip(cc.keys + cc.values,
+                                       cw.keys + cw.values)):
+            if not torch.equal(a, b):
+                fail(f"invariance: chunks of {chunk} wrote other K/V bits "
+                     f"(cache tensor {i}: {int((a != b).sum())} values)")
+    lengths = [150, 20, 77, 0, 160, 33, 101, 64]
+    prompts = [torch.tensor(rs.randint(0, V, (1, n)), device=dev)
+               for n in lengths]
+    prompts[0] = prompt
+    nxt = torch.tensor(rs.randint(0, V, (8, 1)), device=dev)
+    solo, caches = [], []
+    with torch.no_grad():
+        for p, n, t in zip(prompts, lengths, nxt):
+            cache = model.init_cache(1, dev)
+            if n:
+                model(p, cache=cache)
+            caches.append([x.clone() for x in cache.keys + cache.values])
+            solo.append((model(t[None], cache=cache)[0], cache))
+    L = model.num_layers
+    lanes = KVCache([torch.cat([c[i] for c in caches]) for i in range(L)],
+                    [torch.cat([c[L + i] for c in caches])
+                     for i in range(L)],
+                    torch.tensor(lengths, device=dev))
+    step_calls, step = _record_r1(lambda: model(nxt, cache=lanes)[0])
+    for s in range(8):
+        if not torch.equal(step[s:s + 1], solo[s][0]):
+            fail(f"invariance: lane {s} of the [8, 1] step differs from its "
+                 f"[1, 1] step alone")
+        for i in range(L):
+            if not (torch.equal(lanes.keys[i][s:s + 1], solo[s][1].keys[i])
+                    and torch.equal(lanes.values[i][s:s + 1],
+                                    solo[s][1].values[i])):
+                fail(f"invariance: lane {s}'s K/V of block {i} differ from "
+                     f"its step alone")
+    chunk = KVCache([c.repeat(2, 1, 1, 1) for c in cw.keys],
+                    [c.repeat(2, 1, 1, 1) for c in cw.values],
+                    torch.tensor([0, 64], device=dev))
+    prefill_calls, _ = _record_r1(
+        lambda: model(prompt[:, :64].reshape(2, 32), cache=chunk))
+    log(f"invariance: a 150-token prompt whole = chunks of 32 = chunks of 1 "
+        f"(logits and every block's K/V bit for bit); an [8, 1] step at "
+        f"lane lengths {lengths} = each lane's [1, 1] step alone (logits "
+        f"and K/V) | {card}")
+    return {"step_calls": step_calls, "prefill_calls": prefill_calls}
+
+
+def phase_serve(card: str, seed: int, model=None) -> dict:
+    """Phase 20, the serving engine (``serving/``) on ``transformer_lm`` at
+    full width (its seeded init; ``model``, another ``TransformerLM`` on
+    its device, to rehearse the phase): the invariance check, R1 at the
+    main path's shapes, the engine's traffic against solo ``generate``,
+    the burst and speculation arms."""
+    import numpy as np
+    import torch
+
+    from distributed_tensorflow_models_tpu_torch.harness import train as trainlib
+    from distributed_tensorflow_models_tpu_torch.harness.config import get_config
+    from distributed_tensorflow_models_tpu_torch.ops import rowwise
+    from distributed_tensorflow_models_tpu_torch.serving import engine as englib
+    from distributed_tensorflow_models_tpu_torch.telemetry import registry
+
+    t_phase = time.perf_counter()
+    if model is None:
+        model = trainlib.build_model(get_config("transformer_lm"),
+                                     torch.device("cuda"))
+    model.eval()
+    device = model.head.kernel.device
+    V = model.head.kernel.shape[1]
+    inv = _invariance_check(model, seed, card)
+    r1_step = _r1_table(inv["step_calls"], "R1, one [8, 1] decode step",
+                        card)
+    r1_prefill = _r1_table(inv["prefill_calls"],
+                           "R1, one [2, 32] prefill dispatch", card)
+    # (c) The traffic, served, after one warm-up request that builds
+    # (captures) both programs; R1's counter zeroed just before.
+    traffic = _serve_traffic(seed, V)
+    reg = registry.MetricsRegistry()
+    eng = englib.InferenceEngine(model, device=device, registry=reg,
+                                 **SERVE_ENGINE)
+    _serve(eng, [dict(traffic[1], rid=99)], {})
+    if eng.compile_counts() != (1, 1):
+        fail(f"serve: the warm-up built {eng.compile_counts()} programs")
+    eng._prefill_prog = _CountedProgram(eng._prefill_prog)
+    reg0 = reg.snapshot()
+    zero_counts([rowwise.row_matmul])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = _serve(eng, traffic, SERVE_ARRIVALS)
+    torch.cuda.synchronize()
+    served_s = time.perf_counter() - t0
+    r1_launches = rowwise.row_matmul.launches
+    if not r1_launches:
+        fail("serve: the engine's run launched R1 no time")
+    snap = reg.snapshot()
+    t0 = time.perf_counter()
+    solo = {r["rid"]: _solo_stream(model, r) for r in traffic}
+    torch.cuda.synchronize()
+    solo_s = time.perf_counter() - t0
+    for r in traffic:
+        if served[r["rid"]] != solo[r["rid"]]:
+            got, want = served[r["rid"]], solo[r["rid"]]
+            at = next((i for i, (a, b) in enumerate(zip(got, want))
+                       if a != b), min(len(got), len(want)))
+            fail(f"serve: request {r['rid']} (mode {(r['t'], r['k'], r['p'])}"
+                 f", prompt {len(r['prompt'])}) differs from solo generate "
+                 f"from token {at} of {len(want)}")
+    if eng.compile_counts() != (1, 1):
+        fail(f"serve: {eng.compile_counts()} programs, expected (1, 1)")
+    hits = snap.get("serve/prefix_cache_hits", 0.0) - reg0.get(
+        "serve/prefix_cache_hits", 0.0)
+    if not hits:
+        fail("serve: the shared prefix was never reused")
+    tokens = sum(r["max_new"] for r in traffic)
+    n_dec = snap["serve/decode/count"] - reg0["serve/decode/count"]
+    dec_ms = 1e3 * (snap["serve/decode/total_s"]
+                    - reg0["serve/decode/total_s"]) / n_dec
+    pre_ms = 1e3 * (snap["serve/prefill/total_s"]
+                    - reg0["serve/prefill/total_s"]) / eng._prefill_prog.calls
+    log(f"serve: {SERVE_REQUESTS} requests ({tokens} new tokens, prompts "
+        f"{min(len(r['prompt']) for r in traffic)}-"
+        f"{max(len(r['prompt']) for r in traffic)}, the six modes, four on "
+        f"a {SERVE_SHARED_PREFIX}-token prefix: {int(hits)} blocks reused) "
+        f"through {SERVE_ENGINE}: every stream = solo generate (captured, "
+        f"batch 1) token for token; programs {eng.compile_counts()}; fsck "
+        f"clean after every step; R1 {r1_launches} launches | {card}")
+    log(f"serve: {tokens / served_s:.1f} tokens/s served ({served_s:.3f} s) "
+        f"against {tokens / solo_s:.1f} tokens/s through solo generate one "
+        f"request at a time ({solo_s:.3f} s, each call capturing its step); "
+        f"{eng._prefill_prog.calls} prefill dispatches at {pre_ms:.3f} ms, "
+        f"{int(n_dec)} decode dispatches at {dec_ms:.3f} ms (host staging, the replay "
+        f"and the read-back) | {card}")
+    # (d) decode_burst 4 on four of the requests; spec_tokens 4 on a
+    # random prompt, then a repetitive one, so that both decode programs
+    # run and drafts are accepted.
+    beng = englib.InferenceEngine(model, device=device,
+                                  registry=registry.MetricsRegistry(),
+                                  decode_burst=4, **SERVE_ENGINE)
+    arm = traffic[:4]
+    got = _serve(beng, arm, {3: 2})
+    if any(got[r["rid"]] != solo[r["rid"]] for r in arm) or \
+            beng.compile_counts() != (1, 1):
+        fail(f"serve: the decode_burst 4 arm differs from solo generate or "
+             f"built {beng.compile_counts()} programs")
+    rs = np.random.RandomState(seed + 1)
+    phrase = rs.randint(0, V, 6)
+    spec_traffic = [
+        dict(rid=0, prompt=rs.randint(0, V, 40).astype(np.int32),
+             max_new=48, t=0.0, k=0, p=1.0, seed=None),
+        dict(rid=1, prompt=np.tile(phrase, 10).astype(np.int32), max_new=64,
+             t=0.0, k=0, p=1.0, seed=None),
+        dict(rid=2, prompt=np.tile(phrase, 8).astype(np.int32), max_new=64,
+             t=0.7, k=8, p=0.85, seed=seed * 1000 + 77)]
+    sreg = registry.MetricsRegistry()
+    seng = englib.InferenceEngine(model, device=device, registry=sreg,
+                                  spec_tokens=4, **SERVE_ENGINE)
+    got = _serve(seng, spec_traffic, {1: 2, 2: 2})
+    for r in spec_traffic:
+        if got[r["rid"]] != _solo_stream(model, r):
+            fail(f"serve: spec_tokens 4, request {r['rid']} differs from "
+                 f"solo generate")
+    if seng.compile_counts() != (1, 2):
+        fail(f"serve: the speculation arm built {seng.compile_counts()} "
+             f"programs, expected (1, 2)")
+    ss = sreg.snapshot()
+    log(f"serve: decode_burst 4 on 4 requests = solo, programs (1, 1); "
+        f"spec_tokens 4 (random prompt, then two on a repeated 6-token "
+        f"phrase) = solo, programs (1, 2), {int(ss['serve/spec_accepted'])} "
+        f"of {int(ss['serve/spec_drafted'])} drafts accepted, "
+        f"{ss['serve/spec_tokens_per_dispatch/mean_s']:.2f} tokens a lane a "
+        f"verify | {card}")
+    log(f"serve phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"r1_launches": r1_launches, "r1_step": r1_step,
+            "r1_prefill": r1_prefill,
+            "served_tokens_per_s": tokens / served_s,
+            "solo_tokens_per_s": tokens / solo_s,
+            "prefill_ms": pre_ms, "decode_ms": dec_ms}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch-size", type=int, default=256,
@@ -4638,6 +5091,9 @@ def main(argv=None) -> int:
                         help="phases 1 and 19 alone, for work on the "
                         "async-PS vs sync A/B and its emulators: no result "
                         "line")
+    parser.add_argument("--serve-only", action="store_true",
+                        help="phases 1 and 20 alone, for work on the "
+                        "serving engine and R1: no result line")
     parser.add_argument("--startup-only", action="store_true",
                         help="phase 1, the checkpoint's training of phase "
                         "14 and phase 15 alone, for work on the cold "
@@ -4659,6 +5115,7 @@ def main(argv=None) -> int:
     from distributed_tensorflow_models_tpu_torch.ops import attention as attnlib
     from distributed_tensorflow_models_tpu_torch.ops import conv as convlib
     from distributed_tensorflow_models_tpu_torch.ops import conv_mxu
+    from distributed_tensorflow_models_tpu_torch.ops import rowwise
 
     # f32 comparisons in full f32: no TF32 in cuDNN or cuBLAS.
     torch.backends.cudnn.allow_tf32 = False
@@ -4676,9 +5133,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     parent = parent_conv = None
     builds = [("K1, K6", "conv_implicit_gemm.cu"),
-              ("K2-K5", "flash_attention.cu")]
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        futs = [pool.submit(conv_mxu._load), pool.submit(attnlib._load)]
+              ("K2-K5", "flash_attention.cu"), ("R1", "row_gemm.cu")]
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
+        futs = [pool.submit(conv_mxu._load), pool.submit(attnlib._load),
+                pool.submit(rowwise._load)]
         if args.parent_csrc is not None:
             csrc = args.parent_csrc.resolve()
             futs += [pool.submit(_kernels.load, name, csrc) for name in
@@ -4720,7 +5178,7 @@ def main(argv=None) -> int:
     log(f"K4 instances (D 32, 64, 128): {len(k4_lines)} in this build")
     for line in k4_lines:
         log(f"  K4 ptxas {line}")
-    log(f"both builds, in parallel: {time.perf_counter() - t0:.2f} s wall")
+    log(f"the builds, in parallel: {time.perf_counter() - t0:.2f} s wall")
 
     if parent_conv is not None:
         # Another tree's bf16 K1 at ResNet-50's launch shapes, in turns.
@@ -4786,6 +5244,11 @@ def main(argv=None) -> int:
         log(card)
         log("parallel run: phases 1, 17 and 18 alone, no result")
         return 0
+    if args.serve_only:
+        phase_serve(card, args.seed + 8)
+        log(card)
+        log("serve run: phases 1 and 20 alone, no result")
+        return 0
     if args.async_only:
         phase_async(card, flash_fns, k1, k6, len(core_launch_shapes(
             "resnet50", 224, args.batch_size)), args.batch_size)
@@ -4848,15 +5311,12 @@ def main(argv=None) -> int:
         f"to end over {run['window_steps']} replayed steps; peak memory "
         f"{run['peak_gib']:.2f} GiB, K1 {k1_res['ms']:.2f} ms of the step "
         f"| {card}")
-    # Yardstick: the same run with every conv through F.conv2d (cuDNN), in
-    # turns with the K1 arm: host noise on a shared machine moves step times
-    # between runs.
-    arms = [("K1", run)]
-    for impl in ("xla", "mxu", "xla"):
-        convlib.set_default_conv_impl(impl)
-        arms.append(("K1" if impl == "mxu" else "F.conv2d",
-                     run_named("resnet50_synthetic", steps, args.batch_size,
-                               workdir / f"{impl}{len(arms)}")))
+    # Yardstick: the same run with every conv through F.conv2d (cuDNN),
+    # once, after the K1 arm.
+    convlib.set_default_conv_impl("xla")
+    arms = [("K1", run),
+            ("F.conv2d", run_named("resnet50_synthetic", steps,
+                                   args.batch_size, workdir / "xla1"))]
     for label, r in arms:
         log_arm(f"ResNet {label}", r, args.batch_size, card)
     # The CLI on the same path: three steps, K1 50 a step.
@@ -4968,16 +5428,15 @@ def main(argv=None) -> int:
     log(f"transformer_lm (flash, K2-K4): {tokens} tokens a step, steps "
         f"{steps}, losses {lm_run['losses']}; peak memory "
         f"{lm_run['peak_gib']:.3f} GiB | {card}")
-    lm_arms = [("flash", lm_run)]
-    for impl in ("auto", "flash", "auto"):
-        zero_counts(flash_fns.values())
-        lm_arms.append((impl, run_lm_arm("transformer_lm", impl, steps,
-                                         workdir / f"lm{len(lm_arms)}")))
-        got = {kid: fn.launches for kid, fn in flash_fns.items()}
-        arm_want = want if impl == "flash" else dict.fromkeys(want, 0)
-        if got != arm_want:
-            fail(f"transformer_lm {impl} arm launched {got}, expected "
-                 f"{arm_want}")
+    # The blockwise arm (impl "auto"), which launches no flash kernel.
+    zero_counts(flash_fns.values())
+    lm_arms = [("flash", lm_run),
+               ("auto", run_lm_arm("transformer_lm", "auto", steps,
+                                   workdir / "lm1"))]
+    got = {kid: fn.launches for kid, fn in flash_fns.items()}
+    if got != dict.fromkeys(want, 0):
+        fail(f"transformer_lm auto arm launched {got}, expected "
+             f"{dict.fromkeys(want, 0)}")
     for label, r in lm_arms:
         log_arm(f"LM {label}", r, tokens, card)
     for impl, arm in (("flash", "transformer_lm, flash (K2-K4)"),
@@ -4991,7 +5450,7 @@ def main(argv=None) -> int:
     mod_layers = mod_cfg.model_kwargs["num_layers"]
     mod_tokens = mod_cfg.global_batch_size * mod_cfg.num_steps
     mod_arms = []
-    for bwd in ("staged", "pair", "staged", "pair"):
+    for bwd in ("staged", "pair"):
         os.environ["DTM_FLASH_BWD"] = bwd
         zero_counts(flash_fns.values())
         r = run_lm_arm("transformer_lm_modern", "flash", steps,
@@ -5061,6 +5520,13 @@ def main(argv=None) -> int:
     # read at its end.
     abx = phase_async(card, flash_fns, k1, k6, len(calls), args.batch_size)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 19")
+
+    # 20. The serving engine on transformer_lm: the decode path's
+    # invariance, R1 against its plain version at the path's shapes, the
+    # engine's traffic (R1's counter zeroed just before, read after)
+    # against solo generate, the burst and speculation arms.
+    serve = phase_serve(card, args.seed + 8)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 20")
 
     log(card)
     kernels = [{
@@ -5194,6 +5660,44 @@ def main(argv=None) -> int:
         "scope": "as the f32 K1 entry, launches from the ResNet-32 K6 arm "
                  "(DTM_CONV_MXU_PIPELINE=1); equal to the f32 K1 bit for "
                  "bit at every shape",
+    })
+    r1s, r1p = serve["r1_step"], serve["r1_prefill"]
+    kernels.append({
+        "name": "R1 row_matmul (row-invariant decode product)",
+        "route": "cuda",
+        "source": R1_SOURCE,
+        "replaces": "none: added to keep the serving contract (a served "
+                    "stream equals solo generate); the JAX package gets "
+                    "it from XLA, distributed_tensorflow_models_tpu/"
+                    "serving/engine.py:41",
+        "launches": serve["r1_launches"],
+        "max_abs_err": max(
+            r1s["max_abs_err"], r1p["max_abs_err"],
+            *(r[key]["max_abs_err"] for r in gen["paths"].values()
+              for key in ("r1_step", "r1_prompt"))),
+        "ms": r1s["ms"],
+        "plain_ms": r1s["plain_ms"],
+        "bound_ms": r1s["bound_ms"],
+        "bound_by": r1s["bound_by"],
+        "library_ms": r1s["library_ms"],
+        "scope": f"sum over the {r1s['launches']} R1 launches of one [8, 1] "
+                 f"transformer_lm decode step (the engine's 8 lanes); "
+                 f"launches from phase 20's served traffic (phase 14's "
+                 f"timed captured generate: launches_generate_phase); "
+                 f"max_abs_err over every launch checked in phases 14 and "
+                 f"20; library: torch.matmul on the same operands in "
+                 f"their dtype",
+        "launches_per_decode_step": r1s["launches"],
+        "launches_per_prefill_dispatch": r1p["launches"],
+        "launches_generate_phase": gen["r1_launches"],
+        "generate_step_ms": {
+            name: r["r1_step"]["ms"] for name, r in gen["paths"].items()},
+        "generate_prompt_pass_ms": {
+            name: r["r1_prompt"]["ms"] for name, r in gen["paths"].items()},
+        "prefill_dispatch_ms": r1p["ms"],
+        "prefill_dispatch_plain_ms": r1p["plain_ms"],
+        "prefill_dispatch_bound_ms": r1p["bound_ms"],
+        "prefill_dispatch_library_ms": r1p["library_ms"],
     })
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

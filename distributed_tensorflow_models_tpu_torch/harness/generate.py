@@ -9,6 +9,10 @@ static-length loop (the JAX package's ``lax.scan``), so "stop at EOS"
 means "freeze at EOS".  Greedy at ``temperature == 0``; otherwise sampling
 with optional top-k and nucleus (top-p) filtering, by the Gumbel-max rule
 on noise drawn from a generator seeded per token (:func:`key_schedule`).
+Every decision goes through :func:`sample_rows`, the one sampler the
+serving engine (``serving/engine.py``) also calls, with the knobs as
+per-row tensors: a served stream and a solo ``generate`` share its bits
+by construction.
 
 On CUDA the one-token step reads and writes only static tensors (the
 token, the cache or carry with its index, the EOS flags, the sampled
@@ -17,8 +21,11 @@ first step eagerly, then captured once and replayed for every later token
 (``captures`` and ``replays`` count them in the process).  Nothing is read
 back to the host inside the loop.  On the CPU, or with ``capture=False``,
 every step runs eagerly; both give the same tokens bit for bit.  The
-decode launches no hand-written kernel: its attention is
-``reference_attention`` over the cache, as in the JAX package.
+decode's products run on kernel R1 (``ops/rowwise.py``; its attention is
+``ops/attention.py::rowwise_attention`` over the cache, the JAX package's
+reference attention with row-invariant sums), so a row's tokens do not
+depend on the batch.  A captured step's R1 launches count once per
+replay (:class:`Stepper`).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from typing import Callable, Optional
 import torch
 
 from distributed_tensorflow_models_tpu_torch.core.train_loop import _leaves
+from distributed_tensorflow_models_tpu_torch.ops import _kernels
 
 # CUDA-graph captures and replays of a decode step in this process.
 captures = 0
@@ -72,20 +80,77 @@ def _filter_logits(logits: torch.Tensor, top_k: int,
     return logits
 
 
+def gumbel(u: torch.Tensor) -> torch.Tensor:
+    """Gumbel noise from uniform draws ``u`` (clamped away from 0)."""
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(u.clamp_min(tiny)))
+
+
+def _sample_row(row, noise, temperature, top_k, top_p) -> torch.Tensor:
+    """:func:`sample_rows` on one row: ``[1, V]`` in, ``[1]`` out."""
+    greedy = torch.argmax(row, dim=-1)
+    if noise is None:
+        return greedy
+    V = row.shape[-1]
+    t = temperature[:, None]
+    scaled = row / torch.where(t > 0, t, torch.ones_like(t))
+    sorted_ = torch.sort(scaled, dim=-1, descending=True).values
+    # The top-k threshold: the k-th largest tempered logit; off (top_k <=
+    # 0) it is -inf and masks nothing.
+    kth = torch.gather(sorted_, -1, (torch.clamp(top_k, 1, V) - 1)[:, None])
+    kth = torch.where(top_k[:, None] > 0, kth, torch.full_like(kth,
+                                                               -math.inf))
+    filtered = scaled.masked_fill(scaled < kth, -math.inf)
+    # The nucleus of the top-k-filtered distribution, always its top entry.
+    sorted_m = sorted_.masked_fill(sorted_ < kth, -math.inf)
+    probs = torch.softmax(sorted_m, dim=-1)
+    keep = torch.cumsum(probs, dim=-1) - probs < top_p[:, None]
+    keep[..., 0] = True
+    cutoff = torch.where(keep, sorted_m, torch.full_like(sorted_m, math.inf)
+                         ).amin(dim=-1, keepdim=True)
+    filtered = torch.where(top_p[:, None] < 1.0,
+                           filtered.masked_fill(scaled < cutoff, -math.inf),
+                           filtered)
+    sampled = torch.argmax(filtered + noise, dim=-1)
+    return torch.where(temperature > 0, sampled, greedy)
+
+
+def sample_rows(logits: torch.Tensor, noise: Optional[torch.Tensor],
+                temperature: torch.Tensor, top_k: torch.Tensor,
+                top_p: torch.Tensor) -> torch.Tensor:
+    """One sampling decision per row, ``[B, V] -> [B]`` (int64), with the
+    knobs as per-row tensors on the logits' device (``temperature`` and
+    ``top_p`` f32, ``top_k`` int), each gated by ``torch.where``: the
+    argmax of the row where ``temperature <= 0`` (the first maximum, as
+    ``jnp.argmax``), else the argmax of the tempered, top-k- then
+    nucleus-filtered row plus its Gumbel ``noise`` (:func:`gumbel`); no
+    ``noise`` means every row is greedy.  The same decisions as
+    :func:`_filter_logits` then the Gumbel-max rule.  Each row is computed
+    alone, on ``[1, V]`` slices, so its bits never depend on the rows
+    beside it (a scan or an elementwise pass over ``[B, V]`` may take
+    another path per position than over ``[1, V]``); the temperature
+    divides as a tensor, never as a host scalar (PyTorch multiplies by a
+    scalar's reciprocal on CUDA)."""
+    logits = logits.float()
+    return torch.cat([
+        _sample_row(logits[i:i + 1],
+                    None if noise is None else noise[i:i + 1],
+                    temperature[i:i + 1], top_k[i:i + 1], top_p[i:i + 1])
+        for i in range(logits.shape[0])])
+
+
 def _sample(logits_last: torch.Tensor, generator: Optional[torch.Generator],
-            temperature: float, top_k: int, top_p: float) -> torch.Tensor:
-    """One sampling decision ``[B, V] -> [B]`` (int64), shared by every
-    path: the argmax at ``temperature == 0`` (the first maximum, as
-    ``jnp.argmax``), else the argmax of the filtered, tempered logits plus
-    Gumbel noise drawn from ``generator``."""
-    if temperature > 0:
-        filtered = _filter_logits(logits_last / temperature, top_k, top_p)
-        u = torch.rand(filtered.shape, generator=generator,
-                       dtype=torch.float32, device=filtered.device)
-        tiny = torch.finfo(torch.float32).tiny
-        gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
-        return torch.argmax(filtered + gumbel, dim=-1)
-    return torch.argmax(logits_last, dim=-1)
+            knobs: tuple) -> torch.Tensor:
+    """``generate``'s decision ``[B, V] -> [B]``: :func:`sample_rows` on
+    ``knobs`` (its per-row ``temperature, top_k, top_p`` tensors), with
+    noise ``[B, V]`` drawn from ``generator`` when it samples (at B = 1
+    the serving engine's own draw for the token)."""
+    noise = None
+    if generator is not None:
+        noise = gumbel(torch.rand(logits_last.shape, generator=generator,
+                                  dtype=torch.float32,
+                                  device=logits_last.device))
+    return sample_rows(logits_last, noise, *knobs)
 
 
 def key_schedule(seed: int, max_new_tokens: int) -> list[int]:
@@ -98,13 +163,26 @@ def key_schedule(seed: int, max_new_tokens: int) -> list[int]:
                          dtype=torch.int64).tolist()
 
 
-class _Stepper:
+def sampling_knobs(n: int, temperature: float, top_k: int, top_p: float,
+                   device) -> tuple:
+    """:func:`sample_rows`' per-row knobs for ``n`` rows alike."""
+    return (torch.full((n,), float(temperature), dtype=torch.float32,
+                       device=device),
+            torch.full((n,), int(top_k), dtype=torch.int64, device=device),
+            torch.full((n,), float(top_p), dtype=torch.float32,
+                       device=device))
+
+
+class Stepper:
     """Runs ``body()``, which reads and writes only tensors that live as
     long as the loop, once per call.  Eagerly unless ``capture``; with it
     (CUDA only) the first call runs eagerly on a side stream and the body
     is then captured once as a CUDA graph, which every later call replays.
     ``generator`` (the sampling noise's) is re-seeded with the call's seed
-    before the body runs or replays, so eager and replayed draws agree."""
+    before the body runs or replays, so eager and replayed draws agree.
+    The kernels' launch counters (``ops/_kernels.py``) take back what the
+    capture added and add it again on every replay.  ``built`` turns true
+    at the first call (the program exists: run eagerly, or captured)."""
 
     def __init__(self, body: Callable[[], None], device: torch.device,
                  generator: Optional[torch.Generator], capture: bool):
@@ -113,9 +191,12 @@ class _Stepper:
         self.body, self.device = body, device
         self.generator, self.capture = generator, capture
         self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.counts: dict = {}
+        self.built = False
 
     def __call__(self, seed: Optional[int] = None) -> None:
         global captures, replays
+        self.built = True
         if self.generator is not None:
             self.generator.manual_seed(seed)
         if not self.capture:
@@ -123,6 +204,7 @@ class _Stepper:
             return
         if self.graph is not None:
             self.graph.replay()
+            _kernels.add_launches(self.counts)
             replays += 1
             return
         cur = torch.cuda.current_stream(self.device)
@@ -134,9 +216,13 @@ class _Stepper:
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
+        before = _kernels.launch_counts()
         with torch.cuda.graph(graph, stream=side,
                               capture_error_mode="thread_local"):
             self.body()
+        self.counts = {key: n - before.get(key, 0)
+                       for key, n in _kernels.launch_counts().items()}
+        _kernels.add_launches(self.counts, -1)
         self.graph = graph
         captures += 1
 
@@ -168,9 +254,10 @@ def _decode_loop(step_logits: Callable[[torch.Tensor], torch.Tensor],
     B, n = prompt.shape[0], max_new_tokens
     seeds = key_schedule(seed if seed is not None else 0, n)
     gen = (torch.Generator(device=device) if temperature > 0 else None)
+    knobs = sampling_knobs(B, temperature, top_k, top_p, device)
 
     def sample(logits_last):
-        return _sample(logits_last, gen, temperature, top_k, top_p)
+        return _sample(logits_last, gen, knobs)
 
     out = torch.empty(B, n, dtype=prompt.dtype, device=device)
     all_logits = (torch.empty(B, n, first_logits.shape[-1],
@@ -195,7 +282,7 @@ def _decode_loop(step_logits: Callable[[torch.Tensor], torch.Tensor],
         tok.copy_(nxt)
         last.copy_(logits)
 
-    stepper = _Stepper(body, device, gen, capture)
+    stepper = Stepper(body, device, gen, capture)
     for i in range(1, n):
         stepper(seeds[i])
         out[:, i] = tok
@@ -323,7 +410,7 @@ def beam_search(model, prompt: torch.Tensor, max_new_tokens: int, *,
         step = model(tok[:, None], cache=cache)[0]
         expand(torch.log_softmax(step[:, 0].float(), dim=-1))
 
-    stepper = _Stepper(body, device, None, capture)
+    stepper = Stepper(body, device, None, capture)
     for _ in range(1, n):
         stepper()
     best = torch.argmax(scores, dim=-1)

@@ -49,16 +49,29 @@ seq axis holds tokens ``rank_seq * T ..`` (:func:`position_offset`), so
 the position table and RoPE are read there.
 
 Decode: a forward given a :class:`KVCache` (``model.init_cache``; required
-with ``decode=True``) runs the JAX package's decode mode.  The tokens sit
-at global positions ``cache.index .. cache.index + T - 1``: the position
-table is read there (or q and k are rotated there), each block's keys
-(after rotation) and values are written into its cache at those rows
-(``index_copy_`` at a device index), and attention runs over the whole
-cache through :func:`...ops.attention.reference_attention` with the
+with ``decode=True``) runs the JAX package's decode mode.  The tokens of
+row ``b`` sit at global positions ``index[b] .. index[b] + T - 1`` (one
+index for every row, or one per row: the serving engine's lanes): the
+position table is read there (or q and k are rotated there), each block's
+keys (after rotation) and values are written into its cache at those rows
+(``index_copy_`` at a device index; a write that would run past
+``max_len`` starts at ``max_len - T`` instead, as JAX's
+``dynamic_update_slice`` clamps it), and attention runs over the whole
+cache through :func:`...ops.attention.rowwise_attention` with the
 causal mask (and window) in global positions, which also hides the
 cache's unwritten tail.  The index then advances by ``T`` in place.  No
 host read is made, so a one-token decode step can be captured as a CUDA
 graph over the cache's static storage (``harness/generate.py``).
+
+Every decode product is row-invariant (``ops/rowwise.py``, kernel R1 on
+the card): the Dense projections, the MLP, the f32 head, attention's
+scores and probabilities x values over the cache, and the sums of the
+LayerNorm statistics and the softmax normaliser.  So a row's logits and
+the K/V it writes do not depend on the rows around it: a prompt passed
+whole, in chunks, or beside other lanes gives the same bits, which is
+what lets a served stream equal a solo ``generate``.  RoPE's angles come
+from one table of every position, gathered per token, for the same
+reason.  Training does not take this path.
 """
 
 from __future__ import annotations
@@ -75,6 +88,7 @@ from distributed_tensorflow_models_tpu_torch.models import register
 from distributed_tensorflow_models_tpu_torch.ops import attention as attnlib
 from distributed_tensorflow_models_tpu_torch.ops import remat as rematlib
 from distributed_tensorflow_models_tpu_torch.ops import rotary
+from distributed_tensorflow_models_tpu_torch.ops import rowwise
 from distributed_tensorflow_models_tpu_torch.ops.conv import Dense
 from distributed_tensorflow_models_tpu_torch.ops import dropout as droplib
 from distributed_tensorflow_models_tpu_torch.ops.dropout import dropout
@@ -113,11 +127,13 @@ def position_offset(T: int) -> int:
 class KVCache:
     """Decode state the caller owns: per block the keys (after rotation)
     and values, ``[B, max_len, Hkv, Dh]`` in the model's dtype, and the
-    number of positions written so far, ``index`` (a 0-d int64 tensor on
-    the cache's device: the JAX package's ``cache_index`` of every block
-    and the model's ``pos_index``).  A decode forward writes its rows and
-    advances ``index`` in place; :meth:`reorder` gathers the rows of the
-    batch in place (beam search's parents)."""
+    number of positions written so far, ``index``: an int64 tensor on the
+    cache's device, 0-d (one count for every row: the JAX package's
+    ``cache_index`` of every block and the model's ``pos_index``) or
+    ``[B]`` (one per row: the serving engine's lanes, each at its own
+    length).  A decode forward writes its rows and advances ``index`` in
+    place; :meth:`reorder` gathers the rows of the batch in place (beam
+    search's parents)."""
 
     keys: list[torch.Tensor]
     values: list[torch.Tensor]
@@ -143,9 +159,19 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
-        mean = x.mean(-1, keepdim=True)
-        var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean,
-                          min=0.0)
+        return self._normalize(x, x.mean(-1, keepdim=True),
+                               (x * x).mean(-1, keepdim=True))
+
+    def decode(self, x: torch.Tensor) -> torch.Tensor:
+        """The decode path's: each row's sums by ``ops/rowwise.py`` (a
+        row's statistics then do not depend on the rows beside it)."""
+        x = x.float()
+        d = x.shape[-1]
+        return self._normalize(x, rowwise.row_sum(x) / d,
+                               rowwise.row_sum(x * x) / d)
+
+    def _normalize(self, x, mean, ex2):
+        var = torch.clamp(ex2 - mean * mean, min=0.0)
         mul = torch.rsqrt(var + self.epsilon) * self.scale
         return (x - mean) * mul + self.bias
 
@@ -190,7 +216,8 @@ class SelfAttention(nn.Module):
         self.out = Dense(d_model, d_model, **dense)
 
     def forward(self, x, train: bool = False, rngs=None, cache=None):
-        """``cache``: ``(keys, values, index)`` of this block, in decode."""
+        """``cache``: ``(keys, values, step)`` of this block, in decode
+        (``step``: the forward's :class:`_DecodePositions`)."""
         B, T, _ = x.shape
         H, Hkv, Dh = self.num_heads, self.num_kv_heads, self.head_dim
         mesh = getattr(self, "tp_mesh", None)
@@ -203,32 +230,36 @@ class SelfAttention(nn.Module):
                     f"split the head axis)")
             H, Hkv = H // n, Hkv // n
         x = tensorlib.enter(self, x)
+        if cache is not None:
+            ck, cv, step = cache
+            q = rowwise.dense(self.query, x).reshape(B, T, H, Dh)
+            k = rowwise.dense(self.key, x).reshape(B, T, Hkv, Dh)
+            v = rowwise.dense(self.value, x).reshape(B, T, Hkv, Dh)
+            if self.use_rope:
+                cos, sin = step.rope(Dh, self.rope_theta)
+                q = rotary.rotate(q, cos, sin)
+                k = rotary.rotate(k, cos, sin)
+            step.write(ck, k)
+            step.write(cv, v)
+            out = attnlib.rowwise_attention(q, ck, cv, causal=True,
+                                            q_offset=step.index,
+                                            window=self.attn_window)
+            out = rowwise.dense(self.out, out.reshape(B, T, H * Dh))
+            return dropout(out, self.dropout_rate, train, rngs)
         q = self.query(x).reshape(B, T, H, Dh)
         k = self.key(x).reshape(B, T, Hkv, Dh)
         v = self.value(x).reshape(B, T, Hkv, Dh)
-        if cache is not None:
-            ck, cv, index = cache
-            pos = index + torch.arange(T, device=x.device)
-            if self.use_rope:
-                q = rotary.apply_rope(q, pos, self.rope_theta)
-                k = rotary.apply_rope(k, pos, self.rope_theta)
-            ck.index_copy_(1, pos, k.to(ck.dtype))
-            cv.index_copy_(1, pos, v.to(cv.dtype))
-            out = attnlib.reference_attention(q, ck, cv, causal=True,
-                                              q_offset=index,
-                                              window=self.attn_window)
+        if self.use_rope:
+            off = position_offset(T)
+            pos = torch.arange(off, off + T, device=x.device)
+            q = rotary.apply_rope(q, pos, self.rope_theta)
+            k = rotary.apply_rope(k, pos, self.rope_theta)
+        if self.attention_fn is not None:
+            out = self.attention_fn(q, k, v, causal=True)
         else:
-            if self.use_rope:
-                off = position_offset(T)
-                pos = torch.arange(off, off + T, device=x.device)
-                q = rotary.apply_rope(q, pos, self.rope_theta)
-                k = rotary.apply_rope(k, pos, self.rope_theta)
-            if self.attention_fn is not None:
-                out = self.attention_fn(q, k, v, causal=True)
-            else:
-                out = attnlib.attention(q, k, v, causal=True,
-                                        impl=self.attn_impl,
-                                        window=self.attn_window)
+            out = attnlib.attention(q, k, v, causal=True,
+                                    impl=self.attn_impl,
+                                    window=self.attn_window)
         out = self.out(out.reshape(B, T, H * Dh))
         return dropout(out, self.dropout_rate, train, rngs)
 
@@ -318,6 +349,15 @@ class Block(nn.Module):
             self.mlp = MLP(d_model, d_ff, dropout_rate, dtype, generator)
 
     def forward(self, x, train: bool = False, rngs=None, cache=None):
+        if cache is not None:
+            # Decode: the row-invariant products (``ops/rowwise.py``).
+            x = x + self.attn(self.ln1.decode(x).to(self.dtype), train, rngs,
+                              cache)
+            mlp = self.mlp
+            h = F.gelu(rowwise.dense(mlp.up, self.ln2.decode(x).to(
+                self.dtype)), approximate="tanh")
+            return x + dropout(rowwise.dense(mlp.down, h), mlp.dropout_rate,
+                               train, rngs)
         x = x + self.attn(self.ln1(x).to(self.dtype), train, rngs, cache)
         h = self.ln2(x).to(self.dtype)
         if hasattr(self, "moe"):
@@ -495,6 +535,53 @@ class PipelinedBlocks(nn.Module):
         return pplib.merge_microbatches(out["x"])
 
 
+class _DecodePositions:
+    """Where a decode forward's tokens sit: ``index`` (the cache's, 0-d or
+    ``[B]``), their global positions ``pos`` (``[1, T]`` or ``[B, T]``:
+    ``index + t``, what the mask and RoPE read) and the rows they are
+    written to, ``rows``: ``pos`` with each row's start clamped to
+    ``max_len - T`` (JAX's ``dynamic_update_slice``), which the position
+    table is also read at.  Only a row that has run past its cache (a
+    finished serving lane's overrun) has ``rows != pos``."""
+
+    def __init__(self, index: torch.Tensor, T: int, max_len: int):
+        if index.dim() > 1:
+            raise ValueError(f"a cache index is 0-d or [B], got "
+                             f"{tuple(index.shape)}")
+        self.index, self.max_len = index, max_len
+        self._rope: dict = {}
+        t = torch.arange(T, device=index.device)
+        start = index.reshape(-1, 1)
+        self.pos = start + t
+        self.rows = torch.clamp(start, 0, max_len - T) + t
+
+    def write(self, cache: torch.Tensor, x: torch.Tensor) -> None:
+        """``x [B, T, ...]`` into ``cache [B, max_len, ...]`` at ``rows``,
+        in place."""
+        x = x.to(cache.dtype)
+        if self.index.dim() == 0:
+            cache.index_copy_(1, self.rows[0], x)
+            return
+        B, T = x.shape[:2]
+        flat = (torch.arange(B, device=x.device)[:, None] * self.max_len
+                + self.rows).reshape(-1)
+        cache.view(B * self.max_len, *cache.shape[2:]).index_copy_(
+            0, flat, x.reshape(B * T, *x.shape[2:]))
+
+    def rope(self, dim: int, theta: float):
+        """``(cos, sin)`` ``[1 or B, T, dim/2]`` at ``pos``, gathered from
+        one table of positions ``0 .. 2 max_len - 1`` (a row's angles then
+        do not depend on how many rows were computed with it; positions
+        past the table, overrun only, read its last row).  Taken once a
+        forward."""
+        if (dim, theta) not in self._rope:
+            table = torch.arange(2 * self.max_len, device=self.index.device)
+            cos, sin = rotary.rope_angles(table, dim, theta)
+            at = torch.clamp(self.pos, 0, 2 * self.max_len - 1)
+            self._rope[dim, theta] = cos[at], sin[at]
+        return self._rope[dim, theta]
+
+
 class TransformerLM(nn.Module):
     """Input ``tokens [B, T]`` int; returns ``(logits [B, T, V], carry)``.
     The carry passes through unchanged (the LM train-step contract shared
@@ -594,9 +681,12 @@ class TransformerLM(nn.Module):
             raise ValueError(DECODE_DENSE_ONLY)
         x = self.embedding(tokens)
         if cache is not None:
-            pos = cache.index + torch.arange(T, device=tokens.device)
+            if T > self.max_len:
+                raise ValueError(f"decode of {T} tokens exceeds max_len "
+                                 f"{self.max_len}")
+            step = _DecodePositions(cache.index, T, self.max_len)
             if self.pos_embedding is not None:
-                x = x + self.pos_embedding.index_select(0, pos).to(self.dtype)
+                x = x + self.pos_embedding[step.rows].to(self.dtype)
         elif self.pos_embedding is not None:
             off = position_offset(T)
             if off + T > self.max_len:
@@ -610,7 +700,7 @@ class TransformerLM(nn.Module):
             block = getattr(self, f"blocks_{i}")
             if cache is not None:
                 x = block(x, train, rngs,
-                          (cache.keys[i], cache.values[i], cache.index))
+                          (cache.keys[i], cache.values[i], step))
                 continue
             if self.remat:
                 x = rematlib.checkpoint(block, x, train, rngs=rngs)
@@ -624,6 +714,10 @@ class TransformerLM(nn.Module):
         if cache is not None:
             with torch.no_grad():
                 cache.index.add_(T)
+            x = self.ln_f.decode(x)
+            if return_hidden:
+                return x, carry
+            return rowwise.dense(self.head, x), carry
         x = self.ln_f(x)
         if return_hidden:
             return x, carry

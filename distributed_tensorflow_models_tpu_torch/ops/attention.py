@@ -96,13 +96,16 @@ def _valid(Tq: int, Tkv: int, causal: bool, window: Optional[int],
            device) -> Optional[torch.Tensor]:
     """``[Tq, Tkv]`` mask in global positions, or None when nothing is
     masked.  ``q_offset`` may be a 0-d device tensor (a decode cache's
-    index): no host read, so the mask can be captured in a CUDA graph."""
+    index): no host read, so the mask can be captured in a CUDA graph; a
+    ``[B]`` tensor (one offset per row: the serving engine's lanes) gives
+    a ``[B, 1, Tq, Tkv]`` mask."""
     if not causal and window is None:
         return None
+    if isinstance(q_offset, torch.Tensor) and q_offset.dim() == 1:
+        q_offset = q_offset[:, None, None, None]
     qi = q_offset + torch.arange(Tq, device=device)[:, None]
     kj = kv_offset + torch.arange(Tkv, device=device)[None, :]
-    valid = qi >= kj if causal else torch.ones(Tq, Tkv, dtype=torch.bool,
-                                               device=device)
+    valid = qi >= kj if causal else torch.ones_like(qi >= kj)
     if window is not None:
         valid = valid & (qi - kj < window)
     return valid
@@ -126,7 +129,8 @@ def reference_attention(q, k, v, *, causal: bool = False,
     """Materialised-scores attention, BTHD in and out.  ``q_offset`` and
     ``kv_offset`` are the global positions of the first query and key
     rows (a chunk of a longer sequence); ``q_offset`` may be a 0-d tensor
-    on the device (the decode step's cache index)."""
+    on the device (the decode step's cache index) or a ``[B]`` one (an
+    offset per batch row)."""
     s = _scale(q, scale)
     window = _check_window(window)
     k, v = _expand_kv(q, k, v)
@@ -135,6 +139,41 @@ def reference_attention(q, k, v, *, causal: bool = False,
     p = torch.softmax(_scores(q, k, s, valid), dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     return out.to(v.dtype)
+
+
+def rowwise_attention(q, k, v, *, causal: bool = False,
+                      scale: Optional[float] = None,
+                      q_offset: int | torch.Tensor = 0, kv_offset: int = 0,
+                      window: Optional[int] = None) -> torch.Tensor:
+    """The decode path's attention: :func:`reference_attention` with every
+    sum row-invariant (``ops/rowwise.py``, kernel R1 on the card): the
+    scores ``q k`` and ``p v`` products and the softmax normaliser.  A
+    query row's output then does not depend on the rows, lanes or heads
+    beside it.  The query heads sharing a KV head are that head's rows
+    (GQA without expanding K and V), and K and V are read in place
+    through strided views."""
+    from . import rowwise
+
+    scale = _scale(q, scale)
+    window = _check_window(window)
+    B, Tq, H, Dh = q.shape
+    Hkv, Tkv = k.shape[2], k.shape[1]
+    g = _group_size(q, k)
+    rows = q.reshape(B, Tq, Hkv, g, Dh).permute(0, 2, 1, 3, 4).reshape(
+        B, Hkv, Tq * g, Dh)
+    s = rowwise.row_matmul(rows, k.permute(0, 2, 3, 1),
+                           torch.float32) * scale
+    valid = _valid(Tq, Tkv, causal, window, q_offset, kv_offset, q.device)
+    if valid is not None:
+        s = s.reshape(B, Hkv, Tq, g, Tkv)
+        s = torch.where(valid.reshape(-1, 1, Tq, 1, Tkv), s,
+                        torch.full_like(s, NEG_INF)).reshape(
+                            B, Hkv, Tq * g, Tkv)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = (e / rowwise.row_sum(e)).to(v.dtype)
+    out = rowwise.row_matmul(p, v.permute(0, 2, 1, 3), torch.float32)
+    return out.reshape(B, Hkv, Tq, g, Dh).permute(0, 2, 1, 3, 4).reshape(
+        B, Tq, H, Dh).to(v.dtype)
 
 
 # --------------------------------------------------------------- blockwise

@@ -31,8 +31,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """Rotate ``x [B, T, H, D]`` by its tokens' global ``positions``
     (``[T]`` or ``[B, T]``, on ``x``'s device: in decode
     ``cache.index + arange(T)``, made without a host read)."""
+    cos, sin = rope_angles(positions, x.shape[-1], theta)  # [..., T, D/2]
+    return rotate(x, cos, sin)
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+           ) -> torch.Tensor:
+    """Rotate ``x [B, T, H, D]`` by the angles' tables ``cos``/``sin``
+    (``[T, D/2]`` or ``[B, T, D/2]``, f32)."""
     D = x.shape[-1]
-    cos, sin = rope_angles(positions, D, theta)  # [..., T, D/2]
     if cos.dim() == 2:
         cos, sin = cos[None], sin[None]
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]

@@ -63,6 +63,13 @@ replayed against the same events run eagerly (bit for bit where the step
 has no atomics, else the LM bound), and ``async_vs_sync`` at one worker
 equal to its sync mode (``fit``'s captured step) bit for bit.
 
+R1 (``csrc/row_gemm.cu``, the decode path's row-invariant product) must
+equal its plain version bit for bit (the same f32 additions in the same
+order, no fused multiply-add), and its rows at M = 1, 32 and 256 the
+rows of one M = 256 launch.  The serving engine on the card (its
+programs captured) must give every stream of the six sampling modes
+equal to solo ``generate`` on the card, token for token.
+
 K6 (the persistent, ring-pipelined K1) must equal K1 bit for bit, in both
 dtypes.  K5's
 dK and dV come from K3's own code and must equal K3's bit for bit; its dQ
@@ -2062,3 +2069,107 @@ def test_ab_one_worker_equals_sync_on_card(cuda):
     assert all(torch.equal(a[k], b[k]) for k in b)
     assert res.launches["sync"] == res.launches["async"]
     assert res.launches["sync"]
+
+
+# -- R1 and the serving engine ----------------------------------------------
+
+
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+def test_row_gemm_matches_plain_and_is_row_invariant(cuda, dt):
+    """R1 (``csrc/row_gemm.cu``) against its plain version on the same
+    tensors: equal bit for bit (the same f32 additions in the same order,
+    no fused multiply-add); its rows at M = 1, 17, 64, 65 and 256 (the
+    rows tiling up to 64 rows, the wide one above) equal the rows of the
+    M = 256 launch; ``row_sum`` (the column kernel) equals its plain
+    version at 256 and at 4096 rows of 192 and at 256 rows of 576 (three
+    rounds of 256 k); strided operands (a cache read as K^T and V) and a
+    launch counter that counts."""
+    from distributed_tensorflow_models_tpu_torch.ops import rowwise
+
+    rng = np.random.default_rng(5)
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    a = torch.tensor(rng.standard_normal((256, 192)), dtype=dtype,
+                     device="cuda")
+    b = torch.tensor(rng.standard_normal((192, 300)), dtype=dtype,
+                     device="cuda")
+    n0 = rowwise.row_matmul.launches
+    whole = rowwise.row_matmul(a, b, torch.float32)
+    assert rowwise.row_matmul.launches == n0 + 1
+    plain = rowwise._plain_matmul(a[None, None], b[None, None],
+                                  torch.float32)[0, 0]
+    assert torch.equal(whole, plain)
+    for m in (1, 17, 64, 65, 256):
+        parts = torch.cat([rowwise.row_matmul(a[i:i + m], b, torch.float32)
+                           for i in range(0, 256, m)])
+        assert torch.equal(parts, whole), m
+    assert torch.equal(rowwise.row_matmul(a, b), whole.to(dtype))
+    for x in (a, a.repeat(16, 1), a.repeat(1, 3)):
+        ones = torch.ones(x.shape[1], 1, dtype=dtype, device="cuda")
+        assert torch.equal(rowwise.row_sum(x), rowwise._plain_matmul(
+            x[None, None], ones[None, None], torch.float32)[0, 0])
+    cache = torch.tensor(rng.standard_normal((3, 40, 4, 32)), dtype=dtype,
+                         device="cuda")
+    q = torch.tensor(rng.standard_normal((3, 4, 5, 32)), dtype=dtype,
+                     device="cuda")
+    for bmat in (cache.permute(0, 2, 3, 1), cache.permute(0, 2, 1, 3)):
+        qq = q if bmat.shape[2] == 32 else q[..., :1].expand(3, 4, 5, 40
+                                                             ).contiguous()
+        got = rowwise.row_matmul(qq, bmat, torch.float32)
+        want = rowwise._plain_matmul(qq, bmat, torch.float32)
+        assert torch.equal(got, want)
+    with pytest.raises(TypeError):
+        rowwise.row_matmul(a, b.float() if dt == "bf16" else b.bfloat16())
+
+
+def test_serving_engine_on_card_equals_solo_generate(cuda):
+    """The engine at ``_small_lm``'s size on the card (programs captured
+    as CUDA graphs): every stream of the six sampling modes, with
+    mid-flight admission, 2-lane prefill at page 4 and speculation,
+    equals solo ``generate`` on the card (captured too), token for
+    token; the programs are built once and R1 runs in them."""
+    from distributed_tensorflow_models_tpu_torch.harness import generate
+    from distributed_tensorflow_models_tpu_torch.ops import rowwise
+    from distributed_tensorflow_models_tpu_torch.serving import engine, scheduler
+    from distributed_tensorflow_models_tpu_torch.telemetry import registry
+
+    model = TransformerLM(vocab_size=50, num_layers=2, num_heads=2,
+                          d_model=32, d_ff=64, max_len=64, dropout_rate=0.0,
+                          dtype=torch.float32, attn_impl="reference",
+                          generator=torch.Generator().manual_seed(0)).cuda()
+    modes = [(0.0, 0, 1.0), (1.0, 0, 1.0), (0.8, 5, 1.0), (1.0, 0, 0.9),
+             (0.7, 8, 0.85), (0.0, 0, 1.0)]
+    rs = np.random.RandomState(7)
+    prompts = [rs.randint(0, 50, n).astype(np.int32)
+               for n in (3, 7, 8, 12, 5, 9)]
+    maxnew = [10, 8, 12, 6, 10, 7]
+    solo = {}
+    for i, (t, k, p) in enumerate(modes):
+        out = generate.generate(
+            model, torch.tensor(prompts[i][None], device="cuda",
+                                dtype=torch.int64), maxnew[i],
+            temperature=t, top_k=k, top_p=p, seed=i if t > 0 else None)
+        solo[i] = out[0, len(prompts[i]):].tolist()
+    for kw, programs in ((dict(max_slots=4), (1, 1)),
+                         (dict(max_slots=3, prefill_lanes=2,
+                               kv_page_tokens=4, decode_burst=3), (1, 1)),
+                         (dict(max_slots=4, spec_tokens=3), (1, 2))):
+        eng = engine.InferenceEngine(model, prefill_chunk=8,
+                                     registry=registry.MetricsRegistry(),
+                                     **kw)
+        sched = scheduler.ContinuousBatchingScheduler(eng,
+                                                      max_prefill_tokens=64)
+        reqs = [scheduler.Request(i, prompts[i], maxnew[i], temperature=t,
+                                  top_k=k, top_p=p,
+                                  rng=i if t > 0 else None)
+                for i, (t, k, p) in enumerate(modes)]
+        n0 = rowwise.row_matmul.launches
+        for r in reqs[:5]:
+            sched.submit(r)
+        done = list(sched.step()) + list(sched.step())
+        sched.submit(reqs[5])
+        done += sched.run_until_idle()
+        comps = {c.request_id: c.tokens for c in done}
+        assert comps == solo, kw
+        assert eng.compile_counts() == programs, kw
+        assert eng.fsck() == []
+        assert rowwise.row_matmul.launches > n0

@@ -70,7 +70,8 @@ def test_guard_walks_every_module_of_the_port():
     """The walk covers each module of the port, those of the LM slice, the
     input pipeline, the rest of the model zoo, the hooks, the
     data-parallel modules (mesh, sharding, launch), the checkpoint and
-    the resilience modules, the MoE layer and remat included; what
+    the resilience modules, the MoE layer, remat, the serving engine and
+    the row-invariant products included; what
     else the package holds is CUDA source and its shared header under
     csrc/, which import nothing of Python."""
     walked = {p.relative_to(PORT).as_posix() for p in _port_files()
@@ -92,11 +93,15 @@ def test_guard_walks_every_module_of_the_port():
             "resilience/consensus.py", "resilience/fsck.py",
             "resilience/preemption.py", "resilience/watchdog.py",
             "parallel/__init__.py", "parallel/moe.py",
-            "ops/remat.py"} <= walked
+            "ops/remat.py", "serving/__init__.py", "serving/kv_slots.py",
+            "serving/prefix_cache.py", "serving/drafter.py",
+            "serving/engine.py", "serving/scheduler.py",
+            "ops/rowwise.py"} <= walked
     others = [p.relative_to(PORT).as_posix() for p in PORT.rglob("*")
               if p.is_file() and p.suffix not in (".py", ".pyc")]
     assert sorted(others) == ["csrc/conv_implicit_gemm.cu",
-                              "csrc/flash_attention.cu", "csrc/hopper.cuh"]
+                              "csrc/flash_attention.cu", "csrc/hopper.cuh",
+                              "csrc/row_gemm.cu"]
 
 
 @pytest.mark.parametrize("path", _port_files(),
