@@ -12,7 +12,9 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    ``hopper.cuh``, and R1 in ``row_gemm.cu``; the build seconds and
    what ``-Xptxas -v`` says of every kernel instance (registers, shared
    memory, spills), K2's instances,
-   K3's and K5's, and K4's summarised on lines of their own.
+   K3's and K5's, and K4's summarised on lines of their own; the HGMMA
+   instructions of R1's tensor-core kernels in the built library's SASS
+   (``cuobjdump -sass``), which must be there in each of its four.
 2. K1 and K6 against K1's plain version (``conv_mxu._core_reference``, f32)
    at every launch shape of one ResNet-50 training step at batch 256
    (traced on the meta device, so they are the main path's own, each
@@ -223,10 +225,13 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    ``generate_rnn`` on ``ptb_medium`` (seeded init) captured against
    eager, bit for bit, timed.  R1 at each LM's decode shapes: every
    launch of its ``[16, 256]`` prompt pass and of one ``[16, 1]`` step
-   against its plain version bit for bit, timed beside its bound and
-   ``torch.matmul``; R1's counter zeroed just before the timed captured
-   ``generate`` and read just after, where it must equal the prompt
-   pass's launches plus one step's for each later token.
+   against its plain version (the SIMT form bit for bit; the
+   tensor-core form within ``_r1_excess``'s bound, and bit for bit with
+   itself over its rows one at a time and in two halves), timed beside
+   its bound and ``torch.matmul``; R1's counters zeroed just before the
+   timed captured ``generate`` and read just after, where each form's
+   must equal the prompt pass's launches of that form plus one step's
+   for each later token.
    ``--generate-only`` runs phases 1 and 14.
 15. The cold start (``harness/startup.py``): ``transformer_lm`` on flash
    resumed from phase 14's checkpoint for ``STARTUP_STEPS`` more steps,
@@ -324,15 +329,19 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    prompt's logits and every block's K/V whole, in chunks of 32 and of
    1, and an ``[8, 1]`` step over per-lane lengths against each lane's
    ``[1, 1]`` step alone, all bit for bit; (b) R1 against its plain
-   version, bit for bit (no tolerance: the same f32 additions in the
-   same order), at every launch of that decode step and of a ``[2, 32]``
-   prefill dispatch, each timed (R1, its plain version, ``torch.matmul``
-   on the same operands) beside its bound; (c) 16 requests (prompts of
+   version at every launch of that decode step and of a ``[2, 32]``
+   prefill dispatch (the SIMT form bit for bit, no tolerance: the same
+   f32 additions in the same order; the tensor-core form within
+   ``_r1_excess``'s bound, and bit for bit with itself over its rows one
+   at a time and in two halves), each timed (R1, its plain version,
+   ``torch.matmul`` on the same operands) beside its bound; (c) 16
+   requests (prompts of
    17-200 tokens, 32-96 new, the six sampling modes in turn, four on a
    shared 128-token prefix, admitted mid-flight) through the engine (8
    slots, chunks of 32, 2 prefill lanes, pages of 16) after a warm-up
-   request that builds its programs, R1's counter zeroed just before and
-   read after: every stream equal to solo ``generate`` (captured, batch
+   request that builds its programs, R1's counters zeroed just before
+   and read after (both forms launched, in one step's proportion): every
+   stream equal to solo ``generate`` (captured, batch
    1), programs (1, 1), ``fsck()`` clean after every step, the shared
    prefix reused; served tokens/s against solo ``generate`` one request
    at a time, prefill and decode ms a dispatch; (d) ``decode_burst`` 4
@@ -553,6 +562,23 @@ def ptxas_summary(log: str) -> list[str]:
                 out.append(f"{name}: " + "; ".join(props))
                 name = None
     return out
+
+
+def r1_sass_hgmma() -> dict:
+    """HGMMA instructions in each tensor-core kernel of the built R1
+    library (``cuobjdump -sass``), by kernel."""
+    from distributed_tensorflow_models_tpu_torch.ops import rowwise
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", rowwise._load()._name],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+        elif name and "dtm_row_gemm_tc_kernel" in name and "HGMMA" in line:
+            counts[name] = counts.get(name, 0) + 1
+    return counts
 
 
 def k1_work(xshape, kshape, f32: bool = False) -> tuple[float, float]:
@@ -2794,8 +2820,9 @@ def log_arm(label: str, r: dict, per_step: int, card: str) -> None:
 def zero_counts(fns) -> None:
     for fn in fns:
         fn.launches = 0
-        if hasattr(fn, "f32_launches"):
-            fn.f32_launches = 0
+        for attr in ("f32_launches", "wgmma_launches", "simt_launches"):
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
 
 
 # Phase 12's configs: the CLI's named configs, and VGG-16 and AlexNet on
@@ -3107,10 +3134,11 @@ def decode_at_width(label: str, model, prompt, card: str, k2) -> dict:
     one launch a layer), a sampled stream captured against eager and
     repeated from its seed, and the two timed in turns.  R1 at this
     path's shapes: every launch of one prompt pass and of one step held
-    to its plain version bit for bit and timed (``_r1_table``), and its
-    counter, zeroed just before the timed captured ``generate`` and read
-    just after, at one prompt pass's launches plus one step's per later
-    token (the eager first step and each replay)."""
+    to its plain version and timed (``_r1_table``), and its counters,
+    zeroed just before the timed captured ``generate`` and read just
+    after, each form's at one prompt pass's launches of that form plus
+    one step's per later token (the eager first step and each
+    replay)."""
     import torch
 
     from distributed_tensorflow_models_tpu_torch.harness import generate as genlib
@@ -3133,14 +3161,19 @@ def decode_at_width(label: str, model, prompt, card: str, k2) -> dict:
     (got, got_lg), cap_s = _timed(lambda: genlib.generate(
         model, prompt, n, capture=True, return_logits=True))
     r1_launches = rowwise.row_matmul.launches
+    r1_forms = {form: getattr(rowwise.row_matmul, f"{form}_launches")
+                for form in ("wgmma", "simt")}
     if (genlib.captures - caps, genlib.replays - reps) != (1, n - 2):
         fail(f"{label}: generate captured {genlib.captures - caps} times "
              f"and replayed {genlib.replays - reps} (expected 1 and {n - 2})")
     r1_want = r1_prompt["launches"] + (n - 1) * r1_step["launches"]
-    if r1_launches != r1_want:
+    forms_want = {form: r1_prompt["forms"][form]
+                  + (n - 1) * r1_step["forms"][form] for form in r1_forms}
+    if r1_launches != r1_want or r1_forms != forms_want:
         fail(f"{label}: the captured generate launched R1 {r1_launches} "
-             f"times, expected {r1_prompt['launches']} for the prompt pass "
-             f"+ {n - 1} x {r1_step['launches']} = {r1_want}")
+             f"times ({r1_forms} by form), expected {r1_prompt['launches']} "
+             f"for the prompt pass + {n - 1} x {r1_step['launches']} = "
+             f"{r1_want} ({forms_want})")
     (want, want_lg), eager_s = _timed(lambda: genlib.generate(
         model, prompt, n, capture=False, return_logits=True))
     if not (torch.equal(got, want) and torch.equal(got_lg, want_lg)):
@@ -3191,10 +3224,12 @@ def decode_at_width(label: str, model, prompt, card: str, k2) -> dict:
         f"({best['captured'] / n * 1e3:.3f} ms a token), "
         f"{B * n / best['eager']:.1f} tokens/s eager "
         f"({best['eager'] / n * 1e3:.3f} ms a token); R1 {r1_launches} "
-        f"launches in the timed captured run | {card}")
+        f"launches in the timed captured run ({r1_forms['wgmma']} "
+        f"tensor-core, {r1_forms['simt']} SIMT) | {card}")
     return {"err": err, "scale": scale, "agree": agree,
             "k2_launches": k2_launches, "cache_bytes": cache_bytes,
-            "r1_launches": r1_launches, "r1_prompt": r1_prompt,
+            "r1_launches": r1_launches, "r1_forms": r1_forms,
+            "r1_prompt": r1_prompt,
             "r1_step": r1_step,
             "tokens_per_s_captured": B * n / best["captured"],
             "tokens_per_s_eager": B * n / best["eager"],
@@ -3315,6 +3350,9 @@ def phase_generate(card: str, workdir: Path, flash_fns: dict) -> dict:
             "k2_decode_check": sum(r["k2_launches"]
                                    for r in results.values()),
             "r1_launches": sum(r["r1_launches"] for r in results.values()),
+            "r1_forms": {form: sum(r["r1_forms"][form]
+                                   for r in results.values())
+                         for form in ("wgmma", "simt")},
             "paths": results}
 
 
@@ -4630,11 +4668,14 @@ def phase_async(card: str, flash_fns: dict, k1, k6, k1_per_step: int,
     return out
 
 
-# Phase 20: the serving engine on transformer_lm at full width.  R1 is
-# held to its plain version bit for bit (the same f32 additions in the
-# same order: exact, no tolerance).  R1's bound: bf16 operands at the dense
-# bf16 peak, f32 operands at the f32 peak outside the tensor cores (it
-# computes in full f32).
+# Phase 20: the serving engine on transformer_lm at full width.  R1's
+# SIMT form (f32 operands, and N = 1) is held to its plain version bit for
+# bit (the same f32 additions in the same order: exact, no tolerance); its
+# tensor-core form (bf16 operands, N > 1) to the forward-error bound of an
+# f32 sum of K exact products (_r1_excess), and each of its launches to
+# itself with the rows one at a time and in halves, bit for bit.  R1's
+# bound: bf16 operands at the dense bf16 peak, f32 operands at the f32
+# peak outside the tensor cores (it computes in full f32).
 R1_SOURCE = "distributed_tensorflow_models_tpu_torch/csrc/row_gemm.cu"
 PEAK_F32_FLOPS = 67e12
 SERVE_ENGINE = dict(max_slots=8, prefill_chunk=32, prefill_lanes=2,
@@ -4745,9 +4786,9 @@ def _record_r1(fn):
         return real(a, b, out_dtype)
 
     # The real wrapper counts its launches on the module's row_matmul:
-    # these checking launches land on the recorder's own counter, not on
+    # these checking launches land on the recorder's own counters, not on
     # the main path's.
-    record.launches = 0
+    record.launches = record.wgmma_launches = record.simt_launches = 0
     rowwise.row_matmul = record
     try:
         with torch.no_grad():
@@ -4757,31 +4798,78 @@ def _record_r1(fn):
     return calls, out
 
 
+def _r1_excess(got, plain, a4, b4) -> tuple[float, float]:
+    """The tensor-core form against the plain version on the same
+    operands: ``(max |got - plain| - limit, max |got - plain| / limit)``,
+    the limit ``K 2^-22 sum_k |a_k b_k|`` (f64, from the operands: both
+    are f32 sums of K exact bf16 products, this is their forward-error
+    bound with room for the rounding inside a k16 step), and one bf16
+    ulp more (at the larger of the two) for a bf16 result, each side that
+    f32 sum rounded once."""
+    import torch
+
+    diff = (got.double() - plain.double()).abs()
+    lim = a4.shape[-1] * 2.0 ** -22 * torch.matmul(
+        a4.double().abs(), b4.double().abs()).reshape(got.shape)
+    if got.dtype == torch.bfloat16:
+        _, e = torch.frexp(torch.maximum(got.double().abs(),
+                                         plain.double().abs()))
+        lim = lim + torch.ldexp(torch.ones_like(diff), e - 8)
+    return (float((diff - lim).max()),
+            float((diff / lim.clamp_min(1e-300)).max()))
+
+
 def _r1_table(calls, label: str, card: str) -> dict:
-    """Each recorded product: R1 against its plain version on its own
-    operands (equal bit for bit); then per distinct shape R1 and
-    ``torch.matmul`` (the library call on the same operands, in their
-    dtype) timed by CUDA-graph replay (``graph_ms``: at these sizes
-    events over eager calls time the host), the plain version by events,
-    and the bound from the bytes (each input once, the output once; a
-    weight broadcast over groups once) and the operations.  Sums over
-    the calls."""
+    """Each recorded product in the form ``rowwise._plan`` picks: the
+    tensor-core form (bf16, N > 1) within ``_r1_excess``'s bound of its
+    plain version on its own operands, and equal bit for bit to itself
+    re-run with its rows one at a time and in two halves; the SIMT form
+    (f32, N = 1) equal to its plain version bit for bit.  Then per
+    distinct shape R1 and ``torch.matmul`` (the library call on the same
+    operands, in their dtype) timed by CUDA-graph replay (``graph_ms``:
+    at these sizes events over eager calls time the host), the plain
+    version by events, and the bound from the bytes (each input once,
+    the output once; a weight broadcast over groups once) and the
+    operations.  Sums over the calls."""
     import torch
 
     from distributed_tensorflow_models_tpu_torch.ops import rowwise
 
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                flops=0.0, bytes=0.0, t_ops=0.0, t_bytes=0.0)
+    forms = {"wgmma": 0, "simt": 0}
     groups: dict = {}
-    err = 0.0
+    err = share = 0.0
     for a, b, out_dtype in calls:
         a4, b4, _ = rowwise._operands(a, b)
         got = rowwise.row_matmul(a, b, out_dtype)
         want = rowwise._plain_matmul(a4, b4, out_dtype).reshape(got.shape)
         d = float((got.float() - want.float()).abs().max())
-        if not torch.equal(got, want):
-            fail(f"{label}: R1 differs from its plain version at "
-                 f"{tuple(a4.shape)} x {tuple(b4.shape)} (max abs {d})")
+        G1, G2, M, K = a4.shape
+        form = rowwise._plan(a.dtype, out_dtype, b4.shape[3], K).form
+        forms[form] += 1
+        where = f"{tuple(a4.shape)} x {tuple(b4.shape)}"
+        if form == "simt" and not torch.equal(got, want):
+            fail(f"{label}: R1's SIMT form differs from its plain version "
+                 f"at {where} (max abs {d})")
+        if form == "wgmma":
+            over, frac = _r1_excess(got, want, a4, b4)
+            if over > 0:
+                fail(f"{label}: R1's tensor-core form is past its bound of "
+                     f"the plain version at {where} (by {over})")
+            share = max(share, frac)
+            got4 = got.reshape(G1, G2, M, -1)
+            rows = torch.cat([rowwise.row_matmul(a4[:, :, i:i + 1], b4,
+                                                 out_dtype)
+                              for i in range(M)], 2)
+            h = max(1, M // 2)
+            halves = torch.cat([rowwise.row_matmul(a4[:, :, :h], b4,
+                                                   out_dtype),
+                                rowwise.row_matmul(a4[:, :, h:], b4,
+                                                   out_dtype)], 2)
+            if not (torch.equal(rows, got4) and torch.equal(halves, got4)):
+                fail(f"{label}: R1's tensor-core form gives other bits at "
+                     f"{where} with its rows one at a time or in two halves")
         err = max(err, d)
         key = (tuple(a4.shape), a4.stride(), tuple(b4.shape), b4.stride(),
                a.dtype, out_dtype)
@@ -4816,13 +4904,17 @@ def _r1_table(calls, label: str, card: str) -> dict:
             f"plain {plain_ms:.3f}, bound {1e3 * max(t_ops, t_bytes):.5f}")
     tot["bound_by"] = ("operations" if tot["t_ops"] >= tot["t_bytes"]
                        else "bytes")
-    log(f"{label}: {len(calls)} R1 launches, each equal to its plain "
-        f"version bit for bit; R1 {tot['ms']:.3f} ms, plain "
+    log(f"{label}: {len(calls)} R1 launches: {forms['wgmma']} tensor-core "
+        f"(each within its bound of the plain version, at most "
+        f"{share:.4f} of it, and equal to its rows one at a time and in "
+        f"halves), {forms['simt']} SIMT (each equal to its plain version "
+        f"bit for bit); max abs {err:.3g}; R1 {tot['ms']:.3f} ms, plain "
         f"{tot['plain_ms']:.3f} ms, torch.matmul {tot['library_ms']:.3f} "
         f"ms, bound {tot['bound_ms']:.4f} ms ({tot['bound_by']}: "
         f"{tot['flops'] / 1e9:.3f} GFLOP, {tot['bytes'] / 1e6:.2f} MB) | "
         f"{card}")
-    return {**tot, "launches": len(calls), "max_abs_err": err}
+    return {**tot, "launches": len(calls), "max_abs_err": err,
+            "forms": forms, "bound_share": share}
 
 
 def _invariance_check(model, seed: int, card: str) -> dict:
@@ -4946,8 +5038,14 @@ def phase_serve(card: str, seed: int, model=None) -> dict:
     torch.cuda.synchronize()
     served_s = time.perf_counter() - t0
     r1_launches = rowwise.row_matmul.launches
-    if not r1_launches:
-        fail("serve: the engine's run launched R1 no time")
+    r1_forms = {form: getattr(rowwise.row_matmul, f"{form}_launches")
+                for form in ("wgmma", "simt")}
+    # Every dispatch runs the step's products and sums in one proportion.
+    step_forms = r1_step["forms"]
+    if not r1_forms["wgmma"] or (r1_forms["wgmma"] * step_forms["simt"]
+                                 != r1_forms["simt"] * step_forms["wgmma"]):
+        fail(f"serve: the engine's run launched R1 {r1_forms} by form, not "
+             f"in the step's proportion {step_forms}")
     snap = reg.snapshot()
     t0 = time.perf_counter()
     solo = {r["rid"]: _solo_stream(model, r) for r in traffic}
@@ -4979,7 +5077,9 @@ def phase_serve(card: str, seed: int, model=None) -> dict:
         f"a {SERVE_SHARED_PREFIX}-token prefix: {int(hits)} blocks reused) "
         f"through {SERVE_ENGINE}: every stream = solo generate (captured, "
         f"batch 1) token for token; programs {eng.compile_counts()}; fsck "
-        f"clean after every step; R1 {r1_launches} launches | {card}")
+        f"clean after every step; R1 {r1_launches} launches "
+        f"({r1_forms['wgmma']} tensor-core, {r1_forms['simt']} SIMT) | "
+        f"{card}")
     log(f"serve: {tokens / served_s:.1f} tokens/s served ({served_s:.3f} s) "
         f"against {tokens / solo_s:.1f} tokens/s through solo generate one "
         f"request at a time ({solo_s:.3f} s, each call capturing its step); "
@@ -5026,8 +5126,8 @@ def phase_serve(card: str, seed: int, model=None) -> dict:
         f"{ss['serve/spec_tokens_per_dispatch/mean_s']:.2f} tokens a lane a "
         f"verify | {card}")
     log(f"serve phase: {time.perf_counter() - t_phase:.1f} s")
-    return {"r1_launches": r1_launches, "r1_step": r1_step,
-            "r1_prefill": r1_prefill,
+    return {"r1_launches": r1_launches, "r1_forms": r1_forms,
+            "r1_step": r1_step, "r1_prefill": r1_prefill,
             "served_tokens_per_s": tokens / served_s,
             "solo_tokens_per_s": tokens / solo_s,
             "prefill_ms": pre_ms, "decode_ms": dec_ms}
@@ -5179,6 +5279,12 @@ def main(argv=None) -> int:
     for line in k4_lines:
         log(f"  K4 ptxas {line}")
     log(f"the builds, in parallel: {time.perf_counter() - t0:.2f} s wall")
+    hgmma = r1_sass_hgmma()
+    if len(hgmma) != 4 or not all(hgmma.values()):
+        fail(f"R1's tensor-core kernels (two result dtypes x b K- or "
+             f"N-major) hold HGMMA {hgmma} in the built library's SASS")
+    log(f"R1's tensor-core kernels in SASS: {sorted(hgmma.values())} HGMMA "
+        f"each in {len(hgmma)} instances")
 
     if parent_conv is not None:
         # Another tree's bf16 K1 at ResNet-50's launch shapes, in turns.
@@ -5687,6 +5793,12 @@ def main(argv=None) -> int:
                  f"max_abs_err over every launch checked in phases 14 and "
                  f"20; library: torch.matmul on the same operands in "
                  f"their dtype",
+        "launches_by_form": serve["r1_forms"],
+        "launches_by_form_generate_phase": gen["r1_forms"],
+        "bound_share_of_plain": max(
+            r1s["bound_share"], r1p["bound_share"],
+            *(r[key]["bound_share"] for r in gen["paths"].values()
+              for key in ("r1_step", "r1_prompt"))),
         "launches_per_decode_step": r1s["launches"],
         "launches_per_prefill_dispatch": r1p["launches"],
         "launches_generate_phase": gen["r1_launches"],

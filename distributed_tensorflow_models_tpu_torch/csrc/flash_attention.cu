@@ -266,9 +266,6 @@ __device__ __forceinline__ void wgmma_abt(float (&d)[64], uint64_t da,
 
 // O += P V: m64nDk16, A (a k16 slice of P, bf16 pairs) from registers, B
 // (V) MN-major from shared memory (the transpose bit).
-#define DTM_REGS16 DTM_R0 DTM_R1
-#define DTM_CON16 DTM_C8(0), DTM_C8(8)
-
 template <int N>
 struct WgmmaPV;
 
@@ -1254,9 +1251,6 @@ struct DqsCfg : RowLayout<D> {  // K's rows
   static constexpr int SMEM = 1024 + BARS + 8 * 2 * STAGES;
   static_assert(SMEM <= 232448, "shared memory");
 };
-
-// dQ += dS K: m64nDk16 with A from shared memory; D 32 as well.
-DTM_WGMMA(32, DTM_REGS16, DTM_CON16, "16", "17", "18")
 
 // A 3-D TMA tile load (coordinates innermost first).
 __device__ __forceinline__ void tma_load_3d(uint32_t dst,

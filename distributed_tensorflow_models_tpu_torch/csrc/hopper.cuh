@@ -1,16 +1,17 @@
 // Hopper (sm_90a) PTX helpers shared by the port's hand-written kernels:
-// conv_implicit_gemm.cu (K1, K6) and flash_attention.cu (K2).
+// conv_implicit_gemm.cu (K1, K6), flash_attention.cu (K2-K5) and
+// row_gemm.cu (R1).
 //
 // mbarrier init / wait / arrive / expect_tx, the 2-D and 4-D TMA tile
 // loads, the async-proxy fence, named barriers, setmaxnreg, the swizzled
 // shared-memory matrix descriptor, wgmma.mma_async m64nNk16 (bf16 -> f32,
-// A K-major and B MN-major from shared memory; DTM_WGMMA and its operand
-// lists; WgmmaTf32, f32 += tf32 x tf32 m64nNk8 with both operands K-major),
-// the accumulator fence, and the cuTensorMapEncodeTiled lookup
-// through the runtime's driver entry point (no -lcuda).  Each source that
-// includes this file gets its own copy (an anonymous namespace).
-// ops/_kernels.py keys every build on the bytes of csrc/*.cuh as well as
-// the .cu, so an edit here rebuilds both libraries.
+// A K-major and B MN-major from shared memory, Wgmma; B K-major, WgmmaBK;
+// DTM_WGMMA and its operand lists; WgmmaTf32, f32 += tf32 x tf32 m64nNk8
+// with both operands K-major), the accumulator fence, and the
+// cuTensorMapEncodeTiled lookup through the runtime's driver entry point
+// (no -lcuda).  Each source that includes this file gets its own copy (an
+// anonymous namespace).  ops/_kernels.py keys every build on the bytes of
+// csrc/*.cuh as well as the .cu, so an edit here rebuilds every library.
 
 #pragma once
 
@@ -117,7 +118,8 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
 #define DTM_R13 ", %104, %105, %106, %107, %108, %109, %110, %111"
 #define DTM_R14 ", %112, %113, %114, %115, %116, %117, %118, %119"
 #define DTM_R15 ", %120, %121, %122, %123, %124, %125, %126, %127"
-#define DTM_REGS32 DTM_R0 DTM_R1 DTM_R2 DTM_R3
+#define DTM_REGS16 DTM_R0 DTM_R1
+#define DTM_REGS32 DTM_REGS16 DTM_R2 DTM_R3
 #define DTM_REGS48 DTM_REGS32 DTM_R4 DTM_R5
 #define DTM_REGS64 DTM_REGS48 DTM_R6 DTM_R7
 #define DTM_REGS72 DTM_REGS64 DTM_R8
@@ -130,6 +132,7 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define DTM_C32(i) DTM_C8(i), DTM_C8(i + 8), DTM_C8(i + 16), DTM_C8(i + 24)
+#define DTM_CON16 DTM_C8(0), DTM_C8(8)
 #define DTM_CON32 DTM_C32(0)
 #define DTM_CON48 DTM_CON32, DTM_C8(32), DTM_C8(40)
 #define DTM_CON64 DTM_CON32, DTM_C32(32)
@@ -141,29 +144,40 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
 
 template <int N>
 struct Wgmma;
+// The same with B K-major (the transpose bit cleared): B's rows are its
+// N columns, each holding its K run, as a cache read as K^T.
+template <int N>
+struct WgmmaBK;
 
-#define DTM_WGMMA(N, REGS, CONS, DA, DB, SC)                                \
+// NAME<N>: wgmma m64nNk16 f32 += bf16 x bf16 from shared memory, B's
+// transpose bit TB; R names the operand lists (DTM_REGS<R>, DTM_CON<R>:
+// pasted, so that they expand only here).
+#define DTM_WGMMA_AS(NAME, N, R, DA, DB, SC, TB)                            \
   template <>                                                              \
-  struct Wgmma<N> {                                                        \
+  struct NAME<N> {                                                         \
     static __device__ __forceinline__ void mma(float (&d)[N / 2],         \
                                                uint64_t da, uint64_t db) { \
       asm volatile(                                                        \
           "{\n.reg .pred p;\nsetp.ne.b32 p, %" SC ", 0;\n"                 \
-          "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS \
-          "}, %" DA ", %" DB ", p, 1, 1, 0, 1;\n}\n"                       \
-          : CONS                                                           \
+          "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {"      \
+          DTM_REGS##R "}, %" DA ", %" DB ", p, 1, 1, 0, " TB ";\n}\n"       \
+          : DTM_CON##R                                                     \
           : "l"(da), "l"(db), "r"(1));                                     \
     }                                                                      \
   };
+#define DTM_WGMMA(N, R, DA, DB, SC) \
+  DTM_WGMMA_AS(Wgmma, N, R, DA, DB, SC, "1")
 
-DTM_WGMMA(64, DTM_REGS32, DTM_CON32, "32", "33", "34")
-DTM_WGMMA(96, DTM_REGS48, DTM_CON48, "48", "49", "50")
-DTM_WGMMA(128, DTM_REGS64, DTM_CON64, "64", "65", "66")
-DTM_WGMMA(144, DTM_REGS72, DTM_CON72, "72", "73", "74")
-DTM_WGMMA(160, DTM_REGS80, DTM_CON80, "80", "81", "82")
-DTM_WGMMA(192, DTM_REGS96, DTM_CON96, "96", "97", "98")
-DTM_WGMMA(224, DTM_REGS112, DTM_CON112, "112", "113", "114")
-DTM_WGMMA(256, DTM_REGS128, DTM_CON128, "128", "129", "130")
+DTM_WGMMA(32, 16, "16", "17", "18")
+DTM_WGMMA(64, 32, "32", "33", "34")
+DTM_WGMMA(96, 48, "48", "49", "50")
+DTM_WGMMA(128, 64, "64", "65", "66")
+DTM_WGMMA(144, 72, "72", "73", "74")
+DTM_WGMMA(160, 80, "80", "81", "82")
+DTM_WGMMA(192, 96, "96", "97", "98")
+DTM_WGMMA(224, 112, "112", "113", "114")
+DTM_WGMMA(256, 128, "128", "129", "130")
+DTM_WGMMA_AS(WgmmaBK, 32, 16, "16", "17", "18", "0")
 
 // wgmma.mma_async m64nNk8, f32 += tf32 x tf32 from f32 operands in shared
 // memory (the tensor cores read each f32 as tf32: its 10 high mantissa

@@ -63,12 +63,17 @@ replayed against the same events run eagerly (bit for bit where the step
 has no atomics, else the LM bound), and ``async_vs_sync`` at one worker
 equal to its sync mode (``fit``'s captured step) bit for bit.
 
-R1 (``csrc/row_gemm.cu``, the decode path's row-invariant product) must
-equal its plain version bit for bit (the same f32 additions in the same
-order, no fused multiply-add), and its rows at M = 1, 32 and 256 the
-rows of one M = 256 launch.  The serving engine on the card (its
-programs captured) must give every stream of the six sampling modes
-equal to solo ``generate`` on the card, token for token.
+R1 (``csrc/row_gemm.cu``, the decode path's row-invariant product): its
+tensor-core form (bf16 operands, N > 1) must give each row the same bits
+whatever the row count, the row's place in a tile, the groups and the
+strides, and lie within the forward-error bound of an f32 sum of K exact
+products of its plain version (``K 2^-22 sum_k |a_k b_k|``, and one bf16
+ulp more for a bf16 result): the tensor core sums a k16 step inside the
+instruction.  Its SIMT form (f32 operands, and ``row_sum``) must equal
+its plain version bit for bit (the same f32 additions in the same order,
+no fused multiply-add).  The serving engine on the card (its programs
+captured), in f32 and in bf16, must give every stream of the six
+sampling modes equal to solo ``generate`` on the card, token for token.
 
 K6 (the persistent, ring-pipelined K1) must equal K1 bit for bit, in both
 dtypes.  K5's
@@ -2074,59 +2079,123 @@ def test_ab_one_worker_equals_sync_on_card(cuda):
 # -- R1 and the serving engine ----------------------------------------------
 
 
+def _r1_within_bound(got, a4, b4, out_dtype):
+    """The tensor-core form against the plain version on the same
+    operands: an f32 result within ``K 2^-22 sum_k |a_k b_k|`` (f64,
+    from the operands: both are f32 sums of K exact bf16 products, this
+    is their forward-error bound with room for the rounding inside a
+    k16 step); a bf16 one, each side that f32 sum rounded once, within
+    that bound plus one bf16 ulp (at the larger of the two)."""
+    from distributed_tensorflow_models_tpu_torch.ops import rowwise
+
+    plain = rowwise._plain_matmul(a4, b4, out_dtype).reshape(got.shape)
+    diff = (got.double() - plain.double()).abs()
+    mag = torch.matmul(a4.double().abs(), b4.double().abs())
+    lim = a4.shape[-1] * 2.0 ** -22 * mag.reshape(got.shape)
+    if out_dtype == torch.bfloat16:
+        _, e = torch.frexp(torch.maximum(got.double().abs(),
+                                         plain.double().abs()))
+        lim = lim + torch.ldexp(torch.ones_like(diff), e - 8)
+    assert bool((diff <= lim).all()), float((diff - lim).max())
+
+
 @pytest.mark.parametrize("dt", ["bf16", "f32"])
 def test_row_gemm_matches_plain_and_is_row_invariant(cuda, dt):
-    """R1 (``csrc/row_gemm.cu``) against its plain version on the same
-    tensors: equal bit for bit (the same f32 additions in the same order,
-    no fused multiply-add); its rows at M = 1, 17, 64, 65 and 256 (the
-    rows tiling up to 64 rows, the wide one above) equal the rows of the
-    M = 256 launch; ``row_sum`` (the column kernel) equals its plain
-    version at 256 and at 4096 rows of 192 and at 256 rows of 576 (three
-    rounds of 256 k); strided operands (a cache read as K^T and V) and a
-    launch counter that counts."""
+    """R1 (``csrc/row_gemm.cu``).  bf16 operands take the tensor-core
+    form: for both result dtypes its rows at M = 1, 2, 7, 8, 9, 17, 63,
+    64, 65, 256 and 4096 equal the rows of one 4096-row launch bit for
+    bit, and so does each row moved within its 64-row tile by rows put
+    before it; G1 x G2 groups (distinct weights, and one weight broadcast
+    by zero strides) equal one group at a time; a cache read in place as
+    K^T and as V equals its ``.contiguous()`` copy; ragged N (300) and K
+    % 16 != 0 (40, 200); every result within ``_r1_within_bound`` of the
+    plain version.  f32 operands take the SIMT form: equal to the plain
+    version bit for bit, its rows at M = 1, 17, 64, 65 and 256 the rows
+    of the 256-row launch.  ``row_sum`` (the column kernel, either dtype)
+    equals its plain version bit for bit at 256 and 4096 rows of 192 and
+    256 rows of 576.  Each form's launch counter counts."""
     from distributed_tensorflow_models_tpu_torch.ops import rowwise
 
     rng = np.random.default_rng(5)
     dtype = torch.bfloat16 if dt == "bf16" else torch.float32
-    a = torch.tensor(rng.standard_normal((256, 192)), dtype=dtype,
-                     device="cuda")
-    b = torch.tensor(rng.standard_normal((192, 300)), dtype=dtype,
-                     device="cuda")
-    n0 = rowwise.row_matmul.launches
+    form = "wgmma_launches" if dt == "bf16" else "simt_launches"
+
+    def t(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=dtype,
+                            device="cuda")
+
+    a, b = t(4096, 200), t(200, 300)
+    n0, f0 = rowwise.row_matmul.launches, getattr(rowwise.row_matmul, form)
     whole = rowwise.row_matmul(a, b, torch.float32)
     assert rowwise.row_matmul.launches == n0 + 1
-    plain = rowwise._plain_matmul(a[None, None], b[None, None],
-                                  torch.float32)[0, 0]
-    assert torch.equal(whole, plain)
-    for m in (1, 17, 64, 65, 256):
-        parts = torch.cat([rowwise.row_matmul(a[i:i + m], b, torch.float32)
-                           for i in range(0, 256, m)])
-        assert torch.equal(parts, whole), m
-    assert torch.equal(rowwise.row_matmul(a, b), whole.to(dtype))
-    for x in (a, a.repeat(16, 1), a.repeat(1, 3)):
+    assert getattr(rowwise.row_matmul, form) == f0 + 1
+    if dt == "f32":
+        a, whole = a[:256], whole[:256]
+        assert torch.equal(whole, rowwise._plain_matmul(
+            a[None, None], b[None, None], torch.float32)[0, 0])
+        for m in (1, 17, 64, 65, 256):
+            parts = torch.cat([rowwise.row_matmul(a[i:i + m], b,
+                                                  torch.float32)
+                               for i in range(0, 256, m)])
+            assert torch.equal(parts, whole), m
+        assert torch.equal(rowwise.row_matmul(a, b), whole.to(dtype))
+    else:
+        for odt in (torch.float32, torch.bfloat16):
+            ref = rowwise.row_matmul(a, b, odt)
+            _r1_within_bound(ref, a[None, None], b[None, None], odt)
+            for m in (1, 2, 7, 8, 9, 17, 63, 64, 65, 256, 4096):
+                parts = torch.cat([rowwise.row_matmul(a[i:i + m], b, odt)
+                                   for i in range(0, 4096, m)])
+                assert torch.equal(parts, ref), (odt, m)
+            for p in (1, 5, 31, 63):
+                moved = rowwise.row_matmul(torch.cat([a[-p:], a[:130]]), b,
+                                           odt)
+                assert torch.equal(moved[p:], ref[:130]), (odt, p)
+        g = t(2, 3, 9, 200)
+        for bg in (t(2, 3, 200, 300), b.expand(2, 3, 200, 300)):
+            grouped = rowwise.row_matmul(g, bg, torch.float32)
+            for i in range(2):
+                for j in range(3):
+                    one = rowwise.row_matmul(g[i:i + 1, j:j + 1],
+                                             bg[i:i + 1, j:j + 1],
+                                             torch.float32)
+                    assert torch.equal(one[0, 0], grouped[i, j])
+            _r1_within_bound(grouped, g, bg, torch.float32)
+        # The broadcast weight's groups equal a 2-D launch on that weight.
+        assert torch.equal(grouped[0, 0, :2],
+                           rowwise.row_matmul(g[0, 0, :2], b, torch.float32))
+    cache = t(3, 40, 4, 32)
+    q = t(3, 4, 5, 32)
+    for view in (cache.permute(0, 2, 3, 1), cache.permute(0, 2, 1, 3)):
+        qq = q if view.shape[2] == 32 else t(3, 4, 5, 40)
+        got = rowwise.row_matmul(qq, view, torch.float32)
+        assert torch.equal(got, rowwise.row_matmul(qq, view.contiguous(),
+                                                   torch.float32))
+        if dt == "f32":
+            assert torch.equal(got, rowwise._plain_matmul(qq, view,
+                                                          torch.float32))
+        else:
+            _r1_within_bound(got, qq, view, torch.float32)
+    s0 = rowwise.row_matmul.simt_launches
+    x0 = t(256, 192)
+    for x in (x0, x0.repeat(16, 1), x0.repeat(1, 3)):
         ones = torch.ones(x.shape[1], 1, dtype=dtype, device="cuda")
         assert torch.equal(rowwise.row_sum(x), rowwise._plain_matmul(
             x[None, None], ones[None, None], torch.float32)[0, 0])
-    cache = torch.tensor(rng.standard_normal((3, 40, 4, 32)), dtype=dtype,
-                         device="cuda")
-    q = torch.tensor(rng.standard_normal((3, 4, 5, 32)), dtype=dtype,
-                     device="cuda")
-    for bmat in (cache.permute(0, 2, 3, 1), cache.permute(0, 2, 1, 3)):
-        qq = q if bmat.shape[2] == 32 else q[..., :1].expand(3, 4, 5, 40
-                                                             ).contiguous()
-        got = rowwise.row_matmul(qq, bmat, torch.float32)
-        want = rowwise._plain_matmul(qq, bmat, torch.float32)
-        assert torch.equal(got, want)
+    assert rowwise.row_matmul.simt_launches == s0 + 3
     with pytest.raises(TypeError):
         rowwise.row_matmul(a, b.float() if dt == "bf16" else b.bfloat16())
 
 
-def test_serving_engine_on_card_equals_solo_generate(cuda):
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_serving_engine_on_card_equals_solo_generate(cuda, dt):
     """The engine at ``_small_lm``'s size on the card (programs captured
-    as CUDA graphs): every stream of the six sampling modes, with
-    mid-flight admission, 2-lane prefill at page 4 and speculation,
-    equals solo ``generate`` on the card (captured too), token for
-    token; the programs are built once and R1 runs in them."""
+    as CUDA graphs), the model in f32 (R1's SIMT form) and in bf16 (its
+    products on the tensor-core form): every stream of the six sampling
+    modes, with mid-flight admission, 2-lane prefill at page 4 and
+    speculation, equals solo ``generate`` on the card (captured too),
+    token for token; the programs are built once and R1 runs in them, in
+    the form the dtype picks."""
     from distributed_tensorflow_models_tpu_torch.harness import generate
     from distributed_tensorflow_models_tpu_torch.ops import rowwise
     from distributed_tensorflow_models_tpu_torch.serving import engine, scheduler
@@ -2134,8 +2203,10 @@ def test_serving_engine_on_card_equals_solo_generate(cuda):
 
     model = TransformerLM(vocab_size=50, num_layers=2, num_heads=2,
                           d_model=32, d_ff=64, max_len=64, dropout_rate=0.0,
-                          dtype=torch.float32, attn_impl="reference",
+                          dtype=torch.float32 if dt == "f32" else
+                          torch.bfloat16, attn_impl="reference",
                           generator=torch.Generator().manual_seed(0)).cuda()
+    form = "simt_launches" if dt == "f32" else "wgmma_launches"
     modes = [(0.0, 0, 1.0), (1.0, 0, 1.0), (0.8, 5, 1.0), (1.0, 0, 0.9),
              (0.7, 8, 0.85), (0.0, 0, 1.0)]
     rs = np.random.RandomState(7)
@@ -2162,7 +2233,7 @@ def test_serving_engine_on_card_equals_solo_generate(cuda):
                                   top_k=k, top_p=p,
                                   rng=i if t > 0 else None)
                 for i, (t, k, p) in enumerate(modes)]
-        n0 = rowwise.row_matmul.launches
+        n0 = getattr(rowwise.row_matmul, form)
         for r in reqs[:5]:
             sched.submit(r)
         done = list(sched.step()) + list(sched.step())
@@ -2172,4 +2243,4 @@ def test_serving_engine_on_card_equals_solo_generate(cuda):
         assert comps == solo, kw
         assert eng.compile_counts() == programs, kw
         assert eng.fsck() == []
-        assert rowwise.row_matmul.launches > n0
+        assert getattr(rowwise.row_matmul, form) > n0

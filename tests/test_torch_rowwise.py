@@ -11,8 +11,13 @@ d_model 32 and at 256 (PyTorch's own CPU matmul differs between such
 chunkings at 256 and at some chunk sizes at 32), and an ``[S, 1]`` step
 over per-lane indices must equal S separate batch-1 steps bit for bit.
 The sampler must give a row the same token alone and in a batch, in
-every mode.  Every comparison here is exact.
+every mode.  The card's form and tiling (``rowwise._plan``) must be a
+function of the dtypes, N and K alone: one plan for every row count and
+every stride pattern of the decode path's call sites.  Every comparison
+here is exact.
 """
+
+import inspect
 
 import numpy as np
 import pytest
@@ -24,7 +29,7 @@ from distributed_tensorflow_models_tpu_torch.models.transformer_lm import (
     KVCache,
     TransformerLM,
 )
-from distributed_tensorflow_models_tpu_torch.ops import rowwise
+from distributed_tensorflow_models_tpu_torch.ops import _kernels, rowwise
 
 
 def _np_rows(a, b):
@@ -93,6 +98,65 @@ def test_row_matmul_dtypes_and_errors():
         rowwise.row_matmul(a, b[:5])
     with pytest.raises(ValueError, match="G1, G2"):
         rowwise.row_matmul(a[None], b[None])
+
+
+def _call_sites(M, dtype):
+    """The decode path's operand layouts at ``M`` rows: a Dense product
+    (``rowwise.dense``: a contiguous weight, broadcast over the groups),
+    attention's scores (a cache read as K^T in place) and P V (the cache
+    read as V), and groups of rows on one weight broadcast by zero
+    strides."""
+    z = torch.zeros
+    cache = z(2, 40, 4, 32, dtype=dtype)
+    return {
+        "dense": (z(M, 256, dtype=dtype), z(256, 1024, dtype=dtype)),
+        "scores": (z(2, 4, M, 32, dtype=dtype), cache.permute(0, 2, 3, 1)),
+        "pv": (z(2, 4, M, 40, dtype=dtype), cache.permute(0, 2, 1, 3)),
+        "grouped": (z(2, 3, M, 256, dtype=dtype),
+                    z(256, 1024, dtype=dtype).expand(2, 3, 256, 1024)),
+    }
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_plan_depends_on_dtypes_n_and_k_alone(out_dtype):
+    """``_plan`` takes no row count and no strides; over every row count
+    and every call site's layout it gives one plan per (dtype, N, K)."""
+    assert list(inspect.signature(rowwise._plan).parameters) == [
+        "dtype", "out_dtype", "N", "K"]
+    plans = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for M in (1, 2, 7, 8, 9, 17, 63, 64, 65, 256, 4096):
+            for a, b in _call_sites(M, dtype).values():
+                a4, b4, _ = rowwise._operands(a, b)
+                key = (dtype, b4.shape[3], a4.shape[3])
+                plans.setdefault(key, set()).add(
+                    rowwise._plan(dtype, out_dtype, *key[1:]))
+    assert len(plans) == 6  # (N, K): (1024, 256), (40, 32), (32, 40)
+    assert all(len(p) == 1 for p in plans.values()), plans
+
+
+def test_plan_maps_bf16_products_to_the_tensor_core_form():
+    """bf16 operands with N > 1 take the tensor-core form (its entry per
+    result dtype, a ring of ceil(K / 64) stages, at least 1 and at most
+    8); f32 operands,
+    and N = 1 in either dtype, the SIMT form.  Both forms' launch
+    counters are registered beside ``row_matmul.launches``."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    for odt in (bf16, f32):
+        for N in (2, 16, 32, 300, 10000):
+            for K, stages in ((0, 1), (1, 1), (16, 1), (40, 1), (64, 1),
+                              (65, 2), (200, 4), (512, 8), (1024, 8)):
+                plan = rowwise._plan(bf16, odt, N, K)
+                assert plan == ("wgmma", rowwise._TC_ENTRIES[odt],
+                                (stages,)), (N, K)
+                assert rowwise._plan(f32, odt, N, K) == (
+                    "simt", rowwise._ENTRIES[(f32, odt)], ())
+        for dtype in (bf16, f32):
+            assert rowwise._plan(dtype, odt, 1, 256) == (
+                "simt", rowwise._ENTRIES[(dtype, odt)], ())
+    counters = {attr for fn, attr in _kernels.launch_counts()
+                if fn is rowwise.row_matmul}
+    assert counters == {"launches", "wgmma_launches", "simt_launches"}
 
 
 FORMS = {
