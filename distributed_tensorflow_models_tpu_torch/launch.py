@@ -18,17 +18,21 @@ Every process runs the same program; the only per-process facts are
   checkpoint auto-resume, deterministic-jitter backoff, elastic resize);
 - a CLI: ``python -m distributed_tensorflow_models_tpu_torch.launch``.
 
+- :class:`FleetAutoscaler` — the closed-loop serving scale controller
+  (``launch_local(scale_controller=...)``): tails the replicas' own
+  telemetry artifacts, feeds a pure hysteresis policy, and recruits or
+  drains replicas mid-stream with the exactly-once file-queue protocol
+  guaranteeing no response is dropped or duplicated.
+
 A preempted training process exits with :data:`RESUMABLE_EXIT_CODE`.
-The serving fleet's closed-loop autoscaler (the JAX package's
-``FleetAutoscaler`` and ``launch_local(scale_controller=...)``) belongs
-to the serving stack, which the port does not have yet: asking for it
-raises.  This module imports torch only inside
-:func:`initialize_from_env`'s join, so a supervisor never loads it.
+This module imports torch only inside :func:`initialize_from_env`'s join,
+so a supervisor (and the autoscaler) never loads it.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import signal
@@ -149,18 +153,231 @@ def _terminate_fleet(
         codes[i] = p.returncode
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} not ported: the closed-loop serving autoscaler belongs to "
-        "the serving stack (ROADMAP §1 item 2)")
-
-
 class FleetAutoscaler:
-    """The JAX package's closed-loop serving scale controller: not ported
-    until the serving stack is (constructing one raises)."""
+    """Closed-loop scale controller for ``launch_local`` serving fleets.
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("FleetAutoscaler")
+    The serving replicas publish their load as artifacts (that is the
+    whole observability design): ``timeseries_p<i>.jsonl`` rows carry
+    each replica's cumulative ``offered``/``served`` counters plus the
+    instantaneous gauges (``serve/blocks_free``, ``serve/slo_margin/*``),
+    and the shared file queue holds whatever no replica has claimed
+    yet.  This controller tails both from the *supervisor* process —
+    no RPC into the replicas — folds them into one backlog figure::
+
+        backlog = unclaimed queue files
+                + Σ offered_i − Σ served_i     (claimed but unfinished)
+
+    and feeds it to an :class:`~.serving.admission.AutoscalePolicy`
+    (pure hysteresis: consecutive-observation streaks + cooldown, so a
+    single spike cannot flap the fleet).  ``launch_local`` invokes
+    :meth:`decide` from its monitor loop and performs the mechanics
+    (spawn / SIGTERM-drain); the policy object only ever says +1/-1/0.
+
+    Every decision leaves a full forensic trail in ``workdir``:
+
+    - ``scale_events.jsonl`` — one line per decision with the
+      triggering signal values (``serving_report.py`` renders the
+      timeline against throughput),
+    - ``flight_autoscale_<k>.json`` — a flight-recorder dump whose
+      ring holds every evaluation instant leading up to decision k,
+    - ``fleet_size.json`` (atomic rename) — the commitment replicas
+      started with ``--fleet-file`` mirror into their own registries
+      (``serve/fleet_size`` + ``serve/scale_up|down``).
+
+    torch-free and wall-clock-stamping by design: like
+    ``telemetry/timeseries.py`` this file is deliberately OUTSIDE
+    dtm-lint's determinism scope — event logs need wall time; the
+    *decisions* come from the pure policy, which is inside it.
+    """
+
+    def __init__(
+        self,
+        workdir: str,
+        *,
+        policy=None,
+        queue_dir: Optional[str] = None,
+        poll_interval_s: float = 0.5,
+        fleet_file: Optional[str] = None,
+        ring_events: int = 512,
+    ):
+        from distributed_tensorflow_models_tpu_torch.serving import (
+            admission as admlib,
+        )
+        from distributed_tensorflow_models_tpu_torch.telemetry import (
+            registry as reglib,
+        )
+        from distributed_tensorflow_models_tpu_torch.telemetry import (
+            trace as tracelib,
+        )
+
+        self.workdir = workdir
+        self.queue_dir = queue_dir
+        self.policy = (
+            policy if policy is not None else admlib.AutoscalePolicy()
+        )
+        self.poll_interval_s = float(poll_interval_s)
+        self.fleet_file = fleet_file or os.path.join(
+            workdir, "fleet_size.json"
+        )
+        self.events_path = os.path.join(workdir, "scale_events.jsonl")
+        self.events = 0
+        self._last_poll = float("-inf")
+        self._size_written: Optional[int] = None
+        # Controller-side registry + tracer: the flight record dumped at
+        # each decision carries the evaluation instants that led to it.
+        self._registry = reglib.MetricsRegistry()
+        self._registry.trace = tracelib.Tracer(ring_events)
+
+    # -- signal collection -------------------------------------------------
+
+    @staticmethod
+    def _tail_row(path: str) -> Optional[dict]:
+        """Last parseable row of one replica's timeseries file."""
+        try:
+            with open(path, "rb") as f:
+                lines = f.read().splitlines()
+        except OSError:
+            return None
+        for raw in reversed(lines):
+            try:
+                row = json.loads(raw)
+            except ValueError:
+                continue  # torn tail line: take the previous row
+            if isinstance(row, dict):
+                return row
+        return None
+
+    def signals(self, live: Sequence[int]) -> dict:
+        """Fold the fleet's artifacts into the autoscale inputs."""
+        offered = served = 0.0
+        blocks_free = None
+        margins: dict = {}
+        per_replica: dict = {}
+        for i in live:
+            row = self._tail_row(
+                os.path.join(self.workdir, f"timeseries_p{i}.jsonl")
+            )
+            if row is None:
+                continue
+            offered += float(row.get("offered", 0.0))
+            served += float(row.get("served", 0.0))
+            bf = row.get("serve/blocks_free")
+            if bf is not None:
+                blocks_free = (
+                    bf if blocks_free is None else min(blocks_free, bf)
+                )
+            for key, val in row.items():
+                if key.startswith("serve/slo_margin/"):
+                    name = key.rsplit("/", 1)[-1]
+                    margins[name] = min(
+                        margins.get(name, float("inf")), float(val)
+                    )
+            per_replica[i] = {
+                "offered": row.get("offered", 0.0),
+                "served": row.get("served", 0.0),
+                "blocks_free": bf,
+            }
+        unclaimed = 0
+        if self.queue_dir is not None:
+            try:
+                unclaimed = sum(
+                    1
+                    for name in os.listdir(self.queue_dir)
+                    if name.startswith("req-") and name.endswith(".json")
+                )
+            except OSError:
+                unclaimed = 0
+        return {
+            "backlog": unclaimed + max(0.0, offered - served),
+            "unclaimed": unclaimed,
+            "offered": offered,
+            "served": served,
+            "blocks_free": blocks_free,
+            "slo_margins": margins,
+            "slo_breached": sorted(
+                n for n, m in margins.items() if m < 0.0
+            ),
+            "per_replica": per_replica,
+        }
+
+    # -- commitment --------------------------------------------------------
+
+    def _write_fleet_file(self, size: int) -> None:
+        import time
+
+        if size == self._size_written:
+            return
+        tmp = f"{self.fleet_file}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            json.dump({"size": int(size), "ts_wall": time.time()}, f)
+        os.replace(tmp, self.fleet_file)
+        self._size_written = size
+
+    def decide(self, live: Sequence[int]) -> int:
+        """One monitor-loop tick: returns +1 (recruit a replica), -1
+        (drain one), or 0.  Rate-limited to ``poll_interval_s``; the
+        caller owns the process mechanics and victim choice."""
+        import time
+
+        now = time.perf_counter()
+        if self._size_written is None:
+            # Initial commitment only: afterwards the fleet file tracks
+            # DECISIONS, never observed liveness — a draining victim is
+            # still live for a few ticks, and mirroring that back would
+            # flap the file (and the replicas' scale counters) without
+            # any scale event having happened.
+            self._write_fleet_file(len(live))
+        if now - self._last_poll < self.poll_interval_s or not live:
+            return 0
+        self._last_poll = now
+        sig = self.signals(live)
+        delta = self.policy.observe(
+            replicas=len(live),
+            backlog=sig["backlog"],
+            slo_breached=bool(sig["slo_breached"]),
+        )
+        self._registry.trace.instant(
+            "autoscale/evaluate",
+            {
+                "replicas": len(live),
+                "backlog": sig["backlog"],
+                "unclaimed": sig["unclaimed"],
+                "blocks_free": sig["blocks_free"],
+                "slo_breached": sig["slo_breached"],
+                "delta": delta,
+            },
+        )
+        if delta == 0:
+            return 0
+        event = "scale_up" if delta > 0 else "scale_down"
+        record = {
+            "ts_wall": time.time(),
+            "event": event,
+            "from_size": len(live),
+            "to_size": len(live) + delta,
+            "live": sorted(int(i) for i in live),
+            **{k: v for k, v in sig.items() if k != "per_replica"},
+            "per_replica": sig["per_replica"],
+        }
+        with open(self.events_path, "a") as f:
+            f.write(json.dumps(record) + "\n")
+        self._registry.trace.instant(f"autoscale/{event}", dict(record))
+        self._registry.trace.dump_flight_record(
+            os.path.join(
+                self.workdir, f"flight_autoscale_{self.events}.json"
+            ),
+            f"autoscale_{event}",
+            registry=self._registry,
+        )
+        self.events += 1
+        self._write_fleet_file(len(live) + delta)
+        sys.stderr.write(
+            f"--- fleet: autoscale {event} {len(live)} -> "
+            f"{len(live) + delta} (backlog {sig['backlog']:.0f}, "
+            f"unclaimed {sig['unclaimed']}, slo_breached "
+            f"{sig['slo_breached']}) ---\n"
+        )
+        return delta
 
 
 def launch_local(
@@ -174,7 +391,7 @@ def launch_local(
     heartbeat_timeout: float | None = None,
     term_grace_s: float = DEFAULT_TERM_GRACE_S,
     startup_stats: Optional[dict] = None,
-    scale_controller=None,
+    scale_controller: Optional[FleetAutoscaler] = None,
 ) -> list[int]:
     """Spawn ``num_processes`` copies of ``argv`` as a localhost cluster.
 
@@ -211,9 +428,20 @@ def launch_local(
     heartbeat-interval resolution; ``first_step_s`` may be absent when
     chunks outrun the heartbeat cadence.
 
+    **Closed-loop autoscale** (serving fleets).  Pass a
+    :class:`FleetAutoscaler` as ``scale_controller`` and the monitor
+    polls it each round: +1 spawns one more child at a FRESH process
+    index (same command/env recipe — file-queue replicas join the
+    shared queue and start claiming immediately), -1 SIGTERMs the
+    highest-index live child, whose drain path answers everything it
+    already claimed and exits 0 — the monitor treats that like any
+    benign exit, the fleet keeps running, and the exactly-once queue
+    protocol guarantees no response is dropped or duplicated across
+    the membership change.  The returned code list covers every child
+    ever spawned, not just the initial ``num_processes``.
+
     ``cpu_devices_per_process`` (the JAX package's fake CPU devices) has
-    no meaning here and raises; ``scale_controller`` (serving autoscale)
-    is not ported and raises.
+    no meaning here and raises.
     """
     import shutil
     import tempfile
@@ -226,17 +454,18 @@ def launch_local(
             "cpu_devices_per_process has no meaning in the port: each "
             "process runs one device (cuda:LOCAL_RANK, or the CPU when the "
             "command asks for it, e.g. --device cpu)")
-    if scale_controller is not None:
-        raise _not_ported("launch_local(scale_controller=...)")
     procs: list[subprocess.Popen] = []
     logs: list = []
     hb_dir = tempfile.mkdtemp(prefix="dtm-heartbeat-")
     t0_wall = time.time()
 
     def _spawn(i: int) -> None:
+        """Spawn child i (initial fleet member or autoscale recruit —
+        a recruit gets a fresh, never-reused process index so its
+        artifacts and queue claims can't collide with history)."""
         env = dict(os.environ)
         env[ENV_COORDINATOR] = f"127.0.0.1:{port}"
-        env[ENV_NUM_PROCESSES] = str(num_processes)
+        env[ENV_NUM_PROCESSES] = str(max(num_processes, i + 1))
         env[ENV_PROCESS_ID] = str(i)
         env[ENV_LOCAL_RANK] = str(i)
         env[heartbeat.ENV_HEARTBEAT_DIR] = hb_dir
@@ -332,6 +561,29 @@ def launch_local(
                         break
             if failure is not None:
                 break
+            if scale_controller is not None:
+                live = [
+                    i for i, p in enumerate(procs)
+                    if i not in codes and p.poll() is None
+                ]
+                delta = scale_controller.decide(live)
+                if delta > 0:
+                    # Recruit: fresh max index, same command — the new
+                    # replica joins the shared queue mid-stream.
+                    _spawn(len(procs))
+                elif delta < 0 and len(live) > 1:
+                    # Drain the newest live replica: SIGTERM stops its
+                    # claiming, it answers what it owns, exits 0.
+                    victim = max(live)
+                    sys.stderr.write(
+                        f"--- fleet: autoscale draining process "
+                        f"{victim} (SIGTERM; it answers its claimed "
+                        "work, then exits) ---\n"
+                    )
+                    try:
+                        procs[victim].terminate()
+                    except OSError:  # exited between poll and signal
+                        pass
             time.sleep(_MONITOR_POLL_S)
         if failure is not None:
             i, why = failure
@@ -421,9 +673,21 @@ def supervise_local(
     satisfy the batch contract (global batch divisible by the new process
     count) — pick M accordingly.
 
+    These two resize paths are *reactive* (a failure already happened).
+    For serving fleets there is a third, *proactive* path: pass a
+    :class:`FleetAutoscaler` through ``launch_kwargs`` as
+    ``scale_controller`` and each launch scales WITHIN the run from
+    scheduler telemetry — no failure, no relaunch, no dropped work.
+    The controller object is reused across relaunches, so its
+    hysteresis state and scale-event numbering survive a restart.
+
     ``follow_checkpoints=<dir>`` appends ``--follow-checkpoints <dir>`` to
-    every child's argv (for commands that take it; the port's training
-    CLI does not)."""
+    every child's argv: serving replicas (``serving/server.py``, including
+    ones the autoscaler recruits mid-run, which clone the same argv) then
+    follow the trainer's checkpoint directory, gating, canarying and
+    promoting new weights live.  The flag rides the argv so a fleet
+    restart keeps following too (the port's training CLI does not take
+    it)."""
     import time
 
     from distributed_tensorflow_models_tpu_torch.resilience import backoff
@@ -545,6 +809,49 @@ def main(argv: Sequence[str] | None = None) -> int:
         "the number of failed processes on each relaunch (floor 1)",
     )
     parser.add_argument(
+        "--autoscale-workdir",
+        default=None,
+        help="localhost mode: enable the closed-loop serving "
+        "autoscaler — tail timeseries_p<i>.jsonl under this workdir "
+        "for backlog/SLO signals and scale the fleet within the run "
+        "(writes scale_events.jsonl, flight_autoscale_<k>.json and "
+        "fleet_size.json there)",
+    )
+    parser.add_argument(
+        "--autoscale-queue-dir",
+        default=None,
+        help="with --autoscale-workdir: also count unclaimed req-*.json "
+        "files in this file-queue directory as backlog",
+    )
+    parser.add_argument(
+        "--autoscale-min", type=int, default=1,
+        help="autoscaler floor on live replicas (default 1)",
+    )
+    parser.add_argument(
+        "--autoscale-max", type=int, default=4,
+        help="autoscaler ceiling on live replicas (default 4)",
+    )
+    parser.add_argument(
+        "--autoscale-up-backlog", type=float, default=4.0,
+        help="scale up when backlog per replica exceeds this",
+    )
+    parser.add_argument(
+        "--autoscale-down-backlog", type=float, default=1.0,
+        help="scale down when backlog per replica stays under this",
+    )
+    parser.add_argument(
+        "--autoscale-interval", type=float, default=0.5,
+        help="seconds between autoscaler evaluations",
+    )
+    parser.add_argument(
+        "--follow-checkpoints",
+        default=None,
+        help="localhost mode: append '--follow-checkpoints DIR' to "
+        "every child's argv — serving replicas then live-adopt the "
+        "trainer's newly fleet-valid checkpoints (gate, canary, "
+        "SLO-verdict promote/rollback) with no restart or recompile",
+    )
+    parser.add_argument(
         "--heartbeat-timeout",
         type=float,
         default=None,
@@ -581,6 +888,27 @@ def main(argv: Sequence[str] | None = None) -> int:
                 f"--coordinator host ({host!r}) requires --process-id "
                 "(run once per host)"
             )
+        controller = None
+        if args.autoscale_workdir:
+            from distributed_tensorflow_models_tpu_torch.serving import (
+                admission as admlib,
+            )
+
+            controller = FleetAutoscaler(
+                args.autoscale_workdir,
+                policy=admlib.AutoscalePolicy(
+                    min_replicas=args.autoscale_min,
+                    max_replicas=args.autoscale_max,
+                    up_backlog=args.autoscale_up_backlog,
+                    down_backlog=args.autoscale_down_backlog,
+                ),
+                queue_dir=args.autoscale_queue_dir,
+                poll_interval_s=args.autoscale_interval,
+            )
+        elif args.autoscale_queue_dir:
+            parser.error(
+                "--autoscale-queue-dir needs --autoscale-workdir"
+            )
         if args.max_restarts > 0:
             return supervise_local(
                 args.num_processes,
@@ -589,20 +917,27 @@ def main(argv: Sequence[str] | None = None) -> int:
                 port=int(port_str),
                 resize_to=args.resize_to,
                 auto_resize=args.auto_resize,
+                follow_checkpoints=args.follow_checkpoints,
                 heartbeat_timeout=args.heartbeat_timeout,
                 term_grace_s=args.term_grace,
+                scale_controller=controller,
             )
         if args.resize_to is not None or args.auto_resize:
             parser.error(
                 "--resize-to/--auto-resize only apply to the restart "
                 "loop; add --max-restarts N"
             )
+        if args.follow_checkpoints:
+            command = list(command) + [
+                "--follow-checkpoints", args.follow_checkpoints,
+            ]
         codes = launch_local(
             args.num_processes,
             command,
             port=int(port_str),
             heartbeat_timeout=args.heartbeat_timeout,
             term_grace_s=args.term_grace,
+            scale_controller=controller,
         )
         return aggregate_exit_codes(codes)
 

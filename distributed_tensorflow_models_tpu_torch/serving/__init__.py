@@ -32,8 +32,21 @@ Layering (scheduler -> engine -> kv_slots; strictly one-way):
   Records TTFT/TPOT/queue-depth/slot-occupancy into the telemetry
   registry.
 
-The server front half, admission control, replay, KV page shipping and
-continuous deployment are not ported yet.  This ``__init__`` deliberately
-imports nothing, as in the JAX package: callers import submodules
-explicitly.
+- :mod:`admission` — priority classes, deadline and SLO shedding,
+  backpressure and the autoscale policy (pure decisions, stdlib only).
+- :mod:`replay` — seeded request mixes, arrival processes and the
+  open-loop replayer (stdlib only).
+- :mod:`shipping` — the wire format, handoff claims and the fleet prefix
+  index of disaggregated prefill/decode serving (numpy only).
+- :mod:`deploy` — continuous deployment: checkpoint following, the
+  pre-swap gate over the port's checkpoints, canarying, promotion and
+  rollback.
+- :mod:`server` — the front half (request queue, worker thread, drain on
+  SIGTERM, artifacts) and the file-queue replica
+  (``python -m distributed_tensorflow_models_tpu_torch.serving.server``).
+
+``server``, ``admission``, ``replay``, ``shipping`` and ``deploy`` import
+no torch: a supervisor loads them without the device stack.  This
+``__init__`` deliberately imports nothing, as in the JAX package: callers
+import submodules explicitly.
 """

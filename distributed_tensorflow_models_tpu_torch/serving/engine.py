@@ -54,7 +54,8 @@ only after real K/V overwrote it.
 bitwise invariant to how the prompt was chunked (row-invariant products;
 each position's projections read only that position's hidden state), so
 a resident block holds exactly the bytes the new request's own prefill
-would have produced.
+would have produced — under the same weights: pages are keyed by the
+weight version they were computed under (:meth:`InferenceEngine._matchable`).
 
 **Sampling.**  The engine and ``generate()`` call one sampler,
 :func:`~..harness.generate.sample_rows`, with temperature, top-k and
@@ -72,8 +73,15 @@ device, and a dispatch for a version other than the one loaded copies
 that version's tensors in first (``copy_``, once per switch).  Captures
 stay (1, 1) across install, promote and rollback.
 
-KV page shipping (``export_slot``, ``admit_shipped``, a ``fleet_cache``)
-waits for ``serving/shipping.py`` and raises ``NotImplementedError``.
+**KV page shipping.**  ``export_slot`` brings a prefilled slot's prompt
+pages to the host as numpy (leaves named as the JAX engine names them,
+``blocks_<i>/attn/cached_key`` and ``.../cached_value``; bfloat16 pages as
+:data:`~.shipping.BF16_BITS`), and ``admit_shipped`` writes shipped pages
+into fresh blocks of the pool (``kv_slots.scatter_pages``) and marks the
+lane for the same eager adoption a local prefill gets.  Both run eagerly
+outside the programs, so shipping never changes ``compile_counts()``.  A
+``fleet_cache`` (``shipping.FleetPrefixIndex``) lets admission adopt
+pages another prefill replica advertised.
 """
 
 from __future__ import annotations
@@ -96,17 +104,12 @@ from distributed_tensorflow_models_tpu_torch.models.transformer_lm import (
     KVCache,
 )
 from distributed_tensorflow_models_tpu_torch.serving import kv_slots
+from distributed_tensorflow_models_tpu_torch.serving import shipping as shiplib
 from distributed_tensorflow_models_tpu_torch.serving.prefix_cache import (
     RadixPrefixCache,
     prompt_pages,
 )
 from distributed_tensorflow_models_tpu_torch.telemetry import registry as reglib
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} not ported: KV page shipping waits for serving/shipping.py "
-        "(ROADMAP §1)")
 
 
 def _param_dict(params) -> dict:
@@ -190,8 +193,19 @@ class InferenceEngine:
             raise ValueError(
                 f"prefill_lanes must be >= 1, got {prefill_lanes}"
             )
-        if fleet_cache is not None:
-            raise _not_ported("fleet_cache")
+        # Fleet-wide prefix index (shipping.FleetPrefixIndex, or any
+        # object with the same chain-digest lookup/advertise surface).
+        # A resident prefix on ANY prefill replica serves the whole
+        # fleet: admission consults the index for pages the local trie
+        # misses (adopting them into the local trie, so the normal
+        # match path reuses them), and prefill advertises freshly
+        # resident pages.  Requires the local prefix cache — adopted
+        # pages live in the trie like any other resident prefix.
+        if fleet_cache is not None and not prefix_cache:
+            raise ValueError(
+                "fleet_cache requires prefix_cache=True (fleet pages "
+                "are adopted into the local radix trie)"
+            )
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -273,7 +287,7 @@ class InferenceEngine:
             if prefix_cache else None
         )
         self._evictions_seen = 0  # cache.evictions already mirrored
-        self.fleet_cache = None
+        self.fleet_cache = fleet_cache
         dm = self._decode_model
         self.pool = kv_slots.make_pool(dm, self.num_blocks, self._page,
                                        self.device)
@@ -497,13 +511,24 @@ class InferenceEngine:
 
     # -- block/prefix admission --------------------------------------------
 
-    def _matchable(self, prompt) -> list:
+    def _matchable(self, prompt, version: int = 0) -> list:
         """The prompt's shareable pages: full pages only, and never the
         final page of an exactly-page-aligned prompt — at least one real
         token must prefill so the first sampled token has a logits row
-        (partial-page sharing would need a third copy program)."""
+        (partial-page sharing would need a third copy program).
+
+        Pages hold K/V computed under one weight version, so a request may
+        reuse only its own version's: under a version other than the boot
+        weights (0) the first page's key leads with ``-version`` (tokens
+        are never negative, checkpoint steps are positive), which keys
+        each version's pages apart in the trie and in the fleet index.
+        The JAX engine keys pages by tokens alone and serves a request
+        pages another version computed (ROADMAP §3, F9)."""
         pages = prompt_pages(prompt, self._page)
-        return pages[: (len(prompt) - 1) // self._page]
+        pages = pages[: (len(prompt) - 1) // self._page]
+        if pages and version:
+            pages[0] = (-int(version),) + pages[0]
+        return pages
 
     def _usable_cached_len(self, prompt_len: int, depth: int) -> int:
         """Cached tokens actually usable at warmth ``depth`` (matched
@@ -524,10 +549,11 @@ class InferenceEngine:
     def peek_prefill_cost(self, prompt) -> int:
         """Padded uncached-suffix length admission WOULD pay for this
         prompt right now, without touching cache state (LRU stamps,
-        counters) — the scheduler's budget estimate."""
+        counters) — the scheduler's budget estimate, over the primary
+        version's resident pages."""
         plen = len(prompt)
         depth = (
-            self.prefix_cache.peek(self._matchable(prompt))
+            self.prefix_cache.peek(self._matchable(prompt, self.version))
             if self.prefix_cache is not None else 0
         )
         return self.padded_suffix(plen, self._usable_cached_len(plen, depth))
@@ -555,9 +581,14 @@ class InferenceEngine:
         n_pages = -(-(plen + max_new_tokens) // self._page)
         if self.slots.free_count < 1:
             return None
+        if version is None or version not in self._versions:
+            version = self.version
         matchable = (
-            self._matchable(prompt) if self.prefix_cache is not None else []
+            self._matchable(prompt, version)
+            if self.prefix_cache is not None else []
         )
+        if matchable and self.fleet_cache is not None:
+            self._fleet_extend(matchable)
         depth = (
             self.prefix_cache.peek(matchable) if matchable else 0
         )
@@ -598,8 +629,6 @@ class InferenceEngine:
         self._lengths[slot] = cached
         self._slot_blocks[slot] = blocks
         self._slot_cached[slot] = cached
-        if version is None or version not in self._versions:
-            version = self.version
         self._slot_version[slot] = version
         return slot, cached
 
@@ -692,20 +721,229 @@ class InferenceEngine:
         self.canary_version = None
         self._prune_versions()
 
-    # -- KV page shipping (disaggregated prefill/decode): not ported -------
+    # -- KV page shipping (disaggregated prefill/decode) -------------------
+    #
+    # The wire unit is the pool page: export gathers a finished slot's
+    # prompt pages through the SAME gather_cache/cache_pages ops the
+    # prefill program uses (so the shipped bytes are exactly what a
+    # dedicated slot would hold) and brings them to the host as numpy;
+    # import scatters them into the receiving pool at freshly allocated
+    # physical blocks with scatter_pages.  Both sides run eagerly outside
+    # the captured programs, so the per-role program pins ((1, 0) prefill
+    # / (0, 1) decode) come straight from programs built on first use.
+    # Only pages below the prompt length ship: positions past it are
+    # right-padding garbage that is causally masked on both ends (module
+    # docstring), so decode over adopted pages reduces identically to
+    # decode over the pages prefill wrote in place.
+
+    def _page_leaves(self, paged: kv_slots.PagedKV) -> dict:
+        """``{path: tensor}`` of a pool-shaped :class:`~.kv_slots.PagedKV`
+        under the JAX engine's leaf names (``blocks_<i>/attn/cached_key``
+        and ``.../cached_value``; the counters are host truth and never
+        ship)."""
+        out = {}
+        for i, (k, v) in enumerate(zip(paged.keys, paged.values)):
+            out[f"blocks_{i}/attn/cached_key"] = k
+            out[f"blocks_{i}/attn/cached_value"] = v
+        return dict(sorted(out.items()))
+
+    @staticmethod
+    def _to_host(t: torch.Tensor) -> np.ndarray:
+        """A page tensor as host numpy; bfloat16 as its bit patterns in
+        :data:`~.shipping.BF16_BITS` (numpy has no bfloat16)."""
+        t = t.detach().contiguous().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(shiplib.BF16_BITS)
+        return t.numpy()
+
+    def _from_host(self, arr, path: str) -> torch.Tensor:
+        """A shipped leaf as a tensor on the engine's device, in the
+        pool's dtype (the wire dtype must be the pool's: no cast)."""
+        want = str(self.pool.keys[0].dtype).removeprefix("torch.")
+        a = np.asarray(arr)
+        got = shiplib.wire_dtype_name(a.dtype)
+        if got != want:
+            raise ValueError(
+                f"shipped leaf {path!r} is {got}; the pool holds {want}"
+            )
+        a = np.require(a, requirements=("C", "W"))
+        if want == "bfloat16":
+            t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a)
+        return t.to(self.device)
+
+    def _export_prompt_pages(self, slot: int, n_pages: int) -> dict:
+        """The first ``n_pages`` of ``slot``'s sequence as host arrays,
+        ``{path: [n_pages, page_tokens, ...]}`` — gathered through the
+        slot's block table via :func:`~.kv_slots.gather_cache` then
+        re-paged via :func:`~.kv_slots.cache_pages`, the exact ops the
+        prefill program moves pages with."""
+        table = torch.from_numpy(
+            np.ascontiguousarray(self._tables[slot][:n_pages])
+        ).to(self.device)
+        paged = kv_slots.cache_pages(
+            kv_slots.gather_cache(self.pool, table), self._page
+        )
+        return {
+            path: self._to_host(leaf)
+            for path, leaf in self._page_leaves(paged).items()
+        }
 
     def export_slot(self, slot: int) -> tuple:
-        raise _not_ported("export_slot")
+        """Export a prefilled slot's KV for shipping: returns
+        ``(prompt_len, {path: [n_pages, page_tokens, ...]})`` covering
+        ``ceil(prompt_len / page_tokens)`` pages.  Call after
+        ``prefill_batch`` set the slot's true length and before
+        ``release`` frees its blocks."""
+        plen = int(self._lengths[slot])
+        if plen < 1:
+            raise ValueError(f"slot {slot} has no prefilled tokens")
+        n_pages = -(-plen // self._page)
+        return plen, self._export_prompt_pages(slot, n_pages)
+
+    def _shipped_pages(self, pages: dict) -> kv_slots.PagedKV:
+        """Shipped host pages (``{path: [n, page_tokens, ...]}``) as a
+        :class:`~.kv_slots.PagedKV` on the engine's device; raises on a
+        missing leaf or a dtype that is not the pool's."""
+        names = self._page_leaves(self.pool)
+        missing = [p for p in names if p not in pages]
+        if missing:
+            raise ValueError(
+                f"shipped pages missing pool leaf {missing[0]!r}"
+            )
+        n = len(self.pool.keys)
+        return kv_slots.PagedKV(
+            [self._from_host(pages[f"blocks_{i}/attn/cached_key"],
+                             f"blocks_{i}/attn/cached_key")
+             for i in range(n)],
+            [self._from_host(pages[f"blocks_{i}/attn/cached_value"],
+                             f"blocks_{i}/attn/cached_value")
+             for i in range(n)],
+        )
+
+    def _scatter_shipped(self, pages: kv_slots.PagedKV, block_ids) -> None:
+        """Write shipped pages (:meth:`_shipped_pages`) into the pool at
+        physical ``block_ids`` — the import side of the wire, via
+        :func:`~.kv_slots.scatter_pages`."""
+        indices = torch.as_tensor(
+            np.asarray(block_ids, np.int64), device=self.device
+        )
+        kv_slots.scatter_pages(self.pool, pages, indices)
 
     def admit_shipped(self, request_id: int, prompt_len: int,
                       max_new_tokens: int, pages: dict):
-        raise _not_ported("admit_shipped")
+        """Decode-side admission of a shipped request: claim a slot AND
+        the request's FULL fresh reservation (no prefix matching — the
+        prompt's KV arrives on the wire), scatter the shipped prompt
+        pages in, and mark the lane for view adoption.  Returns the
+        slot, or None on backpressure (slots/blocks exhausted — nothing
+        leaked, the caller requeues).  The adopted lane then decodes
+        byte-identically to one the local prefill program filled: the
+        adopted view is the same bytes either way."""
+        plen = int(prompt_len)
+        if plen < 1:
+            raise ValueError("shipped prompt_len must be >= 1")
+        n_pages = -(-plen // self._page)
+        for path, arr in pages.items():
+            if arr.shape[0] != n_pages or arr.shape[1] != self._page:
+                raise ValueError(
+                    f"shipped leaf {path!r} shape {arr.shape} does not "
+                    f"cover {n_pages} pages of {self._page} tokens"
+                )
+        n_need = -(-(plen + max_new_tokens) // self._page)
+        if self.slots.free_count < 1:
+            return None
+        # Checked and on the device before any block is taken: a bad
+        # bundle raises with nothing allocated.
+        shipped = self._shipped_pages(pages)
+        if n_need > self.blocks.free_count and self.prefix_cache is not None:
+            self.prefix_cache.evict(n_need - self.blocks.free_count)
+            self._sync_eviction_counter()
+        fresh = self.blocks.alloc(n_need)
+        if fresh is None:
+            return None
+        self._scatter_shipped(shipped, fresh[:n_pages])
+        slot = self.slots.alloc(request_id)
+        row = np.zeros((self._bps,), np.int64)
+        row[: len(fresh)] = fresh
+        self._tables[slot] = row
+        self._lengths[slot] = plen
+        self._slot_blocks[slot] = fresh
+        self._slot_cached[slot] = 0
+        self._views_fresh[slot] = True
+        # Shipped requests decode on the primary at adoption time; the
+        # pin keeps them there across any later swap (byte-identity).
+        self._slot_version[slot] = self.version
+        return slot
 
     def _fleet_extend(self, matchable: list) -> None:
-        raise _not_ported("the fleet prefix index")
+        """Pull pages the local trie misses from the fleet index: adopt
+        the longest advertised extension into freshly allocated blocks
+        and insert it into the local trie, so the normal match path
+        reuses fleet pages exactly like locally prefilled ones.  Counts
+        ``serve/fleet_prefix_{hits,misses}`` block-granularly over the
+        consulted tail.  Failure to adopt (no block headroom) is a
+        miss, never an error."""
+        depth = self.prefix_cache.peek(matchable)
+        if depth >= len(matchable):
+            return
+        found = self.fleet_cache.lookup(matchable)
+        n_new = len(found) - depth
+        misses = len(matchable) - max(depth, len(found))
+        if n_new > 0:
+            if n_new > self.blocks.free_count:
+                self.prefix_cache.evict(n_new - self.blocks.free_count)
+                self._sync_eviction_counter()
+            fresh = self.blocks.alloc(n_new)
+            if fresh is None:
+                misses += n_new
+                n_new = 0
+            else:
+                # np.stack keeps no dtype metadata: view the stack as
+                # its pages' dtype (BF16_BITS stays bfloat16 on the wire).
+                stacked = {
+                    path: np.stack(
+                        [np.asarray(lv[path]) for lv in found[depth:]]
+                    ).view(np.asarray(found[depth][path]).dtype)
+                    for path in found[depth]
+                }
+                self._scatter_shipped(self._shipped_pages(stacked), fresh)
+                # Chain blocks for the trie walk: the already-resident
+                # prefix keeps its own blocks (insert leaves existing
+                # nodes untouched), the extension adopts the fresh
+                # ones; our temporary alloc reference is dropped once
+                # the cache holds its own.
+                chain = (
+                    self.prefix_cache.match(matchable[:depth]) + fresh
+                )
+                self.prefix_cache.insert(matchable[:len(found)], chain)
+                self.blocks.release(fresh)
+                self._sync_eviction_counter()
+        if n_new > 0:
+            self.registry.counter(
+                reglib.SERVE_FLEET_PREFIX_HITS
+            ).inc(n_new)
+        if misses > 0:
+            self.registry.counter(
+                reglib.SERVE_FLEET_PREFIX_MISSES
+            ).inc(misses)
 
     def _fleet_advertise(self, slot: int, pages: list) -> None:
-        raise _not_ported("the fleet prefix index")
+        """Advertise a freshly prefilled prompt's shareable pages to
+        the fleet index (publish-if-absent; skipped wholesale when
+        every digest is already advertised, so steady-state repeat
+        traffic exports nothing)."""
+        if not pages or not self.fleet_cache.any_missing(pages):
+            return
+        stacked = self._export_prompt_pages(slot, len(pages))
+        self.fleet_cache.advertise(
+            pages,
+            [
+                {path: arr[i] for path, arr in stacked.items()}
+                for i in range(len(pages))
+            ],
+        )
 
     def _sync_eviction_counter(self) -> None:
         delta = (
@@ -829,7 +1067,7 @@ class InferenceEngine:
                 self._lengths[slot] = len(prompt)
                 self._views_fresh[slot] = True
                 if self.prefix_cache is not None:
-                    pages = self._matchable(prompt)
+                    pages = self._matchable(prompt, self.slot_version(slot))
                     if pages:
                         self.prefix_cache.insert(
                             pages,
@@ -837,6 +1075,8 @@ class InferenceEngine:
                              self._tables[slot][:len(pages)]],
                         )
                         self._sync_eviction_counter()
+                        if self.fleet_cache is not None:
+                            self._fleet_advertise(slot, pages)
 
     def decode_step(self, lanes: dict) -> dict:
         """One batched decode dispatch.  ``lanes`` maps slot ->

@@ -3,9 +3,11 @@
 A copy of ``distributed_tensorflow_models_tpu/serving/scheduler.py`` over
 the port's engine (host logic only: numpy, the registry, the drafter);
 ``Request.rng`` is the int seed ``generate(seed=)`` takes.  The pieces it
-drives that are not ported yet (admission policies, the SLO monitor,
-continuous deployment, KV page shipping) enter as objects the caller
-passes; shipped intake reaches the engine's not-ported raise.
+drives enter as objects the caller passes: an admission policy and
+backpressure gate (:mod:`.admission`), the SLO monitor
+(``telemetry/slo.py``), the checkpoint follower (:mod:`.deploy`) and, on
+a prefill replica, the ship callback (``serving/server.py``), which
+exports a slot's pages for a decode replica's ``submit_shipped``.
 
 Orca's observation, applied to the slotted engine: scheduling decisions
 belong at TOKEN granularity, not request granularity.  Each

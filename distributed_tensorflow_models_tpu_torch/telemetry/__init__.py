@@ -1,8 +1,7 @@
-"""Telemetry of the port: the metrics registry, the event tracer and the
-goodput report.
+"""Telemetry of the port: the metrics registry, the event tracer, the
+goodput report, the SLO monitor and the metric time series.
 
-The port's own copies of ``distributed_tensorflow_models_tpu/telemetry/``'s
-``registry.py``, ``trace.py`` and ``goodput.py``:
+The port's own copies of ``distributed_tensorflow_models_tpu/telemetry/``:
 
 - :mod:`registry` — counters, gauges, timers (p50/p95/max over a bounded
   reservoir), ``span(name)`` and the canonical metric names.
@@ -12,21 +11,22 @@ The port's own copies of ``distributed_tensorflow_models_tpu/telemetry/``'s
 - :mod:`goodput` — ``telemetry.json``: the run's wall time split into
   compute, data stall, checkpoint and compile, and MFU against the card's
   peak (``peak_flops``: the H100's dense bf16 rate, or ``DTM_PEAK_FLOPS``).
+- :mod:`slo` — declarative rolling-window SLO specs evaluated with
+  hysteresis into ``serve/slo_breach/<name>`` counters,
+  ``serve/slo_margin/<name>`` gauges and breach/recovery trace instants.
+- :mod:`timeseries` — the periodic append-only ``timeseries.jsonl``
+  writer (registry snapshot + offered/served request counts).
 
 ``data/pipeline.py`` records queue depth, producer wait, worker busy,
 reassembly wait and prefetch fill stalls into an injectable registry
 (default: the process-global one); ``fit`` gives each run a registry of
-its own, with a tracer, and writes its goodput report.  The SLO monitor
-and time-series writer of the JAX package are not ported yet.
+its own, with a tracer, and writes its goodput report; the serving server
+(``serving/server.py``) attaches the SLO monitor and the time-series
+writer.  Only :mod:`goodput` imports torch, and its names below are
+resolved on first use, so the torch-free serving front half and the
+launcher's autoscaler can import the registry without loading torch.
 """
 
-from distributed_tensorflow_models_tpu_torch.telemetry.goodput import (  # noqa: F401
-    device_count,
-    device_kind,
-    goodput_report,
-    peak_flops,
-    write_report,
-)
 from distributed_tensorflow_models_tpu_torch.telemetry.registry import (  # noqa: F401
     CHAOS_ARMED_UNFIRED,
     CKPT_FENCE,
@@ -76,3 +76,16 @@ from distributed_tensorflow_models_tpu_torch.telemetry.trace import (  # noqa: F
     chrome_trace_path,
     flight_record_path,
 )
+
+_LAZY = ("device_count", "device_kind", "goodput_report", "peak_flops",
+         "write_report")
+
+
+def __getattr__(name: str):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    from distributed_tensorflow_models_tpu_torch.telemetry import goodput
+
+    value = getattr(goodput, name)
+    globals()[name] = value
+    return value

@@ -3,10 +3,13 @@
 - No file of the port, and not ``chip_smoke.py``, imports jax, flax,
   optax, orbax, safetensors or the JAX package (an AST walk, so nothing
   is imported), nor PIL or OpenCV when it loads.
-- Importing the port's CLI leaves ``jax`` out of ``sys.modules``.
+- Importing the port's CLI leaves ``jax`` out of ``sys.modules``; importing
+  its supervisor and serving front half (``launch.py``,
+  ``serving/{server,admission,replay,shipping,deploy}.py``) leaves
+  ``torch`` out too, as the JAX front half leaves out ``jax``.
 - The CLI trains a tiny config on the CPU when asked for it.
 - An entry point given no device raises where there is no CUDA device; it
-  never runs on the CPU instead.
+  never runs on the CPU instead (the server's worker half too).
 - The synthetic ImageNet stream is the JAX package's, value for value.
 - A kernel build's key covers its source, every shared header and the
   flags.
@@ -18,6 +21,7 @@ import json
 import math
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -137,6 +141,42 @@ def test_cli_import_leaves_jax_unloaded():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+FRONT_HALF = ("launch", "serving.server", "serving.admission",
+              "serving.replay", "serving.shipping", "serving.deploy")
+
+
+@pytest.mark.parametrize("module", FRONT_HALF)
+def test_front_half_import_leaves_torch_unloaded(module):
+    code = ("import sys\n"
+            f"import distributed_tensorflow_models_tpu_torch.{module}\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{('torch',) + FORBIDDEN!r}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_server_worker_raises_without_cuda(monkeypatch):
+    """The replica's engine runs on the card unless ``--device cpu``:
+    with no CUDA device the worker fails, and the failure reaches the
+    request's handle and ``drain``, never a CPU run."""
+    from distributed_tensorflow_models_tpu_torch.serving import server
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = types.SimpleNamespace(
+        max_slots=2, prefill_chunk=8, decode_burst=1, prefill_lanes=1,
+        kv_page_tokens=None, kv_pool_blocks=None, prefix_cache="on",
+        prefix_cache_blocks=None, spec_tokens=0, spec_ngram_order=3,
+        spec_min_match=1, max_len=64, device="cuda")
+    srv = server.LMServer(server._drill_engine_factory(args))
+    srv.start()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        srv.drain()
+    with pytest.raises(server.ServerDraining):
+        srv.submit([1, 2], 2)
 
 
 def test_cli_trains_tiny_config_on_cpu(tmp_path, capsys):

@@ -180,10 +180,11 @@ def test_what_the_port_does_not_have_raises(tmp_path):
         launch.launch_local(2, argv, cpu_devices_per_process=2)
     with pytest.raises(ValueError, match="cpu_devices_per_process"):
         launch.supervise_local(2, argv, cpu_devices_per_process=2)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        launch.FleetAutoscaler(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        launch.launch_local(1, argv, scale_controller=object())
+    # The serving autoscaler is ported: it builds, and its first tick
+    # commits the live fleet's size.
+    ctl = launch.FleetAutoscaler(str(tmp_path), poll_interval_s=0.0)
+    assert ctl.decide([0]) == 0
+    assert json.load(open(tmp_path / "fleet_size.json"))["size"] == 1
 
 
 def test_initialize_from_env_beats_before_torch(tmp_path):

@@ -274,23 +274,27 @@ def test_submit_rejects_impossible_requests(small_lm):
 
 def test_engine_runs_on_the_card_unless_asked(small_lm, monkeypatch):
     """The default device is the card: with none, construction raises
-    (no fallback to the CPU); the shipping seam raises not-ported."""
+    (no fallback to the CPU).  The shipping seam (ported with
+    ``serving/shipping.py``) refuses a slot with no prompt, pages missing
+    a pool leaf, and a fleet index without the prefix cache; a decode
+    scheduler's shipped intake reaches it and raises the same."""
     model, _ = small_lm
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         InferenceEngine(model, registry=reglib.MetricsRegistry())
     eng = _engine(model, max_slots=2, prefill_chunk=8)
-    for call in (lambda: eng.export_slot(0),
-                 lambda: eng.admit_shipped(0, 3, 4, {}),
-                 lambda: _engine(model, fleet_cache=object())):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            call()
+    with pytest.raises(ValueError, match="no prefilled tokens"):
+        eng.export_slot(0)
+    with pytest.raises(ValueError, match="missing pool leaf"):
+        eng.admit_shipped(0, 3, 4, {})
+    with pytest.raises(ValueError, match="prefix_cache"):
+        _engine(model, prefix_cache=False, fleet_cache=object())
     sched = ContinuousBatchingScheduler(eng, role="decode")
     sched.submit_shipped(
         Request(0, np.asarray([1, 2, 3], np.int32), 4), pages={},
         keydata=np.zeros(4, np.int64), first_token=1, t_submit=0.0,
         queue_s=0.0, prefill_s=0.0)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="missing pool leaf"):
         sched.step()
 
 

@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 import torch_threads  # noqa: F401  (torch's threads: a share under xdist)
+import torch_serving_run as runlib
 
 from distributed_tensorflow_models_tpu import telemetry as jtelemetry
 from distributed_tensorflow_models_tpu.harness import config as jconfig
@@ -60,12 +61,13 @@ SCHEMA_LINT = os.path.join(REPO, "scripts", "check_metrics_schema.py")
 REGISTRY_PY = os.path.join(REPO, "distributed_tensorflow_models_tpu_torch",
                            "telemetry", "registry.py")
 # Declared keys this CPU run does not emit, each for a reason of the run,
-# not of the code: chaos (fault injection) and the fleet gauges
-# (heartbeats, a supervisor) are not ported; serve/ is the serving stack's
-# (not ported); a fresh run restores nothing (checkpoint/restore); one
-# input worker has no pool (pipeline/reassembly_wait, worker_busy); no
-# watchdog is configured (train/watchdog_last_progress_s).
-ALLOW_MISSING = ("chaos/", "fleet/", "serve/", "checkpoint/restore",
+# not of the code: no fault is injected (chaos/) and no supervisor runs
+# the fit (the fleet/ gauges); a fresh run restores nothing
+# (checkpoint/restore); one input worker has no pool
+# (pipeline/reassembly_wait, worker_busy); no watchdog is configured
+# (train/watchdog_last_progress_s).  The serve/ keys come from served
+# traffic in the same test (tests/torch_serving_run.py).
+ALLOW_MISSING = ("chaos/", "fleet/", "checkpoint/restore",
                  "pipeline/reassembly_wait", "pipeline/worker_busy",
                  "train/watchdog_last_progress_s")
 H100 = "NVIDIA H100 80GB HBM3"
@@ -374,8 +376,20 @@ def test_fit_writes_the_runs_telemetry(tmp_path):
 
     proc = _lint(tmp_path / "metrics.jsonl", "--require-telemetry")
     assert proc.returncode == 0, proc.stderr
+    # Declared coverage over the port's own runs: this fit, a monolithic
+    # server with every optional family, and a prefill-role server (the
+    # disaggregation family), merged into one snapshot.
+    served = runlib.serve_all_features(str(tmp_path / "serve"))
+    runlib.serve_disaggregated(
+        str(tmp_path / "disagg"),
+        [dict(rid=0, prompt=[1, 2, 3], max_new=3, t=0.0, k=0, seed=0)])
+    merged = dict(report["metrics"])
+    for path in (served["stats"],
+                 tmp_path / "disagg" / "serving_stats_p0.json"):
+        merged.update(json.load(open(path))["metrics"])
+    (tmp_path / "merged.json").write_text(json.dumps({"metrics": merged}))
     allow = [a for p in ALLOW_MISSING for a in ("--allow-missing", p)]
-    proc = _lint(tmp_path / "telemetry.json", "--declared-coverage",
+    proc = _lint(tmp_path / "merged.json", "--declared-coverage",
                  REGISTRY_PY, *allow)
     assert proc.returncode == 0, proc.stderr + proc.stdout
 
