@@ -373,6 +373,18 @@ Every phase fails loudly (exit code 1); none is caught and skipped.
    forms in a forward's proportion.  The reports of (a)-(c) together
    carry every declared ``serve/`` key; at the end of the whole smoke,
    with phase 5d's fit reports, every declared key but ``ALLOW_MISSING``.
+22. The serving fleet drill (``scripts/serve_drill.py``'s base arm,
+   ``run_drill``): two file-queue replicas (``python -m ...serving.server
+   --device cuda``, the drill model) under ``launch.launch_local``, both
+   on the card, ``DRILL_REQUESTS`` queued requests (every sampling mode,
+   duplicate pairs), replica 1 SIGTERMing itself after 3 answers: every
+   request claimed and answered exactly once, the victim drained to exit
+   0 after real traffic and the survivor took over, greedy pairs equal,
+   each stream equal to solo ``generate`` of the drill model on the card,
+   flight records and stats through the schema lint, and each replica's
+   R1 launches (printed by the replica at exit, counted from zero in its
+   own process) above zero.  Prints the arm's seconds, responses by
+   replica, each replica's TTFT and TPOT p99 and R1 launches by form.
 
 Every training arm runs ``fit`` in chunks of ``STEPS_PER_LOOP`` steps
 (``steps_per_loop``): the first step eager, the step then captured as a
@@ -397,7 +409,8 @@ and 11-13 alone, ``--dp-only`` phases 1 and 5b, ``--resume-only`` phases
 14, ``--startup-only`` phases 1, 14's training and 15,
 ``--model-knobs-only`` phases 1 and 16, ``--parallel-only`` phases 1,
 17 and 18, ``--async-only`` phases 1 and 19, ``--serve-only`` phases 1
-and 20, ``--server-only`` phases 1 and 21.  Each ``fit`` given a workdir under ``build/chip_smoke`` (emptied
+and 20, ``--server-only`` phases 1 and 21, ``--drill-only`` phases 1 and
+22.  Each ``fit`` given a workdir under ``build/chip_smoke`` (emptied
 at the start) saves a final checkpoint there, which the smoke deletes.
 """
 
@@ -5681,6 +5694,47 @@ def phase_server(card: str, seed: int, workdir: Path, model=None) -> dict:
             "replica": replica, "seconds": phase_s}
 
 
+# Phase 22: the serve drill's base arm on the card.  Its requests (the
+# drill's own mix: every sampling mode, duplicate pairs) and the victim's
+# trigger are the drill's.
+DRILL_REQUESTS = 24
+
+
+def phase_drills(card: str, workdir: Path) -> dict:
+    """Phase 22: ``serve_drill.run_drill`` with its replicas on the card;
+    fails on any check of the arm (every stream = solo ``generate`` of the
+    drill model on the card, R1 launched in each replica among them)."""
+    from distributed_tensorflow_models_tpu_torch.scripts import serve_drill
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    errors, responses = serve_drill.run_drill(
+        str(workdir), DRILL_REQUESTS, device="cuda",
+        solo=serve_drill.SoloReference("cuda"))
+    seconds = time.perf_counter() - t0
+    if errors:
+        fail("drills: " + "; ".join(errors[:8]))
+    wd = workdir / "wd"
+    by_replica = collections.Counter(r["replica"] for r in responses.values())
+    r1 = serve_drill.r1_launches(str(wd), (0, 1), "cuda", errors, "drills")
+    p99 = {}
+    for i in (0, 1):
+        m = json.loads((wd / f"serving_stats_p{i}.json").read_text())[
+            "metrics"]
+        p99[i] = (1e3 * m["serve/ttft_s/p99_s"], 1e3 * m["serve/tpot_s/p99_s"])
+    log(f"drills: serve_drill base arm, 2 replicas of the drill model on the "
+        f"card (python -m ...serving.server --device cuda under launch_local, "
+        f"replica {serve_drill.VICTIM} SIGTERM'd itself after "
+        f"{serve_drill.SIGTERM_AFTER} answers): {len(responses)} of "
+        f"{DRILL_REQUESTS} requests answered exactly once, each = solo "
+        f"generate on the card, in {seconds:.1f} s; responses by replica "
+        f"{dict(sorted(by_replica.items()))}; TTFT/TPOT p99 ms "
+        + ", ".join(f"p{i} {t:.1f}/{u:.1f}" for i, (t, u) in p99.items())
+        + f"; R1 launches by replica {r1} | {card}")
+    return {"seconds": seconds, "r1_launches": r1,
+            "by_replica": dict(by_replica), "p99_ms": p99}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch-size", type=int, default=256,
@@ -5745,6 +5799,9 @@ def main(argv=None) -> int:
     parser.add_argument("--server-only", action="store_true",
                         help="phases 1 and 21 alone, for work on the "
                         "server, shipping and deployment: no result line")
+    parser.add_argument("--drill-only", action="store_true",
+                        help="phases 1 and 22 alone, for work on the fleet "
+                        "drills: no result line")
     parser.add_argument("--startup-only", action="store_true",
                         help="phase 1, the checkpoint's training of phase "
                         "14 and phase 15 alone, for work on the cold "
@@ -5910,6 +5967,12 @@ def main(argv=None) -> int:
         phase_server(card, args.seed + 9, workdir / "server")
         log(card)
         log(f"server run: phases 1 and 21 alone, no result; elapsed "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.drill_only:
+        phase_drills(card, workdir / "drills")
+        log(card)
+        log(f"drill run: phases 1 and 22 alone, no result; elapsed "
             f"{time.perf_counter() - t_start:.1f} s")
         return 0
     if args.async_only:
@@ -6198,6 +6261,12 @@ def main(argv=None) -> int:
     # launches over (a)-(c) (its counter zeroed at the phase's start).
     srv = phase_server(card, args.seed + 9, workdir / "server")
     log(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 21")
+
+    # 22. The serving fleet drill's base arm: two replicas on the card,
+    # one SIGTERM victim, every stream against solo generate, R1 counted
+    # in each replica's own process.
+    drills = phase_drills(card, workdir / "drills")
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s after phase 22")
     # Every declared registry key, emitted by this smoke's own runs: the
     # fits' reports and phase 21's servers', together.
     coverage_check(COVERAGE_REPORTS,
@@ -6362,7 +6431,9 @@ def main(argv=None) -> int:
                  f"transformer_lm decode step (the engine's 8 lanes); "
                  f"launches from phase 20's served traffic (phase 14's "
                  f"timed captured generate: launches_generate_phase; "
-                 f"phase 21's servers: launches_server_phase); "
+                 f"phase 21's servers: launches_server_phase; phase "
+                 f"22's two drill replicas, each in its own process: "
+                 f"launches_by_form_drill_phase_by_replica); "
                  f"max_abs_err over every launch checked in phases 14 and "
                  f"20; library: torch.matmul on the same operands in "
                  f"their dtype",
@@ -6377,6 +6448,7 @@ def main(argv=None) -> int:
         "launches_generate_phase": gen["r1_launches"],
         "launches_server_phase": srv["r1_launches"],
         "launches_by_form_server_phase": srv["r1_forms"],
+        "launches_by_form_drill_phase_by_replica": drills["r1_launches"],
         "generate_step_ms": {
             name: r["r1_step"]["ms"] for name, r in gen["paths"].items()},
         "generate_prompt_pass_ms": {

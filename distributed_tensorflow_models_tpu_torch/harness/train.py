@@ -686,6 +686,12 @@ def fit(cfg: ExperimentConfig, workdir: Optional[str] = None,
             with tracer.span("fit/restore"):
                 state, data_state, restored = restore_or_init(
                     manager, state, mesh)
+            if restored and manager.last_resize is not None:
+                # Crossing a fleet resize is incident-grade: a flight
+                # record on every host, the resize facts on its timeline.
+                tracer.instant("fit/resize_restore",
+                               dict(manager.last_resize))
+                dump_flight("resize_restore")
             registry.gauge(telemetry.STARTUP_RESTORE).set(
                 time.perf_counter() - t0)
         restored_from = state.step if restored else None

@@ -889,11 +889,12 @@ DRILL_MODEL = dict(vocab_size=64, num_layers=2, num_heads=2, d_model=32,
                    d_ff=64, dropout_rate=0.0)
 
 
-def drill_model(max_len: int = 64):
+def drill_model(max_len: int = 64, seed: int = 0):
     """The replica's model: the JAX drill's ``transformer_lm`` widths
     (vocabulary 64, 2 layers, 2 heads, d_model 32, d_ff 64), f32, plain
-    attention, initialised on the CPU from a generator seeded 0, so every
-    replica holds the same weights."""
+    attention, initialised on the CPU from a generator seeded ``seed`` (0
+    for every replica, so all hold the same weights; the serve drill's
+    deploy arm seeds its candidates by step)."""
     import torch
 
     from distributed_tensorflow_models_tpu_torch.models import get_model
@@ -901,7 +902,7 @@ def drill_model(max_len: int = 64):
     return get_model(
         "transformer_lm", **DRILL_MODEL, max_len=max_len,
         dtype=torch.float32, attn_impl="reference",
-        generator=torch.Generator().manual_seed(0),
+        generator=torch.Generator().manual_seed(seed),
     )
 
 
@@ -1265,7 +1266,33 @@ def _replica_main(args) -> int:
         "replica %d (%s) exiting (%s): %d responses, %d handled",
         replica, role, exit_reason, responded, handled,
     )
+    _report_r1_launches(args.workdir, replica, role, args.device)
     return 0
+
+
+def r1_launches_path(workdir: str, process_index: int) -> str:
+    return os.path.join(workdir, f"r1_launches_p{process_index}.json")
+
+
+def _report_r1_launches(workdir: str, replica: int, role: str,
+                        device: str) -> None:
+    """R1's launches in this replica by form (its wrapper's counters:
+    launches on the card, replays of a captured program included; 0 where
+    the CPU ran the plain version), printed on one line and written to
+    :func:`r1_launches_path` for the fleet's drill."""
+    from distributed_tensorflow_models_tpu_torch.ops import rowwise
+
+    line = json.dumps({
+        "replica": replica, "role": role, "device": device,
+        "r1_launches": {form: getattr(rowwise.row_matmul,
+                                      f"{form}_launches")
+                        for form in ("wgmma", "simt")},
+    })
+    print(line, flush=True)
+    path = r1_launches_path(workdir, replica)
+    with open(f"{path}.tmp", "w") as f:
+        f.write(line + "\n")
+    os.replace(f"{path}.tmp", path)
 
 
 def main(argv=None) -> int:

@@ -5,8 +5,10 @@
   is imported), nor PIL or OpenCV when it loads.
 - Importing the port's CLI leaves ``jax`` out of ``sys.modules``; importing
   its supervisor and serving front half (``launch.py``,
-  ``serving/{server,admission,replay,shipping,deploy}.py``) leaves
-  ``torch`` out too, as the JAX front half leaves out ``jax``.
+  ``serving/{server,admission,replay,shipping,deploy}.py``) and the fleet
+  drills (``scripts/{serve,fleet}_drill.py``) leaves ``torch`` out too,
+  as the JAX front half leaves out ``jax``; no file of the port imports
+  or loads by path a file of the repository's ``scripts/``.
 - The CLI trains a tiny config on the CPU when asked for it.
 - An entry point given no device raises where there is no CUDA device; it
   never runs on the CPU instead (the server's worker half too).
@@ -100,12 +102,28 @@ def test_guard_walks_every_module_of_the_port():
             "ops/remat.py", "serving/__init__.py", "serving/kv_slots.py",
             "serving/prefix_cache.py", "serving/drafter.py",
             "serving/engine.py", "serving/scheduler.py",
-            "ops/rowwise.py"} <= walked
+            "ops/rowwise.py", "scripts/__init__.py",
+            "scripts/serve_drill.py", "scripts/fleet_drill.py"} <= walked
     others = [p.relative_to(PORT).as_posix() for p in PORT.rglob("*")
               if p.is_file() and p.suffix not in (".py", ".pyc")]
     assert sorted(others) == ["csrc/conv_implicit_gemm.cu",
                               "csrc/flash_attention.cu", "csrc/hopper.cuh",
                               "csrc/row_gemm.cu"]
+
+
+# The repository's scripts/ (a directory, not a package): the port runs
+# them as subprocesses, never imports them or loads them by path.
+REPO_SCRIPTS = tuple(p.stem for p in (ROOT / "scripts").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_loads_nothing_of_the_repository_scripts(path):
+    bad = sorted(m for m in _imported_modules(path)
+                 if m.split(".")[0] in ("scripts",) + REPO_SCRIPTS)
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+    assert "spec_from_file_location" not in path.read_text(), (
+        f"{path.relative_to(ROOT)} loads a module by path")
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -144,7 +162,8 @@ def test_cli_import_leaves_jax_unloaded():
 
 
 FRONT_HALF = ("launch", "serving.server", "serving.admission",
-              "serving.replay", "serving.shipping", "serving.deploy")
+              "serving.replay", "serving.shipping", "serving.deploy",
+              "scripts.serve_drill", "scripts.fleet_drill")
 
 
 @pytest.mark.parametrize("module", FRONT_HALF)
